@@ -8,15 +8,17 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 Phases, each reported on its own lines; any failure exits non-zero:
 
 1. card     — `nvidia-smi` name and power limit;
-2. build    — nvcc builds every CUDA source of the port (one process per
-              source, all started together);
+2. build    — nvcc builds the port's CUDA source;
 3. kernels  — each hand-written kernel against its plain PyTorch version
               on the card (K=3, m=10, N at every Net group size, one
               ResNet18-block-sized N, counts {0, 3, 10}, a zero-curvature
               slot and a NaN-filled invalid row), relative 1e-5 of the
               largest reference entry; times of the kernel, the plain
               version, one PyTorch library call computing the same function
-              (a yardstick the port never calls) and the bytes bound;
+              (a yardstick the port never calls) and the bytes bound. Each
+              time is taken twice: per call as the caller sees it, host
+              launch path included (`ms`), and on the device alone with
+              the calls queued behind a sleep kernel (`device_ms`);
 4. parity   — a tiny drive with the plain ('compact') and the fused-kernel
               ('pallas') direction on the card: the first averaging round's
               losses and dual residual agree within relative 1e-3;
@@ -50,6 +52,7 @@ NET_GROUP_SIZES = (456, 2416, 48120, 10164, 850)
 LARGE_N = 4_720_644  # ~ResNet18's largest block group; not a multiple of any tile
 REPORT_N = 48120  # the main path's largest group (fc1): the shape the JSON line reports
 RTOL = 1e-5
+QUEUED_CALLS = 50  # calls queued per device-only timing (a plain version launches ~8 kernels)
 
 
 def fail(msg: str) -> None:
@@ -57,8 +60,17 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def time_ms(fn, iters: int) -> float:
-    """Mean device milliseconds per call over `iters` calls, after warm-up."""
+def time_ms(fn, iters: int) -> tuple:
+    """Mean milliseconds per call over `iters` back-to-back calls, after
+    warm-up, as (per call with the host's launch path, device alone).
+
+    The first reading times the calls as issued: where the host issues
+    slower than the card runs, it measures the host. For the second, a
+    sleep kernel holds the stream while the host queues every call, so
+    the events bracket the kernels alone; the sleep grows until it
+    outlasts the queueing. At most `QUEUED_CALLS` calls are queued: the
+    driver's launch queue holds about a thousand launches, and the host
+    blocks once it is full."""
     import torch
 
     for _ in range(3):
@@ -70,7 +82,22 @@ def time_ms(fn, iters: int) -> float:
         fn()
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    host_ms = start.elapsed_time(stop) / iters
+    n_queued = min(iters, QUEUED_CALLS)
+    cycles = 10_000_000
+    while True:
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(n_queued):
+            fn()
+        stop.record()
+        queued = not start.query()  # the card had not left the sleep yet
+        torch.cuda.synchronize()
+        if queued:
+            return host_ms, start.elapsed_time(stop) / n_queued
+        if cycles > 1 << 34:
+            fail("time_ms: could not queue the calls ahead of the card")
+        cycles *= 4
 
 
 def rel_err(out, ref) -> float:
@@ -143,32 +170,42 @@ def phase_kernels():
         gram_full_ref = cc.fused_gram_projections_plain(s, y, g, full)
         asm_full = cc.fused_direction_assembly(s, y, g, w, u, h_diag, full)
         asm_full_ref = cc.fused_direction_assembly_plain(s, y, g, w, u, h_diag, full)
+        calls = {
+            "fused_gram_projections": (
+                lambda: cc.fused_gram_projections(s, y, g, full),
+                lambda: cc.fused_gram_projections_plain(s, y, g, full),
+                lambda: torch.matmul(x, x.transpose(1, 2)),
+            ),
+            "fused_direction_assembly": (
+                lambda: cc.fused_direction_assembly(s, y, g, w, u, h_diag, full),
+                lambda: cc.fused_direction_assembly_plain(s, y, g, w, u, h_diag, full),
+                lambda: torch.matmul(coef, x),
+            ),
+        }
         rows = {
             "fused_gram_projections": dict(
-                ms=time_ms(lambda: cc.fused_gram_projections(s, y, g, full), iters),
-                plain_ms=time_ms(lambda: cc.fused_gram_projections_plain(s, y, g, full), iters),
-                library_ms=time_ms(lambda: torch.matmul(x, x.transpose(1, 2)), iters),
                 bytes=(2 * M * n + n) * 4 * K,
                 flops=2 * (2 * M * M + 2 * M) * n * K,
                 max_abs_err=max(float((a - b).abs().max()) for a, b in zip(gram_full, gram_full_ref)),
             ),
             "fused_direction_assembly": dict(
-                ms=time_ms(lambda: cc.fused_direction_assembly(s, y, g, w, u, h_diag, full), iters),
-                plain_ms=time_ms(lambda: cc.fused_direction_assembly_plain(s, y, g, w, u, h_diag, full), iters),
-                library_ms=time_ms(lambda: torch.matmul(coef, x), iters),
                 bytes=(2 * M * n + 2 * n) * 4 * K,
                 flops=(4 * M + 3) * n * K,
                 max_abs_err=float((asm_full - asm_full_ref).abs().max()),
             ),
         }
         for name, r in rows.items():
+            for key, fn in zip(("ms", "plain_ms", "library_ms"), calls[name]):
+                r[key], r[key.replace("ms", "device_ms")] = time_ms(fn, iters)
             t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
             t_ops = r["flops"] / F32_FLOPS * 1e3
             r["bound_ms"] = max(t_bytes, t_ops)
             r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
             print(
-                f"timing {name} N={n} K={K} m={M} ms={r['ms']:.6f} plain_ms={r['plain_ms']:.6f} "
-                f"library_ms={r['library_ms']:.6f} bound_ms={r['bound_ms']:.6f} ({r['bound_by']})",
+                f"timing {name} N={n} K={K} m={M} ms={r['ms']:.6f} device_ms={r['device_ms']:.6f} "
+                f"plain_ms={r['plain_ms']:.6f} plain_device_ms={r['plain_device_ms']:.6f} "
+                f"library_ms={r['library_ms']:.6f} library_device_ms={r['library_device_ms']:.6f} "
+                f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']})",
                 flush=True,
             )
             if n == REPORT_N:
@@ -328,9 +365,8 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
-    sources = build.sources()
-    build.build(sources)
-    print(f"build sources={sources} seconds={time.perf_counter() - t0:.3f}", flush=True)
+    lib = build.build("compact_direction")
+    print(f"build {lib.name} seconds={time.perf_counter() - t0:.3f}", flush=True)
 
     report = phase_kernels()
     phase_parity()
@@ -355,6 +391,12 @@ def main() -> int:
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            # `ms`, `plain_ms` and `library_ms` are per call with the host's
+            # launch path; the `device_*` times are the card's alone
+            "ms_includes_host": True,
+            "device_ms": r["device_ms"],
+            "plain_device_ms": r["plain_device_ms"],
+            "library_device_ms": r["library_device_ms"],
             "shape": f"K={K} m={M} N={REPORT_N}",
         })
     print(f"total seconds={time.perf_counter() - t_all:.3f} train_wall_s={wall:.3f}", flush=True)

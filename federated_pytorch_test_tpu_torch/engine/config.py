@@ -79,8 +79,6 @@ class ExperimentConfig:
             lr=self.lbfgs_lr,
             max_iter=self.lbfgs_max_iter,
             history_size=self.lbfgs_history,
-            line_search=True,
-            batch_mode=True,
             direction=self.lbfgs_direction,
         )
 

@@ -1,9 +1,8 @@
-"""Build the package's CUDA sources with nvcc and load them with ctypes.
+"""Build the package's CUDA source with nvcc and load it with ctypes.
 
-Each `csrc/<name>.cu` compiles, at first use, into a shared library with a
+`csrc/<name>.cu` compiles, at first use, into a shared library with a
 plain C interface under `_build/` (listed in `.gitignore`), named by a hash
-of its source and flags so an edited source rebuilds. Sources build in
-parallel: one nvcc process each, all started together.
+of its source and flags so an edited source rebuilds.
 
 Only the card's machine runs this: nothing here is called when a module
 is imported, and the CPU paths never need it.
@@ -16,9 +15,8 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -30,7 +28,6 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -41,50 +38,32 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def sources() -> list:
-    """Names of every CUDA source under `csrc/` (`<name>.cu`)."""
-    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
-
-
-def _target(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
-
-
-def build(names: Sequence[str]) -> Dict[str, Path]:
-    """Compile every named source not yet built, in parallel; return paths.
+def build(name: str) -> Path:
+    """Compile `csrc/<name>.cu` unless already built; return the library path.
 
     The compiler's output (ptxas register and shared-memory report) is
-    kept beside each library as `<lib>.log`. Raises on any failure.
+    kept beside the library as `<lib>.log`. Raises if nvcc fails.
     """
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"lib{name}-{digest}.so"
+    if out.exists():
+        return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    targets = {n: _target(n) for n in names}
-    procs = {}
-    for n, out in targets.items():
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{n}.cu")]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), tmp)
-    errors = []
-    for n, (proc, tmp) in procs.items():
-        log, _ = proc.communicate()
-        targets[n].with_suffix(".log").write_bytes(log)
-        if proc.returncode != 0:
-            errors.append(f"nvcc failed for {n}.cu (exit {proc.returncode}):\n{log.decode(errors='replace')}")
-        else:
-            os.replace(tmp, targets[n])
-    if errors:
-        raise RuntimeError("\n".join(errors))
-    return targets
+    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    out.with_suffix(".log").write_bytes(proc.stdout)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{proc.stdout.decode(errors='replace')}"
+        )
+    os.replace(tmp, out)
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for `csrc/<name>.cu`, building it if needed."""
-    with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            lib = ctypes.CDLL(str(build([name])[name]))
-            _libs[name] = lib
-        return lib
+    if name not in _libs:
+        _libs[name] = ctypes.CDLL(str(build(name)))
+    return _libs[name]

@@ -53,7 +53,11 @@ DIRECTIONS = {"compact": compact_direction, "pallas": _cuda_direction}
 
 @dataclasses.dataclass(frozen=True)
 class LBFGSConfig:
-    """Hyper-parameters (the JAX package's `LBFGSConfig` defaults)."""
+    """Hyper-parameters (the JAX package's `LBFGSConfig` defaults).
+
+    The port runs only the JAX package's `line_search=True,
+    batch_mode=True` path, so neither is a field here.
+    """
 
     lr: float = 1.0
     max_iter: int = 10
@@ -61,9 +65,7 @@ class LBFGSConfig:
     tolerance_grad: float = 1e-5
     tolerance_change: float = 1e-9
     history_size: int = 7
-    line_search: bool = False
-    batch_mode: bool = False
-    lm0: float = 1e-6  # trust-region damping coefficient (batch mode)
+    lm0: float = 1e-6  # trust-region damping coefficient
     direction: str = "compact"
 
     def __post_init__(self):
@@ -71,10 +73,6 @@ class LBFGSConfig:
             raise ValueError(
                 f"direction must be one of {sorted(DIRECTIONS)}, got {self.direction!r} "
                 "('two_loop' is not ported yet)"
-            )
-        if self.line_search and not self.batch_mode:
-            raise ValueError(
-                "line_search without batch_mode selects the cubic search, which is not ported yet"
             )
 
     @property
@@ -200,8 +198,6 @@ def lbfgs_step(
     final parameters and `aux_ok` is False only where the final point came
     from the NaN-step-size fallback and was never evaluated.
     """
-    if has_aux and not (config.batch_mode and config.line_search):
-        raise ValueError("has_aux requires batch_mode line search")
     max_eval = config.resolved_max_eval
     tol_grad = config.tolerance_grad
     tol_change = config.tolerance_change
@@ -239,24 +235,19 @@ def lbfgs_step(
         # both branches are computed and selected, as under vmap)
         y = c.g - c.prev_grad
         s = c.d * c.t[:, None]
-        if config.batch_mode:
-            y = y + config.lm0 * s  # trust-region damping
+        y = y + config.lm0 * s  # trust-region damping
         ys = (y * s).sum(-1)
         ss = (s * s).sum(-1)
-        if config.batch_mode:
-            # first inner iteration of a new step = new mini-batch: update
-            # the inter-batch gradient statistics, not the history
-            batch_changed = (n_inner == 1) & (n_global > 1)
-            g_minus_old = c.g - c.running_avg
-            ravg_new = c.running_avg + g_minus_old / n_global.to(fdt)[:, None]
-            ravgsq_new = c.running_avg_sq + (c.g - ravg_new) * g_minus_old
-            ravg = torch.where(batch_changed[:, None], ravg_new, c.running_avg)
-            ravgsq = torch.where(batch_changed[:, None], ravgsq_new, c.running_avg_sq)
-            var_term = ravgsq.sum(-1) / ((n_global - 1).to(fdt) * grad_nrm)
-            alphabar = torch.where(batch_changed, 1.0 / (1.0 + var_term), c.alphabar)
-        else:
-            batch_changed = torch.zeros_like(first_ever)
-            ravg, ravgsq, alphabar = c.running_avg, c.running_avg_sq, c.alphabar
+        # first inner iteration of a new step = new mini-batch: update the
+        # inter-batch gradient statistics, not the history
+        batch_changed = (n_inner == 1) & (n_global > 1)
+        g_minus_old = c.g - c.running_avg
+        ravg_new = c.running_avg + g_minus_old / n_global.to(fdt)[:, None]
+        ravgsq_new = c.running_avg_sq + (c.g - ravg_new) * g_minus_old
+        ravg = torch.where(batch_changed[:, None], ravg_new, c.running_avg)
+        ravgsq = torch.where(batch_changed[:, None], ravgsq_new, c.running_avg_sq)
+        var_term = ravgsq.sum(-1) / ((n_global - 1).to(fdt) * grad_nrm)
+        alphabar = torch.where(batch_changed, 1.0 / (1.0 + var_term), c.alphabar)
         accept = (ys > 1e-10 * ss) & ~batch_changed
         ps, py, pc = _push_history(c.s_hist, c.y_hist, c.hist_count, s, y)
         s_hist = torch.where(accept[:, None, None], ps, c.s_hist)
@@ -282,23 +273,18 @@ def lbfgs_step(
 
         prev_grad = c.g
         prev_loss = c.loss
-        # step-size seed
-        t = torch.where(fe, torch.clamp(1.0 / c.abs_grad_sum, max=1.0) * lr, lr).to(fdt)
         gtd = (c.g * d).sum(-1)
 
-        aux_new, aux_ok_new, ls_evals = c.aux, c.aux_ok, c.ls_evals
-        if config.line_search:
-            x_cur = c.x
+        x_cur = c.x
 
-            def phi_aux(alpha):
-                return evaluate(x_cur + alpha[:, None] * d)
+        def phi_aux(alpha):
+            return evaluate(x_cur + alpha[:, None] * d)
 
-            t_ls, ls_ev, aux_ls = backtracking_armijo_aux(phi_aux, c.loss, gtd, alphabar, active=active)
-            ls_evals = c.ls_evals + ls_ev
-            aux_new = aux_ls
-            # a NaN step size falls back to lr: x + lr·d was never evaluated
-            aux_ok_new = ~torch.isnan(t_ls)
-            t = torch.where(torch.isnan(t_ls), lr, t_ls).to(fdt)
+        t_ls, ls_ev, aux_new = backtracking_armijo_aux(phi_aux, c.loss, gtd, alphabar, active=active)
+        ls_evals = c.ls_evals + ls_ev
+        # a NaN step size falls back to lr: x + lr·d was never evaluated
+        aux_ok_new = ~torch.isnan(t_ls)
+        t = torch.where(torch.isnan(t_ls), lr, t_ls).to(fdt)
 
         x_new = c.x + t[:, None] * d
 

@@ -6,20 +6,27 @@ L-BFGS direction — runs through the JAX package's Trainer and the port's
 Trainer from the same initial parameters (the JAX init, converted). Both
 draw the same minibatches (same numpy shuffle recipe).
 
-Tolerances and why. The shards hold 80 samples, so the clients memorize
-their batches within a few steps, and the float32 L-BFGS trajectory then
-amplifies rounding differences some 3-10x per minibatch: on this drive the
-JAX package's own 'compact' and 'pallas' direction backends, which share
-every forward pass, already differ by 2e-4 in train loss after six
-minibatches and by 6e-4 in the last dual residual. So:
-* the first group's first averaging round (before that amplification has
-  compounded): train losses and dual residual within relative 1e-3;
-* every round: dual residual within relative 5e-2, and train losses
-  within relative 5e-2 where the loss is above 1e-4 and within 1e-5
-  absolute below it (a memorized batch's mean cross-entropy at 1e-6 is at
-  the resolution of float32 softmax probabilities near 1);
-* per-client accuracy: within one test sample — a logit that differs in
-  the last bits can flip one borderline prediction.
+Tolerances and why. What separates the two packages on this drive is
+float32 rounding, made larger by the optimizer. From the same parameters the port's entry loss
+equals the JAX package's and its gradient agrees within relative 9e-7
+(the convolutions sum in another order). The shards hold 80 samples, so
+the clients memorize their batches within a few steps, and the stochastic
+L-BFGS trajectory amplifies that difference minibatch by minibatch. The
+JAX package's own 'compact' and 'pallas' backends, which share every
+forward pass and differ only in the direction's rounding, drift apart by
+up to 2.3e-4 in train loss and 4.4e-4 in dual residual on this drive.
+
+Each round is held to relative 1e-3 where the port reaches it, and
+otherwise to a limit just above the port-vs-JAX reading on this drive
+(the same with 1, 3 or 8 torch threads; `PYTHONPATH=. python
+tests/test_torch_slice.py` prints the readings). `ROUND_LIMITS` lists each
+round's limits, with the largest reading beside them. The last round's
+losses lie near 1e-6. That is the float32 resolution of a cross-entropy
+whose logits are of order 10 (their spacing is about 1e-6), so those
+losses are held in absolute terms.
+
+Per-client accuracy: within one test sample, since a logit that differs
+in its last bits can flip one borderline prediction.
 """
 
 import numpy as np
@@ -35,6 +42,14 @@ from federated_pytorch_test_tpu_torch.models import Net
 
 DRIVE = dict(batch=40, nloop=1, nadmm=2, max_groups=2, lbfgs_direction="pallas")
 N_TEST = 60
+# (group, nadmm) -> (train-loss limit, dual-residual limit), relative
+# unless marked "abs"; readings are the port-vs-JAX maxima on this drive
+ROUND_LIMITS = {
+    (2, 0): ((1e-3, "rel"), 1e-3),  # readings: loss 3.0e-5, dual 9.9e-8
+    (2, 1): ((4e-3, "rel"), 1e-3),  # loss 3.0e-3, dual 1.6e-4
+    (0, 0): ((4e-3, "rel"), 1e-3),  # loss 2.8e-3, dual 7.4e-5
+    (0, 1): ((2e-6, "abs"), 3e-2),  # loss 1.5e-6 abs (0.64 rel at 1e-6), dual 2.3e-2
+}
 
 
 @pytest.fixture(scope="module")
@@ -76,18 +91,30 @@ def test_slice_first_round_matches_tightly(runs):
         _rel(got, want, 1e-3)
 
 
+def _by_round(rec, name):
+    out = {}
+    for _, gid, a, value in _values(rec, name):
+        out.setdefault((gid, a), []).append(value)
+    return {key: np.asarray(v, np.float64) for key, v in out.items()}
+
+
 def test_slice_train_losses_match(runs):
     jrec, rec, _ = runs
-    got = np.asarray([v[3] for v in _values(rec, "train_loss")], np.float64)
-    want = np.asarray([v[3] for v in _values(jrec, "train_loss")], np.float64)
-    big = np.abs(want) > 1e-4
-    np.testing.assert_allclose(got[big], want[big], rtol=5e-2, atol=0)
-    np.testing.assert_allclose(got[~big], want[~big], rtol=0, atol=1e-5)
+    got, want = _by_round(rec, "train_loss"), _by_round(jrec, "train_loss")
+    assert sorted(got) == sorted(want) == sorted(ROUND_LIMITS)
+    for key, ((tol, kind), _) in ROUND_LIMITS.items():
+        if kind == "rel":
+            np.testing.assert_allclose(got[key], want[key], rtol=tol, atol=0, err_msg=f"round {key}")
+        else:
+            np.testing.assert_allclose(got[key], want[key], rtol=0, atol=tol, err_msg=f"round {key}")
 
 
 def test_slice_dual_residuals_match(runs):
     jrec, rec, _ = runs
-    _rel([v[3] for v in _values(rec, "dual_residual")], [v[3] for v in _values(jrec, "dual_residual")], 5e-2)
+    got, want = _by_round(rec, "dual_residual"), _by_round(jrec, "dual_residual")
+    assert sorted(got) == sorted(want) == sorted(ROUND_LIMITS)
+    for key, (_, tol) in ROUND_LIMITS.items():
+        _rel(got[key], want[key], tol)
 
 
 def test_slice_accuracies_match(runs):
@@ -95,3 +122,13 @@ def test_slice_accuracies_match(runs):
     got = np.asarray([v[3] for v in _values(rec, "test_accuracy")]) * N_TEST
     want = np.asarray([v[3] for v in _values(jrec, "test_accuracy")]) * N_TEST
     assert np.all(np.abs(got - want) <= 1.0 + 1e-9)
+
+
+if __name__ == "__main__":
+    # the port-vs-JAX readings behind ROUND_LIMITS, round by round
+    jrec, rec, _ = runs.__wrapped__()
+    for name in ("train_loss", "dual_residual"):
+        got, want = _by_round(rec, name), _by_round(jrec, name)
+        for key in sorted(got, key=list(ROUND_LIMITS).index):
+            diff = np.abs(got[key] - want[key])
+            print(f"{name} round={key} max_rel={np.max(diff / np.abs(want[key])):.3e} max_abs={np.max(diff):.3e}")
