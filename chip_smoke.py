@@ -3,31 +3,51 @@
 
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py [--metrics-out PATH] [--profile]
+    python3 chip_smoke.py [--metrics-out PATH] [--lm-metrics-out PATH] [--profile]
 
 Phases, each reported on its own lines; any failure exits non-zero:
 
 1. card     — `nvidia-smi` name and power limit;
-2. build    — nvcc builds the port's CUDA source;
-3. kernels  — each hand-written kernel against its plain PyTorch version
+2. build    — nvcc builds the port's two CUDA sources, both at once;
+3. kernels  — each compact-direction kernel against its plain PyTorch version
               on the card (K=3, m=10, N at every Net group size, one
               ResNet18-block-sized N, counts {0, 3, 10}, a zero-curvature
               slot and a NaN-filled invalid row), relative 1e-5 of the
               largest reference entry; times of the kernel, the plain
               version, one PyTorch library call computing the same function
-              (a yardstick the port never calls) and the bytes bound. Each
+              (a yardstick the port never calls) and the bound. Each
               time is taken twice: per call as the caller sees it, host
               launch path included (`ms`), and on the device alone with
               the calls queued behind a sleep kernel (`device_ms`);
-4. parity   — a tiny drive with the plain ('compact') and the fused-kernel
+4. flash    — the three causal flash-attention kernels against their plain
+              versions (D in {16, 32, 64} x S in {128, 256, 1024, 2048} at
+              BH=8, and the LM path's BH=128, S=2048, D=16): o and lse within
+              relative 1e-5 of the largest reference entry, dq, dk, dv within
+              1e-4; times at the path's shape beside the bound and
+              `scaled_dot_product_attention` (forward; backward) as the
+              yardstick;
+5. parity   — a tiny drive with the plain ('compact') and the fused-kernel
               ('pallas') direction on the card: the first averaging round's
               losses and dual residual agree within relative 1e-3;
-5. train    — the main path: the fedavg preset (Net, K=3, batch 512) on the
+6. train    — the fedavg path: the fedavg preset (Net, K=3, batch 512) on the
               full-size synthetic CIFAR-10 stand-in (50,000/10,000, seed 0)
               with the fused-kernel direction, one outer loop over all five
               groups, nadmm=3. Launch counts are zeroed just before and read
-              just after; every kernel must have launched, losses must be
-              finite and every client's accuracy above chance.
+              just after; every compact kernel must have launched, losses
+              must be finite and every client's accuracy above chance;
+7. lm parity — the LM's first round (K=4, S=256) step by step with
+              'dense' attention (plain) and 'flash' (the kernels), both fed
+              the same parameters and optimizer state before each step:
+              losses, parameters and the round's dual residual agree within
+              relative 1e-3 (over the whole round, L-BFGS amplifies 1e-6
+              step differences past that in a fast-learning client);
+8. lm train — the LM path (`federated_lm`, full width): K=4 TransformerLM
+              clients (vocab 256, dim 64, 4 heads, 2048 positions) on
+              sequences of 2048 tokens, batch 8, 4 minibatches, one outer
+              loop over all six groups with flash attention. Flash launch
+              counts are zeroed just before and read just after; every flash
+              kernel must have launched, losses must be finite and every
+              client's next-token accuracy above 5/vocab.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`. Without CUDA, or without the
@@ -43,6 +63,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -52,6 +73,17 @@ NET_GROUP_SIZES = (456, 2416, 48120, 10164, 850)
 LARGE_N = 4_720_644  # ~ResNet18's largest block group; not a multiple of any tile
 REPORT_N = 48120  # the main path's largest group (fc1): the shape the JSON line reports
 RTOL = 1e-5
+SOURCES = ("compact_direction", "flash_attention")  # csrc/<name>.cu
+FLASH_DIMS = (16, 32, 64)
+FLASH_SEQS = (128, 256, 1024, 2048)
+FLASH_SWEEP_BH = 8
+FLASH_PATH = (128, 2048, 16)  # (BH, S, D) of the LM path: K·batch·heads, sequence, head dim
+FLASH_GRAD_RTOL = 1e-4
+FLASH_REPLACES = {
+    "flash_fwd": "federated_pytorch_test_tpu/ops/flash_attention.py:559",
+    "flash_bwd_dq": "federated_pytorch_test_tpu/ops/flash_attention.py:655",
+    "flash_bwd_dkv": "federated_pytorch_test_tpu/ops/flash_attention.py:673",
+}
 QUEUED_CALLS = 50  # calls queued per device-only timing (a plain version launches ~8 kernels)
 
 
@@ -213,6 +245,131 @@ def phase_kernels():
     return report
 
 
+def flash_inputs(bh: int, s: int, d: int, seed: int):
+    """Seeded q, k, v, dO `[BH, S, D]` f32 on the card."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(bh, s, d, device="cuda", generator=gen) for _ in range(4)]
+
+
+def flash_check(bh: int, s: int, d: int, seed: int) -> dict:
+    """Each flash kernel against its plain version at one shape; the errors."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
+
+    q, k, v, do = flash_inputs(bh, s, d, seed)
+    scale = 1.0 / d ** 0.5
+    o, lse = fc.flash_fwd(q, k, v, scale)
+    o_ref, lse_ref = fc.flash_fwd_plain(q, k, v, scale)
+    delta = (do * o_ref).sum(-1)
+    dq = fc.flash_bwd_dq(q, k, v, do, lse_ref, delta, scale)
+    dk, dv = fc.flash_bwd_dkv(q, k, v, do, lse_ref, delta, scale)
+    dq_ref = fc.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, scale)
+    dk_ref, dv_ref = fc.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, scale)
+    torch.cuda.synchronize()
+    pairs = {"o": (o, o_ref), "lse": (lse, lse_ref), "dq": (dq, dq_ref), "dk": (dk, dk_ref), "dv": (dv, dv_ref)}
+    errs = {name: rel_err(a, b) for name, (a, b) in pairs.items()}
+    abs_errs = {name: float((a - b).abs().max()) for name, (a, b) in pairs.items()}
+    finite = all(bool(torch.isfinite(a).all()) for a, _ in pairs.values())
+    print(f"flash BH={bh} S={s} D={d} " + " ".join(f"{k}={v:.3e}" for k, v in errs.items()) + f" finite={finite}",
+          flush=True)
+    worst_fwd = max(errs["o"], errs["lse"])
+    worst_bwd = max(errs["dq"], errs["dk"], errs["dv"])
+    if not finite or not worst_fwd <= RTOL or not worst_bwd <= FLASH_GRAD_RTOL:
+        fail(f"flash kernel disagrees with its plain version at BH={bh} S={s} D={d}: {errs} (finite={finite})")
+    return abs_errs
+
+
+def phase_flash():
+    """The flash kernels against their plain versions at every shape; timings
+    at the LM path's shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
+
+    for d in FLASH_DIMS:
+        for s in FLASH_SEQS:
+            flash_check(FLASH_SWEEP_BH, s, d, seed=s + d)
+    bh, s, d = FLASH_PATH
+    abs_errs = flash_check(bh, s, d, seed=1)
+
+    q, k, v, do = flash_inputs(bh, s, d, seed=1)
+    scale = 1.0 / d ** 0.5
+    o, lse = fc.flash_fwd_plain(q, k, v, scale)
+    delta = (do * o).sum(-1)
+    # the yardstick: one PyTorch call computing the same function, [1, BH, S, D]
+    q4, k4, v4 = (t.detach().view(1, bh, s, d).requires_grad_(True) for t in (q, k, v))
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    do4 = do.view(1, bh, s, d)
+
+    def sdpa_bwd():
+        torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)
+
+    calls = {
+        "flash_fwd": (
+            lambda: fc.flash_fwd(q, k, v, scale),
+            lambda: fc.flash_fwd_plain(q, k, v, scale),
+            lambda: F.scaled_dot_product_attention(q4.detach(), k4.detach(), v4.detach(), is_causal=True),
+        ),
+        "flash_bwd_dq": (
+            lambda: fc.flash_bwd_dq(q, k, v, do, lse, delta, scale),
+            lambda: fc.flash_bwd_dq_plain(q, k, v, do, lse, delta, scale),
+            sdpa_bwd,
+        ),
+        "flash_bwd_dkv": (
+            lambda: fc.flash_bwd_dkv(q, k, v, do, lse, delta, scale),
+            lambda: fc.flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale),
+            sdpa_bwd,
+        ),
+    }
+    pairs = bh * s * (s + 1) // 2  # (query, key) pairs under the causal mask
+    operand = bh * s * d * 4  # bytes of one [BH, S, D] f32 tensor
+    row = bh * s * 4  # bytes of one [BH, S] f32 tensor
+    work = {  # (bytes: each input read once, each output written once; flops: 2·D per pair per product)
+        "flash_fwd": (3 * operand + operand + row, 2 * 2 * d * pairs),
+        "flash_bwd_dq": (4 * operand + 2 * row + operand, 3 * 2 * d * pairs),
+        "flash_bwd_dkv": (4 * operand + 2 * row + 2 * operand, 4 * 2 * d * pairs),
+    }
+    abs_of = {"flash_fwd": max(abs_errs["o"], abs_errs["lse"]), "flash_bwd_dq": abs_errs["dq"],
+              "flash_bwd_dkv": max(abs_errs["dk"], abs_errs["dv"])}
+    # the whole causal attention, forward then backward, through autograd
+    q3, k3, v3 = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def flash_fwd_bwd():
+        torch.autograd.grad(fc._FlashCausal.apply(q3, k3, v3, scale), (q3, k3, v3), do)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(F.scaled_dot_product_attention(q4, k4, v4, is_causal=True), (q4, k4, v4), do4)
+
+    both = [time_ms(fn, 20) for fn in (flash_fwd_bwd, sdpa_fwd_bwd)]
+    print(f"timing fwd+bwd BH={bh} S={s} D={d} flash_ms={both[0][0]:.6f} flash_device_ms={both[0][1]:.6f} "
+          f"library_ms={both[1][0]:.6f} library_device_ms={both[1][1]:.6f}", flush=True)
+
+    report = {}
+    for name, fns in calls.items():
+        n_bytes, flops = work[name]
+        r = {"bytes": n_bytes, "flops": flops, "max_abs_err": abs_of[name]}
+        for key, fn in zip(("ms", "plain_ms", "library_ms"), fns):
+            r[key], r[key.replace("ms", "device_ms")] = time_ms(fn, 20)
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOPS * 1e3
+        r["bound_ms"] = max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        print(
+            f"timing {name} BH={bh} S={s} D={d} ms={r['ms']:.6f} device_ms={r['device_ms']:.6f} "
+            f"plain_ms={r['plain_ms']:.6f} plain_device_ms={r['plain_device_ms']:.6f} "
+            f"library_ms={r['library_ms']:.6f} library_device_ms={r['library_device_ms']:.6f} "
+            f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) gflop={flops / 1e9:.3f} "
+            f"achieved_tflops={flops / r['device_ms'] / 1e9:.3f}",
+            flush=True,
+        )
+        report[name] = r
+    return report
+
+
 def phase_parity():
     """The tiny verify drive on the card with both direction backends."""
     import numpy as np
@@ -296,13 +453,8 @@ def phase_train(metrics_out, profile: bool):
 
 
 def profile_epoch(tr):
-    """Kernel time by name and the device's busy share over one epoch."""
+    """Kernel time by name and the device's busy share over one Net epoch."""
     import torch
-    import warnings
-
-    from torch.profiler import ProfilerActivity, profile as tprofile
-
-    warnings.filterwarnings("ignore", message=".*Profiler clears events.*")
 
     from federated_pytorch_test_tpu_torch.engine.steps import round_init, run_epoch
 
@@ -313,6 +465,18 @@ def profile_epoch(tr):
         lstate, _ = round_init(ctx, tr.flat)
         run_epoch(ctx, tr.flat.clone(), lstate, tr.shard_imgs, tr.shard_labels, idx, tr.mean, tr.std)
         torch.cuda.synchronize()
+
+    profile_fn(f"group={ctx.gid}", epoch)
+
+
+def profile_fn(label: str, epoch) -> None:
+    """Kernel time by name and the device's busy share over one call of `epoch`."""
+    import torch
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    warnings.filterwarnings("ignore", message=".*Profiler clears events.*")
 
     t0 = time.perf_counter()
     epoch()  # the same epoch without the profiler: the wall the busy time is read against
@@ -330,17 +494,118 @@ def profile_epoch(tr):
         if self_us(e) > 0 and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
     ]
     busy_us = sum(self_us(e) for e in events)
-    print(f"profile group={ctx.gid} epoch wall_ms={wall_us / 1e3:.3f} profiled_wall_ms={prof_wall_us / 1e3:.3f} "
+    print(f"profile {label} epoch wall_ms={wall_us / 1e3:.3f} profiled_wall_ms={prof_wall_us / 1e3:.3f} "
           f"device_busy_ms={busy_us / 1e3:.3f} idle_share={max(0.0, 1 - busy_us / wall_us):.4f}", flush=True)
     for e in sorted(events, key=lambda e: -self_us(e))[:12]:
         print(f"profile kernel={e.key[:70]!r} calls={e.count} self_device_ms={self_us(e) / 1e3:.3f}",
               flush=True)
 
 
+def phase_lm_parity():
+    """The LM's first round (K=4, S=256, group 0) step by step: before each
+    L-BFGS step the 'dense' (plain) and the 'flash' (kernel) model get the
+    same parameters and optimizer state, taken from the dense trajectory."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.consensus import FedAvgState, fedavg_round
+    from federated_pytorch_test_tpu_torch.federated_lm import FederatedLM, LMConfig, lm_train_step
+    from federated_pytorch_test_tpu_torch.optim import lbfgs_init
+
+    lms = {impl: FederatedLM(LMConfig(seq=256, max_groups=1, attn_impl=impl), verbose=False)
+           for impl in ("dense", "flash")}
+    dense = lms["dense"]
+    gid = dense.group_order[0]
+    ctxs = {impl: lm.ctx(gid) for impl, lm in lms.items()}
+    flat = dense.flat.clone()
+    state = lbfgs_init(dense.partition.extract(flat, gid).contiguous(), ctxs["dense"].lbfgs)
+    worst = {"train_loss": 0.0, "params": 0.0, "dual_residual": 0.0}
+    for s in range(dense.train.shape[1]):
+        out = {impl: lm_train_step(ctx, flat.clone(), state, dense.train[:, s]) for impl, ctx in ctxs.items()}
+        (fd, sd, ld), (ff, _, lf) = out["dense"], out["flash"]
+        xd, xf = dense.partition.extract(fd, gid), dense.partition.extract(ff, gid)
+        worst["train_loss"] = max(worst["train_loss"], float(((lf - ld).abs() / ld.abs()).max()))
+        worst["params"] = max(worst["params"], float((xf - xd).abs().max() / xd.abs().max()))
+        if s == dense.train.shape[1] - 1:  # the averaging round of each last step
+            duals = [float(fedavg_round(x, FedAvgState(z=torch.zeros_like(x[0])))[1]["dual_residual"])
+                     for x in (xd, xf)]
+            worst["dual_residual"] = abs(duals[1] - duals[0]) / duals[0]
+        flat, state = fd, sd
+    print("lm parity flash-vs-dense per step " + " ".join(f"{k}_max_rel={v:.3e}" for k, v in worst.items()),
+          flush=True)
+    if not max(worst.values()) <= 1e-3:
+        fail(f"lm parity: a step differs between dense and flash attention: {worst}")
+
+
+def phase_lm_train(metrics_out, profile: bool):
+    """The LM path at full width, through the entry point a user calls."""
+    import numpy as np
+    import torch
+
+    from federated_pytorch_test_tpu_torch.federated_lm import FederatedLM, LMConfig
+    from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
+
+    cfg = LMConfig()
+    t0 = time.perf_counter()
+    lm = FederatedLM(cfg, verbose=True)
+    print(f"lm setup: K={cfg.k} vocab={cfg.vocab} dim={cfg.dim} heads={cfg.num_heads} seq={cfg.seq} "
+          f"batch={cfg.batch} minibatches/epoch={cfg.n_batch} attn={cfg.attn_impl} params={lm.partition.total} "
+          f"groups={lm.group_order} setup_s={time.perf_counter() - t0:.3f}", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    fc.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = lm.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fc.LAUNCHES)
+
+    for r in rec.series["step_time"]:
+        if r["value"]["phase"] == "round":
+            print(f"lm round group={r['group']} wall_s={r['value']['seconds']:.3f}", flush=True)
+    n_steps = len(rec.series["train_loss"])
+    print(f"lm train wall_s={wall:.3f} minibatches={n_steps} ms_per_minibatch={1e3 * wall / n_steps:.3f} "
+          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.3f} launches={json.dumps(launches)}", flush=True)
+    if metrics_out:
+        rec.save(metrics_out)
+
+    all_losses = np.asarray([r["value"] for r in rec.series["train_loss"]])
+    if not np.all(np.isfinite(all_losses)) or rec.first_nonfinite is not None:
+        fail(f"lm: non-finite training loss: {rec.first_nonfinite}")
+    final_acc = np.asarray(rec.series["test_accuracy"][-1]["value"])
+    floor = 5.0 / cfg.vocab
+    print(f"lm final next-token accuracy {final_acc.round(4).tolist()} (floor {floor:.4f})", flush=True)
+    if not np.all(final_acc > floor):
+        fail(f"lm final accuracy {final_acc} not above {floor}")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched on the LM path")
+    if profile:
+        profile_lm_epoch(lm)
+    return launches, wall
+
+
+def profile_lm_epoch(lm):
+    """Kernel time by name and the device's busy share over one group-0 LM epoch."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.federated_lm import run_epoch
+    from federated_pytorch_test_tpu_torch.optim import lbfgs_init
+
+    ctx = lm.ctx(lm.group_order[0])
+
+    def epoch():
+        flat = lm.flat.clone()
+        run_epoch(ctx, flat, lbfgs_init(lm.partition.extract(flat, ctx.gid).contiguous(), ctx.lbfgs), lm.train)
+        torch.cuda.synchronize()
+
+    profile_fn(f"lm group={ctx.gid}", epoch)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--metrics-out", help="write the main path's metric series as JSON here")
-    ap.add_argument("--profile", action="store_true", help="also profile one epoch of the main path")
+    ap.add_argument("--lm-metrics-out", help="write the LM path's metric series as JSON here")
+    ap.add_argument("--profile", action="store_true", help="also profile one epoch of each path")
     args = ap.parse_args()
 
     import torch
@@ -364,13 +629,21 @@ def main() -> int:
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}", flush=True)
 
-    t0 = time.perf_counter()
-    lib = build.build("compact_direction")
-    print(f"build {lib.name} seconds={time.perf_counter() - t0:.3f}", flush=True)
+    def timed_build(name):
+        t0 = time.perf_counter()
+        return build.build(name), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(SOURCES)) as pool:  # one nvcc per source, all at once
+        built = list(pool.map(timed_build, SOURCES))
+    for lib, seconds in built:
+        print(f"build {lib.name} seconds={seconds:.3f}", flush=True)
 
     report = phase_kernels()
+    flash_report = phase_flash()
     phase_parity()
     launches, wall = phase_train(args.metrics_out, args.profile)
+    phase_lm_parity()
+    lm_launches, lm_wall = phase_lm_train(args.lm_metrics_out, args.profile)
 
     kernels = []
     replaces = {
@@ -399,7 +672,30 @@ def main() -> int:
             "library_device_ms": r["library_device_ms"],
             "shape": f"K={K} m={M} N={REPORT_N}",
         })
-    print(f"total seconds={time.perf_counter() - t_all:.3f} train_wall_s={wall:.3f}", flush=True)
+    bh, s, d = FLASH_PATH
+    for name, r in flash_report.items():
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "federated_pytorch_test_tpu_torch/csrc/flash_attention.cu",
+            "replaces": FLASH_REPLACES[name],
+            "launches": lm_launches[name],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            # scaled_dot_product_attention: its forward for flash_fwd; its
+            # backward (dq, dk and dv in one call) for the two backward kernels
+            "library_ms": r["library_ms"],
+            "ms_includes_host": True,
+            "device_ms": r["device_ms"],
+            "plain_device_ms": r["plain_device_ms"],
+            "library_device_ms": r["library_device_ms"],
+            "shape": f"BH={bh} S={s} D={d} causal",
+        })
+    print(f"total seconds={time.perf_counter() - t_all:.3f} train_wall_s={wall:.3f} lm_train_wall_s={lm_wall:.3f}",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}),

@@ -17,6 +17,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..utils.device import resolve_device
 from .penalties import soft_threshold
 
 
@@ -24,9 +25,9 @@ class FedAvgState(NamedTuple):
     z: torch.Tensor  # [G] consensus vector
 
 
-def fedavg_init(n: int, device="cpu", dtype=torch.float32) -> FedAvgState:
-    """z starts at zero."""
-    return FedAvgState(z=torch.zeros((n,), dtype=dtype, device=device))
+def fedavg_init(n: int, device="cuda", dtype=torch.float32) -> FedAvgState:
+    """z starts at zero, on `device` (the card unless the caller asks for the CPU)."""
+    return FedAvgState(z=torch.zeros((n,), dtype=dtype, device=resolve_device(device)))
 
 
 def fedavg_round(

@@ -21,11 +21,20 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
-from ..partition import Partition, build_partition, flatten_params, param_shapes
+from ..partition import Partition, build_partition, flatten_params, leaf_order, param_shapes
+from ..utils.device import resolve_device
 
-# Reference init: xavier_uniform on conv/linear weights, bias = 0.01
-# (the JAX package's models/base.py kernel_init / bias_init).
+# Reference init (the JAX package's models/base.py and models/transformer.py):
+# xavier_uniform on conv/dense weights, dense/conv bias = 0.01, embeddings
+# and learned positions normal(0.02), LayerNorm scale 1 and bias 0.
 BIAS_INIT = 0.01
+EMBED_STD = 0.02
+
+# Leaf kinds (`PartitionedModel.leaf_kinds`): each fixes a leaf's init and
+# its layout in the JAX package's tree (`convert.py`).
+DENSE, CONV, BIAS, EMBED, SCALE, NORM_BIAS, ARRAY = (
+    "dense", "conv", "bias", "embed", "scale", "norm_bias", "array"
+)
 
 
 def xavier_bound(shape: Tuple[int, ...]) -> float:
@@ -37,6 +46,19 @@ def xavier_bound(shape: Tuple[int, ...]) -> float:
     receptive = math.prod(shape[2:]) if len(shape) > 2 else 1
     fan_in, fan_out = shape[1] * receptive, shape[0] * receptive
     return math.sqrt(6.0 / (fan_in + fan_out))
+
+
+def _module_leaf_kinds(module: nn.Module) -> Dict[str, str]:
+    """Kinds of one module's own parameters (not its children's)."""
+    if isinstance(module, nn.Linear):
+        return {"weight": DENSE, "bias": BIAS}
+    if isinstance(module, nn.Conv2d):
+        return {"weight": CONV, "bias": BIAS}
+    if isinstance(module, nn.Embedding):
+        return {"weight": EMBED}
+    if isinstance(module, nn.LayerNorm):
+        return {"weight": SCALE, "bias": NORM_BIAS}
+    return {}
 
 
 class PartitionedModel(nn.Module):
@@ -54,6 +76,20 @@ class PartitionedModel(nn.Module):
     def shapes(self) -> Dict[str, Tuple[int, ...]]:
         return param_shapes(self)
 
+    def leaf_kinds(self) -> Dict[str, str]:
+        """`{name: kind}` of every parameter, from the module that owns it.
+
+        A parameter registered directly on a container module (the LM's
+        `pos_embed`) is a bare `ARRAY`, as it is a bare leaf in the JAX tree.
+        """
+        kinds = {}
+        for prefix, mod in self.named_modules():
+            own = _module_leaf_kinds(mod)
+            for leaf, _ in mod.named_parameters(recurse=False):
+                name = f"{prefix}.{leaf}" if prefix else leaf
+                kinds[name] = own.get(leaf, ARRAY)
+        return kinds
+
     def partition(self) -> Partition:
         return build_partition(
             self.shapes(),
@@ -64,16 +100,23 @@ class PartitionedModel(nn.Module):
 
     @torch.no_grad()
     def reset_parameters_(self, generator: torch.Generator) -> "PartitionedModel":
-        """Xavier-uniform weights and 0.01 biases, drawn from `generator`.
+        """The reference init, drawn from `generator`.
 
         Draws happen on the CPU in flat (sorted-name) order and are then
         copied, so a seed gives the same weights on every device.
         """
         params = dict(self.named_parameters())
-        for name in sorted(params):
-            p = params[name]
-            if name.endswith(".bias"):
+        kinds = self.leaf_kinds()
+        for name in leaf_order(params):
+            p, kind = params[name], kinds[name]
+            if kind == BIAS:
                 p.fill_(BIAS_INIT)
+            elif kind == SCALE:
+                p.fill_(1.0)
+            elif kind == NORM_BIAS:
+                p.zero_()
+            elif kind in (EMBED, ARRAY):
+                p.copy_(EMBED_STD * torch.randn(p.shape, generator=generator, dtype=torch.float32))
             else:
                 a = xavier_bound(tuple(p.shape))
                 u = torch.rand(p.shape, generator=generator, dtype=torch.float32)
@@ -90,15 +133,18 @@ class PartitionedModel(nn.Module):
 
 
 def init_client_params(
-    model: PartitionedModel, n_clients: int, seed: int = 0, device="cpu"
+    model: PartitionedModel, n_clients: int, seed: int = 0, device="cuda"
 ) -> torch.Tensor:
-    """K identical clients (common-seed init) as a flat `[K, N]` tensor.
+    """K identical clients (common-seed init) as a flat `[K, N]` tensor on
+    `device` (the card unless the caller asks for the CPU).
 
-    The JAX package draws with `jax.random`; the port draws from a
-    `torch.Generator`, so the two inits differ. Parity tests convert the
-    JAX init (`convert.py`) instead of comparing draws.
+    The JAX package draws with `jax.random` (and runs a forward pass to
+    learn the shapes); the port draws from a `torch.Generator` and runs
+    none, so the two inits differ. Parity tests convert the JAX init
+    (`convert.py`) instead of comparing draws.
     """
+    dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     model.reset_parameters_(gen)
     flat = flatten_params({n: p.detach() for n, p in model.named_parameters()})
-    return flat[None].expand(n_clients, -1).contiguous().to(device)
+    return flat[None].expand(n_clients, -1).contiguous().to(dev)

@@ -2,13 +2,16 @@
 
 Counterpart of the JAX package's `partition/flat.py`, which ravels a Flax
 params tree with `ravel_pytree`. That order is the tree's sorted-key
-order: layers sorted by name and, inside a layer, `bias` before `kernel`.
-The port keeps PyTorch's parameter names (`conv1.bias`, `conv1.weight`)
-and sorts them the same way, so both packages cut the flat vector at the
-same leaf boundaries: every partition group, L-BFGS vector and consensus
-slice covers the same coordinates' span in both. Only the element order
-INSIDE a leaf differs (OIHW/[out,in] here, HWIO/[in,out] there);
-`convert.py` maps one to the other.
+order at every level of nesting: layers sorted by name and, inside a
+layer, `bias` before `kernel` (or `scale`); a nested tree such as the
+TransformerLM's (`block0/attn/qkv/kernel`, a bare `pos_embed` at the root)
+sorts each level in turn. The port keeps PyTorch's dotted parameter names
+(`conv1.bias`, `block0.attn.qkv.weight`) and sorts them by their dotted
+parts, the same order, so both packages cut the flat vector at the same
+leaf boundaries: every partition group, L-BFGS vector and consensus slice
+covers the same coordinates' span in both. Only the element order INSIDE
+a leaf may differ (OIHW/[out,in] here, HWIO/[in,out] there); `convert.py`
+maps one to the other.
 
 Every function takes tensors with any number of leading batch axes, so
 the same codec serves one client `[N]` and the stacked clients `[K, N]`.
@@ -25,8 +28,10 @@ Shapes = Mapping[str, Tuple[int, ...]]
 
 
 def leaf_order(names) -> List[str]:
-    """Parameter names in the flat vector's order (sorted, like ravel_pytree)."""
-    return sorted(names)
+    """Parameter names in the flat vector's order: sorted by their dotted
+    parts, as ravel_pytree sorts each level of a nested tree (a plain
+    string sort would put `a-b` before `a.c`; the tree puts `a/c` first)."""
+    return sorted(names, key=lambda n: tuple(n.split(".")))
 
 
 def leaf_offsets(shapes: Shapes) -> List[Tuple[Tuple[str, ...], int, int]]:

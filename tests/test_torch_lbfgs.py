@@ -76,7 +76,7 @@ def test_two_lbfgs_steps_on_fc1_match_jax(direction):
         model=model, shapes=model.shapes(), partition=model.partition(), gid=GID,
         lbfgs=cfg, reg_on_active=True, lambda1=L1, lambda2=L2,
     )
-    flat = torch.from_numpy(flat_from_jax(np.asarray(jflat), model.shapes()))[None].clone()
+    flat = torch.from_numpy(flat_from_jax(np.asarray(jflat), model))[None].clone()
     state = lbfgs_init(ctx.partition.extract(flat, GID).contiguous(), cfg)
     half = torch.tensor([0.5])
     for b in range(2):
@@ -84,7 +84,7 @@ def test_two_lbfgs_steps_on_fc1_match_jax(direction):
             ctx, flat, state, torch.from_numpy(imgs[b][None]),
             torch.from_numpy(labels[b][None]), half, half,
         )
-    _close(flat[0].numpy(), flat_from_jax(jfinal, model.shapes()), 1e-4)
+    _close(flat[0].numpy(), flat_from_jax(jfinal, model), 1e-4)
     # the same number of iterations, evaluations and line-search probes
     assert int(state.n_iter[0]) == int(jstate.n_iter)
     assert int(state.func_evals[0]) == int(jstate.func_evals)
@@ -123,3 +123,16 @@ def test_batched_clients_equal_independent_runs():
         assert int(s_b.n_iter[k]) == int(sk.n_iter[0])
     assert torch.equal(x_b[1], x0[1])
     assert torch.isnan(x_b[2, 0]) and torch.equal(x_b[2, 1:], x0[2, 1:])
+
+
+def test_elastic_net_value_and_gradient_match_jax():
+    # including the subgradient at ±0, where JAX's |v| takes +1
+    v = np.array([[0.0, -0.0, 0.3, -1.2, 2e-8]], np.float32)
+    from federated_pytorch_test_tpu_torch.consensus import elastic_net
+
+    jval, jgrad = jax.value_and_grad(lambda x: j_elastic(x, L1, L2))(jnp.asarray(v[0]))
+    t = torch.tensor(v, requires_grad=True)
+    val = elastic_net(t, L1, L2)
+    val.sum().backward()
+    np.testing.assert_allclose(val.detach().numpy()[0], np.asarray(jval), rtol=1e-6)
+    np.testing.assert_array_equal(t.grad.numpy()[0], np.asarray(jgrad))

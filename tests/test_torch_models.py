@@ -34,7 +34,7 @@ def test_logits_match_jax(name):
     jp = jmodel.init(jax.random.PRNGKey(3), jnp.zeros((1, 32, 32, 3)))["params"]
     ref = np.asarray(jmodel.apply({"params": jp}, jnp.asarray(x)))
     model = tcls()
-    model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jp)))
+    model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jp), model))
     with torch.no_grad():
         out = model(torch.from_numpy(x)).numpy()
     _close(out, ref, 1e-5)
@@ -44,7 +44,7 @@ def test_batched_forward_matches_per_client():
     # K clients with distinct weights in one batched forward == K forwards
     model = Net()
     jp = JNet().init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))["params"]
-    base = flat_from_jax(np.asarray(jflatten(jp)[0]), model.shapes())
+    base = flat_from_jax(np.asarray(jflatten(jp)[0]), model)
     flat = torch.from_numpy(np.stack([base, 0.9 * base, 1.1 * base]))
     x = torch.from_numpy(np.random.default_rng(2).normal(size=(3, 5, 32, 32, 3)).astype(np.float32))
     with torch.no_grad():
@@ -58,9 +58,9 @@ def test_common_seed_init():
     # xavier-uniform weights inside the Glorot bound, biases 0.01, all
     # clients identical, the same draw from the same seed
     model = Net()
-    flat = init_client_params(model, 3, seed=7)
+    flat = init_client_params(model, 3, seed=7, device="cpu")
     assert torch.equal(flat[0], flat[2])
-    assert torch.equal(flat, init_client_params(Net(), 3, seed=7))
+    assert torch.equal(flat, init_client_params(Net(), 3, seed=7, device="cpu"))
     params = unflatten_params(flat[0], model.shapes())
     for name, p in params.items():
         if name.endswith(".bias"):

@@ -58,17 +58,17 @@ def test_flat_codec_round_trip_and_conversion():
     jflat = np.asarray(jflat)
     model = Net()
     shapes = model.shapes()
-    tparams = params_from_jax(jax.tree.map(np.asarray, jp))
+    tparams = params_from_jax(jax.tree.map(np.asarray, jp), model)
     assert {n: tuple(t.shape) for n, t in tparams.items()} == shapes
     tflat = flatten_params(tparams).numpy()
     # converting the JAX flat vector equals flattening the converted tree
-    np.testing.assert_array_equal(flat_from_jax(jflat, shapes), tflat)
-    np.testing.assert_array_equal(flat_to_jax(tflat, shapes), jflat)
+    np.testing.assert_array_equal(flat_from_jax(jflat, model), tflat)
+    np.testing.assert_array_equal(flat_to_jax(tflat, model), jflat)
     # the codec round-trips, stacked clients included
     stacked = torch.from_numpy(np.stack([tflat, 2 * tflat]))
     views = unflatten_params(stacked, shapes)
     np.testing.assert_array_equal(flatten_params(views, batch_dims=1).numpy(), stacked.numpy())
-    back = params_to_jax(tparams)
+    back = params_to_jax(tparams, model)
     for layer, leaves in jp.items():
         for leaf, arr in leaves.items():
             np.testing.assert_array_equal(back[layer][leaf], np.asarray(arr))

@@ -20,7 +20,8 @@ PKG = pathlib.Path(port.__file__).resolve().parent
 def test_import_loads_no_jax():
     code = (
         "import sys, federated_pytorch_test_tpu_torch, federated_pytorch_test_tpu_torch.__main__\n"
-        "import federated_pytorch_test_tpu_torch.convert\n"
+        "import federated_pytorch_test_tpu_torch.convert, federated_pytorch_test_tpu_torch.federated_lm\n"
+        "import federated_pytorch_test_tpu_torch.ops.flash_cuda\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'federated_pytorch_test_tpu'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
@@ -44,6 +45,23 @@ def test_trainer_defaults_to_the_card():
         Trainer(cfg, verbose=False)
 
 
+def test_public_helpers_default_to_the_card():
+    from federated_pytorch_test_tpu_torch.consensus import fedavg_init
+    from federated_pytorch_test_tpu_torch.federated_lm import main as lm_main
+    from federated_pytorch_test_tpu_torch.models import Net, init_client_params
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: the default device exists")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_client_params(Net(), 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fedavg_init(10)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lm_main(["--k", "2", "--seq", "128"])
+    assert init_client_params(Net(), 2, device="cpu").device.type == "cpu"
+    assert fedavg_init(10, device="cpu").z.device.type == "cpu"
+
+
 def test_cpu_run_launches_no_kernel():
     compact_cuda.reset_launch_counts()
     cfg = get_preset(
@@ -65,3 +83,4 @@ def test_cli_runs_on_cpu(tmp_path):
         "--metrics-out", str(out),
     ])
     assert rc == 0 and out.exists()
+

@@ -59,7 +59,7 @@ def runs():
     jrec = jtr.run()
     tr = Trainer(
         get_preset("fedavg", **DRIVE), verbose=False, source=synthetic_cifar(240, N_TEST),
-        device="cpu", init_flat=flat_from_jax(flat0, Net().shapes()),
+        device="cpu", init_flat=flat_from_jax(flat0, Net()),
     )
     return jrec, tr.run(), tr
 
@@ -124,6 +124,135 @@ def test_slice_accuracies_match(runs):
     assert np.all(np.abs(got - want) <= 1.0 + 1e-9)
 
 
+def _step_by_step():
+    """The verify drive step by step: the JAX package's L-BFGS steps (vmapped
+    over the clients, its engine's objective) make the trajectory; before
+    each step the port is fed the same parameters and optimizer state,
+    converted. Yields (group, nadmm, minibatch, port step, JAX step)."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    import torch
+
+    from federated_pytorch_test_tpu.consensus import elastic_net as j_elastic
+    from federated_pytorch_test_tpu.data import normalize as j_normalize
+    from federated_pytorch_test_tpu.models import Net as JNet
+    from federated_pytorch_test_tpu.models import init_client_params as j_init_params
+    from federated_pytorch_test_tpu.optim import LBFGSConfig as JConfig
+    from federated_pytorch_test_tpu.optim import lbfgs_init as j_lbfgs_init
+    from federated_pytorch_test_tpu.optim import lbfgs_step as j_lbfgs_step
+    from federated_pytorch_test_tpu.partition import flatten_params as jflatten
+    from federated_pytorch_test_tpu_torch.engine.steps import client_train_step
+    from federated_pytorch_test_tpu_torch.optim import LBFGSState
+
+    cfg = get_preset("fedavg", **DRIVE)
+    tr = Trainer(cfg, verbose=False, source=synthetic_cifar(240, N_TEST), device="cpu")
+    model, k = Net(), cfg.n_clients
+    params0 = jax.tree.map(lambda x: x[0], j_init_params(JNet(), k, seed=0)["params"])
+    flat0, unravel = jflatten(params0)
+    jpart = JNet.partition(params0)
+    jflat = jnp.broadcast_to(flat0[None], (k, flat0.shape[0]))
+    jcfg = JConfig(max_iter=cfg.lbfgs_max_iter, history_size=cfg.lbfgs_history, line_search=True,
+                   batch_mode=True, direction=cfg.lbfgs_direction)
+    imgs, labels = tr.shard_imgs.numpy(), tr.shard_labels.numpy()
+    mean, std = tr.mean.numpy(), tr.std.numpy()
+    rows = np.arange(k)[:, None]
+
+    def group_to_port(vec, gid):  # [..., G] in JAX order -> port order
+        full = np.zeros(vec.shape[:-1] + (jpart.total,), np.float32)
+        off = 0
+        for seg in jpart.groups[gid]:
+            full[..., seg.start : seg.start + seg.size] = vec[..., off : off + seg.size]
+            off += seg.size
+        return tr.partition.extract(torch.from_numpy(flat_from_jax(full, model)), gid).contiguous()
+
+    def state_to_port(st, gid):
+        vecs = ("s_hist", "y_hist", "d", "prev_grad", "running_avg", "running_avg_sq")
+        return LBFGSState(**{
+            f: group_to_port(np.asarray(v), gid) if f in vecs else torch.from_numpy(np.array(v))
+            for f, v in st._asdict().items()
+        })
+
+    for gid in tr.group_order:
+        reg = gid in jpart.linear_group_ids
+
+        def one_client(flat_c, x, st, im, lab, mu, sd, gid=gid, reg=reg):
+            images = j_normalize(im, mu, sd)
+
+            def loss_fn(v):
+                logits = JNet().apply({"params": unravel(jpart.insert(flat_c, gid, v))}, images)
+                ce = optax.softmax_cross_entropy_with_integer_labels(logits, lab).mean()
+                return ce + j_elastic(v, cfg.lambda1, cfg.lambda2) if reg else ce
+
+            x, st, _ = j_lbfgs_step(loss_fn, x, st, jcfg)
+            return x, st
+
+        jstep = jax.jit(jax.vmap(one_client))
+        x = jax.vmap(lambda f: jpart.extract(f, gid))(jflat)
+        st = jax.vmap(lambda v: j_lbfgs_init(v, jcfg))(x)
+        ctx = tr.ctx(gid)
+        for a in range(cfg.nadmm):
+            idx = tr.epoch_indices(0, gid, a, 0)
+            for s in range(idx.shape[0]):
+                im, lab = imgs[rows, idx[s]], labels[rows, idx[s]]
+                x_new, st_new = jstep(jflat, x, st, jnp.asarray(im), jnp.asarray(lab), mean, std)
+                full = jax.vmap(lambda f, v: jpart.insert(f, gid, v))(jflat, x)
+                flat_p = torch.from_numpy(flat_from_jax(np.asarray(full), model))
+                flat_p, st_p, _ = client_train_step(
+                    ctx, flat_p, state_to_port(st, gid), torch.from_numpy(im), torch.from_numpy(lab),
+                    tr.mean, tr.std,
+                )
+                yield gid, a, s, (tr.partition.extract(flat_p, gid), st_p), (group_to_port(np.asarray(x_new), gid),
+                                                                              st_new)
+                x, st = x_new, st_new
+            x = jnp.broadcast_to(jnp.mean(x, axis=0)[None], x.shape)  # the FedAvg round
+            jflat = jax.vmap(lambda f, v: jpart.insert(f, gid, v))(jflat, x)
+
+
+# Single steps from the same state (`test_each_step_matches_jax_from_the_same_state`):
+# (group, nadmm, minibatch) -> {client: (limit, coordinates allowed past 1e-4,
+# counters compared)}; every other (step, client) is held to relative 1e-4
+# on every coordinate with equal counters. Readings beside each entry.
+STEP_LIMITS = {
+    # one fc1 coordinate lands within 1e-7 of the elastic net's kink at 0
+    # on the third inner iteration: -1.7e-8 here, +2.8e-7 in JAX (+5.4e-8
+    # when the port runs client 0 alone), so the L1 subgradient takes the
+    # other sign and the fourth iteration moves that coordinate by
+    # 0.058 instead of 0.034. Reading: 6.3e-2 at 1 of 48,120 coordinates,
+    # the rest within 3e-6.
+    (2, 1, 0): {0: (8e-2, 1, True)},
+    # conv1's second round: losses near 3e-6, where float32 resolves a
+    # cross-entropy in steps of ~6e-8 (1 - p rounds), so the gradients carry
+    # percent-level rounding and the |loss - prev_loss| < 1e-9 stop test
+    # fires an iteration apart (client 1: JAX stops after 3 iterations,
+    # the port after 4). Readings: client 1 5.3e-2, clients 0 and 2 3.1e-5.
+    (0, 1, 0): {1: (8e-2, None, False)},
+    # readings: client 1 3.1e-2 (3 iterations more), clients 0 and 2 5.1e-4
+    # and 3.7e-4 with equal counters
+    (0, 1, 1): {0: (1e-3, None, True), 1: (6e-2, None, False), 2: (1e-3, None, True)},
+}
+
+
+def test_each_step_matches_jax_from_the_same_state():
+    # the drift question: is any single step of the port off, or does the
+    # slice's round-by-round gap come from accumulation and from decisions
+    # taken at float32's resolution (STEP_LIMITS)?
+    n = 0
+    for gid, a, s, (x_p, st_p), (x_j, st_j) in _step_by_step():
+        err = ((x_p - x_j).abs() / float(x_j.abs().max())).numpy()  # [K, G]
+        for c in range(err.shape[0]):
+            limit, outliers, counters = STEP_LIMITS.get((gid, a, s), {}).get(c, (1e-4, 0, True))
+            where = f"step (group {gid}, nadmm {a}, minibatch {s}) client {c}"
+            assert err[c].max() <= limit, f"{where}: relative {err[c].max():.3e}"
+            if outliers is not None:
+                assert int((err[c] > 1e-4).sum()) <= outliers, f"{where}: {int((err[c] > 1e-4).sum())} coordinates"
+            if counters:
+                for f in ("n_iter", "func_evals", "ls_evals", "hist_count"):
+                    assert int(getattr(st_p, f)[c]) == int(np.asarray(getattr(st_j, f))[c]), f"{where}: {f}"
+        n += 1
+    assert n == 2 * 2 * 2  # groups x nadmm x minibatches
+
+
 if __name__ == "__main__":
     # the port-vs-JAX readings behind ROUND_LIMITS, round by round
     jrec, rec, _ = runs.__wrapped__()
@@ -132,3 +261,7 @@ if __name__ == "__main__":
         for key in sorted(got, key=list(ROUND_LIMITS).index):
             diff = np.abs(got[key] - want[key])
             print(f"{name} round={key} max_rel={np.max(diff / np.abs(want[key])):.3e} max_abs={np.max(diff):.3e}")
+    # each step from the same state
+    for gid, a, s, (x_p, _), (x_j, _) in _step_by_step():
+        err = float((x_p - x_j).abs().max()) / float(x_j.abs().max())
+        print(f"step group={gid} nadmm={a} minibatch={s} params max_rel={err:.3e}")
