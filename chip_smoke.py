@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py [--metrics-out PATH] [--lm-metrics-out PATH] [--profile]
+    python3 chip_smoke.py [--metrics-out PATH] [--lm-metrics-out PATH] [--vit-metrics-out PATH] [--profile]
 
 Phases, each reported on its own lines; any failure exits non-zero:
 
@@ -26,28 +26,51 @@ Phases, each reported on its own lines; any failure exits non-zero:
               1e-4; times at the path's shape beside the bound and
               `scaled_dot_product_attention` (forward; backward) as the
               yardstick;
-5. parity   — a tiny drive with the plain ('compact') and the fused-kernel
+5. flash rect — the three rectangular flash kernels against their plain
+              versions: non-causal at D in {16, 32, 64} x S in {128, 256,
+              1024} (BH=8) and the ViT path's BH=6144, S=256, D=16; causal
+              with global offsets (q_off, k_off) in {(0,0), (128,0),
+              (0,128) fully future, (0,64) unaligned} and one s_q != s_kv
+              case; same tolerances, and rows that see no key exactly o = 0,
+              lse = -1e30; `flash_block`'s autograd with non-zero o and lse
+              cotangents against autograd through the plain forward; times at
+              the ViT shape beside the bound and `scaled_dot_product_attention`;
+6. parity   — a tiny drive with the plain ('compact') and the fused-kernel
               ('pallas') direction on the card: the first averaging round's
               losses and dual residual agree within relative 1e-3;
-6. train    — the fedavg path: the fedavg preset (Net, K=3, batch 512) on the
+7. train    — the fedavg path: the fedavg preset (Net, K=3, batch 512) on the
               full-size synthetic CIFAR-10 stand-in (50,000/10,000, seed 0)
               with the fused-kernel direction, one outer loop over all five
               groups, nadmm=3. Launch counts are zeroed just before and read
               just after; every compact kernel must have launched, losses
               must be finite and every client's accuracy above chance;
-7. lm parity — the LM's first round (K=4, S=256) step by step with
+8. lm parity — the LM's first round (K=4, S=256) step by step with
               'dense' attention (plain) and 'flash' (the kernels), both fed
               the same parameters and optimizer state before each step:
               losses, parameters and the round's dual residual agree within
               relative 1e-3 (over the whole round, L-BFGS amplifies 1e-6
               step differences past that in a fast-learning client);
-8. lm train — the LM path (`federated_lm`, full width): K=4 TransformerLM
+9. lm train — the LM path (`federated_lm`, full width): K=4 TransformerLM
               clients (vocab 256, dim 64, 4 heads, 2048 positions) on
               sequences of 2048 tokens, batch 8, 4 minibatches, one outer
               loop over all six groups with flash attention. Flash launch
               counts are zeroed just before and read just after; every flash
               kernel must have launched, losses must be finite and every
-              client's next-token accuracy above 5/vocab.
+              client's next-token accuracy above 5/vocab;
+10. vit parity — the ViT's first round (patch 2: 256 tokens, batch 64)
+              step by step with 'dense' attention (plain) and 'flash' (the
+              rectangular kernels), fed the same parameters and optimizer
+              state before each step: losses, parameters and the dual
+              residual agree within relative 1e-3;
+11. vit train — the ViT path: the fedavg preset with `model="vit"`,
+              `model_kwargs={"patch": 2, "attn_impl": "flash"}` (dim 64, 4
+              heads, 217,930 parameters per client, K=3, batch 512) and the
+              fused-kernel direction, on a synthetic stand-in of 12,288 train
+              images (8 minibatches of 512 per client) and 10,000 test
+              images, one outer loop over all six groups, nadmm=1. Launch
+              counts are zeroed just before and read just after; every
+              rectangular flash kernel must have launched, losses must be
+              finite and every client's accuracy above chance.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`. Without CUDA, or without the
@@ -84,6 +107,17 @@ FLASH_REPLACES = {
     "flash_bwd_dq": "federated_pytorch_test_tpu/ops/flash_attention.py:655",
     "flash_bwd_dkv": "federated_pytorch_test_tpu/ops/flash_attention.py:673",
 }
+RECT_SEQS = (128, 256, 1024)
+RECT_PATH = (6144, 256, 16)  # (BH, S, D) of the ViT path: K·batch·heads, tokens, head dim
+# (s_q, s_kv, q_off, k_off) of the causal/offset checks, at BH=8
+RECT_OFFSETS = ((256, 256, 0, 0), (256, 256, 128, 0), (128, 128, 0, 128), (256, 256, 0, 64), (128, 384, 256, 64))
+RECT_REPLACES = {
+    "flash_fwd_rect": "federated_pytorch_test_tpu/ops/flash_attention.py:601",
+    "flash_bwd_dq_rect": "federated_pytorch_test_tpu/ops/flash_attention.py:721",
+    "flash_bwd_dkv_rect": "federated_pytorch_test_tpu/ops/flash_attention.py:744",
+}
+VIT_KWARGS = {"patch": 2, "attn_impl": "flash"}
+VIT_TRAIN, VIT_TEST = 12_288, 10_000  # 8 minibatches of 512 per client; the full test set
 QUEUED_CALLS = 50  # calls queued per device-only timing (a plain version launches ~8 kernels)
 
 
@@ -344,8 +378,15 @@ def phase_flash():
     def sdpa_fwd_bwd():
         torch.autograd.grad(F.scaled_dot_product_attention(q4, k4, v4, is_causal=True), (q4, k4, v4), do4)
 
-    both = [time_ms(fn, 20) for fn in (flash_fwd_bwd, sdpa_fwd_bwd)]
-    print(f"timing fwd+bwd BH={bh} S={s} D={d} flash_ms={both[0][0]:.6f} flash_device_ms={both[0][1]:.6f} "
+    return time_flash(f"BH={bh} S={s} D={d}", calls, work, abs_of, flash_fwd_bwd, sdpa_fwd_bwd)
+
+
+def time_flash(label: str, calls: dict, work: dict, abs_of: dict, fwd_bwd, sdpa_fwd_bwd) -> dict:
+    """Times of each flash kernel, its plain version and the library call,
+    beside the bound from (bytes, flops); then the whole attention forward
+    and backward through autograd against the library's."""
+    both = [time_ms(fn, 20) for fn in (fwd_bwd, sdpa_fwd_bwd)]
+    print(f"timing fwd+bwd {label} flash_ms={both[0][0]:.6f} flash_device_ms={both[0][1]:.6f} "
           f"library_ms={both[1][0]:.6f} library_device_ms={both[1][1]:.6f}", flush=True)
 
     report = {}
@@ -359,7 +400,7 @@ def phase_flash():
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         print(
-            f"timing {name} BH={bh} S={s} D={d} ms={r['ms']:.6f} device_ms={r['device_ms']:.6f} "
+            f"timing {name} {label} ms={r['ms']:.6f} device_ms={r['device_ms']:.6f} "
             f"plain_ms={r['plain_ms']:.6f} plain_device_ms={r['plain_device_ms']:.6f} "
             f"library_ms={r['library_ms']:.6f} library_device_ms={r['library_device_ms']:.6f} "
             f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) gflop={flops / 1e9:.3f} "
@@ -368,6 +409,152 @@ def phase_flash():
         )
         report[name] = r
     return report
+
+
+def rect_inputs(bh: int, s_q: int, s_kv: int, d: int, seed: int):
+    """Seeded q, k, v, dO f32 on the card: q and dO `[BH, Sq, D]`, k and v `[BH, Skv, D]`."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(bh, n, d, device="cuda", generator=gen) for n in (s_q, s_kv, s_kv, s_q)]
+
+
+def rect_check(bh: int, s_q: int, s_kv: int, d: int, causal: bool, q_off: int, k_off: int, seed: int) -> dict:
+    """Each rectangular kernel against its plain version at one shape and
+    offset; rows that see no key must be exact. Returns the absolute errors."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
+
+    q, k, v, do = rect_inputs(bh, s_q, s_kv, d, seed)
+    scale = 1.0 / d ** 0.5
+    args = (scale, causal, q_off, k_off)
+    o, lse = fc.flash_fwd_rect(q, k, v, *args)
+    o_ref, lse_ref = fc.flash_fwd_rect_plain(q, k, v, *args)
+    delta = (do * o_ref).sum(-1)
+    dq = fc.flash_bwd_dq_rect(q, k, v, do, lse_ref, delta, *args)
+    dk, dv = fc.flash_bwd_dkv_rect(q, k, v, do, lse_ref, delta, *args)
+    dq_ref = fc.flash_bwd_dq_rect_plain(q, k, v, do, lse_ref, delta, *args)
+    dk_ref, dv_ref = fc.flash_bwd_dkv_rect_plain(q, k, v, do, lse_ref, delta, *args)
+    torch.cuda.synchronize()
+    live = fc._rect_keep(s_q, s_kv, q_off, k_off, q.device).any(-1) if causal else torch.ones(
+        s_q, dtype=torch.bool, device=q.device)
+    pairs = {"o": (o, o_ref), "lse": (lse[:, live], lse_ref[:, live]), "dq": (dq, dq_ref), "dk": (dk, dk_ref),
+             "dv": (dv, dv_ref)}
+    errs = {name: rel_err(a, b) if a.numel() else 0.0 for name, (a, b) in pairs.items()}
+    abs_errs = {name: float((a - b).abs().max()) if a.numel() else 0.0 for name, (a, b) in pairs.items()}
+    finite = all(bool(torch.isfinite(a).all()) for a in (o, lse, dq, dk, dv))
+    dead = ~live
+    exact = bool((o[:, dead] == 0).all() and (lse[:, dead] == -1e30).all() and (dq[:, dead] == 0).all())
+    mode = f"causal q_off={q_off} k_off={k_off}" if causal else "non-causal"
+    print(f"flash rect BH={bh} Sq={s_q} Skv={s_kv} D={d} {mode} dead_rows={int(dead.sum())} "
+          + " ".join(f"{k}={v:.3e}" for k, v in errs.items()) + f" finite={finite} dead_rows_exact={exact}",
+          flush=True)
+    worst_fwd = max(errs["o"], errs["lse"])
+    worst_bwd = max(errs["dq"], errs["dk"], errs["dv"])
+    if not finite or not exact or not worst_fwd <= RTOL or not worst_bwd <= FLASH_GRAD_RTOL:
+        fail(f"rect flash kernel disagrees with its plain version at BH={bh} Sq={s_q} Skv={s_kv} D={d} {mode}: "
+             f"{errs} (finite={finite}, dead rows exact={exact})")
+    return abs_errs
+
+
+def block_autograd_check(s_q: int, s_kv: int, causal: bool, q_off: int, k_off: int) -> None:
+    """`flash_block`'s autograd (the kernels, dlse folded into delta) against
+    autograd through the plain forward, with non-zero o and lse cotangents."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
+
+    b, h, d = 2, 4, 16
+    gen = torch.Generator(device="cuda").manual_seed(s_q + s_kv + q_off + k_off)
+    q = torch.randn(b, s_q, h, d, device="cuda", generator=gen)
+    k, v = (torch.randn(b, s_kv, h, d, device="cuda", generator=gen) for _ in range(2))
+    do = torch.randn(b, h, s_q, d, device="cuda", generator=gen)
+    dlse = torch.randn(b, h, s_q, device="cuda", generator=gen)
+
+    def plain_block(q, k, v):
+        o, lse = fc.flash_fwd_rect_plain(fc._to3(q), fc._to3(k), fc._to3(v), 1.0 / d ** 0.5, causal, q_off, k_off)
+        return o.reshape(b, h, s_q, d), lse.reshape(b, h, s_q)
+
+    grads = []
+    for fn in (lambda q, k, v: fc.flash_block(q, k, v, q_off, k_off, causal=causal), plain_block):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o, lse = fn(*leaves)
+        grads.append(torch.autograd.grad((o * do).sum() + (lse * dlse).sum(), leaves))
+    errs = {f"d{n}": rel_err(a, b) for n, a, b in zip("qkv", *grads)}
+    finite = all(bool(torch.isfinite(g).all()) for g in grads[0])
+    mode = f"causal q_off={q_off} k_off={k_off}" if causal else "non-causal"
+    print(f"flash_block autograd Sq={s_q} Skv={s_kv} {mode} " + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+          + f" finite={finite}", flush=True)
+    if not finite or not max(errs.values()) <= FLASH_GRAD_RTOL:
+        fail(f"flash_block gradients disagree with plain autograd ({mode}): {errs}")
+
+
+def phase_flash_rect():
+    """The rectangular flash kernels against their plain versions, both modes;
+    `flash_block`'s autograd; timings at the ViT path's shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
+
+    for d in FLASH_DIMS:
+        for s in RECT_SEQS:
+            rect_check(FLASH_SWEEP_BH, s, s, d, False, 0, 0, seed=3 * s + d)
+        for s_q, s_kv, q_off, k_off in RECT_OFFSETS:
+            rect_check(FLASH_SWEEP_BH, s_q, s_kv, d, True, q_off, k_off, seed=s_q + s_kv + q_off + k_off + d)
+    for s_q, s_kv, causal, q_off, k_off in ((256, 256, False, 0, 0), (256, 256, True, 0, 64), (128, 384, True, 256, 64)):
+        block_autograd_check(s_q, s_kv, causal, q_off, k_off)
+    bh, s, d = RECT_PATH
+    abs_errs = rect_check(bh, s, s, d, False, 0, 0, seed=2)
+
+    q, k, v, do = rect_inputs(bh, s, s, d, seed=2)
+    scale = 1.0 / d ** 0.5
+    o, lse = fc.flash_fwd_rect_plain(q, k, v, scale)
+    delta = (do * o).sum(-1)
+    q4, k4, v4 = (t.detach().view(1, bh, s, d).requires_grad_(True) for t in (q, k, v))
+    o4 = F.scaled_dot_product_attention(q4, k4, v4)
+    do4 = do.view(1, bh, s, d)
+
+    def sdpa_bwd():
+        torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)
+
+    calls = {
+        "flash_fwd_rect": (
+            lambda: fc.flash_fwd_rect(q, k, v, scale),
+            lambda: fc.flash_fwd_rect_plain(q, k, v, scale),
+            lambda: F.scaled_dot_product_attention(q4.detach(), k4.detach(), v4.detach()),
+        ),
+        "flash_bwd_dq_rect": (
+            lambda: fc.flash_bwd_dq_rect(q, k, v, do, lse, delta, scale),
+            lambda: fc.flash_bwd_dq_rect_plain(q, k, v, do, lse, delta, scale),
+            sdpa_bwd,
+        ),
+        "flash_bwd_dkv_rect": (
+            lambda: fc.flash_bwd_dkv_rect(q, k, v, do, lse, delta, scale),
+            lambda: fc.flash_bwd_dkv_rect_plain(q, k, v, do, lse, delta, scale),
+            sdpa_bwd,
+        ),
+    }
+    pairs = bh * s * s  # non-causal: every (query, key) pair
+    operand = bh * s * d * 4
+    row = bh * s * 4
+    work = {
+        "flash_fwd_rect": (3 * operand + operand + row, 2 * 2 * d * pairs),
+        "flash_bwd_dq_rect": (4 * operand + 2 * row + operand, 3 * 2 * d * pairs),
+        "flash_bwd_dkv_rect": (4 * operand + 2 * row + 2 * operand, 4 * 2 * d * pairs),
+    }
+    abs_of = {"flash_fwd_rect": max(abs_errs["o"], abs_errs["lse"]), "flash_bwd_dq_rect": abs_errs["dq"],
+              "flash_bwd_dkv_rect": max(abs_errs["dk"], abs_errs["dv"])}
+    q3, k3, v3 = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def flash_fwd_bwd():
+        torch.autograd.grad(fc._FlashRect.apply(q3, k3, v3, scale, False, 0, 0)[0], (q3, k3, v3), do)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(F.scaled_dot_product_attention(q4, k4, v4), (q4, k4, v4), do4)
+
+    return time_flash(f"BH={bh} S={s} D={d} non-causal", calls, work, abs_of, flash_fwd_bwd, sdpa_fwd_bwd)
 
 
 def phase_parity():
@@ -576,8 +763,8 @@ def phase_lm_train(metrics_out, profile: bool):
     print(f"lm final next-token accuracy {final_acc.round(4).tolist()} (floor {floor:.4f})", flush=True)
     if not np.all(final_acc > floor):
         fail(f"lm final accuracy {final_acc} not above {floor}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in fc.CAUSAL_KERNELS:
+        if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the LM path")
     if profile:
         profile_lm_epoch(lm)
@@ -601,10 +788,103 @@ def profile_lm_epoch(lm):
     profile_fn(f"lm group={ctx.gid}", epoch)
 
 
+def phase_vit_parity():
+    """The ViT's first round (group 0, batch 64) step by step: before each
+    L-BFGS step the 'dense' (plain) and the 'flash' (kernel) model get the
+    same parameters and optimizer state, taken from the dense trajectory."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.consensus import FedAvgState, fedavg_round
+    from federated_pytorch_test_tpu_torch.data import synthetic_cifar
+    from federated_pytorch_test_tpu_torch.engine import Trainer, get_preset
+    from federated_pytorch_test_tpu_torch.engine.steps import client_train_step, epoch_batches, round_init
+
+    source = synthetic_cifar(3 * 256, 100, seed=1)
+    trs = {impl: Trainer(get_preset("fedavg", model="vit", model_kwargs={**VIT_KWARGS, "attn_impl": impl}, batch=64,
+                                    nloop=1, nadmm=1, max_groups=1, lbfgs_direction="pallas"),
+                         verbose=False, source=source)
+           for impl in ("dense", "flash")}
+    dense = trs["dense"]
+    gid = dense.group_order[0]
+    ctxs = {impl: tr.ctx(gid) for impl, tr in trs.items()}
+    flat = dense.flat.clone()
+    state, _ = round_init(ctxs["dense"], flat)
+    idx = dense.epoch_indices(0, gid, 0, 0)
+    worst = {"train_loss": 0.0, "params": 0.0, "dual_residual": 0.0}
+    for s, (imgs, labels) in enumerate(epoch_batches(dense.shard_imgs, dense.shard_labels, idx)):
+        out = {impl: client_train_step(ctx, flat.clone(), state, imgs, labels, dense.mean, dense.std)
+               for impl, ctx in ctxs.items()}
+        (fd, sd, ld), (ff, _, lf) = out["dense"], out["flash"]
+        xd, xf = dense.partition.extract(fd, gid), dense.partition.extract(ff, gid)
+        worst["train_loss"] = max(worst["train_loss"], float(((lf - ld).abs() / ld.abs()).max()))
+        worst["params"] = max(worst["params"], float((xf - xd).abs().max() / xd.abs().max()))
+        if s == idx.shape[0] - 1:  # the averaging round after each last step
+            duals = [float(fedavg_round(x, FedAvgState(z=torch.zeros_like(x[0])))[1]["dual_residual"])
+                     for x in (xd, xf)]
+            worst["dual_residual"] = abs(duals[1] - duals[0]) / duals[0]
+        flat, state = fd, sd
+    print(f"vit parity flash-vs-dense per step ({idx.shape[0]} steps) "
+          + " ".join(f"{k}_max_rel={v:.3e}" for k, v in worst.items()), flush=True)
+    if not max(worst.values()) <= 1e-3:
+        fail(f"vit parity: a step differs between dense and flash attention: {worst}")
+
+
+def phase_vit_train(metrics_out, profile: bool):
+    """The ViT path at full width, through the entry points a user calls."""
+    import numpy as np
+    import torch
+
+    from federated_pytorch_test_tpu_torch.data import synthetic_cifar
+    from federated_pytorch_test_tpu_torch.engine import Trainer, get_preset
+    from federated_pytorch_test_tpu_torch.ops import compact_cuda as cc
+    from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
+
+    cfg = get_preset("fedavg", model="vit", model_kwargs=VIT_KWARGS, nloop=1, nadmm=1, lbfgs_direction="pallas")
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, verbose=False, source=synthetic_cifar(VIT_TRAIN, VIT_TEST, seed=0))
+    print(f"vit setup: K={cfg.n_clients} batch={cfg.batch} nadmm={cfg.nadmm} {cfg.model_kwargs} "
+          f"tokens={tr.model.tokens} params={tr.n_params} groups={tr.group_order} "
+          f"steps/epoch={tr.fed.steps_per_epoch(cfg.batch)} setup_s={time.perf_counter() - t0:.3f}", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    fc.reset_launch_counts()
+    cc.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = tr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**dict(fc.LAUNCHES), **dict(cc.LAUNCHES)}
+
+    for r in rec.series["step_time"]:
+        if r["value"]["phase"] == "round":
+            print(f"vit round group={r['group']} wall_s={r['value']['seconds']:.3f}", flush=True)
+    n_steps = len(rec.series["train_loss"])
+    print(f"vit train wall_s={wall:.3f} minibatches={n_steps} ms_per_minibatch={1e3 * wall / n_steps:.3f} "
+          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.3f} launches={json.dumps(launches)}", flush=True)
+    if metrics_out:
+        rec.save(metrics_out)
+
+    all_losses = np.asarray([r["value"] for r in rec.series["train_loss"]])
+    if not np.all(np.isfinite(all_losses)) or rec.first_nonfinite is not None:
+        fail(f"vit: non-finite training loss: {rec.first_nonfinite}")
+    accs = [(r["group"], np.asarray(r["value"])) for r in rec.series["test_accuracy"]]
+    print("vit accuracy per group " + " ".join(f"{g}:{','.join(f'{a:.4f}' for a in v)}" for g, v in accs), flush=True)
+    chance = 1.0 / tr.fed.num_classes
+    if not np.all(accs[-1][1] > chance):
+        fail(f"vit final accuracy {accs[-1][1]} not above chance {chance}")
+    for name in fc.RECT_KERNELS:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the ViT path")
+    if profile:
+        profile_epoch(tr)
+    return launches, wall
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--metrics-out", help="write the main path's metric series as JSON here")
     ap.add_argument("--lm-metrics-out", help="write the LM path's metric series as JSON here")
+    ap.add_argument("--vit-metrics-out", help="write the ViT path's metric series as JSON here")
     ap.add_argument("--profile", action="store_true", help="also profile one epoch of each path")
     args = ap.parse_args()
 
@@ -640,10 +920,13 @@ def main() -> int:
 
     report = phase_kernels()
     flash_report = phase_flash()
+    rect_report = phase_flash_rect()
     phase_parity()
     launches, wall = phase_train(args.metrics_out, args.profile)
     phase_lm_parity()
     lm_launches, lm_wall = phase_lm_train(args.lm_metrics_out, args.profile)
+    phase_vit_parity()
+    vit_launches, vit_wall = phase_vit_train(args.vit_metrics_out, args.profile)
 
     kernels = []
     replaces = {
@@ -694,8 +977,30 @@ def main() -> int:
             "library_device_ms": r["library_device_ms"],
             "shape": f"BH={bh} S={s} D={d} causal",
         })
-    print(f"total seconds={time.perf_counter() - t_all:.3f} train_wall_s={wall:.3f} lm_train_wall_s={lm_wall:.3f}",
-          flush=True)
+    bh, s, d = RECT_PATH
+    for name, r in rect_report.items():
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "federated_pytorch_test_tpu_torch/csrc/flash_attention.cu",
+            "replaces": RECT_REPLACES[name],
+            "launches": vit_launches[name],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            # scaled_dot_product_attention without a mask: its forward for
+            # flash_fwd_rect; its backward for the two backward kernels
+            "library_ms": r["library_ms"],
+            "ms_includes_host": True,
+            "device_ms": r["device_ms"],
+            "plain_device_ms": r["plain_device_ms"],
+            "library_device_ms": r["library_device_ms"],
+            "shape": f"BH={bh} S={s} D={d} non-causal",
+        })
+    print(f"total seconds={time.perf_counter() - t_all:.3f} train_wall_s={wall:.3f} lm_train_wall_s={lm_wall:.3f} "
+          f"vit_train_wall_s={vit_wall:.3f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}),

@@ -17,7 +17,8 @@ either side:
 | `array`     | (bare leaf)   | as is      | same name | as is       |
 
 (`array` is a parameter registered on a container, such as the LM's
-`pos_embed` at the root of its tree.)
+`pos_embed` at the root of its tree, or the ViT's `[1, T, dim]` one; the
+ViT's patch embedding is a `conv`.)
 
 Both flat vectors list the leaves in the same order with the same sizes
 (`partition/flat.py`), so converting a flat vector permutes elements

@@ -17,10 +17,14 @@ from ..optim.lbfgs import DIRECTIONS
 
 @dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
-    """The knobs of the FedAvg simple-CNN experiment (the JAX package's defaults)."""
+    """The knobs of the FedAvg image-classification experiment (the JAX package's defaults)."""
 
     name: str = "custom"
-    model: str = "net"  # net | net1 | net2
+    model: str = "net"  # net | net1 | net2 | vit (models.MODELS)
+    # extra constructor arguments of the model class, checked against its
+    # signature by the Trainer — e.g. {"patch": 2, "attn_impl": "flash"}
+    # runs the ViT on 256 tokens through the flash kernels
+    model_kwargs: dict = dataclasses.field(default_factory=dict)
     dataset: str = "cifar10"  # cifar10 | cifar100
     data_root: str | None = None  # None => $CIFAR_DATA_DIR or ./torchdata
     synthetic_n_train: int | None = None  # shrink the synthetic stand-in only

@@ -20,6 +20,7 @@ stacked test sweep are moved there once.
 
 from __future__ import annotations
 
+import inspect
 import time
 from typing import Optional
 
@@ -31,6 +32,20 @@ from ..models import MODELS, init_client_params
 from ..utils import MetricsRecorder, resolve_device
 from .config import ExperimentConfig
 from .steps import GroupContext, evaluate, fedavg_consensus, round_init, run_epoch
+
+
+def build_model(cfg: ExperimentConfig, num_classes: int):
+    """`MODELS[cfg.model]` with `num_classes` and `cfg.model_kwargs`, whose
+    keys must be constructor arguments of the model class."""
+    model_cls = MODELS[cfg.model]
+    settable = set(inspect.signature(model_cls.__init__).parameters) - {"self"}
+    bad = sorted(set(cfg.model_kwargs) - settable)
+    if bad:
+        raise ValueError(
+            f"model_kwargs {bad} are not fields of {cfg.model!r} ({model_cls.__name__}); "
+            f"valid extras: {sorted(settable - {'num_classes'})}"
+        )
+    return model_cls(**{"num_classes": num_classes, **cfg.model_kwargs})
 
 
 def _epoch_seed(base: int, *parts: int) -> np.random.Generator:
@@ -69,7 +84,7 @@ class Trainer:
                 f"({self.fed.shard_size}): zero lockstep steps fit in an epoch"
             )
 
-        self.model = MODELS[cfg.model](num_classes=self.fed.num_classes).to(self.device)
+        self.model = build_model(cfg, self.fed.num_classes).to(self.device)
         self.model.requires_grad_(False)  # parameters live in `self.flat`
         self.shapes = self.model.shapes()
         self.partition = self.model.partition()

@@ -1,23 +1,28 @@
-"""The causal decoder LM (`TransformerLM`) with partition metadata.
+"""The transformer models (`TransformerLM`, `ViT`) with partition metadata.
 
-Counterpart of the JAX package's `models/transformer.py` (`TransformerLM`,
-its `Block` and `MultiHeadAttention`): token embedding + learned
-positions, four pre-norm causal blocks, a final LayerNorm and a separate
-head, with the same parameter tree, partition groups and train order.
+Counterpart of the JAX package's `models/transformer.py`:
+* `TransformerLM` — token embedding + learned positions, four pre-norm
+  causal blocks, a final LayerNorm and a separate head;
+* `ViT` — a patch embedding (a convolution with kernel = stride = patch)
+  over 32x32 images, learned positions, four pre-norm bidirectional blocks,
+  a final LayerNorm, a mean pool over the tokens and the classifier head;
+both with the same parameter trees, partition groups and train orders.
 Flax defaults kept: LayerNorm ε = 1e-6, the tanh-approximate GELU, and
 the fused qkv projection's head-major column order (`[h0(q,k,v), h1(q,k,v),
 …]`, read as `reshape(b, s, h, 3, hd)`). The attention core runs in f32.
 
-Attention is `'dense'` (`ops/attention.py`), `'flash'` (the causal flash
-kernels, `ops/flash_cuda.py`) or `'auto'` (flash from S = 2048 where S is a
-multiple of 128, the JAX package's crossover at its 'highest' precision,
-which is the only precision the port has). The ring variants and the MoE
-MLP need paths the port does not have yet, and raise.
+Attention is `'dense'` (`ops/attention.py`), `'flash'` (the flash kernels,
+`ops/flash_cuda.py`: the aligned causal family for the LM, the rectangular
+one for the ViT) or `'auto'` (flash from S = 2048 where S is a multiple of
+128, the JAX package's crossover at its 'highest' precision, which is the
+only precision the port has). The ring variants and the MoE MLP need paths
+the port does not have yet, and raise.
 
 As in `models/simple.py`, the modules only hold shapes and kinds: the
 engine keeps every client's parameters in one flat `[K, N]` tensor and
-`forward_batched` runs the K clients at once — their tokens stack along
-the batch axis of the attention, and each projection is one `bmm` over K.
+`forward_batched` runs the K clients at once — their sequences stack along
+the batch axis of the attention, and each projection (the patch embedding
+included) is one `bmm` over K.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dense_attention
-from ..ops.flash_cuda import BLOCK, flash_attention
+from ..ops.flash_cuda import BLOCK, check_shape, flash_attention
 from .base import PartitionedModel
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default
@@ -60,37 +65,35 @@ def _layer_norm(params, name, x):
 
 
 class MultiHeadAttention(nn.Module):
-    """Fused qkv projection + causal attention core + output projection."""
+    """Fused qkv projection + attention core + output projection."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, causal: bool = False):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"dim {dim} is not a multiple of num_heads {num_heads}")
-        self.dim, self.num_heads = dim, num_heads
+        self.dim, self.num_heads, self.causal = dim, num_heads, causal
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
     def forward_batched(self, params, prefix: str, x: torch.Tensor, impl: str) -> torch.Tensor:
-        """x `[K, B, S, dim]` -> `[K, B, S, dim]`; every client attends causally."""
+        """x `[K, B, S, dim]` -> `[K, B, S, dim]`; each client attends within its own sequences."""
         k, b, s, dim = x.shape
         h = self.num_heads
         qkv = _linear(params, f"{prefix}.qkv", x.reshape(k, b * s, dim))
         qkv = qkv.reshape(k * b, s, h, 3, dim // h).float()  # head-major
         q, kk, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
-        if impl == "flash":
-            out = flash_attention(q, kk, v, causal=True)
-        else:
-            out = dense_attention(q, kk, v, causal=True)
+        attend = flash_attention if impl == "flash" else dense_attention
+        out = attend(q, kk, v, causal=self.causal)
         return _linear(params, f"{prefix}.proj", out.reshape(k, b * s, dim)).reshape(k, b, s, dim)
 
 
 class Block(nn.Module):
     """Pre-norm block: LN -> MHA -> +res; LN -> MLP (GELU, tanh) -> +res."""
 
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: int = 4):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: int = 4, causal: bool = False):
         super().__init__()
         self.ln1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn = MultiHeadAttention(dim, num_heads)
+        self.attn = MultiHeadAttention(dim, num_heads, causal)
         self.ln2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.fc1 = nn.Linear(dim, mlp_ratio * dim)
         self.fc2 = nn.Linear(mlp_ratio * dim, dim)
@@ -135,7 +138,7 @@ class TransformerLM(PartitionedModel):
         self.embed = nn.Embedding(vocab, dim)
         self.pos_embed = nn.Parameter(torch.zeros(max_len, dim))
         for i in range(self.DEPTH):
-            setattr(self, f"block{i}", Block(dim, num_heads))
+            setattr(self, f"block{i}", Block(dim, num_heads, causal=True))
         self.ln_out = nn.LayerNorm(dim, eps=LN_EPS)
         self.head = nn.Linear(dim, vocab)
 
@@ -158,3 +161,59 @@ class TransformerLM(PartitionedModel):
         """One client's logits `[B, S, vocab]` from token ids `[B, S]`."""
         params = {n: p[None] for n, p in self.named_parameters()}
         return self.forward_batched(params, tokens[None])[0]
+
+
+class ViT(PartitionedModel):
+    """Tiny vision transformer for 32x32 NHWC images (the JAX package's defaults).
+
+    The patch embedding is a convolution with kernel = stride = `patch`
+    (Flax's "SAME" padding adds none there), its output read as
+    (32/patch)² tokens in (h, w) row-major order. Partition groups: 0 =
+    patch embedding + positions, 1..4 = the blocks (the last one also
+    carries the pre-head LayerNorm), 5 = the head alone (the only group
+    that takes the elastic net).
+    """
+
+    GROUP_PATHS = TransformerLM.GROUP_PATHS
+    LINEAR_GROUP_IDS = (5,)
+    TRAIN_ORDER = (0, 1, 2, 3, 4, 5)
+    DEPTH = 4  # pinned by the four block groups
+    IMAGE = 32  # input height and width (CIFAR)
+    CHANNELS = 3
+
+    def __init__(self, num_classes: int = 10, dim: int = 64, num_heads: int = 4, patch: int = 4,
+                 attn_impl: str = "dense", moe_experts: int = 0):
+        super().__init__()
+        if moe_experts:
+            raise NotImplementedError("moe_experts > 0 is not ported yet (the MoE MLP has no path here)")
+        if self.IMAGE % patch:
+            raise ValueError(f"patch {patch} does not divide the {self.IMAGE}x{self.IMAGE} image")
+        self.num_classes, self.dim, self.num_heads, self.patch = num_classes, dim, num_heads, patch
+        self.tokens = (self.IMAGE // patch) ** 2
+        self.attn_impl = attn_impl
+        if resolve_attn_impl(attn_impl, self.tokens) == "flash":  # reject what the kernels refuse, early
+            check_shape(self.tokens, dim // num_heads)
+        self.embed = nn.Conv2d(self.CHANNELS, dim, patch, stride=patch)
+        self.pos_embed = nn.Parameter(torch.zeros(1, self.tokens, dim))
+        for i in range(self.DEPTH):
+            setattr(self, f"block{i}", Block(dim, num_heads))
+        self.ln_out = nn.LayerNorm(dim, eps=LN_EPS)
+        self.head = nn.Linear(dim, num_classes)
+
+    def forward_batched(self, params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+        """Logits `[K, B, classes]` of K clients on NHWC images `[K, B, 32, 32, 3]`."""
+        k, b, hh, ww, c = x.shape
+        if (hh, ww, c) != (self.IMAGE, self.IMAGE, self.CHANNELS):
+            raise ValueError(f"ViT takes {self.IMAGE}x{self.IMAGE}x{self.CHANNELS} images, got {hh}x{ww}x{c}")
+        p, t = self.patch, self.tokens
+        # each patch as a (c, kh, kw) vector, the order of the OIHW weight's rows
+        patches = x.reshape(k, b, hh // p, p, ww // p, p, c).permute(0, 1, 2, 4, 6, 3, 5)
+        patches = patches.reshape(k, b * t, c * p * p)
+        w = params["embed.weight"].reshape(k, self.dim, c * p * p)
+        h = torch.baddbmm(params["embed.bias"][:, None, :], patches, w.transpose(1, 2))
+        h = h.reshape(k, b, t, self.dim) + params["pos_embed"]  # [K, 1, T, dim]
+        impl = resolve_attn_impl(self.attn_impl, t)
+        for i in range(self.DEPTH):
+            h = getattr(self, f"block{i}").forward_batched(params, f"block{i}", h, impl)
+        h = _layer_norm(params, "ln_out", h.reshape(k, b * t, self.dim)).reshape(k, b, t, self.dim)
+        return _linear(params, "head", h.mean(dim=2))
