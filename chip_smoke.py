@@ -23,18 +23,25 @@ Phases, each reported on its own lines; any failure exits non-zero:
               versions (D in {16, 32, 64} x S in {128, 256, 1024, 2048} at
               BH=8, and the LM path's BH=128, S=2048, D=16): o and lse within
               relative 1e-5 of the largest reference entry, dq, dk, dv within
-              1e-4; times at the path's shape beside the bound and
+              1e-4; at the path's shape the forward twice on the same inputs
+              (equal bits) and with q, k x 8 against the plain version in
+              float64 (`fwd_extra_checks`); the SASS of the forward kernels
+              (tensor-core instructions, where `cuobjdump` exists); times at
+              the path's shape beside two bounds (split TF32 on the tensor
+              cores, exps, bytes; and the ceiling of an f32 FFMA design) and
               `scaled_dot_product_attention` (forward; backward) as the
               yardstick;
 5. flash rect — the three rectangular flash kernels against their plain
               versions: non-causal at D in {16, 32, 64} x S in {128, 256,
               1024} (BH=8) and the ViT path's BH=6144, S=256, D=16; causal
               with global offsets (q_off, k_off) in {(0,0), (128,0),
-              (0,128) fully future, (0,64) unaligned} and one s_q != s_kv
-              case; same tolerances, and rows that see no key exactly o = 0,
+              (0,128) fully future, (0,64) unaligned} and two s_q != s_kv
+              cases (one at q_off 37, off the 64-key tile grid); same tolerances, and rows that see no key exactly o = 0,
               lse = -1e30; `flash_block`'s autograd with non-zero o and lse
-              cotangents against autograd through the plain forward; times at
-              the ViT shape beside the bound and `scaled_dot_product_attention`;
+              cotangents against autograd through the plain forward; the
+              forward's repeat and x8 checks at the ViT shape, non-causal and
+              causal; times at the ViT shape beside the bounds and
+              `scaled_dot_product_attention`;
 6. parity   — a tiny drive with the plain ('compact') and the fused-kernel
               ('pallas') direction on the card: the first averaging round's
               losses and dual residual agree within relative 1e-3;
@@ -91,6 +98,8 @@ from concurrent.futures import ThreadPoolExecutor
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores
+TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core rate; split TF32 takes three products
+EXPS_PER_S = 16 * 132 * 1.83e9  # exp2 on the SFUs: 16 a clock per SM, 132 SMs, 1.83 GHz boost
 M, K = 10, 3
 NET_GROUP_SIZES = (456, 2416, 48120, 10164, 850)
 LARGE_N = 4_720_644  # ~ResNet18's largest block group; not a multiple of any tile
@@ -110,7 +119,8 @@ FLASH_REPLACES = {
 RECT_SEQS = (128, 256, 1024)
 RECT_PATH = (6144, 256, 16)  # (BH, S, D) of the ViT path: K·batch·heads, tokens, head dim
 # (s_q, s_kv, q_off, k_off) of the causal/offset checks, at BH=8
-RECT_OFFSETS = ((256, 256, 0, 0), (256, 256, 128, 0), (128, 128, 0, 128), (256, 256, 0, 64), (128, 384, 256, 64))
+RECT_OFFSETS = ((256, 256, 0, 0), (256, 256, 128, 0), (128, 128, 0, 128), (256, 256, 0, 64), (128, 384, 256, 64),
+                (128, 256, 37, 0))
 RECT_REPLACES = {
     "flash_fwd_rect": "federated_pytorch_test_tpu/ops/flash_attention.py:601",
     "flash_bwd_dq_rect": "federated_pytorch_test_tpu/ops/flash_attention.py:721",
@@ -118,6 +128,7 @@ RECT_REPLACES = {
 }
 VIT_KWARGS = {"patch": 2, "attn_impl": "flash"}
 VIT_TRAIN, VIT_TEST = 12_288, 10_000  # 8 minibatches of 512 per client; the full test set
+LARGE_SLACK = 2.0  # q, k x 8: the kernel's error from float64 may reach this multiple of the f32 plain version's
 QUEUED_CALLS = 50  # calls queued per device-only timing (a plain version launches ~8 kernels)
 
 
@@ -169,6 +180,31 @@ def time_ms(fn, iters: int) -> tuple:
 def rel_err(out, ref) -> float:
     scale = float(ref.abs().max())
     return float((out - ref).abs().max()) / (scale if scale > 0 else 1.0)
+
+
+def report_forward_build(lib) -> None:
+    """What the compiler made of the flash forward kernels: ptxas's registers,
+    shared memory and spills (from the build log) and any warning, and the
+    count of tensor-core instructions in each instance's SASS."""
+    import shutil
+
+    fn = None
+    for line in lib.with_suffix(".log").read_text(errors="replace").splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1] if "'" in line else line
+        elif "warning" in line.lower() or (fn and "flash_fwd_tc" in fn and ("Used" in line or "spill" in line)):
+            print(f"ptxas {fn if fn and 'flash_fwd_tc' in fn else ''} {line.strip()}", flush=True)
+    nvcc_dir = os.path.dirname(os.path.realpath(shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"))
+    tool = shutil.which("cuobjdump") or os.path.join(nvcc_dir, "cuobjdump")
+    if not os.path.exists(tool):
+        print("sass cuobjdump not found: tensor-core instructions not counted", flush=True)
+        return
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    for chunk in sass.split("Function : ")[1:]:
+        name = chunk.split("\n", 1)[0].strip()
+        if "flash_fwd_tc" in name:
+            print(f"sass {name} HGMMA={chunk.count('HGMMA')} HMMA={chunk.count('HMMA')} "
+                  f"MUFU.EX2={chunk.count('MUFU.EX2')}", flush=True)
 
 
 def history(n: int, seed: int):
@@ -316,6 +352,41 @@ def flash_check(bh: int, s: int, d: int, seed: int) -> dict:
     return abs_errs
 
 
+def fwd_extra_checks(label: str, kernel, plain, qkv, scale: float, *mode) -> None:
+    """Two more checks of a forward kernel at a path shape: two launches give
+    the same bits; and q, k x 8 (scores x 64), where f32 rounding of the
+    scores alone moves o by ~1e-5 of its largest entry. There the kernel and
+    the plain version in f32 are both held against the plain version in
+    float64: the kernel within RTOL of it, or no further from it than
+    LARGE_SLACK times the f32 plain version is."""
+    import torch
+
+    q, k, v = qkv
+    runs = [kernel(q, k, v, scale, *mode) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(*runs))
+    print(f"flash repeat {label} bitwise_equal={same}", flush=True)
+    if not same:
+        fail(f"{label}: two launches on the same inputs differ")
+
+    q8, k8 = 8 * q, 8 * k
+    o, lse = kernel(q8, k8, v, scale, *mode)
+    o32, lse32 = plain(q8, k8, v, scale, *mode)
+    o64, lse64 = plain(q8.double(), k8.double(), v.double(), scale, *mode)
+    torch.cuda.synchronize()
+    errs = {"o": rel_err(o.double(), o64), "lse": rel_err(lse.double(), lse64)}
+    plain_errs = {"o": rel_err(o32.double(), o64), "lse": rel_err(lse32.double(), lse64)}
+    vs_plain = {"o": rel_err(o, o32), "lse": rel_err(lse, lse32)}
+    finite = bool(torch.isfinite(o).all() and torch.isfinite(lse).all())
+    print(f"flash large {label} x8 kernel_vs_f64 o={errs['o']:.3e} lse={errs['lse']:.3e} "
+          f"plain_f32_vs_f64 o={plain_errs['o']:.3e} lse={plain_errs['lse']:.3e} "
+          f"kernel_vs_plain_f32 o={vs_plain['o']:.3e} lse={vs_plain['lse']:.3e} finite={finite}", flush=True)
+    for name in errs:
+        if not finite or not errs[name] <= max(RTOL, LARGE_SLACK * plain_errs[name]):
+            fail(f"{label} x8: {name} is {errs[name]:.3e} from float64 (the f32 plain version: "
+                 f"{plain_errs[name]:.3e}; finite={finite})")
+
+
 def phase_flash():
     """The flash kernels against their plain versions at every shape; timings
     at the LM path's shape."""
@@ -329,6 +400,7 @@ def phase_flash():
             flash_check(FLASH_SWEEP_BH, s, d, seed=s + d)
     bh, s, d = FLASH_PATH
     abs_errs = flash_check(bh, s, d, seed=1)
+    fwd_extra_checks("flash_fwd", fc.flash_fwd, fc.flash_fwd_plain, flash_inputs(bh, s, d, seed=5)[:3], 1.0 / d ** 0.5)
 
     q, k, v, do = flash_inputs(bh, s, d, seed=1)
     scale = 1.0 / d ** 0.5
@@ -362,10 +434,10 @@ def phase_flash():
     pairs = bh * s * (s + 1) // 2  # (query, key) pairs under the causal mask
     operand = bh * s * d * 4  # bytes of one [BH, S, D] f32 tensor
     row = bh * s * 4  # bytes of one [BH, S] f32 tensor
-    work = {  # (bytes: each input read once, each output written once; flops: 2·D per pair per product)
-        "flash_fwd": (3 * operand + operand + row, 2 * 2 * d * pairs),
-        "flash_bwd_dq": (4 * operand + 2 * row + operand, 3 * 2 * d * pairs),
-        "flash_bwd_dkv": (4 * operand + 2 * row + 2 * operand, 4 * 2 * d * pairs),
+    work = {  # (bytes: each input read once, each output written once; flops: 2·D per pair per product; exps)
+        "flash_fwd": (3 * operand + operand + row, 2 * 2 * d * pairs, pairs),
+        "flash_bwd_dq": (4 * operand + 2 * row + operand, 3 * 2 * d * pairs, pairs),
+        "flash_bwd_dkv": (4 * operand + 2 * row + 2 * operand, 4 * 2 * d * pairs, pairs),
     }
     abs_of = {"flash_fwd": max(abs_errs["o"], abs_errs["lse"]), "flash_bwd_dq": abs_errs["dq"],
               "flash_bwd_dkv": max(abs_errs["dk"], abs_errs["dv"])}
@@ -391,24 +463,34 @@ def time_flash(label: str, calls: dict, work: dict, abs_of: dict, fwd_bwd, sdpa_
 
     report = {}
     for name, fns in calls.items():
-        n_bytes, flops = work[name]
-        r = {"bytes": n_bytes, "flops": flops, "max_abs_err": abs_of[name]}
+        n_bytes, flops, exps = work[name]
+        r = {"bytes": n_bytes, "flops": flops, "exps": exps, "max_abs_err": abs_of[name]}
         for key, fn in zip(("ms", "plain_ms", "library_ms"), fns):
             r[key], r[key.replace("ms", "device_ms")] = time_ms(fn, 20)
-        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / F32_FLOPS * 1e3
-        r["bound_ms"] = max(t_bytes, t_ops)
-        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        r.update(flash_bounds(n_bytes, flops, exps))
         print(
             f"timing {name} {label} ms={r['ms']:.6f} device_ms={r['device_ms']:.6f} "
             f"plain_ms={r['plain_ms']:.6f} plain_device_ms={r['plain_device_ms']:.6f} "
             f"library_ms={r['library_ms']:.6f} library_device_ms={r['library_device_ms']:.6f} "
-            f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) gflop={flops / 1e9:.3f} "
-            f"achieved_tflops={flops / r['device_ms'] / 1e9:.3f}",
+            f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}: {r['bound_term']}) "
+            f"ffma_bound_ms={r['ffma_bound_ms']:.6f} gflop={flops / 1e9:.3f} "
+            f"achieved_tflops={flops / r['device_ms'] / 1e9:.3f} share_of_bound={r['bound_ms'] / r['device_ms']:.3f}",
             flush=True,
         )
         report[name] = r
     return report
+
+
+def flash_bounds(n_bytes: int, flops: int, exps: int) -> dict:
+    """The least time of a flash kernel on the card: the largest of its
+    bytes at the memory rate, its products in split TF32 (three passes) at
+    the tensor-core rate, and its exps at the SFU rate; and, beside it, the
+    ceiling of an f32 FFMA design (flops at 67 TFLOP/s or the bytes)."""
+    terms = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3, "tf32x3": 3 * flops / TF32_FLOPS * 1e3,
+             "exp": exps / EXPS_PER_S * 1e3}
+    term = max(terms, key=terms.get)
+    return {"bound_ms": terms[term], "bound_by": "bytes" if term == "bytes" else "operations",
+            "bound_term": term, "ffma_bound_ms": max(terms["bytes"], flops / F32_FLOPS * 1e3)}
 
 
 def rect_inputs(bh: int, s_q: int, s_kv: int, d: int, seed: int):
@@ -507,6 +589,10 @@ def phase_flash_rect():
         block_autograd_check(s_q, s_kv, causal, q_off, k_off)
     bh, s, d = RECT_PATH
     abs_errs = rect_check(bh, s, s, d, False, 0, 0, seed=2)
+    qkv = rect_inputs(bh, s, s, d, seed=6)[:3]
+    fwd_extra_checks("flash_fwd_rect", fc.flash_fwd_rect, fc.flash_fwd_rect_plain, qkv, 1.0 / d ** 0.5)
+    fwd_extra_checks("flash_fwd_rect causal q_off=64 k_off=0", fc.flash_fwd_rect, fc.flash_fwd_rect_plain, qkv,
+                     1.0 / d ** 0.5, True, 64, 0)
 
     q, k, v, do = rect_inputs(bh, s, s, d, seed=2)
     scale = 1.0 / d ** 0.5
@@ -540,9 +626,9 @@ def phase_flash_rect():
     operand = bh * s * d * 4
     row = bh * s * 4
     work = {
-        "flash_fwd_rect": (3 * operand + operand + row, 2 * 2 * d * pairs),
-        "flash_bwd_dq_rect": (4 * operand + 2 * row + operand, 3 * 2 * d * pairs),
-        "flash_bwd_dkv_rect": (4 * operand + 2 * row + 2 * operand, 4 * 2 * d * pairs),
+        "flash_fwd_rect": (3 * operand + operand + row, 2 * 2 * d * pairs, pairs),
+        "flash_bwd_dq_rect": (4 * operand + 2 * row + operand, 3 * 2 * d * pairs, pairs),
+        "flash_bwd_dkv_rect": (4 * operand + 2 * row + 2 * operand, 4 * 2 * d * pairs, pairs),
     }
     abs_of = {"flash_fwd_rect": max(abs_errs["o"], abs_errs["lse"]), "flash_bwd_dq_rect": abs_errs["dq"],
               "flash_bwd_dkv_rect": max(abs_errs["dk"], abs_errs["dv"])}
@@ -917,6 +1003,7 @@ def main() -> int:
         built = list(pool.map(timed_build, SOURCES))
     for lib, seconds in built:
         print(f"build {lib.name} seconds={seconds:.3f}", flush=True)
+    report_forward_build(built[SOURCES.index("flash_attention")][0])
 
     report = phase_kernels()
     flash_report = phase_flash()
@@ -968,6 +1055,10 @@ def main() -> int:
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
+            # bound_ms: split TF32 on the tensor cores, the exps or the bytes,
+            # whichever is largest (bound_term); the f32 FFMA design's ceiling beside it
+            "bound_term": r["bound_term"],
+            "ffma_bound_ms": r["ffma_bound_ms"],
             # scaled_dot_product_attention: its forward for flash_fwd; its
             # backward (dq, dk and dv in one call) for the two backward kernels
             "library_ms": r["library_ms"],
@@ -990,6 +1081,10 @@ def main() -> int:
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
+            # bound_ms: split TF32 on the tensor cores, the exps or the bytes,
+            # whichever is largest (bound_term); the f32 FFMA design's ceiling beside it
+            "bound_term": r["bound_term"],
+            "ffma_bound_ms": r["ffma_bound_ms"],
             # scaled_dot_product_attention without a mask: its forward for
             # flash_fwd_rect; its backward for the two backward kernels
             "library_ms": r["library_ms"],

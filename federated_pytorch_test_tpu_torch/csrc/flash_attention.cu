@@ -1,65 +1,105 @@
 // Flash attention, forward and backward, for Hopper (sm_90a).
 //
-// Two families. The rectangular one (below the aligned kernels) replaces
-// `_fwd` (pallas_call :601, `_fwd_kernel`) and `_flash3_bwd` (:721
-// `_bwd_dq_kernel`, :744 `_bwd_dkv_kernel`): q [BH, Sq, D] against k, v
-// [BH, Skv, D], non-causal or causal on global offsets (q_off, k_off) —
-// the path of `flash_attention(..., causal=False)` (the ViT) and of
-// `flash_block`. At the ViT path's shape (BH = 6144, S = 256, D = 16) the
-// non-causal pairs are BH·S² = 4.0e8: 25.8, 38.7 and 51.5 GFLOP, 0.385,
-// 0.577 and 0.769 ms at 67 TFLOP/s against ~30 µs per 100.7 MB operand,
-// so operations bound them too. Same design as the aligned kernels; every
-// block of a non-causal call does equal work, so blocks launch in order.
+// Replaces the Pallas kernels of the JAX package's ops/flash_attention.py
+// under its `_flash3` custom VJP. Tensors are f32 and contiguous: q (and
+// dO) [BH, Sq, D], k, v [BH, Skv, D], lse and delta [BH, Sq]. Two families:
 //
-// The aligned family replaces the aligned-causal Pallas kernels of the JAX
-// package's ops/flash_attention.py (the path `flash_attention(...,
-// causal=True)` takes, through the `_flash3` custom VJP):
+//   aligned causal (Sq = Skv; the path of `flash_attention(..., causal=True)`)
+//     _fwd_tri     :559 (_fwd_kernel_tri :253)      -> flash_fwd_launch
+//     _bwd_tri dq  :655 (_bwd_dq_kernel_tri :341)   -> flash_bwd_dq_launch
+//     _bwd_tri dkv :673 (_bwd_dkv_kernel_tri :365)  -> flash_bwd_dkv_launch
+//   rectangular, non-causal or causal on global offsets (q_off, k_off)
+//   (the path of `flash_attention(..., causal=False)`, the ViT, and of
+//   `flash_block`)
+//     _fwd         :601 (_fwd_kernel :395)          -> flash_fwd_rect_launch
+//     _flash3_bwd  :721 (_bwd_dq_kernel :436)       -> flash_bwd_dq_rect_launch
+//     _flash3_bwd  :744 (_bwd_dkv_kernel :461)      -> flash_bwd_dkv_rect_launch
 //
-//   _fwd_tri     (_fwd_kernel_tri)     -> flash_fwd_launch
-//     o = softmax(q kᵀ·scale, causal) v and the natural-log row
-//     logsumexp lse, per (batch·head)
-//   _bwd_tri dq  (_bwd_dq_kernel_tri)  -> flash_bwd_dq_launch
-//     dq = scale · Σ_j dS_ij k_j,  dS = P ∘ (dO vᵀ − delta)
-//   _bwd_tri dkv (_bwd_dkv_kernel_tri) -> flash_bwd_dkv_launch
-//     dv = Σ_i P_ijᵀ dO_i,  dk = scale · Σ_i dS_ijᵀ q_i
+// o = softmax(q kᵀ·scale [, causal]) v with the natural-log row logsumexp
+// lse; dq = scale · Σ_j dS_ij k_j, dv = Σ_i P_ijᵀ dO_i, dk = scale ·
+// Σ_i dS_ijᵀ q_i with dS = P ∘ (dO vᵀ − delta), P recomputed from
+// (q, k, lse) and delta = rowsum(dO ∘ o) formed by the caller.
 //
-// with P recomputed from (q, k, lse) and delta = rowsum(dO ∘ o) formed by
-// the caller. Tensors are f32, contiguous [BH, S, D]; lse and delta [BH, S].
+// Forward: one kernel for both families (`flash_fwd_tc`); the aligned
+// forward is the rectangular one with Sq = Skv and shift 0.
+//   Bound on an H100 SXM. The TPU kernels' dots are f32 at
+//   Precision.HIGHEST (several MXU passes). Here each product runs on the
+//   tensor cores in split TF32: x = hi + lo with hi = tf32(x) rounded to
+//   nearest and lo = x − hi, of which the tensor cores read the TF32 part
+//   (they truncate f32 operands), a·b ≈ lo_a·hi_b + hi_a·lo_b + hi_a·hi_b
+//   summed in f32 (each operand kept to 2^-21 of itself, no lo·lo term).
+//   Three products at 495 TFLOP/s: at the ViT path's shape (BH = 6144, S = 256,
+//   D = 16, non-causal: 4.0e8 pairs, 25.8 GFLOP) 0.16 ms, against 0.10 ms
+//   for the exps (16 a clock per SM) and 0.12 ms for the bytes; at the LM
+//   path's (BH = 128, S = 2048, causal: 2.7e8 pairs) 0.10 ms. An f32 FFMA
+//   design is held to 67 TFLOP/s there: 0.385 and 0.257 ms.
+//   Design:
+//   * A block owns 128 query rows of one (batch·head) as two consumer
+//     warpgroups of 64 rows (256 threads). Q is split into hi/lo in shared
+//     memory once.
+//   * K and V stream in tiles of 64 keys through a ring of two stages
+//     filled by cp.async: tile t + 2 is in flight while tiles t and t + 1
+//     are computed. After a tile lands the block forms K's hi/lo and Vᵀ's
+//     hi/lo in shared memory (TF32 wgmma reads only K-major operands, so V
+//     is stored transposed).
+//   * S = Q·Kᵀ: three m64n64k8 wgmmas for each 8 columns of D, both
+//     operands in shared memory without swizzle (core matrices of 8 rows by
+//     16 bytes).
+//   * Online softmax on the accumulator fragments: row max over the quad of
+//     threads that holds a row, exp2 with log2(e) folded into the scale (one
+//     FFMA a score). m starts at the finite −1e30 and masked scores give
+//     p = 0 exactly.
+//   * P·[V | 1] with P split in registers as the A operand: Vᵀ carries a row
+//     of ones, so the row sum l comes out of the tensor cores beside O (as
+//     `_augmented_v` :527 does on the TPU) instead of 32 adds a thread and
+//     tile. The
+//     accumulator gives a thread keys {2t, 2t+1} of every 8 where the TF32 A
+//     fragment takes contraction positions {t, t+4}; Vᵀ's keys are permuted
+//     the same way in shared memory, so the product is unchanged. Each
+//     tile's product sums in a fresh accumulator and joins O and l in FFMAs
+//     (·corr + P·[V | 1]): the tensor cores' sums, whose error grows with the
+//     terms they add, span one tile and not the whole row.
+//   * The instructions each warp runs a tile, not the tensor cores, limit
+//     it, so the loop keeps them few: the TF32 rounding is two integer
+//     operations (cvt.rna.tf32.f32 lowers to compares and selects), and
+//     descriptors are a base plus a constant.
+//   * Causal: a block reads keys below `key_end`; a warpgroup skips tiles
+//     wholly in its future and masks only tiles across its diagonal; the
+//     non-causal instances carry no compare. Causal blocks launch heaviest
+//     first.
+//   * Each output row is summed by one thread quad in a fixed order: no
+//     atomics, bitwise repeatable. A row that saw no key (l = 0) stores
+//     o = 0 and lse = −1e30 exactly (`_fwd_kernel` :428-433).
 //
-// Bound on an H100 SXM at the LM path's shape (BH = 128, S = 2048,
-// D = 16): the causal triangle holds BH·S(S+1)/2 = 2.7e8 (query, key)
-// pairs and each product costs 2·D flops per pair, so the forward's two
-// products are 17.2 GFLOP, dq's three 25.8 and dk/dv's four 34.4: 0.26,
-// 0.39 and 0.51 ms at the 67 TFLOP/s of f32 outside the tensor cores.
-// Each operand is 16.8 MB, read once in ~5 µs: operations bound all three.
-//
-// Design (a plain FFMA kernel in f32; tensor cores are later work).
-//   * A block owns 128 rows of one (batch·head): query rows for fwd and dq,
-//     key rows for dk/dv. T = D/16 neighbouring threads share a row, each
+// Backward (plain FFMA kernels in f32; tensor cores are later work).
+//   Bound: the LM path's causal triangle holds BH·S(S+1)/2 = 2.7e8 pairs,
+//   so dq's three products are 25.8 GFLOP and dk/dv's four 34.4: 0.39 and
+//   0.51 ms at the 67 TFLOP/s of f32 outside the tensor cores; at the ViT
+//   path's 4.0e8 non-causal pairs 38.7 and 51.5 GFLOP, 0.577 and 0.769 ms.
+//   Each operand is read in ~5-30 µs: operations bound them.
+//   * A block owns 128 rows of one (batch·head): query rows for dq, key
+//     rows for dk/dv. T = D/16 neighbouring threads share a row, each
 //     holding 16 of its D columns in registers; a dot product is each
 //     thread's 16 FMAs summed across its T lanes with warp shuffles.
 //   * The other operand streams through shared memory in tiles of 64
 //     rows. Every thread of a warp reads the same tile row at once, a
 //     broadcast.
 //   * Causal: a query block reads key tiles 0 … its diagonal, a key block
-//     reads query tiles from its diagonal to S, so the ~S²/2 work of the
-//     TPU's triangular grid is all that is done. Pairs past the diagonal
-//     inside the diagonal tiles are masked by select, never by a branch.
-//   * The forward keeps the running max m and sum l in registers and
-//     rescales the accumulator once per 16 keys (online softmax in the
-//     natural-log domain: the TPU path's exp2 prescale served bf16 only).
+//     reads query tiles from its diagonal to S, so only the ~S²/2 work of
+//     the TPU's triangular grid is done. Pairs past the diagonal inside the
+//     diagonal tiles are masked by select, never by a branch.
 //   * Each output row is owned by one block: no atomics, bitwise repeatable.
-//   * Query blocks launch heaviest first (the last rows see the most keys).
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kRows = 128;  // rows a block owns
 constexpr int kTile = 64;   // rows of the streamed operand per shared-memory tile
 constexpr int kLane = 16;   // head-dim columns per thread
-constexpr int kChunk = 16;  // keys per online-softmax rescale (forward)
 
 // Sum over the T lanes that share a row (neighbouring lanes of one warp);
 // every lane ends with the same, bitwise equal, value.
@@ -102,68 +142,6 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, int row0
   const float4* s4 = reinterpret_cast<const float4*>(src + (size_t)row0 * D);
   float4* d4 = reinterpret_cast<float4*>(dst);
   for (int i = threadIdx.x; i < kTile * D / 4; i += blockDim.x) d4[i] = s4[i];
-}
-
-template <int D>
-__global__ void __launch_bounds__(kRows * (D / kLane))
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                 float* __restrict__ o, float* __restrict__ lse, int S, float scale) {
-  constexpr int T = D / kLane;
-  __shared__ __align__(16) float ks[kTile * D];
-  __shared__ __align__(16) float vs[kTile * D];
-  const int bh = blockIdx.y;
-  const int row0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // heaviest first
-  const int r = threadIdx.x / T, t = threadIdx.x % T;
-  const int row = row0 + r;
-  const size_t base = (size_t)bh * S * D;
-  const float* kb = k + base;
-  const float* vb = v + base;
-
-  float qr[kLane], acc[kLane];
-  load16(qr, q + base + (size_t)row * D + t * kLane);
-#pragma unroll
-  for (int i = 0; i < kLane; ++i) acc[i] = 0.f;
-  float m = -1e30f;  // finite: m − m_new is never inf − inf
-  float l = 0.f;
-
-  const int kend = row0 + kRows;  // keys past the block's last row are never read
-  for (int kt = 0; kt < kend; kt += kTile) {
-    __syncthreads();
-    load_tile<D>(ks, kb, kt);
-    load_tile<D>(vs, vb, kt);
-    __syncthreads();
-#pragma unroll 1
-    for (int c0 = 0; c0 < kTile; c0 += kChunk) {
-      float s[kChunk];
-      float cmax = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < kChunk; ++c) {
-        float kr[kLane];
-        load16(kr, ks + (c0 + c) * D + t * kLane);
-        const float dot = row_sum<T>(dot16(qr, kr));
-        s[c] = (kt + c0 + c <= row) ? dot * scale : -INFINITY;
-        cmax = fmaxf(cmax, s[c]);
-      }
-      const float m_new = fmaxf(m, cmax);
-      const float corr = expf(m - m_new);
-      l *= corr;
-#pragma unroll
-      for (int i = 0; i < kLane; ++i) acc[i] *= corr;
-#pragma unroll
-      for (int c = 0; c < kChunk; ++c) {
-        const float p = expf(s[c] - m_new);  // 0 where masked
-        l += p;
-        float vr[kLane];
-        load16(vr, vs + (c0 + c) * D + t * kLane);
-#pragma unroll
-        for (int i = 0; i < kLane; ++i) acc[i] = fmaf(p, vr[i], acc[i]);
-      }
-      m = m_new;
-    }
-  }
-  // every causal row sees its own key, so l >= 1
-  store16(o + base + (size_t)row * D + t * kLane, acc, 1.f / l);
-  if (t == 0) lse[(size_t)bh * S + row] = m + logf(l);
 }
 
 template <int D>
@@ -286,70 +264,6 @@ __device__ __forceinline__ int key_end(int row0, int shift, int s_kv) {
 
 template <int D, bool Causal>
 __global__ void __launch_bounds__(kRows * (D / kLane))
-flash_fwd_rect_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                      float* __restrict__ o, float* __restrict__ lse, int s_q, int s_kv, int shift,
-                      float scale) {
-  constexpr int T = D / kLane;
-  __shared__ __align__(16) float ks[kTile * D];
-  __shared__ __align__(16) float vs[kTile * D];
-  const int bh = blockIdx.y;
-  const int row0 = blockIdx.x * kRows;  // blocks are equal unless causal: plain order
-  const int r = threadIdx.x / T, t = threadIdx.x % T;
-  const int row = row0 + r;
-  const size_t qbase = (size_t)bh * s_q * D;
-  const float* kb = k + (size_t)bh * s_kv * D;
-  const float* vb = v + (size_t)bh * s_kv * D;
-
-  float qr[kLane], acc[kLane];
-  load16(qr, q + qbase + (size_t)row * D + t * kLane);
-#pragma unroll
-  for (int i = 0; i < kLane; ++i) acc[i] = 0.f;
-  float m = -1e30f;  // finite: m − m_new is never inf − inf, and exp(−inf − m) = 0
-  float l = 0.f;
-
-  const int kend = Causal ? key_end(row0, shift, s_kv) : s_kv;
-  for (int kt = 0; kt < kend; kt += kTile) {
-    __syncthreads();
-    load_tile<D>(ks, kb, kt);
-    load_tile<D>(vs, vb, kt);
-    __syncthreads();
-#pragma unroll 1
-    for (int c0 = 0; c0 < kTile; c0 += kChunk) {
-      float s[kChunk];
-      float cmax = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < kChunk; ++c) {
-        float kr[kLane];
-        load16(kr, ks + (c0 + c) * D + t * kLane);
-        const float dot = row_sum<T>(dot16(qr, kr)) * scale;
-        s[c] = (!Causal || kt + c0 + c <= row + shift) ? dot : -INFINITY;
-        cmax = fmaxf(cmax, s[c]);
-      }
-      const float m_new = fmaxf(m, cmax);
-      const float corr = expf(m - m_new);
-      l *= corr;
-#pragma unroll
-      for (int i = 0; i < kLane; ++i) acc[i] *= corr;
-#pragma unroll
-      for (int c = 0; c < kChunk; ++c) {
-        const float p = expf(s[c] - m_new);  // 0 where masked
-        l += p;
-        float vr[kLane];
-        load16(vr, vs + (c0 + c) * D + t * kLane);
-#pragma unroll
-        for (int i = 0; i < kLane; ++i) acc[i] = fmaf(p, vr[i], acc[i]);
-      }
-      m = m_new;
-    }
-  }
-  // masked-row guard: a row that saw no key has l == 0 and acc == 0
-  const bool live = l > 0.f;
-  store16(o + qbase + (size_t)row * D + t * kLane, acc, live ? 1.f / l : 0.f);
-  if (t == 0) lse[(size_t)bh * s_q + row] = live ? m + logf(l) : -1e30f;
-}
-
-template <int D, bool Causal>
-__global__ void __launch_bounds__(kRows * (D / kLane))
 flash_bwd_dq_rect_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                          const float* __restrict__ dout, const float* __restrict__ lse,
                          const float* __restrict__ delta, float* __restrict__ dq, int s_q, int s_kv, int shift,
@@ -459,6 +373,438 @@ flash_bwd_dkv_rect_kernel(const float* __restrict__ q, const float* __restrict__
 
 bool rect_shape_ok(int bh, int s_q, int s_kv) { return shape_ok(bh, s_q) && shape_ok(bh, s_kv); }
 
+// ---------------------------------------------------------------------------
+// The forward on the tensor cores (both families; see the note at the top).
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int kWarpgroups = 2;               // consumer warpgroups a block, 64 query rows each
+constexpr int kThreads = 128 * kWarpgroups;  // kRows query rows a block
+constexpr int kKeys = 64;                    // keys a K/V tile
+constexpr int kStages = 2;                   // depth of the K/V ring
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Float index of element (r, c) of an operand with R rows whose contraction
+// axis is c, in wgmma's K-major layout without swizzle: core matrices of 8
+// rows by 4 floats (16 bytes, 128 bytes in all), 8-row groups 128 bytes
+// apart, 4-column groups R/8 core matrices apart.
+template <int R>
+__device__ __forceinline__ unsigned cidx(unsigned r, unsigned c) {
+  return (((c >> 2) * (R >> 3) + (r >> 3)) << 5) + ((r & 7) << 2) + (c & 3);
+}
+
+// wgmma shared-memory descriptor of an R-row operand whose k8 step starts
+// `off` bytes past shared address 16·base16: no swizzle, leading byte
+// offset = the stride between the step's two 4-column core matrices, stride
+// byte offset = the stride between 8-row groups. Shared memory lies below
+// 256 KB, so base16 + off/16 fills the 14-bit address field without a
+// carry; with `off` known at compile time the descriptor costs one add.
+template <int R>
+__device__ __forceinline__ uint64_t desc(uint32_t base16, uint32_t off) {
+  constexpr uint32_t kLbo = (R / 8) * 128, kSbo = 128;
+  return ((uint64_t)(kSbo >> 4) << 32) | (base16 + (off >> 4) + ((kLbo >> 4) << 16));
+}
+
+// round to TF32, to nearest with ties away, as cvt.rna.tf32.f32 does for
+// finite x: half of the 13 dropped bits' unit added to the magnitude, then
+// the low 13 bits cleared (two integer operations)
+__device__ __forceinline__ uint32_t tf32(float x) { return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u; }
+
+// 2^x; results below 2^-126 flush to 0
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo with hi = tf32(x) and lo = x − hi (exact in f32); the tensor
+// cores read lo's TF32 part (they truncate), so the pair holds x to 2^-21 |x|
+__device__ __forceinline__ void split(float x, float& hi, float& lo) {
+  hi = __uint_as_float(tf32(x));
+  lo = x - hi;
+}
+
+__device__ __forceinline__ void split4(float4 x, float4& hi, float4& lo) {
+  split(x.x, hi.x, lo.x);
+  split(x.y, hi.y, lo.y);
+  split(x.z, hi.z, lo.z);
+  split(x.w, hi.w, lo.w);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// generic-proxy stores to shared memory made visible to wgmma (the async proxy)
+__device__ __forceinline__ void proxy_fence() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_wait() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// Orders the compiler's uses of wgmma registers after the wait (the asm
+// statements above write them synchronously as far as the compiler knows).
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// D[64 x 64] (+)= A·Bᵀ, A and B tf32 in shared memory (K-major, descriptors)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 24] (+)= A·Bᵀ, A tf32 in registers (a0..a3), B tf32 in shared memory
+__device__ __forceinline__ void wgmma_rs_n24(float (&d)[12], const uint32_t (&a)[4], uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
+      "{%12, %13, %14, %15}, %16, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 40] (+)= A·Bᵀ, A tf32 in registers (a0..a3), B tf32 in shared memory
+__device__ __forceinline__ void wgmma_rs_n40(float (&d)[20], const uint32_t (&a)[4], uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19}, "
+      "{%20, %21, %22, %23}, %24, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 72] (+)= A·Bᵀ, A tf32 in registers (a0..a3), B tf32 in shared memory
+__device__ __forceinline__ void wgmma_rs_n72(float (&d)[36], const uint32_t (&a)[4], uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35}, "
+      "{%36, %37, %38, %39}, %40, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// P·[V | 1 | 0]: the D + 8 columns of Vᵀ's operand (see Smem)
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&d)[(D + 8) / 2], const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate) {
+  if constexpr (D == 16) {
+    wgmma_rs_n24(d, a, b, accumulate);
+  } else if constexpr (D == 32) {
+    wgmma_rs_n40(d, a, b, accumulate);
+  } else {
+    wgmma_rs_n72(d, a, b, accumulate);
+  }
+}
+
+template <int D>
+struct Smem {
+  float q_hi[kRows * D], q_lo[kRows * D];  // per warpgroup a 64-row operand
+  float raw[kStages][2][kKeys * D];        // landed tiles: K (operand layout) and V (row-major)
+  float k_hi[kKeys * D], k_lo[kKeys * D];  // operand layout, 64 rows (keys) by D
+  // Vᵀ: D + 8 rows by 64 permuted keys; rows D … D + 7 hold [1 | 0] (ones in
+  // row D of hi), so that P·V's column D is P's row sum
+  float vt_hi[(D + 8) * kKeys], vt_lo[(D + 8) * kKeys];
+};
+
+template <int D>
+constexpr int kTileChunks = kKeys * D / 4 / kThreads;  // 16-byte chunks of a K or V tile a thread moves
+
+// cp.async of keys [kt, kt + kKeys) of K and V into ring stage `st`
+template <int D>
+__device__ __forceinline__ void load_kv(Smem<D>& sm, int st, const float* kb, const float* vb, int kt) {
+  const float* kt_b = kb + (size_t)kt * D;
+  const float* vt_b = vb + (size_t)kt * D;
+#pragma unroll
+  for (int n = 0; n < kTileChunks<D>; ++n) {
+    const unsigned i = threadIdx.x + n * kThreads;  // chunk i: row i / (D/4), columns 4·(i % (D/4)) + 0..3
+    cp_async16(&sm.raw[st][0][cidx<kKeys>(i / (D / 4), i % (D / 4) * 4)], kt_b + 4 * i);
+    cp_async16(&sm.raw[st][1][4 * i], vt_b + 4 * i);
+  }
+}
+
+// The landed stage `st` into the split operands: K's hi/lo at the same
+// operand-layout index, and Vᵀ's hi/lo with the keys of every 8 in the order
+// 0, 2, 4, 6, 1, 3, 5, 7 (contraction position t holds key 2t, t + 4 key 2t + 1).
+template <int D>
+__device__ __forceinline__ void split_kv(Smem<D>& sm, int st) {
+  const float4* kr = reinterpret_cast<const float4*>(sm.raw[st][0]);
+#pragma unroll
+  for (int n = 0; n < kTileChunks<D>; ++n) {
+    const unsigned i = threadIdx.x + n * kThreads;
+    float4 hi, lo;
+    split4(kr[i], hi, lo);
+    reinterpret_cast<float4*>(sm.k_hi)[i] = hi;
+    reinterpret_cast<float4*>(sm.k_lo)[i] = lo;
+  }
+  const float* vr = sm.raw[st][1];
+#pragma unroll
+  for (int n = 0; n < kTileChunks<D>; ++n) {
+    const unsigned i = threadIdx.x + n * kThreads;
+    const unsigned d = i % D, pg = i / D;          // positions 4pg … 4pg + 3 of Vᵀ's row d
+    const unsigned key0 = (pg >> 1) * 8 + (pg & 1);  // hold keys key0 + 0, 2, 4, 6
+    float4 x = make_float4(vr[key0 * D + d], vr[(key0 + 2) * D + d], vr[(key0 + 4) * D + d],
+                           vr[(key0 + 6) * D + d]);
+    float4 hi, lo;
+    split4(x, hi, lo);
+    const unsigned at = cidx<D + 8>(d, 4 * pg);
+    *reinterpret_cast<float4*>(&sm.vt_hi[at]) = hi;
+    *reinterpret_cast<float4*>(&sm.vt_lo[at]) = lo;
+  }
+}
+
+// Forward of q [BH, Sq, D] against k, v [BH, Skv, D]; causal keeps the pair
+// (i, j) iff j <= i + shift. Grid (Sq / kRows, BH), kThreads threads,
+// sizeof(Smem<D>) bytes of dynamic shared memory; two blocks an SM up to
+// D = 32 (at most 128 registers a thread).
+template <int D, bool Causal>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 1 : 2)
+flash_fwd_tc(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+             float* __restrict__ o, float* __restrict__ lse, int s_q, int s_kv, int shift, float scale) {
+  extern __shared__ __align__(128) unsigned char smem_bytes[];
+  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_bytes);
+  const int bh = blockIdx.y;
+  const int row0 = (Causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kRows;  // causal: heaviest first
+  const float* kb = k + (size_t)bh * s_kv * D;
+  const float* vb = v + (size_t)bh * s_kv * D;
+  const int kend = Causal ? key_end(row0, shift, s_kv) : s_kv;
+  const int n_tiles = (kend + kKeys - 1) / kKeys;  // tiles past s_kv are never read: s_kv % kRows == 0
+
+#pragma unroll
+  for (int st = 0; st < kStages; ++st) {
+    if (st < n_tiles) load_kv<D>(sm, st, kb, vb, st * kKeys);
+    cp_async_commit();
+  }
+  // Q's hi/lo, its sign folded in so that the kernel scales by |scale|
+  const float sgn = scale < 0.f ? -1.f : 1.f;
+  const float4* qb = reinterpret_cast<const float4*>(q + ((size_t)bh * s_q + row0) * D);
+#pragma unroll
+  for (int n = 0; n < 2 * kTileChunks<D>; ++n) {
+    const unsigned i = threadIdx.x + n * kThreads, r = i / (D / 4);
+    float4 x = __ldg(qb + i), hi, lo;
+    x = make_float4(sgn * x.x, sgn * x.y, sgn * x.z, sgn * x.w);
+    split4(x, hi, lo);
+    const unsigned at = r / 64 * 64 * D + cidx<64>(r % 64, i % (D / 4) * 4);
+    *reinterpret_cast<float4*>(&sm.q_hi[at]) = hi;
+    *reinterpret_cast<float4*>(&sm.q_lo[at]) = lo;
+  }
+  for (unsigned i = threadIdx.x; i < 8 * kKeys; i += kThreads) {  // Vᵀ's rows D … D + 7
+    const unsigned r = D + i / kKeys, at = cidx<D + 8>(r, i % kKeys);
+    sm.vt_hi[at] = r == D ? 1.f : 0.f;
+    sm.vt_lo[at] = 0.f;
+  }
+  proxy_fence();
+
+  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wrow0 = row0 + 64 * wg;                     // this warpgroup's first query row
+  const int row_a = wrow0 + 16 * warp + g, row_b = row_a + 8;  // the two rows this thread holds
+  // descriptor bases: shared address / 16 of the block's shared memory, and of this warpgroup's Q rows
+  const uint32_t base16 = static_cast<uint32_t>(__cvta_generic_to_shared(smem_bytes)) >> 4;
+  const uint32_t q16 = base16 + 64 * D * 4 / 16 * wg;
+  using S = Smem<D>;
+  const float c = fabsf(scale) * kLog2e;  // p = 2^(s·c − m): m is in units of log2
+
+  float acc[(D + 8) / 2];  // O and, in column D, the row sum l
+#pragma unroll
+  for (int i = 0; i < (D + 8) / 2; ++i) acc[i] = 0.f;
+  float m_a = -1e30f, m_b = -1e30f;  // finite: m − m_new is never inf − inf
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<kStages - 1>();  // this thread's copies of tile `it` have landed
+    __syncthreads();               // everyone's; and the last tile's wgmmas are done
+    split_kv<D>(sm, it % kStages);
+    proxy_fence();
+    __syncthreads();
+    if (it + kStages < n_tiles) load_kv<D>(sm, it % kStages, kb, vb, (it + kStages) * kKeys);
+    cp_async_commit();
+
+    const int kt = it * kKeys;
+    if (Causal && kt > wrow0 + 63 + shift) continue;  // wholly in this warpgroup's future
+
+    // S = Q·Kᵀ, small products first. s[4j + e] is (row_a, key kt + 8j + 2t + e),
+    // s[4j + 2 + e] the same key on row_b.
+    float s[32];
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks) {
+      const uint32_t at = 4 * 512 * ks;  // bytes to columns 8ks … 8ks + 7 of a 64-row operand
+      wgmma_ss_n64(s, desc<64>(q16, offsetof(S, q_lo) + at), desc<kKeys>(base16, offsetof(S, k_hi) + at), ks > 0);
+      wgmma_ss_n64(s, desc<64>(q16, offsetof(S, q_hi) + at), desc<kKeys>(base16, offsetof(S, k_lo) + at), 1);
+    }
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks)
+      wgmma_ss_n64(s, desc<64>(q16, offsetof(S, q_hi) + 4 * 512 * ks),
+                   desc<kKeys>(base16, offsetof(S, k_hi) + 4 * 512 * ks), 1);
+    wg_commit();
+    wg_wait();
+    pin(s);
+
+    const bool mask = Causal && kt + kKeys - 1 > wrow0 + shift;  // the tile crosses the diagonal
+    if (mask) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = kt + 8 * j + 2 * t + e;
+          if (key > row_a + shift) s[4 * j + e] = -INFINITY;
+          if (key > row_b + shift) s[4 * j + 2 + e] = -INFINITY;
+        }
+    }
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx_a = fmaxf(mx_a, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off *= 2) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+    }
+    const float mn_a = fmaxf(m_a, mx_a * c), mn_b = fmaxf(m_b, mx_b * c);  // fmaxf drops a NaN
+    const float corr_a = exp2_ftz(m_a - mn_a), corr_b = exp2_ftz(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float pa = exp2_ftz(fmaf(s[4 * j + e], c, -mn_a));
+        float pb = exp2_ftz(fmaf(s[4 * j + 2 + e], c, -mn_b));
+        if (mask) {  // exactly 0, whatever the scale
+          pa = s[4 * j + e] == -INFINITY ? 0.f : pa;
+          pb = s[4 * j + 2 + e] == -INFINITY ? 0.f : pb;
+        }
+        s[4 * j + e] = pa;
+        s[4 * j + 2 + e] = pb;
+      }
+
+    // The tile's P·[V | 1] into a fresh accumulator, small products first,
+    // then O = O·corr + P·V (and l = l·corr + Σ P) in FFMAs: the tensor
+    // cores' own sums then span one tile, not the whole row (their rounding
+    // grows with the terms they add).
+    // The A fragment of keys 8j … 8j + 7 is (row_a, pos t), (row_b, pos t),
+    // (row_a, pos t + 4), (row_b, pos t + 4).
+    uint32_t ph[32], pl[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      ph[i] = tf32(s[i]);
+      pl[i] = __float_as_uint(s[i] - __uint_as_float(ph[i]));
+    }
+    pin(ph);
+    pin(pl);
+    float pv[(D + 8) / 2];
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t a_lo[4] = {pl[4 * j], pl[4 * j + 2], pl[4 * j + 1], pl[4 * j + 3]};
+      const uint32_t a_hi[4] = {ph[4 * j], ph[4 * j + 2], ph[4 * j + 1], ph[4 * j + 3]};
+      wgmma_pv<D>(pv, a_lo, desc<D + 8>(base16, offsetof(S, vt_hi) + 32 * (D + 8) * j), j > 0);
+      wgmma_pv<D>(pv, a_hi, desc<D + 8>(base16, offsetof(S, vt_lo) + 32 * (D + 8) * j), 1);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t a_hi[4] = {ph[4 * j], ph[4 * j + 2], ph[4 * j + 1], ph[4 * j + 3]};
+      wgmma_pv<D>(pv, a_hi, desc<D + 8>(base16, offsetof(S, vt_hi) + 32 * (D + 8) * j), 1);
+    }
+    wg_commit();
+    wg_wait();
+    pin(pv);
+#pragma unroll
+    for (int j = 0; j < (D + 8) / 8; ++j) {
+      acc[4 * j] = fmaf(acc[4 * j], corr_a, pv[4 * j]);
+      acc[4 * j + 1] = fmaf(acc[4 * j + 1], corr_a, pv[4 * j + 1]);
+      acc[4 * j + 2] = fmaf(acc[4 * j + 2], corr_b, pv[4 * j + 2]);
+      acc[4 * j + 3] = fmaf(acc[4 * j + 3], corr_b, pv[4 * j + 3]);
+    }
+  }
+
+  // l: column D, held by the quad's thread t = 0
+  const float l_a = __shfl_sync(0xffffffffu, acc[D / 2], lane & ~3);
+  const float l_b = __shfl_sync(0xffffffffu, acc[D / 2 + 2], lane & ~3);
+  // masked-row guard: a row that saw no key has l == 0 and acc == 0
+  const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f, inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
+  float* oa = o + ((size_t)bh * s_q + row_a) * D + 2 * t;
+  float* ob = o + ((size_t)bh * s_q + row_b) * D + 2 * t;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    *reinterpret_cast<float2*>(oa + 8 * j) = make_float2(acc[4 * j] * inv_a, acc[4 * j + 1] * inv_a);
+    *reinterpret_cast<float2*>(ob + 8 * j) = make_float2(acc[4 * j + 2] * inv_b, acc[4 * j + 3] * inv_b);
+  }
+  if (t == 0) {
+    lse[(size_t)bh * s_q + row_a] = l_a > 0.f ? fmaf(m_a, kLn2, logf(l_a)) : -1e30f;
+    lse[(size_t)bh * s_q + row_b] = l_b > 0.f ? fmaf(m_b, kLn2, logf(l_b)) : -1e30f;
+  }
+}
+
+// One launch of the forward; the cudaError_t of the launch.
+template <int D, bool Causal>
+int launch_fwd(const float* q, const float* k, const float* v, float* o, float* lse, int bh, int s_q, int s_kv,
+               int shift, float scale, cudaStream_t st) {
+  constexpr int kSmem = sizeof(Smem<D>);
+  const cudaError_t e = cudaFuncSetAttribute(flash_fwd_tc<D, Causal>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (e != cudaSuccess) return (int)e;
+  flash_fwd_tc<D, Causal><<<dim3(s_q / kRows, bh), kThreads, kSmem, st>>>(q, k, v, o, lse, s_q, s_kv, shift,
+                                                                            scale);
+  return (int)cudaGetLastError();
+}
+
+int fwd(const float* q, const float* k, const float* v, float* o, float* lse, int bh, int s_q, int s_kv, int d,
+        bool causal, int shift, float scale, void* stream) {
+  if (!rect_shape_ok(bh, s_q, s_kv)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d * 2 + (causal ? 1 : 0)) {
+    case 32: return launch_fwd<16, false>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);
+    case 33: return launch_fwd<16, true>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);
+    case 64: return launch_fwd<32, false>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);
+    case 65: return launch_fwd<32, true>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);
+    case 128: return launch_fwd<64, false>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);
+    case 129: return launch_fwd<64, true>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tc
+
 // one launch of KERNEL<D, causal> for D in {16, 32, 64}; returns from the enclosing function
 #define FLASH_RECT_DISPATCH(KERNEL, grid, d, causal, st, ...)                                              \
   switch ((d) * 2 + ((causal) ? 1 : 0)) {                                                                 \
@@ -480,16 +826,7 @@ extern "C" {
 // S a multiple of 128. Returns the cudaError_t of the launch.
 int flash_fwd_launch(const float* q, const float* k, const float* v, float* o, float* lse, int bh, int s,
                      int d, float scale, void* stream) {
-  if (!shape_ok(bh, s)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(s / kRows, bh);
-  switch (d) {
-    case 16: flash_fwd_kernel<16><<<grid, kRows * 1, 0, st>>>(q, k, v, o, lse, s, scale); break;
-    case 32: flash_fwd_kernel<32><<<grid, kRows * 2, 0, st>>>(q, k, v, o, lse, s, scale); break;
-    case 64: flash_fwd_kernel<64><<<grid, kRows * 4, 0, st>>>(q, k, v, o, lse, s, scale); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return tc::fwd(q, k, v, o, lse, bh, s, s, d, true, 0, scale, stream);
 }
 
 // dq [BH, S, D] from q, k, v, dO [BH, S, D] and lse, delta [BH, S].
@@ -534,10 +871,7 @@ int flash_bwd_dkv_launch(const float* q, const float* k, const float* v, const f
 // k_off + j. Sq and Skv multiples of 128, D in {16, 32, 64}.
 int flash_fwd_rect_launch(const float* q, const float* k, const float* v, float* o, float* lse, int bh, int s_q,
                           int s_kv, int d, int causal, int q_off, int k_off, float scale, void* stream) {
-  if (!rect_shape_ok(bh, s_q, s_kv)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(s_q / kRows, bh);
-  FLASH_RECT_DISPATCH(flash_fwd_rect_kernel, grid, d, causal, st, q, k, v, o, lse, s_q, s_kv, q_off - k_off, scale)
+  return tc::fwd(q, k, v, o, lse, bh, s_q, s_kv, d, causal != 0, q_off - k_off, scale, stream);
 }
 
 // Rectangular dq [BH, Sq, D] from q, dO [BH, Sq, D], k, v [BH, Skv, D] and lse, delta [BH, Sq].

@@ -8,7 +8,10 @@ it also runs on a machine that has only PyTorch:
 
 Tolerances are `chip_smoke.py`'s: relative 1e-5 of the largest reference
 entry for the flash forward, 1e-4 for its gradients (sums over up to S
-keys in another order).
+keys in another order). With q, k x 8 (scores x 64) the f32 rounding of the
+scores alone moves o by ~1e-5 of its largest entry, so there the forward is
+held against the plain version in float64: within 1e-5 of it, or no further
+from it than twice the plain version in f32 is.
 """
 
 import numpy as np
@@ -45,7 +48,7 @@ def test_flash_kernels_match_plain(s, d):
 @pytest.mark.parametrize(
     "s_q,s_kv,d,causal,q_off,k_off",
     [(256, 256, 16, False, 0, 0), (128, 384, 32, False, 0, 0), (256, 256, 64, True, 0, 64),
-     (128, 128, 16, True, 0, 128), (128, 384, 32, True, 256, 64)],
+     (128, 128, 16, True, 0, 128), (128, 384, 32, True, 256, 64), (128, 256, 16, True, 37, 0)],
 )
 def test_rect_kernels_match_plain(s_q, s_kv, d, causal, q_off, k_off):
     # both modes of the rectangular family; rows that see no key are exact
@@ -66,3 +69,23 @@ def test_rect_kernels_match_plain(s_q, s_kv, d, causal, q_off, k_off):
             *flash_cuda.flash_bwd_dkv_rect_plain(q, k, v, do, lse_ref, delta, *args))
     for a, b in zip(got, want):
         assert _rel(a, b) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,mode", [("flash_fwd", ()), ("flash_fwd_rect", (False, 0, 0)),
+                                       ("flash_fwd_rect", (True, 64, 0))])
+def test_forward_repeats_bitwise_and_holds_large_scores(name, mode):
+    _card()
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.tensor(rng.normal(size=(8, 512, 16)).astype(np.float32), device="cuda") for _ in range(3))
+    kernel, plain = getattr(flash_cuda, name), getattr(flash_cuda, name + "_plain")
+    first, second = kernel(q, k, v, 0.25, *mode), kernel(q, k, v, 0.25, *mode)
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    q8, k8 = 8 * q, 8 * k
+    got = kernel(q8, k8, v, 0.25, *mode)
+    f32 = plain(q8, k8, v, 0.25, *mode)
+    f64 = plain(q8.double(), k8.double(), v.double(), 0.25, *mode)
+    for a, b, ref in zip(got, f32, f64):
+        assert bool(torch.isfinite(a).all())
+        assert _rel(a.double(), ref) <= max(1e-5, 2 * _rel(b.double(), ref))

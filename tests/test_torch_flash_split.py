@@ -1,0 +1,208 @@
+"""A numpy model of the flash forward kernels' split-TF32 arithmetic.
+
+`csrc/flash_attention.cu` computes the forward's two products on the tensor
+cores in TF32, each operand x split as hi = tf32(x) (rounded to nearest)
+and lo = x − hi, of which the tensor cores read the TF32 part truncated
+(as they do any f32 operand: measured on the card), and a·b taken as
+lo_a·hi_b + hi_a·lo_b + hi_a·hi_b. This file models that kernel in numpy:
+the same rounding bit for bit (`tf32` is the kernel's), the same order of
+products, 64-key tiles with the online softmax in base 2, each tile's
+P·[V | 1] (the ones column gives the row sum l) summed apart and folded
+into O and l as O·corr + P·V. Each tensor-core instruction (8 products) is
+modelled as an exact sum rounded once to f32. Held against float64, the model keeps o and lse within 1e-6
+of the largest entry at D in {16, 32, 64}, where one TF32 pass would miss
+the forward's 1e-5 gate: the precision argument for the kernel before it
+runs on the card. The layout index arithmetic the kernel uses (operand
+layout and descriptor strides, the P fragment and the key order of Vᵀ) is
+checked here too, as written in the kernel.
+"""
+
+import numpy as np
+import pytest
+
+KEYS = 64  # keys a tile (kKeys)
+ROWS = 128  # query rows a block (kRows)
+LN2 = np.log(2.0)
+LOG2E = np.float32(1.4426950408889634)
+
+
+def tf32(x):
+    """Round f32 to TF32, to nearest with ties away: the kernel's `tf32`."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def truncate(x):
+    """The TF32 part of f32 x as the tensor cores read it: the low 13 bits dropped."""
+    return (np.asarray(x, np.float32).view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def split(x):
+    x = np.asarray(x, np.float32)
+    hi = tf32(x)
+    return hi, truncate(x - hi)  # x − hi is exact in f32
+
+
+def wgmma(acc, a, b):
+    """acc + a·b with one f32 rounding (a [M, 8] · b [8, N], exact products)."""
+    return (acc.astype(np.float64) + a.astype(np.float64) @ b.astype(np.float64)).astype(np.float32)
+
+
+def split_product(a, b, acc=None, passes=3):
+    """a [M, K] · b [K, N] in the kernel's order: the small products over
+    every k8 step, then the large ones. passes=1 is one TF32 pass."""
+    (ah, al), (bh, bl) = split(a), split(b)
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32) if acc is None else acc
+    steps = [slice(k, k + 8) for k in range(0, a.shape[1], 8)]
+    if passes == 3:
+        for ks in steps:
+            acc = wgmma(acc, al[:, ks], bh[ks])
+            acc = wgmma(acc, ah[:, ks], bl[ks])
+    for ks in steps:
+        acc = wgmma(acc, ah[:, ks], bh[ks])
+    return acc
+
+
+def kernel_model(q, k, v, scale, causal=False, shift=0, passes=3):
+    """(o, lse) of one (batch·head) as the kernel computes them: q [Sq, D],
+    k, v [Skv, D] f32; causal keeps (i, j) iff j <= i + shift."""
+    s_q, s_kv = q.shape[0], k.shape[0]
+    c = np.float32(abs(scale)) * LOG2E
+    q = np.float32(np.sign(scale) or 1.0) * q
+    rows = np.arange(s_q)
+    v1 = np.concatenate([v, np.ones((s_kv, 1), np.float32)], 1)
+    acc = np.zeros((s_q, v1.shape[1]), np.float32)  # O and, last, the row sum l
+    m = np.full(s_q, -1e30, np.float32)
+    for row0 in range(0, s_q, ROWS):
+        kend = min(max(row0 + ROWS + shift, 0), s_kv) if causal else s_kv
+        blk = slice(row0, row0 + ROWS)
+        for kt in range(0, kend, KEYS):
+            s = split_product(q[blk], k[kt:kt + KEYS].T, passes=passes)
+            keep = np.ones(s.shape, bool)
+            if causal:
+                keep = (kt + np.arange(KEYS))[None, :] <= rows[blk, None] + shift
+            s = np.where(keep, s, -np.inf).astype(np.float32)
+            mn = np.maximum(m[blk], (s.max(1) * c).astype(np.float32))
+            corr = np.exp2(m[blk] - mn).astype(np.float32)
+            x = (s.astype(np.float64) * c - mn[:, None]).astype(np.float32)  # one FFMA
+            p = np.where(keep, np.exp2(x), 0.0).astype(np.float32)
+            pv = split_product(p, v1[kt:kt + KEYS], passes=passes)  # P·[V | 1]
+            acc[blk] = (acc[blk].astype(np.float64) * corr[:, None] + pv).astype(np.float32)  # one FFMA
+            m[blk] = mn
+    o, l = acc[:, :-1], acc[:, -1]
+    live = l > 0
+    inv = np.where(live, 1.0 / np.where(live, l, 1.0), 0.0).astype(np.float32)
+    lse = np.where(live, m.astype(np.float64) * LN2 + np.log(np.where(live, l, 1.0)), -1e30).astype(np.float32)
+    return (o * inv[:, None]).astype(np.float32), lse
+
+
+def reference(q, k, v, scale, causal=False, shift=0):
+    """float64 attention: (o, lse), rows that see no key o = 0, lse = −1e30."""
+    s = (q.astype(np.float64) @ k.T.astype(np.float64)) * scale
+    keep = np.ones(s.shape, bool)
+    if causal:
+        keep = np.arange(k.shape[0])[None, :] <= np.arange(q.shape[0])[:, None] + shift
+    s = np.where(keep, s, -np.inf)
+    live = keep.any(1)
+    mx = np.where(live, s.max(1), 0.0)
+    p = np.exp(s - mx[:, None])
+    l = np.where(live, p.sum(1), 1.0)
+    o = np.where(live[:, None], (p @ v.astype(np.float64)) / l[:, None], 0.0)
+    return o, np.where(live, mx + np.log(l), -1e30)
+
+
+def _rel(a, b):
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _qkv(s_q, s_kv, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(s_q, d)).astype(np.float32), rng.normal(size=(s_kv, d)).astype(np.float32),
+            rng.normal(size=(s_kv, d)).astype(np.float32))
+
+
+def test_split_is_two_tf32_values_within_2pow21():
+    x = np.random.default_rng(0).normal(size=100_000).astype(np.float32) * np.float32(1e3)
+    hi, lo = split(x)
+    for part in (hi, lo):
+        assert not (part.view(np.uint32) & np.uint32(0x1FFF)).any()  # low 13 bits clear: TF32
+    err = np.abs(x.astype(np.float64) - hi - lo) / np.abs(x.astype(np.float64))
+    assert err.max() <= 2.0 ** -21
+    assert tf32(np.float32(1 + 2 ** -11)) == np.float32(1 + 2 ** -10)  # a tie rounds away from zero
+
+
+# (s_q, s_kv, causal, shift): the aligned causal forward, the non-causal
+# rectangular one, and causal on offsets (rows with no key, shifts off the
+# 128-row block and the 64-key tile grids)
+CASES = [(256, 256, True, 0), (256, 256, False, 0), (128, 384, True, 192), (256, 256, True, -64), (128, 256, True, 37)]
+
+
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("s_q,s_kv,causal,shift", CASES)
+def test_split_tf32_forward_within_1e6_of_float64(d, s_q, s_kv, causal, shift):
+    q, k, v = _qkv(s_q, s_kv, d, seed=d + s_q + shift)
+    scale = 1.0 / np.sqrt(d)
+    o, lse = kernel_model(q, k, v, scale, causal, shift)
+    o_ref, lse_ref = reference(q, k, v, scale, causal, shift)
+    live = lse_ref > -1e29
+    assert _rel(o, o_ref) <= 1e-6
+    assert _rel(lse[live], lse_ref[live]) <= 1e-6
+    assert (o[~live] == 0).all() and (lse[~live] == np.float32(-1e30)).all()
+
+
+@pytest.mark.parametrize("d", [16, 64])
+def test_one_tf32_pass_misses_the_forward_gate(d):
+    q, k, v = _qkv(128, 256, d, seed=d)
+    o_ref, _ = reference(q, k, v, 0.25)
+    assert _rel(kernel_model(q, k, v, 0.25, passes=1)[0], o_ref) > 1e-5
+    assert _rel(kernel_model(q, k, v, 0.25)[0], o_ref) <= 1e-6
+
+
+def test_negative_scale_folds_into_q():
+    q, k, v = _qkv(128, 128, 16, seed=3)
+    o, lse = kernel_model(q, k, v, -0.3, True, 0)
+    o_ref, lse_ref = reference(q, k, v, -0.3, True, 0)
+    assert _rel(o, o_ref) <= 1e-6 and _rel(lse, lse_ref) <= 1e-6
+
+
+def cidx(rows, r, c):
+    """The kernel's `cidx<R>`: float index of (r, c) in wgmma's K-major layout without swizzle."""
+    return (((c >> 2) * (rows >> 3) + (r >> 3)) << 5) + ((r & 7) << 2) + (c & 3)
+
+
+@pytest.mark.parametrize("rows", [16, 32, 64])
+def test_operand_layout_matches_the_descriptor_strides(rows):
+    # wgmma reads (r, c) of a k8 step at start + (c // 4)·LBO + (r // 8)·SBO + (r % 8)·16 + (c % 4)·4
+    # bytes, with the kernel's LBO = rows/8 · 128 and SBO = 128
+    lbo, sbo = rows // 8 * 128, 128
+    r, c = np.meshgrid(np.arange(rows), np.arange(8), indexing="ij")
+    for ks in range(4):
+        start = 4 * cidx(rows, 0, 8 * ks)
+        addr = start + (c // 4) * lbo + (r // 8) * sbo + (r % 8) * 16 + (c % 4) * 4
+        assert (addr == 4 * cidx(rows, r, 8 * ks + c)).all()
+    idx = cidx(rows, *np.meshgrid(np.arange(rows), np.arange(64), indexing="ij"))
+    assert np.unique(idx).size == rows * 64 and idx.max() == rows * 64 - 1  # a permutation
+
+
+def test_p_fragment_and_vt_key_order_give_p_times_v():
+    # the S accumulator gives thread (g, t) of warp w rows 16w + g (+8) and keys 8j + 2t (+1); the
+    # TF32 A fragment takes (row, position) = (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); the
+    # kernel hands {d[4j], d[4j+2], d[4j+1], d[4j+3]} and stores key kappa of Vᵀ at position
+    # (kappa & ~7) | ((kappa & 7) >> 1) | ((kappa & 1) << 2)
+    rng = np.random.default_rng(1)
+    p, v = rng.random((64, 64)), rng.normal(size=(64, 16))
+    a = np.zeros((64, 64))
+    for w in range(4):
+        for lane in range(32):
+            g, t = lane // 4, lane % 4
+            ra, rb = 16 * w + g, 16 * w + g + 8
+            for j in range(8):
+                d = [p[ra, 8 * j + 2 * t], p[ra, 8 * j + 2 * t + 1], p[rb, 8 * j + 2 * t], p[rb, 8 * j + 2 * t + 1]]
+                frag = (d[0], d[2], d[1], d[3])
+                for (row, pos), val in zip(((ra, t), (rb, t), (ra, t + 4), (rb, t + 4)), frag):
+                    a[row, 8 * j + pos] = val
+    kappa = np.arange(64)
+    pos = (kappa & ~7) | ((kappa & 7) >> 1) | ((kappa & 1) << 2)
+    vt = np.zeros((16, 64))
+    vt[:, pos] = v.T
+    np.testing.assert_allclose(a @ vt.T, p @ v, rtol=1e-12)
