@@ -8,7 +8,10 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 Phases, each reported on its own lines; any failure exits non-zero:
 
 1. card     — `nvidia-smi` name and power limit;
-2. build    — nvcc builds the port's two CUDA sources, both at once;
+2. build    — nvcc builds the port's two CUDA sources, both at once; ptxas's
+              registers and spills and the SASS tensor-core instruction
+              counts of every tensor-core flash instance (the forward and
+              the rectangular backward), each of which must hold HGMMA;
 3. kernels  — each compact-direction kernel against its plain PyTorch version
               on the card (K=3, m=10, N at every Net group size, one
               ResNet18-block-sized N, counts {0, 3, 10}, a zero-curvature
@@ -39,7 +42,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
               cases (one at q_off 37, off the 64-key tile grid); same tolerances, and rows that see no key exactly o = 0,
               lse = -1e30; `flash_block`'s autograd with non-zero o and lse
               cotangents against autograd through the plain forward; the
-              forward's repeat and x8 checks at the ViT shape, non-causal and
+              repeat and x8 checks of the forward, and of dq and dk/dv
+              (`bwd_extra_checks`, within 1e-4 of float64 or twice the f32
+              plain version's error), at the ViT shape, non-causal and
               causal; times at the ViT shape beside the bounds and
               `scaled_dot_product_attention`;
 6. parity   — a tiny drive with the plain ('compact') and the fused-kernel
@@ -182,18 +187,25 @@ def rel_err(out, ref) -> float:
     return float((out - ref).abs().max()) / (scale if scale > 0 else 1.0)
 
 
+TC_KERNELS = ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")  # the tensor-core flash kernels
+
+
 def report_forward_build(lib) -> None:
-    """What the compiler made of the flash forward kernels: ptxas's registers,
-    shared memory and spills (from the build log) and any warning, and the
-    count of tensor-core instructions in each instance's SASS."""
+    """What the compiler made of the tensor-core flash kernels (the forward and
+    the rectangular backward): ptxas's registers, shared memory and spills
+    (from the build log) and any warning, and the count of tensor-core
+    instructions in each instance's SASS, which must hold HGMMA."""
     import shutil
+
+    def tc(name):
+        return name is not None and any(k in name for k in TC_KERNELS)
 
     fn = None
     for line in lib.with_suffix(".log").read_text(errors="replace").splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1] if "'" in line else line
-        elif "warning" in line.lower() or (fn and "flash_fwd_tc" in fn and ("Used" in line or "spill" in line)):
-            print(f"ptxas {fn if fn and 'flash_fwd_tc' in fn else ''} {line.strip()}", flush=True)
+        elif "warning" in line.lower() or (tc(fn) and ("Used" in line or "spill" in line)):
+            print(f"ptxas {fn if tc(fn) else ''} {line.strip()}", flush=True)
     nvcc_dir = os.path.dirname(os.path.realpath(shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"))
     tool = shutil.which("cuobjdump") or os.path.join(nvcc_dir, "cuobjdump")
     if not os.path.exists(tool):
@@ -202,9 +214,11 @@ def report_forward_build(lib) -> None:
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
     for chunk in sass.split("Function : ")[1:]:
         name = chunk.split("\n", 1)[0].strip()
-        if "flash_fwd_tc" in name:
+        if tc(name):
             print(f"sass {name} HGMMA={chunk.count('HGMMA')} HMMA={chunk.count('HMMA')} "
                   f"MUFU.EX2={chunk.count('MUFU.EX2')}", flush=True)
+            if "HGMMA" not in chunk:
+                fail(f"{name}: no HGMMA in its SASS")
 
 
 def history(n: int, seed: int):
@@ -385,6 +399,57 @@ def fwd_extra_checks(label: str, kernel, plain, qkv, scale: float, *mode) -> Non
         if not finite or not errs[name] <= max(RTOL, LARGE_SLACK * plain_errs[name]):
             fail(f"{label} x8: {name} is {errs[name]:.3e} from float64 (the f32 plain version: "
                  f"{plain_errs[name]:.3e}; finite={finite})")
+
+
+def bwd_extra_checks(label: str, inputs, scale: float, *mode) -> None:
+    """`fwd_extra_checks`' two checks for both rectangular backward kernels at
+    a path shape, from the plain forward's lse and delta: two launches give
+    the same bits; and with q, k x 8, dq, dk and dv within FLASH_GRAD_RTOL of
+    the plain version in float64, or no further from it than LARGE_SLACK
+    times the f32 plain version is."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
+
+    q, k, v, do = inputs
+    kernels = (fc.flash_bwd_dq_rect, fc.flash_bwd_dkv_rect)
+    plains = (fc.flash_bwd_dq_rect_plain, fc.flash_bwd_dkv_rect_plain)
+
+    def grads(fns, q, k, v, do, lse, delta):
+        return (fns[0](q, k, v, do, lse, delta, scale, *mode), *fns[1](q, k, v, do, lse, delta, scale, *mode))
+
+    def stats(q, k):
+        o, lse = fc.flash_fwd_rect_plain(q, k, v, scale, *mode)
+        return lse, (do * o).sum(-1)
+
+    lse, delta = stats(q, k)
+    runs = [grads(kernels, q, k, v, do, lse, delta) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(*runs))
+    print(f"flash repeat {label} bitwise_equal={same}", flush=True)
+    if not same:
+        fail(f"{label}: two launches on the same inputs differ")
+    del runs
+
+    q8, k8 = 8 * q, 8 * k
+    lse, delta = stats(q8, k8)
+    got = grads(kernels, q8, k8, v, do, lse, delta)
+    f32 = grads(plains, q8, k8, v, do, lse, delta)
+    f64 = grads(plains, *(t.double() for t in (q8, k8, v, do, lse, delta)))
+    torch.cuda.synchronize()
+    names = ("dq", "dk", "dv")
+    errs = {n: rel_err(a.double(), ref) for n, a, ref in zip(names, got, f64)}
+    plain_errs = {n: rel_err(b.double(), ref) for n, b, ref in zip(names, f32, f64)}
+    vs_plain = {n: rel_err(a, b) for n, a, b in zip(names, got, f32)}
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    print(f"flash large {label} x8 kernel_vs_f64 " + " ".join(f"{n}={errs[n]:.3e}" for n in names)
+          + " plain_f32_vs_f64 " + " ".join(f"{n}={plain_errs[n]:.3e}" for n in names)
+          + " kernel_vs_plain_f32 " + " ".join(f"{n}={vs_plain[n]:.3e}" for n in names) + f" finite={finite}",
+          flush=True)
+    for n in names:
+        if not finite or not errs[n] <= max(FLASH_GRAD_RTOL, LARGE_SLACK * plain_errs[n]):
+            fail(f"{label} x8: {n} is {errs[n]:.3e} from float64 (the f32 plain version: "
+                 f"{plain_errs[n]:.3e}; finite={finite})")
 
 
 def phase_flash():
@@ -589,10 +654,14 @@ def phase_flash_rect():
         block_autograd_check(s_q, s_kv, causal, q_off, k_off)
     bh, s, d = RECT_PATH
     abs_errs = rect_check(bh, s, s, d, False, 0, 0, seed=2)
-    qkv = rect_inputs(bh, s, s, d, seed=6)[:3]
+    inputs = rect_inputs(bh, s, s, d, seed=6)
+    qkv = inputs[:3]
     fwd_extra_checks("flash_fwd_rect", fc.flash_fwd_rect, fc.flash_fwd_rect_plain, qkv, 1.0 / d ** 0.5)
     fwd_extra_checks("flash_fwd_rect causal q_off=64 k_off=0", fc.flash_fwd_rect, fc.flash_fwd_rect_plain, qkv,
                      1.0 / d ** 0.5, True, 64, 0)
+    bwd_extra_checks("flash_bwd_rect", inputs, 1.0 / d ** 0.5)
+    bwd_extra_checks("flash_bwd_rect causal q_off=64 k_off=0", inputs, 1.0 / d ** 0.5, True, 64, 0)
+    del inputs, qkv
 
     q, k, v, do = rect_inputs(bh, s, s, d, seed=2)
     scale = 1.0 / d ** 0.5

@@ -71,12 +71,54 @@
 //     atomics, bitwise repeatable. A row that saw no key (l = 0) stores
 //     o = 0 and lse = −1e30 exactly (`_fwd_kernel` :428-433).
 //
-// Backward (plain FFMA kernels in f32; tensor cores are later work).
+// Rectangular backward: dq (`flash_bwd_dq_tc`) and dk/dv (`flash_bwd_dkv_tc`)
+// on the tensor cores, in the forward's split TF32 (lo·hi + hi·lo + hi·hi).
+//   Bound on an H100 SXM: dq's three products (S, dP, dS·K) and dk/dv's four
+//   (S, dP, Pᵀ·dO, dSᵀ·Q) at 2·D flops a pair each, three TF32 passes at
+//   495 TFLOP/s: at the ViT path's 4.0e8 non-causal pairs (BH = 6144,
+//   S = 256, D = 16) 0.234 and 0.312 ms, against 0.10 ms for the exps and
+//   0.15 and 0.18 ms for the bytes. An f32 FFMA design is held to 0.577
+//   and 0.769 ms there.
+//   Design (the forward's building blocks):
+//   * A block owns 128 rows as two warpgroups of 64: query rows for dq, key
+//     rows for dk/dv. Its own operands (Q and dO; K and V) are split into
+//     hi/lo in shared memory once, as the A operands of S = Q·Kᵀ and
+//     dP = dO·Vᵀ (Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ for dk/dv).
+//   * The other side streams through a two-stage cp.async ring: dq in
+//     tiles of 64 keys (32 at D = 64, to stay within 227 KB of shared
+//     memory), dk/dv in tiles of 32 queries (so that its two split register
+//     operands fit in 128 registers together).
+//     After a tile lands the block forms its hi/lo in operand layout (the B
+//     operands of S and dP) and, of the tile that meets the register
+//     operand, its transpose's hi/lo with the rows of every 8 stored as
+//     0, 2, 4, 6, 1, 3, 5, 7 (Kᵀ for dq; Qᵀ and dOᵀ for dk/dv).
+//   * P = 2^(s·scale·log2 e − lse·log2 e), one FFMA and an exp2 on the
+//     accumulator fragments; dS = P ∘ (dP − delta). For dq a thread's two
+//     rows carry their lse and delta in registers; for dk/dv the fragment's
+//     columns are queries, whose lse and delta are read from shared memory.
+//     A row that saw no key (lse = −1e30) carries lse·log2 e = +inf, so its
+//     P is exactly 0 without a select.
+//   * dS (dq += dS·K), Pᵀ (dv += Pᵀ·dO) and dSᵀ (dk += dSᵀ·Q) are split in
+//     registers and fed as the A operand from registers of m64nDk8 wgmmas:
+//     the accumulator's columns {2t, 2t+1} of every 8 meet the fragment's
+//     positions {t, t+4}, which the transposed operand's order matches.
+//     Unlike the forward's O, the gradients sum over every tile in the
+//     tensor cores' accumulator (no rescaling, and the split keeps them
+//     within ~1e-6 of float64: tests/test_torch_flash_split.py).
+//   * Causal: a block reads only the tiles that can see it (`key_end` for
+//     dq, from `qt0` for dk/dv); a warpgroup skips tiles wholly outside its
+//     triangle and masks, by select, only tiles across its diagonal. Causal
+//     blocks launch heaviest first: late query blocks for dq, early key
+//     blocks for dk/dv.
+//   * Each output row is summed by one warpgroup in a fixed order: no
+//     atomics, bitwise repeatable.
+//
+// Aligned causal backward (`flash_bwd_dq_kernel`, `flash_bwd_dkv_kernel`):
+// plain FFMA kernels in f32.
 //   Bound: the LM path's causal triangle holds BH·S(S+1)/2 = 2.7e8 pairs,
 //   so dq's three products are 25.8 GFLOP and dk/dv's four 34.4: 0.39 and
-//   0.51 ms at the 67 TFLOP/s of f32 outside the tensor cores; at the ViT
-//   path's 4.0e8 non-causal pairs 38.7 and 51.5 GFLOP, 0.577 and 0.769 ms.
-//   Each operand is read in ~5-30 µs: operations bound them.
+//   0.51 ms at the 67 TFLOP/s of f32 outside the tensor cores (0.16 and
+//   0.21 ms on the tensor cores in split TF32).
 //   * A block owns 128 rows of one (batch·head): query rows for dq, key
 //     rows for dk/dv. T = D/16 neighbouring threads share a row, each
 //     holding 16 of its D columns in registers; a dot product is each
@@ -262,119 +304,11 @@ __device__ __forceinline__ int key_end(int row0, int shift, int s_kv) {
   return min(max(row0 + kRows + shift, 0), s_kv);
 }
 
-template <int D, bool Causal>
-__global__ void __launch_bounds__(kRows * (D / kLane))
-flash_bwd_dq_rect_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                         const float* __restrict__ dout, const float* __restrict__ lse,
-                         const float* __restrict__ delta, float* __restrict__ dq, int s_q, int s_kv, int shift,
-                         float scale) {
-  constexpr int T = D / kLane;
-  __shared__ __align__(16) float ks[kTile * D];
-  __shared__ __align__(16) float vs[kTile * D];
-  const int bh = blockIdx.y;
-  const int row0 = blockIdx.x * kRows;
-  const int r = threadIdx.x / T, t = threadIdx.x % T;
-  const int row = row0 + r;
-  const size_t qbase = (size_t)bh * s_q * D;
-  const float* kb = k + (size_t)bh * s_kv * D;
-  const float* vb = v + (size_t)bh * s_kv * D;
-
-  float qr[kLane], dor[kLane], acc[kLane];
-  load16(qr, q + qbase + (size_t)row * D + t * kLane);
-  load16(dor, dout + qbase + (size_t)row * D + t * kLane);
-#pragma unroll
-  for (int i = 0; i < kLane; ++i) acc[i] = 0.f;
-  const float lse_r = lse[(size_t)bh * s_q + row];
-  const float delta_r = delta[(size_t)bh * s_q + row];
-  // P = 0 guard: a causal row that saw no key carries lse = −1e30
-  const bool live = !Causal || lse_r > -0.5e30f;
-
-  const int kend = Causal ? key_end(row0, shift, s_kv) : s_kv;
-  for (int kt = 0; kt < kend; kt += kTile) {
-    __syncthreads();
-    load_tile<D>(ks, kb, kt);
-    load_tile<D>(vs, vb, kt);
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float kr[kLane], vr[kLane];
-      load16(kr, ks + c * D + t * kLane);
-      load16(vr, vs + c * D + t * kLane);
-      const float sc = row_sum<T>(dot16(qr, kr)) * scale;
-      const float dp = row_sum<T>(dot16(dor, vr));
-      const bool keep = !Causal || (live && kt + c <= row + shift);
-      const float p = keep ? expf(sc - lse_r) : 0.f;
-      const float ds = p * (dp - delta_r);
-#pragma unroll
-      for (int i = 0; i < kLane; ++i) acc[i] = fmaf(ds, kr[i], acc[i]);
-    }
-  }
-  store16(dq + qbase + (size_t)row * D + t * kLane, acc, scale);
-}
-
-template <int D, bool Causal>
-__global__ void __launch_bounds__(kRows * (D / kLane))
-flash_bwd_dkv_rect_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                          const float* __restrict__ dout, const float* __restrict__ lse,
-                          const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
-                          int s_q, int s_kv, int shift, float scale) {
-  constexpr int T = D / kLane;
-  __shared__ __align__(16) float qs[kTile * D];
-  __shared__ __align__(16) float dos[kTile * D];
-  __shared__ float lses[kTile];
-  __shared__ float deltas[kTile];
-  const int bh = blockIdx.y;
-  const int key0 = blockIdx.x * kRows;  // key rows
-  const int r = threadIdx.x / T, t = threadIdx.x % T;
-  const int key = key0 + r;
-  const size_t kbase = (size_t)bh * s_kv * D;
-  const float* qb = q + (size_t)bh * s_q * D;
-  const float* dob = dout + (size_t)bh * s_q * D;
-  const float* lseb = lse + (size_t)bh * s_q;
-  const float* deltab = delta + (size_t)bh * s_q;
-
-  float kr[kLane], vr[kLane], dka[kLane], dva[kLane];
-  load16(kr, k + kbase + (size_t)key * D + t * kLane);
-  load16(vr, v + kbase + (size_t)key * D + t * kLane);
-#pragma unroll
-  for (int i = 0; i < kLane; ++i) dka[i] = dva[i] = 0.f;
-
-  // causal: query rows before key0 − shift see none of this block's keys
-  const int qt0 = Causal ? min(max(key0 - shift, 0), s_q) / kTile * kTile : 0;
-  for (int qt = qt0; qt < s_q; qt += kTile) {
-    __syncthreads();
-    load_tile<D>(qs, qb, qt);
-    load_tile<D>(dos, dob, qt);
-    for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
-      lses[i] = lseb[qt + i];
-      deltas[i] = deltab[qt + i];
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float qv[kLane], dov[kLane];
-      load16(qv, qs + c * D + t * kLane);
-      load16(dov, dos + c * D + t * kLane);
-      const float sc = row_sum<T>(dot16(kr, qv)) * scale;
-      const float dp = row_sum<T>(dot16(vr, dov));
-      const bool keep = !Causal || (key <= qt + c + shift && lses[c] > -0.5e30f);
-      const float p = keep ? expf(sc - lses[c]) : 0.f;
-      const float ds = p * (dp - deltas[c]);
-#pragma unroll
-      for (int i = 0; i < kLane; ++i) {
-        dva[i] = fmaf(p, dov[i], dva[i]);
-        dka[i] = fmaf(ds, qv[i], dka[i]);
-      }
-    }
-  }
-  store16(dk + kbase + (size_t)key * D + t * kLane, dka, scale);
-  store16(dv + kbase + (size_t)key * D + t * kLane, dva, 1.f);
-}
-
 bool rect_shape_ok(int bh, int s_q, int s_kv) { return shape_ok(bh, s_q) && shape_ok(bh, s_kv); }
 
 // ---------------------------------------------------------------------------
-// The forward on the tensor cores (both families; see the note at the top).
+// The tensor-core kernels: the forward of both families and the rectangular
+// backward (see the notes at the top).
 // ---------------------------------------------------------------------------
 namespace tc {
 
@@ -803,20 +737,540 @@ int fwd(const float* q, const float* k, const float* v, float* o, float* lse, in
   }
 }
 
-}  // namespace tc
 
-// one launch of KERNEL<D, causal> for D in {16, 32, 64}; returns from the enclosing function
-#define FLASH_RECT_DISPATCH(KERNEL, grid, d, causal, st, ...)                                              \
-  switch ((d) * 2 + ((causal) ? 1 : 0)) {                                                                 \
-    case 32: KERNEL<16, false><<<grid, kRows * 1, 0, st>>>(__VA_ARGS__); break;                           \
-    case 33: KERNEL<16, true><<<grid, kRows * 1, 0, st>>>(__VA_ARGS__); break;                            \
-    case 64: KERNEL<32, false><<<grid, kRows * 2, 0, st>>>(__VA_ARGS__); break;                           \
-    case 65: KERNEL<32, true><<<grid, kRows * 2, 0, st>>>(__VA_ARGS__); break;                            \
-    case 128: KERNEL<64, false><<<grid, kRows * 4, 0, st>>>(__VA_ARGS__); break;                          \
-    case 129: KERNEL<64, true><<<grid, kRows * 4, 0, st>>>(__VA_ARGS__); break;                           \
-    default: return (int)cudaErrorInvalidValue;                                                           \
-  }                                                                                                       \
+// ---------------------------------------------------------------------------
+// The rectangular backward on the tensor cores (see the note at the top).
+// ---------------------------------------------------------------------------
+
+// rows of the streamed operand a backward tile. dq streams 64 keys, 32 at
+// D = 64, where 64 would take the block past the 227 KB of shared memory it
+// can have. dk/dv streams 32 queries: then its two products' split register
+// operands (2 · 32 registers) fit beside the accumulators in the 128
+// registers of two blocks an SM, and are issued together.
+template <int D>
+constexpr int kDqTile = D == 64 ? 32 : 64;
+constexpr int kDkvTile = 32;
+
+// D[64 x 32] (+)= A·Bᵀ, A and B tf32 in shared memory (K-major, descriptors)
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 16] (+)= A·Bᵀ, A tf32 in registers (a0..a3), B tf32 in shared memory
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 32] (+)= A·Bᵀ, A tf32 in registers (a0..a3), B tf32 in shared memory
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A·Bᵀ, A tf32 in registers (a0..a3), B tf32 in shared memory
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int accumulate) {
+  if constexpr (N == 32) {
+    wgmma_ss_n32(d, a, b, accumulate);
+  } else {
+    wgmma_ss_n64(d, a, b, accumulate);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+  if constexpr (N == 16) {
+    wgmma_rs_n16(d, a, b, accumulate);
+  } else if constexpr (N == 32) {
+    wgmma_rs_n32(d, a, b, accumulate);
+  } else {
+    wgmma_rs_n64(d, a, b, accumulate);
+  }
+}
+
+// acc (+)= A·Bᵀ over D columns in split TF32, small products first: A is this
+// warpgroup's 64-row operand (descriptor base a16, hi/lo at byte offsets
+// a_hi, a_lo), B an N-row operand (base b16, offsets b_hi, b_lo), both in
+// shared memory. The first product overwrites acc.
+template <int D, int N>
+__device__ __forceinline__ void ss_split(float (&acc)[N / 2], uint32_t a16, uint32_t a_hi, uint32_t a_lo,
+                                         uint32_t b16, uint32_t b_hi, uint32_t b_lo) {
+#pragma unroll
+  for (int ks = 0; ks < D / 8; ++ks) {  // bytes to columns 8ks … 8ks + 7: 32·R·ks for R rows
+    wgmma_ss<N>(acc, desc<64>(a16, a_lo + 2048 * ks), desc<N>(b16, b_hi + 32 * N * ks), ks > 0);
+    wgmma_ss<N>(acc, desc<64>(a16, a_hi + 2048 * ks), desc<N>(b16, b_lo + 32 * N * ks), 1);
+  }
+#pragma unroll
+  for (int ks = 0; ks < D / 8; ++ks)
+    wgmma_ss<N>(acc, desc<64>(a16, a_hi + 2048 * ks), desc<N>(b16, b_hi + 32 * N * ks), 1);
+}
+
+// x's TF32 hi and the rest lo, in registers (pinned: the wgmmas read them)
+template <int N>
+__device__ __forceinline__ void split_frag(const float (&x)[N], uint32_t (&hi)[N], uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    hi[i] = tf32(x[i]);
+    lo[i] = __float_as_uint(x[i] - __uint_as_float(hi[i]));
+  }
+  pin(hi);
+  pin(lo);
+}
+
+// acc += X·B over T contraction positions in split TF32, small products
+// first. X is the [64 x T] accumulator of an earlier product, split into xh/xl:
+// a thread holds its columns 8j + 2t + e, which the TF32 A fragment takes at
+// positions {t, t + 4}; B (N rows by T positions, base b16, hi/lo at b_hi,
+// b_lo) stores each 8 of its positions in the order 0, 2, 4, 6, 1, 3, 5, 7 to
+// match, so the registers are the fragment as they stand.
+template <int N, int T>
+__device__ __forceinline__ void rs_split(float (&acc)[N / 2], const uint32_t (&xh)[T / 2],
+                                         const uint32_t (&xl)[T / 2], uint32_t b16, uint32_t b_hi, uint32_t b_lo) {
+#pragma unroll
+  for (int j = 0; j < T / 8; ++j) {
+    const uint32_t a_lo[4] = {xl[4 * j], xl[4 * j + 2], xl[4 * j + 1], xl[4 * j + 3]};
+    const uint32_t a_hi[4] = {xh[4 * j], xh[4 * j + 2], xh[4 * j + 1], xh[4 * j + 3]};
+    wgmma_rs<N>(acc, a_lo, desc<N>(b16, b_hi + 32 * N * j), 1);
+    wgmma_rs<N>(acc, a_hi, desc<N>(b16, b_lo + 32 * N * j), 1);
+  }
+#pragma unroll
+  for (int j = 0; j < T / 8; ++j) {
+    const uint32_t a_hi[4] = {xh[4 * j], xh[4 * j + 2], xh[4 * j + 1], xh[4 * j + 3]};
+    wgmma_rs<N>(acc, a_hi, desc<N>(b16, b_hi + 32 * N * j), 1);
+  }
+}
+
+// rows [row0, row0 + kRows) of a [S, D] matrix (src at row0) split into hi/lo
+// in the operand layout of two 64-row operands, one a warpgroup
+template <int D>
+__device__ __forceinline__ void split_rows(float* hi, float* lo, const float* src) {
+  const float4* s4 = reinterpret_cast<const float4*>(src);
+#pragma unroll
+  for (int n = 0; n < kRows * D / 4 / kThreads; ++n) {
+    const unsigned i = threadIdx.x + n * kThreads, r = i / (D / 4);
+    float4 h, l;
+    split4(__ldg(s4 + i), h, l);
+    const unsigned at = r / 64 * 64 * D + cidx<64>(r % 64, i % (D / 4) * 4);
+    *reinterpret_cast<float4*>(&hi[at]) = h;
+    *reinterpret_cast<float4*>(&lo[at]) = l;
+  }
+}
+
+// cp.async of T rows of a [S, D] matrix (src at the first) into dst: row-major,
+// or in the operand layout of a T-row operand
+template <int D, int T, bool Operand>
+__device__ __forceinline__ void load_rows(float* dst, const float* src) {
+#pragma unroll
+  for (unsigned i = threadIdx.x; i < T * D / 4; i += kThreads)  // chunk i: row i / (D/4), columns 4·(i % (D/4)) + 0..3
+    cp_async16(dst + (Operand ? cidx<T>(i / (D / 4), i % (D / 4) * 4) : 4 * i), src + 4 * i);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// A landed tile in operand layout into its hi/lo at the same index.
+template <int D, int T>
+__device__ __forceinline__ void split_same(const float* raw, float* hi, float* lo) {
+#pragma unroll
+  for (unsigned i = threadIdx.x; i < T * D / 4; i += kThreads) {
+    float4 h, l;
+    split4(reinterpret_cast<const float4*>(raw)[i], h, l);
+    reinterpret_cast<float4*>(hi)[i] = h;
+    reinterpret_cast<float4*>(lo)[i] = l;
+  }
+}
+
+// A landed row-major [T x D] tile into the hi/lo of two operands: itself (T
+// rows by D, contraction over D) and its transpose (D rows by T positions,
+// the rows of every 8 stored in the order 0, 2, 4, 6, 1, 3, 5, 7, as
+// `rs_split` reads them).
+template <int D, int T>
+__device__ __forceinline__ void split_both(const float* raw, float* hi, float* lo, float* t_hi, float* t_lo) {
+#pragma unroll
+  for (unsigned i = threadIdx.x; i < T * D / 4; i += kThreads) {
+    float4 h, l;
+    split4(reinterpret_cast<const float4*>(raw)[i], h, l);
+    const unsigned at = cidx<T>(i / (D / 4), i % (D / 4) * 4);
+    *reinterpret_cast<float4*>(&hi[at]) = h;
+    *reinterpret_cast<float4*>(&lo[at]) = l;
+  }
+#pragma unroll
+  for (unsigned i = threadIdx.x; i < T * D / 4; i += kThreads) {
+    const unsigned d = i % D, pg = i / D;          // positions 4pg … 4pg + 3 of the transpose's row d
+    const unsigned r0 = (pg >> 1) * 8 + (pg & 1);  // hold rows r0 + 0, 2, 4, 6
+    float4 x = make_float4(raw[r0 * D + d], raw[(r0 + 2) * D + d], raw[(r0 + 4) * D + d], raw[(r0 + 6) * D + d]);
+    float4 h, l;
+    split4(x, h, l);
+    const unsigned at = cidx<D>(d, 4 * pg);
+    *reinterpret_cast<float4*>(&t_hi[at]) = h;
+    *reinterpret_cast<float4*>(&t_lo[at]) = l;
+  }
+}
+
+// lse in units of log2, +inf for a row that saw no key (lse = −1e30): then
+// P = 2^(s·c − lse2) is exactly 0 without a select
+__device__ __forceinline__ float lse2(float lse) { return lse > -0.5e30f ? lse * kLog2e : INFINITY; }
+
+template <int D>
+struct SmemDq {
+  static constexpr int T = kDqTile<D>;
+  float q_hi[kRows * D], q_lo[kRows * D];    // per warpgroup a 64-row operand
+  float do_hi[kRows * D], do_lo[kRows * D];  // the same for dO
+  float raw[kStages][2][T * D];              // landed tiles: K (row-major) and V (operand layout)
+  float k_hi[T * D], k_lo[T * D];            // operand layout, T rows (keys) by D
+  float v_hi[T * D], v_lo[T * D];
+  float kt_hi[D * T], kt_lo[D * T];          // Kᵀ: D rows by T permuted keys
+};
+
+template <int D>
+struct SmemDkv {
+  static constexpr int T = kDkvTile;
+  float k_hi[kRows * D], k_lo[kRows * D];    // per warpgroup a 64-row operand
+  float v_hi[kRows * D], v_lo[kRows * D];
+  float raw[kStages][2][T * D];              // landed tiles: Q and dO, row-major
+  float raw_stats[kStages][2][T];            // and the tile's lse and delta
+  float q_hi[T * D], q_lo[T * D];            // operand layout, T rows (queries) by D
+  float do_hi[T * D], do_lo[T * D];
+  float qt_hi[D * T], qt_lo[D * T];          // Qᵀ and dOᵀ: D rows by T permuted queries
+  float dot_hi[D * T], dot_lo[D * T];
+  float lse2[T], delta[T];
+};
+static_assert(sizeof(SmemDq<64>) <= 232448 && sizeof(SmemDkv<64>) <= 232448, "over 227 KB of shared memory");
+
+// dq of q, dO [BH, Sq, D] against k, v [BH, Skv, D]: dq = scale · Σ_j dS_ij k_j.
+// Grid (Sq / kRows, BH), kThreads threads, sizeof(SmemDq<D>) bytes of
+// dynamic shared memory; two blocks an SM at D = 16 (at most 128 registers).
+template <int D, bool Causal>
+__global__ void __launch_bounds__(kThreads, D == 16 ? 2 : 1)
+flash_bwd_dq_tc(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+                float* __restrict__ dq, int s_q, int s_kv, int shift, float scale) {
+  constexpr int T = kDqTile<D>;
+  using S = SmemDq<D>;
+  extern __shared__ __align__(128) unsigned char smem_bytes[];
+  S& sm = *reinterpret_cast<S*>(smem_bytes);
+  const int bh = blockIdx.y;
+  const int row0 = (Causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kRows;  // causal: heaviest first
+  const float* kb = k + (size_t)bh * s_kv * D;
+  const float* vb = v + (size_t)bh * s_kv * D;
+  const int kend = Causal ? key_end(row0, shift, s_kv) : s_kv;
+  const int n_tiles = (kend + T - 1) / T;  // tiles past s_kv are never read: s_kv % kRows == 0
+
+#pragma unroll
+  for (int st = 0; st < kStages; ++st) {
+    if (st < n_tiles) {
+      load_rows<D, T, false>(sm.raw[st][0], kb + (size_t)st * T * D);
+      load_rows<D, T, true>(sm.raw[st][1], vb + (size_t)st * T * D);
+    }
+    cp_async_commit();
+  }
+  const size_t qrow = (size_t)bh * s_q + row0;
+  split_rows<D>(sm.q_hi, sm.q_lo, q + qrow * D);
+  split_rows<D>(sm.do_hi, sm.do_lo, dout + qrow * D);
+  proxy_fence();
+
+  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wrow0 = row0 + 64 * wg;                            // this warpgroup's first query row
+  const int row_a = wrow0 + 16 * warp + g, row_b = row_a + 8;  // the two rows this thread holds
+  const uint32_t base16 = static_cast<uint32_t>(__cvta_generic_to_shared(smem_bytes)) >> 4;
+  const uint32_t a16 = base16 + 64 * D * 4 / 16 * wg;  // this warpgroup's rows of Q and dO
+  const float c = scale * kLog2e;                       // P = 2^(s·c − lse2)
+  const float lse_a = lse2(__ldg(lse + (size_t)bh * s_q + row_a)), lse_b = lse2(__ldg(lse + (size_t)bh * s_q + row_b));
+  const float dl_a = __ldg(delta + (size_t)bh * s_q + row_a), dl_b = __ldg(delta + (size_t)bh * s_q + row_b);
+
+  float acc[D / 2];  // dq / scale, summed over every tile in the tensor cores
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % kStages;
+    cp_async_wait<kStages - 1>();  // this thread's copies of tile `it` have landed
+    __syncthreads();               // everyone's; and the last tile's wgmmas are done
+    split_both<D, T>(sm.raw[st][0], sm.k_hi, sm.k_lo, sm.kt_hi, sm.kt_lo);
+    split_same<D, T>(sm.raw[st][1], sm.v_hi, sm.v_lo);
+    proxy_fence();
+    __syncthreads();
+    if (it + kStages < n_tiles) {
+      load_rows<D, T, false>(sm.raw[st][0], kb + (size_t)(it + kStages) * T * D);
+      load_rows<D, T, true>(sm.raw[st][1], vb + (size_t)(it + kStages) * T * D);
+    }
+    cp_async_commit();
+
+    const int kt = it * T;
+    if (Causal && kt > wrow0 + 63 + shift) continue;  // wholly in this warpgroup's future
+
+    // S = Q·Kᵀ and dP = dO·Vᵀ. s[4j + e] is (row_a, key kt + 8j + 2t + e),
+    // s[4j + 2 + e] the same key on row_b; dp likewise.
+    float s[T / 2], dp[T / 2];
+    wg_fence();
+    ss_split<D, T>(s, a16, offsetof(S, q_hi), offsetof(S, q_lo), base16, offsetof(S, k_hi), offsetof(S, k_lo));
+    ss_split<D, T>(dp, a16, offsetof(S, do_hi), offsetof(S, do_lo), base16, offsetof(S, v_hi), offsetof(S, v_lo));
+    wg_commit();
+    wg_wait();
+    pin(s);
+    pin(dp);
+
+    // dS = P ∘ (dP − delta) into s; masked pairs and dead rows have P = 0 exactly
+    const bool mask = Causal && kt + T - 1 > wrow0 + shift;  // the tile crosses the diagonal
+#pragma unroll
+    for (int j = 0; j < T / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float pa = exp2_ftz(fmaf(s[4 * j + e], c, -lse_a));
+        float pb = exp2_ftz(fmaf(s[4 * j + 2 + e], c, -lse_b));
+        if (mask) {
+          const int key = kt + 8 * j + 2 * t + e;
+          pa = key > row_a + shift ? 0.f : pa;
+          pb = key > row_b + shift ? 0.f : pb;
+        }
+        s[4 * j + e] = pa * (dp[4 * j + e] - dl_a);
+        s[4 * j + 2 + e] = pb * (dp[4 * j + 2 + e] - dl_b);
+      }
+
+    // dq += dS·K with dS in registers, against Kᵀ
+    uint32_t xh[T / 2], xl[T / 2];
+    split_frag(s, xh, xl);
+    wg_fence();
+    rs_split<D, T>(acc, xh, xl, base16, offsetof(S, kt_hi), offsetof(S, kt_lo));
+    wg_commit();
+    wg_wait();
+    pin(acc);
+  }
+
+  float* da = dq + ((size_t)bh * s_q + row_a) * D + 2 * t;
+  float* db = dq + ((size_t)bh * s_q + row_b) * D + 2 * t;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    *reinterpret_cast<float2*>(da + 8 * j) = make_float2(acc[4 * j] * scale, acc[4 * j + 1] * scale);
+    *reinterpret_cast<float2*>(db + 8 * j) = make_float2(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
+  }
+}
+
+// dk, dv of k, v [BH, Skv, D] from the same inputs: dv = Σ_i P_ijᵀ dO_i,
+// dk = scale · Σ_i dS_ijᵀ q_i. Grid (Skv / kRows, BH), kThreads threads,
+// sizeof(SmemDkv<D>) bytes of dynamic shared memory; two blocks an SM at
+// D = 16 (at most 128 registers).
+template <int D, bool Causal>
+__global__ void __launch_bounds__(kThreads, D == 16 ? 2 : 1)
+flash_bwd_dkv_tc(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                 const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+                 float* __restrict__ dk, float* __restrict__ dv, int s_q, int s_kv, int shift, float scale) {
+  constexpr int T = kDkvTile;
+  using S = SmemDkv<D>;
+  extern __shared__ __align__(128) unsigned char smem_bytes[];
+  S& sm = *reinterpret_cast<S*>(smem_bytes);
+  const int bh = blockIdx.y;
+  const int key0 = blockIdx.x * kRows;  // causal: the first blocks see the most queries
+  const float* qb = q + (size_t)bh * s_q * D;
+  const float* dob = dout + (size_t)bh * s_q * D;
+  const float* lseb = lse + (size_t)bh * s_q;
+  const float* deltab = delta + (size_t)bh * s_q;
+  // causal: query rows before key0 − shift see none of this block's keys
+  const int qt0 = Causal ? min(max(key0 - shift, 0), s_q) / T * T : 0;
+  const int n_tiles = (s_q - qt0) / T;
+
+  auto load = [&](int st, int qt) {
+    load_rows<D, T, false>(sm.raw[st][0], qb + (size_t)qt * D);
+    load_rows<D, T, false>(sm.raw[st][1], dob + (size_t)qt * D);
+    if (threadIdx.x < T) {
+      cp_async4(&sm.raw_stats[st][0][threadIdx.x], lseb + qt + threadIdx.x);
+      cp_async4(&sm.raw_stats[st][1][threadIdx.x], deltab + qt + threadIdx.x);
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < kStages; ++st) {
+    if (st < n_tiles) load(st, qt0 + st * T);
+    cp_async_commit();
+  }
+  const size_t krow = (size_t)bh * s_kv + key0;
+  split_rows<D>(sm.k_hi, sm.k_lo, k + krow * D);
+  split_rows<D>(sm.v_hi, sm.v_lo, v + krow * D);
+  proxy_fence();
+
+  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wkey0 = key0 + 64 * wg;                            // this warpgroup's first key row
+  const int key_a = wkey0 + 16 * warp + g, key_b = key_a + 8;  // the two key rows this thread holds
+  const uint32_t base16 = static_cast<uint32_t>(__cvta_generic_to_shared(smem_bytes)) >> 4;
+  const uint32_t a16 = base16 + 64 * D * 4 / 16 * wg;  // this warpgroup's rows of K and V
+  const float c = scale * kLog2e;                       // P = 2^(s·c − lse2)
+
+  float dka[D / 2], dva[D / 2];  // dk / scale and dv, summed over every tile in the tensor cores
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % kStages;
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    split_both<D, T>(sm.raw[st][0], sm.q_hi, sm.q_lo, sm.qt_hi, sm.qt_lo);
+    split_both<D, T>(sm.raw[st][1], sm.do_hi, sm.do_lo, sm.dot_hi, sm.dot_lo);
+    if (threadIdx.x < T) {
+      sm.lse2[threadIdx.x] = lse2(sm.raw_stats[st][0][threadIdx.x]);
+      sm.delta[threadIdx.x] = sm.raw_stats[st][1][threadIdx.x];
+    }
+    proxy_fence();
+    __syncthreads();
+    if (it + kStages < n_tiles) load(st, qt0 + (it + kStages) * T);
+    cp_async_commit();
+
+    const int qt = qt0 + it * T;
+    if (Causal && qt + T - 1 < wkey0 - shift) continue;  // every query of the tile precedes this warpgroup's keys
+
+    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ. s[4j + e] is (key_a, query qt + 8j + 2t + e),
+    // s[4j + 2 + e] the same query on key_b; dp likewise. The query's lse and
+    // delta are per column.
+    float s[T / 2], dp[T / 2];
+    wg_fence();
+    ss_split<D, T>(s, a16, offsetof(S, k_hi), offsetof(S, k_lo), base16, offsetof(S, q_hi), offsetof(S, q_lo));
+    ss_split<D, T>(dp, a16, offsetof(S, v_hi), offsetof(S, v_lo), base16, offsetof(S, do_hi), offsetof(S, do_lo));
+    wg_commit();
+    wg_wait();
+    pin(s);
+    pin(dp);
+
+    // Pᵀ into s, dSᵀ = Pᵀ ∘ (dPᵀ − delta) into dp
+    const bool mask = Causal && wkey0 + 63 > qt + shift;  // the tile crosses the diagonal
+#pragma unroll
+    for (int j = 0; j < T / 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(&sm.lse2[8 * j + 2 * t]);
+      const float2 dl = *reinterpret_cast<const float2*>(&sm.delta[8 * j + 2 * t]);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float l = e ? l2.y : l2.x, d = e ? dl.y : dl.x;
+        float pa = exp2_ftz(fmaf(s[4 * j + e], c, -l));
+        float pb = exp2_ftz(fmaf(s[4 * j + 2 + e], c, -l));
+        if (mask) {
+          const int query = qt + 8 * j + 2 * t + e;
+          pa = key_a > query + shift ? 0.f : pa;
+          pb = key_b > query + shift ? 0.f : pb;
+        }
+        s[4 * j + e] = pa;
+        s[4 * j + 2 + e] = pb;
+        dp[4 * j + e] = pa * (dp[4 * j + e] - d);
+        dp[4 * j + 2 + e] = pb * (dp[4 * j + 2 + e] - d);
+      }
+    }
+
+    // dv += Pᵀ·dO against dOᵀ and dk += dSᵀ·Q against Qᵀ, Pᵀ and dSᵀ in registers
+    uint32_t ph[T / 2], pl[T / 2], dh[T / 2], dl[T / 2];
+    split_frag(s, ph, pl);
+    split_frag(dp, dh, dl);
+    wg_fence();
+    rs_split<D, T>(dva, ph, pl, base16, offsetof(S, dot_hi), offsetof(S, dot_lo));
+    rs_split<D, T>(dka, dh, dl, base16, offsetof(S, qt_hi), offsetof(S, qt_lo));
+    wg_commit();
+    wg_wait();
+    pin(dva);
+    pin(dka);
+  }
+
+  float* ka = dk + ((size_t)bh * s_kv + key_a) * D + 2 * t;
+  float* kb = dk + ((size_t)bh * s_kv + key_b) * D + 2 * t;
+  float* va = dv + ((size_t)bh * s_kv + key_a) * D + 2 * t;
+  float* vb = dv + ((size_t)bh * s_kv + key_b) * D + 2 * t;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    *reinterpret_cast<float2*>(ka + 8 * j) = make_float2(dka[4 * j] * scale, dka[4 * j + 1] * scale);
+    *reinterpret_cast<float2*>(kb + 8 * j) = make_float2(dka[4 * j + 2] * scale, dka[4 * j + 3] * scale);
+    *reinterpret_cast<float2*>(va + 8 * j) = make_float2(dva[4 * j], dva[4 * j + 1]);
+    *reinterpret_cast<float2*>(vb + 8 * j) = make_float2(dva[4 * j + 2], dva[4 * j + 3]);
+  }
+}
+
+// One launch of a backward kernel with its dynamic shared memory; the
+// cudaError_t of the launch.
+template <typename Kernel, typename... Args>
+int launch_bwd(Kernel kernel, int smem, dim3 grid, cudaStream_t st, Args... args) {
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, kThreads, smem, st>>>(args...);
   return (int)cudaGetLastError();
+}
+
+template <int D, bool Causal>
+int bwd_dq_d(const float* q, const float* k, const float* v, const float* dout, const float* lse,
+             const float* delta, float* dq, int bh, int s_q, int s_kv, int shift, float scale, cudaStream_t st) {
+  return launch_bwd(flash_bwd_dq_tc<D, Causal>, (int)sizeof(SmemDq<D>), dim3(s_q / kRows, bh), st, q, k, v, dout,
+                    lse, delta, dq, s_q, s_kv, shift, scale);
+}
+
+template <int D, bool Causal>
+int bwd_dkv_d(const float* q, const float* k, const float* v, const float* dout, const float* lse,
+              const float* delta, float* dk, float* dv, int bh, int s_q, int s_kv, int shift, float scale,
+              cudaStream_t st) {
+  return launch_bwd(flash_bwd_dkv_tc<D, Causal>, (int)sizeof(SmemDkv<D>), dim3(s_kv / kRows, bh), st, q, k, v,
+                    dout, lse, delta, dk, dv, s_q, s_kv, shift, scale);
+}
+
+int bwd_dq(const float* q, const float* k, const float* v, const float* dout, const float* lse, const float* delta,
+           float* dq, int bh, int s_q, int s_kv, int d, bool causal, int shift, float scale, void* stream) {
+  if (!rect_shape_ok(bh, s_q, s_kv)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d * 2 + (causal ? 1 : 0)) {
+    case 32: return bwd_dq_d<16, false>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, shift, scale, st);
+    case 33: return bwd_dq_d<16, true>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, shift, scale, st);
+    case 64: return bwd_dq_d<32, false>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, shift, scale, st);
+    case 65: return bwd_dq_d<32, true>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, shift, scale, st);
+    case 128: return bwd_dq_d<64, false>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, shift, scale, st);
+    case 129: return bwd_dq_d<64, true>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, shift, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int bwd_dkv(const float* q, const float* k, const float* v, const float* dout, const float* lse, const float* delta,
+            float* dk, float* dv, int bh, int s_q, int s_kv, int d, bool causal, int shift, float scale,
+            void* stream) {
+  if (!rect_shape_ok(bh, s_q, s_kv)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d * 2 + (causal ? 1 : 0)) {
+    case 32: return bwd_dkv_d<16, false>(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, shift, scale, st);
+    case 33: return bwd_dkv_d<16, true>(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, shift, scale, st);
+    case 64: return bwd_dkv_d<32, false>(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, shift, scale, st);
+    case 65: return bwd_dkv_d<32, true>(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, shift, scale, st);
+    case 128: return bwd_dkv_d<64, false>(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, shift, scale, st);
+    case 129: return bwd_dkv_d<64, true>(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, shift, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tc
 
 }  // namespace
 
@@ -878,22 +1332,15 @@ int flash_fwd_rect_launch(const float* q, const float* k, const float* v, float*
 int flash_bwd_dq_rect_launch(const float* q, const float* k, const float* v, const float* dout, const float* lse,
                              const float* delta, float* dq, int bh, int s_q, int s_kv, int d, int causal,
                              int q_off, int k_off, float scale, void* stream) {
-  if (!rect_shape_ok(bh, s_q, s_kv)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(s_q / kRows, bh);
-  FLASH_RECT_DISPATCH(flash_bwd_dq_rect_kernel, grid, d, causal, st, q, k, v, dout, lse, delta, dq, s_q, s_kv,
-                      q_off - k_off, scale)
+  return tc::bwd_dq(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, d, causal != 0, q_off - k_off, scale, stream);
 }
 
 // Rectangular dk, dv [BH, Skv, D] from the same inputs.
 int flash_bwd_dkv_rect_launch(const float* q, const float* k, const float* v, const float* dout, const float* lse,
                               const float* delta, float* dk, float* dv, int bh, int s_q, int s_kv, int d,
                               int causal, int q_off, int k_off, float scale, void* stream) {
-  if (!rect_shape_ok(bh, s_q, s_kv)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(s_kv / kRows, bh);
-  FLASH_RECT_DISPATCH(flash_bwd_dkv_rect_kernel, grid, d, causal, st, q, k, v, dout, lse, delta, dk, dv, s_q,
-                      s_kv, q_off - k_off, scale)
+  return tc::bwd_dkv(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, d, causal != 0, q_off - k_off, scale,
+                     stream);
 }
 
 }  // extern "C"

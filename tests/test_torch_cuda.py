@@ -11,7 +11,8 @@ entry for the flash forward, 1e-4 for its gradients (sums over up to S
 keys in another order). With q, k x 8 (scores x 64) the f32 rounding of the
 scores alone moves o by ~1e-5 of its largest entry, so there the forward is
 held against the plain version in float64: within 1e-5 of it, or no further
-from it than twice the plain version in f32 is.
+from it than twice the plain version in f32 is; the rectangular backward
+likewise, within 1e-4.
 """
 
 import numpy as np
@@ -89,3 +90,32 @@ def test_forward_repeats_bitwise_and_holds_large_scores(name, mode):
     for a, b, ref in zip(got, f32, f64):
         assert bool(torch.isfinite(a).all())
         assert _rel(a.double(), ref) <= max(1e-5, 2 * _rel(b.double(), ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [(False, 0, 0), (True, 64, 0)])
+def test_rect_backward_repeats_bitwise_and_holds_large_scores(mode):
+    _card()
+    rng = np.random.default_rng(12)
+    q, k, v, do = (torch.tensor(rng.normal(size=(8, 512, 16)).astype(np.float32), device="cuda") for _ in range(4))
+
+    def grads(dq_fn, dkv_fn, q, k, v, do, lse, delta):
+        return (dq_fn(q, k, v, do, lse, delta, 0.25, *mode), *dkv_fn(q, k, v, do, lse, delta, 0.25, *mode))
+
+    def stats(q, k):
+        o, lse = flash_cuda.flash_fwd_rect_plain(q, k, v, 0.25, *mode)
+        return lse, (do * o).sum(-1)
+
+    kernels = (flash_cuda.flash_bwd_dq_rect, flash_cuda.flash_bwd_dkv_rect)
+    plains = (flash_cuda.flash_bwd_dq_rect_plain, flash_cuda.flash_bwd_dkv_rect_plain)
+    first, second = (grads(*kernels, q, k, v, do, *stats(q, k)) for _ in range(2))
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    q8, k8 = 8 * q, 8 * k
+    lse, delta = stats(q8, k8)
+    got = grads(*kernels, q8, k8, v, do, lse, delta)
+    f32 = grads(*plains, q8, k8, v, do, lse, delta)
+    f64 = grads(*plains, *(t.double() for t in (q8, k8, v, do, lse, delta)))
+    for a, b, ref in zip(got, f32, f64):
+        assert bool(torch.isfinite(a).all())
+        assert _rel(a.double(), ref) <= max(1e-4, 2 * _rel(b.double(), ref))

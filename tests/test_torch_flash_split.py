@@ -206,3 +206,190 @@ def test_p_fragment_and_vt_key_order_give_p_times_v():
     vt = np.zeros((16, 64))
     vt[:, pos] = v.T
     np.testing.assert_allclose(a @ vt.T, p @ v, rtol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# The rectangular backward (`flash_bwd_dq_tc`, `flash_bwd_dkv_tc`): the same
+# split TF32, each of S, dP, dq += dS·K, dv += Pᵀ·dO and dk += dSᵀ·Q three
+# passes, P = 2^(s·c − lse·log2 e) with c = scale·log2 e in one FFMA (a row
+# that saw no key gets lse·log2 e = +inf, so P = 0), dS = P ∘ (dP − delta),
+# and dq, dk and dv summed over every streamed tile in one accumulator.
+# ---------------------------------------------------------------------------
+
+
+def dq_tile(d):
+    """Keys a tile of `flash_bwd_dq_tc` (`kDqTile<D>`)."""
+    return 32 if d == 64 else 64
+
+
+DKV_TILE = 32  # queries a tile of `flash_bwd_dkv_tc` (`kDkvTile`)
+
+
+def lse2(lse):
+    """The kernels' `lse2`: lse in units of log2, +inf for a row that saw no key."""
+    lse = np.asarray(lse, np.float32)
+    return np.where(lse > np.float32(-0.5e30), lse * LOG2E, np.inf).astype(np.float32)
+
+
+def _p(s, c, l2, keep):
+    """P from the f32 scores: one FFMA, then exp2; exactly 0 where not kept."""
+    p = np.exp2((s.astype(np.float64) * c - l2).astype(np.float32)).astype(np.float32)
+    return np.where(keep, p, np.float32(0.0)).astype(np.float32)
+
+
+def dq_model(q, k, v, do, lse, delta, scale, causal=False, shift=0, passes=3):
+    """dq of one (batch·head) as `flash_bwd_dq_tc` computes it."""
+    s_q, d = q.shape
+    s_kv, t = k.shape[0], dq_tile(d)
+    c = np.float32(scale) * LOG2E
+    l2 = lse2(lse)
+    rows = np.arange(s_q)
+    dq = np.zeros((s_q, d), np.float32)
+    for row0 in range(0, s_q, ROWS):
+        blk = slice(row0, row0 + ROWS)
+        kend = min(max(row0 + ROWS + shift, 0), s_kv) if causal else s_kv
+        acc = np.zeros((ROWS, d), np.float32)
+        for kt in range(0, kend, t):
+            keys = slice(kt, kt + t)
+            s = split_product(q[blk], k[keys].T, passes=passes)
+            dp = split_product(do[blk], v[keys].T, passes=passes)
+            keep = (kt + np.arange(t))[None, :] <= rows[blk, None] + shift if causal else True
+            p = _p(s, c, l2[blk, None], keep)
+            ds = p * (dp - delta[blk, None])
+            acc = split_product(ds, k[keys], acc, passes)
+        dq[blk] = acc * np.float32(scale)
+    return dq
+
+
+def dkv_model(q, k, v, do, lse, delta, scale, causal=False, shift=0, passes=3):
+    """(dk, dv) of one (batch·head) as `flash_bwd_dkv_tc` computes them: Sᵀ
+    and dPᵀ with the keys as rows, the queries' lse and delta per column."""
+    s_q, d = q.shape
+    s_kv, t = k.shape[0], DKV_TILE
+    c = np.float32(scale) * LOG2E
+    l2 = lse2(lse)
+    keys = np.arange(s_kv)
+    dk, dv = np.zeros((s_kv, d), np.float32), np.zeros((s_kv, d), np.float32)
+    for key0 in range(0, s_kv, ROWS):
+        blk = slice(key0, key0 + ROWS)
+        qt0 = min(max(key0 - shift, 0), s_q) // t * t if causal else 0
+        dka, dva = np.zeros((ROWS, d), np.float32), np.zeros((ROWS, d), np.float32)
+        for qt in range(qt0, s_q, t):
+            qs = slice(qt, qt + t)
+            st = split_product(k[blk], q[qs].T, passes=passes)
+            dpt = split_product(v[blk], do[qs].T, passes=passes)
+            keep = keys[blk, None] <= (qt + np.arange(t))[None, :] + shift if causal else True
+            p = _p(st, c, l2[None, qs], keep)
+            ds = p * (dpt - delta[None, qs])
+            dva = split_product(p, do[qs], dva, passes)
+            dka = split_product(ds, q[qs], dka, passes)
+        dk[blk], dv[blk] = dka * np.float32(scale), dva
+    return dk, dv
+
+
+def bwd_reference(q, k, v, do, lse, delta, scale, causal=False, shift=0):
+    """float64 (dq, dk, dv) from the same f32 inputs; P = 0 off the mask and on
+    rows whose lse is −1e30."""
+    q, k, v, do, lse, delta = (np.asarray(x, np.float64) for x in (q, k, v, do, lse, delta))
+    keep = np.broadcast_to(lse[:, None] > -0.5e30, (q.shape[0], k.shape[0]))
+    if causal:
+        keep = keep & (np.arange(k.shape[0])[None, :] <= np.arange(q.shape[0])[:, None] + shift)
+    p = np.exp(np.where(keep, (q @ k.T) * scale - lse[:, None], -np.inf))
+    ds = p * (do @ v.T - delta[:, None])
+    return ds @ k * scale, ds.T @ q * scale, p.T @ do
+
+
+def _bwd_inputs(s_q, s_kv, d, scale, causal, shift, seed):
+    """q, k, v, dO and the forward's lse and delta = rowsum(dO ∘ o), all f32."""
+    q, k, v = _qkv(s_q, s_kv, d, seed)
+    do = np.random.default_rng(seed + 1).normal(size=(s_q, d)).astype(np.float32)
+    o, lse = reference(q, k, v, scale, causal, shift)
+    delta = (do * o.astype(np.float32)).sum(1, dtype=np.float32)
+    return q, k, v, do, lse.astype(np.float32), delta
+
+
+def _bwd(q, k, v, do, lse, delta, scale, causal=False, shift=0, passes=3):
+    return (dq_model(q, k, v, do, lse, delta, scale, causal, shift, passes),
+            *dkv_model(q, k, v, do, lse, delta, scale, causal, shift, passes))
+
+
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("s_q,s_kv,causal,shift", CASES)
+def test_split_tf32_backward_within_1e5_of_float64(d, s_q, s_kv, causal, shift):
+    scale = 1.0 / np.sqrt(d)
+    inputs = _bwd_inputs(s_q, s_kv, d, scale, causal, shift, seed=d + s_q + shift)
+    got = _bwd(*inputs, scale, causal, shift)
+    for a, b in zip(got, bwd_reference(*inputs, scale, causal, shift)):
+        assert _rel(a, b) <= 1e-5
+    dead = inputs[4] < -1e29
+    assert (got[0][dead] == 0).all()  # rows that saw no key: dq exactly 0
+
+
+@pytest.mark.parametrize("d", [16, 64])
+def test_one_tf32_pass_misses_the_gradient_gate(d):
+    inputs = _bwd_inputs(128, 256, d, 0.25, False, 0, seed=d)
+    want = bwd_reference(*inputs, 0.25)
+    one, three = _bwd(*inputs, 0.25, passes=1), _bwd(*inputs, 0.25)
+    assert max(_rel(a, b) for a, b in zip(one, want)) > 1e-4
+    assert max(_rel(a, b) for a, b in zip(three, want)) <= 1e-5
+
+
+def test_backward_takes_a_negative_scale_as_it_stands():
+    inputs = _bwd_inputs(128, 128, 16, -0.3, True, 0, seed=3)
+    for a, b in zip(_bwd(*inputs, -0.3, True, 0), bwd_reference(*inputs, -0.3, True, 0)):
+        assert _rel(a, b) <= 1e-5
+
+
+def _transposed_operand(x, d, t):
+    """The kernels' `split_both` second pass: x [t, d] row-major into its
+    transpose in operand layout (d rows by t positions, rows 0, 2, 4, 6, 1, 3,
+    5, 7 of every 8), one 4-position chunk a thread."""
+    out = np.zeros(d * t)
+    for i in range(t * d // 4):
+        dd, pg = i % d, i // d
+        r0 = (pg >> 1) * 8 + (pg & 1)
+        for m in range(4):
+            out[cidx(d, dd, 4 * pg + m)] = x[r0 + 2 * m, dd]
+    return out
+
+
+def _a_fragments(x, t):
+    """The A fragments the kernels hand `rs_split` from a [64, t] accumulator x:
+    thread (g, t) of warp w holds x[16w + g (+8), 8j + 2t + e] as xs[4j + e]
+    (+2), passed as {xs[4j], xs[4j+2], xs[4j+1], xs[4j+3]} to the fragment
+    positions (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)."""
+    frags = np.zeros((t // 8, 64, 8))
+    for w in range(4):
+        for lane in range(32):
+            g, tt = lane // 4, lane % 4
+            ra, rb = 16 * w + g, 16 * w + g + 8
+            for j in range(t // 8):
+                xs = [x[ra, 8 * j + 2 * tt], x[ra, 8 * j + 2 * tt + 1], x[rb, 8 * j + 2 * tt], x[rb, 8 * j + 2 * tt + 1]]
+                frag = (xs[0], xs[2], xs[1], xs[3])
+                for (row, pos), val in zip(((ra, tt), (rb, tt), (ra, tt + 4), (rb, tt + 4)), frag):
+                    frags[j, row, pos] = val
+    return frags
+
+
+@pytest.mark.parametrize("d,t", [(16, 64), (32, 64), (64, 32), (16, DKV_TILE), (32, DKV_TILE)])
+def test_transposed_operands_meet_the_register_fragments(d, t):
+    # dq += dS·K against Kᵀ (t = the dq tile), and dv += Pᵀ·dO, dk += dSᵀ·Q
+    # against dOᵀ, Qᵀ (t = the dk/dv tile), the same arithmetic: each k8 step
+    # j reads the transposed operand through a descriptor at 32·D·j bytes
+    # with LBO = D/8 · 128 and SBO = 128, and the S/dP operands at 32·R·ks
+    # bytes for R rows, as the kernels write them
+    rng = np.random.default_rng(d)
+    ds, k = rng.normal(size=(64, t)), rng.normal(size=(t, d))
+    kt = _transposed_operand(k, d, t)
+    lbo, sbo = d // 8 * 128, 128
+    n, c = np.meshgrid(np.arange(d), np.arange(8), indexing="ij")
+    got = np.zeros((64, d))
+    for j, a in enumerate(_a_fragments(ds, t)):
+        start = 32 * d * j
+        assert start == 4 * cidx(d, 0, 8 * j)
+        b = kt[(start + (c // 4) * lbo + (n // 8) * sbo + (n % 8) * 16 + (c % 4) * 4) // 4]  # [d, 8]
+        got += a @ b.T
+    np.testing.assert_allclose(got, ds @ k, rtol=1e-12, atol=1e-9)
+    for rows in (64, t):
+        for ks in range(d // 8):
+            assert 32 * rows * ks == 4 * cidx(rows, 0, 8 * ks)
