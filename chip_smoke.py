@@ -4,6 +4,11 @@
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--metrics-out PATH] [--lm-metrics-out PATH] [--vit-metrics-out PATH] [--profile]
+    python3 chip_smoke.py --ab-parent DIR
+
+The second form runs none of the phases below: it times the three train
+paths of the checkout in DIR (e.g. the parent commit, `git archive`d) and
+of this one in turns, in fresh processes (`run_ab`).
 
 Phases, each reported on its own lines; any failure exits non-zero:
 
@@ -11,7 +16,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
 2. build    — nvcc builds the port's two CUDA sources, both at once; ptxas's
               registers and spills and the SASS tensor-core instruction
               counts of every tensor-core flash instance (the forward and
-              the rectangular backward), each of which must hold HGMMA;
+              the backward, causal and not), each of which must hold HGMMA
+              and spill nothing;
 3. kernels  — each compact-direction kernel against its plain PyTorch version
               on the card (K=3, m=10, N at every Net group size, one
               ResNet18-block-sized N, counts {0, 3, 10}, a zero-curvature
@@ -22,18 +28,20 @@ Phases, each reported on its own lines; any failure exits non-zero:
               time is taken twice: per call as the caller sees it, host
               launch path included (`ms`), and on the device alone with
               the calls queued behind a sleep kernel (`device_ms`);
-4. flash    — the three causal flash-attention kernels against their plain
-              versions (D in {16, 32, 64} x S in {128, 256, 1024, 2048} at
-              BH=8, and the LM path's BH=128, S=2048, D=16): o and lse within
-              relative 1e-5 of the largest reference entry, dq, dk, dv within
-              1e-4; at the path's shape the forward twice on the same inputs
-              (equal bits) and with q, k x 8 against the plain version in
-              float64 (`fwd_extra_checks`); the SASS of the forward kernels
-              (tensor-core instructions, where `cuobjdump` exists); times at
-              the path's shape beside two bounds (split TF32 on the tensor
-              cores, exps, bytes; and the ceiling of an f32 FFMA design) and
-              `scaled_dot_product_attention` (forward; backward) as the
-              yardstick;
+4. flash    — the three causal flash-attention kernels (the tensor-core
+              kernels at Sq = Skv, shift 0) against their plain versions (D
+              in {16, 32, 64} x S in {128, 256, 1024, 2048} at BH=8, the
+              headroom S=4096 at BH=8 and every D, and the LM path's BH=128,
+              S=2048, D=16): o and lse within relative 1e-5 of the largest
+              reference entry, dq, dk, dv within 1e-4 (from S=2048 on, also
+              printed against the plain version in float64); at the path's
+              shape the forward and the dq, dk/dv pair twice on the same
+              inputs (equal bits) and with q, k x 8 against the plain
+              version in float64 (`fwd_extra_checks`, `bwd_extra_checks`);
+              times at the path's shape beside two bounds (split TF32 on the
+              tensor cores, exps, bytes; and the ceiling of an f32 FFMA
+              design) and `scaled_dot_product_attention` (forward; backward)
+              as the yardstick;
 5. flash rect — the three rectangular flash kernels against their plain
               versions: non-causal at D in {16, 32, 64} x S in {128, 256,
               1024} (BH=8) and the ViT path's BH=6144, S=256, D=16; causal
@@ -54,8 +62,10 @@ Phases, each reported on its own lines; any failure exits non-zero:
               full-size synthetic CIFAR-10 stand-in (50,000/10,000, seed 0)
               with the fused-kernel direction, one outer loop over all five
               groups, nadmm=3. Launch counts are zeroed just before and read
-              just after; every compact kernel must have launched, losses
-              must be finite and every client's accuracy above chance;
+              just after; every compact kernel must have launched, exactly
+              once per direction the optimizer's records count
+              (`expected_launches`), losses must be finite and every
+              client's accuracy above chance;
 8. lm parity — the LM's first round (K=4, S=256) step by step with
               'dense' attention (plain) and 'flash' (the kernels), both fed
               the same parameters and optimizer state before each step:
@@ -67,8 +77,11 @@ Phases, each reported on its own lines; any failure exits non-zero:
               sequences of 2048 tokens, batch 8, 4 minibatches, one outer
               loop over all six groups with flash attention. Flash launch
               counts are zeroed just before and read just after; every flash
-              kernel must have launched, losses must be finite and every
-              client's next-token accuracy above 5/vocab;
+              kernel must have launched exactly as often as the run's
+              records imply (`expected_launches`: the backward once per
+              gradient pass in each layer behind the active group, the
+              forward once per model pass in every layer), losses must be
+              finite and every client's next-token accuracy above 5/vocab;
 10. vit parity — the ViT's first round (patch 2: 256 tokens, batch 64)
               step by step with 'dense' attention (plain) and 'flash' (the
               rectangular kernels), fed the same parameters and optimizer
@@ -81,8 +94,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
               images (8 minibatches of 512 per client) and 10,000 test
               images, one outer loop over all six groups, nadmm=1. Launch
               counts are zeroed just before and read just after; every
-              rectangular flash kernel must have launched, losses must be
-              finite and every client's accuracy above chance.
+              rectangular flash kernel and compact kernel must have
+              launched, exactly as often as the run's records imply, losses
+              must be finite and every client's accuracy above chance.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`. Without CUDA, or without the
@@ -95,9 +109,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -115,6 +131,7 @@ FLASH_DIMS = (16, 32, 64)
 FLASH_SEQS = (128, 256, 1024, 2048)
 FLASH_SWEEP_BH = 8
 FLASH_PATH = (128, 2048, 16)  # (BH, S, D) of the LM path: K·batch·heads, sequence, head dim
+FLASH_HEADROOM_S = 4096  # a sequence beyond the LM's, at BH=8 and every D
 FLASH_GRAD_RTOL = 1e-4
 FLASH_REPLACES = {
     "flash_fwd": "federated_pytorch_test_tpu/ops/flash_attention.py:559",
@@ -190,11 +207,19 @@ def rel_err(out, ref) -> float:
 TC_KERNELS = ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")  # the tensor-core flash kernels
 
 
-def report_forward_build(lib) -> None:
-    """What the compiler made of the tensor-core flash kernels (the forward and
-    the rectangular backward): ptxas's registers, shared memory and spills
-    (from the build log) and any warning, and the count of tensor-core
-    instructions in each instance's SASS, which must hold HGMMA."""
+def tc_label(mangled: str) -> str:
+    """`flash_bwd_dq_tc<16, true>` from a tensor-core instance's mangled name."""
+    name = next(k for k in TC_KERNELS if k in mangled)
+    m = re.search(r"ILi(\d+)ELb([01])E", mangled)
+    return f"{name}<{m.group(1)}, {'true' if m.group(2) == '1' else 'false'}>" if m else name
+
+
+def report_tc_build(lib) -> None:
+    """What the compiler made of the tensor-core flash kernels (the forward
+    and the backward of both families): ptxas's registers, shared memory and
+    spills (from the build log) and any warning, and the count of
+    tensor-core instructions in each instance's SASS. Every instance must
+    hold HGMMA and spill nothing."""
     import shutil
 
     def tc(name):
@@ -205,7 +230,10 @@ def report_forward_build(lib) -> None:
         if "Compiling entry function" in line:
             fn = line.split("'")[1] if "'" in line else line
         elif "warning" in line.lower() or (tc(fn) and ("Used" in line or "spill" in line)):
-            print(f"ptxas {fn if tc(fn) else ''} {line.strip()}", flush=True)
+            print(f"ptxas {tc_label(fn) if tc(fn) else ''} {line.strip()}", flush=True)
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if tc(fn) and spills and (int(spills.group(1)) or int(spills.group(2))):
+                fail(f"{tc_label(fn)} spills: {line.strip()}")
     nvcc_dir = os.path.dirname(os.path.realpath(shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"))
     tool = shutil.which("cuobjdump") or os.path.join(nvcc_dir, "cuobjdump")
     if not os.path.exists(tool):
@@ -215,10 +243,10 @@ def report_forward_build(lib) -> None:
     for chunk in sass.split("Function : ")[1:]:
         name = chunk.split("\n", 1)[0].strip()
         if tc(name):
-            print(f"sass {name} HGMMA={chunk.count('HGMMA')} HMMA={chunk.count('HMMA')} "
+            print(f"sass {tc_label(name)} HGMMA={chunk.count('HGMMA')} HMMA={chunk.count('HMMA')} "
                   f"MUFU.EX2={chunk.count('MUFU.EX2')}", flush=True)
             if "HGMMA" not in chunk:
-                fail(f"{name}: no HGMMA in its SASS")
+                fail(f"{tc_label(name)}: no HGMMA in its SASS")
 
 
 def history(n: int, seed: int):
@@ -337,8 +365,10 @@ def flash_inputs(bh: int, s: int, d: int, seed: int):
     return [torch.randn(bh, s, d, device="cuda", generator=gen) for _ in range(4)]
 
 
-def flash_check(bh: int, s: int, d: int, seed: int) -> dict:
-    """Each flash kernel against its plain version at one shape; the errors."""
+def flash_check(bh: int, s: int, d: int, seed: int, f64: bool = False, label: str = "flash") -> dict:
+    """Each flash kernel against its plain version at one shape; the errors.
+    With `f64`, the kernels' gradients and the f32 plain version's are also
+    read against the plain version in float64 (printed, not gated)."""
     import torch
 
     from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
@@ -357,8 +387,16 @@ def flash_check(bh: int, s: int, d: int, seed: int) -> dict:
     errs = {name: rel_err(a, b) for name, (a, b) in pairs.items()}
     abs_errs = {name: float((a - b).abs().max()) for name, (a, b) in pairs.items()}
     finite = all(bool(torch.isfinite(a).all()) for a, _ in pairs.values())
-    print(f"flash BH={bh} S={s} D={d} " + " ".join(f"{k}={v:.3e}" for k, v in errs.items()) + f" finite={finite}",
-          flush=True)
+    vs_f64 = ""
+    if f64:
+        args64 = [t.double() for t in (q, k, v, do, lse_ref, delta)]
+        ref64 = (fc.flash_bwd_dq_plain(*args64, scale), *fc.flash_bwd_dkv_plain(*args64, scale))
+        for side, i in (("kernel", 0), ("plain_f32", 1)):
+            vs_f64 += f" {side}_vs_f64 " + " ".join(f"{n}={rel_err(pairs[n][i].double(), r):.3e}"
+                                                     for n, r in zip(("dq", "dk", "dv"), ref64))
+        del args64, ref64
+    print(f"{label} BH={bh} S={s} D={d} " + " ".join(f"{k}={v:.3e}" for k, v in errs.items()) + f" finite={finite}"
+          + vs_f64, flush=True)
     worst_fwd = max(errs["o"], errs["lse"])
     worst_bwd = max(errs["dq"], errs["dk"], errs["dv"])
     if not finite or not worst_fwd <= RTOL or not worst_bwd <= FLASH_GRAD_RTOL:
@@ -401,25 +439,32 @@ def fwd_extra_checks(label: str, kernel, plain, qkv, scale: float, *mode) -> Non
                  f"{plain_errs[name]:.3e}; finite={finite})")
 
 
-def bwd_extra_checks(label: str, inputs, scale: float, *mode) -> None:
-    """`fwd_extra_checks`' two checks for both rectangular backward kernels at
-    a path shape, from the plain forward's lse and delta: two launches give
-    the same bits; and with q, k x 8, dq, dk and dv within FLASH_GRAD_RTOL of
-    the plain version in float64, or no further from it than LARGE_SLACK
-    times the f32 plain version is."""
+def bwd_extra_checks(label: str, inputs, scale: float, mode=(), aligned: bool = False) -> None:
+    """`fwd_extra_checks`' two checks for a pair of backward kernels at a path
+    shape, from the plain forward's lse and delta: the rectangular pair in
+    `mode` (causal, q_off, k_off), or the aligned causal pair. Two launches
+    give the same bits; and with q, k x 8, dq, dk and dv within
+    FLASH_GRAD_RTOL of the plain version in float64, or no further from it
+    than LARGE_SLACK times the f32 plain version is."""
     import torch
 
     from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
 
     q, k, v, do = inputs
-    kernels = (fc.flash_bwd_dq_rect, fc.flash_bwd_dkv_rect)
-    plains = (fc.flash_bwd_dq_rect_plain, fc.flash_bwd_dkv_rect_plain)
+    if aligned:
+        kernels = (fc.flash_bwd_dq, fc.flash_bwd_dkv)
+        plains = (fc.flash_bwd_dq_plain, fc.flash_bwd_dkv_plain)
+        fwd_plain = fc.flash_fwd_plain
+    else:
+        kernels = (fc.flash_bwd_dq_rect, fc.flash_bwd_dkv_rect)
+        plains = (fc.flash_bwd_dq_rect_plain, fc.flash_bwd_dkv_rect_plain)
+        fwd_plain = fc.flash_fwd_rect_plain
 
     def grads(fns, q, k, v, do, lse, delta):
         return (fns[0](q, k, v, do, lse, delta, scale, *mode), *fns[1](q, k, v, do, lse, delta, scale, *mode))
 
     def stats(q, k):
-        o, lse = fc.flash_fwd_rect_plain(q, k, v, scale, *mode)
+        o, lse = fwd_plain(q, k, v, scale, *mode)
         return lse, (do * o).sum(-1)
 
     lse, delta = stats(q, k)
@@ -462,10 +507,13 @@ def phase_flash():
 
     for d in FLASH_DIMS:
         for s in FLASH_SEQS:
-            flash_check(FLASH_SWEEP_BH, s, d, seed=s + d)
+            flash_check(FLASH_SWEEP_BH, s, d, seed=s + d, f64=s >= FLASH_PATH[1])
+    for d in FLASH_DIMS:  # twice the LM's sequence: the gradients sum over twice the tiles
+        flash_check(FLASH_SWEEP_BH, FLASH_HEADROOM_S, d, seed=FLASH_HEADROOM_S + d, f64=True, label="flash headroom")
     bh, s, d = FLASH_PATH
-    abs_errs = flash_check(bh, s, d, seed=1)
+    abs_errs = flash_check(bh, s, d, seed=1, f64=True)
     fwd_extra_checks("flash_fwd", fc.flash_fwd, fc.flash_fwd_plain, flash_inputs(bh, s, d, seed=5)[:3], 1.0 / d ** 0.5)
+    bwd_extra_checks("flash_bwd", flash_inputs(bh, s, d, seed=7), 1.0 / d ** 0.5, aligned=True)
 
     q, k, v, do = flash_inputs(bh, s, d, seed=1)
     scale = 1.0 / d ** 0.5
@@ -660,7 +708,7 @@ def phase_flash_rect():
     fwd_extra_checks("flash_fwd_rect causal q_off=64 k_off=0", fc.flash_fwd_rect, fc.flash_fwd_rect_plain, qkv,
                      1.0 / d ** 0.5, True, 64, 0)
     bwd_extra_checks("flash_bwd_rect", inputs, 1.0 / d ** 0.5)
-    bwd_extra_checks("flash_bwd_rect causal q_off=64 k_off=0", inputs, 1.0 / d ** 0.5, True, 64, 0)
+    bwd_extra_checks("flash_bwd_rect causal q_off=64 k_off=0", inputs, 1.0 / d ** 0.5, (True, 64, 0))
     del inputs, qkv
 
     q, k, v, do = rect_inputs(bh, s, s, d, seed=2)
@@ -710,6 +758,51 @@ def phase_flash_rect():
         torch.autograd.grad(F.scaled_dot_product_attention(q4, k4, v4), (q4, k4, v4), do4)
 
     return time_flash(f"BH={bh} S={s} D={d} non-causal", calls, work, abs_of, flash_fwd_bwd, sdpa_fwd_bwd)
+
+
+def attention_grad_layers(model, gid: int) -> int:
+    """Attention layers whose backward runs in a gradient pass of group `gid`:
+    every block from the group's first block on, all of them for a group
+    before the first block (the embedding) and none for a group after the
+    last (the head). Groups name their blocks `block<i>`
+    (models/transformer.py); blocks before the group's are frozen, so no
+    gradient flows back through them."""
+    names = [path[0] for path in model.GROUP_PATHS[gid]]
+    blocks = [int(n[len("block"):]) for n in names if n.startswith("block")]
+    if blocks:
+        return model.DEPTH - min(blocks)
+    return model.DEPTH if any(n in ("embed", "pos_embed") for n in names) else 0
+
+
+def expected_launches(rec, model=None, sweep_passes: int = 0) -> dict:
+    """The launches a training run's own records imply. Each round records
+    the optimizer's batched passes (`objective_passes`: with a gradient,
+    without one, and directions, one per inner iteration). The direction
+    kernels launch once per direction. In a transformer, the attention
+    backward launches once per gradient pass in each layer behind the
+    active group, and the forward once per pass of any kind in every layer:
+    the optimizer's passes and `sweep_passes` per evaluation recorded in
+    `test_accuracy`."""
+    sweeps = Counter((r["nloop"], r["group"]) for r in rec.series["test_accuracy"])
+    out = Counter()
+    for r in rec.series["objective_passes"]:
+        passes = r["value"]
+        out["direction"] += passes["direction"]
+        if model is not None:
+            out["backward"] += attention_grad_layers(model, r["group"]) * passes["grad"]
+            out["forward"] += model.DEPTH * (passes["grad"] + passes["value"]
+                                             + sweep_passes * sweeps[(r["nloop"], r["group"])])
+    return dict(out)
+
+
+def gate_launches(path: str, launches: dict, expected: dict) -> None:
+    """Each kernel's launches against the count the run implies, printed side
+    by side; any difference fails."""
+    for name, want in expected.items():
+        print(f"{path} launches {name} expected={want} counted={launches[name]}", flush=True)
+    wrong = {name: (want, launches[name]) for name, want in expected.items() if launches[name] != want}
+    if wrong:
+        fail(f"{path}: launches differ from the count the run implies (expected, counted): {wrong}")
 
 
 def phase_parity():
@@ -789,6 +882,8 @@ def phase_train(metrics_out, profile: bool):
     for name, n in launches.items():
         if n <= 0:
             fail(f"kernel {name} was not launched on the main path")
+    n_dir = expected_launches(rec)["direction"]
+    gate_launches("train", launches, {name: n_dir for name in cc.LAUNCHES})
     if profile:
         profile_epoch(tr)
     return launches, wall
@@ -850,8 +945,15 @@ def phase_lm_parity():
     import torch
 
     from federated_pytorch_test_tpu_torch.consensus import FedAvgState, fedavg_round
-    from federated_pytorch_test_tpu_torch.federated_lm import FederatedLM, LMConfig, lm_train_step
+    from federated_pytorch_test_tpu_torch.engine.steps import _group_params
+    from federated_pytorch_test_tpu_torch.federated_lm import FederatedLM, LMConfig, lm_loss, lm_train_step
     from federated_pytorch_test_tpu_torch.optim import lbfgs_init
+
+    def grad(ctx, flat, toks):
+        x = ctx.partition.extract(flat, ctx.gid).contiguous().requires_grad_(True)
+        with torch.enable_grad():
+            loss = lm_loss(ctx.model, _group_params(ctx, flat, x), toks).sum()
+        return torch.autograd.grad(loss, x)[0]
 
     lms = {impl: FederatedLM(LMConfig(seq=256, max_groups=1, attn_impl=impl), verbose=False)
            for impl in ("dense", "flash")}
@@ -862,11 +964,18 @@ def phase_lm_parity():
     state = lbfgs_init(dense.partition.extract(flat, gid).contiguous(), ctxs["dense"].lbfgs)
     worst = {"train_loss": 0.0, "params": 0.0, "dual_residual": 0.0}
     for s in range(dense.train.shape[1]):
-        out = {impl: lm_train_step(ctx, flat.clone(), state, dense.train[:, s]) for impl, ctx in ctxs.items()}
-        (fd, sd, ld), (ff, _, lf) = out["dense"], out["flash"]
+        toks = dense.train[:, s]
+        gd, gf = (grad(ctx, flat, toks) for ctx in ctxs.values())  # at the step's entry
+        out = {impl: lm_train_step(ctx, flat.clone(), state, toks) for impl, ctx in ctxs.items()}
+        (fd, sd, ld), (ff, sf, lf) = out["dense"], out["flash"]
         xd, xf = dense.partition.extract(fd, gid), dense.partition.extract(ff, gid)
-        worst["train_loss"] = max(worst["train_loss"], float(((lf - ld).abs() / ld.abs()).max()))
-        worst["params"] = max(worst["params"], float((xf - xd).abs().max() / xd.abs().max()))
+        step = {"train_loss": float(((lf - ld).abs() / ld.abs()).max()),
+                "params": float((xf - xd).abs().max() / xd.abs().max())}
+        print(f"lm parity step {s} grad_rel={rel_err(gf, gd):.3e} "
+              + " ".join(f"{k}_rel={v:.3e}" for k, v in step.items())
+              + f" evals dense={sd.func_evals.tolist()} flash={sf.func_evals.tolist()}"
+              + f" probes dense={sd.ls_evals.tolist()} flash={sf.ls_evals.tolist()}", flush=True)
+        worst = {k: max(v, step.get(k, 0.0)) for k, v in worst.items()}
         if s == dense.train.shape[1] - 1:  # the averaging round of each last step
             duals = [float(fedavg_round(x, FedAvgState(z=torch.zeros_like(x[0])))[1]["dual_residual"])
                      for x in (xd, xf)]
@@ -921,6 +1030,9 @@ def phase_lm_train(metrics_out, profile: bool):
     for name in fc.CAUSAL_KERNELS:
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the LM path")
+    exp = expected_launches(rec, lm.model, sweep_passes=1)  # an evaluation is one pass over the test sequences
+    gate_launches("lm", launches, {"flash_fwd": exp["forward"], "flash_bwd_dq": exp["backward"],
+                                   "flash_bwd_dkv": exp["backward"]})
     if profile:
         profile_lm_epoch(lm)
     return launches, wall
@@ -1030,9 +1142,62 @@ def phase_vit_train(metrics_out, profile: bool):
     for name in fc.RECT_KERNELS:
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the ViT path")
+    exp = expected_launches(rec, tr.model, sweep_passes=len(tr.test_imgs))  # an evaluation: one pass a test batch
+    gate_launches("vit", launches, {"flash_fwd_rect": exp["forward"], "flash_bwd_dq_rect": exp["backward"],
+                                    "flash_bwd_dkv_rect": exp["backward"],
+                                    **{name: exp["direction"] for name in cc.LAUNCHES}})
     if profile:
         profile_epoch(tr)
     return launches, wall
+
+
+# One turn of `--ab-parent`, run in a fresh process from the root of a
+# checkout: that checkout's three train phases, the LM's group-0 epoch
+# profiled, then their walls as one JSON line.
+AB_TURN = """
+import json, sys
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from federated_pytorch_test_tpu_torch.utils import configure_precision
+configure_precision()
+walls = {p: getattr(cs, p)(None, p == "phase_lm_train")[1]
+         for p in ("phase_train", "phase_lm_train", "phase_vit_train")}
+print("ab walls " + json.dumps(walls), flush=True)
+"""
+AB_RUNS = 3  # turns of each checkout
+AB_BUILD = "from federated_pytorch_test_tpu_torch.ops import build; [build.build(n) for n in %r]" % (SOURCES,)
+
+
+def run_ab(parent: str, runs: int) -> None:
+    """The three train walls of another checkout (`parent`, e.g. `git
+    archive` of the parent commit unpacked) and of this one, `runs` turns
+    each, in fresh processes taking turns parent, change, change, parent,
+    ... after both have built their kernels. Every line of a turn is
+    printed with its checkout's tag; then each pair's differences (change
+    minus parent) and their medians."""
+    import statistics
+
+    trees = {"parent": os.path.abspath(parent), "change": HERE}
+    with ThreadPoolExecutor(2) as pool:  # both builds at once, outside the timed turns
+        for tag, proc in zip(trees, pool.map(lambda t: subprocess.run(
+                [sys.executable, "-c", AB_BUILD], cwd=t, capture_output=True, text=True), trees.values())):
+            if proc.returncode != 0:
+                fail(f"ab: the {tag} checkout did not build:\n{proc.stdout}{proc.stderr}")
+    order = [("parent", "change"), ("change", "parent")]
+    walls = {"parent": [], "change": []}
+    for turn in range(runs):
+        for tag in order[turn % 2]:
+            proc = subprocess.run([sys.executable, "-c", AB_TURN], cwd=trees[tag], capture_output=True, text=True)
+            for line in (proc.stdout + proc.stderr).splitlines():
+                print(f"[{tag} {turn}] {line}", flush=True)
+            if proc.returncode != 0:
+                fail(f"ab: the {tag} checkout's turn {turn} failed (exit {proc.returncode})")
+            walls[tag].append(json.loads(proc.stdout.split("ab walls ")[-1].splitlines()[0]))
+    for phase in walls["change"][0]:
+        diffs = [c[phase] - p[phase] for c, p in zip(walls["change"], walls["parent"])]
+        print(f"ab {phase} parent={[round(p[phase], 3) for p in walls['parent']]} "
+              f"change={[round(c[phase], 3) for c in walls['change']]} "
+              f"diffs={[round(x, 3) for x in diffs]} median_diff={statistics.median(diffs):.3f}", flush=True)
 
 
 def main() -> int:
@@ -1041,6 +1206,9 @@ def main() -> int:
     ap.add_argument("--lm-metrics-out", help="write the LM path's metric series as JSON here")
     ap.add_argument("--vit-metrics-out", help="write the ViT path's metric series as JSON here")
     ap.add_argument("--profile", action="store_true", help="also profile one epoch of each path")
+    ap.add_argument("--ab-parent", metavar="DIR",
+                    help="instead of the phases, time the three train paths of the checkout in DIR and of this "
+                         "one in turns (see run_ab)")
     args = ap.parse_args()
 
     import torch
@@ -1063,6 +1231,9 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}", flush=True)
+    if args.ab_parent:
+        run_ab(args.ab_parent, AB_RUNS)
+        return 0
 
     def timed_build(name):
         t0 = time.perf_counter()
@@ -1072,7 +1243,7 @@ def main() -> int:
         built = list(pool.map(timed_build, SOURCES))
     for lib, seconds in built:
         print(f"build {lib.name} seconds={seconds:.3f}", flush=True)
-    report_forward_build(built[SOURCES.index("flash_attention")][0])
+    report_tc_build(built[SOURCES.index("flash_attention")][0])
 
     report = phase_kernels()
     flash_report = phase_flash()

@@ -4,16 +4,17 @@
 // under its `_flash3` custom VJP. Tensors are f32 and contiguous: q (and
 // dO) [BH, Sq, D], k, v [BH, Skv, D], lse and delta [BH, Sq]. Two families:
 //
-//   aligned causal (Sq = Skv; the path of `flash_attention(..., causal=True)`)
-//     _fwd_tri     :559 (_fwd_kernel_tri :253)      -> flash_fwd_launch
-//     _bwd_tri dq  :655 (_bwd_dq_kernel_tri :341)   -> flash_bwd_dq_launch
-//     _bwd_tri dkv :673 (_bwd_dkv_kernel_tri :365)  -> flash_bwd_dkv_launch
+//   aligned causal (Sq = Skv, shift 0; the path of
+//   `flash_attention(..., causal=True)`, the LM)
+//     _fwd_tri     :559 (_fwd_kernel_tri :253)      -> flash_fwd_launch      -> flash_fwd_tc<D, true>
+//     _bwd_tri dq  :655 (_bwd_dq_kernel_tri :341)   -> flash_bwd_dq_launch   -> flash_bwd_dq_tc<D, true>
+//     _bwd_tri dkv :673 (_bwd_dkv_kernel_tri :365)  -> flash_bwd_dkv_launch  -> flash_bwd_dkv_tc<D, true>
 //   rectangular, non-causal or causal on global offsets (q_off, k_off)
 //   (the path of `flash_attention(..., causal=False)`, the ViT, and of
 //   `flash_block`)
-//     _fwd         :601 (_fwd_kernel :395)          -> flash_fwd_rect_launch
-//     _flash3_bwd  :721 (_bwd_dq_kernel :436)       -> flash_bwd_dq_rect_launch
-//     _flash3_bwd  :744 (_bwd_dkv_kernel :461)      -> flash_bwd_dkv_rect_launch
+//     _fwd         :601 (_fwd_kernel :395)          -> flash_fwd_rect_launch      -> flash_fwd_tc<D, ·>
+//     _flash3_bwd  :721 (_bwd_dq_kernel :436)       -> flash_bwd_dq_rect_launch   -> flash_bwd_dq_tc<D, ·>
+//     _flash3_bwd  :744 (_bwd_dkv_kernel :461)      -> flash_bwd_dkv_rect_launch  -> flash_bwd_dkv_tc<D, ·>
 //
 // o = softmax(q kᵀ·scale [, causal]) v with the natural-log row logsumexp
 // lse; dq = scale · Σ_j dS_ij k_j, dv = Σ_i P_ijᵀ dO_i, dk = scale ·
@@ -71,14 +72,15 @@
 //     atomics, bitwise repeatable. A row that saw no key (l = 0) stores
 //     o = 0 and lse = −1e30 exactly (`_fwd_kernel` :428-433).
 //
-// Rectangular backward: dq (`flash_bwd_dq_tc`) and dk/dv (`flash_bwd_dkv_tc`)
+// Backward, both families: dq (`flash_bwd_dq_tc`) and dk/dv (`flash_bwd_dkv_tc`)
 // on the tensor cores, in the forward's split TF32 (lo·hi + hi·lo + hi·hi).
 //   Bound on an H100 SXM: dq's three products (S, dP, dS·K) and dk/dv's four
 //   (S, dP, Pᵀ·dO, dSᵀ·Q) at 2·D flops a pair each, three TF32 passes at
 //   495 TFLOP/s: at the ViT path's 4.0e8 non-causal pairs (BH = 6144,
 //   S = 256, D = 16) 0.234 and 0.312 ms, against 0.10 ms for the exps and
-//   0.15 and 0.18 ms for the bytes. An f32 FFMA design is held to 0.577
-//   and 0.769 ms there.
+//   0.15 and 0.18 ms for the bytes; at the LM path's causal triangle
+//   (BH = 128, S = 2048: 2.7e8 pairs) 0.156 and 0.208 ms. An f32 FFMA
+//   design is held to 0.577 and 0.769 ms (ViT), 0.385 and 0.513 ms (LM).
 //   Design (the forward's building blocks):
 //   * A block owns 128 rows as two warpgroups of 64: query rows for dq, key
 //     rows for dk/dv. Its own operands (Q and dO; K and V) are split into
@@ -102,9 +104,16 @@
 //     registers and fed as the A operand from registers of m64nDk8 wgmmas:
 //     the accumulator's columns {2t, 2t+1} of every 8 meet the fragment's
 //     positions {t, t+4}, which the transposed operand's order matches.
-//     Unlike the forward's O, the gradients sum over every tile in the
-//     tensor cores' accumulator (no rescaling, and the split keeps them
-//     within ~1e-6 of float64: tests/test_torch_flash_split.py).
+//     The non-causal instances sum the gradients over every tile in the
+//     tensor cores' accumulator. The causal ones, which serve the LM's rows
+//     of up to S = 2048 keys or queries, sum each tile's product in a fresh
+//     accumulator and add it to the running sum in f32, as the forward does
+//     for O. Summed over every tile in the tensor cores, dk and dv drifted
+//     from float64 in proportion to S (up to 3.1e-5 of the largest entry at
+//     S = 2048, 5.7e-5 at 4096, on an H100) and moved the LM's L-BFGS steps
+//     by 1.8e-3; tile by tile they stay within 1e-6. There dk/dv issues its
+//     two products one after the other, so that one partial sum and one
+//     split operand are live at a time.
 //   * Causal: a block reads only the tiles that can see it (`key_end` for
 //     dq, from `qt0` for dk/dv); a warpgroup skips tiles wholly outside its
 //     triangle and masks, by select, only tiles across its diagonal. Causal
@@ -113,24 +122,8 @@
 //   * Each output row is summed by one warpgroup in a fixed order: no
 //     atomics, bitwise repeatable.
 //
-// Aligned causal backward (`flash_bwd_dq_kernel`, `flash_bwd_dkv_kernel`):
-// plain FFMA kernels in f32.
-//   Bound: the LM path's causal triangle holds BH·S(S+1)/2 = 2.7e8 pairs,
-//   so dq's three products are 25.8 GFLOP and dk/dv's four 34.4: 0.39 and
-//   0.51 ms at the 67 TFLOP/s of f32 outside the tensor cores (0.16 and
-//   0.21 ms on the tensor cores in split TF32).
-//   * A block owns 128 rows of one (batch·head): query rows for dq, key
-//     rows for dk/dv. T = D/16 neighbouring threads share a row, each
-//     holding 16 of its D columns in registers; a dot product is each
-//     thread's 16 FMAs summed across its T lanes with warp shuffles.
-//   * The other operand streams through shared memory in tiles of 64
-//     rows. Every thread of a warp reads the same tile row at once, a
-//     broadcast.
-//   * Causal: a query block reads key tiles 0 … its diagonal, a key block
-//     reads query tiles from its diagonal to S, so only the ~S²/2 work of
-//     the TPU's triangular grid is done. Pairs past the diagonal inside the
-//     diagonal tiles are masked by select, never by a branch.
-//   * Each output row is owned by one block: no atomics, bitwise repeatable.
+// The aligned causal backward is the same two kernels at Sq = Skv and
+// shift 0, as the aligned forward is `flash_fwd_tc` at shift 0.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -140,152 +133,6 @@
 namespace {
 
 constexpr int kRows = 128;  // rows a block owns
-constexpr int kTile = 64;   // rows of the streamed operand per shared-memory tile
-constexpr int kLane = 16;   // head-dim columns per thread
-
-// Sum over the T lanes that share a row (neighbouring lanes of one warp);
-// every lane ends with the same, bitwise equal, value.
-template <int T>
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = T / 2; off >= 1; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ void load16(float* dst, const float* src) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float4 x = s4[i];
-    dst[4 * i] = x.x;
-    dst[4 * i + 1] = x.y;
-    dst[4 * i + 2] = x.z;
-    dst[4 * i + 3] = x.w;
-  }
-}
-
-__device__ __forceinline__ void store16(float* dst, const float* src, float mul) {
-  float4* d4 = reinterpret_cast<float4*>(dst);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    d4[i] = make_float4(src[4 * i] * mul, src[4 * i + 1] * mul, src[4 * i + 2] * mul, src[4 * i + 3] * mul);
-}
-
-__device__ __forceinline__ float dot16(const float* a, const float* b) {
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < kLane; ++i) acc = fmaf(a[i], b[i], acc);
-  return acc;
-}
-
-// rows [row0, row0 + kTile) of a [S, D] matrix into shared memory, 16 bytes a load
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int row0) {
-  const float4* s4 = reinterpret_cast<const float4*>(src + (size_t)row0 * D);
-  float4* d4 = reinterpret_cast<float4*>(dst);
-  for (int i = threadIdx.x; i < kTile * D / 4; i += blockDim.x) d4[i] = s4[i];
-}
-
-template <int D>
-__global__ void __launch_bounds__(kRows * (D / kLane))
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                    const float* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq, int S, float scale) {
-  constexpr int T = D / kLane;
-  __shared__ __align__(16) float ks[kTile * D];
-  __shared__ __align__(16) float vs[kTile * D];
-  const int bh = blockIdx.y;
-  const int row0 = (gridDim.x - 1 - blockIdx.x) * kRows;
-  const int r = threadIdx.x / T, t = threadIdx.x % T;
-  const int row = row0 + r;
-  const size_t base = (size_t)bh * S * D;
-  const float* kb = k + base;
-  const float* vb = v + base;
-
-  float qr[kLane], dor[kLane], acc[kLane];
-  load16(qr, q + base + (size_t)row * D + t * kLane);
-  load16(dor, dout + base + (size_t)row * D + t * kLane);
-#pragma unroll
-  for (int i = 0; i < kLane; ++i) acc[i] = 0.f;
-  const float lse_r = lse[(size_t)bh * S + row];
-  const float delta_r = delta[(size_t)bh * S + row];
-
-  const int kend = row0 + kRows;
-  for (int kt = 0; kt < kend; kt += kTile) {
-    __syncthreads();
-    load_tile<D>(ks, kb, kt);
-    load_tile<D>(vs, vb, kt);
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float kr[kLane], vr[kLane];
-      load16(kr, ks + c * D + t * kLane);
-      load16(vr, vs + c * D + t * kLane);
-      const float sc = row_sum<T>(dot16(qr, kr)) * scale;
-      const float dp = row_sum<T>(dot16(dor, vr));
-      const float p = (kt + c <= row) ? expf(sc - lse_r) : 0.f;
-      const float ds = p * (dp - delta_r);
-#pragma unroll
-      for (int i = 0; i < kLane; ++i) acc[i] = fmaf(ds, kr[i], acc[i]);
-    }
-  }
-  store16(dq + base + (size_t)row * D + t * kLane, acc, scale);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kRows * (D / kLane))
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                     const float* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
-                     int S, float scale) {
-  constexpr int T = D / kLane;
-  __shared__ __align__(16) float qs[kTile * D];
-  __shared__ __align__(16) float dos[kTile * D];
-  __shared__ float lses[kTile];
-  __shared__ float deltas[kTile];
-  const int bh = blockIdx.y;
-  const int row0 = blockIdx.x * kRows;  // key rows; the first blocks see the most queries
-  const int r = threadIdx.x / T, t = threadIdx.x % T;
-  const int key = row0 + r;
-  const size_t base = (size_t)bh * S * D;
-  const float* qb = q + base;
-  const float* dob = dout + base;
-
-  float kr[kLane], vr[kLane], dka[kLane], dva[kLane];
-  load16(kr, k + base + (size_t)key * D + t * kLane);
-  load16(vr, v + base + (size_t)key * D + t * kLane);
-#pragma unroll
-  for (int i = 0; i < kLane; ++i) dka[i] = dva[i] = 0.f;
-
-  // queries before row0 see none of this block's keys
-  for (int qt = row0; qt < S; qt += kTile) {
-    __syncthreads();
-    load_tile<D>(qs, qb, qt);
-    load_tile<D>(dos, dob, qt);
-    for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
-      lses[i] = lse[(size_t)bh * S + qt + i];
-      deltas[i] = delta[(size_t)bh * S + qt + i];
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float qv[kLane], dov[kLane];
-      load16(qv, qs + c * D + t * kLane);
-      load16(dov, dos + c * D + t * kLane);
-      const float sc = row_sum<T>(dot16(kr, qv)) * scale;
-      const float dp = row_sum<T>(dot16(vr, dov));
-      const float p = (key <= qt + c) ? expf(sc - lses[c]) : 0.f;
-      const float ds = p * (dp - deltas[c]);
-#pragma unroll
-      for (int i = 0; i < kLane; ++i) {
-        dva[i] = fmaf(p, dov[i], dva[i]);
-        dka[i] = fmaf(ds, qv[i], dka[i]);
-      }
-    }
-  }
-  store16(dk + base + (size_t)key * D + t * kLane, dka, scale);
-  store16(dv + base + (size_t)key * D + t * kLane, dva, 1.f);
-}
 
 bool shape_ok(int bh, int s) { return bh >= 1 && bh <= 65535 && s >= kRows && s % kRows == 0; }
 
@@ -307,8 +154,8 @@ __device__ __forceinline__ int key_end(int row0, int shift, int s_kv) {
 bool rect_shape_ok(int bh, int s_q, int s_kv) { return shape_ok(bh, s_q) && shape_ok(bh, s_kv); }
 
 // ---------------------------------------------------------------------------
-// The tensor-core kernels: the forward of both families and the rectangular
-// backward (see the notes at the top).
+// The tensor-core kernels: the forward and the backward of both families
+// (see the notes at the top).
 // ---------------------------------------------------------------------------
 namespace tc {
 
@@ -739,7 +586,7 @@ int fwd(const float* q, const float* k, const float* v, float* o, float* lse, in
 
 
 // ---------------------------------------------------------------------------
-// The rectangular backward on the tensor cores (see the note at the top).
+// The backward on the tensor cores, both families (see the note at the top).
 // ---------------------------------------------------------------------------
 
 // rows of the streamed operand a backward tile. dq streams 64 keys, 32 at
@@ -850,20 +697,22 @@ __device__ __forceinline__ void split_frag(const float (&x)[N], uint32_t (&hi)[N
   pin(lo);
 }
 
-// acc += X·B over T contraction positions in split TF32, small products
-// first. X is the [64 x T] accumulator of an earlier product, split into xh/xl:
+// acc (+)= X·B over T contraction positions in split TF32, small products
+// first; with accumulate = 0 the first product overwrites acc. X is the
+// [64 x T] accumulator of an earlier product, split into xh/xl:
 // a thread holds its columns 8j + 2t + e, which the TF32 A fragment takes at
 // positions {t, t + 4}; B (N rows by T positions, base b16, hi/lo at b_hi,
 // b_lo) stores each 8 of its positions in the order 0, 2, 4, 6, 1, 3, 5, 7 to
 // match, so the registers are the fragment as they stand.
 template <int N, int T>
 __device__ __forceinline__ void rs_split(float (&acc)[N / 2], const uint32_t (&xh)[T / 2],
-                                         const uint32_t (&xl)[T / 2], uint32_t b16, uint32_t b_hi, uint32_t b_lo) {
+                                         const uint32_t (&xl)[T / 2], uint32_t b16, uint32_t b_hi, uint32_t b_lo,
+                                         int accumulate = 1) {
 #pragma unroll
   for (int j = 0; j < T / 8; ++j) {
     const uint32_t a_lo[4] = {xl[4 * j], xl[4 * j + 2], xl[4 * j + 1], xl[4 * j + 3]};
     const uint32_t a_hi[4] = {xh[4 * j], xh[4 * j + 2], xh[4 * j + 1], xh[4 * j + 3]};
-    wgmma_rs<N>(acc, a_lo, desc<N>(b16, b_hi + 32 * N * j), 1);
+    wgmma_rs<N>(acc, a_lo, desc<N>(b16, b_hi + 32 * N * j), j > 0 || accumulate);
     wgmma_rs<N>(acc, a_hi, desc<N>(b16, b_lo + 32 * N * j), 1);
   }
 #pragma unroll
@@ -1014,7 +863,7 @@ flash_bwd_dq_tc(const float* __restrict__ q, const float* __restrict__ k, const 
   const float lse_a = lse2(__ldg(lse + (size_t)bh * s_q + row_a)), lse_b = lse2(__ldg(lse + (size_t)bh * s_q + row_b));
   const float dl_a = __ldg(delta + (size_t)bh * s_q + row_a), dl_b = __ldg(delta + (size_t)bh * s_q + row_b);
 
-  float acc[D / 2];  // dq / scale, summed over every tile in the tensor cores
+  float acc[D / 2];  // dq / scale
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
@@ -1063,14 +912,25 @@ flash_bwd_dq_tc(const float* __restrict__ q, const float* __restrict__ k, const 
         s[4 * j + 2 + e] = pb * (dp[4 * j + 2 + e] - dl_b);
       }
 
-    // dq += dS·K with dS in registers, against Kᵀ
+    // dq += dS·K with dS in registers, against Kᵀ; causal: the tile's
+    // product sums apart and joins acc in f32 adds
     uint32_t xh[T / 2], xl[T / 2];
     split_frag(s, xh, xl);
     wg_fence();
-    rs_split<D, T>(acc, xh, xl, base16, offsetof(S, kt_hi), offsetof(S, kt_lo));
-    wg_commit();
-    wg_wait();
-    pin(acc);
+    if constexpr (Causal) {
+      float part[D / 2];
+      rs_split<D, T>(part, xh, xl, base16, offsetof(S, kt_hi), offsetof(S, kt_lo), 0);
+      wg_commit();
+      wg_wait();
+      pin(part);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] += part[i];
+    } else {
+      rs_split<D, T>(acc, xh, xl, base16, offsetof(S, kt_hi), offsetof(S, kt_lo));
+      wg_commit();
+      wg_wait();
+      pin(acc);
+    }
   }
 
   float* da = dq + ((size_t)bh * s_q + row_a) * D + 2 * t;
@@ -1131,7 +991,7 @@ flash_bwd_dkv_tc(const float* __restrict__ q, const float* __restrict__ k, const
   const uint32_t a16 = base16 + 64 * D * 4 / 16 * wg;  // this warpgroup's rows of K and V
   const float c = scale * kLog2e;                       // P = 2^(s·c − lse2)
 
-  float dka[D / 2], dva[D / 2];  // dk / scale and dv, summed over every tile in the tensor cores
+  float dka[D / 2], dva[D / 2];  // dk / scale and dv
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
 
@@ -1189,16 +1049,41 @@ flash_bwd_dkv_tc(const float* __restrict__ q, const float* __restrict__ k, const
     }
 
     // dv += Pᵀ·dO against dOᵀ and dk += dSᵀ·Q against Qᵀ, Pᵀ and dSᵀ in registers
-    uint32_t ph[T / 2], pl[T / 2], dh[T / 2], dl[T / 2];
-    split_frag(s, ph, pl);
-    split_frag(dp, dh, dl);
-    wg_fence();
-    rs_split<D, T>(dva, ph, pl, base16, offsetof(S, dot_hi), offsetof(S, dot_lo));
-    rs_split<D, T>(dka, dh, dl, base16, offsetof(S, qt_hi), offsetof(S, qt_lo));
-    wg_commit();
-    wg_wait();
-    pin(dva);
-    pin(dka);
+    if constexpr (Causal) {
+      // each product of the tile sums apart and joins dv, dk in f32 adds; one
+      // after the other, so that one partial sum and one split operand are
+      // live at a time beside the two accumulators
+      float part[D / 2];
+      uint32_t ph[T / 2], pl[T / 2];
+      split_frag(s, ph, pl);
+      wg_fence();
+      rs_split<D, T>(part, ph, pl, base16, offsetof(S, dot_hi), offsetof(S, dot_lo), 0);
+      wg_commit();
+      wg_wait();
+      pin(part);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dva[i] += part[i];
+      uint32_t dh[T / 2], dl[T / 2];
+      split_frag(dp, dh, dl);
+      wg_fence();
+      rs_split<D, T>(part, dh, dl, base16, offsetof(S, qt_hi), offsetof(S, qt_lo), 0);
+      wg_commit();
+      wg_wait();
+      pin(part);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dka[i] += part[i];
+    } else {
+      uint32_t ph[T / 2], pl[T / 2], dh[T / 2], dl[T / 2];
+      split_frag(s, ph, pl);
+      split_frag(dp, dh, dl);
+      wg_fence();
+      rs_split<D, T>(dva, ph, pl, base16, offsetof(S, dot_hi), offsetof(S, dot_lo));
+      rs_split<D, T>(dka, dh, dl, base16, offsetof(S, qt_hi), offsetof(S, qt_lo));
+      wg_commit();
+      wg_wait();
+      pin(dva);
+      pin(dka);
+    }
   }
 
   float* ka = dk + ((size_t)bh * s_kv + key_a) * D + 2 * t;
@@ -1286,38 +1171,14 @@ int flash_fwd_launch(const float* q, const float* k, const float* v, float* o, f
 // dq [BH, S, D] from q, k, v, dO [BH, S, D] and lse, delta [BH, S].
 int flash_bwd_dq_launch(const float* q, const float* k, const float* v, const float* dout, const float* lse,
                         const float* delta, float* dq, int bh, int s, int d, float scale, void* stream) {
-  if (!shape_ok(bh, s)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(s / kRows, bh);
-  switch (d) {
-    case 16: flash_bwd_dq_kernel<16><<<grid, kRows * 1, 0, st>>>(q, k, v, dout, lse, delta, dq, s, scale); break;
-    case 32: flash_bwd_dq_kernel<32><<<grid, kRows * 2, 0, st>>>(q, k, v, dout, lse, delta, dq, s, scale); break;
-    case 64: flash_bwd_dq_kernel<64><<<grid, kRows * 4, 0, st>>>(q, k, v, dout, lse, delta, dq, s, scale); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return tc::bwd_dq(q, k, v, dout, lse, delta, dq, bh, s, s, d, true, 0, scale, stream);
 }
 
 // dk, dv [BH, S, D] from the same inputs.
 int flash_bwd_dkv_launch(const float* q, const float* k, const float* v, const float* dout, const float* lse,
                          const float* delta, float* dk, float* dv, int bh, int s, int d, float scale,
                          void* stream) {
-  if (!shape_ok(bh, s)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(s / kRows, bh);
-  switch (d) {
-    case 16:
-      flash_bwd_dkv_kernel<16><<<grid, kRows * 1, 0, st>>>(q, k, v, dout, lse, delta, dk, dv, s, scale);
-      break;
-    case 32:
-      flash_bwd_dkv_kernel<32><<<grid, kRows * 2, 0, st>>>(q, k, v, dout, lse, delta, dk, dv, s, scale);
-      break;
-    case 64:
-      flash_bwd_dkv_kernel<64><<<grid, kRows * 4, 0, st>>>(q, k, v, dout, lse, delta, dk, dv, s, scale);
-      break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return tc::bwd_dkv(q, k, v, dout, lse, delta, dk, dv, bh, s, s, d, true, 0, scale, stream);
 }
 
 // Rectangular forward: o [BH, Sq, D], lse [BH, Sq] from q [BH, Sq, D] and

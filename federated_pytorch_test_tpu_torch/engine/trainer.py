@@ -172,6 +172,7 @@ class Trainer:
             with rec.phase("eval", sync=self._sync, nloop=nloop, group=gid, nadmm=a):
                 accs = self.evaluate()
             rec.accuracies(accs, nloop=nloop, group=gid, nadmm=a)
+        rec.objective_passes(lstate, nloop=nloop, group=gid)
         self._sync()
         rec.step_time("round", time.perf_counter() - t_round, nloop=nloop, group=gid)
 

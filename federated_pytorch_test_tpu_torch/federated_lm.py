@@ -104,7 +104,8 @@ def lm_train_step(ctx: GroupContext, flat: torch.Tensor, lstate, toks: torch.Ten
 
     The loss is the accepted line-search evaluation's (the engine's fold);
     only where the NaN-step fallback left the new point unevaluated is it
-    evaluated afresh, as the example evaluates every step's end point.
+    evaluated afresh, as the example evaluates every step's end point (one
+    more batched pass without a gradient, counted in `value_passes`).
     """
     base = flat.detach()
 
@@ -119,6 +120,7 @@ def lm_train_step(ctx: GroupContext, flat: torch.Tensor, lstate, toks: torch.Ten
     if not bool(torch.all(aux.aux_ok)):
         with torch.no_grad():
             loss = torch.where(aux.aux_ok, loss, objective(x1)[0])
+        lstate = lstate._replace(value_passes=lstate.value_passes + 1)
     return flat, lstate, loss
 
 
@@ -186,6 +188,7 @@ class FederatedLM:
             losses = losses.cpu().numpy()
         for s in range(losses.shape[0]):
             rec.batch_losses(losses[s], nloop=nloop, group=gid, nadmm=0, epoch=0, minibatch=s)
+        rec.objective_passes(lstate, nloop=nloop, group=gid)
         with rec.phase("consensus", sync=self._sync, nloop=nloop, group=gid, nadmm=0):
             self.flat, _, dual = fedavg_consensus(ctx, self.flat, cstate)
             dual = float(dual)

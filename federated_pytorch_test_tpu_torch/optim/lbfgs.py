@@ -10,7 +10,8 @@ line-search path — the path the engine runs. Kept from it:
 * the curvature guard `ys > 1e-10·‖s‖²` with history pushes suppressed on
   batch boundaries;
 * the NaN guards (entry gradient norm, step size);
-* the `func_evals` / `ls_evals` counters;
+* the `func_evals` / `ls_evals` counters (and, the port's own, the
+  batched pass counts that say how often each kernel of a pass ran);
 * the `has_aux` fold: the accepted evaluation's aux is returned, so the
   engine needs no extra diagnostic forward.
 
@@ -81,7 +82,11 @@ class LBFGSConfig:
 
 
 class LBFGSState(NamedTuple):
-    """Persistent optimizer state, every field with a leading client axis."""
+    """Persistent optimizer state, every tensor field with a leading client
+    axis. The three pass counts are host ints shared by the K clients: one
+    batched pass evaluates all of them (frozen clients included), so these
+    are the model passes the step ran, where `func_evals` / `ls_evals` count
+    each client's own evaluations."""
 
     s_hist: torch.Tensor  # [K, m, N] past steps s = t·d
     y_hist: torch.Tensor  # [K, m, N] past (damped) gradient differences
@@ -96,6 +101,9 @@ class LBFGSState(NamedTuple):
     running_avg: torch.Tensor  # [K, N] inter-batch gradient mean
     running_avg_sq: torch.Tensor  # [K, N] inter-batch second-moment accumulator
     ls_evals: torch.Tensor  # [K] i32 Armijo probe evaluations
+    grad_passes: int = 0  # batched evaluations with a gradient (entry and re-evaluations)
+    value_passes: int = 0  # batched evaluations without one (line-search probes, a caller's diagnostic)
+    direction_passes: int = 0  # batched inner iterations: one direction each
 
 
 class LBFGSAux(NamedTuple):
@@ -207,7 +215,10 @@ def lbfgs_step(
     def loss_fn_aux(xx):
         return loss_fn(xx) if has_aux else (loss_fn(xx), ())
 
+    passes = {"grad": 0, "value": 0, "direction": 0}  # batched passes of this step
+
     def value_and_grad(xx):
+        passes["grad"] += 1
         xr = xx.detach().requires_grad_(True)
         with torch.enable_grad():
             loss, aux = loss_fn_aux(xr)
@@ -216,6 +227,7 @@ def lbfgs_step(
 
     @torch.no_grad()
     def evaluate(xx):
+        passes["value"] += 1
         return loss_fn_aux(xx)
 
     loss0, aux0, g0 = value_and_grad(x)
@@ -257,6 +269,7 @@ def lbfgs_step(
         h_new = torch.where(yy != 0.0, ys / torch.where(yy != 0.0, yy, torch.ones_like(yy)), c.h_diag)
         h_diag = torch.where(accept, h_new, c.h_diag)
         d = direction_fn(c.g, s_hist, y_hist, hist_count, h_diag)
+        passes["direction"] += 1
 
         # fresh_direction on a round's first iteration: steepest descent,
         # history and running statistics reset
@@ -349,6 +362,8 @@ def lbfgs_step(
         d=c.d, t=c.t, prev_grad=c.prev_grad, prev_loss=c.prev_loss, n_iter=c.n_global,
         func_evals=state.func_evals + c.evals, running_avg=c.running_avg,
         running_avg_sq=c.running_avg_sq, ls_evals=state.ls_evals + c.ls_evals,
+        grad_passes=state.grad_passes + passes["grad"], value_passes=state.value_passes + passes["value"],
+        direction_passes=state.direction_passes + passes["direction"],
     )
     aux = LBFGSAux(
         loss=loss0, step_size=c.t, n_inner=c.n_inner, func_evals=c.evals,

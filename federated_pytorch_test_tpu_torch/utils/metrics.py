@@ -2,7 +2,8 @@
 
 Counterpart of the subset of the JAX package's `utils/metrics.py` that the
 fedavg path records: per-client per-batch training loss, the per-round
-dual residual, per-client test accuracy and phase wall times. Every
+dual residual, per-client test accuracy and phase wall times; and, the
+port's own, each round's batched model passes (`objective_passes`). Every
 observation lands in an in-memory store (JSON-serializable) and, when
 verbose, is printed in the same line format as the JAX package, so the
 same shell recipes read both:
@@ -88,6 +89,12 @@ class MetricsRecorder:
         if self.verbose:
             for k, a in enumerate(vals):
                 print(f"Accuracy of client {k + 1} on the test images: {100.0 * a:.2f} %")
+
+    def objective_passes(self, lstate, *, nloop, group) -> None:
+        """A round's batched model passes, from its optimizer state: with a
+        gradient, without one, and directions (one per inner iteration)."""
+        value = {"grad": lstate.grad_passes, "value": lstate.value_passes, "direction": lstate.direction_passes}
+        self.log("objective_passes", value, nloop=nloop, group=group)
 
     def step_time(self, phase: str, seconds: float, **context) -> None:
         self.log("step_time", {"phase": phase, "seconds": seconds}, **context)

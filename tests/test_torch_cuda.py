@@ -8,7 +8,7 @@ it also runs on a machine that has only PyTorch:
 
 Tolerances are `chip_smoke.py`'s: relative 1e-5 of the largest reference
 entry for the flash forward, 1e-4 for its gradients (sums over up to S
-keys in another order). With q, k x 8 (scores x 64) the f32 rounding of the
+keys in another order), the aligned backward also at the LM's S = 2048. With q, k x 8 (scores x 64) the f32 rounding of the
 scores alone moves o by ~1e-5 of its largest entry, so there the forward is
 held against the plain version in float64: within 1e-5 of it, or no further
 from it than twice the plain version in f32 is; the rectangular backward
@@ -43,6 +43,33 @@ def test_flash_kernels_match_plain(s, d):
     got = flash_cuda.flash_bwd(q, k, v, o_ref, lse_ref, do, 0.25)
     for a, b in zip(got, flash_cuda.flash_bwd_plain(q, k, v, o_ref, lse_ref, do, 0.25)):
         assert _rel(a, b) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 64])
+def test_aligned_backward_at_the_lm_length_matches_plain(d):
+    # the LM's S = 2048, where dq, dk and dv each sum 2048 keys or queries
+    _card()
+    rng = np.random.default_rng(d)
+    q, k, v, do = (torch.tensor(rng.normal(size=(4, 2048, d)).astype(np.float32), device="cuda") for _ in range(4))
+    scale = 1.0 / d ** 0.5
+    o, lse = flash_cuda.flash_fwd_plain(q, k, v, scale)
+    got = flash_cuda.flash_bwd(q, k, v, o, lse, do, scale)
+    for a, b in zip(got, flash_cuda.flash_bwd_plain(q, k, v, o, lse, do, scale)):
+        assert bool(torch.isfinite(a).all()) and _rel(a, b) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_aligned_backward_repeats_bitwise():
+    _card()
+    rng = np.random.default_rng(13)
+    q, k, v, do = (torch.tensor(rng.normal(size=(4, 2048, 16)).astype(np.float32), device="cuda") for _ in range(4))
+    o, lse = flash_cuda.flash_fwd_plain(q, k, v, 0.25)
+    delta = (do * o).sum(-1)
+    first, second = ((flash_cuda.flash_bwd_dq(q, k, v, do, lse, delta, 0.25),
+                      *flash_cuda.flash_bwd_dkv(q, k, v, do, lse, delta, 0.25)) for _ in range(2))
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -209,11 +209,13 @@ def test_p_fragment_and_vt_key_order_give_p_times_v():
 
 
 # ---------------------------------------------------------------------------
-# The rectangular backward (`flash_bwd_dq_tc`, `flash_bwd_dkv_tc`): the same
-# split TF32, each of S, dP, dq += dS·K, dv += Pᵀ·dO and dk += dSᵀ·Q three
-# passes, P = 2^(s·c − lse·log2 e) with c = scale·log2 e in one FFMA (a row
-# that saw no key gets lse·log2 e = +inf, so P = 0), dS = P ∘ (dP − delta),
-# and dq, dk and dv summed over every streamed tile in one accumulator.
+# The backward (`flash_bwd_dq_tc`, `flash_bwd_dkv_tc`, both families): the
+# same split TF32, each of S, dP, dq += dS·K, dv += Pᵀ·dO and dk += dSᵀ·Q
+# three passes, P = 2^(s·c − lse·log2 e) with c = scale·log2 e in one FFMA (a
+# row that saw no key gets lse·log2 e = +inf, so P = 0), dS = P ∘ (dP −
+# delta); the non-causal instances sum dq, dk and dv over every streamed
+# tile in one accumulator, the causal ones sum each tile's product apart and
+# add it to the running sum in f32.
 # ---------------------------------------------------------------------------
 
 
@@ -256,7 +258,10 @@ def dq_model(q, k, v, do, lse, delta, scale, causal=False, shift=0, passes=3):
             keep = (kt + np.arange(t))[None, :] <= rows[blk, None] + shift if causal else True
             p = _p(s, c, l2[blk, None], keep)
             ds = p * (dp - delta[blk, None])
-            acc = split_product(ds, k[keys], acc, passes)
+            if causal:  # the tile's dS·K summed apart, then one f32 add
+                acc = (acc + split_product(ds, k[keys], passes=passes)).astype(np.float32)
+            else:
+                acc = split_product(ds, k[keys], acc, passes)
         dq[blk] = acc * np.float32(scale)
     return dq
 
@@ -281,8 +286,12 @@ def dkv_model(q, k, v, do, lse, delta, scale, causal=False, shift=0, passes=3):
             keep = keys[blk, None] <= (qt + np.arange(t))[None, :] + shift if causal else True
             p = _p(st, c, l2[None, qs], keep)
             ds = p * (dpt - delta[None, qs])
-            dva = split_product(p, do[qs], dva, passes)
-            dka = split_product(ds, q[qs], dka, passes)
+            if causal:  # each product of the tile summed apart, then one f32 add
+                dva = (dva + split_product(p, do[qs], passes=passes)).astype(np.float32)
+                dka = (dka + split_product(ds, q[qs], passes=passes)).astype(np.float32)
+            else:
+                dva = split_product(p, do[qs], dva, passes)
+                dka = split_product(ds, q[qs], dka, passes)
         dk[blk], dv[blk] = dka * np.float32(scale), dva
     return dk, dv
 
@@ -323,6 +332,14 @@ def test_split_tf32_backward_within_1e5_of_float64(d, s_q, s_kv, causal, shift):
         assert _rel(a, b) <= 1e-5
     dead = inputs[4] < -1e29
     assert (got[0][dead] == 0).all()  # rows that saw no key: dq exactly 0
+
+
+def test_aligned_causal_backward_at_the_lm_length_within_1e6_of_float64():
+    # the LM's S = 2048 at D = 16, each tile's products summed apart: one
+    # (batch·head) of the aligned causal backward
+    inputs = _bwd_inputs(2048, 2048, 16, 0.25, True, 0, seed=2048)
+    for a, b in zip(_bwd(*inputs, 0.25, True, 0), bwd_reference(*inputs, 0.25, True, 0)):
+        assert _rel(a, b) <= 1e-6
 
 
 @pytest.mark.parametrize("d", [16, 64])

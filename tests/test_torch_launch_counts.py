@@ -1,0 +1,109 @@
+"""The launch counts `chip_smoke.py` holds the kernels to, checked on the CPU.
+
+`chip_smoke.py` fails a training path when a kernel's launches differ from
+the count the run's own records imply (`expected_launches`): the
+optimizer's batched passes per round (`objective_passes`) times the
+attention layers each pass runs, plus the evaluation sweeps. On the CPU the
+wrappers take their plain versions and launch nothing, so here each
+wrapper is wrapped in a counter of its calls, which are the launches it
+would make on the card, and the same small drives as the slice tests run:
+the LM at S = 128 over all six groups (the embedding, every block and the
+head: 4, 4..1 and 0 attention layers behind the active group), the ViT
+with the fused direction over its first two groups, two averaging rounds
+and evaluations each. Counts are exact: no tolerance.
+"""
+
+import importlib.util
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from federated_pytorch_test_tpu_torch.data import synthetic_cifar
+from federated_pytorch_test_tpu_torch.engine import ExperimentConfig, Trainer
+from federated_pytorch_test_tpu_torch.federated_lm import FederatedLM, LMConfig
+from federated_pytorch_test_tpu_torch.ops import compact_cuda, flash_cuda
+from federated_pytorch_test_tpu_torch.optim import LBFGSConfig, lbfgs_init, lbfgs_step
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
+
+
+def _count_calls(monkeypatch, module, names, counts):
+    """Replace each wrapper by one that counts its calls into `counts`."""
+    for name in names:
+        counts[name] = 0
+        fn = getattr(module, name)
+
+        def counted(*args, _fn=fn, _name=name, **kwargs):
+            counts[_name] += 1
+            return _fn(*args, **kwargs)
+
+        monkeypatch.setattr(module, name, counted)
+
+
+def test_lm_launches_equal_the_count_its_records_imply(monkeypatch):
+    # `flash_bwd` launches dq and dk/dv once each on the card (on the CPU it
+    # goes to the plain backward directly)
+    counts = {}
+    _count_calls(monkeypatch, flash_cuda, ("flash_fwd", "flash_bwd"), counts)
+    lm = FederatedLM(LMConfig(k=2, vocab=32, dim=32, num_heads=2, seq=128, batch=2, n_batch=2,
+                              attn_impl="flash", device="cpu"), verbose=False)
+    rec = lm.run()
+    exp = chip_smoke.expected_launches(rec, lm.model, sweep_passes=1)
+    assert [chip_smoke.attention_grad_layers(lm.model, g) for g in lm.group_order] == [4, 4, 3, 2, 1, 0]
+    assert counts == {"flash_fwd": exp["forward"], "flash_bwd": exp["backward"]}
+    assert len(rec.series["objective_passes"]) == 6 and exp["backward"] > 0
+
+
+def test_vit_launches_equal_the_count_its_records_imply(monkeypatch):
+    counts = {}
+    _count_calls(monkeypatch, flash_cuda, flash_cuda.RECT_KERNELS, counts)
+    _count_calls(monkeypatch, compact_cuda, tuple(compact_cuda.LAUNCHES), counts)
+    cfg = ExperimentConfig(model="vit", model_kwargs={"patch": 2, "attn_impl": "flash"}, device="cpu", batch=8,
+                           eval_batch=8, nloop=1, nadmm=2, max_groups=2, lbfgs_direction="pallas")
+    tr = Trainer(cfg, verbose=False, source=synthetic_cifar(24, 16))
+    rec = tr.run()
+    exp = chip_smoke.expected_launches(rec, tr.model, sweep_passes=len(tr.test_imgs))
+    assert len(tr.test_imgs) == 2  # two test batches an evaluation
+    assert counts == {"flash_fwd_rect": exp["forward"], "flash_bwd_dq_rect": exp["backward"],
+                      "flash_bwd_dkv_rect": exp["backward"],
+                      "fused_gram_projections": exp["direction"], "fused_direction_assembly": exp["direction"]}
+
+
+def test_gate_fails_on_any_difference(capsys):
+    chip_smoke.gate_launches("lm", {"flash_bwd_dq": 224}, {"flash_bwd_dq": 224})
+    assert "lm launches flash_bwd_dq expected=224 counted=224" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        chip_smoke.gate_launches("lm", {"flash_bwd_dq": 448}, {"flash_bwd_dq": 224})
+
+
+def test_batched_passes_agree_with_the_per_client_counters():
+    # a client stays in the batched loop only while it re-evaluates, so the
+    # gradient passes of a step are the most any client made, and the
+    # directions the most inner iterations; a probe pass serves every
+    # client still searching, so there are at least as many as any one
+    # client's probes
+    rng = np.random.default_rng(0)
+    n = 12
+    a = [rng.normal(size=(n, n)) for _ in range(3)]
+    mats = torch.tensor(np.stack([m @ m.T + (n + 5 * k) * np.eye(n) for k, m in enumerate(a)]), dtype=torch.float32)
+    rhs = torch.tensor(rng.normal(size=(3, n)), dtype=torch.float32)
+
+    def loss(x):
+        return 0.5 * (x * (mats @ x[..., None])[..., 0]).sum(-1) - (rhs * x).sum(-1)
+
+    cfg = LBFGSConfig(max_iter=6, history_size=4)
+    x = torch.zeros(3, n)
+    state = lbfgs_init(x, cfg)
+    grad = value = direction = 0
+    for _ in range(3):
+        x, state, aux = lbfgs_step(loss, x, state, cfg)
+        grad += int(aux.func_evals.max())
+        direction += int(aux.n_inner.max())
+        value += int(aux.ls_evals.max())
+    assert (state.grad_passes, state.direction_passes) == (grad, direction)
+    assert state.value_passes >= value and state.direction_passes > 0
