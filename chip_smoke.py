@@ -3,21 +3,23 @@
 
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py [--metrics-out PATH] [--lm-metrics-out PATH] [--vit-metrics-out PATH] [--profile]
+    python3 chip_smoke.py [--metrics-out PATH] [--lm-metrics-out PATH] [--vit-metrics-out PATH]
+                          [--vit-moe-metrics-out PATH] [--profile]
     python3 chip_smoke.py --ab-parent DIR
 
-The second form runs none of the phases below: it times the three train
-paths of the checkout in DIR (e.g. the parent commit, `git archive`d) and
-of this one in turns, in fresh processes (`run_ab`).
+The second form runs none of the phases below: it times the train paths of
+the checkout in DIR (e.g. the parent commit, `git archive`d) and of this
+one in turns, in fresh processes (`run_ab`).
 
 Phases, each reported on its own lines; any failure exits non-zero:
 
 1. card     — `nvidia-smi` name and power limit;
-2. build    — nvcc builds the port's two CUDA sources, both at once; ptxas's
+2. build    — nvcc builds the port's three CUDA sources, all at once; ptxas's
               registers and spills and the SASS tensor-core instruction
               counts of every tensor-core flash instance (the forward and
               the backward, causal and not), each of which must hold HGMMA
-              and spill nothing;
+              and spill nothing; the registers and spills of every grouped
+              GEMM instance, none of which may spill;
 3. kernels  — each compact-direction kernel against its plain PyTorch version
               on the card (K=3, m=10, N at every Net group size, one
               ResNet18-block-sized N, counts {0, 3, 10}, a zero-curvature
@@ -96,7 +98,34 @@ Phases, each reported on its own lines; any failure exits non-zero:
               counts are zeroed just before and read just after; every
               rectangular flash kernel and compact kernel must have
               launched, exactly as often as the run's records imply, losses
-              must be finite and every client's accuracy above chance.
+              must be finite and every client's accuracy above chance;
+12. grouped — the grouped GEMM (`ops/grouped_gemm.py`) at every shape of
+              the MoE ViT path (K=3 clients x E=8 experts = 24 groups,
+              20,480 slots an expert, D=64, H=256): both forwards, the
+              evaluation forward (20,000 slots), both input gradients (B
+              a transposed view) and both weight gradients (A a transposed
+              view, the contraction over the slots split in 20): the kernel
+              against its plain version in float64 within relative 1e-5 of
+              the largest reference entry, two launches equal bits, the
+              split sum equal to its plain version; times of the kernel,
+              the plain version and `torch.bmm` (TF32 off) beside the bound
+              (the bytes, or three TF32 products) and the FFMA ceiling; the
+              split sum's with the L2 cache flushed before every call, so
+              that its bytes bound holds (each reading must not beat it);
+13. vit_moe parity — the MoE ViT's block-0 round (its experts train; the
+              gradient crosses every block) step by step at batch 128: the
+              plain side ('dense' attention, the grouped GEMM's plain
+              version) and the kernel side ('flash', the grouped kernel) fed
+              the same parameters and optimizer state before each step:
+              losses, parameters and the dual residual within relative 1e-3;
+14. vit_moe train — the switch-MoE ViT path: phase 11's configuration with
+              `moe_experts=8` (1,146,474 parameters per client,
+              `moe_aux_coef` 0.01), one outer loop over all six groups,
+              nadmm=1. Launch counts are zeroed just before and read just
+              after; every grouped, rectangular flash and compact kernel
+              must have launched exactly as often as the run's records imply
+              (`expected_grouped`), losses must be finite and every
+              client's accuracy above chance.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`. Without CUDA, or without the
@@ -126,7 +155,7 @@ NET_GROUP_SIZES = (456, 2416, 48120, 10164, 850)
 LARGE_N = 4_720_644  # ~ResNet18's largest block group; not a multiple of any tile
 REPORT_N = 48120  # the main path's largest group (fc1): the shape the JSON line reports
 RTOL = 1e-5
-SOURCES = ("compact_direction", "flash_attention")  # csrc/<name>.cu
+SOURCES = ("compact_direction", "flash_attention", "grouped_gemm")  # csrc/<name>.cu
 FLASH_DIMS = (16, 32, 64)
 FLASH_SEQS = (128, 256, 1024, 2048)
 FLASH_SWEEP_BH = 8
@@ -150,6 +179,8 @@ RECT_REPLACES = {
 }
 VIT_KWARGS = {"patch": 2, "attn_impl": "flash"}
 VIT_TRAIN, VIT_TEST = 12_288, 10_000  # 8 minibatches of 512 per client; the full test set
+VIT_MOE_KWARGS = {**VIT_KWARGS, "moe_experts": 8}  # the JAX config's own example of E
+GROUPED_REPLACES = "federated_pytorch_test_tpu/ops/grouped_gemm.py:74"
 LARGE_SLACK = 2.0  # q, k x 8: the kernel's error from float64 may reach this multiple of the f32 plain version's
 QUEUED_CALLS = 50  # calls queued per device-only timing (a plain version launches ~8 kernels)
 
@@ -197,6 +228,48 @@ def time_ms(fn, iters: int) -> tuple:
         if cycles > 1 << 34:
             fail("time_ms: could not queue the calls ahead of the card")
         cycles *= 4
+
+
+def time_cold_ms(fn, iters: int) -> tuple:
+    """As `time_ms`, with the L2 cache flushed before every call, so that
+    the call reads its inputs from device memory as a bytes bound assumes.
+    The flush writes, then reads, 256 MB (five times the H100's 50 MB L2):
+    the write evicts every other line, the read leaves clean lines whose
+    eviction costs the call no write-back. The device reading queues each
+    call behind a sleep kernel, as `time_ms` does."""
+    import torch
+
+    flush = torch.empty(1 << 26, dtype=torch.float32, device="cuda")
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(3):
+        fn()
+    host = device = 0.0
+    cycles = 10_000_000
+    for _ in range(iters):
+        flush.zero_()
+        flush.sum()
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        host += start.elapsed_time(stop)
+        while True:
+            flush.zero_()
+            flush.sum()
+            torch.cuda._sleep(cycles)
+            start.record()
+            fn()
+            stop.record()
+            queued = not start.query()  # the card had not left the sleep yet
+            torch.cuda.synchronize()
+            if queued:
+                break
+            if cycles > 1 << 34:
+                fail("time_cold_ms: could not queue the call ahead of the card")
+            cycles *= 4
+        device += start.elapsed_time(stop)
+    return host / iters, device / iters
 
 
 def rel_err(out, ref) -> float:
@@ -247,6 +320,26 @@ def report_tc_build(lib) -> None:
                   f"MUFU.EX2={chunk.count('MUFU.EX2')}", flush=True)
             if "HGMMA" not in chunk:
                 fail(f"{tc_label(name)}: no HGMMA in its SASS")
+
+
+def report_grouped_build(lib) -> None:
+    """ptxas's registers, shared memory and spills of every grouped GEMM
+    instance (from the build log); any spill fails."""
+    fn, seen, spilled = None, 0, []
+    for line in lib.with_suffix(".log").read_text(errors="replace").splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1] if "'" in line else line
+            m = re.search(r"grouped_gemm_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])E", fn)
+            fn = (f"grouped_gemm_kernel<{m.group(1)}, {m.group(2)}, {'AT' if m.group(3) == '1' else 'A'}, "
+                  f"{'BT' if m.group(4) == '1' else 'B'}>" if m else fn.split("grouped_")[-1][:24])
+        elif fn and ("Used" in line or "spill" in line or "warning" in line.lower()):
+            print(f"ptxas {fn} {line.strip()}", flush=True)
+            seen += "Used" in line
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if spills and (int(spills.group(1)) or int(spills.group(2))):
+                spilled.append(fn)
+    if spilled or not seen:
+        fail(f"grouped_gemm: instances spill: {spilled}" if spilled else "grouped_gemm: the build log has no ptxas report")
 
 
 def history(n: int, seed: int):
@@ -760,6 +853,137 @@ def phase_flash_rect():
     return time_flash(f"BH={bh} S={s} D={d} non-causal", calls, work, abs_of, flash_fwd_bwd, sdpa_fwd_bwd)
 
 
+def moe_shapes(cfg):
+    """(G, C at the train batch, C at the eval batch, D, H) of the MoE ViT path's grouped GEMMs."""
+    from federated_pytorch_test_tpu_torch.models import ViT
+
+    model = ViT(**cfg.model_kwargs)
+    moe = model.block0.moe
+    g = cfg.n_clients * moe.n_experts
+    return g, moe.capacity(cfg.batch * model.tokens), moe.capacity(cfg.eval_batch * model.tokens), model.dim, moe.hidden
+
+
+def grouped_cases(cfg):
+    """(label, role, operand shapes, operand transposed?) of every grouped GEMM
+    call on the MoE ViT path: the forward of fc1 and fc2 (training and
+    evaluation batches), their input gradients dA = dC·Bᵀ and their weight
+    gradients dB = Aᵀ·dC, each operand as the autograd function passes it."""
+    g, c, c_eval, d, h = moe_shapes(cfg)
+    return (
+        ("fwd fc1", "grouped_matmul", ((g, c, d), (g, d, h))),
+        ("fwd fc2", "grouped_matmul", ((g, c, h), (g, h, d))),
+        ("eval fc1", "grouped_matmul", ((g, c_eval, d), (g, d, h))),
+        ("dlhs fc2", "grouped_matmul_dlhs", ((g, c, d), (g, h, d))),
+        ("dlhs fc1", "grouped_matmul_dlhs", ((g, c, h), (g, d, h))),
+        ("drhs fc1", "grouped_matmul_drhs", ((g, c, d), (g, c, h))),
+        ("drhs fc2", "grouped_matmul_drhs", ((g, c, h), (g, c, d))),
+    )
+
+
+def grouped_role(role):
+    """(kernel wrapper, plain version, one library call) of a grouped role, each
+    taking the role's two operands; the contraction's (lhs, rhs) views."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.ops import grouped_gemm as gg
+
+    views = {
+        "grouped_matmul": lambda a, b: (a, b),
+        "grouped_matmul_dlhs": lambda dc, w: (dc, w.transpose(1, 2)),
+        "grouped_matmul_drhs": lambda x, dc: (x.transpose(1, 2), dc),
+    }[role]
+    kernel = {"grouped_matmul": gg.grouped_matmul_fwd, "grouped_matmul_dlhs": gg.grouped_matmul_dlhs,
+              "grouped_matmul_drhs": gg.grouped_matmul_drhs}[role]
+    return kernel, (lambda a, b: gg.grouped_matmul_plain(*views(a, b))), (lambda a, b: torch.bmm(*views(a, b))), views
+
+
+def phase_grouped():
+    """The grouped GEMM at every shape of the MoE ViT path: the kernel against
+    its plain version in float64 (relative 1e-5 of the largest reference
+    entry), two launches equal bits, the split contraction's sum kernel
+    against its plain version; times of the kernel, the plain version and
+    `torch.bmm` (TF32 off) beside the bound."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.engine import get_preset
+    from federated_pytorch_test_tpu_torch.ops import grouped_gemm as gg
+
+    cfg = get_preset("fedavg", model="vit", model_kwargs=VIT_MOE_KWARGS)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    report = {}
+    for i, (label, role, shapes) in enumerate(grouped_cases(cfg)):
+        gen = torch.Generator(device="cuda").manual_seed(100 + i)
+        a, b = (torch.randn(*sh, device="cuda", generator=gen) for sh in shapes)
+        kernel, plain, library, views = grouped_role(role)
+        lhs, rhs = views(a, b)
+        (g, m, k), n = lhs.shape, rhs.shape[2]
+        runs = [kernel(a, b) for _ in range(2)]
+        ref64 = plain(a.double(), b.double())
+        ref32 = plain(a, b)
+        torch.cuda.synchronize()
+        same = torch.equal(runs[0].view(torch.int32), runs[1].view(torch.int32))
+        err, err32 = rel_err(runs[0].double(), ref64), rel_err(ref32.double(), ref64)
+        splits, chunk = gg.split_k(g, m, n, k)
+        finite = bool(torch.isfinite(runs[0]).all())
+        print(f"grouped {label} [{g},{m},{k}]x[{g},{k},{n}] lhs_t={int(lhs.stride(1) == 1)} "
+              f"rhs_t={int(rhs.stride(1) == 1)} splits={splits} kernel_vs_f64={err:.3e} plain_f32_vs_f64={err32:.3e} "
+              f"bitwise_equal={same} finite={finite}", flush=True)
+        if not finite or not same or not err <= RTOL:
+            fail(f"grouped {label}: kernel vs float64 {err:.3e} (bitwise equal {same}, finite {finite})")
+        r = {"max_abs_err": float((runs[0] - ref32).abs().max()), "shape": f"[{g},{m},{k}]x[{g},{k},{n}]",
+             "splits": splits}
+        del runs, ref64, ref32
+        for key, fn in (("ms", kernel), ("plain_ms", plain), ("library_ms", library)):
+            r[key], r[key.replace("ms", "device_ms")] = time_ms(lambda: fn(a, b), 20)
+        flops = 2 * g * m * k * n
+        r.update(flash_bounds((g * m * k + g * k * n + g * m * n) * 4, flops, 0))
+        print(f"timing {role} {label} ms={r['ms']:.6f} device_ms={r['device_ms']:.6f} plain_ms={r['plain_ms']:.6f} "
+              f"plain_device_ms={r['plain_device_ms']:.6f} library_ms={r['library_ms']:.6f} "
+              f"library_device_ms={r['library_device_ms']:.6f} bound_ms={r['bound_ms']:.6f} ({r['bound_by']}: "
+              f"{r['bound_term']}) ffma_bound_ms={r['ffma_bound_ms']:.6f} gflop={flops / 1e9:.3f} "
+              f"achieved_tflops={flops / r['device_ms'] / 1e9:.3f} share_of_bound={r['bound_ms'] / r['device_ms']:.3f}",
+              flush=True)
+        report.setdefault(role, r)  # the JSON line reports each role at its first (fc1 or fc2 training) shape
+        if role == "grouped_matmul_drhs" and "grouped_matmul_sum" not in report and splits > 1:
+            report["grouped_matmul_sum"] = sum_check(g, m, n, splits, seed=200 + i)
+        del a, b
+    return report
+
+
+def sum_check(g: int, m: int, n: int, splits: int, seed: int) -> dict:
+    """The split sum kernel against its plain version (the same order: equal
+    bits) at a weight gradient's partials `[S, G, M, N]`; its times with the
+    L2 flushed (on the path the partials, 31 MB, are still in L2 from the
+    launch that wrote them, and a warm reading beats the bytes bound)."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.ops import grouped_gemm as gg
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    part = torch.randn(splits, g, m, n, device="cuda", generator=gen)
+    got, want = gg.grouped_sum(part), gg.grouped_sum_plain(part)
+    torch.cuda.synchronize()
+    same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    print(f"grouped sum [{splits},{g},{m},{n}] bitwise_equal_to_plain={same}", flush=True)
+    if not same:
+        fail("grouped_sum differs from its plain version (the same order of additions)")
+    r = {"max_abs_err": float((got - want).abs().max()), "shape": f"[{splits},{g},{m},{n}]", "splits": splits,
+         "l2": "flushed before every call"}
+    for key, fn in (("ms", gg.grouped_sum), ("plain_ms", gg.grouped_sum_plain), ("library_ms", lambda p: p.sum(0))):
+        r[key], r[key.replace("ms", "device_ms")] = time_cold_ms(lambda: fn(part), 20)
+    r.update(flash_bounds((splits + 1) * g * m * n * 4, (splits - 1) * g * m * n, 0))
+    r["ffma_bound_ms"] = r["bound_ms"]
+    print(f"timing grouped_matmul_sum [{splits},{g},{m},{n}] l2=flushed ms={r['ms']:.6f} "
+          f"device_ms={r['device_ms']:.6f} plain_ms={r['plain_ms']:.6f} plain_device_ms={r['plain_device_ms']:.6f} "
+          f"library_ms={r['library_ms']:.6f} library_device_ms={r['library_device_ms']:.6f} "
+          f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) share_of_bound={r['bound_ms'] / r['device_ms']:.3f}",
+          flush=True)
+    beaten = [key for key in ("device_ms", "plain_device_ms", "library_device_ms") if r[key] < r["bound_ms"]]
+    if beaten:
+        fail(f"grouped_matmul_sum: {beaten} below the bytes bound {r['bound_ms']:.6f} ms (the L2 flush failed)")
+    return r
+
+
 def attention_grad_layers(model, gid: int) -> int:
     """Attention layers whose backward runs in a gradient pass of group `gid`:
     every block from the group's first block on, all of them for a group
@@ -774,15 +998,21 @@ def attention_grad_layers(model, gid: int) -> int:
     return model.DEPTH if any(n in ("embed", "pos_embed") for n in names) else 0
 
 
+def active_blocks(model, gid: int) -> int:
+    """Blocks whose own weights group `gid` trains (`block<i>` in its paths)."""
+    return sum(path[0].startswith("block") for path in model.GROUP_PATHS[gid])
+
+
 def expected_launches(rec, model=None, sweep_passes: int = 0) -> dict:
     """The launches a training run's own records imply. Each round records
     the optimizer's batched passes (`objective_passes`: with a gradient,
     without one, and directions, one per inner iteration). The direction
-    kernels launch once per direction. In a transformer, the attention
-    backward launches once per gradient pass in each layer behind the
-    active group, and the forward once per pass of any kind in every layer:
-    the optimizer's passes and `sweep_passes` per evaluation recorded in
-    `test_accuracy`."""
+    kernels launch once per direction. In a transformer, a layer's backward
+    (`backward`) runs once per gradient pass in each block behind the active
+    group, and its forward (`forward`) once per pass of any kind in every
+    block: the optimizer's passes and `sweep_passes` per evaluation recorded
+    in `test_accuracy`; a weight gradient (`weight_backward`) once per
+    gradient pass in each block the group trains."""
     sweeps = Counter((r["nloop"], r["group"]) for r in rec.series["test_accuracy"])
     out = Counter()
     for r in rec.series["objective_passes"]:
@@ -790,9 +1020,23 @@ def expected_launches(rec, model=None, sweep_passes: int = 0) -> dict:
         out["direction"] += passes["direction"]
         if model is not None:
             out["backward"] += attention_grad_layers(model, r["group"]) * passes["grad"]
+            out["weight_backward"] += active_blocks(model, r["group"]) * passes["grad"]
             out["forward"] += model.DEPTH * (passes["grad"] + passes["value"]
                                              + sweep_passes * sweeps[(r["nloop"], r["group"])])
     return dict(out)
+
+
+def expected_grouped(exp: dict, cfg) -> dict:
+    """The grouped GEMM's launches on the MoE ViT path from `expected_launches`:
+    two a block (fc1, fc2) in every forward, two input gradients in every
+    block the gradient crosses, two weight gradients in the trained block,
+    and one split sum per weight gradient where `split_k` splits it."""
+    from federated_pytorch_test_tpu_torch.ops import grouped_gemm as gg
+
+    g, c, _, d, h = moe_shapes(cfg)
+    split = sum(gg.split_k(g, m, n, c)[0] > 1 for m, n in ((d, h), (h, d)))  # dW1 [D, H], dW2 [H, D]
+    return {"grouped_matmul": 2 * exp["forward"], "grouped_matmul_dlhs": 2 * exp["backward"],
+            "grouped_matmul_drhs": 2 * exp["weight_backward"], "grouped_matmul_sum": split * exp["weight_backward"]}
 
 
 def gate_launches(path: str, launches: dict, expected: dict) -> None:
@@ -889,13 +1133,14 @@ def phase_train(metrics_out, profile: bool):
     return launches, wall
 
 
-def profile_epoch(tr):
-    """Kernel time by name and the device's busy share over one Net epoch."""
+def profile_epoch(tr, gid=None):
+    """Kernel time by name and the device's busy share over one epoch of
+    group `gid` (the first of the order by default)."""
     import torch
 
     from federated_pytorch_test_tpu_torch.engine.steps import round_init, run_epoch
 
-    ctx = tr.ctx(tr.group_order[0])
+    ctx = tr.ctx(tr.group_order[0] if gid is None else gid)
     idx = tr.epoch_indices(99, ctx.gid, 0, 0)
 
     def epoch():
@@ -1151,8 +1396,145 @@ def phase_vit_train(metrics_out, profile: bool):
     return launches, wall
 
 
+class plain_grouped:
+    """Within the block, the grouped GEMM's three roles take their plain
+    versions on the card too (`torch.bmm`): the plain side of
+    `phase_vit_moe_parity`. The port itself has no such switch."""
+
+    def __enter__(self):
+        from federated_pytorch_test_tpu_torch.ops import grouped_gemm as gg
+
+        self.saved = {role: getattr(gg, role) for role in ("grouped_matmul_fwd", "grouped_matmul_dlhs",
+                                                          "grouped_matmul_drhs")}
+        gg.grouped_matmul_fwd = gg.grouped_matmul_plain
+        gg.grouped_matmul_dlhs = lambda dc, w: gg.grouped_matmul_plain(dc, w.transpose(1, 2))
+        gg.grouped_matmul_drhs = lambda x, dc: gg.grouped_matmul_plain(x.transpose(1, 2), dc)
+        return self
+
+    def __exit__(self, *exc):
+        from federated_pytorch_test_tpu_torch.ops import grouped_gemm as gg
+
+        for role, fn in self.saved.items():
+            setattr(gg, role, fn)
+
+
+def phase_vit_moe_parity():
+    """The MoE ViT's block-0 round (group 1: its experts train, the gradient
+    crosses every block) step by step at batch 128 (32,768 tokens a client,
+    5,120 slots an expert: the weight gradients split), plain against the
+    kernels: before each L-BFGS step the plain side ('dense' attention, the
+    grouped GEMM's plain version) and the kernel side ('flash', the grouped
+    kernel) get the same parameters and optimizer state, taken from the
+    plain trajectory. Losses, parameters and the dual residual agree within
+    relative 1e-3."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.consensus import FedAvgState, fedavg_round
+    from federated_pytorch_test_tpu_torch.data import synthetic_cifar
+    from federated_pytorch_test_tpu_torch.engine import Trainer, get_preset
+    from federated_pytorch_test_tpu_torch.engine.steps import client_train_step, epoch_batches, round_init
+    from federated_pytorch_test_tpu_torch.ops import grouped_gemm as gg
+
+    source = synthetic_cifar(3 * 512, 100, seed=2)
+    trs = {impl: Trainer(get_preset("fedavg", model="vit", model_kwargs={**VIT_MOE_KWARGS, "attn_impl": impl},
+                                    batch=128, nloop=1, nadmm=1, max_groups=2, lbfgs_direction="pallas"),
+                         verbose=False, source=source)
+           for impl in ("dense", "flash")}
+    plain = trs["dense"]
+    gid = plain.group_order[1]
+    ctxs = {impl: tr.ctx(gid) for impl, tr in trs.items()}
+    flat = plain.flat.clone()
+    state, _ = round_init(ctxs["dense"], flat)
+    idx = plain.epoch_indices(0, gid, 0, 0)
+    worst = {"train_loss": 0.0, "params": 0.0, "dual_residual": 0.0}
+    gg.reset_launch_counts()
+    for s, (imgs, labels) in enumerate(epoch_batches(plain.shard_imgs, plain.shard_labels, idx)):
+        with plain_grouped():
+            fd, sd, ld = client_train_step(ctxs["dense"], flat.clone(), state, imgs, labels, plain.mean, plain.std)
+        ff, _, lf = client_train_step(ctxs["flash"], flat.clone(), state, imgs, labels, plain.mean, plain.std)
+        xd, xf = plain.partition.extract(fd, gid), plain.partition.extract(ff, gid)
+        step = {"train_loss": float(((lf - ld).abs() / ld.abs()).max()),
+                "params": float((xf - xd).abs().max() / xd.abs().max())}
+        print(f"vit_moe parity step {s} " + " ".join(f"{k}_rel={v:.3e}" for k, v in step.items()), flush=True)
+        worst = {k: max(v, step.get(k, 0.0)) for k, v in worst.items()}
+        if s == idx.shape[0] - 1:  # the averaging round after each last step
+            duals = [float(fedavg_round(x, FedAvgState(z=torch.zeros_like(x[0])))[1]["dual_residual"])
+                     for x in (xd, xf)]
+            worst["dual_residual"] = abs(duals[1] - duals[0]) / duals[0]
+        flat, state = fd, sd
+    launches = dict(gg.LAUNCHES)
+    print(f"vit_moe parity kernel-vs-plain per step ({idx.shape[0]} steps, group {gid}) "
+          + " ".join(f"{k}_max_rel={v:.3e}" for k, v in worst.items()) + f" launches={json.dumps(launches)}",
+          flush=True)
+    if not max(worst.values()) <= 1e-3:
+        fail(f"vit_moe parity: a step differs between the plain path and the kernels: {worst}")
+    if not all(launches[k] > 0 for k in launches):
+        fail(f"vit_moe parity: the kernel side did not run every grouped kernel: {launches}")
+
+
+def phase_vit_moe_train(metrics_out, profile: bool):
+    """The switch-MoE ViT path at full width, through the entry points a user calls."""
+    import numpy as np
+    import torch
+
+    from federated_pytorch_test_tpu_torch.data import synthetic_cifar
+    from federated_pytorch_test_tpu_torch.engine import Trainer, get_preset
+    from federated_pytorch_test_tpu_torch.ops import compact_cuda as cc
+    from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
+    from federated_pytorch_test_tpu_torch.ops import grouped_gemm as gg
+
+    cfg = get_preset("fedavg", model="vit", model_kwargs=VIT_MOE_KWARGS, nloop=1, nadmm=1, lbfgs_direction="pallas")
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, verbose=False, source=synthetic_cifar(VIT_TRAIN, VIT_TEST, seed=0))
+    g, c, c_eval, d, h = moe_shapes(cfg)
+    print(f"vit_moe setup: K={cfg.n_clients} batch={cfg.batch} nadmm={cfg.nadmm} {cfg.model_kwargs} "
+          f"moe_aux_coef={cfg.moe_aux_coef} tokens={tr.model.tokens} params={tr.n_params} groups={tr.group_order} "
+          f"group_sizes={[tr.partition.group_size(i) for i in tr.group_order]} experts_x_clients={g} "
+          f"capacity={c} eval_capacity={c_eval} steps/epoch={tr.fed.steps_per_epoch(cfg.batch)} "
+          f"setup_s={time.perf_counter() - t0:.3f}", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (fc, cc, gg):
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = tr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**dict(fc.LAUNCHES), **dict(cc.LAUNCHES), **dict(gg.LAUNCHES)}
+
+    for r in rec.series["step_time"]:
+        if r["value"]["phase"] == "round":
+            print(f"vit_moe round group={r['group']} wall_s={r['value']['seconds']:.3f}", flush=True)
+    n_steps = len(rec.series["train_loss"])
+    print(f"vit_moe train wall_s={wall:.3f} minibatches={n_steps} ms_per_minibatch={1e3 * wall / n_steps:.3f} "
+          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.3f} launches={json.dumps(launches)}", flush=True)
+    if metrics_out:
+        rec.save(metrics_out)
+
+    all_losses = np.asarray([r["value"] for r in rec.series["train_loss"]])
+    if not np.all(np.isfinite(all_losses)) or rec.first_nonfinite is not None:
+        fail(f"vit_moe: non-finite training loss: {rec.first_nonfinite}")
+    accs = [(r["group"], np.asarray(r["value"])) for r in rec.series["test_accuracy"]]
+    print("vit_moe accuracy per group " + " ".join(f"{g}:{','.join(f'{a:.4f}' for a in v)}" for g, v in accs),
+          flush=True)
+    chance = 1.0 / tr.fed.num_classes
+    if not np.all(accs[-1][1] > chance):
+        fail(f"vit_moe final accuracy {accs[-1][1]} not above chance {chance}")
+    for name in (*fc.RECT_KERNELS, *gg.LAUNCHES):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the MoE ViT path")
+    exp = expected_launches(rec, tr.model, sweep_passes=len(tr.test_imgs))  # an evaluation: one pass a test batch
+    gate_launches("vit_moe", launches, {"flash_fwd_rect": exp["forward"], "flash_bwd_dq_rect": exp["backward"],
+                                        "flash_bwd_dkv_rect": exp["backward"],
+                                        **{name: exp["direction"] for name in cc.LAUNCHES},
+                                        **expected_grouped(exp, cfg)})
+    if profile:
+        profile_epoch(tr, tr.group_order[1])
+    return launches, wall
+
+
 # One turn of `--ab-parent`, run in a fresh process from the root of a
-# checkout: that checkout's three train phases, the LM's group-0 epoch
+# checkout: that checkout's train phases, the LM's group-0 epoch
 # profiled, then their walls as one JSON line.
 AB_TURN = """
 import json, sys
@@ -1161,15 +1543,16 @@ import chip_smoke as cs
 from federated_pytorch_test_tpu_torch.utils import configure_precision
 configure_precision()
 walls = {p: getattr(cs, p)(None, p == "phase_lm_train")[1]
-         for p in ("phase_train", "phase_lm_train", "phase_vit_train")}
+         for p in ("phase_train", "phase_lm_train", "phase_vit_train", "phase_vit_moe_train") if hasattr(cs, p)}
 print("ab walls " + json.dumps(walls), flush=True)
 """
 AB_RUNS = 3  # turns of each checkout
-AB_BUILD = "from federated_pytorch_test_tpu_torch.ops import build; [build.build(n) for n in %r]" % (SOURCES,)
+AB_BUILD = ("import sys; sys.path.insert(0, '.'); import chip_smoke as cs; "
+            "from federated_pytorch_test_tpu_torch.ops import build; [build.build(n) for n in cs.SOURCES]")
 
 
 def run_ab(parent: str, runs: int) -> None:
-    """The three train walls of another checkout (`parent`, e.g. `git
+    """The train walls of another checkout (`parent`, e.g. `git
     archive` of the parent commit unpacked) and of this one, `runs` turns
     each, in fresh processes taking turns parent, change, change, parent,
     ... after both have built their kernels. Every line of a turn is
@@ -1193,7 +1576,7 @@ def run_ab(parent: str, runs: int) -> None:
             if proc.returncode != 0:
                 fail(f"ab: the {tag} checkout's turn {turn} failed (exit {proc.returncode})")
             walls[tag].append(json.loads(proc.stdout.split("ab walls ")[-1].splitlines()[0]))
-    for phase in walls["change"][0]:
+    for phase in walls["change"][0].keys() & walls["parent"][0].keys():
         diffs = [c[phase] - p[phase] for c, p in zip(walls["change"], walls["parent"])]
         print(f"ab {phase} parent={[round(p[phase], 3) for p in walls['parent']]} "
               f"change={[round(c[phase], 3) for c in walls['change']]} "
@@ -1205,9 +1588,10 @@ def main() -> int:
     ap.add_argument("--metrics-out", help="write the main path's metric series as JSON here")
     ap.add_argument("--lm-metrics-out", help="write the LM path's metric series as JSON here")
     ap.add_argument("--vit-metrics-out", help="write the ViT path's metric series as JSON here")
+    ap.add_argument("--vit-moe-metrics-out", help="write the MoE ViT path's metric series as JSON here")
     ap.add_argument("--profile", action="store_true", help="also profile one epoch of each path")
     ap.add_argument("--ab-parent", metavar="DIR",
-                    help="instead of the phases, time the three train paths of the checkout in DIR and of this "
+                    help="instead of the phases, time the train paths of the checkout in DIR and of this "
                          "one in turns (see run_ab)")
     args = ap.parse_args()
 
@@ -1244,6 +1628,7 @@ def main() -> int:
     for lib, seconds in built:
         print(f"build {lib.name} seconds={seconds:.3f}", flush=True)
     report_tc_build(built[SOURCES.index("flash_attention")][0])
+    report_grouped_build(built[SOURCES.index("grouped_gemm")][0])
 
     report = phase_kernels()
     flash_report = phase_flash()
@@ -1254,6 +1639,9 @@ def main() -> int:
     lm_launches, lm_wall = phase_lm_train(args.lm_metrics_out, args.profile)
     phase_vit_parity()
     vit_launches, vit_wall = phase_vit_train(args.vit_metrics_out, args.profile)
+    grouped_report = phase_grouped()
+    phase_vit_moe_parity()
+    moe_launches, moe_wall = phase_vit_moe_train(args.vit_moe_metrics_out, args.profile)
 
     kernels = []
     replaces = {
@@ -1334,8 +1722,34 @@ def main() -> int:
             "library_device_ms": r["library_device_ms"],
             "shape": f"BH={bh} S={s} D={d} non-causal",
         })
+    for name, r in grouped_report.items():
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "federated_pytorch_test_tpu_torch/csrc/grouped_gemm.cu",
+            "replaces": GROUPED_REPLACES,
+            "launches": moe_launches[name],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            # bound_ms: split TF32 on the tensor cores or the bytes, whichever is
+            # larger (bound_term); an f32 FFMA design's ceiling beside it
+            "bound_term": r["bound_term"],
+            "ffma_bound_ms": r["ffma_bound_ms"],
+            # torch.bmm on the same operand views, TF32 off (for the sum: torch.sum over the splits)
+            "library_ms": r["library_ms"],
+            "ms_includes_host": True,
+            "device_ms": r["device_ms"],
+            "plain_device_ms": r["plain_device_ms"],
+            "library_device_ms": r["library_device_ms"],
+            "shape": r["shape"],
+            "splits": r["splits"],
+            "l2": r.get("l2", "as left by the previous call"),
+        })
     print(f"total seconds={time.perf_counter() - t_all:.3f} train_wall_s={wall:.3f} lm_train_wall_s={lm_wall:.3f} "
-          f"vit_train_wall_s={vit_wall:.3f}", flush=True)
+          f"vit_train_wall_s={vit_wall:.3f} vit_moe_train_wall_s={moe_wall:.3f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}),

@@ -15,10 +15,12 @@ either side:
 | `scale`     | `scale`       | as is      | `weight`  | as is       |
 | `norm_bias` | `bias`        | as is      | `bias`    | as is       |
 | `array`     | (bare leaf)   | as is      | same name | as is       |
+| `expert_weight`, `expert_bias` | (bare leaf) | as is | same name | as is |
 
 (`array` is a parameter registered on a container, such as the LM's
 `pos_embed` at the root of its tree, or the ViT's `[1, T, dim]` one; the
-ViT's patch embedding is a `conv`.)
+ViT's patch embedding is a `conv`. The MoE's stacked `w1 [E, D, H]`,
+`w2 [E, H, D]`, `b1`, `b2` are bare leaves too; its `gate` is a Dense.)
 
 Both flat vectors list the leaves in the same order with the same sizes
 (`partition/flat.py`), so converting a flat vector permutes elements
@@ -37,7 +39,7 @@ from typing import Any, Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 
-from .models.base import ARRAY, BIAS, CONV, DENSE, EMBED, NORM_BIAS, SCALE, PartitionedModel
+from .models.base import BARE_KINDS, BIAS, CONV, DENSE, EMBED, NORM_BIAS, SCALE, PartitionedModel
 from .partition import leaf_offsets
 
 _JAX_LEAF = {DENSE: "kernel", CONV: "kernel", BIAS: "bias", EMBED: "embedding", SCALE: "scale",
@@ -47,7 +49,7 @@ _JAX_LEAF = {DENSE: "kernel", CONV: "kernel", BIAS: "bias", EMBED: "embedding", 
 def jax_path(name: str, kind: str) -> Tuple[str, ...]:
     """The JAX tree path of the port's parameter `name` of `kind`."""
     parts = tuple(name.split("."))
-    return parts if kind == ARRAY else (*parts[:-1], _JAX_LEAF[kind])
+    return parts if kind in BARE_KINDS else (*parts[:-1], _JAX_LEAF[kind])
 
 
 def _to_torch_leaf(a: np.ndarray, kind: str) -> np.ndarray:

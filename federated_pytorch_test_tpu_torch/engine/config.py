@@ -25,6 +25,9 @@ class ExperimentConfig:
     # signature by the Trainer — e.g. {"patch": 2, "attn_impl": "flash"}
     # runs the ViT on 256 tokens through the flash kernels
     model_kwargs: dict = dataclasses.field(default_factory=dict)
+    # weight of the switch load-balance term in each client's loss when the
+    # model has experts (`model_kwargs={"moe_experts": E}`); ignored otherwise
+    moe_aux_coef: float = 0.01
     dataset: str = "cifar10"  # cifar10 | cifar100
     data_root: str | None = None  # None => $CIFAR_DATA_DIR or ./torchdata
     synthetic_n_train: int | None = None  # shrink the synthetic stand-in only

@@ -45,14 +45,21 @@ class GroupContext:
     reg_on_active: bool  # elastic net on the active (linear) group
     lambda1: float = 1e-4
     lambda2: float = 1e-4
+    moe_aux_coef: float = 0.0  # weight of the MoE load-balance term (0: the model has no experts)
 
 
 def data_loss(ctx: GroupContext, params: dict, images: torch.Tensor, labels: torch.Tensor):
-    """Per-client mean cross-entropy `[K]` of stacked params `{name: [K, ...]}`."""
-    logits = ctx.model.forward_batched(params, images)
+    """Per-client data loss `[K]` of stacked params `{name: [K, ...]}`: the
+    mean cross-entropy, plus `moe_aux_coef` times the load-balance term
+    summed over the MoE layers where the context has a coefficient."""
+    if ctx.moe_aux_coef:
+        logits, aux = ctx.model.forward_batched(params, images, return_aux=True)
+    else:
+        logits = ctx.model.forward_batched(params, images)
     k, b, c = logits.shape
     ce = F.cross_entropy(logits.reshape(k * b, c), labels.reshape(k * b).long(), reduction="none")
-    return ce.reshape(k, b).mean(dim=1)
+    loss = ce.reshape(k, b).mean(dim=1)
+    return loss + ctx.moe_aux_coef * aux if ctx.moe_aux_coef else loss
 
 
 def _group_params(ctx: GroupContext, base: torch.Tensor, x: torch.Tensor) -> dict:

@@ -130,6 +130,8 @@ class Trainer:
             reg_on_active=cfg.reg_mode == "active_linear" and gid in self.partition.linear_group_ids,
             lambda1=cfg.lambda1,
             lambda2=cfg.lambda2,
+            # the load-balance term enters the loss only where the model has experts
+            moe_aux_coef=cfg.moe_aux_coef if getattr(self.model, "moe_experts", 0) else 0.0,
         )
 
     def epoch_indices(self, *loop_ids: int) -> np.ndarray:

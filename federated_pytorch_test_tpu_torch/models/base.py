@@ -31,10 +31,14 @@ BIAS_INIT = 0.01
 EMBED_STD = 0.02
 
 # Leaf kinds (`PartitionedModel.leaf_kinds`): each fixes a leaf's init and
-# its layout in the JAX package's tree (`convert.py`).
-DENSE, CONV, BIAS, EMBED, SCALE, NORM_BIAS, ARRAY = (
-    "dense", "conv", "bias", "embed", "scale", "norm_bias", "array"
+# its layout in the JAX package's tree (`convert.py`). The MoE's stacked
+# expert leaves (`models/moe.py`) are bare leaves like `ARRAY`, initialised
+# as Flax initialises them: `EXPERT_WEIGHT` xavier-uniform over `[E, in,
+# out]` (E counts as receptive field), `EXPERT_BIAS` the constant 0.01.
+DENSE, CONV, BIAS, EMBED, SCALE, NORM_BIAS, ARRAY, EXPERT_WEIGHT, EXPERT_BIAS = (
+    "dense", "conv", "bias", "embed", "scale", "norm_bias", "array", "expert_weight", "expert_bias"
 )
+BARE_KINDS = (ARRAY, EXPERT_WEIGHT, EXPERT_BIAS)  # bare leaves of the JAX tree, converted as they are
 
 
 def xavier_bound(shape: Tuple[int, ...]) -> float:
@@ -48,6 +52,13 @@ def xavier_bound(shape: Tuple[int, ...]) -> float:
     return math.sqrt(6.0 / (fan_in + fan_out))
 
 
+def expert_xavier_bound(shape: Tuple[int, ...]) -> float:
+    """Flax's xavier_uniform bound for a stacked `[E, in, out]` expert weight:
+    fan_in = E·in, fan_out = E·out."""
+    e, fan_in, fan_out = shape
+    return math.sqrt(6.0 / (e * fan_in + e * fan_out))
+
+
 def _module_leaf_kinds(module: nn.Module) -> Dict[str, str]:
     """Kinds of one module's own parameters (not its children's)."""
     if isinstance(module, nn.Linear):
@@ -58,7 +69,7 @@ def _module_leaf_kinds(module: nn.Module) -> Dict[str, str]:
         return {"weight": EMBED}
     if isinstance(module, nn.LayerNorm):
         return {"weight": SCALE, "bias": NORM_BIAS}
-    return {}
+    return getattr(module, "LEAF_KINDS", {})
 
 
 class PartitionedModel(nn.Module):
@@ -80,7 +91,8 @@ class PartitionedModel(nn.Module):
         """`{name: kind}` of every parameter, from the module that owns it.
 
         A parameter registered directly on a container module (the LM's
-        `pos_embed`) is a bare `ARRAY`, as it is a bare leaf in the JAX tree.
+        `pos_embed`) is a bare `ARRAY`, as it is a bare leaf in the JAX tree,
+        unless the module names its kind in `LEAF_KINDS` (the MoE's experts).
         """
         kinds = {}
         for prefix, mod in self.named_modules():
@@ -109,7 +121,7 @@ class PartitionedModel(nn.Module):
         kinds = self.leaf_kinds()
         for name in leaf_order(params):
             p, kind = params[name], kinds[name]
-            if kind == BIAS:
+            if kind in (BIAS, EXPERT_BIAS):
                 p.fill_(BIAS_INIT)
             elif kind == SCALE:
                 p.fill_(1.0)
@@ -118,7 +130,7 @@ class PartitionedModel(nn.Module):
             elif kind in (EMBED, ARRAY):
                 p.copy_(EMBED_STD * torch.randn(p.shape, generator=generator, dtype=torch.float32))
             else:
-                a = xavier_bound(tuple(p.shape))
+                a = expert_xavier_bound(tuple(p.shape)) if kind == EXPERT_WEIGHT else xavier_bound(tuple(p.shape))
                 u = torch.rand(p.shape, generator=generator, dtype=torch.float32)
                 p.copy_(u * (2.0 * a) - a)
         return self

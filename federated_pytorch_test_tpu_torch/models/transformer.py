@@ -15,8 +15,11 @@ Attention is `'dense'` (`ops/attention.py`), `'flash'` (the flash kernels,
 `ops/flash_cuda.py`: the aligned causal family for the LM, the rectangular
 one for the ViT) or `'auto'` (flash from S = 2048 where S is a multiple of
 128, the JAX package's crossover at its 'highest' precision, which is the
-only precision the port has). The ring variants and the MoE MLP need paths
-the port does not have yet, and raise.
+only precision the port has). The ring variants need the multi-GPU path,
+which the port does not have yet, and raise. `moe_experts = E > 0` swaps
+every block's MLP for a switch MoE of E experts (`models/moe.py`);
+`forward_batched(..., return_aux=True)` then also returns each client's
+load-balance term summed over the blocks, `[K]`.
 
 As in `models/simple.py`, the modules only hold shapes and kinds: the
 engine keeps every client's parameters in one flat `[K, N]` tensor and
@@ -36,6 +39,7 @@ from torch import nn
 from ..ops.attention import dense_attention
 from ..ops.flash_cuda import BLOCK, check_shape, flash_attention
 from .base import PartitionedModel
+from .moe import MoEMLP
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default
 ATTN_IMPLS = ("dense", "flash", "auto")
@@ -88,23 +92,44 @@ class MultiHeadAttention(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm block: LN -> MHA -> +res; LN -> MLP (GELU, tanh) -> +res."""
+    """Pre-norm block: LN -> MHA -> +res; LN -> MLP (GELU, tanh) or switch MoE -> +res."""
 
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: int = 4, causal: bool = False):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: int = 4, causal: bool = False, moe_experts: int = 0):
         super().__init__()
         self.ln1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = MultiHeadAttention(dim, num_heads, causal)
         self.ln2 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.fc1 = nn.Linear(dim, mlp_ratio * dim)
-        self.fc2 = nn.Linear(mlp_ratio * dim, dim)
+        if moe_experts < 0:
+            raise ValueError(f"moe_experts must be >= 0, got {moe_experts}")
+        if moe_experts:
+            self.moe = MoEMLP(dim, moe_experts, mlp_ratio)
+        else:
+            self.moe = None
+            self.fc1 = nn.Linear(dim, mlp_ratio * dim)
+            self.fc2 = nn.Linear(mlp_ratio * dim, dim)
 
-    def forward_batched(self, params, prefix: str, x: torch.Tensor, impl: str) -> torch.Tensor:
+    def forward_batched(self, params, prefix: str, x: torch.Tensor, impl: str):
+        """x `[K, B, S, dim]` -> (`[K, B, S, dim]`, the MoE's load-balance term `[K]`, or None)."""
         k, b, s, dim = x.shape
         y = _layer_norm(params, f"{prefix}.ln1", x.reshape(k, b * s, dim)).reshape(k, b, s, dim)
         x = x + self.attn.forward_batched(params, f"{prefix}.attn", y, impl)
         y = _layer_norm(params, f"{prefix}.ln2", x.reshape(k, b * s, dim))
-        y = F.gelu(_linear(params, f"{prefix}.fc1", y), approximate="tanh")
-        return x + _linear(params, f"{prefix}.fc2", y).reshape(k, b, s, dim)
+        aux = None
+        if self.moe is not None:
+            y, aux = self.moe.forward_batched(params, f"{prefix}.moe", y)
+        else:
+            y = _linear(params, f"{prefix}.fc2", F.gelu(_linear(params, f"{prefix}.fc1", y), approximate="tanh"))
+        return x + y.reshape(k, b, s, dim), aux
+
+
+def _blocks(model, params, x, impl):
+    """Run the model's blocks on x `[K, B, S, dim]`; (x, load-balance term `[K]` summed over the blocks)."""
+    aux = x.new_zeros(x.shape[0])
+    for i in range(model.DEPTH):
+        x, block_aux = getattr(model, f"block{i}").forward_batched(params, f"block{i}", x, impl)
+        if block_aux is not None:
+            aux = aux + block_aux
+    return x, aux
 
 
 class TransformerLM(PartitionedModel):
@@ -130,20 +155,20 @@ class TransformerLM(PartitionedModel):
     def __init__(self, vocab: int = 256, dim: int = 64, num_heads: int = 4, max_len: int = 2048,
                  attn_impl: str = "dense", moe_experts: int = 0):
         super().__init__()
-        if moe_experts:
-            raise NotImplementedError("moe_experts > 0 is not ported yet (the MoE MLP has no path here)")
         resolve_attn_impl(attn_impl, max_len)  # reject unknown or unported values early
         self.vocab, self.dim, self.num_heads, self.max_len = vocab, dim, num_heads, max_len
         self.attn_impl = attn_impl
+        self.moe_experts = moe_experts
         self.embed = nn.Embedding(vocab, dim)
         self.pos_embed = nn.Parameter(torch.zeros(max_len, dim))
         for i in range(self.DEPTH):
-            setattr(self, f"block{i}", Block(dim, num_heads, causal=True))
+            setattr(self, f"block{i}", Block(dim, num_heads, causal=True, moe_experts=moe_experts))
         self.ln_out = nn.LayerNorm(dim, eps=LN_EPS)
         self.head = nn.Linear(dim, vocab)
 
-    def forward_batched(self, params: Dict[str, torch.Tensor], tokens: torch.Tensor) -> torch.Tensor:
-        """Logits `[K, B, S, vocab]` of K clients on token ids `[K, B, S]`."""
+    def forward_batched(self, params: Dict[str, torch.Tensor], tokens: torch.Tensor, return_aux: bool = False):
+        """Logits `[K, B, S, vocab]` of K clients on token ids `[K, B, S]`
+        (and with `return_aux`, the load-balance term `[K]`, 0 without experts)."""
         k, b, s = tokens.shape
         if s > self.max_len:
             raise ValueError(f"sequence length {s} exceeds max_len={self.max_len}")
@@ -152,10 +177,10 @@ class TransformerLM(PartitionedModel):
         offset = (torch.arange(k, device=tokens.device) * self.vocab)[:, None, None]
         x = F.embedding(tokens.long() + offset, params["embed.weight"].reshape(k * self.vocab, self.dim))
         x = x + params["pos_embed"][:, None, :s, :]
-        for i in range(self.DEPTH):
-            x = getattr(self, f"block{i}").forward_batched(params, f"block{i}", x, impl)
+        x, aux = _blocks(self, params, x, impl)
         x = _layer_norm(params, "ln_out", x.reshape(k, b * s, self.dim))
-        return _linear(params, "head", x).reshape(k, b, s, self.vocab)
+        logits = _linear(params, "head", x).reshape(k, b, s, self.vocab)
+        return (logits, aux) if return_aux else logits
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """One client's logits `[B, S, vocab]` from token ids `[B, S]`."""
@@ -184,24 +209,24 @@ class ViT(PartitionedModel):
     def __init__(self, num_classes: int = 10, dim: int = 64, num_heads: int = 4, patch: int = 4,
                  attn_impl: str = "dense", moe_experts: int = 0):
         super().__init__()
-        if moe_experts:
-            raise NotImplementedError("moe_experts > 0 is not ported yet (the MoE MLP has no path here)")
         if self.IMAGE % patch:
             raise ValueError(f"patch {patch} does not divide the {self.IMAGE}x{self.IMAGE} image")
         self.num_classes, self.dim, self.num_heads, self.patch = num_classes, dim, num_heads, patch
         self.tokens = (self.IMAGE // patch) ** 2
         self.attn_impl = attn_impl
+        self.moe_experts = moe_experts
         if resolve_attn_impl(attn_impl, self.tokens) == "flash":  # reject what the kernels refuse, early
             check_shape(self.tokens, dim // num_heads)
         self.embed = nn.Conv2d(self.CHANNELS, dim, patch, stride=patch)
         self.pos_embed = nn.Parameter(torch.zeros(1, self.tokens, dim))
         for i in range(self.DEPTH):
-            setattr(self, f"block{i}", Block(dim, num_heads))
+            setattr(self, f"block{i}", Block(dim, num_heads, moe_experts=moe_experts))
         self.ln_out = nn.LayerNorm(dim, eps=LN_EPS)
         self.head = nn.Linear(dim, num_classes)
 
-    def forward_batched(self, params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-        """Logits `[K, B, classes]` of K clients on NHWC images `[K, B, 32, 32, 3]`."""
+    def forward_batched(self, params: Dict[str, torch.Tensor], x: torch.Tensor, return_aux: bool = False):
+        """Logits `[K, B, classes]` of K clients on NHWC images `[K, B, 32, 32, 3]`
+        (and with `return_aux`, the load-balance term `[K]`, 0 without experts)."""
         k, b, hh, ww, c = x.shape
         if (hh, ww, c) != (self.IMAGE, self.IMAGE, self.CHANNELS):
             raise ValueError(f"ViT takes {self.IMAGE}x{self.IMAGE}x{self.CHANNELS} images, got {hh}x{ww}x{c}")
@@ -213,7 +238,7 @@ class ViT(PartitionedModel):
         h = torch.baddbmm(params["embed.bias"][:, None, :], patches, w.transpose(1, 2))
         h = h.reshape(k, b, t, self.dim) + params["pos_embed"]  # [K, 1, T, dim]
         impl = resolve_attn_impl(self.attn_impl, t)
-        for i in range(self.DEPTH):
-            h = getattr(self, f"block{i}").forward_batched(params, f"block{i}", h, impl)
+        h, aux = _blocks(self, params, h, impl)
         h = _layer_norm(params, "ln_out", h.reshape(k, b * t, self.dim)).reshape(k, b, t, self.dim)
-        return _linear(params, "head", h.mean(dim=2))
+        logits = _linear(params, "head", h.mean(dim=2))
+        return (logits, aux) if return_aux else logits

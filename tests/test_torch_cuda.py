@@ -146,3 +146,43 @@ def test_rect_backward_repeats_bitwise_and_holds_large_scores(mode):
     for a, b, ref in zip(got, f32, f64):
         assert bool(torch.isfinite(a).all())
         assert _rel(a.double(), ref) <= max(1e-4, 2 * _rel(b.double(), ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,m,k,n", [(4, 160, 400, 120), (3, 13, 257, 9), (3, 300, 40, 270), (6, 8192, 64, 256)])
+def test_grouped_matmul_roles_match_float64_and_repeat_bitwise(g, m, k, n):
+    # every role of the grouped GEMM, its operand views as autograd passes
+    # them; the last shape splits the weight gradient's contraction
+    from federated_pytorch_test_tpu_torch.ops import grouped_gemm as gg
+
+    _card()
+    rng = np.random.default_rng(g + m + k + n)
+    a, b, dc = (torch.tensor(rng.normal(size=s).astype(np.float32), device="cuda")
+                for s in ((g, m, k), (g, k, n), (g, m, n)))
+    cases = ((gg.grouped_matmul_fwd, (a, b), a.double() @ b.double()),
+             (gg.grouped_matmul_dlhs, (dc, b), dc.double() @ b.double().transpose(1, 2)),
+             (gg.grouped_matmul_drhs, (a, dc), a.double().transpose(1, 2) @ dc.double()))
+    for fn, args, ref in cases:
+        first, second = fn(*args), fn(*args)
+        assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+        assert first.shape == ref.shape and _rel(first.double(), ref) <= 1e-5
+    with pytest.raises(ValueError, match="float32"):
+        gg.grouped_matmul(a.double(), b.double())
+
+
+@pytest.mark.cuda
+def test_grouped_matmul_autograd_takes_strided_and_transposed_operands():
+    # a strided lhs (copied row-major) and an output the caller transposes:
+    # the backward then gets a transposed dC beside the transposed Bᵀ and Aᵀ
+    from federated_pytorch_test_tpu_torch.ops import grouped_gemm as gg
+
+    _card()
+    rng = np.random.default_rng(7)
+    a_full, b, w = (torch.tensor(rng.normal(size=s).astype(np.float32), device="cuda")
+                    for s in ((3, 96, 2 * 80), (3, 80, 72), (3, 72, 96)))
+    a = a_full[:, :, ::2].requires_grad_(True)
+    b.requires_grad_(True)
+    (gg.grouped_matmul(a, b).transpose(1, 2) * w).sum().backward()
+    a64, b64 = a.detach().double().requires_grad_(True), b.detach().double().requires_grad_(True)
+    (torch.bmm(a64, b64).transpose(1, 2) * w.double()).sum().backward()
+    assert _rel(a.grad.double(), a64.grad) <= 1e-5 and _rel(b.grad.double(), b64.grad) <= 1e-5

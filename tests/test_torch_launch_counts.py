@@ -10,7 +10,11 @@ would make on the card, and the same small drives as the slice tests run:
 the LM at S = 128 over all six groups (the embedding, every block and the
 head: 4, 4..1 and 0 attention layers behind the active group), the ViT
 with the fused direction over its first two groups, two averaging rounds
-and evaluations each. Counts are exact: no tolerance.
+and evaluations each, and the switch-MoE ViT over the same two groups,
+whose grouped GEMM launches twice a block in every forward, twice in each
+block the gradient crosses and twice more (the weight gradients) in the
+block the group trains (`expected_grouped`). Counts are exact: no
+tolerance.
 """
 
 import importlib.util
@@ -23,7 +27,7 @@ import torch
 from federated_pytorch_test_tpu_torch.data import synthetic_cifar
 from federated_pytorch_test_tpu_torch.engine import ExperimentConfig, Trainer
 from federated_pytorch_test_tpu_torch.federated_lm import FederatedLM, LMConfig
-from federated_pytorch_test_tpu_torch.ops import compact_cuda, flash_cuda
+from federated_pytorch_test_tpu_torch.ops import compact_cuda, flash_cuda, grouped_gemm
 from federated_pytorch_test_tpu_torch.optim import LBFGSConfig, lbfgs_init, lbfgs_step
 
 _spec = importlib.util.spec_from_file_location(
@@ -72,6 +76,43 @@ def test_vit_launches_equal_the_count_its_records_imply(monkeypatch):
     assert counts == {"flash_fwd_rect": exp["forward"], "flash_bwd_dq_rect": exp["backward"],
                       "flash_bwd_dkv_rect": exp["backward"],
                       "fused_gram_projections": exp["direction"], "fused_direction_assembly": exp["direction"]}
+
+
+def test_vit_moe_launches_equal_the_count_its_records_imply(monkeypatch):
+    # the grouped GEMM's three roles (its split sum is a launch inside
+    # `grouped_matmul_drhs` on the card, counted from `split_k`): groups 0
+    # (the gradient crosses every block) and 1 (block 0's experts train)
+    counts = {}
+    _count_calls(monkeypatch, grouped_gemm, ("grouped_matmul_fwd", "grouped_matmul_dlhs", "grouped_matmul_drhs"),
+                 counts)
+    _count_calls(monkeypatch, flash_cuda, flash_cuda.RECT_KERNELS, counts)
+    cfg = ExperimentConfig(model="vit", model_kwargs={"patch": 2, "attn_impl": "flash", "dim": 32, "num_heads": 2,
+                                                      "moe_experts": 2},
+                           device="cpu", batch=8, eval_batch=8, nloop=1, nadmm=2, max_groups=2)
+    tr = Trainer(cfg, verbose=False, source=synthetic_cifar(24, 16))
+    rec = tr.run()
+    exp = chip_smoke.expected_launches(rec, tr.model, sweep_passes=len(tr.test_imgs))
+    assert [chip_smoke.active_blocks(tr.model, g) for g in range(6)] == [0, 1, 1, 1, 1, 0]
+    grouped = chip_smoke.expected_grouped(exp, cfg)
+    # 1,280 slots an expert (2,048 tokens a client): both weight gradients in two chunks
+    assert grouped["grouped_matmul_sum"] == 2 * exp["weight_backward"]
+    assert exp["weight_backward"] > 0
+    assert counts == {"grouped_matmul_fwd": grouped["grouped_matmul"],
+                      "grouped_matmul_dlhs": grouped["grouped_matmul_dlhs"],
+                      "grouped_matmul_drhs": grouped["grouped_matmul_drhs"],
+                      "flash_fwd_rect": exp["forward"], "flash_bwd_dq_rect": exp["backward"],
+                      "flash_bwd_dkv_rect": exp["backward"]}
+
+
+def test_grouped_formula_at_the_chip_shapes():
+    # the MoE ViT path's own shapes: both weight gradients split, once each
+    from federated_pytorch_test_tpu_torch.engine import get_preset
+
+    cfg = get_preset("fedavg", model="vit", model_kwargs=chip_smoke.VIT_MOE_KWARGS)
+    assert chip_smoke.moe_shapes(cfg) == (24, 20480, 20000, 64, 256)
+    exp = {"forward": 10, "backward": 7, "weight_backward": 3}
+    assert chip_smoke.expected_grouped(exp, cfg) == {"grouped_matmul": 20, "grouped_matmul_dlhs": 14,
+                                                     "grouped_matmul_drhs": 6, "grouped_matmul_sum": 6}
 
 
 def test_gate_fails_on_any_difference(capsys):

@@ -145,8 +145,11 @@ def test_batched_forward_matches_per_client(jax_lm):
 def test_attn_options():
     with pytest.raises(NotImplementedError):
         TransformerLM(**SMALL, attn_impl="ring")
-    with pytest.raises(NotImplementedError):
-        TransformerLM(**SMALL, moe_experts=4)
+    moe = TransformerLM(**SMALL, moe_experts=4)  # a switch-MoE MLP in every block (tests/test_torch_moe.py)
+    tokens = torch.zeros(1, 128, dtype=torch.long)
+    assert moe.moe_experts == 4 and moe(tokens).shape == (1, 128, SMALL["vocab"])
+    with pytest.raises(ValueError, match="moe_experts"):
+        TransformerLM(**SMALL, moe_experts=-1)
     with pytest.raises(ValueError):
         TransformerLM(**SMALL, attn_impl="sparse")
     from federated_pytorch_test_tpu_torch.models.transformer import resolve_attn_impl

@@ -129,8 +129,10 @@ def test_batched_forward_matches_per_client(jax_vit):
 
 
 def test_options():
-    with pytest.raises(NotImplementedError):
-        ViT(moe_experts=4)
+    moe = ViT(**SMALL, moe_experts=4)  # a switch-MoE MLP in every block (tests/test_torch_moe.py)
+    assert moe.moe_experts == 4 and moe.block0.moe.n_experts == 4 and moe(torch.zeros(1, 32, 32, 3)).shape == (1, 10)
+    with pytest.raises(ValueError, match="moe_experts"):
+        ViT(moe_experts=-1)
     with pytest.raises(NotImplementedError):
         ViT(attn_impl="ring")
     with pytest.raises(ValueError, match="divisible by 128"):  # patch 4: 64 tokens
