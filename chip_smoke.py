@@ -7,19 +7,19 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
                           [--vit-moe-metrics-out PATH] [--profile]
     python3 chip_smoke.py --ab-parent DIR
 
-The second form runs none of the phases below: it times the train paths of
-the checkout in DIR (e.g. the parent commit, `git archive`d) and of this
-one in turns, in fresh processes (`run_ab`).
+The second form runs none of the phases below: it times the grouped GEMM
+at every MoE ViT path shape, the gram at every Net group size and the
+train paths, of the checkout in DIR (e.g. the parent commit, `git
+archive`d) and of this one in turns, in fresh processes (`run_ab`).
 
 Phases, each reported on its own lines; any failure exits non-zero:
 
 1. card     — `nvidia-smi` name and power limit;
 2. build    — nvcc builds the port's three CUDA sources, all at once; ptxas's
               registers and spills and the SASS tensor-core instruction
-              counts of every tensor-core flash instance (the forward and
-              the backward, causal and not), each of which must hold HGMMA
-              and spill nothing; the registers and spills of every grouped
-              GEMM instance, none of which may spill;
+              counts of every tensor-core instance (the flash forward and
+              backward, causal and not; the grouped GEMM's split-TF32
+              instances), each of which must hold HGMMA and spill nothing;
 3. kernels  — each compact-direction kernel against its plain PyTorch version
               on the card (K=3, m=10, N at every Net group size, one
               ResNet18-block-sized N, counts {0, 3, 10}, a zero-curvature
@@ -29,7 +29,10 @@ Phases, each reported on its own lines; any failure exits non-zero:
               (a yardstick the port never calls) and the bound. Each
               time is taken twice: per call as the caller sees it, host
               launch path included (`ms`), and on the device alone with
-              the calls queued behind a sleep kernel (`device_ms`);
+              the calls queued behind a sleep kernel (`device_ms`). At the
+              Net path's largest group the gram's kernels in one call are
+              counted by the profiler (exactly one launch) and printed with
+              its registers and its time beside its bound;
 4. flash    — the three causal flash-attention kernels (the tensor-core
               kernels at Sq = Skv, shift 0) against their plain versions (D
               in {16, 32, 64} x S in {128, 256, 1024, 2048} at BH=8, the
@@ -107,7 +110,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
               view, the contraction over the slots split in 20): the kernel
               against its plain version in float64 within relative 1e-5 of
               the largest reference entry, two launches equal bits, the
-              split sum equal to its plain version; times of the kernel,
+              split sum equal to its plain version; every role likewise at
+              the ragged shapes (G, M, K, N) = (3, 13, 257, 9) and (3, 300,
+              40, 270); times of the kernel,
               the plain version and `torch.bmm` (TF32 off) beside the bound
               (the bytes, or three TF32 products) and the FFMA ceiling; the
               split sum's with the L2 cache flushed before every call, so
@@ -181,6 +186,7 @@ VIT_KWARGS = {"patch": 2, "attn_impl": "flash"}
 VIT_TRAIN, VIT_TEST = 12_288, 10_000  # 8 minibatches of 512 per client; the full test set
 VIT_MOE_KWARGS = {**VIT_KWARGS, "moe_experts": 8}  # the JAX config's own example of E
 GROUPED_REPLACES = "federated_pytorch_test_tpu/ops/grouped_gemm.py:74"
+GROUPED_TAILS = ((3, 13, 257, 9), (3, 300, 40, 270))  # (G, M, K, N) from the card test's list
 LARGE_SLACK = 2.0  # q, k x 8: the kernel's error from float64 may reach this multiple of the f32 plain version's
 QUEUED_CALLS = 50  # calls queued per device-only timing (a plain version launches ~8 kernels)
 
@@ -277,69 +283,81 @@ def rel_err(out, ref) -> float:
     return float((out - ref).abs().max()) / (scale if scale > 0 else 1.0)
 
 
-TC_KERNELS = ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")  # the tensor-core flash kernels
-
-
-def tc_label(mangled: str) -> str:
-    """`flash_bwd_dq_tc<16, true>` from a tensor-core instance's mangled name."""
-    name = next(k for k in TC_KERNELS if k in mangled)
-    m = re.search(r"ILi(\d+)ELb([01])E", mangled)
-    return f"{name}<{m.group(1)}, {'true' if m.group(2) == '1' else 'false'}>" if m else name
-
-
-def report_tc_build(lib) -> None:
-    """What the compiler made of the tensor-core flash kernels (the forward
-    and the backward of both families): ptxas's registers, shared memory and
-    spills (from the build log) and any warning, and the count of
-    tensor-core instructions in each instance's SASS. Every instance must
-    hold HGMMA and spill nothing."""
-    import shutil
-
-    def tc(name):
-        return name is not None and any(k in name for k in TC_KERNELS)
-
+def ptxas_lines(lib):
+    """(mangled entry function, line) of every ptxas register, spill or
+    warning line in the build log beside `lib`."""
     fn = None
     for line in lib.with_suffix(".log").read_text(errors="replace").splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1] if "'" in line else line
-        elif "warning" in line.lower() or (tc(fn) and ("Used" in line or "spill" in line)):
-            print(f"ptxas {tc_label(fn) if tc(fn) else ''} {line.strip()}", flush=True)
-            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            if tc(fn) and spills and (int(spills.group(1)) or int(spills.group(2))):
-                fail(f"{tc_label(fn)} spills: {line.strip()}")
+        elif fn and ("Used" in line or "spill" in line or "warning" in line.lower()):
+            yield fn, line.strip()
+
+
+def spill_bytes(line: str) -> int:
+    m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+    return int(m.group(1)) + int(m.group(2)) if m else 0
+
+
+def sass_functions(lib):
+    """(mangled name, SASS) of every kernel in `lib`, from cuobjdump; None
+    when the toolkit has no cuobjdump."""
+    import shutil
+
     nvcc_dir = os.path.dirname(os.path.realpath(shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"))
     tool = shutil.which("cuobjdump") or os.path.join(nvcc_dir, "cuobjdump")
     if not os.path.exists(tool):
         print("sass cuobjdump not found: tensor-core instructions not counted", flush=True)
-        return
+        return None
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
-    for chunk in sass.split("Function : ")[1:]:
-        name = chunk.split("\n", 1)[0].strip()
-        if tc(name):
-            print(f"sass {tc_label(name)} HGMMA={chunk.count('HGMMA')} HMMA={chunk.count('HMMA')} "
+    return [(chunk.split("\n", 1)[0].strip(), chunk) for chunk in sass.split("Function : ")[1:]]
+
+
+def report_tensor_core_build(lib, label, tc) -> None:
+    """What the compiler made of the tensor-core instances in `lib` (those
+    whose mangled name `tc` labels, else None): ptxas's registers, shared
+    memory and spills, any warning, and the count of tensor-core
+    instructions in each instance's SASS. Every instance must hold HGMMA
+    and spill nothing."""
+    seen = set()
+    for fn, line in ptxas_lines(lib):
+        name = tc(fn)
+        if name is None and "warning" not in line.lower():
+            continue
+        print(f"ptxas {name or ''} {line}", flush=True)
+        seen.add(name)
+        if name and spill_bytes(line):
+            fail(f"{name} spills: {line}")
+    if not seen - {None}:
+        fail(f"{label}: the build log has no ptxas report of its tensor-core instances")
+    for fn, chunk in sass_functions(lib) or ():
+        name = tc(fn)
+        if name:
+            print(f"sass {name} HGMMA={chunk.count('HGMMA')} HMMA={chunk.count('HMMA')} "
                   f"MUFU.EX2={chunk.count('MUFU.EX2')}", flush=True)
             if "HGMMA" not in chunk:
-                fail(f"{tc_label(name)}: no HGMMA in its SASS")
+                fail(f"{name}: no HGMMA in its SASS")
 
 
-def report_grouped_build(lib) -> None:
-    """ptxas's registers, shared memory and spills of every grouped GEMM
-    instance (from the build log); any spill fails."""
-    fn, seen, spilled = None, 0, []
-    for line in lib.with_suffix(".log").read_text(errors="replace").splitlines():
-        if "Compiling entry function" in line:
-            fn = line.split("'")[1] if "'" in line else line
-            m = re.search(r"grouped_gemm_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])E", fn)
-            fn = (f"grouped_gemm_kernel<{m.group(1)}, {m.group(2)}, {'AT' if m.group(3) == '1' else 'A'}, "
-                  f"{'BT' if m.group(4) == '1' else 'B'}>" if m else fn.split("grouped_")[-1][:24])
-        elif fn and ("Used" in line or "spill" in line or "warning" in line.lower()):
-            print(f"ptxas {fn} {line.strip()}", flush=True)
-            seen += "Used" in line
-            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            if spills and (int(spills.group(1)) or int(spills.group(2))):
-                spilled.append(fn)
-    if spilled or not seen:
-        fail(f"grouped_gemm: instances spill: {spilled}" if spilled else "grouped_gemm: the build log has no ptxas report")
+TC_KERNELS = ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")  # the tensor-core flash kernels
+
+
+def flash_label(mangled: str):
+    """`flash_bwd_dq_tc<16, true>` from a tensor-core flash instance's mangled name."""
+    name = next((k for k in TC_KERNELS if k in mangled), None)
+    if name is None:
+        return None
+    m = re.search(r"ILi(\d+)ELb([01])E", mangled)
+    return f"{name}<{m.group(1)}, {'true' if m.group(2) == '1' else 'false'}>" if m else name
+
+
+def grouped_label(mangled: str):
+    """`grouped_gemm_tc<128, A, BT>` from a grouped GEMM instance's mangled
+    name (A, B: the operand's contraction axis contiguous; AT, BT: not)."""
+    m = re.search(r"grouped_gemm_tcILi(\d+)ELb([01])ELb([01])E", mangled)
+    if not m:
+        return None
+    return f"grouped_gemm_tc<{m.group(1)}, {'A' if m.group(2) == '1' else 'AT'}, {'BT' if m.group(3) == '1' else 'B'}>"
 
 
 def history(n: int, seed: int):
@@ -447,7 +465,32 @@ def phase_kernels():
             )
             if n == REPORT_N:
                 report[name] = r
+        if n == REPORT_N:
+            gram_one_launch(lambda: cc.fused_gram_projections(s, y, g, full), report["fused_gram_projections"])
     return report
+
+
+def gram_one_launch(call, r: dict) -> None:
+    """The gram's device kernels in one call, from the profiler: exactly one
+    launch; beside it the kernel's registers (build log) and its device
+    time against its bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from federated_pytorch_test_tpu_torch.ops import build
+
+    call()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = Counter(e.name for e in prof.events() if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+    regs = [line for fn, line in ptxas_lines(build.build("compact_direction")) if "gram_kernel" in fn and "Used" in line]
+    print(f"gram launches_per_call={sum(kernels.values())} kernels={dict(kernels)} ptxas={regs} "
+          f"device_ms={r['device_ms']:.6f} bound_ms={r['bound_ms']:.6f} share_of_bound={r['bound_ms'] / r['device_ms']:.3f}",
+          flush=True)
+    if sum(kernels.values()) != 1 or "gram_kernel" not in next(iter(kernels)):
+        fail(f"fused_gram_projections: expected one gram_kernel launch a call, the profiler saw {dict(kernels)}")
 
 
 def flash_inputs(bh: int, s: int, d: int, seed: int):
@@ -947,7 +990,31 @@ def phase_grouped():
         if role == "grouped_matmul_drhs" and "grouped_matmul_sum" not in report and splits > 1:
             report["grouped_matmul_sum"] = sum_check(g, m, n, splits, seed=200 + i)
         del a, b
+    for shape in GROUPED_TAILS:
+        grouped_tail_check(*shape)
     return report
+
+
+def grouped_tail_check(g: int, m: int, k: int, n: int) -> None:
+    """Every role of the grouped GEMM at a ragged shape (M, K, N off the
+    tiles, rows off 16 bytes: the kernel's 4-byte copies), its operand views
+    as autograd passes them: within RTOL of float64, two launches equal bits."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(g + m + k + n)
+    a, b, dc = (torch.randn(*sh, device="cuda", generator=gen) for sh in ((g, m, k), (g, k, n), (g, m, n)))
+    for role, args in (("grouped_matmul", (a, b)), ("grouped_matmul_dlhs", (dc, b)), ("grouped_matmul_drhs", (a, dc))):
+        kernel, plain, _, _ = grouped_role(role)
+        runs = [kernel(*args) for _ in range(2)]
+        ref64 = plain(*(t.double() for t in args))
+        torch.cuda.synchronize()
+        same = torch.equal(runs[0].view(torch.int32), runs[1].view(torch.int32))
+        err = rel_err(runs[0].double(), ref64)
+        finite = bool(torch.isfinite(runs[0]).all())
+        print(f"grouped tail {role} G={g} M={m} K={k} N={n} kernel_vs_f64={err:.3e} bitwise_equal={same} "
+              f"finite={finite}", flush=True)
+        if not finite or not same or not err <= RTOL or runs[0].shape != ref64.shape:
+            fail(f"grouped tail {role} ({g}, {m}, {k}, {n}): kernel vs float64 {err:.3e} (bitwise equal {same})")
 
 
 def sum_check(g: int, m: int, n: int, splits: int, seed: int) -> dict:
@@ -1534,14 +1601,35 @@ def phase_vit_moe_train(metrics_out, profile: bool):
 
 
 # One turn of `--ab-parent`, run in a fresh process from the root of a
-# checkout: that checkout's train phases, the LM's group-0 epoch
-# profiled, then their walls as one JSON line.
+# checkout: the device ms of the grouped GEMM at every MoE ViT path shape
+# and of the gram at every Net group size, as one JSON line; then
+# that checkout's train phases, the LM's group-0 epoch profiled, and their
+# walls as one JSON line.
 AB_TURN = """
 import json, sys
 sys.path.insert(0, ".")
 import chip_smoke as cs
 from federated_pytorch_test_tpu_torch.utils import configure_precision
 configure_precision()
+import torch
+from federated_pytorch_test_tpu_torch.engine import get_preset
+from federated_pytorch_test_tpu_torch.ops import compact_cuda as cc
+times = {}
+for i, (label, role, shapes) in enumerate(cs.grouped_cases(get_preset("fedavg", model="vit",
+                                                                      model_kwargs=cs.VIT_MOE_KWARGS))):
+    gen = torch.Generator(device="cuda").manual_seed(100 + i)
+    a, b = (torch.randn(*sh, device="cuda", generator=gen) for sh in shapes)
+    kernel = cs.grouped_role(role)[0]
+    times[label] = cs.time_ms(lambda: kernel(a, b), 20)[1]
+    del a, b
+full = torch.full((cs.K,), cs.M, dtype=torch.int32, device="cuda")
+for n in cs.NET_GROUP_SIZES:
+    s, y, g, count, _ = cs.history(n, seed=n)
+    s.nan_to_num_(0.0)
+    y.nan_to_num_(0.0)
+    times[f"gram N={n}"] = cs.time_ms(lambda: cc.fused_gram_projections(s, y, g, full), 200)[1]
+    del s, y, g
+print("ab kernels " + json.dumps(times), flush=True)
 walls = {p: getattr(cs, p)(None, p == "phase_lm_train")[1]
          for p in ("phase_train", "phase_lm_train", "phase_vit_train", "phase_vit_moe_train") if hasattr(cs, p)}
 print("ab walls " + json.dumps(walls), flush=True)
@@ -1552,12 +1640,13 @@ AB_BUILD = ("import sys; sys.path.insert(0, '.'); import chip_smoke as cs; "
 
 
 def run_ab(parent: str, runs: int) -> None:
-    """The train walls of another checkout (`parent`, e.g. `git
-    archive` of the parent commit unpacked) and of this one, `runs` turns
-    each, in fresh processes taking turns parent, change, change, parent,
-    ... after both have built their kernels. Every line of a turn is
-    printed with its checkout's tag; then each pair's differences (change
-    minus parent) and their medians."""
+    """The kernel times and train walls of another checkout (`parent`, e.g.
+    `git archive` of the parent commit unpacked) and of this one, `runs`
+    turns each, in fresh processes taking turns parent, change, change,
+    parent, ... after both have built their kernels. Every line of a turn
+    is printed with its checkout's tag; then each kernel's device ms per
+    turn and the median ratio (change over parent), and each wall's pair
+    differences (change minus parent) and their median."""
     import statistics
 
     trees = {"parent": os.path.abspath(parent), "change": HERE}
@@ -1568,6 +1657,7 @@ def run_ab(parent: str, runs: int) -> None:
                 fail(f"ab: the {tag} checkout did not build:\n{proc.stdout}{proc.stderr}")
     order = [("parent", "change"), ("change", "parent")]
     walls = {"parent": [], "change": []}
+    kernel_ms = {"parent": [], "change": []}
     for turn in range(runs):
         for tag in order[turn % 2]:
             proc = subprocess.run([sys.executable, "-c", AB_TURN], cwd=trees[tag], capture_output=True, text=True)
@@ -1576,6 +1666,11 @@ def run_ab(parent: str, runs: int) -> None:
             if proc.returncode != 0:
                 fail(f"ab: the {tag} checkout's turn {turn} failed (exit {proc.returncode})")
             walls[tag].append(json.loads(proc.stdout.split("ab walls ")[-1].splitlines()[0]))
+            kernel_ms[tag].append(json.loads(proc.stdout.split("ab kernels ")[-1].splitlines()[0]))
+    for name in kernel_ms["change"][0]:
+        par, chg = ([t[name] for t in kernel_ms[tag]] for tag in ("parent", "change"))
+        print(f"ab device_ms {name} parent={[round(x, 6) for x in par]} change={[round(x, 6) for x in chg]} "
+              f"median_ratio={statistics.median(c / p for c, p in zip(chg, par)):.4f}", flush=True)
     for phase in walls["change"][0].keys() & walls["parent"][0].keys():
         diffs = [c[phase] - p[phase] for c, p in zip(walls["change"], walls["parent"])]
         print(f"ab {phase} parent={[round(p[phase], 3) for p in walls['parent']]} "
@@ -1627,8 +1722,8 @@ def main() -> int:
         built = list(pool.map(timed_build, SOURCES))
     for lib, seconds in built:
         print(f"build {lib.name} seconds={seconds:.3f}", flush=True)
-    report_tc_build(built[SOURCES.index("flash_attention")][0])
-    report_grouped_build(built[SOURCES.index("grouped_gemm")][0])
+    report_tensor_core_build(built[SOURCES.index("flash_attention")][0], "flash_attention", flash_label)
+    report_tensor_core_build(built[SOURCES.index("grouped_gemm")][0], "grouped_gemm", grouped_label)
 
     report = phase_kernels()
     flash_report = phase_flash()

@@ -17,19 +17,22 @@
 //             12.1 MB, 3.6 µs
 //   assembly: (2·m·N + 2·N)·4·K bytes moved   -> 12.7 MB, 3.8 µs
 // At the main path's group sizes (456 … 48,120) a launch costs more than
-// that, so launch overhead dominates; the design targets the large-N case
-// (ResNet18 blocks, N in the millions) without tuning for it yet.
+// that: the gram's serial steps (a tile, the lane sums, the ticket, the
+// chunk sum) take ~9 µs on an H100 even at N = 456, so launch and latency
+// dominate there; at N in the millions (ResNet18 blocks) the bytes do.
 //
 // Design. The TPU kernel walks N sequentially and accumulates in VMEM. On
 // Hopper the blocks of a grid run in parallel and in no order, so:
-//   * gram stage 1: a block per (N-chunk, client) stages (2m+1) rows x 256
-//     columns of S, Y, g in shared memory (16-byte loads when rows are
-//     16-byte aligned), then each thread owns one of the 2m²+2m outputs
-//     and dots its two rows over the tile. A tile's sum is formed apart
-//     and then added to the thread's running sum, which keeps rounding
-//     error low over millions of columns. Each block writes its partials;
-//   * gram stage 2: one thread per (client, output) sums the partials in
-//     chunk order. No atomics: results are bitwise repeatable run to run;
+//   * gram, one launch: a block per (chunk of 256-column tiles, client)
+//     stages (2m+1) rows x 256 columns of S, Y, g in shared memory (16-byte
+//     cp.async copies when rows are 16-byte aligned, through a ring of
+//     four tiles); each of 512 threads owns four rows of [S; Y] against
+//     every row of [Y; g] over every 64th float4 of the tile's columns
+//     (register-blocked, so shared-memory loads do not set the pace). The
+//     block sums its column lanes in a fixed order and writes its
+//     partials; the last block of the client to finish (a ticket counter)
+//     adds them in chunk order. The ticket is the only atomic: results
+//     are bitwise repeatable run to run;
 //   * assembly: each thread owns 4 consecutive columns and sums over the
 //     valid history rows — w and u sit in shared memory.
 // Rows >= count[k] are masked by select (never loaded, treated as 0) and
@@ -38,34 +41,23 @@
 
 #include <cuda_runtime.h>
 
+#include "tf32_wgmma.cuh"  // the cp.async helpers
+
 namespace {
 
-constexpr int kMaxM = 16;      // history rows supported
-constexpr int kThreads = 256;  // threads per block, every kernel
-constexpr int kTile = 256;     // columns per shared-memory tile
-constexpr int kStride = kTile + 1;  // padded row stride: conflict-free reads
-constexpr int kOutPerThread = (2 * kMaxM * kMaxM + 2 * kMaxM + kThreads - 1) / kThreads;
+using namespace tf32_wgmma;
 
-// Output o of the 2m²+2m gram outputs -> the tile rows it dots together.
-// Rows 0..m-1 hold S, m..2m-1 hold Y, 2m holds g.
-// Layout: [S Yᵀ (m·m) | Y Yᵀ (m·m) | Sᵀg (m) | Yᵀg (m)].
-__device__ __forceinline__ void gram_rows(int o, int m, int& a, int& b) {
-  const int mm = m * m;
-  if (o < mm) {
-    a = o / m;
-    b = m + o % m;
-  } else if (o < 2 * mm) {
-    const int r = o - mm;
-    a = m + r / m;
-    b = m + r % m;
-  } else if (o < 2 * mm + m) {
-    a = o - 2 * mm;
-    b = 2 * m;
-  } else {
-    a = m + (o - 2 * mm - m);
-    b = 2 * m;
-  }
-}
+constexpr int kMaxM = 16;      // history rows supported
+constexpr int kThreads = 256;  // threads per block of the assembly
+constexpr int kTile = 256;     // columns per gram tile
+constexpr int kStride = kTile + 4;  // padded row stride: 16-byte rows, conflict-free float4 reads
+constexpr int kSlots = 8;     // gram row slots: thread t owns rows t % 8 + 8i of [S; Y]
+constexpr int kRowsA = 2 * kMaxM / kSlots;  // ... i < kRowsA
+constexpr int kGramThreads = 512;  // the gram's block: 16 warps an SM to hide its loads' and FMAs' latency
+constexpr int kLanes = kGramThreads / kSlots;  // gram column lanes: thread t takes lane t / 8
+constexpr int kMaxOut = 2 * kMaxM * kMaxM + 2 * kMaxM;  // gram outputs, at most
+constexpr int kMaxChunks = 128;  // gram blocks per client, at most (the wrapper takes up to 44)
+constexpr int kGramStages = 4;  // depth of the gram's tile ring: enough bytes in flight to stream
 
 // Pointer to row r (0..2m) of client k, and whether the row is valid.
 __device__ __forceinline__ const float* tile_row(const float* sk, const float* yk, const float* gk,
@@ -82,89 +74,170 @@ __device__ __forceinline__ const float* tile_row(const float* sk, const float* y
   return gk;
 }
 
+// The gram in one launch. With X = [S; Y; g] (rows 0..2m), its 2m²+2m
+// outputs are the block of X Xᵀ with rows a in [0, 2m) (S and Y) and
+// columns b in [0, m] (Y and g); output (a, b) sits at a·m + b for b < m
+// (S Yᵀ, then Y Yᵀ) and at 2m² + a for b = m (Sᵀg, then Yᵀg).
+//
+// A block per (chunk of `tpb` column tiles, client). A tile (2m+1 rows x
+// kTile columns) is staged in shared memory by cp.async through a ring of
+// kGramStages buffers, the next tiles in flight while one is summed. Thread
+// t owns rows a = t % 8 + 8i of [S; Y] against every b (register-blocked:
+// per float4 of columns, 4 + m + 1 shared loads for 16·(m + 1) FMAs) over
+// the columns 4·(t / 8) of each tile, so shared-memory loads do not set
+// the pace. The block's 64 column lanes are summed in a fixed order
+// (in groups of eight, then the groups), the block's partials
+// written, and the last block of a client to finish (a ticket counter, the
+// only atomic) adds the chunks' partials in chunk order and resets the
+// ticket. Every sum has a fixed order: bitwise repeatable.
 template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
-gram_partials_kernel(const float* __restrict__ s, const float* __restrict__ y,
-                     const float* __restrict__ g, const int* __restrict__ count,
-                     float* __restrict__ partial, int m, long long n, int chunks) {
-  extern __shared__ float tile[];  // (2m+1) x kStride
-  const int k = blockIdx.y;
-  const int chunk = blockIdx.x;
-  const int rows = 2 * m + 1;
-  const int n_out = 2 * m * m + 2 * m;
+__global__ void __launch_bounds__(kGramThreads, 1)
+gram_kernel(const float* __restrict__ s, const float* __restrict__ y, const float* __restrict__ g,
+            const int* __restrict__ count, float* __restrict__ partial, unsigned* __restrict__ ticket,
+            float* __restrict__ out, int m, long long n, int tpb) {
+  extern __shared__ __align__(16) float tile[];  // kGramStages buffers of (2m+1) x kStride; then the lanes' sums
+  __shared__ bool last;
+  const int k = blockIdx.y, chunk = blockIdx.x, chunks = gridDim.x;
+  const int rows = 2 * m + 1, n_out = 2 * m * m + 2 * m;
   const int cnt = count[k];
   const float* sk = s + (long long)k * m * n;
   const float* yk = y + (long long)k * m * n;
   const float* gk = g + (long long)k * n;
+  const int p = threadIdx.x % kSlots, lane = threadIdx.x / kSlots;
 
-  float acc[kOutPerThread];
+  float acc[kRowsA][kMaxM + 1];
 #pragma unroll
-  for (int j = 0; j < kOutPerThread; ++j) acc[j] = 0.f;
+  for (int i = 0; i < kRowsA; ++i)
+#pragma unroll
+    for (int b = 0; b <= kMaxM; ++b) acc[i][b] = 0.f;
 
   const long long n_tiles = (n + kTile - 1) / kTile;
-  for (long long t = chunk; t < n_tiles; t += chunks) {
+  const long long t_begin = (long long)chunk * tpb, t_end = min(n_tiles, t_begin + tpb);
+  // cp.async of tile t into buffer `buf`; invalid rows and columns past N
+  // land as 0 without being read
+  auto load = [&](long long t, int buf) {
     const long long c0 = t * kTile;
-    if (kVec) {
-      // n % 4 == 0 and 16-byte aligned rows: a float4 is wholly in or out
-      constexpr int kVecPerRow = kTile / 4;
-      for (int e = threadIdx.x; e < rows * kVecPerRow; e += kThreads) {
-        const int r = e / kVecPerRow;
-        const int cv = e % kVecPerRow;
+    float* dst = tile + buf * rows * kStride;
+    if (kVec) {  // n % 4 == 0 and 16-byte aligned rows: a float4 is wholly in or out
+      for (int e = threadIdx.x; e < rows * (kTile / 4); e += kGramThreads) {
+        const int r = e / (kTile / 4), cv = e % (kTile / 4);
         const long long col = c0 + 4 * cv;
         bool ok;
         const float* base = tile_row(sk, yk, gk, r, m, cnt, n, ok);
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (ok && col < n) v = __ldg(reinterpret_cast<const float4*>(base + col));
-        float* dst = tile + r * kStride + 4 * cv;
-        dst[0] = v.x;
-        dst[1] = v.y;
-        dst[2] = v.z;
-        dst[3] = v.w;
+        ok = ok && col < n;
+        cp_async16_zfill(dst + r * kStride + 4 * cv, ok ? base + col : gk, ok);
       }
     } else {
-      for (int e = threadIdx.x; e < rows * kTile; e += kThreads) {
-        const int r = e / kTile;
-        const int c = e % kTile;
-        const long long col = c0 + c;
+      for (int e = threadIdx.x; e < rows * kTile; e += kGramThreads) {
+        const int r = e / kTile, cc = e % kTile;
+        const long long col = c0 + cc;
         bool ok;
         const float* base = tile_row(sk, yk, gk, r, m, cnt, n, ok);
-        tile[r * kStride + c] = (ok && col < n) ? __ldg(base + col) : 0.f;
+        ok = ok && col < n;
+        cp_async4_zfill(dst + r * kStride + cc, ok ? base + col : gk, ok);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < kGramStages - 1; ++i) {
+    if (t_begin + i < t_end)
+      load(t_begin + i, i);
+    else
+      cp_async_commit();
+  }
+  for (long long t = t_begin; t < t_end; ++t) {
+    const int i = (int)(t - t_begin);
+    if (t + kGramStages - 1 < t_end)  // in flight while this tile is summed
+      load(t + kGramStages - 1, (i + kGramStages - 1) % kGramStages);
+    else
+      cp_async_commit();
+    cp_async_wait<kGramStages - 1>();  // tile t has landed
+    __syncthreads();
+    const float* cur = tile + (i % kGramStages) * rows * kStride;
+#pragma unroll
+    for (int q = 0; q < kTile / 4 / kLanes; ++q) {
+      const int col = 4 * lane + 4 * kLanes * q;
+      float4 x[kRowsA];
+#pragma unroll
+      for (int r = 0; r < kRowsA; ++r)
+        x[r] = p + kSlots * r < 2 * m ? *reinterpret_cast<const float4*>(cur + (p + kSlots * r) * kStride + col)
+                                      : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int b = 0; b <= kMaxM; ++b) {
+        if (b > m) break;
+        const float4 w = *reinterpret_cast<const float4*>(cur + (m + b) * kStride + col);
+#pragma unroll
+        for (int r = 0; r < kRowsA; ++r)
+          if (kSlots * r < 2 * m)  // the same for every thread: slots past the rows are skipped
+            acc[r][b] = fmaf(x[r].w, w.w, fmaf(x[r].z, w.z, fmaf(x[r].y, w.y, fmaf(x[r].x, w.x, acc[r][b]))));
       }
     }
     __syncthreads();
+  }
+
+  // the block's sum over its kLanes column lanes through shared memory, in
+  // a fixed order: lanes 8j … 8j + 7 in order (eight groups at once), then
+  // the groups in order
+  float* lanes = tile;                    // [kLanes][n_out]
+  float* groups = tile + kLanes * n_out;  // [kLanes / 8][n_out]
+#pragma unroll
+  for (int r = 0; r < kRowsA; ++r) {
+    const int a = p + kSlots * r;
+#pragma unroll
+    for (int b = 0; b <= kMaxM; ++b)
+      if (a < 2 * m && b <= m) lanes[lane * n_out + (b < m ? a * m + b : 2 * m * m + a)] = acc[r][b];
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < kLanes / 8 * n_out; e += kGramThreads) {
+    const int o = e % n_out, j = e / n_out;
+    float sum = lanes[8 * j * n_out + o];
+#pragma unroll
+    for (int l = 1; l < 8; ++l) sum += lanes[(8 * j + l) * n_out + o];
+    groups[j * n_out + o] = sum;
+  }
+  __syncthreads();
+  float* mine = partial + ((long long)k * chunks + chunk) * n_out;
+  for (int o = threadIdx.x; o < n_out; o += kGramThreads) {
+    float sum = groups[o];
+#pragma unroll
+    for (int j = 1; j < kLanes / 8; ++j) sum += groups[j * n_out + o];
+    mine[o] = sum;
+  }
+  // the last block of this client to finish adds every chunk's partials
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket + k, 1u) == (unsigned)chunks - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the partials pass through shared memory (all loads in flight at once),
+  // then each output adds them in chunk order
+  const float* pk = partial + (long long)k * chunks * n_out;
+  const int per_pass = kGramStages * rows * kStride / n_out;  // chunks staged at once
+  constexpr int kOutPerThread = (kMaxOut + kGramThreads - 1) / kGramThreads;
+  float sum[kOutPerThread];
+#pragma unroll
+  for (int j = 0; j < kOutPerThread; ++j) sum[j] = 0.f;
+  for (int c0 = 0; c0 < chunks; c0 += per_pass) {
+    const int nc = min(per_pass, chunks - c0);
+#pragma unroll 16
+    for (int e = threadIdx.x; e < nc * n_out; e += kGramThreads) tile[e] = __ldcg(pk + (long long)c0 * n_out + e);
+    __syncthreads();
 #pragma unroll
     for (int j = 0; j < kOutPerThread; ++j) {
-      const int o = threadIdx.x + j * kThreads;
-      if (o < n_out) {
-        int a, b;
-        gram_rows(o, m, a, b);
-        const float* A = tile + a * kStride;
-        const float* B = tile + b * kStride;
-        float part = 0.f;
-#pragma unroll 8
-        for (int c = 0; c < kTile; ++c) part = fmaf(A[c], B[c], part);
-        acc[j] += part;
-      }
+      const int o = threadIdx.x + j * kGramThreads;
+      if (o < n_out)
+        for (int c = 0; c < nc; ++c) sum[j] += tile[c * n_out + o];
     }
     __syncthreads();
   }
 #pragma unroll
   for (int j = 0; j < kOutPerThread; ++j) {
-    const int o = threadIdx.x + j * kThreads;
-    if (o < n_out) partial[((long long)k * chunks + chunk) * n_out + o] = acc[j];
+    const int o = threadIdx.x + j * kGramThreads;
+    if (o < n_out) out[(long long)k * n_out + o] = sum[j];
   }
-}
-
-__global__ void __launch_bounds__(kThreads)
-gram_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out, int n_out,
-                   int chunks) {
-  const int k = blockIdx.y;
-  const int o = blockIdx.x * kThreads + threadIdx.x;
-  if (o >= n_out) return;
-  const float* p = partial + (long long)k * chunks * n_out + o;
-  float sum = 0.f;
-  for (int c = 0; c < chunks; ++c) sum += p[(long long)c * n_out];
-  out[(long long)k * n_out + o] = sum;
+  if (threadIdx.x == 0) ticket[k] = 0u;  // ready for the next launch on the stream
 }
 
 template <bool kVec>
@@ -229,24 +302,34 @@ assembly_kernel(const float* __restrict__ s, const float* __restrict__ y,
 
 extern "C" {
 
-// Gram stage 1 + stage 2 on `stream`. partial: [K, chunks, 2m²+2m]
-// scratch; out: [K, 2m²+2m]. Returns the cudaError_t of the launches.
-int compact_gram_launch(const float* s, const float* y, const float* g, const int* count,
-                        float* partial, float* out, int K, int m, long long n, int chunks,
-                        int vec, void* stream) {
-  if (m < 1 || m > kMaxM || K < 1 || chunks < 1 || n < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)(2 * m + 1) * kStride * sizeof(float);
-  const dim3 grid1(chunks, K);
-  if (vec)
-    gram_partials_kernel<true><<<grid1, kThreads, smem, st>>>(s, y, g, count, partial, m, n, chunks);
-  else
-    gram_partials_kernel<false><<<grid1, kThreads, smem, st>>>(s, y, g, count, partial, m, n, chunks);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+// The gram on `stream`, one launch: out [K, 2m²+2m]. partial: [K, chunks,
+// 2m²+2m] scratch; ticket: [K] counters, 0 before the launch and left 0
+// after it. Returns the cudaError_t of the launch.
+int compact_gram_launch(const float* s, const float* y, const float* g, const int* count, float* partial,
+                        unsigned* ticket, float* out, int K, int m, long long n, int chunks, int tpb, int vec,
+                        void* stream) {
+  if (m < 1 || m > kMaxM || K < 1 || K > 65535 || chunks < 1 || chunks > kMaxChunks || tpb < 1 || n < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long n_tiles = (n + kTile - 1) / kTile;
+  if ((long long)(chunks - 1) * tpb >= n_tiles || (long long)chunks * tpb < n_tiles)
+    return (int)cudaErrorInvalidValue;  // every block takes at least one tile, and they cover N
   const int n_out = 2 * m * m + 2 * m;
-  const dim3 grid2((n_out + kThreads - 1) / kThreads, K);
-  gram_reduce_kernel<<<grid2, kThreads, 0, st>>>(partial, out, n_out, chunks);
+  const int smem = max(kGramStages * (2 * m + 1) * kStride, (kLanes + kLanes / 8) * n_out) * (int)sizeof(float);
+  const dim3 grid(chunks, K);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto kernel = vec ? gram_kernel<true> : gram_kernel<false>;
+  // above 48 KB a kernel needs the opt-in, once per instance (for the
+  // largest history; the process's one card)
+  static bool opted_in[2] = {false, false};
+  if (!opted_in[vec ? 1 : 0]) {
+    constexpr int kMaxSmem = (kGramStages * (2 * kMaxM + 1) * kStride > (kLanes + kLanes / 8) * kMaxOut
+                                  ? kGramStages * (2 * kMaxM + 1) * kStride
+                                  : (kLanes + kLanes / 8) * kMaxOut) * (int)sizeof(float);
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (e != cudaSuccess) return (int)e;
+    opted_in[vec ? 1 : 0] = true;
+  }
+  kernel<<<grid, kGramThreads, smem, st>>>(s, y, g, count, partial, ticket, out, m, n, tpb);
   return (int)cudaGetLastError();
 }
 

@@ -2,7 +2,8 @@
 
 `csrc/<name>.cu` compiles, at first use, into a shared library with a
 plain C interface under `_build/` (listed in `.gitignore`), named by a hash
-of its source and flags so an edited source rebuilds.
+of its source, the `csrc/*.cuh` headers and the flags, so an edited source
+or header rebuilds.
 
 Only the card's machine runs this: nothing here is called when a module
 is imported, and the CPU paths never need it.
@@ -45,7 +46,8 @@ def build(name: str) -> Path:
     kept beside the library as `<lib>.log`. Raises if nvcc fails.
     """
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if out.exists():
         return out

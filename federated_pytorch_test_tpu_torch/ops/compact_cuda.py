@@ -35,14 +35,20 @@ LAUNCHES: Dict[str, int] = {"fused_gram_projections": 0, "fused_direction_assemb
 
 MAX_HISTORY = 16  # kMaxM in the CUDA source
 _TILE = 256  # kTile in the CUDA source: columns per gram tile
-# gram blocks per client: one per tile up to this cap, then grid-stride.
-# A function of N alone, so a result does not depend on the card.
-_MAX_CHUNKS = 256
+# gram blocks per client: one per tile up to this cap, then each block
+# takes an equal run of tiles (at K = 3, one block for each of an H100's
+# 132 SMs; a sweep of 16–128 on the card found it fastest at N = 48,120
+# and 4.7M). A function of N alone, so a result does not depend on the card.
+_MAX_CHUNKS = 44
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _lib = None
+# the gram's scratch per device, kept between calls: partials and the
+# per-client ticket counters (zero between launches; the kernel leaves them
+# zero). Calls on one stream reuse it in order.
+_scratch: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def reset_launch_counts() -> None:
@@ -56,7 +62,7 @@ def _kernels():
         from .build import load
 
         lib = load("compact_direction")
-        lib.compact_gram_launch.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P]
+        lib.compact_gram_launch.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P]
         lib.compact_gram_launch.restype = _I
         lib.compact_assembly_launch.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _P]
         lib.compact_assembly_launch.restype = _I
@@ -116,6 +122,26 @@ def fused_gram_projections_plain(s, y, g, count):
     return s @ y.transpose(-1, -2), y @ y.transpose(-1, -2), (s * gb).sum(-1), (y * gb).sum(-1)
 
 
+def gram_chunks(n: int) -> Tuple[int, int]:
+    """(blocks per client, column tiles per block) of the gram over N
+    columns: an equal run of tiles a block, at most `_MAX_CHUNKS` blocks."""
+    tiles = math.ceil(n / _TILE)
+    per_block = math.ceil(tiles / _MAX_CHUNKS)
+    return math.ceil(tiles / per_block), per_block
+
+
+def _gram_scratch(device: torch.device, n_partial: int, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gram's partials (at least `n_partial` floats) and `k` zeroed
+    ticket counters on `device`, grown as needed and kept between calls."""
+    partial, ticket = _scratch.get(device, (None, None))
+    if partial is None or partial.numel() < n_partial:
+        partial = torch.empty(n_partial, dtype=torch.float32, device=device)
+    if ticket is None or ticket.numel() < k:
+        ticket = torch.zeros(k, dtype=torch.int32, device=device)
+    _scratch[device] = (partial, ticket)
+    return partial, ticket
+
+
 def fused_gram_projections(s, y, g, count):
     """(S Yᵀ, Y Yᵀ, Sᵀg, Yᵀg) in one pass over the `[K, m, N]` history.
 
@@ -127,12 +153,12 @@ def fused_gram_projections(s, y, g, count):
         return fused_gram_projections_plain(s, y, g, count)
     k, m, n = _check_history(s, y, g, count)
     n_out = 2 * m * m + 2 * m
-    chunks = min(math.ceil(n / _TILE), _MAX_CHUNKS)
-    partial = torch.empty((k, chunks, n_out), dtype=torch.float32, device=s.device)
+    chunks, tpb = gram_chunks(n)
+    partial, ticket = _gram_scratch(s.device, k * chunks * n_out, k)
     out = torch.empty((k, n_out), dtype=torch.float32, device=s.device)
     rc = _kernels().compact_gram_launch(
         s.data_ptr(), y.data_ptr(), g.data_ptr(), count.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), k, m, n, chunks, _vec_ok(n, s, y, g),
+        partial.data_ptr(), ticket.data_ptr(), out.data_ptr(), k, m, n, chunks, tpb, _vec_ok(n, s, y, g),
         torch.cuda.current_stream(s.device).cuda_stream,
     )
     if rc != 0:

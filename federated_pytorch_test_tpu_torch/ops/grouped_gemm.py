@@ -6,8 +6,9 @@ the TPU kernel; `grouped_matmul`, its public entry). The switch-MoE MLP
 and back, K clients times E experts as the groups.
 
 `grouped_matmul` is an autograd function over one kernel
-(`csrc/grouped_gemm.cu`, built on first use) that serves three roles, each
-counted under its own name in `LAUNCHES`:
+(`csrc/grouped_gemm.cu`, built on first use: split-TF32 products on the
+tensor cores, `wgmma`) that serves three roles, each counted under its own
+name in `LAUNCHES`:
 
 * `grouped_matmul` — the forward, C = A·B;
 * `grouped_matmul_dlhs` — the input gradient dA = dC·Bᵀ, with Bᵀ a view;
@@ -41,7 +42,7 @@ LAUNCHES: Dict[str, int] = {
     "grouped_matmul": 0, "grouped_matmul_dlhs": 0, "grouped_matmul_drhs": 0, "grouped_matmul_sum": 0,
 }
 
-TK = 16  # kTK in the CUDA source: the contraction chunk staged in shared memory
+TK = 32  # kBK in the CUDA source: the contraction positions a stage
 # Where the output has fewer tiles than SPLIT_TILES (two blocks for each of
 # an H100's 132 SMs), the contraction runs in chunks of SPLIT_CHUNK. A
 # function of the shapes alone, so a result does not depend on the card.
@@ -86,10 +87,10 @@ def check_operands(lhs: torch.Tensor, rhs: torch.Tensor, dtypes=(torch.float32,)
 
 
 def tiles(m: int, n: int) -> Tuple[int, int]:
-    """The kernel instance's output tile (BM, BN) for an M x N output:
-    128 x 128, 128 x 64 or 64 x 128."""
-    bm = 128 if m > 64 else 64
-    return bm, (128 if n > 64 or bm == 64 else 64)
+    """The kernel instance's output tile (BM, BN) for an M x N output: two
+    warpgroups of 64 x 64, side by side in N (64 x 128) where N is wider
+    than one, else stacked in M (128 x 64)."""
+    return (64, 128) if n > 64 else (128, 64)
 
 
 def split_k(g: int, m: int, n: int, k: int) -> Tuple[int, int]:

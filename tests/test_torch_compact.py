@@ -114,3 +114,13 @@ def test_wrapper_rejects_mixed_devices():
     s = torch.zeros(1, 2, 8)
     with pytest.raises(ValueError):
         compact_cuda._on_cpu(s, torch.empty(0, device="meta"))
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 456, 48_120, 32_768, 32_769, 4_720_644])
+def test_gram_chunks_cover_the_columns_once(n):
+    # the one-launch gram's grid: at most 44 blocks a client, an equal run
+    # of 256-column tiles a block, every block with a tile (the launcher
+    # refuses anything else)
+    chunks, per_block = compact_cuda.gram_chunks(n)
+    tiles = -(-n // 256)
+    assert 1 <= chunks <= 44 and (chunks - 1) * per_block < tiles <= chunks * per_block

@@ -186,3 +186,26 @@ def test_grouped_matmul_autograd_takes_strided_and_transposed_operands():
     a64, b64 = a.detach().double().requires_grad_(True), b.detach().double().requires_grad_(True)
     (torch.bmm(a64, b64).transpose(1, 2) * w.double()).sum().backward()
     assert _rel(a.grad.double(), a64.grad) <= 1e-5 and _rel(b.grad.double(), b64.grad) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1_001, 70_003])
+def test_gram_repeats_bitwise_and_matches_plain(n):
+    # the one-launch gram at an N that is a multiple of neither 4 nor the
+    # 256-column tile (scalar loads; a ragged last tile; at 70,003 several
+    # tiles a block): two calls equal bits, and within 1e-5 of the plain
+    # version, with an empty, a partial (NaN-filled invalid row) and a full
+    # history
+    from federated_pytorch_test_tpu_torch.ops import compact_cuda as cc
+
+    _card()
+    rng = np.random.default_rng(n)
+    s, y = (torch.tensor(rng.normal(size=(3, 10, n)).astype(np.float32), device="cuda") for _ in range(2))
+    g = torch.tensor(rng.normal(size=(3, n)).astype(np.float32), device="cuda")
+    s[1, 5] = float("nan")
+    y[1, 5] = float("nan")
+    count = torch.tensor([0, 3, 10], dtype=torch.int32, device="cuda")
+    first, second = cc.fused_gram_projections(s, y, g, count), cc.fused_gram_projections(s, y, g, count)
+    for a, b, ref in zip(first, second, cc.fused_gram_projections_plain(s, y, g, count)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert bool(torch.isfinite(a).all()) and _rel(a, ref) <= 1e-5
