@@ -4,7 +4,8 @@
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--metrics-out PATH] [--lm-metrics-out PATH] [--vit-metrics-out PATH]
-                          [--vit-moe-metrics-out PATH] [--profile]
+                          [--vit-moe-metrics-out PATH] [--admm-metrics-out PATH]
+                          [--resnet-metrics-out PATH] [--profile]
     python3 chip_smoke.py --ab-parent DIR
 
 The second form runs none of the phases below: it times the grouped GEMM
@@ -130,7 +131,36 @@ Phases, each reported on its own lines; any failure exits non-zero:
               after; every grouped, rectangular flash and compact kernel
               must have launched exactly as often as the run's records imply
               (`expected_grouped`), losses must be finite and every
-              client's accuracy above chance.
+              client's accuracy above chance;
+15. admm train — the admm path: the admm preset (Net, K=3, batch 512,
+              nadmm 5, BB rho from 1e-3) on the full-size synthetic stand-in
+              with the fused-kernel direction, one outer loop over all five
+              groups. Compact launches gated exactly; losses and residuals
+              finite; every client's accuracy above chance; each group's
+              mean rho per round and final per-client rho printed, each
+              rho either rho0 or an accepted BB value in (0, bb_rhomax);
+16. resnet parity — admm_resnet at full width (ResNet18, 11,173,962
+              parameters a client): block7's round (group 8, N = 4,720,640,
+              the largest group; nadmm 3 x 16 minibatches of 32) step by
+              step with the plain direction in float64 (`direction_f64`:
+              at this N the float32 plain version's sums stray further
+              from float64 than the kernel's; the first step prints both
+              distances) and the 'pallas' direction, fed the same
+              parameters, BatchNorm statistics, optimizer and ADMM state
+              before each step (cuDNN deterministic): losses, parameters,
+              statistics and the primal and dual residuals within
+              relative 1e-3;
+17. resnet train — the ResNet paths at full width with the fused-kernel
+              direction on a synthetic stand-in of 1,536 train images (16
+              minibatches of 32 a client) and the 10,000 test images:
+              admm_resnet over all ten groups in the preset's shuffled order,
+              nadmm 3; then fedavg_resnet over its first three groups, nadmm
+              1. Compact launches gated exactly on both runs; losses and
+              residuals finite; every BatchNorm running statistic finite and
+              moved from its initial value; accuracies and walls printed.
+              Then both compact kernels at every group size the paths
+              reached: against the plain version (relative 1e-5) and timed
+              beside the bytes bound and the `matmul` yardstick.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`. Without CUDA, or without the
@@ -189,6 +219,7 @@ GROUPED_REPLACES = "federated_pytorch_test_tpu/ops/grouped_gemm.py:74"
 GROUPED_TAILS = ((3, 13, 257, 9), (3, 300, 40, 270))  # (G, M, K, N) from the card test's list
 LARGE_SLACK = 2.0  # q, k x 8: the kernel's error from float64 may reach this multiple of the f32 plain version's
 QUEUED_CALLS = 50  # calls queued per device-only timing (a plain version launches ~8 kernels)
+RESNET_TRAIN, RESNET_TEST = 1_536, 10_000  # 16 minibatches of 32 per client; the full test set
 
 
 def fail(msg: str) -> None:
@@ -415,59 +446,75 @@ def phase_kernels():
 
         # timings with a full history (count = m for every client): the
         # steady state of the optimizer, and every row is read
-        full = torch.full((K,), M, dtype=torch.int32, device="cuda")
-        s.nan_to_num_(0.0)
-        y.nan_to_num_(0.0)
-        iters = 20 if n > 1_000_000 else 200
-        x = torch.cat([s, y, g[:, None]], dim=1)  # [K, 2m+1, N] for the library calls
-        coef = torch.cat([w, -h_diag[:, None] * u, h_diag[:, None]], dim=1)[:, None, :]  # [K, 1, 2m+1]
-        gram_full = cc.fused_gram_projections(s, y, g, full)
-        gram_full_ref = cc.fused_gram_projections_plain(s, y, g, full)
-        asm_full = cc.fused_direction_assembly(s, y, g, w, u, h_diag, full)
-        asm_full_ref = cc.fused_direction_assembly_plain(s, y, g, w, u, h_diag, full)
-        calls = {
-            "fused_gram_projections": (
-                lambda: cc.fused_gram_projections(s, y, g, full),
-                lambda: cc.fused_gram_projections_plain(s, y, g, full),
-                lambda: torch.matmul(x, x.transpose(1, 2)),
-            ),
-            "fused_direction_assembly": (
-                lambda: cc.fused_direction_assembly(s, y, g, w, u, h_diag, full),
-                lambda: cc.fused_direction_assembly_plain(s, y, g, w, u, h_diag, full),
-                lambda: torch.matmul(coef, x),
-            ),
-        }
-        rows = {
-            "fused_gram_projections": dict(
-                bytes=(2 * M * n + n) * 4 * K,
-                flops=2 * (2 * M * M + 2 * M) * n * K,
-                max_abs_err=max(float((a - b).abs().max()) for a, b in zip(gram_full, gram_full_ref)),
-            ),
-            "fused_direction_assembly": dict(
-                bytes=(2 * M * n + 2 * n) * 4 * K,
-                flops=(4 * M + 3) * n * K,
-                max_abs_err=float((asm_full - asm_full_ref).abs().max()),
-            ),
-        }
-        for name, r in rows.items():
-            for key, fn in zip(("ms", "plain_ms", "library_ms"), calls[name]):
-                r[key], r[key.replace("ms", "device_ms")] = time_ms(fn, iters)
-            t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-            t_ops = r["flops"] / F32_FLOPS * 1e3
-            r["bound_ms"] = max(t_bytes, t_ops)
-            r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-            print(
-                f"timing {name} N={n} K={K} m={M} ms={r['ms']:.6f} device_ms={r['device_ms']:.6f} "
-                f"plain_ms={r['plain_ms']:.6f} plain_device_ms={r['plain_device_ms']:.6f} "
-                f"library_ms={r['library_ms']:.6f} library_device_ms={r['library_device_ms']:.6f} "
-                f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']})",
-                flush=True,
-            )
-            if n == REPORT_N:
-                report[name] = r
+        rows = compact_timings(s, y, g, w, u, h_diag, n)
         if n == REPORT_N:
+            report.update(rows)
+        if n == REPORT_N:
+            full = torch.full((K,), M, dtype=torch.int32, device="cuda")
             gram_one_launch(lambda: cc.fused_gram_projections(s, y, g, full), report["fused_gram_projections"])
     return report
+
+
+def compact_timings(s, y, g, w, u, h_diag, n: int) -> dict:
+    """Both compact kernels with a full history (count = m for every client:
+    the optimizer's steady state, every row read; the NaN rows of `history`
+    zeroed in place): the largest difference from the plain version, and
+    the times of the kernel, the plain version and one PyTorch library
+    call computing the same function (a `matmul`, never called by the
+    port) beside the bound. Printed as `timing` lines; returns the rows."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.ops import compact_cuda as cc
+
+    full = torch.full((K,), M, dtype=torch.int32, device="cuda")
+    s.nan_to_num_(0.0)
+    y.nan_to_num_(0.0)
+    iters = 20 if n > 200_000 else 200  # the plain and library calls take milliseconds from here
+    x = torch.cat([s, y, g[:, None]], dim=1)  # [K, 2m+1, N] for the library calls
+    coef = torch.cat([w, -h_diag[:, None] * u, h_diag[:, None]], dim=1)[:, None, :]  # [K, 1, 2m+1]
+    gram_full = cc.fused_gram_projections(s, y, g, full)
+    gram_full_ref = cc.fused_gram_projections_plain(s, y, g, full)
+    asm_full = cc.fused_direction_assembly(s, y, g, w, u, h_diag, full)
+    asm_full_ref = cc.fused_direction_assembly_plain(s, y, g, w, u, h_diag, full)
+    calls = {
+        "fused_gram_projections": (
+            lambda: cc.fused_gram_projections(s, y, g, full),
+            lambda: cc.fused_gram_projections_plain(s, y, g, full),
+            lambda: torch.matmul(x, x.transpose(1, 2)),
+        ),
+        "fused_direction_assembly": (
+            lambda: cc.fused_direction_assembly(s, y, g, w, u, h_diag, full),
+            lambda: cc.fused_direction_assembly_plain(s, y, g, w, u, h_diag, full),
+            lambda: torch.matmul(coef, x),
+        ),
+    }
+    rows = {
+        "fused_gram_projections": dict(
+            bytes=(2 * M * n + n) * 4 * K,
+            flops=2 * (2 * M * M + 2 * M) * n * K,
+            max_abs_err=max(float((a - b).abs().max()) for a, b in zip(gram_full, gram_full_ref)),
+        ),
+        "fused_direction_assembly": dict(
+            bytes=(2 * M * n + 2 * n) * 4 * K,
+            flops=(4 * M + 3) * n * K,
+            max_abs_err=float((asm_full - asm_full_ref).abs().max()),
+        ),
+    }
+    for name, r in rows.items():
+        for key, fn in zip(("ms", "plain_ms", "library_ms"), calls[name]):
+            r[key], r[key.replace("ms", "device_ms")] = time_ms(fn, iters)
+        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = r["flops"] / F32_FLOPS * 1e3
+        r["bound_ms"] = max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        print(
+            f"timing {name} N={n} K={K} m={M} ms={r['ms']:.6f} device_ms={r['device_ms']:.6f} "
+            f"plain_ms={r['plain_ms']:.6f} plain_device_ms={r['plain_device_ms']:.6f} "
+            f"library_ms={r['library_ms']:.6f} library_device_ms={r['library_device_ms']:.6f} "
+            f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']})",
+            flush=True,
+        )
+    return rows
 
 
 def gram_one_launch(call, r: dict) -> None:
@@ -1211,8 +1258,9 @@ def profile_epoch(tr, gid=None):
     idx = tr.epoch_indices(99, ctx.gid, 0, 0)
 
     def epoch():
-        lstate, _ = round_init(ctx, tr.flat)
-        run_epoch(ctx, tr.flat.clone(), lstate, tr.shard_imgs, tr.shard_labels, idx, tr.mean, tr.std)
+        lstate, cstate = round_init(ctx, tr.flat)
+        run_epoch(ctx, tr.flat.clone(), lstate, dict(tr.stats), tr.shard_imgs, tr.shard_labels, idx, tr.mean, tr.std,
+                  cstate if ctx.strategy == "admm" else None)
         torch.cuda.synchronize()
 
     profile_fn(f"group={ctx.gid}", epoch)
@@ -1391,9 +1439,9 @@ def phase_vit_parity():
     idx = dense.epoch_indices(0, gid, 0, 0)
     worst = {"train_loss": 0.0, "params": 0.0, "dual_residual": 0.0}
     for s, (imgs, labels) in enumerate(epoch_batches(dense.shard_imgs, dense.shard_labels, idx)):
-        out = {impl: client_train_step(ctx, flat.clone(), state, imgs, labels, dense.mean, dense.std)
+        out = {impl: client_train_step(ctx, flat.clone(), state, {}, imgs, labels, dense.mean, dense.std)
                for impl, ctx in ctxs.items()}
-        (fd, sd, ld), (ff, _, lf) = out["dense"], out["flash"]
+        (fd, sd, _, ld), (ff, _, _, lf) = out["dense"], out["flash"]
         xd, xf = dense.partition.extract(fd, gid), dense.partition.extract(ff, gid)
         worst["train_loss"] = max(worst["train_loss"], float(((lf - ld).abs() / ld.abs()).max()))
         worst["params"] = max(worst["params"], float((xf - xd).abs().max() / xd.abs().max()))
@@ -1517,8 +1565,9 @@ def phase_vit_moe_parity():
     gg.reset_launch_counts()
     for s, (imgs, labels) in enumerate(epoch_batches(plain.shard_imgs, plain.shard_labels, idx)):
         with plain_grouped():
-            fd, sd, ld = client_train_step(ctxs["dense"], flat.clone(), state, imgs, labels, plain.mean, plain.std)
-        ff, _, lf = client_train_step(ctxs["flash"], flat.clone(), state, imgs, labels, plain.mean, plain.std)
+            fd, sd, _, ld = client_train_step(ctxs["dense"], flat.clone(), state, {}, imgs, labels, plain.mean,
+                                              plain.std)
+        ff, _, _, lf = client_train_step(ctxs["flash"], flat.clone(), state, {}, imgs, labels, plain.mean, plain.std)
         xd, xf = plain.partition.extract(fd, gid), plain.partition.extract(ff, gid)
         step = {"train_loss": float(((lf - ld).abs() / ld.abs()).max()),
                 "params": float((xf - xd).abs().max() / xd.abs().max())}
@@ -1598,6 +1647,276 @@ def phase_vit_moe_train(metrics_out, profile: bool):
     if profile:
         profile_epoch(tr, tr.group_order[1])
     return launches, wall
+
+
+def check_finite_run(path: str, rec) -> None:
+    """Every loss and residual of the run finite."""
+    import numpy as np
+
+    for name in ("train_loss", "primal_residual", "dual_residual"):
+        vals = np.asarray([r["value"] for r in rec.series.get(name, [])], dtype=np.float64)
+        if not np.all(np.isfinite(vals)):
+            fail(f"{path}: non-finite {name}")
+    if rec.first_nonfinite is not None:
+        fail(f"{path}: non-finite {rec.first_nonfinite}")
+
+
+def phase_admm_train(metrics_out, profile: bool):
+    """The admm path: the admm preset (Net, K=3, batch 512, nadmm 5, BB rho)
+    through the entry points a user calls."""
+    import numpy as np
+    import torch
+
+    from federated_pytorch_test_tpu_torch.data import synthetic_cifar
+    from federated_pytorch_test_tpu_torch.engine import Trainer, get_preset
+    from federated_pytorch_test_tpu_torch.ops import compact_cuda as cc
+
+    cfg = get_preset("admm", nloop=1, lbfgs_direction="pallas")
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, verbose=False, source=synthetic_cifar(50_000, 10_000, seed=0))
+    print(f"admm setup: {cfg.model} K={cfg.n_clients} batch={cfg.batch} nadmm={cfg.nadmm} bb={cfg.bb_update} "
+          f"rho0={cfg.admm_rho0} groups={tr.group_order} params={tr.n_params} "
+          f"steps/epoch={tr.fed.steps_per_epoch(cfg.batch)} setup_s={time.perf_counter() - t0:.3f}", flush=True)
+
+    cc.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = tr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cc.LAUNCHES)
+
+    rounds = {(r["group"], r["nadmm"]): r["value"] for r in rec.series["mean_rho"]}
+    primal = {(r["group"], r["nadmm"]): r["value"] for r in rec.series["primal_residual"]}
+    dual = {(r["group"], r["nadmm"]): r["value"] for r in rec.series["dual_residual"]}
+    for gid in tr.group_order:
+        traj = [rounds[(gid, a)] for a in range(cfg.nadmm)]
+        print(f"admm rho group={gid} mean_rho_per_round={','.join(f'{v:.6g}' for v in traj)} "
+              f"final_rho={','.join(f'{v:.6g}' for v in tr._rho_store[gid][:, 0].tolist())} "
+              f"primal={','.join(f'{primal[(gid, a)]:.3e}' for a in range(cfg.nadmm))} "
+              f"dual={','.join(f'{dual[(gid, a)]:.3e}' for a in range(cfg.nadmm))}", flush=True)
+        for rho in tr._rho_store[gid][:, 0].tolist():
+            # rho0, or an accepted BB value: positive and below bb_rhomax
+            if not (np.isclose(rho, cfg.admm_rho0, rtol=1e-6) or 0.0 < rho < cfg.bb_rhomax):
+                fail(f"admm: group {gid} ended with rho {rho}, neither rho0 nor an accepted BB value")
+    n_steps = len(rec.series["train_loss"])
+    print(f"admm train wall_s={wall:.3f} minibatches={n_steps} ms_per_minibatch={1e3 * wall / n_steps:.3f} "
+          f"launches={json.dumps(launches)}", flush=True)
+    if metrics_out:
+        rec.save(metrics_out)
+
+    check_finite_run("admm", rec)
+    final_acc = np.asarray(rec.series["test_accuracy"][-1]["value"])
+    print(f"admm final accuracy {final_acc.round(4).tolist()}", flush=True)
+    chance = 1.0 / tr.fed.num_classes
+    if not np.all(final_acc > chance):
+        fail(f"admm final accuracy {final_acc} not above chance {chance}")
+    gate_launches("admm", launches, {name: expected_launches(rec)["direction"] for name in cc.LAUNCHES})
+    if profile:
+        profile_epoch(tr)
+    return launches, wall
+
+
+class direction_f64:
+    """Within the block, the L-BFGS direction 'compact_f64' is the plain
+    compact direction computed in float64 and rounded back to float32: the
+    plain side of `phase_resnet_parity`. At N = 4.7M the float32 plain
+    version's `matmul` sums are less exact than the kernel's (its
+    direction strays up to ~1e-4 from float64 in the first steps, the
+    kernel's ~5e-7), so the kernel is held against the plain version in
+    float64, as the flash kernels are at large scores. With `probe`, the
+    'pallas' direction also prints, per call, how far the kernel's and the
+    float32 plain direction lie from float64. The port itself has no such
+    switch."""
+
+    def __init__(self, probe: bool = False):
+        self.probe = probe
+
+    def __enter__(self):
+        from federated_pytorch_test_tpu_torch.optim import lbfgs
+        from federated_pytorch_test_tpu_torch.optim.compact import compact_direction
+
+        def f64(g, s, y, count, h_diag):
+            return compact_direction(g.double(), s.double(), y.double(), count, h_diag.double()).float()
+
+        def probed(g, s, y, count, h_diag):
+            d = self.kernel(g, s, y, count, h_diag)
+            ref = compact_direction(g.double(), s.double(), y.double(), count, h_diag.double())
+            scale = ref.abs().amax(1)
+            errs = {"kernel": (d.double() - ref).abs().amax(1) / scale,
+                    "plain_f32": (compact_direction(g, s, y, count, h_diag).double() - ref).abs().amax(1) / scale}
+            print(f"resnet direction count={count.tolist()} " + " ".join(
+                f"{k}_vs_f64={','.join(f'{v:.2e}' for v in e.tolist())}" for k, e in errs.items()), flush=True)
+            return d
+
+        self.directions = lbfgs.DIRECTIONS
+        self.saved = dict(self.directions)  # restored on exit, so the blocks nest
+        self.kernel = self.directions["pallas"]
+        self.directions["compact_f64"] = f64
+        if self.probe:
+            self.directions["pallas"] = probed
+        return self
+
+    def __exit__(self, *exc):
+        self.directions.clear()
+        self.directions.update(self.saved)
+
+
+def phase_resnet_parity():
+    """admm_resnet's block7 round (group 8, N = 4,720,640 a client, the
+    largest group) at full width, step by step: before each L-BFGS step the
+    plain side (the compact direction in float64, `direction_f64`) and the
+    kernel side ('pallas') get the same parameters, BatchNorm statistics,
+    optimizer state and ADMM state, taken from the plain trajectory; after
+    each ADMM round's last step both sides' consensus runs from the same
+    ADMM state. The first step also prints each direction's distance from
+    float64, the kernel's and the float32 plain version's. cuDNN runs in
+    its deterministic mode here, so that the two sides differ by their
+    directions and not by the convolutions' run-to-run rounding."""
+    import torch
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        resnet_parity()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def resnet_parity():
+    """The body of `phase_resnet_parity`."""
+    import dataclasses
+
+    import torch
+
+    from federated_pytorch_test_tpu_torch.data import synthetic_cifar
+    from federated_pytorch_test_tpu_torch.engine import Trainer, get_preset
+    from federated_pytorch_test_tpu_torch.engine.steps import admm_consensus, client_train_step, epoch_batches, round_init
+
+    cfg = get_preset("admm_resnet", nloop=1, lbfgs_direction="pallas")
+    tr = Trainer(cfg, verbose=False, source=synthetic_cifar(RESNET_TRAIN, 100, seed=1))
+    gid = 8
+    ctx = tr.ctx(gid)
+    flat, stats = tr.flat.clone(), dict(tr.stats)
+    state, cstate = round_init(ctx, flat)
+    worst = {"train_loss": 0.0, "params": 0.0, "stats": 0.0, "primal_residual": 0.0, "dual_residual": 0.0}
+    n_steps = 0
+    t0 = time.perf_counter()
+    with direction_f64():
+        ctxs = {"plain": dataclasses.replace(ctx, lbfgs=dataclasses.replace(ctx.lbfgs, direction="compact_f64")),
+                "pallas": ctx}
+        for a in range(cfg.nadmm):
+            idx = tr.epoch_indices(0, gid, a, 0)
+            for imgs, labels in epoch_batches(tr.shard_imgs, tr.shard_labels, idx):
+                out = {}
+                for d, c in ctxs.items():
+                    with direction_f64(probe=n_steps == 0 and d == "pallas"):
+                        out[d] = client_train_step(c, flat.clone(), state, stats, imgs, labels, tr.mean, tr.std, cstate)
+                (fc, sc, stc, lc), (fp, _, stp, lp) = out["plain"], out["pallas"]
+                xc, xp = tr.partition.extract(fc, gid), tr.partition.extract(fp, gid)
+                step = {"train_loss": float(((lp - lc).abs() / lc.abs()).max()),
+                        "params": float((xp - xc).abs().max() / xc.abs().max()),
+                        "stats": max(float((stp[n] - t).abs().max() / t.abs().max()) for n, t in stc.items())}
+                if n_steps < 2:
+                    print(f"resnet parity step {n_steps} " + " ".join(f"{k}_rel={v:.3e}" for k, v in step.items()),
+                          flush=True)
+                worst = {k: max(v, step.get(k, 0.0)) for k, v in worst.items()}
+                flat, state, stats = fc, sc, stc
+                n_steps += 1
+            mets = [admm_consensus(ctx, f, cstate, a) for f in (flat, fp)]
+            for name in ("primal_residual", "dual_residual"):
+                ref = float(mets[0][1][name])
+                worst[name] = max(worst[name], abs(float(mets[1][1][name]) - ref) / abs(ref))
+            cstate = mets[0][0]
+    torch.cuda.synchronize()
+    print(f"resnet parity pallas-vs-plain(f64) group={gid} N={tr.partition.group_size(gid)} per step ({n_steps} steps, "
+          f"{time.perf_counter() - t0:.1f} s) " + " ".join(f"{k}_max_rel={v:.3e}" for k, v in worst.items()),
+          flush=True)
+    if not max(worst.values()) <= 1e-3:
+        fail(f"resnet parity: a step differs between the plain (float64) and kernel directions: {worst}")
+
+
+def resnet_train_run(preset: str, source, **overrides):
+    """One ResNet preset's run at full width with the kernels' launches
+    counted; gated exactly, losses, residuals and statistics checked."""
+    import numpy as np
+    import torch
+
+    from federated_pytorch_test_tpu_torch.engine import Trainer, get_preset
+    from federated_pytorch_test_tpu_torch.ops import compact_cuda as cc
+
+    cfg = get_preset(preset, nloop=1, lbfgs_direction="pallas", **overrides)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, verbose=False, source=source)
+    init_stats = {n: t.clone() for n, t in tr.stats.items()}
+    print(f"{preset} setup: K={cfg.n_clients} batch={cfg.batch} nadmm={cfg.nadmm} groups={tr.group_order} "
+          f"params={tr.n_params} sizes={[tr.partition.group_size(g) for g in tr.group_order]} "
+          f"steps/epoch={tr.fed.steps_per_epoch(cfg.batch)} setup_s={time.perf_counter() - t0:.3f}", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    cc.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = tr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cc.LAUNCHES)
+
+    for r in rec.series["step_time"]:
+        if r["value"]["phase"] == "round":
+            print(f"{preset} round group={r['group']} N={tr.partition.group_size(r['group'])} "
+                  f"wall_s={r['value']['seconds']:.3f}", flush=True)
+    accs = [(r["group"], r["nadmm"], r["value"]) for r in rec.series["test_accuracy"]]
+    print(f"{preset} accuracy per round " + " ".join(f"{g}/{a}:{','.join(f'{v:.4f}' for v in vals)}"
+                                                   for g, a, vals in accs), flush=True)
+    n_steps = len(rec.series["train_loss"])
+    print(f"{preset} train wall_s={wall:.3f} minibatches={n_steps} ms_per_minibatch={1e3 * wall / n_steps:.3f} "
+          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.3f} launches={json.dumps(launches)}", flush=True)
+
+    check_finite_run(preset, rec)
+    moved = sum(not torch.equal(t, init_stats[n]) for n, t in tr.stats.items())
+    finite = all(bool(torch.isfinite(t).all()) for t in tr.stats.values())
+    print(f"{preset} batchnorm statistics: {moved} of {len(tr.stats)} moved, finite={finite}", flush=True)
+    if not finite or moved != len(tr.stats):
+        fail(f"{preset}: BatchNorm running statistics non-finite or unmoved ({moved} of {len(tr.stats)} moved)")
+    gate_launches(preset, launches, {name: expected_launches(rec)["direction"] for name in cc.LAUNCHES})
+    return tr, rec, launches, wall
+
+
+def phase_resnet_train(metrics_out, profile: bool):
+    """The ResNet paths at full width: admm_resnet over all ten groups in
+    the preset's shuffled order, then fedavg_resnet over its first three;
+    then both compact kernels at every group size the paths reached."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.data import synthetic_cifar
+    from federated_pytorch_test_tpu_torch.ops import compact_cuda as cc
+    from federated_pytorch_test_tpu_torch.optim.compact import compact_solves, history_valid
+
+    source = synthetic_cifar(RESNET_TRAIN, RESNET_TEST, seed=0)
+    tr, rec, launches, wall = resnet_train_run("admm_resnet", source)
+    if metrics_out:
+        rec.save(metrics_out)
+    if profile:
+        profile_epoch(tr, gid=8)
+    ftr, _, f_launches, f_wall = resnet_train_run("fedavg_resnet", source, max_groups=3, nadmm=1)
+
+    sizes = sorted({tr.partition.group_size(g) for g in tr.group_order})
+    times = {}
+    for n in sizes:
+        s, y, g, count, h_diag = history(n, seed=n)
+        sy, yy, p, q = cc.fused_gram_projections_plain(s, y, g, count)
+        u, w, _, _ = compact_solves(sy, p, q, history_valid(count, M), h_diag,
+                                    lambda uu: (torch.matmul(yy, uu[..., None])[..., 0], None))
+        errs = {"gram": max(rel_err(a, b) for a, b in zip(cc.fused_gram_projections(s, y, g, count), (sy, yy, p, q))),
+                "assembly": rel_err(cc.fused_direction_assembly(s, y, g, w, u, h_diag, count),
+                                    cc.fused_direction_assembly_plain(s, y, g, w, u, h_diag, count))}
+        print(f"resnet kernels N={n} " + " ".join(f"{k}={v:.3e}" for k, v in errs.items()), flush=True)
+        if not max(errs.values()) <= RTOL:
+            fail(f"compact kernel disagrees with its plain version at the ResNet size N={n}: {errs}")
+        rows = compact_timings(s, y, g, w, u, h_diag, n)
+        times[n] = {name: {k: r[k] for k in ("device_ms", "bound_ms", "library_device_ms", "plain_device_ms")}
+                    for name, r in rows.items()}
+        del s, y, g
+    return {"admm_resnet": launches, "fedavg_resnet": f_launches}, {"admm_resnet": wall, "fedavg_resnet": f_wall}, times
 
 
 # One turn of `--ab-parent`, run in a fresh process from the root of a
@@ -1684,6 +2003,8 @@ def main() -> int:
     ap.add_argument("--lm-metrics-out", help="write the LM path's metric series as JSON here")
     ap.add_argument("--vit-metrics-out", help="write the ViT path's metric series as JSON here")
     ap.add_argument("--vit-moe-metrics-out", help="write the MoE ViT path's metric series as JSON here")
+    ap.add_argument("--admm-metrics-out", help="write the admm path's metric series as JSON here")
+    ap.add_argument("--resnet-metrics-out", help="write the admm_resnet path's metric series as JSON here")
     ap.add_argument("--profile", action="store_true", help="also profile one epoch of each path")
     ap.add_argument("--ab-parent", metavar="DIR",
                     help="instead of the phases, time the train paths of the checkout in DIR and of this "
@@ -1737,6 +2058,9 @@ def main() -> int:
     grouped_report = phase_grouped()
     phase_vit_moe_parity()
     moe_launches, moe_wall = phase_vit_moe_train(args.vit_moe_metrics_out, args.profile)
+    admm_launches, admm_wall = phase_admm_train(args.admm_metrics_out, args.profile)
+    phase_resnet_parity()
+    resnet_launches, resnet_walls, resnet_times = phase_resnet_train(args.resnet_metrics_out, args.profile)
 
     kernels = []
     replaces = {
@@ -1764,6 +2088,14 @@ def main() -> int:
             "plain_device_ms": r["plain_device_ms"],
             "library_device_ms": r["library_device_ms"],
             "shape": f"K={K} m={M} N={REPORT_N}",
+            # each compact path's launches, counted over its run; `launches`
+            # above is the fedavg (Net) path's
+            "launches_by_path": {"fedavg": launches[name], "admm": admm_launches[name],
+                                 **{p: n[name] for p, n in resnet_launches.items()},
+                                 "vit": vit_launches[name], "vit_moe": moe_launches[name]},
+            # device ms at every ResNet group size the ResNet paths reach, beside
+            # the bound, the plain version and the `matmul` yardstick
+            "resnet_sizes": {str(n): r[name] for n, r in resnet_times.items()},
         })
     bh, s, d = FLASH_PATH
     for name, r in flash_report.items():
@@ -1844,7 +2176,9 @@ def main() -> int:
             "l2": r.get("l2", "as left by the previous call"),
         })
     print(f"total seconds={time.perf_counter() - t_all:.3f} train_wall_s={wall:.3f} lm_train_wall_s={lm_wall:.3f} "
-          f"vit_train_wall_s={vit_wall:.3f} vit_moe_train_wall_s={moe_wall:.3f}", flush=True)
+          f"vit_train_wall_s={vit_wall:.3f} vit_moe_train_wall_s={moe_wall:.3f} admm_train_wall_s={admm_wall:.3f} "
+          f"admm_resnet_train_wall_s={resnet_walls['admm_resnet']:.3f} "
+          f"fedavg_resnet_train_wall_s={resnet_walls['fedavg_resnet']:.3f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}),

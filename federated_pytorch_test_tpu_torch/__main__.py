@@ -1,8 +1,11 @@
-"""Command line: `python -m federated_pytorch_test_tpu_torch --preset fedavg [...]`.
+"""Command line: `python -m federated_pytorch_test_tpu_torch --preset NAME [...]`.
 
-Runs on the card unless `--device cpu` is given. Examples:
+Presets: fedavg, admm (Net), fedavg_resnet, admm_resnet (ResNet18).
+Runs on the card unless `--device cpu` is given; `--lbfgs-direction
+pallas` opts into the fused compact-direction kernels. Examples:
 
-    python -m federated_pytorch_test_tpu_torch --preset fedavg --lbfgs-direction pallas
+    python -m federated_pytorch_test_tpu_torch --preset admm --lbfgs-direction pallas
+    python -m federated_pytorch_test_tpu_torch --preset admm_resnet --lbfgs-direction pallas
     python -m federated_pytorch_test_tpu_torch --preset fedavg --device cpu \\
         --synthetic-n-train 240 --synthetic-n-test 60 --batch 40 --nloop 1 --nadmm 2 --max-groups 2
 """

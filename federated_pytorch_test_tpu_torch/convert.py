@@ -17,7 +17,8 @@ either side:
 | `array`     | (bare leaf)   | as is      | same name | as is       |
 | `expert_weight`, `expert_bias` | (bare leaf) | as is | same name | as is |
 
-(`array` is a parameter registered on a container, such as the LM's
+(BatchNorm's scale and bias are `scale` and `norm_bias`, as LayerNorm's are.
+`array` is a parameter registered on a container, such as the LM's
 `pos_embed` at the root of its tree, or the ViT's `[1, T, dim]` one; the
 ViT's patch embedding is a `conv`. The MoE's stacked `w1 [E, D, H]`,
 `w2 [E, H, D]`, `b1`, `b2` are bare leaves too; its `gate` is a Dense.)
@@ -27,6 +28,11 @@ Both flat vectors list the leaves in the same order with the same sizes
 inside each leaf and nothing else. The simple CNNs flatten the last feature
 map channels-last in both packages, so `fc1` needs no row permutation
 beyond the transpose.
+
+A BatchNorm model's client-local running statistics live outside the
+flat vector on both sides: the JAX package's `batch_stats` collection
+(`{..., "bn1": {"mean", "var"}}`) is the port's `{"<layer>.mean",
+"<layer>.var"}` (`stats_from_jax`, `stats_to_jax`), in the same layout.
 
 Arrays are numpy on the JAX side; any number of leading batch axes (e.g.
 the stacked clients `[K, ...]`) is carried through.
@@ -153,4 +159,33 @@ def flat_to_jax(flat: np.ndarray, model: PartitionedModel) -> np.ndarray:
     for _, kind, shape, start, size in _leaves(model):
         seg = flat[..., start : start + size].reshape(*batch, *shape)
         out[..., start : start + size] = _to_jax_leaf(seg, kind).reshape(*batch, size)
+    return out
+
+
+def stats_from_jax(tree: Mapping, model: PartitionedModel) -> Dict[str, torch.Tensor]:
+    """A Flax `batch_stats` tree (optionally under `"batch_stats"`) of numpy
+    arrays -> the port's statistics `{name: float32 tensor}` for `model`
+    (the keys of `model.init_stats`)."""
+    tree = tree.get("batch_stats", tree)
+    names = list(model.init_stats(1, "cpu"))
+    if _count_leaves(tree) != len(names):
+        raise ValueError(f"tree has {_count_leaves(tree)} statistics, {type(model).__name__} has {len(names)}")
+    out = {}
+    for name in names:
+        node = tree
+        for key in name.split("."):
+            node = node[key]
+        out[name] = torch.from_numpy(np.array(node, np.float32))
+    return out
+
+
+def stats_to_jax(stats: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's statistics -> a nested Flax `batch_stats` tree of numpy arrays."""
+    out: Dict[str, Any] = {}
+    for name, t in stats.items():
+        *parents, leaf = name.split(".")
+        node = out
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = np.ascontiguousarray(t.detach().cpu().numpy())
     return out

@@ -1,15 +1,17 @@
-"""Experiment configuration: the knobs of the fedavg path and its preset.
+"""Experiment configuration: the knobs of the ported paths and their presets.
 
 Counterpart of the subset of the JAX package's `engine/config.py` that
-the `fedavg` path reads. Field names and defaults are the JAX package's,
-so a configuration reads the same in both; `device` is the port's own
-(the card unless the caller asks for the CPU).
+the `fedavg`, `admm`, `fedavg_resnet` and `admm_resnet` paths read. Field
+names and defaults are the JAX package's, so a configuration reads the
+same in both; `device` is the port's own (the card unless the caller asks
+for the CPU).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from ..consensus import ADMMConfig
 from ..models import MODELS
 from ..optim import LBFGSConfig
 from ..optim.lbfgs import DIRECTIONS
@@ -17,10 +19,10 @@ from ..optim.lbfgs import DIRECTIONS
 
 @dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
-    """The knobs of the FedAvg image-classification experiment (the JAX package's defaults)."""
+    """The knobs of the image-classification experiment (the JAX package's defaults)."""
 
     name: str = "custom"
-    model: str = "net"  # net | net1 | net2 | vit (models.MODELS)
+    model: str = "net"  # net | net1 | net2 | resnet18 | vit (models.MODELS)
     # extra constructor arguments of the model class, checked against its
     # signature by the Trainer — e.g. {"patch": 2, "attn_impl": "flash"}
     # runs the ViT on 256 tokens through the flash kernels
@@ -35,7 +37,7 @@ class ExperimentConfig:
 
     n_clients: int = 3
     batch: int = 512
-    strategy: str = "fedavg"  # only FedAvg is ported so far
+    strategy: str = "fedavg"  # fedavg | admm ('none' is not ported yet)
 
     # loop nest: Nloop{groups{Nadmm{epochs{batches}}}}
     nloop: int = 12
@@ -57,6 +59,20 @@ class ExperimentConfig:
     # name is the JAX package's value for its fused-kernel backend)
     lbfgs_direction: str = "compact"
 
+    # ADMM (the reference's consensus_admm_trio.py constants)
+    admm_rho0: float = 1e-3
+    bb_update: bool = False
+    bb_period: int = 2
+    bb_alphacorrmin: float = 0.2
+    bb_epsilon: float = 1e-3
+    bb_rhomax: float = 0.1
+    # soft-threshold the z-update by this value (> 0 enables)
+    z_soft_threshold: float = 0.0
+
+    # the reference's ResNet scripts visit the groups in one fixed seed-0 permutation,
+    # reused in every outer loop
+    shuffle_group_order: bool = False
+
     seed: int = 0
     eval_batch: int = 500
     # train only the first N groups of the partition order (None = all)
@@ -67,15 +83,15 @@ class ExperimentConfig:
     def __post_init__(self):
         if self.model not in MODELS:
             raise ValueError(f"model must be one of {sorted(MODELS)}, got {self.model!r}")
-        if self.strategy != "fedavg":
-            raise ValueError(f"strategy {self.strategy!r} is not ported yet (only 'fedavg')")
+        if self.strategy not in ("fedavg", "admm"):
+            raise ValueError(f"strategy {self.strategy!r} is not ported yet (only 'fedavg' and 'admm')")
         if self.reg_mode not in ("active_linear", "none"):
             raise ValueError(f"reg_mode must be 'active_linear' or 'none', got {self.reg_mode!r}")
         if self.lbfgs_direction not in DIRECTIONS:
             raise ValueError(
                 f"lbfgs_direction must be one of {sorted(DIRECTIONS)}, got {self.lbfgs_direction!r}"
             )
-        for name in ("n_clients", "batch", "nloop", "nepoch", "nadmm", "eval_batch"):
+        for name in ("n_clients", "batch", "nloop", "nepoch", "nadmm", "eval_batch", "bb_period"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
         if self.max_groups is not None and self.max_groups < 1:
@@ -89,12 +105,52 @@ class ExperimentConfig:
             direction=self.lbfgs_direction,
         )
 
+    def admm_config(self) -> ADMMConfig:
+        return ADMMConfig(
+            rho0=self.admm_rho0,
+            bb_update=self.bb_update,
+            bb_period=self.bb_period,
+            bb_alphacorrmin=self.bb_alphacorrmin,
+            bb_epsilon=self.bb_epsilon,
+            bb_rhomax=self.bb_rhomax,
+            z_soft_threshold=self.z_soft_threshold,
+        )
+
     def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)
 
 
-# The reference FedAvg simple-CNN experiment: Net, K=3, batch 512, Nloop=12, Nadmm=3.
-PRESETS = {"fedavg": ExperimentConfig(name="fedavg", model="net", strategy="fedavg")}
+# The reference's experiment scripts as presets (the JAX package's definitions).
+PRESETS = {
+    # federated_trio.py: Net, K=3, batch 512, Nloop=12, Nadmm=3
+    "fedavg": ExperimentConfig(name="fedavg", model="net", strategy="fedavg"),
+    # federated_trio_resnet.py: ResNet18, batch 32, no regularization, the
+    # shuffled block order and one unbiased normalization for all clients
+    "fedavg_resnet": ExperimentConfig(
+        name="fedavg_resnet",
+        model="resnet18",
+        batch=32,
+        strategy="fedavg",
+        reg_mode="none",
+        biased_input=False,
+        shuffle_group_order=True,
+    ),
+    # consensus_admm_trio.py: Net, batch 512, Nadmm=5, rho0=1e-3 with BB on
+    "admm": ExperimentConfig(name="admm", model="net", strategy="admm", nadmm=5, bb_update=True),
+    # consensus_admm_trio_resnet.py: ResNet18, batch 32, Nadmm=3, a fixed
+    # rho of 1e-3, the shuffled block order
+    "admm_resnet": ExperimentConfig(
+        name="admm_resnet",
+        model="resnet18",
+        batch=32,
+        strategy="admm",
+        nadmm=3,
+        reg_mode="none",
+        biased_input=False,
+        bb_update=False,
+        shuffle_group_order=True,
+    ),
+}
 
 
 def get_preset(name: str, **overrides) -> ExperimentConfig:

@@ -1,35 +1,52 @@
 """Per-group step functions: client training step, epoch, consensus, eval.
 
-Counterpart of the fedavg path of the JAX package's `engine/steps.py`.
-The K clients are the leading axis of every tensor (`flat [K, N]`), as
-the JAX package `vmap`s them; the model's `forward_batched` runs all
-clients in one launch per layer.
+Counterpart of the fedavg and admm paths of the JAX package's
+`engine/steps.py`. The K clients are the leading axis of every tensor
+(`flat [K, N]`), as the JAX package `vmap`s them; the model's
+`forward_batched` runs all clients in one launch per layer.
 
 * `client_train_step` — one L-BFGS step of every client on the active
   group's coordinates, with the elastic net on that group when it is a
-  linear layer. The per-batch diagnostic loss is folded into the
-  accepted line-search evaluation (the JAX package's `fold` path): the
-  Armijo-accepted evaluation is at the step's final parameters, so its
-  data loss is the diagnostic without an extra model pass.
+  linear layer and, under ADMM, the augmented-Lagrangian term. The
+  per-batch diagnostic loss and a BatchNorm model's new running
+  statistics are folded into the accepted line-search evaluation (the
+  JAX package's `fold` path): the Armijo-accepted evaluation is at the
+  step's final parameters, so its data loss and statistics come without
+  an extra model pass, and no line-search probe touches the statistics.
 * `run_epoch` — the lockstep minibatches of one epoch.
-* `round_init` — a fresh optimizer state and z = 0 per group round.
+* `round_init` — a fresh optimizer state and consensus state per group
+  round (FedAvg: z = 0; ADMM: y = z = 0, rho = rho0).
 * `fedavg_consensus` — z = client mean of the group, broadcast back.
-* `evaluate` — per-client correct counts over the test set.
+* `admm_consensus` — BB rho (when due), z-update, y-update; the clients
+  keep their own x.
+* `evaluate` — per-client correct counts over the test set, a BatchNorm
+  model normalizing with each client's running averages.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..consensus import FedAvgState, elastic_net, fedavg_init, fedavg_round
+from ..consensus import (
+    ADMMConfig,
+    ADMMState,
+    FedAvgState,
+    admm_init,
+    admm_penalty,
+    admm_round,
+    elastic_net,
+    fedavg_init,
+    fedavg_round,
+)
 from ..data import normalize
 from ..models import PartitionedModel
 from ..optim import LBFGSConfig, LBFGSState, lbfgs_init, lbfgs_step
+from ..optim.linesearch import select
 from ..partition import Partition, leaf_offsets, unflatten_params
 
 
@@ -46,6 +63,8 @@ class GroupContext:
     lambda1: float = 1e-4
     lambda2: float = 1e-4
     moe_aux_coef: float = 0.0  # weight of the MoE load-balance term (0: the model has no experts)
+    strategy: str = "fedavg"  # fedavg | admm
+    admm: ADMMConfig = ADMMConfig()
 
 
 def data_loss(ctx: GroupContext, params: dict, images: torch.Tensor, labels: torch.Tensor):
@@ -56,10 +75,25 @@ def data_loss(ctx: GroupContext, params: dict, images: torch.Tensor, labels: tor
         logits, aux = ctx.model.forward_batched(params, images, return_aux=True)
     else:
         logits = ctx.model.forward_batched(params, images)
+    loss = _cross_entropy(logits, labels)
+    return loss + ctx.moe_aux_coef * aux if ctx.moe_aux_coef else loss
+
+
+def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-client mean cross-entropy `[K]` of logits `[K, B, C]`."""
     k, b, c = logits.shape
     ce = F.cross_entropy(logits.reshape(k * b, c), labels.reshape(k * b).long(), reduction="none")
-    loss = ce.reshape(k, b).mean(dim=1)
-    return loss + ctx.moe_aux_coef * aux if ctx.moe_aux_coef else loss
+    return ce.reshape(k, b).mean(dim=1)
+
+
+def data_loss_and_stats(ctx: GroupContext, params: dict, stats: dict, images, labels):
+    """`data_loss` and the clients' updated statistics: a BatchNorm model
+    (non-empty `stats`) runs in train mode and returns its new running
+    averages; any other model returns `stats` as it was."""
+    if not stats:
+        return data_loss(ctx, params, images, labels), stats
+    logits, new_stats = ctx.model.forward_batched(params, images, stats=stats)
+    return _cross_entropy(logits, labels), new_stats
 
 
 def _group_params(ctx: GroupContext, base: torch.Tensor, x: torch.Tensor) -> dict:
@@ -86,34 +120,41 @@ def client_train_step(
     ctx: GroupContext,
     flat: torch.Tensor,
     lstate: LBFGSState,
+    stats: dict,
     images_u8: torch.Tensor,
     labels: torch.Tensor,
     mean: torch.Tensor,
     std: torch.Tensor,
-) -> Tuple[torch.Tensor, LBFGSState, torch.Tensor]:
+    cstate: Optional[ADMMState] = None,
+) -> Tuple[torch.Tensor, LBFGSState, dict, torch.Tensor]:
     """One optimizer step of all K clients on group `ctx.gid`.
 
     `flat [K, N]` is updated in place and returned with the new optimizer
-    state and the per-client diagnostic data loss `[K]` at the accepted
-    parameters (the entry data loss where the NaN-step fallback left the
-    final point unevaluated).
+    state, the clients' statistics `{name: [K, ...]}` (empty for a model
+    without BatchNorm) and the per-client diagnostic data loss `[K]`, all
+    taken at the accepted parameters. Where the NaN-step fallback left the
+    final point unevaluated, the entry data loss is reported and the
+    previous statistics are kept. `cstate` holds y, z and rho under ADMM.
     """
     images = normalize(images_u8, mean, std)
     base = flat.detach()
+    names = list(stats)
 
     def objective(x):
-        dl = data_loss(ctx, _group_params(ctx, base, x), images, labels)
+        dl, new_stats = data_loss_and_stats(ctx, _group_params(ctx, base, x), stats, images, labels)
         loss = dl
         if ctx.reg_on_active:
             loss = loss + elastic_net(x, ctx.lambda1, ctx.lambda2)
-        return loss, (dl,)
+        if ctx.strategy == "admm":
+            loss = loss + admm_penalty(x, cstate.y, cstate.z, cstate.rho)
+        return loss, (dl, *(new_stats[n] for n in names))
 
     x0 = ctx.partition.extract(flat, ctx.gid).contiguous()
     x1, lstate, aux = lbfgs_step(objective, x0, lstate, ctx.lbfgs, has_aux=True)
     ctx.partition.insert_(flat, ctx.gid, x1)
-    (dl_final,) = aux.aux
-    (dl_entry,) = aux.entry_aux
-    return flat, lstate, torch.where(aux.aux_ok, dl_final, dl_entry)
+    dl_final, *stats_final = aux.aux
+    stats = dict(zip(names, select(aux.aux_ok, tuple(stats_final), tuple(stats[n] for n in names))))
+    return flat, lstate, stats, torch.where(aux.aux_ok, dl_final, aux.entry_aux[0])
 
 
 def epoch_batches(shard_imgs, shard_labels, idx: np.ndarray):
@@ -125,18 +166,21 @@ def epoch_batches(shard_imgs, shard_labels, idx: np.ndarray):
         yield shard_imgs[rows, idx_t[s]], shard_labels[rows, idx_t[s]]
 
 
-def run_epoch(ctx, flat, lstate, shard_imgs, shard_labels, idx, mean, std):
-    """One epoch over `idx [S, K, B]`; returns (flat, lstate, losses [S, K])."""
+def run_epoch(ctx, flat, lstate, stats, shard_imgs, shard_labels, idx, mean, std, cstate=None):
+    """One epoch over `idx [S, K, B]`; returns (flat, lstate, stats, losses [S, K])."""
     losses = []
     for images, labels in epoch_batches(shard_imgs, shard_labels, idx):
-        flat, lstate, loss = client_train_step(ctx, flat, lstate, images, labels, mean, std)
+        flat, lstate, stats, loss = client_train_step(ctx, flat, lstate, stats, images, labels, mean, std, cstate)
         losses.append(loss)
-    return flat, lstate, torch.stack(losses)
+    return flat, lstate, stats, torch.stack(losses)
 
 
-def round_init(ctx: GroupContext, flat: torch.Tensor) -> Tuple[LBFGSState, FedAvgState]:
-    """Fresh per-group optimizer state and consensus state (z = 0)."""
+def round_init(ctx: GroupContext, flat: torch.Tensor) -> Tuple[LBFGSState, Union[FedAvgState, ADMMState]]:
+    """Fresh per-group optimizer state and consensus state: FedAvg's z = 0,
+    or ADMM's y = z = 0, rho = rho0 (the trainer carries rho across loops)."""
     x = ctx.partition.extract(flat, ctx.gid).contiguous()
+    if ctx.strategy == "admm":
+        return lbfgs_init(x, ctx.lbfgs), admm_init(x, ctx.admm)
     return lbfgs_init(x, ctx.lbfgs), fedavg_init(x.shape[1], device=x.device, dtype=x.dtype)
 
 
@@ -149,17 +193,27 @@ def fedavg_consensus(ctx: GroupContext, flat: torch.Tensor, state: FedAvgState):
     return flat, state, met["dual_residual"]
 
 
+def admm_consensus(ctx: GroupContext, flat: torch.Tensor, state: ADMMState, nadmm: int):
+    """One ADMM iteration over the active group: BB rho when due, then the
+    z- and y-updates. The clients keep their own x: nothing is broadcast
+    back. Returns (state, {"primal_residual", "dual_residual", "mean_rho"})."""
+    return admm_round(ctx.partition.extract(flat, ctx.gid), state, nadmm, ctx.admm)
+
+
 @torch.no_grad()
-def evaluate(model, shapes, flat, test_imgs, test_labels, test_mask, mean, std) -> torch.Tensor:
+def evaluate(model, shapes, flat, test_imgs, test_labels, test_mask, mean, std, stats=None) -> torch.Tensor:
     """Per-client correct counts `[K]` over the stacked test sweep `[T, B, ...]`.
 
-    Every client sees the same test images under its own normalization.
+    Every client sees the same test images under its own normalization; a
+    BatchNorm model (non-empty `stats`) normalizes with each client's
+    running averages.
     """
     k = flat.shape[0]
     params = unflatten_params(flat, shapes)
     correct = torch.zeros((k,), dtype=torch.int64, device=flat.device)
     for img, lab, msk in zip(test_imgs, test_labels, test_mask):
         x = normalize(img.unsqueeze(0).expand(k, *img.shape), mean, std)
-        pred = model.forward_batched(params, x).argmax(dim=-1)
+        logits = model.forward_batched(params, x, stats=stats, train=False) if stats else model.forward_batched(params, x)
+        pred = logits.argmax(dim=-1)
         correct += ((pred == lab.long()) & msk).sum(dim=1)
     return correct

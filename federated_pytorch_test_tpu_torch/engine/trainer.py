@@ -1,28 +1,34 @@
 """The experiment loop: Nloop{groups{Nadmm{epochs{batches}}}}.
 
-Counterpart of the fedavg path of the JAX package's `engine/trainer.py`,
-without its cohort, fault, robust-aggregation, codec, observability and
-fused-round machinery. Kept from it:
+Counterpart of the fedavg and admm paths of the JAX package's
+`engine/trainer.py`, without its cohort, fault, robust-aggregation, codec,
+observability and fused-round machinery. Kept from it:
 
-* the group order is the model's `TRAIN_ORDER`, cut to `max_groups`;
+* the group order is the model's `TRAIN_ORDER`, or with
+  `shuffle_group_order` one `np.random.RandomState(0)` permutation of the
+  groups reused in every outer loop, then cut to `max_groups`;
 * each client reshuffles its shard every epoch with the same numpy
   recipe (`_epoch_seed(seed + 69, nloop, gid, nadmm, epoch)`), so both
   packages train on identical minibatches;
-* every group round starts a fresh L-BFGS state and z = 0, and each of
-  its `nadmm` averaging rounds is `nepoch` epochs then one FedAvg
-  exchange of the group's coordinates;
+* every group round starts a fresh L-BFGS state and consensus state, and
+  each of its `nadmm` rounds is `nepoch` epochs then one exchange of the
+  group's coordinates: FedAvg (the mean, broadcast back) or ADMM (the
+  clients keep their x; y and z start at 0 each round, while each group's
+  rho persists across outer loops in `_rho_store`);
+* a BatchNorm model's running statistics `{name: [K, C]}` are client
+  state beside the flat parameters, never averaged or exchanged;
 * every client is evaluated on the full test set after each exchange.
 
 All state lives on `device` (the card unless the caller asks for the
-CPU): the flat client parameters `[K, N]`, the client shards and the
-stacked test sweep are moved there once.
+CPU): the flat client parameters `[K, N]`, the statistics, the client
+shards and the stacked test sweep are moved there once.
 """
 
 from __future__ import annotations
 
 import inspect
 import time
-from typing import Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -31,7 +37,7 @@ from ..data import load_cifar, make_federated
 from ..models import MODELS, init_client_params
 from ..utils import MetricsRecorder, resolve_device
 from .config import ExperimentConfig
-from .steps import GroupContext, evaluate, fedavg_consensus, round_init, run_epoch
+from .steps import GroupContext, admm_consensus, evaluate, fedavg_consensus, round_init, run_epoch
 
 
 def build_model(cfg: ExperimentConfig, num_classes: int):
@@ -62,10 +68,13 @@ class Trainer:
         source=None,
         device=None,
         init_flat: Optional[np.ndarray] = None,
+        init_stats: Optional[Mapping[str, np.ndarray]] = None,
     ):
         """`device` overrides `cfg.device`; `init_flat` (`[N]` or `[K, N]`,
         in this package's flat order) replaces the common-seed init, e.g.
-        with parameters converted from the JAX package (`convert.py`)."""
+        with parameters converted from the JAX package (`convert.py`), and
+        `init_stats` (`{name: [C] or [K, C]}`) a BatchNorm model's initial
+        running statistics (`convert.stats_from_jax`)."""
         self.cfg = cfg
         self.device = resolve_device(cfg.device if device is None else device)
         self.recorder = MetricsRecorder(verbose=verbose)
@@ -90,6 +99,8 @@ class Trainer:
         self.partition = self.model.partition()
         self.n_params = self.partition.total
         order = list(self.partition.train_order)
+        if cfg.shuffle_group_order:
+            order = list(np.random.RandomState(0).permutation(self.partition.num_groups))
         if cfg.max_groups is not None:
             order = order[: cfg.max_groups]
         self.group_order = [int(g) for g in order]
@@ -103,6 +114,15 @@ class Trainer:
             if tuple(f.shape) != (cfg.n_clients, self.n_params):
                 raise ValueError(f"init_flat has shape {tuple(f.shape)}, want [K, {self.n_params}]")
             self.flat = f.contiguous().to(self.device)
+        self.stats: Dict[str, torch.Tensor] = self.model.init_stats(cfg.n_clients, self.device)
+        if init_stats is not None:
+            if sorted(init_stats) != sorted(self.stats):
+                raise ValueError(f"init_stats has keys {sorted(init_stats)}, want {sorted(self.stats)}")
+            for name, v in init_stats.items():
+                t = torch.as_tensor(np.asarray(v, np.float32))
+                self.stats[name] = t.expand_as(self.stats[name]).contiguous().to(self.device)
+        # each group's ADMM rho `[K, 1]`, carried from one outer loop to the next
+        self._rho_store: Dict[int, torch.Tensor] = {}
 
         dev = self.device
         self.shard_imgs = torch.from_numpy(self.fed.train_images).to(dev)
@@ -132,6 +152,8 @@ class Trainer:
             lambda2=cfg.lambda2,
             # the load-balance term enters the loss only where the model has experts
             moe_aux_coef=cfg.moe_aux_coef if getattr(self.model, "moe_experts", 0) else 0.0,
+            strategy=cfg.strategy,
+            admm=cfg.admm_config(),
         )
 
     def epoch_indices(self, *loop_ids: int) -> np.ndarray:
@@ -146,34 +168,44 @@ class Trainer:
         """Per-client top-1 accuracy `[K]` over the full test set."""
         correct = evaluate(
             self.model, self.shapes, self.flat, self.test_imgs, self.test_labels,
-            self.test_mask, self.mean, self.std,
+            self.test_mask, self.mean, self.std, self.stats,
         )
         return correct.cpu().numpy() / self._test_total
 
     def run_round(self, nloop: int, gid: int) -> None:
-        """One group's round: fresh state, then Nadmm x (epochs + FedAvg)."""
+        """One group's round: fresh state, then Nadmm x (epochs + exchange)."""
         cfg, rec = self.cfg, self.recorder
         ctx = self.ctx(gid)
+        admm = cfg.strategy == "admm"
         t_round = time.perf_counter()
         lstate, cstate = round_init(ctx, self.flat)
+        if admm and gid in self._rho_store:
+            cstate = cstate._replace(rho=self._rho_store[gid])  # rho carried across loops
         for a in range(cfg.nadmm):
             for e in range(cfg.nepoch):
                 idx = self.epoch_indices(nloop, gid, a, e)
                 with rec.phase("epoch", sync=self._sync, nloop=nloop, group=gid, nadmm=a, epoch=e):
-                    self.flat, lstate, losses = run_epoch(
-                        ctx, self.flat, lstate, self.shard_imgs, self.shard_labels,
-                        idx, self.mean, self.std,
+                    self.flat, lstate, self.stats, losses = run_epoch(
+                        ctx, self.flat, lstate, self.stats, self.shard_imgs, self.shard_labels,
+                        idx, self.mean, self.std, cstate if admm else None,
                     )
                     losses = losses.cpu().numpy()
                 for s in range(losses.shape[0]):
                     rec.batch_losses(losses[s], nloop=nloop, group=gid, nadmm=a, epoch=e, minibatch=s)
             with rec.phase("consensus", sync=self._sync, nloop=nloop, group=gid, nadmm=a):
-                self.flat, cstate, dual = fedavg_consensus(ctx, self.flat, cstate)
-                dual = float(dual)
-            rec.residuals(dual, nloop=nloop, group=gid, nadmm=a, group_size=self.partition.group_size(gid))
+                if admm:
+                    cstate, met = admm_consensus(ctx, self.flat, cstate, a)
+                    primal, dual, mean_rho = (float(met[n]) for n in ("primal_residual", "dual_residual", "mean_rho"))
+                else:
+                    self.flat, cstate, dual = fedavg_consensus(ctx, self.flat, cstate)
+                    primal, dual, mean_rho = None, float(dual), None
+            rec.residuals(primal, dual, mean_rho, nloop=nloop, group=gid, nadmm=a,
+                          group_size=self.partition.group_size(gid))
             with rec.phase("eval", sync=self._sync, nloop=nloop, group=gid, nadmm=a):
                 accs = self.evaluate()
             rec.accuracies(accs, nloop=nloop, group=gid, nadmm=a)
+        if admm:
+            self._rho_store[gid] = cstate.rho
         rec.objective_passes(lstate, nloop=nloop, group=gid)
         self._sync()
         rec.step_time("round", time.perf_counter() - t_round, nloop=nloop, group=gid)

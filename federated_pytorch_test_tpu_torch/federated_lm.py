@@ -195,7 +195,7 @@ class FederatedLM:
             xg = self.partition.extract(self.flat, gid)
             if not bool(torch.equal(xg, xg[:1].expand_as(xg))):
                 raise RuntimeError(f"group {gid} differs across clients after the averaging round")
-        rec.residuals(dual, nloop=nloop, group=gid, nadmm=0, group_size=self.partition.group_size(gid))
+        rec.residuals(None, dual, nloop=nloop, group=gid, nadmm=0, group_size=self.partition.group_size(gid))
         with rec.phase("eval", sync=self._sync, nloop=nloop, group=gid, nadmm=0):
             accs = self.evaluate()
         rec.accuracies(accs, nloop=nloop, group=gid, nadmm=0)

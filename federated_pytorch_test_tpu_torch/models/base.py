@@ -26,7 +26,8 @@ from ..utils.device import resolve_device
 
 # Reference init (the JAX package's models/base.py and models/transformer.py):
 # xavier_uniform on conv/dense weights, dense/conv bias = 0.01, embeddings
-# and learned positions normal(0.02), LayerNorm scale 1 and bias 0.
+# and learned positions normal(0.02), LayerNorm and BatchNorm scale 1 and
+# bias 0 (BatchNorm's running averages are client state, `init_stats`).
 BIAS_INIT = 0.01
 EMBED_STD = 0.02
 
@@ -67,7 +68,7 @@ def _module_leaf_kinds(module: nn.Module) -> Dict[str, str]:
         return {"weight": CONV, "bias": BIAS}
     if isinstance(module, nn.Embedding):
         return {"weight": EMBED}
-    if isinstance(module, nn.LayerNorm):
+    if isinstance(module, (nn.LayerNorm, nn.modules.batchnorm._BatchNorm)):
         return {"weight": SCALE, "bias": NORM_BIAS}
     return getattr(module, "LEAF_KINDS", {})
 
@@ -134,6 +135,11 @@ class PartitionedModel(nn.Module):
                 u = torch.rand(p.shape, generator=generator, dtype=torch.float32)
                 p.copy_(u * (2.0 * a) - a)
         return self
+
+    def init_stats(self, n_clients: int, device="cuda") -> Dict[str, torch.Tensor]:
+        """Client-local statistics `{name: [K, ...]}` that live outside the
+        flat parameter vector (BatchNorm's running averages); none here."""
+        return {}
 
     def forward_batched(self, params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError

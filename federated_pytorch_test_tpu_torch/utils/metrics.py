@@ -1,15 +1,17 @@
 """Training observability: the metric series and their grep-able lines.
 
 Counterpart of the subset of the JAX package's `utils/metrics.py` that the
-fedavg path records: per-client per-batch training loss, the per-round
-dual residual, per-client test accuracy and phase wall times; and, the
+fedavg and admm paths record: per-client per-batch training loss, the
+per-round residuals (dual; and under ADMM primal and the mean rho),
+per-client test accuracy and phase wall times; and, the
 port's own, each round's batched model passes (`objective_passes`). Every
 observation lands in an in-memory store (JSON-serializable) and, when
 verbose, is printed in the same line format as the JAX package, so the
 same shell recipes read both:
 
     layer=<gid> <nloop> minibatch=<s> epoch=<e> losses <l1>,<l2>,...
-    layer=<gid>(<group size>) ADMM=<round> dual=<residual>
+    layer=<gid>(<group size>) ADMM=<round> dual=<residual>                  (FedAvg)
+    layer=<gid>(<group size>,<rho>) ADMM=<round> primal=<p> dual=<d>      (ADMM)
     Accuracy of client <k> on the test images: <pct> %
 """
 
@@ -74,13 +76,20 @@ class MetricsRecorder:
                 "losses " + ",".join(f"{v:e}" for v in vals)
             )
 
-    def residuals(self, dual, *, nloop, group, nadmm, group_size) -> None:
-        """The dual residual of one averaging round (FedAvg has no primal)."""
+    def residuals(self, primal, dual, mean_rho=None, *, nloop, group, nadmm, group_size) -> None:
+        """The residuals of one averaging or ADMM round; FedAvg passes None
+        for the primal residual and the mean rho, which it has not."""
         ctx = dict(nloop=nloop, group=group, nadmm=nadmm)
-        self._flag_nonfinite("residuals", [float(dual)], ctx)
+        self._flag_nonfinite("residuals", [float(v) for v in (dual, primal) if v is not None], ctx)
         self.log("dual_residual", float(dual), **ctx)
+        if primal is not None:
+            self.log("primal_residual", float(primal), **ctx)
+        if mean_rho is not None:
+            self.log("mean_rho", float(mean_rho), **ctx)
         if self.verbose:
-            print(f"layer={group}({group_size}) ADMM={nadmm} dual={float(dual):e}")
+            p = f" primal={float(primal):e}" if primal is not None else ""
+            r = f",{float(mean_rho):f}" if mean_rho is not None else ""
+            print(f"layer={group}({group_size}{r}) ADMM={nadmm}{p} dual={float(dual):e}")
 
     def accuracies(self, accs, *, nloop, group, nadmm) -> None:
         """Per-client top-1 test accuracy (fractions in [0, 1])."""

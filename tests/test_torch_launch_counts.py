@@ -10,8 +10,9 @@ would make on the card, and the same small drives as the slice tests run:
 the LM at S = 128 over all six groups (the embedding, every block and the
 head: 4, 4..1 and 0 attention layers behind the active group), the ViT
 with the fused direction over its first two groups, two averaging rounds
-and evaluations each, and the switch-MoE ViT over the same two groups,
-whose grouped GEMM launches twice a block in every forward, twice in each
+and evaluations each, the admm drive (Net, two groups, three ADMM rounds
+each), and the switch-MoE ViT over the ViT's two groups, whose grouped
+GEMM launches twice a block in every forward, twice in each
 block the gradient crosses and twice more (the weight gradients) in the
 block the group trains (`expected_grouped`). Counts are exact: no
 tolerance.
@@ -25,7 +26,7 @@ import pytest
 import torch
 
 from federated_pytorch_test_tpu_torch.data import synthetic_cifar
-from federated_pytorch_test_tpu_torch.engine import ExperimentConfig, Trainer
+from federated_pytorch_test_tpu_torch.engine import ExperimentConfig, Trainer, get_preset
 from federated_pytorch_test_tpu_torch.federated_lm import FederatedLM, LMConfig
 from federated_pytorch_test_tpu_torch.ops import compact_cuda, flash_cuda, grouped_gemm
 from federated_pytorch_test_tpu_torch.optim import LBFGSConfig, lbfgs_init, lbfgs_step
@@ -78,6 +79,19 @@ def test_vit_launches_equal_the_count_its_records_imply(monkeypatch):
                       "fused_gram_projections": exp["direction"], "fused_direction_assembly": exp["direction"]}
 
 
+def test_admm_launches_equal_the_count_its_records_imply(monkeypatch):
+    # the admm drive of tests/test_torch_admm_slice.py: one direction (a
+    # gram and an assembly) per inner iteration, whatever BB does with rho
+    counts = {}
+    _count_calls(monkeypatch, compact_cuda, tuple(compact_cuda.LAUNCHES), counts)
+    cfg = get_preset("admm", batch=40, nloop=1, nadmm=3, max_groups=2, lbfgs_direction="pallas", device="cpu")
+    tr = Trainer(cfg, verbose=False, source=synthetic_cifar(240, 60))
+    rec = tr.run()
+    exp = chip_smoke.expected_launches(rec)
+    assert len(rec.series["objective_passes"]) == 2 and exp["direction"] > 0
+    assert counts == {"fused_gram_projections": exp["direction"], "fused_direction_assembly": exp["direction"]}
+
+
 def test_vit_moe_launches_equal_the_count_its_records_imply(monkeypatch):
     # the grouped GEMM's three roles (its split sum is a launch inside
     # `grouped_matmul_drhs` on the card, counted from `split_k`): groups 0
@@ -106,8 +120,6 @@ def test_vit_moe_launches_equal_the_count_its_records_imply(monkeypatch):
 
 def test_grouped_formula_at_the_chip_shapes():
     # the MoE ViT path's own shapes: both weight gradients split, once each
-    from federated_pytorch_test_tpu_torch.engine import get_preset
-
     cfg = get_preset("fedavg", model="vit", model_kwargs=chip_smoke.VIT_MOE_KWARGS)
     assert chip_smoke.moe_shapes(cfg) == (24, 20480, 20000, 64, 256)
     exp = {"forward": 10, "backward": 7, "weight_backward": 3}

@@ -80,8 +80,8 @@ def test_two_lbfgs_steps_on_fc1_match_jax(direction):
     state = lbfgs_init(ctx.partition.extract(flat, GID).contiguous(), cfg)
     half = torch.tensor([0.5])
     for b in range(2):
-        flat, state, _ = client_train_step(
-            ctx, flat, state, torch.from_numpy(imgs[b][None]),
+        flat, state, _, _ = client_train_step(
+            ctx, flat, state, {}, torch.from_numpy(imgs[b][None]),
             torch.from_numpy(labels[b][None]), half, half,
         )
     _close(flat[0].numpy(), flat_from_jax(jfinal, model), 1e-4)

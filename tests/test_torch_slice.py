@@ -198,8 +198,8 @@ def _step_by_step():
                 x_new, st_new = jstep(jflat, x, st, jnp.asarray(im), jnp.asarray(lab), mean, std)
                 full = jax.vmap(lambda f, v: jpart.insert(f, gid, v))(jflat, x)
                 flat_p = torch.from_numpy(flat_from_jax(np.asarray(full), model))
-                flat_p, st_p, _ = client_train_step(
-                    ctx, flat_p, state_to_port(st, gid), torch.from_numpy(im), torch.from_numpy(lab),
+                flat_p, st_p, _, _ = client_train_step(
+                    ctx, flat_p, state_to_port(st, gid), {}, torch.from_numpy(im), torch.from_numpy(lab),
                     tr.mean, tr.std,
                 )
                 yield gid, a, s, (tr.partition.extract(flat_p, gid), st_p), (group_to_port(np.asarray(x_new), gid),
