@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--metrics-out PATH] [--lm-metrics-out PATH] [--vit-metrics-out PATH]
                           [--vit-moe-metrics-out PATH] [--admm-metrics-out PATH]
-                          [--resnet-metrics-out PATH] [--profile]
+                          [--resnet-metrics-out PATH] [--no-consensus-metrics-out PATH] [--profile]
     python3 chip_smoke.py --ab-parent DIR
 
 The second form runs none of the phases below: it times the grouped GEMM
@@ -160,7 +160,34 @@ Phases, each reported on its own lines; any failure exits non-zero:
               moved from its initial value; accuracies and walls printed.
               Then both compact kernels at every group size the paths
               reached: against the plain version (relative 1e-5) and timed
-              beside the bytes bound and the `matmul` yardstick.
+              beside the bytes bound and the `matmul` yardstick;
+18. no_consensus train — the no_consensus path: the no_consensus preset
+              (Net1, K=3, batch 32, independent clients from their own
+              initial draws, the whole vector of 890,410 one group, the
+              elastic net on fc1 only) on the full-size synthetic stand-in
+              with the fused-kernel direction, 2 of its 12 epochs (a
+              `reduced` line says so), evaluated after every epoch and at
+              the end, cuDNN deterministic (restored after). Compact
+              launches gated exactly; losses finite; every
+              client's accuracy above chance; the clients' parameters
+              pairwise different; one minibatch's objective within relative
+              1e-5 of the data loss plus λ1‖fc1‖₁ + λ2‖fc1‖² computed apart
+              in float64;
+19. compact at 890,410 — both compact kernels and the kernel direction at
+              the no_consensus path's N against the plain version computed
+              in float64 (relative 1e-5), timed beside the bound, the plain
+              version and the `matmul` yardstick; the plain `two_loop`
+              direction at 48,120 and 890,410 against the plain compact
+              direction in float64 (relative 1e-5), timed beside the kernel
+              direction;
+20. resume   — on the card, cuDNN deterministic: fedavg (Net, two groups)
+              and admm (Net's first group, nadmm 5, BB with its thresholds
+              opened so that the second loop starts from an accepted rho),
+              each run for two outer loops straight and for one loop with
+              `save_model` then continued by a fresh Trainer with
+              `load_model=True`: final parameters, rho store and the second
+              loop's series bitwise equal (the largest differences printed
+              either way), on 12,288 train images (a `reduced` line).
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`. Without CUDA, or without the
@@ -179,6 +206,7 @@ import sys
 import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -220,6 +248,24 @@ GROUPED_TAILS = ((3, 13, 257, 9), (3, 300, 40, 270))  # (G, M, K, N) from the ca
 LARGE_SLACK = 2.0  # q, k x 8: the kernel's error from float64 may reach this multiple of the f32 plain version's
 QUEUED_CALLS = 50  # calls queued per device-only timing (a plain version launches ~8 kernels)
 RESNET_TRAIN, RESNET_TEST = 1_536, 10_000  # 16 minibatches of 32 per client; the full test set
+NO_CONSENSUS_N = 890_410  # Net1, the no_consensus path's one group: the whole vector
+NO_CONSENSUS_EPOCHS = 2  # of the preset's 12
+NO_CONSENSUS_PROFILE_STEPS = 50  # minibatches of the profiled no_consensus window, of ~520
+RESUME_TRAIN = 12_288  # 8 minibatches of 512 per client
+
+
+@contextmanager
+def deterministic_cudnn():
+    """cuDNN in its deterministic mode, without autotuning, for the block;
+    the caller's settings are put back after it."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
 
 
 def fail(msg: str) -> None:
@@ -227,7 +273,7 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def time_ms(fn, iters: int) -> tuple:
+def time_ms(fn, iters: int, queued: int = QUEUED_CALLS) -> tuple:
     """Mean milliseconds per call over `iters` back-to-back calls, after
     warm-up, as (per call with the host's launch path, device alone).
 
@@ -235,7 +281,7 @@ def time_ms(fn, iters: int) -> tuple:
     slower than the card runs, it measures the host. For the second, a
     sleep kernel holds the stream while the host queues every call, so
     the events bracket the kernels alone; the sleep grows until it
-    outlasts the queueing. At most `QUEUED_CALLS` calls are queued: the
+    outlasts the queueing. At most `queued` calls are queued: the
     driver's launch queue holds about a thousand launches, and the host
     blocks once it is full."""
     import torch
@@ -250,7 +296,7 @@ def time_ms(fn, iters: int) -> tuple:
     stop.record()
     torch.cuda.synchronize()
     host_ms = start.elapsed_time(stop) / iters
-    n_queued = min(iters, QUEUED_CALLS)
+    n_queued = min(iters, queued)
     cycles = 10_000_000
     while True:
         torch.cuda._sleep(cycles)
@@ -1247,15 +1293,16 @@ def phase_train(metrics_out, profile: bool):
     return launches, wall
 
 
-def profile_epoch(tr, gid=None):
+def profile_epoch(tr, gid=None, max_steps=None):
     """Kernel time by name and the device's busy share over one epoch of
-    group `gid` (the first of the order by default)."""
+    group `gid` (the first of the order by default), or over its first
+    `max_steps` minibatches."""
     import torch
 
     from federated_pytorch_test_tpu_torch.engine.steps import round_init, run_epoch
 
     ctx = tr.ctx(tr.group_order[0] if gid is None else gid)
-    idx = tr.epoch_indices(99, ctx.gid, 0, 0)
+    idx = tr.epoch_indices(99, ctx.gid, 0, 0)[:max_steps]
 
     def epoch():
         lstate, cstate = round_init(ctx, tr.flat)
@@ -1772,14 +1819,8 @@ def phase_resnet_parity():
     float64, the kernel's and the float32 plain version's. cuDNN runs in
     its deterministic mode here, so that the two sides differ by their
     directions and not by the convolutions' run-to-run rounding."""
-    import torch
-
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
+    with deterministic_cudnn():
         resnet_parity()
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
 
 
 def resnet_parity():
@@ -1919,6 +1960,244 @@ def phase_resnet_train(metrics_out, profile: bool):
     return {"admm_resnet": launches, "fedavg_resnet": f_launches}, {"admm_resnet": wall, "fedavg_resnet": f_wall}, times
 
 
+def phase_no_consensus_train(metrics_out, profile: bool):
+    """The no_consensus path: independent Net1 clients, the whole vector
+    (N = 890,410) one group, the elastic net on fc1 only, each client its
+    own initial draw, through the entry points a user calls.
+
+    cuDNN runs in its deterministic mode here, so that the phase takes one
+    trajectory on every run. With the default algorithms two runs differ
+    from the first step on, and the memorizing clients' trajectories part:
+    on some of them a client reaches the optimizer's non-finite mode, which
+    the JAX package and the reference share (`no_consensus_probe.py`
+    finds and replays it): curvature pairs with y·y near 1e-17 set a
+    huge h_diag, the next hard minibatch's direction overflows the
+    forward, and the Armijo test, false for a NaN loss, accepts the step."""
+    with deterministic_cudnn():
+        return no_consensus_train(metrics_out, profile)
+
+
+def no_consensus_train(metrics_out, profile: bool):
+    """The body of `phase_no_consensus_train`."""
+    import numpy as np
+    import torch
+
+    from federated_pytorch_test_tpu_torch.data import normalize, synthetic_cifar
+    from federated_pytorch_test_tpu_torch.engine import Trainer, get_preset
+    from federated_pytorch_test_tpu_torch.engine.steps import data_loss, objective
+    from federated_pytorch_test_tpu_torch.ops import compact_cuda as cc
+    from federated_pytorch_test_tpu_torch.partition import unflatten_params
+
+    cfg = get_preset("no_consensus", lbfgs_direction="pallas", nepoch=NO_CONSENSUS_EPOCHS)
+    print(f"reduced no_consensus nepoch={cfg.nepoch} of the preset's {get_preset('no_consensus').nepoch}: "
+          "the script's time", flush=True)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, verbose=False, source=synthetic_cifar(50_000, 10_000, seed=0))
+    print(f"no_consensus setup: {cfg.model} K={cfg.n_clients} batch={cfg.batch} nepoch={cfg.nepoch} "
+          f"params={tr.n_params} groups={[tr.partition.group_size(g) for g in tr.group_order]} "
+          f"reg_segments={[(s.start, s.size) for s in tr.ctx(0).reg_segments]} "
+          f"steps/epoch={tr.fed.steps_per_epoch(cfg.batch)} setup_s={time.perf_counter() - t0:.3f}", flush=True)
+    flat0 = tr.flat.clone()
+
+    torch.cuda.reset_peak_memory_stats()
+    cc.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = tr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cc.LAUNCHES)
+
+    epochs = [r for r in rec.series["step_time"] if r["value"]["phase"] == "epoch"]
+    for r, acc in zip(epochs, [r for r in rec.series["test_accuracy"] if "epoch" in r]):
+        losses = np.asarray([x["value"] for x in rec.series["train_loss"] if x["epoch"] == r["epoch"]])
+        print(f"no_consensus epoch={r['epoch']} wall_s={r['value']['seconds']:.3f} "
+              f"mean_loss={','.join(f'{v:.4e}' for v in losses.mean(0))} "
+              f"acc={','.join(f'{a:.4f}' for a in acc['value'])}", flush=True)
+    n_steps = len(rec.series["train_loss"])
+    print(f"no_consensus train wall_s={wall:.3f} minibatches={n_steps} ms_per_minibatch={1e3 * wall / n_steps:.3f} "
+          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.3f} launches={json.dumps(launches)}", flush=True)
+    if metrics_out:
+        rec.save(metrics_out)
+
+    check_finite_run("no_consensus", rec)
+    final_acc = np.asarray(rec.series["test_accuracy"][-1]["value"])
+    chance = 1.0 / tr.fed.num_classes
+    print(f"no_consensus final accuracy {final_acc.round(4).tolist()}", flush=True)
+    if not np.all(final_acc > chance):
+        fail(f"no_consensus final accuracy {final_acc} not above chance {chance}")
+    # independent training: the clients started apart and stay apart
+    apart = [float((tr.flat[a] - tr.flat[b]).abs().max()) for a in range(3) for b in range(a)]
+    moved = (tr.flat - flat0).abs().amax(1).tolist()
+    print(f"no_consensus clients pairwise_max_abs_diff={','.join(f'{d:.3e}' for d in apart)} "
+          f"moved_from_init={','.join(f'{d:.3e}' for d in moved)}", flush=True)
+    if not min(apart) > 0 or not min(moved) > 0:
+        fail("no_consensus: clients share their parameters or did not move")
+
+    # one step's objective against data loss + l1·|fc1|₁ + l2·|fc1|² computed apart (float64)
+    ctx = tr.ctx(0)
+    idx = tr.epoch_indices(0, 0, 0, 0)[0]
+    rows = torch.arange(3, device="cuda")[:, None]
+    idx_t = torch.as_tensor(idx, device="cuda")
+    images = normalize(tr.shard_imgs[rows, idx_t], tr.mean, tr.std)
+    labels = tr.shard_labels[rows, idx_t]
+    with torch.no_grad():
+        loss, _, _ = objective(ctx, tr.flat, tr.flat, {}, images, labels)
+        params = unflatten_params(tr.flat, tr.shapes)
+        dl = data_loss(ctx, params, images, labels).double()
+        fc1 = torch.cat([params["fc1.weight"].flatten(1), params["fc1.bias"]], 1).double()
+        ref = dl + cfg.lambda1 * fc1.abs().sum(1) + cfg.lambda2 * (fc1 * fc1).sum(1)
+    (seg,) = ctx.reg_segments
+    err = float(((loss.double() - ref).abs() / ref.abs()).max())
+    print(f"no_consensus objective fc1_coords={fc1.shape[1]} segment=({seg.start},{seg.size}) "
+          f"objective={','.join(f'{v:.6e}' for v in loss.tolist())} apart={','.join(f'{v:.6e}' for v in ref.tolist())} "
+          f"max_rel={err:.3e}", flush=True)
+    if fc1.shape[1] != seg.size or not err <= 1e-5:
+        fail(f"no_consensus: the objective is not data loss + the fc1 elastic net ({err:.3e})")
+    gate_launches("no_consensus", launches, {name: expected_launches(rec)["direction"] for name in cc.LAUNCHES})
+    if profile:
+        # the kernel mix is the same every minibatch; the profiler's summary
+        # of a whole 520-minibatch epoch takes most of the call
+        print(f"reduced no_consensus profile minibatches={NO_CONSENSUS_PROFILE_STEPS} of "
+              f"{tr.fed.steps_per_epoch(cfg.batch)}: the profiler's time", flush=True)
+        profile_epoch(tr, max_steps=NO_CONSENSUS_PROFILE_STEPS)
+    return launches, wall
+
+
+def phase_compact_no_consensus() -> dict:
+    """Both compact kernels at the no_consensus path's N = 890,410 against
+    the plain version in float64 (at this N the float32 plain version's
+    sums are no reference, as at the ResNet sizes) and timed; the plain
+    `two_loop` direction at 48,120 and 890,410 against the plain compact
+    direction in float64, timed beside the kernel direction. Returns the
+    kernels' rows at 890,410."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.ops import compact_cuda as cc
+    from federated_pytorch_test_tpu_torch.optim.compact import compact_direction, compact_solves, history_valid
+    from federated_pytorch_test_tpu_torch.optim.lbfgs import _two_loop_direction
+
+    def rel64(out, ref):
+        return float((out.double() - ref).abs().max() / ref.abs().max())
+
+    rows = {}
+    for n in (REPORT_N, NO_CONSENSUS_N):
+        s, y, g, count, h_diag = history(n, seed=n)
+        if n == NO_CONSENSUS_N:
+            gram = cc.fused_gram_projections(s, y, g, count)
+            ref = cc.fused_gram_projections_plain(s.double(), y.double(), g.double(), count)
+            sy, yy, p, q = ref
+            u, w, _, _ = compact_solves(sy, p, q, history_valid(count, M), h_diag.double(),
+                                        lambda uu: (torch.matmul(yy, uu[..., None])[..., 0], None))
+            asm = cc.fused_direction_assembly(s, y, g, w.float(), u.float(), h_diag, count)
+            asm_ref = cc.fused_direction_assembly_plain(s.double(), y.double(), g.double(), w, u, h_diag.double(), count)
+            direction = cc.compact_direction_cuda(g, s, y, count, h_diag)
+            dir_ref = compact_direction(g.double(), s.double(), y.double(), count, h_diag.double())
+            errs = {**{f"gram.{nm}": rel64(a, b) for nm, a, b in zip(("sy", "yy", "p", "q"), gram, ref)},
+                    "assembly": rel64(asm, asm_ref), "direction": rel64(direction, dir_ref)}
+            print(f"no_consensus kernels N={n} vs_f64 " + " ".join(f"{k}={v:.3e}" for k, v in errs.items()), flush=True)
+            if not max(errs.values()) <= RTOL:
+                fail(f"compact kernel disagrees with its plain version in float64 at N={n}: {errs}")
+            u, w = u.float(), w.float()
+            del ref, asm_ref
+        s.nan_to_num_(0.0)
+        y.nan_to_num_(0.0)
+        full = torch.full((K,), M, dtype=torch.int32, device="cuda")
+        for cnt in (count, full):
+            two = _two_loop_direction(g, s, y, cnt, h_diag)
+            ref = compact_direction(g.double(), s.double(), y.double(), cnt, h_diag.double())
+            err = rel64(two, ref)
+            print(f"two_loop N={n} count={cnt.tolist()} vs_compact_f64={err:.3e}", flush=True)
+            if not err <= RTOL:
+                fail(f"two_loop direction disagrees with the compact direction in float64 at N={n}: {err:.3e}")
+        # a direction call launches up to ~120 kernels (two_loop): queue
+        # few calls, or the launch queue fills (`time_ms`)
+        iters = 20 if n > 200_000 else 200
+        t_two = time_ms(lambda: _two_loop_direction(g, s, y, full, h_diag), iters, queued=4)
+        t_kernel = time_ms(lambda: cc.compact_direction_cuda(g, s, y, full, h_diag), iters, queued=4)
+        t_plain = time_ms(lambda: compact_direction(g, s, y, full, h_diag), iters, queued=4)
+        print(f"timing direction N={n} K={K} m={M} two_loop_ms={t_two[0]:.6f} two_loop_device_ms={t_two[1]:.6f} "
+              f"kernel_ms={t_kernel[0]:.6f} kernel_device_ms={t_kernel[1]:.6f} "
+              f"compact_plain_ms={t_plain[0]:.6f} compact_plain_device_ms={t_plain[1]:.6f}", flush=True)
+        if n == NO_CONSENSUS_N:
+            rows = compact_timings(s, y, g, w, u, h_diag, n)
+            for r in rows.values():
+                r["two_loop_ms"], r["two_loop_device_ms"] = t_two
+                r["direction_ms"], r["direction_device_ms"] = t_kernel
+        del s, y, g
+    return rows
+
+
+def bitwise_equal(a, b) -> bool:
+    """Equal bits (NaN included), for float32 tensors or nested lists of floats."""
+    import numpy as np
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+    x, z = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return x.shape == z.shape and np.array_equal(x.view(np.int64), z.view(np.int64))
+
+
+def resume_pair(label: str, preset: str, source, ckpt_dir: str, **overrides) -> None:
+    """`preset` run for two outer loops straight, and for one loop with
+    `save_model` then a fresh Trainer with `load_model=True, nloop=2`: the
+    final parameters, the rho store and the loop-1 series must be bitwise
+    equal. The largest differences are printed either way."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.engine import Trainer, get_preset
+
+    cfg = get_preset(preset, lbfgs_direction="pallas", **overrides)
+    t0 = time.perf_counter()
+    tr_a = Trainer(cfg.replace(nloop=2, checkpoint_dir=os.path.join(ckpt_dir, "a")), verbose=False, source=source)
+    rec_a = tr_a.run()
+    cfg_b = cfg.replace(nloop=1, save_model=True, checkpoint_dir=os.path.join(ckpt_dir, "b"))
+    Trainer(cfg_b, verbose=False, source=source).run()
+    tr_b = Trainer(cfg_b.replace(nloop=2, save_model=False, load_model=True), verbose=False, source=source)
+    restored = tr_b._completed_nloops
+    rec_b = tr_b.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    names = ["train_loss", "dual_residual", "test_accuracy"] + (["primal_residual", "mean_rho"]
+                                                                 if cfg.strategy == "admm" else [])
+    same = {"flat": bitwise_equal(tr_a.flat, tr_b.flat),
+            "rho_store": sorted(tr_a._rho_store) == sorted(tr_b._rho_store)
+            and all(bitwise_equal(r, tr_b._rho_store[g]) for g, r in tr_a._rho_store.items())}
+    diffs = {"flat": float((tr_a.flat - tr_b.flat).abs().max())}
+    for name in names:
+        a = [r["value"] for r in rec_a.series[name] if r["nloop"] == 1]
+        b = [r["value"] for r in rec_b.series[name]]
+        same[name] = bool(a) and bitwise_equal(a, b)
+        diffs[name] = max((abs(x - z) for x, z in zip(torch.tensor(a).flatten().tolist(),
+                                                      torch.tensor(b).flatten().tolist())), default=float("nan"))
+    rho = {g: r[:, 0].tolist() for g, r in tr_a._rho_store.items()}
+    print(f"resume {label} restored_nloops={restored} records={len(rec_b.series['train_loss'])} rho={rho} "
+          f"wall_s={wall:.3f} " + " ".join(f"{k}_bitwise={v}" for k, v in same.items()) + " "
+          + " ".join(f"{k}_max_abs_diff={v:.3e}" for k, v in diffs.items()), flush=True)
+    if restored != 1 or not all(same.values()):
+        fail(f"resume {label}: the resumed run differs from the uninterrupted one: {same} {diffs}")
+
+
+def phase_resume():
+    """A resumed run against the uninterrupted one on the card, bit for bit:
+    fedavg (Net, two groups) and admm (Net's first group, nadmm 5, BB with
+    its thresholds opened so that it accepts a proposal and the second
+    loop starts from the restored rho), the kernel direction, cuDNN
+    deterministic (restored after)."""
+    import tempfile
+
+    from federated_pytorch_test_tpu_torch.data import synthetic_cifar
+
+    print(f"reduced resume train images={RESUME_TRAIN} of 50,000 (8 minibatches of 512 a client): the script's time",
+          flush=True)
+    source = synthetic_cifar(RESUME_TRAIN, 10_000, seed=0)
+    with deterministic_cudnn(), tempfile.TemporaryDirectory() as d:
+        resume_pair("fedavg", "fedavg", source, os.path.join(d, "fedavg"), max_groups=2)
+        resume_pair("admm", "admm", source, os.path.join(d, "admm"), max_groups=1, nadmm=5, bb_update=True,
+                    bb_epsilon=1e-12, bb_rhomax=1e6)
+
+
 # One turn of `--ab-parent`, run in a fresh process from the root of a
 # checkout: the device ms of the grouped GEMM at every MoE ViT path shape
 # and of the gram at every Net group size, as one JSON line; then
@@ -2005,6 +2284,7 @@ def main() -> int:
     ap.add_argument("--vit-moe-metrics-out", help="write the MoE ViT path's metric series as JSON here")
     ap.add_argument("--admm-metrics-out", help="write the admm path's metric series as JSON here")
     ap.add_argument("--resnet-metrics-out", help="write the admm_resnet path's metric series as JSON here")
+    ap.add_argument("--no-consensus-metrics-out", help="write the no_consensus path's metric series as JSON here")
     ap.add_argument("--profile", action="store_true", help="also profile one epoch of each path")
     ap.add_argument("--ab-parent", metavar="DIR",
                     help="instead of the phases, time the train paths of the checkout in DIR and of this "
@@ -2061,6 +2341,9 @@ def main() -> int:
     admm_launches, admm_wall = phase_admm_train(args.admm_metrics_out, args.profile)
     phase_resnet_parity()
     resnet_launches, resnet_walls, resnet_times = phase_resnet_train(args.resnet_metrics_out, args.profile)
+    nc_launches, nc_wall = phase_no_consensus_train(args.no_consensus_metrics_out, args.profile)
+    nc_rows = phase_compact_no_consensus()
+    phase_resume()
 
     kernels = []
     replaces = {
@@ -2092,10 +2375,17 @@ def main() -> int:
             # above is the fedavg (Net) path's
             "launches_by_path": {"fedavg": launches[name], "admm": admm_launches[name],
                                  **{p: n[name] for p, n in resnet_launches.items()},
-                                 "vit": vit_launches[name], "vit_moe": moe_launches[name]},
+                                 "vit": vit_launches[name], "vit_moe": moe_launches[name],
+                                 "no_consensus": nc_launches[name]},
             # device ms at every ResNet group size the ResNet paths reach, beside
             # the bound, the plain version and the `matmul` yardstick
             "resnet_sizes": {str(n): r[name] for n, r in resnet_times.items()},
+            # the same at the no_consensus path's one group (Net1's whole
+            # vector), with the plain two_loop direction and the kernel
+            # direction (both kernels and the small solves) beside them
+            "no_consensus_sizes": {str(NO_CONSENSUS_N): {
+                k: nc_rows[name][k] for k in ("device_ms", "bound_ms", "library_device_ms", "plain_device_ms",
+                                              "two_loop_device_ms", "direction_device_ms")}},
         })
     bh, s, d = FLASH_PATH
     for name, r in flash_report.items():
@@ -2178,7 +2468,8 @@ def main() -> int:
     print(f"total seconds={time.perf_counter() - t_all:.3f} train_wall_s={wall:.3f} lm_train_wall_s={lm_wall:.3f} "
           f"vit_train_wall_s={vit_wall:.3f} vit_moe_train_wall_s={moe_wall:.3f} admm_train_wall_s={admm_wall:.3f} "
           f"admm_resnet_train_wall_s={resnet_walls['admm_resnet']:.3f} "
-          f"fedavg_resnet_train_wall_s={resnet_walls['fedavg_resnet']:.3f}", flush=True)
+          f"fedavg_resnet_train_wall_s={resnet_walls['fedavg_resnet']:.3f} "
+          f"no_consensus_train_wall_s={nc_wall:.3f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}),

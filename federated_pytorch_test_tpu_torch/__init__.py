@@ -5,15 +5,18 @@ module names so each counterpart is easy to find. It imports `torch` and
 never `jax`, and nothing of the JAX package. Entry points run on the card
 (`device="cuda"`) unless the caller asks for the CPU.
 
-Three paths are ported so far:
+Ported so far:
 
-* the `fedavg` preset: Net clients, partial-parameter FedAvg, stochastic
-  L-BFGS with batch-mode Armijo search, and the fused compact L-BFGS
-  direction as hand-written CUDA kernels for Hopper (`ops/compact_cuda.py`,
-  `csrc/compact_direction.cu`);
-* the same engine with ViT clients (`model="vit"`, `model_kwargs`), whose
-  non-causal flash attention runs the rectangular flash kernels
-  (`ops/flash_cuda.py`, `csrc/flash_attention.cu`);
+* the reference's five presets on one engine (`engine/`): `no_consensus`
+  (independent Net1 clients), `fedavg` and `admm` (Net), `fedavg_resnet`
+  and `admm_resnet` (ResNet18 with client-local BatchNorm); stochastic
+  L-BFGS with batch-mode Armijo search, its direction plain (`compact`,
+  `two_loop`) or the fused compact direction as hand-written CUDA kernels
+  for Hopper (`ops/compact_cuda.py`, `csrc/compact_direction.cu`); a
+  full-state checkpoint with resume (`utils/checkpoint.py`);
+* the same engine with ViT and switch-MoE ViT clients (`model="vit"`,
+  `model_kwargs`), on the rectangular flash kernels and the grouped GEMM
+  kernel (`ops/flash_cuda.py`, `ops/grouped_gemm.py`);
 * federated causal-LM training (`federated_lm.py`): `TransformerLM`
   clients with the causal flash-attention forward and backward as
   hand-written CUDA kernels (`ops/flash_cuda.py`, `csrc/flash_attention.cu`).

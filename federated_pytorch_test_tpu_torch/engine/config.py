@@ -1,7 +1,8 @@
 """Experiment configuration: the knobs of the ported paths and their presets.
 
 Counterpart of the subset of the JAX package's `engine/config.py` that
-the `fedavg`, `admm`, `fedavg_resnet` and `admm_resnet` paths read. Field
+the `no_consensus`, `fedavg`, `admm`, `fedavg_resnet` and `admm_resnet`
+paths read, with its checkpoint fields. Field
 names and defaults are the JAX package's, so a configuration reads the
 same in both; `device` is the port's own (the card unless the caller asks
 for the CPU).
@@ -37,17 +38,20 @@ class ExperimentConfig:
 
     n_clients: int = 3
     batch: int = 512
-    strategy: str = "fedavg"  # fedavg | admm ('none' is not ported yet)
+    strategy: str = "fedavg"  # none (independent training) | fedavg | admm
 
     # loop nest: Nloop{groups{Nadmm{epochs{batches}}}}
     nloop: int = 12
     nepoch: int = 1
     nadmm: int = 3
 
-    # elastic net on the active group when it is a linear layer
     lambda1: float = 1e-4
     lambda2: float = 1e-4
-    reg_mode: str = "active_linear"  # active_linear | none
+    # 'active_linear': elastic net on the active group when it is a linear
+    #   layer; 'first_linear': elastic net on the model's first linear group
+    #   of the full vector (the no_consensus script, where only fc1 is
+    #   regularized); 'none': no regularization
+    reg_mode: str = "active_linear"
 
     biased_input: bool = True  # per-client normalization constants
 
@@ -55,8 +59,9 @@ class ExperimentConfig:
     lbfgs_history: int = 10
     lbfgs_max_iter: int = 4
     lbfgs_lr: float = 1.0
-    # 'compact' (plain PyTorch) or 'pallas' (the fused CUDA kernels; the
-    # name is the JAX package's value for its fused-kernel backend)
+    # 'compact' (plain PyTorch), 'two_loop' (the sequential recursion,
+    # plain PyTorch) or 'pallas' (the fused CUDA kernels; the name is the
+    # JAX package's value for its fused-kernel backend)
     lbfgs_direction: str = "compact"
 
     # ADMM (the reference's consensus_admm_trio.py constants)
@@ -73,8 +78,19 @@ class ExperimentConfig:
     # reused in every outer loop
     shuffle_group_order: bool = False
 
+    # 'auto': restore the newest readable checkpoint under checkpoint_dir
+    # if there is one, else start fresh (load_model instead requires one)
+    resume: str = "off"
+    init_model: bool = True  # common-seed init across clients
+    load_model: bool = False
+    save_model: bool = False  # checkpoint after every outer loop and at the end
+    check_results: bool = True  # evaluate after each averaging round
+    # with check_results, also evaluate after every minibatch
+    eval_every_batch: bool = False
+
     seed: int = 0
     eval_batch: int = 500
+    checkpoint_dir: str = "./checkpoints"
     # train only the first N groups of the partition order (None = all)
     max_groups: int | None = None
 
@@ -83,10 +99,14 @@ class ExperimentConfig:
     def __post_init__(self):
         if self.model not in MODELS:
             raise ValueError(f"model must be one of {sorted(MODELS)}, got {self.model!r}")
-        if self.strategy not in ("fedavg", "admm"):
-            raise ValueError(f"strategy {self.strategy!r} is not ported yet (only 'fedavg' and 'admm')")
-        if self.reg_mode not in ("active_linear", "none"):
-            raise ValueError(f"reg_mode must be 'active_linear' or 'none', got {self.reg_mode!r}")
+        if self.resume not in ("off", "auto"):
+            raise ValueError(f"resume must be 'off' or 'auto', got {self.resume!r}")
+        if self.strategy not in ("none", "fedavg", "admm"):
+            raise ValueError(f"strategy must be 'none', 'fedavg' or 'admm', got {self.strategy!r}")
+        if self.reg_mode not in ("active_linear", "first_linear", "none"):
+            raise ValueError(
+                f"reg_mode must be 'active_linear', 'first_linear' or 'none', got {self.reg_mode!r}"
+            )
         if self.lbfgs_direction not in DIRECTIONS:
             raise ValueError(
                 f"lbfgs_direction must be one of {sorted(DIRECTIONS)}, got {self.lbfgs_direction!r}"
@@ -122,6 +142,19 @@ class ExperimentConfig:
 
 # The reference's experiment scripts as presets (the JAX package's definitions).
 PRESETS = {
+    # no_consensus_trio.py: Net1, batch 32, 12 epochs of independent
+    # training, fc1-only elastic net, each client its own initial draw
+    "no_consensus": ExperimentConfig(
+        name="no_consensus",
+        model="net1",
+        batch=32,
+        strategy="none",
+        nloop=1,
+        nepoch=12,
+        nadmm=1,
+        reg_mode="first_linear",
+        init_model=False,
+    ),
     # federated_trio.py: Net, K=3, batch 512, Nloop=12, Nadmm=3
     "fedavg": ExperimentConfig(name="fedavg", model="net", strategy="fedavg"),
     # federated_trio_resnet.py: ResNet18, batch 32, no regularization, the

@@ -1,13 +1,15 @@
 """Per-group step functions: client training step, epoch, consensus, eval.
 
-Counterpart of the fedavg and admm paths of the JAX package's
+Counterpart of the none, fedavg and admm paths of the JAX package's
 `engine/steps.py`. The K clients are the leading axis of every tensor
 (`flat [K, N]`), as the JAX package `vmap`s them; the model's
 `forward_batched` runs all clients in one launch per layer.
 
+* `objective` — the clients' loss at the active group's coordinates.
 * `client_train_step` — one L-BFGS step of every client on the active
   group's coordinates, with the elastic net on that group when it is a
-  linear layer and, under ADMM, the augmented-Lagrangian term. The
+  linear layer or on fixed segments of the full vector (`reg_segments`)
+  and, under ADMM, the augmented-Lagrangian term. The
   per-batch diagnostic loss and a BatchNorm model's new running
   statistics are folded into the accepted line-search evaluation (the
   JAX package's `fold` path): the Armijo-accepted evaluation is at the
@@ -15,7 +17,8 @@ Counterpart of the fedavg and admm paths of the JAX package's
   an extra model pass, and no line-search probe touches the statistics.
 * `run_epoch` — the lockstep minibatches of one epoch.
 * `round_init` — a fresh optimizer state and consensus state per group
-  round (FedAvg: z = 0; ADMM: y = z = 0, rho = rho0).
+  round (independent training: none; FedAvg: z = 0; ADMM: y = z = 0,
+  rho = rho0).
 * `fedavg_consensus` — z = client mean of the group, broadcast back.
 * `admm_consensus` — BB rho (when due), z-update, y-update; the clients
   keep their own x.
@@ -47,7 +50,7 @@ from ..data import normalize
 from ..models import PartitionedModel
 from ..optim import LBFGSConfig, LBFGSState, lbfgs_init, lbfgs_step
 from ..optim.linesearch import select
-from ..partition import Partition, leaf_offsets, unflatten_params
+from ..partition import Partition, Segment, leaf_offsets, unflatten_params
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,10 +63,13 @@ class GroupContext:
     gid: int
     lbfgs: LBFGSConfig
     reg_on_active: bool  # elastic net on the active (linear) group
+    # elastic net on these fixed segments of the full vector (reg_mode
+    # first_linear: the model's first linear group)
+    reg_segments: Tuple[Segment, ...] = ()
     lambda1: float = 1e-4
     lambda2: float = 1e-4
     moe_aux_coef: float = 0.0  # weight of the MoE load-balance term (0: the model has no experts)
-    strategy: str = "fedavg"  # fedavg | admm
+    strategy: str = "fedavg"  # none | fedavg | admm
     admm: ADMMConfig = ADMMConfig()
 
 
@@ -116,6 +122,33 @@ def _group_params(ctx: GroupContext, base: torch.Tensor, x: torch.Tensor) -> dic
     return params
 
 
+def _segments(ctx: GroupContext, base: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """`ctx.reg_segments` of the full vector `[K, N]` with the active group
+    taken from `x`, concatenated: the coordinates the group trains carry
+    its gradient, the frozen ones are constants. Under strategy 'none' the
+    group is the whole vector, so every segment is read from `x`."""
+    full = ctx.partition.insert(base, ctx.gid, x)
+    parts = [full[:, s.start : s.start + s.size] for s in ctx.reg_segments]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+
+def objective(ctx: GroupContext, base: torch.Tensor, x: torch.Tensor, stats: dict, images, labels, cstate=None):
+    """The clients' objective `[K]` at the active group's coordinates
+    `x [K, G]` (the rest of the parameters from `base [K, N]`): the data
+    loss, the elastic net on the active group or on `ctx.reg_segments`,
+    and under ADMM the augmented-Lagrangian term. Returns `(objective,
+    data loss, new statistics)` on normalized `images`."""
+    dl, new_stats = data_loss_and_stats(ctx, _group_params(ctx, base, x), stats, images, labels)
+    loss = dl
+    if ctx.reg_on_active:
+        loss = loss + elastic_net(x, ctx.lambda1, ctx.lambda2)
+    if ctx.reg_segments:
+        loss = loss + elastic_net(_segments(ctx, base, x), ctx.lambda1, ctx.lambda2)
+    if ctx.strategy == "admm":
+        loss = loss + admm_penalty(x, cstate.y, cstate.z, cstate.rho)
+    return loss, dl, new_stats
+
+
 def client_train_step(
     ctx: GroupContext,
     flat: torch.Tensor,
@@ -140,17 +173,12 @@ def client_train_step(
     base = flat.detach()
     names = list(stats)
 
-    def objective(x):
-        dl, new_stats = data_loss_and_stats(ctx, _group_params(ctx, base, x), stats, images, labels)
-        loss = dl
-        if ctx.reg_on_active:
-            loss = loss + elastic_net(x, ctx.lambda1, ctx.lambda2)
-        if ctx.strategy == "admm":
-            loss = loss + admm_penalty(x, cstate.y, cstate.z, cstate.rho)
+    def loss_fn(x):
+        loss, dl, new_stats = objective(ctx, base, x, stats, images, labels, cstate)
         return loss, (dl, *(new_stats[n] for n in names))
 
     x0 = ctx.partition.extract(flat, ctx.gid).contiguous()
-    x1, lstate, aux = lbfgs_step(objective, x0, lstate, ctx.lbfgs, has_aux=True)
+    x1, lstate, aux = lbfgs_step(loss_fn, x0, lstate, ctx.lbfgs, has_aux=True)
     ctx.partition.insert_(flat, ctx.gid, x1)
     dl_final, *stats_final = aux.aux
     stats = dict(zip(names, select(aux.aux_ok, tuple(stats_final), tuple(stats[n] for n in names))))
@@ -166,19 +194,30 @@ def epoch_batches(shard_imgs, shard_labels, idx: np.ndarray):
         yield shard_imgs[rows, idx_t[s]], shard_labels[rows, idx_t[s]]
 
 
-def run_epoch(ctx, flat, lstate, stats, shard_imgs, shard_labels, idx, mean, std, cstate=None):
-    """One epoch over `idx [S, K, B]`; returns (flat, lstate, stats, losses [S, K])."""
+def run_epoch(ctx, flat, lstate, stats, shard_imgs, shard_labels, idx, mean, std, cstate=None, after_step=None):
+    """One epoch over `idx [S, K, B]`; returns (flat, lstate, stats, losses [S, K]).
+
+    `after_step(s, flat, stats)`, when given, is called after minibatch `s`
+    with the parameters and statistics that step left (per-minibatch
+    evaluation)."""
     losses = []
-    for images, labels in epoch_batches(shard_imgs, shard_labels, idx):
+    for s, (images, labels) in enumerate(epoch_batches(shard_imgs, shard_labels, idx)):
         flat, lstate, stats, loss = client_train_step(ctx, flat, lstate, stats, images, labels, mean, std, cstate)
         losses.append(loss)
+        if after_step is not None:
+            after_step(s, flat, stats)
     return flat, lstate, stats, torch.stack(losses)
 
 
-def round_init(ctx: GroupContext, flat: torch.Tensor) -> Tuple[LBFGSState, Union[FedAvgState, ADMMState]]:
-    """Fresh per-group optimizer state and consensus state: FedAvg's z = 0,
-    or ADMM's y = z = 0, rho = rho0 (the trainer carries rho across loops)."""
+def round_init(
+    ctx: GroupContext, flat: torch.Tensor
+) -> Tuple[LBFGSState, Union[None, FedAvgState, ADMMState]]:
+    """Fresh per-group optimizer state and consensus state: none for
+    independent training, FedAvg's z = 0, or ADMM's y = z = 0, rho = rho0
+    (the trainer carries rho across loops)."""
     x = ctx.partition.extract(flat, ctx.gid).contiguous()
+    if ctx.strategy == "none":
+        return lbfgs_init(x, ctx.lbfgs), None
     if ctx.strategy == "admm":
         return lbfgs_init(x, ctx.lbfgs), admm_init(x, ctx.admm)
     return lbfgs_init(x, ctx.lbfgs), fedavg_init(x.shape[1], device=x.device, dtype=x.dtype)

@@ -1,12 +1,17 @@
 """The experiment loop: Nloop{groups{Nadmm{epochs{batches}}}}.
 
-Counterpart of the fedavg and admm paths of the JAX package's
-`engine/trainer.py`, without its cohort, fault, robust-aggregation, codec,
-observability and fused-round machinery. Kept from it:
+Counterpart of the none, fedavg and admm paths of the JAX package's
+`engine/trainer.py`, with its checkpoint and resume, without its cohort,
+fault, robust-aggregation, codec, observability and fused-round
+machinery. Kept from it:
 
 * the group order is the model's `TRAIN_ORDER`, or with
   `shuffle_group_order` one `np.random.RandomState(0)` permutation of the
-  groups reused in every outer loop, then cut to `max_groups`;
+  groups reused in every outer loop, then cut to `max_groups`; under
+  strategy 'none' (independent training) the partition is one group, the
+  whole vector, and nothing is exchanged;
+* every client starts from the same draw, or with `init_model=False` from
+  its own (`init_client_params(common=False)`);
 * each client reshuffles its shard every epoch with the same numpy
   recipe (`_epoch_seed(seed + 69, nloop, gid, nadmm, epoch)`), so both
   packages train on identical minibatches;
@@ -17,7 +22,15 @@ observability and fused-round machinery. Kept from it:
   rho persists across outer loops in `_rho_store`);
 * a BatchNorm model's running statistics `{name: [K, C]}` are client
   state beside the flat parameters, never averaged or exchanged;
-* every client is evaluated on the full test set after each exchange.
+* with `check_results`, every client is evaluated on the full test set
+  after each exchange, after every epoch under strategy 'none', and with
+  `eval_every_batch` after every minibatch too (the round-end record is
+  then skipped under 'none', where it would repeat the last one);
+* with `save_model` the full state is checkpointed after every outer
+  loop and once more at the end (`utils/checkpoint.py`); `load_model`
+  restores the newest readable checkpoint and requires one, `resume="auto"`
+  restores one if there is one, and `run()` continues from the restored
+  loop cursor.
 
 All state lives on `device` (the card unless the caller asks for the
 CPU): the flat client parameters `[K, N]`, the statistics, the client
@@ -35,9 +48,17 @@ import torch
 
 from ..data import load_cifar, make_federated
 from ..models import MODELS, init_client_params
-from ..utils import MetricsRecorder, resolve_device
+from ..partition import Partition, Segment
+from ..utils import MetricsRecorder, load_checkpoint, resolve_device, save_checkpoint
 from .config import ExperimentConfig
-from .steps import GroupContext, admm_consensus, evaluate, fedavg_consensus, round_init, run_epoch
+from .steps import (
+    GroupContext,
+    admm_consensus,
+    evaluate,
+    fedavg_consensus,
+    round_init,
+    run_epoch,
+)
 
 
 def build_model(cfg: ExperimentConfig, num_classes: int):
@@ -71,8 +92,8 @@ class Trainer:
         init_stats: Optional[Mapping[str, np.ndarray]] = None,
     ):
         """`device` overrides `cfg.device`; `init_flat` (`[N]` or `[K, N]`,
-        in this package's flat order) replaces the common-seed init, e.g.
-        with parameters converted from the JAX package (`convert.py`), and
+        in this package's flat order) replaces the seeded init, e.g. with
+        parameters converted from the JAX package (`convert.py`), and
         `init_stats` (`{name: [C] or [K, C]}`) a BatchNorm model's initial
         running statistics (`convert.stats_from_jax`)."""
         self.cfg = cfg
@@ -96,17 +117,24 @@ class Trainer:
         self.model = build_model(cfg, self.fed.num_classes).to(self.device)
         self.model.requires_grad_(False)  # parameters live in `self.flat`
         self.shapes = self.model.shapes()
-        self.partition = self.model.partition()
-        self.n_params = self.partition.total
-        order = list(self.partition.train_order)
-        if cfg.shuffle_group_order:
-            order = list(np.random.RandomState(0).permutation(self.partition.num_groups))
-        if cfg.max_groups is not None:
-            order = order[: cfg.max_groups]
-        self.group_order = [int(g) for g in order]
+        # the model's layer groups; the training partition is the same, or
+        # the one whole-vector group of independent training
+        self.model_partition = self.model.partition()
+        self.n_params = self.model_partition.total
+        if cfg.strategy == "none":
+            self.partition = Partition(groups=((Segment(0, self.n_params),),), total=self.n_params)
+            self.group_order = [0]
+        else:
+            self.partition = self.model_partition
+            order = list(self.partition.train_order)
+            if cfg.shuffle_group_order:
+                order = list(np.random.RandomState(0).permutation(self.partition.num_groups))
+            if cfg.max_groups is not None:
+                order = order[: cfg.max_groups]
+            self.group_order = [int(g) for g in order]
 
         if init_flat is None:
-            self.flat = init_client_params(self.model, cfg.n_clients, cfg.seed, self.device)
+            self.flat = init_client_params(self.model, cfg.n_clients, cfg.seed, self.device, common=cfg.init_model)
         else:
             f = torch.as_tensor(np.asarray(init_flat, np.float32))
             if f.ndim == 1:
@@ -123,6 +151,7 @@ class Trainer:
                 self.stats[name] = t.expand_as(self.stats[name]).contiguous().to(self.device)
         # each group's ADMM rho `[K, 1]`, carried from one outer loop to the next
         self._rho_store: Dict[int, torch.Tensor] = {}
+        self._completed_nloops = 0
 
         dev = self.device
         self.shard_imgs = torch.from_numpy(self.fed.train_images).to(dev)
@@ -135,12 +164,22 @@ class Trainer:
         self.test_mask = torch.from_numpy(np.stack(masks)).to(dev)
         self._test_total = int(self.fed.test_images.shape[0])
 
+        if cfg.load_model or cfg.resume == "auto":
+            try:
+                self._restore()
+            except FileNotFoundError:
+                if cfg.load_model:
+                    raise  # load_model requires a checkpoint; resume='auto' starts fresh
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def ctx(self, gid: int) -> GroupContext:
         cfg = self.cfg
+        reg_segments = ()
+        if cfg.reg_mode == "first_linear" and self.model_partition.linear_group_ids:
+            reg_segments = self.model_partition.groups[self.model_partition.linear_group_ids[0]]
         return GroupContext(
             model=self.model,
             shapes=self.shapes,
@@ -148,6 +187,7 @@ class Trainer:
             gid=gid,
             lbfgs=cfg.lbfgs_config(),
             reg_on_active=cfg.reg_mode == "active_linear" and gid in self.partition.linear_group_ids,
+            reg_segments=reg_segments,
             lambda1=cfg.lambda1,
             lambda2=cfg.lambda2,
             # the load-balance term enters the loss only where the model has experts
@@ -176,7 +216,8 @@ class Trainer:
         """One group's round: fresh state, then Nadmm x (epochs + exchange)."""
         cfg, rec = self.cfg, self.recorder
         ctx = self.ctx(gid)
-        admm = cfg.strategy == "admm"
+        admm, none = cfg.strategy == "admm", cfg.strategy == "none"
+        per_batch_eval = cfg.check_results and cfg.eval_every_batch
         t_round = time.perf_counter()
         lstate, cstate = round_init(ctx, self.flat)
         if admm and gid in self._rho_store:
@@ -184,26 +225,46 @@ class Trainer:
         for a in range(cfg.nadmm):
             for e in range(cfg.nepoch):
                 idx = self.epoch_indices(nloop, gid, a, e)
+                after_step = None
+                if per_batch_eval:
+                    def after_step(s, flat, stats, a=a, e=e):
+                        self.flat, self.stats = flat, stats
+                        # nested in the epoch's phase: its seconds include these
+                        with rec.phase("eval", sync=self._sync, nloop=nloop, group=gid, nadmm=a, epoch=e,
+                                       minibatch=s):
+                            accs = self.evaluate()
+                        rec.accuracies(accs, nloop=nloop, group=gid, nadmm=a, epoch=e, minibatch=s)
                 with rec.phase("epoch", sync=self._sync, nloop=nloop, group=gid, nadmm=a, epoch=e):
                     self.flat, lstate, self.stats, losses = run_epoch(
                         ctx, self.flat, lstate, self.stats, self.shard_imgs, self.shard_labels,
-                        idx, self.mean, self.std, cstate if admm else None,
+                        idx, self.mean, self.std, cstate if admm else None, after_step,
                     )
                     losses = losses.cpu().numpy()
                 for s in range(losses.shape[0]):
                     rec.batch_losses(losses[s], nloop=nloop, group=gid, nadmm=a, epoch=e, minibatch=s)
-            with rec.phase("consensus", sync=self._sync, nloop=nloop, group=gid, nadmm=a):
-                if admm:
-                    cstate, met = admm_consensus(ctx, self.flat, cstate, a)
-                    primal, dual, mean_rho = (float(met[n]) for n in ("primal_residual", "dual_residual", "mean_rho"))
-                else:
-                    self.flat, cstate, dual = fedavg_consensus(ctx, self.flat, cstate)
-                    primal, dual, mean_rho = None, float(dual), None
-            rec.residuals(primal, dual, mean_rho, nloop=nloop, group=gid, nadmm=a,
-                          group_size=self.partition.group_size(gid))
-            with rec.phase("eval", sync=self._sync, nloop=nloop, group=gid, nadmm=a):
-                accs = self.evaluate()
-            rec.accuracies(accs, nloop=nloop, group=gid, nadmm=a)
+                if none and cfg.check_results and not per_batch_eval:
+                    # independent training has no exchange: evaluate after every epoch
+                    with rec.phase("eval", sync=self._sync, nloop=nloop, group=gid, nadmm=a, epoch=e):
+                        accs = self.evaluate()
+                    rec.accuracies(accs, nloop=nloop, group=gid, nadmm=a, epoch=e)
+            if not none:
+                with rec.phase("consensus", sync=self._sync, nloop=nloop, group=gid, nadmm=a):
+                    if admm:
+                        cstate, met = admm_consensus(ctx, self.flat, cstate, a)
+                        primal, dual, mean_rho = (
+                            float(met[n]) for n in ("primal_residual", "dual_residual", "mean_rho")
+                        )
+                    else:
+                        self.flat, cstate, dual = fedavg_consensus(ctx, self.flat, cstate)
+                        primal, dual, mean_rho = None, float(dual), None
+                rec.residuals(primal, dual, mean_rho, nloop=nloop, group=gid, nadmm=a,
+                              group_size=self.partition.group_size(gid))
+            # under 'none' with per-minibatch evaluation the parameters are
+            # those of the last record: a round-end record would repeat it
+            if cfg.check_results and not (cfg.eval_every_batch and none):
+                with rec.phase("eval", sync=self._sync, nloop=nloop, group=gid, nadmm=a):
+                    accs = self.evaluate()
+                rec.accuracies(accs, nloop=nloop, group=gid, nadmm=a)
         if admm:
             self._rho_store[gid] = cstate.rho
         rec.objective_passes(lstate, nloop=nloop, group=gid)
@@ -216,8 +277,51 @@ class Trainer:
             self.run_round(nloop, gid)
 
     def run(self) -> MetricsRecorder:
-        """The full experiment (all Nloop outer loops)."""
-        for nloop in range(self.cfg.nloop):
+        """The experiment's outer loops from the restored cursor on (all
+        Nloop of them in a fresh run), checkpointing with `save_model`."""
+        start = self._completed_nloops
+        for nloop in range(start, self.cfg.nloop):
             self.run_loop(nloop)
+            self._completed_nloops = nloop + 1
+            if self.cfg.save_model:
+                self.save(step=self._completed_nloops)
+        if self.cfg.save_model and start >= self.cfg.nloop:
+            # no loop ran: the end still leaves a checkpoint at step nloop
+            self.save(step=self.cfg.nloop)
         return self.recorder
 
+    # ----------------------------------------------------------- checkpoint
+
+    def save(self, step: int) -> str:
+        """Write the full state as checkpoint `step`; returns its path."""
+        state = {
+            "flat": self.flat,
+            "batch_stats": dict(self.stats),
+            "completed_nloops": self._completed_nloops,
+            # rho is the one piece of consensus state that outlives a round
+            "rho_store": {str(g): r for g, r in self._rho_store.items()},
+        }
+        return save_checkpoint(self.cfg.checkpoint_dir, state, step=step)
+
+    def _restore(self) -> None:
+        """Restore the newest readable checkpoint (`load_checkpoint` falls
+        back past one that does not load); FileNotFoundError if there is
+        none. A checkpoint that loads but does not fit this run (another
+        model or client count) raises."""
+        self._apply_restore(load_checkpoint(self.cfg.checkpoint_dir))
+
+    def _apply_restore(self, state: dict) -> None:
+        flat = state["flat"]
+        if tuple(flat.shape) != tuple(self.flat.shape):
+            raise ValueError(f"checkpoint flat has shape {tuple(flat.shape)}, want {tuple(self.flat.shape)}")
+        stats = state["batch_stats"]
+        if sorted(stats) != sorted(self.stats):
+            raise ValueError(f"checkpoint statistics have keys {sorted(stats)}, want {sorted(self.stats)}")
+        self.flat = flat.to(self.device).contiguous()
+        self.stats = {n: stats[n].to(self.device) for n in self.stats}
+        self._completed_nloops = int(state["completed_nloops"])
+        # cleared before the refill: a failed newer step must leave no
+        # entry that an older checkpoint does not carry
+        self._rho_store.clear()
+        for g, r in state["rho_store"].items():
+            self._rho_store[int(g)] = r.to(self.device)

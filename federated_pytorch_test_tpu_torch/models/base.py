@@ -18,6 +18,7 @@ from __future__ import annotations
 import math
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -151,10 +152,14 @@ class PartitionedModel(nn.Module):
 
 
 def init_client_params(
-    model: PartitionedModel, n_clients: int, seed: int = 0, device="cuda"
+    model: PartitionedModel, n_clients: int, seed: int = 0, device="cuda", common: bool = True
 ) -> torch.Tensor:
-    """K identical clients (common-seed init) as a flat `[K, N]` tensor on
-    `device` (the card unless the caller asks for the CPU).
+    """K clients' initial parameters as a flat `[K, N]` tensor on `device`
+    (the card unless the caller asks for the CPU).
+
+    `common=True`: every client gets the same draw, from `seed`. Otherwise
+    each client k draws from its own generator, seeded from `(seed, k)`
+    (the reference's independently constructed networks).
 
     The JAX package draws with `jax.random` (and runs a forward pass to
     learn the shapes); the port draws from a `torch.Generator` and runs
@@ -162,7 +167,12 @@ def init_client_params(
     (`convert.py`) instead of comparing draws.
     """
     dev = resolve_device(device)
-    gen = torch.Generator().manual_seed(seed)
-    model.reset_parameters_(gen)
-    flat = flatten_params({n: p.detach() for n, p in model.named_parameters()})
-    return flat[None].expand(n_clients, -1).contiguous().to(dev)
+
+    def draw(gen_seed: int) -> torch.Tensor:
+        model.reset_parameters_(torch.Generator().manual_seed(gen_seed))
+        return flatten_params({n: p.detach() for n, p in model.named_parameters()})
+
+    if common:
+        return draw(seed)[None].expand(n_clients, -1).contiguous().to(dev)
+    seeds = [int(np.random.SeedSequence([seed, k]).generate_state(1, np.uint64)[0]) for k in range(n_clients)]
+    return torch.stack([draw(s) for s in seeds]).to(dev)

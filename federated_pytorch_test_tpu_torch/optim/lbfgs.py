@@ -15,10 +15,11 @@ line-search path — the path the engine runs. Kept from it:
 * the `has_aux` fold: the accepted evaluation's aux is returned, so the
   engine needs no extra diagnostic forward.
 
-The two-loop direction and the cubic full-batch search are not ported
-yet; `direction` is `"compact"` (plain PyTorch) or `"pallas"` (the fused
-CUDA kernels of `ops/compact_cuda.py`; the name is the JAX package's
-config value).
+The cubic full-batch search is not ported yet. `direction` is
+`"compact"` (plain PyTorch), `"two_loop"` (the sequential recursion,
+plain PyTorch, as the JAX package's is plain XLA) or `"pallas"` (the
+fused CUDA kernels of `ops/compact_cuda.py`; the name is the JAX
+package's config value).
 
 Batching. Every tensor has a leading client axis `[K, ...]`, and
 `loss_fn` maps `x [K, N]` to per-client losses `[K]`. The JAX package
@@ -49,7 +50,33 @@ def _cuda_direction(g, s_hist, y_hist, count, h_diag):
     return compact_direction_cuda(g, s_hist, y_hist, count, h_diag)
 
 
-DIRECTIONS = {"compact": compact_direction, "pallas": _cuda_direction}
+def _two_loop_direction(g, s_hist, y_hist, count, h_diag):
+    """Masked two-loop recursion: -H·g over the valid history slots, K
+    clients at once (`g [K, N]`, `s_hist`/`y_hist [K, m, N]`, `count [K]`,
+    `h_diag [K]`).
+
+    The JAX package's `_two_loop_direction` batched over the clients:
+    slots `i >= count` and slots with `y·s = 0` get rho = 0 (a safe
+    reciprocal), so their coefficients vanish.
+    """
+    m = s_hist.shape[1]
+    ys = (y_hist * s_hist).sum(-1)  # [K, m]
+    valid = torch.arange(m, device=g.device)[None, :] < count[:, None]
+    nz = ys != 0.0
+    ro = torch.where(valid & nz, 1.0 / torch.where(nz, ys, torch.ones_like(ys)), torch.zeros_like(ys))
+    q = -g
+    al = [None] * m
+    for i in reversed(range(m)):
+        al[i] = (s_hist[:, i] * q).sum(-1) * ro[:, i]
+        q = q - al[i][:, None] * y_hist[:, i]
+    r = q * h_diag[:, None]
+    for i in range(m):
+        b = (y_hist[:, i] * r).sum(-1) * ro[:, i]
+        r = r + (al[i] - b)[:, None] * s_hist[:, i]
+    return r
+
+
+DIRECTIONS = {"compact": compact_direction, "two_loop": _two_loop_direction, "pallas": _cuda_direction}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,10 +98,7 @@ class LBFGSConfig:
 
     def __post_init__(self):
         if self.direction not in DIRECTIONS:
-            raise ValueError(
-                f"direction must be one of {sorted(DIRECTIONS)}, got {self.direction!r} "
-                "('two_loop' is not ported yet)"
-            )
+            raise ValueError(f"direction must be one of {sorted(DIRECTIONS)}, got {self.direction!r}")
 
     @property
     def resolved_max_eval(self) -> int:

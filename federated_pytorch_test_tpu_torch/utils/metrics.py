@@ -1,7 +1,7 @@
 """Training observability: the metric series and their grep-able lines.
 
 Counterpart of the subset of the JAX package's `utils/metrics.py` that the
-fedavg and admm paths record: per-client per-batch training loss, the
+none, fedavg and admm paths record: per-client per-batch training loss, the
 per-round residuals (dual; and under ADMM primal and the mean rho),
 per-client test accuracy and phase wall times; and, the
 port's own, each round's batched model passes (`objective_passes`). Every
@@ -91,10 +91,16 @@ class MetricsRecorder:
             r = f",{float(mean_rho):f}" if mean_rho is not None else ""
             print(f"layer={group}({group_size}{r}) ADMM={nadmm}{p} dual={float(dual):e}")
 
-    def accuracies(self, accs, *, nloop, group, nadmm) -> None:
-        """Per-client top-1 test accuracy (fractions in [0, 1])."""
+    def accuracies(self, accs, *, nloop, group, nadmm, epoch=None, minibatch=None) -> None:
+        """Per-client top-1 test accuracy (fractions in [0, 1]); `epoch` and
+        `minibatch` are set on the per-epoch and per-minibatch cadences."""
         vals = [float(a) for a in accs]
-        self.log("test_accuracy", vals, nloop=nloop, group=group, nadmm=nadmm)
+        ctx = dict(nloop=nloop, group=group, nadmm=nadmm)
+        if epoch is not None:
+            ctx["epoch"] = epoch
+        if minibatch is not None:
+            ctx["minibatch"] = minibatch
+        self.log("test_accuracy", vals, **ctx)
         if self.verbose:
             for k, a in enumerate(vals):
                 print(f"Accuracy of client {k + 1} on the test images: {100.0 * a:.2f} %")

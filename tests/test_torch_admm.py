@@ -260,6 +260,9 @@ def test_clients_keep_distinct_x_after_an_admm_round():
 
 def test_config_accepts_admm_and_still_refuses_the_rest():
     assert get_preset("admm").admm_config() == ADMMConfig(rho0=1e-3, bb_update=True)
-    for bad in (dict(strategy="none"), dict(reg_mode="first_linear"), dict(bb_period=0)):
+    # 'none' and 'first_linear' are ported (the no_consensus preset); values
+    # neither package knows, and a zero BB period, are refused
+    assert get_preset("admm", strategy="none", reg_mode="first_linear").strategy == "none"
+    for bad in (dict(strategy="gossip"), dict(reg_mode="all"), dict(bb_period=0)):
         with pytest.raises(ValueError):
             get_preset("admm", **bad)

@@ -11,7 +11,8 @@ the LM at S = 128 over all six groups (the embedding, every block and the
 head: 4, 4..1 and 0 attention layers behind the active group), the ViT
 with the fused direction over its first two groups, two averaging rounds
 and evaluations each, the admm drive (Net, two groups, three ADMM rounds
-each), and the switch-MoE ViT over the ViT's two groups, whose grouped
+each), the no_consensus drive (Net1, one group, two epochs), and the
+switch-MoE ViT over the ViT's two groups, whose grouped
 GEMM launches twice a block in every forward, twice in each
 block the gradient crosses and twice more (the weight gradients) in the
 block the group trains (`expected_grouped`). Counts are exact: no
@@ -89,6 +90,21 @@ def test_admm_launches_equal_the_count_its_records_imply(monkeypatch):
     rec = tr.run()
     exp = chip_smoke.expected_launches(rec)
     assert len(rec.series["objective_passes"]) == 2 and exp["direction"] > 0
+    assert counts == {"fused_gram_projections": exp["direction"], "fused_direction_assembly": exp["direction"]}
+
+
+def test_no_consensus_launches_equal_the_count_its_records_imply(monkeypatch):
+    # the no_consensus drive of tests/test_torch_no_consensus_slice.py (Net1,
+    # the whole vector one group, two epochs): one direction per inner
+    # iteration; the per-epoch evaluations launch no compact kernel
+    counts = {}
+    _count_calls(monkeypatch, compact_cuda, tuple(compact_cuda.LAUNCHES), counts)
+    cfg = get_preset("no_consensus", batch=40, nepoch=2, eval_batch=30, lbfgs_direction="pallas", device="cpu")
+    tr = Trainer(cfg, verbose=False, source=synthetic_cifar(240, 60))
+    rec = tr.run()
+    exp = chip_smoke.expected_launches(rec)
+    assert len(rec.series["objective_passes"]) == 1 and len(rec.series["test_accuracy"]) == 3
+    assert exp["direction"] > 0
     assert counts == {"fused_gram_projections": exp["direction"], "fused_direction_assembly": exp["direction"]}
 
 

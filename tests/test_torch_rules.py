@@ -22,6 +22,7 @@ def test_import_loads_no_jax():
         "import sys, federated_pytorch_test_tpu_torch, federated_pytorch_test_tpu_torch.__main__\n"
         "import federated_pytorch_test_tpu_torch.convert, federated_pytorch_test_tpu_torch.federated_lm\n"
         "import federated_pytorch_test_tpu_torch.ops.flash_cuda\n"
+        "import federated_pytorch_test_tpu_torch.utils.checkpoint\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'federated_pytorch_test_tpu'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
@@ -30,7 +31,11 @@ def test_import_loads_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
-@pytest.mark.parametrize("path", [*sorted(PKG.rglob("*.py")), ROOT / "chip_smoke.py"], ids=lambda p: p.name)
+@pytest.mark.parametrize(
+    "path",
+    [*sorted(PKG.rglob("*.py")), ROOT / "chip_smoke.py", ROOT / "chip_sweep.py", ROOT / "no_consensus_probe.py"],
+    ids=lambda p: p.name,
+)
 def test_no_module_names_the_jax_package(path):
     text = path.read_text()
     assert not re.search(r"federated_pytorch_test_tpu\.", text), path
