@@ -6,12 +6,16 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py [--metrics-out PATH] [--lm-metrics-out PATH] [--vit-metrics-out PATH]
                           [--vit-moe-metrics-out PATH] [--admm-metrics-out PATH]
                           [--resnet-metrics-out PATH] [--no-consensus-metrics-out PATH] [--profile]
-    python3 chip_smoke.py --ab-parent DIR
+    python3 chip_smoke.py --ab-parent DIR [--ab-phases phase_train,...]
 
 The second form runs none of the phases below: it times the grouped GEMM
-at every MoE ViT path shape, the gram at every Net group size and the
-train paths, of the checkout in DIR (e.g. the parent commit, `git
-archive`d) and of this one in turns, in fresh processes (`run_ab`).
+at every MoE ViT path shape, the gram at every Net group size, the
+assembly at every Net, Net1 and ResNet group size and the train phases
+named by `--ab-phases` (default: the Net, LM, ViT and MoE ViT trains), of
+the checkout in DIR (e.g. the parent commit, `git archive`d) and of this
+one in turns, in fresh processes (`run_ab`); it also says whether the
+assembly's outputs and the train phases' loss series are equal in bits
+across the turns of both checkouts.
 
 Phases, each reported on its own lines; any failure exits non-zero:
 
@@ -27,7 +31,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
               slot and a NaN-filled invalid row), relative 1e-5 of the
               largest reference entry; times of the kernel, the plain
               version, one PyTorch library call computing the same function
-              (a yardstick the port never calls) and the bound. Each
+              (a yardstick the port never calls) and the bound; the
+              assembly twice on the same inputs, equal bits. Each
               time is taken twice: per call as the caller sees it, host
               launch path included (`ms`), and on the device alone with
               the calls queued behind a sleep kernel (`device_ms`). At the
@@ -174,7 +179,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
               1e-5 of the data loss plus λ1‖fc1‖₁ + λ2‖fc1‖² computed apart
               in float64;
 19. compact at 890,410 — both compact kernels and the kernel direction at
-              the no_consensus path's N against the plain version computed
+              the no_consensus path's N, and at 890,408 beside it (rows
+              16-byte aligned), against the plain version computed
               in float64 (relative 1e-5), timed beside the bound, the plain
               version and the `matmul` yardstick; the plain `two_loop`
               direction at 48,120 and 890,410 against the plain compact
@@ -249,6 +255,7 @@ LARGE_SLACK = 2.0  # q, k x 8: the kernel's error from float64 may reach this mu
 QUEUED_CALLS = 50  # calls queued per device-only timing (a plain version launches ~8 kernels)
 RESNET_TRAIN, RESNET_TEST = 1_536, 10_000  # 16 minibatches of 32 per client; the full test set
 NO_CONSENSUS_N = 890_410  # Net1, the no_consensus path's one group: the whole vector
+ALIGNED_NO_CONSENSUS_N = 890_408  # beside it, the nearest N whose rows are 16-byte aligned
 NO_CONSENSUS_EPOCHS = 2  # of the preset's 12
 NO_CONSENSUS_PROFILE_STEPS = 50  # minibatches of the profiled no_consensus window, of ~520
 RESUME_TRAIN = 12_288  # 8 minibatches of 512 per client
@@ -475,6 +482,7 @@ def phase_kernels():
         asm = cc.fused_direction_assembly(s, y, g, w, u, h_diag, count)
         asm_ref = cc.fused_direction_assembly_plain(s, y, g, w, u, h_diag, count)
         errs["assembly"] = rel_err(asm, asm_ref)
+        asm_repeat = bitwise_equal(asm, cc.fused_direction_assembly(s, y, g, w, u, h_diag, count))
         direction = cc.compact_direction_cuda(g, s, y, count, h_diag)
         errs["direction"] = rel_err(direction, compact_direction(g, s, y, count, h_diag))
         # for information: both sides against a float64 reference of the projections
@@ -486,9 +494,12 @@ def phase_kernels():
         torch.cuda.synchronize()
         finite = all(bool(torch.isfinite(t).all()) for t in (*gram, asm, direction))
         worst = max(errs.values())
-        print(f"kernels N={n} " + " ".join(f"{k}={v:.3e}" for k, v in errs.items()) + f" finite={finite} {info}", flush=True)
+        print(f"kernels N={n} " + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+              + f" finite={finite} assembly_repeat_bitwise={asm_repeat} {info}", flush=True)
         if not finite or not worst <= RTOL:
             fail(f"kernel disagrees with its plain version at N={n}: {errs} (finite={finite})")
+        if not asm_repeat:
+            fail(f"fused_direction_assembly: two calls on the same inputs differ in bits at N={n}")
 
         # timings with a full history (count = m for every client): the
         # steady state of the optimizer, and every row is read
@@ -2064,12 +2075,13 @@ def no_consensus_train(metrics_out, profile: bool):
 
 
 def phase_compact_no_consensus() -> dict:
-    """Both compact kernels at the no_consensus path's N = 890,410 against
-    the plain version in float64 (at this N the float32 plain version's
-    sums are no reference, as at the ResNet sizes) and timed; the plain
-    `two_loop` direction at 48,120 and 890,410 against the plain compact
-    direction in float64, timed beside the kernel direction. Returns the
-    kernels' rows at 890,410."""
+    """Both compact kernels at the no_consensus path's N = 890,410, and at
+    890,408 beside it (rows 16-byte aligned), against the plain version in
+    float64 (at this N the float32 plain version's sums are no reference,
+    as at the ResNet sizes) and timed; the plain `two_loop` direction at
+    48,120 and 890,410 against the plain compact direction in float64,
+    timed beside the kernel direction. Returns the kernels' rows by N
+    (890,410 and 890,408)."""
     import torch
 
     from federated_pytorch_test_tpu_torch.ops import compact_cuda as cc
@@ -2080,9 +2092,9 @@ def phase_compact_no_consensus() -> dict:
         return float((out.double() - ref).abs().max() / ref.abs().max())
 
     rows = {}
-    for n in (REPORT_N, NO_CONSENSUS_N):
+    for n in (REPORT_N, NO_CONSENSUS_N, ALIGNED_NO_CONSENSUS_N):
         s, y, g, count, h_diag = history(n, seed=n)
-        if n == NO_CONSENSUS_N:
+        if n != REPORT_N:
             gram = cc.fused_gram_projections(s, y, g, count)
             ref = cc.fused_gram_projections_plain(s.double(), y.double(), g.double(), count)
             sy, yy, p, q = ref
@@ -2099,6 +2111,10 @@ def phase_compact_no_consensus() -> dict:
                 fail(f"compact kernel disagrees with its plain version in float64 at N={n}: {errs}")
             u, w = u.float(), w.float()
             del ref, asm_ref
+        if n == ALIGNED_NO_CONSENSUS_N:
+            rows[n] = compact_timings(s, y, g, w, u, h_diag, n)
+            del s, y, g
+            continue
         s.nan_to_num_(0.0)
         y.nan_to_num_(0.0)
         full = torch.full((K,), M, dtype=torch.int32, device="cuda")
@@ -2119,8 +2135,8 @@ def phase_compact_no_consensus() -> dict:
               f"kernel_ms={t_kernel[0]:.6f} kernel_device_ms={t_kernel[1]:.6f} "
               f"compact_plain_ms={t_plain[0]:.6f} compact_plain_device_ms={t_plain[1]:.6f}", flush=True)
         if n == NO_CONSENSUS_N:
-            rows = compact_timings(s, y, g, w, u, h_diag, n)
-            for r in rows.values():
+            rows[n] = compact_timings(s, y, g, w, u, h_diag, n)
+            for r in rows[n].values():
                 r["two_loop_ms"], r["two_loop_device_ms"] = t_two
                 r["direction_ms"], r["direction_device_ms"] = t_kernel
         del s, y, g
@@ -2199,12 +2215,17 @@ def phase_resume():
 
 
 # One turn of `--ab-parent`, run in a fresh process from the root of a
-# checkout: the device ms of the grouped GEMM at every MoE ViT path shape
-# and of the gram at every Net group size, as one JSON line; then
-# that checkout's train phases, the LM's group-0 epoch profiled, and their
-# walls as one JSON line.
+# checkout, its arguments JSON lists of train phases and of assembly sizes
+# (AB_ASSEMBLY_SIZES): the device ms of the
+# grouped GEMM at every MoE ViT path shape, of the gram at every Net group
+# size and of the assembly at every one of those sizes (full history), as
+# one JSON line; the digests of the assembly's outputs (with
+# `history`'s counts: a NaN-filled invalid row) and of each train phase's
+# loss series, as one JSON line; then the walls of those train phases of
+# that checkout (the LM's group-0 epoch profiled) as one JSON line.
 AB_TURN = """
-import json, sys
+import hashlib, json, os, sys, tempfile
+phases, asm_sizes = json.loads(sys.argv[1]), json.loads(sys.argv[2])
 sys.path.insert(0, ".")
 import chip_smoke as cs
 from federated_pytorch_test_tpu_torch.utils import configure_precision
@@ -2212,7 +2233,10 @@ configure_precision()
 import torch
 from federated_pytorch_test_tpu_torch.engine import get_preset
 from federated_pytorch_test_tpu_torch.ops import compact_cuda as cc
-times = {}
+from federated_pytorch_test_tpu_torch.optim.compact import compact_solves, history_valid
+def digest(t):
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()[:16]
+times, digests = {}, {}
 for i, (label, role, shapes) in enumerate(cs.grouped_cases(get_preset("fedavg", model="vit",
                                                                       model_kwargs=cs.VIT_MOE_KWARGS))):
     gen = torch.Generator(device="cuda").manual_seed(100 + i)
@@ -2227,24 +2251,53 @@ for n in cs.NET_GROUP_SIZES:
     y.nan_to_num_(0.0)
     times[f"gram N={n}"] = cs.time_ms(lambda: cc.fused_gram_projections(s, y, g, full), 200)[1]
     del s, y, g
+for n in asm_sizes:
+    s, y, g, count, h_diag = cs.history(n, seed=n)
+    sy, yy, p, q = cc.fused_gram_projections_plain(s, y, g, count)
+    u, w, _, _ = compact_solves(sy, p, q, history_valid(count, cs.M), h_diag,
+                                lambda uu: (torch.matmul(yy, uu[..., None])[..., 0], None))
+    digests[f"assembly N={n}"] = digest(cc.fused_direction_assembly(s, y, g, w, u, h_diag, count))
+    s.nan_to_num_(0.0)
+    y.nan_to_num_(0.0)
+    times[f"assembly N={n}"] = cs.time_ms(lambda: cc.fused_direction_assembly(s, y, g, w, u, h_diag, full),
+                                          20 if n > 200_000 else 200)[1]
+    del s, y, g
 print("ab kernels " + json.dumps(times), flush=True)
-walls = {p: getattr(cs, p)(None, p == "phase_lm_train")[1]
-         for p in ("phase_train", "phase_lm_train", "phase_vit_train", "phase_vit_moe_train") if hasattr(cs, p)}
+walls = {}
+with tempfile.TemporaryDirectory() as d:
+    for p in phases:
+        if not hasattr(cs, p):
+            continue
+        out = os.path.join(d, p + ".json")
+        walls[p] = getattr(cs, p)(out, p == "phase_lm_train")[1]
+        series = json.load(open(out))["series"] if os.path.exists(out) else {}
+        if "train_loss" in series:
+            losses = [r["value"] for r in series["train_loss"]]
+            digests[p + " train_loss"] = hashlib.sha256(json.dumps(losses).encode()).hexdigest()[:16]
+print("ab digests " + json.dumps(digests), flush=True)
 print("ab walls " + json.dumps(walls), flush=True)
 """
 AB_RUNS = 3  # turns of each checkout
+AB_PHASES = "phase_train,phase_lm_train,phase_vit_train,phase_vit_moe_train"  # `--ab-phases` default
+# the assembly's sizes in an A/B: Net's groups, Net1's whole vector and the
+# aligned N beside it, the ResNet18 groups (admm_resnet's, largest first)
+# and `LARGE_N`
+AB_ASSEMBLY_SIZES = (*NET_GROUP_SIZES, NO_CONSENSUS_N, ALIGNED_NO_CONSENSUS_N, 4_720_640, 3_673_088, 1_180_672,
+                     919_040, 295_424, 230_144, 73_984, 5_130, 1_856, LARGE_N)
 AB_BUILD = ("import sys; sys.path.insert(0, '.'); import chip_smoke as cs; "
             "from federated_pytorch_test_tpu_torch.ops import build; [build.build(n) for n in cs.SOURCES]")
 
 
-def run_ab(parent: str, runs: int) -> None:
-    """The kernel times and train walls of another checkout (`parent`, e.g.
-    `git archive` of the parent commit unpacked) and of this one, `runs`
-    turns each, in fresh processes taking turns parent, change, change,
-    parent, ... after both have built their kernels. Every line of a turn
-    is printed with its checkout's tag; then each kernel's device ms per
-    turn and the median ratio (change over parent), and each wall's pair
-    differences (change minus parent) and their median."""
+def run_ab(parent: str, runs: int, phases) -> None:
+    """The kernel times and the walls of the train `phases` of another
+    checkout (`parent`, e.g. `git archive` of the parent commit unpacked)
+    and of this one, `runs` turns each, in fresh processes taking turns
+    parent, change, change, parent, ... after both have built their
+    kernels. Every line of a turn is printed with its checkout's tag; then
+    each kernel's device ms per turn and the median ratio (change over
+    parent), each wall's pair differences (change minus parent) and their
+    median, and for each digest (an assembly output, a phase's loss series)
+    whether every turn of both checkouts gave the same bits."""
     import statistics
 
     trees = {"parent": os.path.abspath(parent), "change": HERE}
@@ -2256,15 +2309,19 @@ def run_ab(parent: str, runs: int) -> None:
     order = [("parent", "change"), ("change", "parent")]
     walls = {"parent": [], "change": []}
     kernel_ms = {"parent": [], "change": []}
+    digests = {"parent": [], "change": []}
+    args = [json.dumps(list(phases)), json.dumps(AB_ASSEMBLY_SIZES)]
     for turn in range(runs):
         for tag in order[turn % 2]:
-            proc = subprocess.run([sys.executable, "-c", AB_TURN], cwd=trees[tag], capture_output=True, text=True)
+            proc = subprocess.run([sys.executable, "-c", AB_TURN, *args], cwd=trees[tag], capture_output=True,
+                                  text=True)
             for line in (proc.stdout + proc.stderr).splitlines():
                 print(f"[{tag} {turn}] {line}", flush=True)
             if proc.returncode != 0:
                 fail(f"ab: the {tag} checkout's turn {turn} failed (exit {proc.returncode})")
             walls[tag].append(json.loads(proc.stdout.split("ab walls ")[-1].splitlines()[0]))
             kernel_ms[tag].append(json.loads(proc.stdout.split("ab kernels ")[-1].splitlines()[0]))
+            digests[tag].append(json.loads(proc.stdout.split("ab digests ")[-1].splitlines()[0]))
     for name in kernel_ms["change"][0]:
         par, chg = ([t[name] for t in kernel_ms[tag]] for tag in ("parent", "change"))
         print(f"ab device_ms {name} parent={[round(x, 6) for x in par]} change={[round(x, 6) for x in chg]} "
@@ -2274,6 +2331,11 @@ def run_ab(parent: str, runs: int) -> None:
         print(f"ab {phase} parent={[round(p[phase], 3) for p in walls['parent']]} "
               f"change={[round(c[phase], 3) for c in walls['change']]} "
               f"diffs={[round(x, 3) for x in diffs]} median_diff={statistics.median(diffs):.3f}", flush=True)
+    for key in digests["change"][0]:
+        par, chg = ([t.get(key) for t in digests[tag]] for tag in ("parent", "change"))
+        print(f"ab bitwise {key} parent_turns_equal={len(set(par)) == 1} change_turns_equal={len(set(chg)) == 1} "
+              f"parent_equals_change={set(par) == set(chg) and len(set(par)) == 1} "
+              f"parent={par[0]} change={chg[0]}", flush=True)
 
 
 def main() -> int:
@@ -2289,6 +2351,8 @@ def main() -> int:
     ap.add_argument("--ab-parent", metavar="DIR",
                     help="instead of the phases, time the train paths of the checkout in DIR and of this "
                          "one in turns (see run_ab)")
+    ap.add_argument("--ab-phases", default=AB_PHASES,
+                    help="the train phases an --ab-parent turn runs, comma-separated (default: %(default)s)")
     args = ap.parse_args()
 
     import torch
@@ -2312,7 +2376,7 @@ def main() -> int:
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}", flush=True)
     if args.ab_parent:
-        run_ab(args.ab_parent, AB_RUNS)
+        run_ab(args.ab_parent, AB_RUNS, [p for p in args.ab_phases.split(",") if p])
         return 0
 
     def timed_build(name):
@@ -2383,9 +2447,11 @@ def main() -> int:
             # the same at the no_consensus path's one group (Net1's whole
             # vector), with the plain two_loop direction and the kernel
             # direction (both kernels and the small solves) beside them
-            "no_consensus_sizes": {str(NO_CONSENSUS_N): {
-                k: nc_rows[name][k] for k in ("device_ms", "bound_ms", "library_device_ms", "plain_device_ms",
-                                              "two_loop_device_ms", "direction_device_ms")}},
+            # and at 890,408, the nearest N with 16-byte aligned rows
+            "no_consensus_sizes": {str(n): {
+                k: r[name][k] for k in ("device_ms", "bound_ms", "library_device_ms", "plain_device_ms",
+                                        "two_loop_device_ms", "direction_device_ms") if k in r[name]}
+                for n, r in nc_rows.items()},
         })
     bh, s, d = FLASH_PATH
     for name, r in flash_report.items():

@@ -3,10 +3,11 @@
 
 Run from the root of a checkout:
 
-    python3 chip_sweep.py
+    python3 chip_sweep.py [grouped] [gram] [assembly]
 
-Two sweeps, each printed one line per setting with its device ms (calls
-queued behind a sleep kernel, `chip_smoke.time_ms`) and its error:
+Three sweeps (all of them without arguments), each printed one line per
+setting with its device ms (calls queued behind a sleep kernel,
+`chip_smoke.time_ms`) and its error:
 
 1. grouped — the grouped GEMM (`ops/grouped_gemm.py`) at every MoE ViT path
    shape (`chip_smoke.grouped_cases`) with each output tile the kernel has
@@ -15,10 +16,16 @@ queued behind a sleep kernel, `chip_smoke.time_ms`) and its error:
    float64;
 2. gram — the one-launch gram (`ops/compact_cuda.py`) at every Net group
    size and a ResNet18-block N, with at most 16 … 128 blocks a client,
-   against the shipped setting's result.
+   against the shipped setting's result;
+3. assembly — the direction assembly (`ops/compact_cuda.py`) at every size
+   of `chip_smoke.AB_ASSEMBLY_SIZES` (Net's groups, Net1's 890,410 and the
+   aligned 890,408, the ResNet18 groups), full history, on its
+   one-column-a-lane path at every N and on its 16-byte path where the
+   rows allow it: equal bits to the shipped path's result, and
+   `torch.matmul(coef, X)` timed beside them as the yardstick.
 
 The port's own settings (`grouped_gemm.tiles`, `SPLIT_CHUNK`,
-`compact_cuda.gram_chunks`) are not changed: each setting is launched
+`compact_cuda.gram_chunks`, `compact_cuda._vec_ok`) are not changed: each setting is launched
 through the kernels' C entry points directly. Without CUDA the script exits
 non-zero.
 """
@@ -106,6 +113,48 @@ def sweep_gram() -> None:
                   f"device_ms={device_ms:.6f} sy_vs_shipped={err:.2e}", flush=True)
 
 
+def sweep_assembly() -> None:
+    import torch
+
+    from federated_pytorch_test_tpu_torch.ops import compact_cuda as cc
+    from federated_pytorch_test_tpu_torch.optim.compact import compact_solves, history_valid
+
+    lib = cc._kernels()
+    k, m = cs.K, cs.M
+    full = torch.full((k,), m, dtype=torch.int32, device="cuda")
+    for n in cs.AB_ASSEMBLY_SIZES:
+        s, y, g, _, h_diag = cs.history(n, seed=n)
+        s.nan_to_num_(0.0)
+        y.nan_to_num_(0.0)
+        sy, yy, p, q = cc.fused_gram_projections_plain(s, y, g, full)
+        u, w, _, _ = compact_solves(sy, p, q, history_valid(full, m), h_diag,
+                                    lambda uu: (torch.matmul(yy, uu[..., None])[..., 0], None))
+        w, u = w.contiguous(), u.contiguous()
+        want = cc.fused_direction_assembly(s, y, g, w, u, h_diag, full)
+        iters = 20 if n > 200_000 else 200
+        x = torch.cat([s, y, g[:, None]], dim=1)
+        coef = torch.cat([w, -h_diag[:, None] * u, h_diag[:, None]], dim=1)[:, None, :]
+        _, matmul_ms = cs.time_ms(lambda: torch.matmul(coef, x), iters)
+        del x
+        bound_ms = (2 * m * n + 2 * n) * 4 * k / cs.HBM_BYTES_PER_S * 1e3
+        stream = torch.cuda.current_stream().cuda_stream
+        out = torch.empty((k, n), device="cuda")
+        for vec in sorted({0, cc._vec_ok(n, s, y, g, out)}):
+
+            def call():
+                rc = lib.compact_assembly_launch(s.data_ptr(), y.data_ptr(), g.data_ptr(), w.data_ptr(),
+                                                 u.data_ptr(), h_diag.data_ptr(), full.data_ptr(), out.data_ptr(),
+                                                 k, m, n, vec, stream)
+                if rc != 0:
+                    cs.fail(f"compact_assembly_launch: cudaError {rc}")
+
+            _, device_ms = cs.time_ms(call, iters)
+            print(f"sweep assembly N={n} path={'vec' if vec else 'lane'} shipped={vec == cc._vec_ok(n, s, y, g, out)} "
+                  f"device_ms={device_ms:.6f} share_of_bound={bound_ms / device_ms:.3f} "
+                  f"matmul_device_ms={matmul_ms:.6f} bitwise_vs_shipped={cs.bitwise_equal(out, want)}", flush=True)
+        del s, y, g, out
+
+
 def main() -> int:
     import torch
 
@@ -116,8 +165,11 @@ def main() -> int:
     configure_precision()
     print(cs.subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                             capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    sweep_grouped()
-    sweep_gram()
+    sweeps = {"grouped": sweep_grouped, "gram": sweep_gram, "assembly": sweep_assembly}
+    for name in sys.argv[1:] or sweeps:
+        if name not in sweeps:
+            cs.fail(f"unknown sweep {name!r}; have {sorted(sweeps)}")
+        sweeps[name]()
     return 0
 
 

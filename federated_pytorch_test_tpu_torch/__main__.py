@@ -1,13 +1,21 @@
 """Command line: `python -m federated_pytorch_test_tpu_torch --preset NAME [...]`.
 
 Presets: no_consensus (Net1, independent training), fedavg, admm (Net),
-fedavg_resnet, admm_resnet (ResNet18). Runs on the card unless `--device
-cpu` is given; `--lbfgs-direction pallas` opts into the fused
+fedavg_resnet, admm_resnet (ResNet18); `--list-presets` prints them. Every
+field of `ExperimentConfig` is a flag, `--` + the field with `_` as `-`,
+booleans as `--x/--no-x`; a flag left out keeps the preset's value. Runs on
+the card unless `--device cpu` is given; `--lbfgs-direction pallas` opts into the fused
 compact-direction kernels, `two_loop` into the sequential recursion.
 `--save-model` checkpoints the full state under `--checkpoint-dir` after
 every outer loop; `--load-model` continues from the newest checkpoint there
-(and requires one), `--resume auto` does so when there is one. Examples:
+(and requires one), `--resume auto` does so when there is one.
 
+Exit code: 0 when the run ends, also when a series turned non-finite; that
+run prints `# FIRST NON-FINITE at {...}` (the JAX package's CLI does the
+same). Examples:
+
+    python -m federated_pytorch_test_tpu_torch --preset admm --nloop 2 --no-bb-update
+    python -m federated_pytorch_test_tpu_torch --list-presets
     python -m federated_pytorch_test_tpu_torch --preset no_consensus --lbfgs-direction pallas
     python -m federated_pytorch_test_tpu_torch --preset admm --lbfgs-direction pallas
     python -m federated_pytorch_test_tpu_torch --preset admm_resnet --lbfgs-direction pallas
@@ -27,41 +35,52 @@ A save/resume pair (the second run continues with loop 1 of 2):
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 
-from .engine import PRESETS, Trainer, get_preset
-from .optim.lbfgs import DIRECTIONS
+from .engine import PRESETS, ExperimentConfig, Trainer, get_preset
 
-INT_FLAGS = ("nloop", "nepoch", "nadmm", "batch", "max_groups", "synthetic_n_train", "synthetic_n_test")
-BOOL_FLAGS = ("save_model", "load_model", "eval_every_batch")
+
+def _add_config_flags(parser: argparse.ArgumentParser) -> None:
+    """One flag per `ExperimentConfig` field (booleans get --x/--no-x), all
+    defaulting to None: an absent flag leaves the preset's value."""
+    for f in dataclasses.fields(ExperimentConfig):
+        flag = "--" + f.name.replace("_", "-")
+        ts = str(f.type)
+        if ts == "bool":
+            parser.add_argument(flag, dest=f.name, action=argparse.BooleanOptionalAction, default=None)
+            continue
+        typ = {"int": int, "float": float, "int | None": int, "float | None": float}.get(ts, str)
+        parser.add_argument(flag, dest=f.name, type=typ, default=None)
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m federated_pytorch_test_tpu_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--preset", default="fedavg", choices=sorted(PRESETS))
-    p.add_argument("--lbfgs-direction", choices=sorted(DIRECTIONS))
-    for name in INT_FLAGS:
-        p.add_argument("--" + name.replace("_", "-"), type=int)
-    for name in BOOL_FLAGS:
-        p.add_argument("--" + name.replace("_", "-"), action=argparse.BooleanOptionalAction, default=None)
-    p.add_argument("--checkpoint-dir")
-    p.add_argument("--resume", choices=["off", "auto"])
-    p.add_argument("--device", help="'cuda' (default), 'cuda:N' or 'cpu'")
+    p.add_argument("--list-presets", action="store_true")
     p.add_argument("--metrics-out", help="write the metric series as JSON here")
     p.add_argument("--quiet", action="store_true")
+    _add_config_flags(p)
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    fields = ("lbfgs_direction", *INT_FLAGS, *BOOL_FLAGS, "checkpoint_dir", "resume", "device")
-    overrides = {f: getattr(args, f) for f in fields if getattr(args, f) is not None}
+    if args.list_presets:
+        for name, cfg in sorted(PRESETS.items()):
+            print(f"{name:16s} model={cfg.model:9s} strategy={cfg.strategy:7s} "
+                  f"batch={cfg.batch} nloop={cfg.nloop} nadmm={cfg.nadmm}")
+        return 0
+    overrides = {f.name: getattr(args, f.name) for f in dataclasses.fields(ExperimentConfig)
+                 if getattr(args, f.name) is not None}
     cfg = get_preset(args.preset, **overrides)
     rec = Trainer(cfg, verbose=not args.quiet).run()
     if args.metrics_out:
         rec.save(args.metrics_out)
-    return 0 if rec.first_nonfinite is None else 1
+    if rec.first_nonfinite is not None:
+        print(f"# FIRST NON-FINITE at {rec.first_nonfinite}")
+    return 0
 
 
 if __name__ == "__main__":

@@ -33,8 +33,11 @@
 //     partials; the last block of the client to finish (a ticket counter)
 //     adds them in chunk order. The ticket is the only atomic: results
 //     are bitwise repeatable run to run;
-//   * assembly: each thread owns 4 consecutive columns and sums over the
-//     valid history rows — w and u sit in shared memory.
+//   * assembly, one launch: where every row is 16-byte aligned, a thread
+//     per 4 consecutive columns with 16-byte loads; otherwise a thread per
+//     column, consecutive columns on consecutive lanes (coalesced at any
+//     row alignment), every valid row's loads in flight at once. w, u, γ
+//     and count are read once a block into shared memory.
 // Rows >= count[k] are masked by select (never loaded, treated as 0) and
 // not by multiplication, because an invalid history row may hold NaN;
 // columns >= N are masked the same way.
@@ -240,62 +243,100 @@ gram_kernel(const float* __restrict__ s, const float* __restrict__ y, const floa
   if (threadIdx.x == 0) ticket[k] = 0u;  // ready for the next launch on the stream
 }
 
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
-assembly_kernel(const float* __restrict__ s, const float* __restrict__ y,
-                const float* __restrict__ g, const float* __restrict__ w,
-                const float* __restrict__ u, const float* __restrict__ h_diag,
-                const int* __restrict__ count, float* __restrict__ out, int m, long long n) {
-  __shared__ float ws[kMaxM];
-  __shared__ float us[kMaxM];
+// The assembly's coefficients in shared memory, read once a block: w, u
+// (rows of client k), γ, and the valid rows (rows >= count are never read).
+__device__ __forceinline__ void assembly_coefficients(const float* w, const float* u, const float* h_diag,
+                                                      const int* count, int m, float* ws, float* us, float& h,
+                                                      int& rows) {
   const int k = blockIdx.y;
   if (threadIdx.x < m) {
     ws[threadIdx.x] = w[k * m + threadIdx.x];
     us[threadIdx.x] = u[k * m + threadIdx.x];
   }
+  if (threadIdx.x == 0) {
+    h = h_diag[k];
+    rows = max(0, min(count[k], m));
+  }
   __syncthreads();
-  const int rows = max(0, min(count[k], m));  // rows >= count are never read
-  const float h = h_diag[k];
-  const float* sk = s + (long long)k * m * n;
-  const float* yk = y + (long long)k * m * n;
-  const float* gk = g + (long long)k * n;
-  float* ok_ = out + (long long)k * n;
+}
+
+// The assembly where every row is 16-byte aligned (N % 4 == 0, aligned
+// bases): each thread owns 4 consecutive columns, one 16-byte load a row.
+__global__ void __launch_bounds__(kThreads)
+assembly_vec_kernel(const float* __restrict__ s, const float* __restrict__ y,
+                    const float* __restrict__ g, const float* __restrict__ w,
+                    const float* __restrict__ u, const float* __restrict__ h_diag,
+                    const int* __restrict__ count, float* __restrict__ out, int m, long long n) {
+  __shared__ float ws[kMaxM], us[kMaxM], h_s;
+  __shared__ int rows_s;
+  assembly_coefficients(w, u, h_diag, count, m, ws, us, h_s, rows_s);
+  const int k = blockIdx.y, rows = rows_s;
+  const float h = h_s;
   const long long col = 4 * ((long long)blockIdx.x * kThreads + threadIdx.x);
   if (col >= n) return;
-  if (kVec) {
-    const float4 gv = __ldg(reinterpret_cast<const float4*>(gk + col));
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 b = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int i = 0; i < rows; ++i) {
-      const float4 sv = __ldg(reinterpret_cast<const float4*>(sk + (long long)i * n + col));
-      const float4 yv = __ldg(reinterpret_cast<const float4*>(yk + (long long)i * n + col));
-      a.x = fmaf(ws[i], sv.x, a.x);
-      a.y = fmaf(ws[i], sv.y, a.y);
-      a.z = fmaf(ws[i], sv.z, a.z);
-      a.w = fmaf(ws[i], sv.w, a.w);
-      b.x = fmaf(us[i], yv.x, b.x);
-      b.y = fmaf(us[i], yv.y, b.y);
-      b.z = fmaf(us[i], yv.z, b.z);
-      b.w = fmaf(us[i], yv.w, b.w);
-    }
-    float4 r;
-    r.x = h * gv.x + a.x - h * b.x;
-    r.y = h * gv.y + a.y - h * b.y;
-    r.z = h * gv.z + a.z - h * b.z;
-    r.w = h * gv.w + a.w - h * b.w;
-    *reinterpret_cast<float4*>(ok_ + col) = r;
-  } else {
-    for (int c = 0; c < 4; ++c) {
-      const long long cc = col + c;
-      if (cc >= n) break;
-      float a = 0.f, b = 0.f;
-      for (int i = 0; i < rows; ++i) {
-        a = fmaf(ws[i], __ldg(sk + (long long)i * n + cc), a);
-        b = fmaf(us[i], __ldg(yk + (long long)i * n + cc), b);
-      }
-      ok_[cc] = h * __ldg(gk + cc) + a - h * b;
-    }
+  const float* sk = s + (long long)k * m * n;
+  const float* yk = y + (long long)k * m * n;
+  const float4 gv = __ldg(reinterpret_cast<const float4*>(g + (long long)k * n + col));
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 b = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = 0; i < rows; ++i) {
+    const float4 sv = __ldg(reinterpret_cast<const float4*>(sk + (long long)i * n + col));
+    const float4 yv = __ldg(reinterpret_cast<const float4*>(yk + (long long)i * n + col));
+    a.x = fmaf(ws[i], sv.x, a.x);
+    a.y = fmaf(ws[i], sv.y, a.y);
+    a.z = fmaf(ws[i], sv.z, a.z);
+    a.w = fmaf(ws[i], sv.w, a.w);
+    b.x = fmaf(us[i], yv.x, b.x);
+    b.y = fmaf(us[i], yv.y, b.y);
+    b.z = fmaf(us[i], yv.z, b.z);
+    b.w = fmaf(us[i], yv.w, b.w);
   }
+  float4 r;
+  r.x = h * gv.x + a.x - h * b.x;
+  r.y = h * gv.y + a.y - h * b.y;
+  r.z = h * gv.z + a.z - h * b.z;
+  r.w = h * gv.w + a.w - h * b.w;
+  *reinterpret_cast<float4*>(out + (long long)k * n + col) = r;
+}
+
+// The assembly at any N and any row alignment: one column a thread,
+// consecutive columns on consecutive lanes, so every warp load is 128
+// contiguous bytes and every sector is used once. The row loop is unrolled
+// over kMaxM with `i < rows` as a predicate. Each column's arithmetic is the vec kernel's, in the same
+// order (fmaf over rows 0 .. rows-1, then h·g + a − h·b): the same bits.
+__global__ void __launch_bounds__(kThreads)
+assembly_lane_kernel(const float* __restrict__ s, const float* __restrict__ y,
+                     const float* __restrict__ g, const float* __restrict__ w,
+                     const float* __restrict__ u, const float* __restrict__ h_diag,
+                     const int* __restrict__ count, float* __restrict__ out, int m, long long n) {
+  __shared__ float ws[kMaxM], us[kMaxM], h_s;
+  __shared__ int rows_s;
+  assembly_coefficients(w, u, h_diag, count, m, ws, us, h_s, rows_s);
+  const int k = blockIdx.y, rows = rows_s;
+  const float h = h_s;
+  const long long col = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (col >= n) return;
+  const float* sk = s + (long long)k * m * n + col;
+  const float* yk = y + (long long)k * m * n + col;
+  float a = 0.f, b = 0.f;
+  // one pass (rows <= kMaxM): in this form nvcc schedules every row's loads
+  // before the first FMA (a thread's loads all in flight)
+  for (int i0 = 0; i0 < rows; i0 += kMaxM) {
+    float sv[kMaxM], yv[kMaxM];
+#pragma unroll
+    for (int r = 0; r < kMaxM; ++r)
+      if (i0 + r < rows) {
+        sv[r] = __ldg(sk + (long long)(i0 + r) * n);
+        yv[r] = __ldg(yk + (long long)(i0 + r) * n);
+      }
+#pragma unroll
+    for (int r = 0; r < kMaxM; ++r)
+      if (i0 + r < rows) {
+        a = fmaf(ws[i0 + r], sv[r], a);
+        b = fmaf(us[i0 + r], yv[r], b);
+      }
+  }
+  out[(long long)k * n + col] = h * __ldg(g + (long long)k * n + col) + a - h * b;
 }
 
 }  // namespace
@@ -333,18 +374,19 @@ int compact_gram_launch(const float* s, const float* y, const float* g, const in
   return (int)cudaGetLastError();
 }
 
-// Assembly on `stream`: out [K, N] = γ·g + wᵀS − γ·(uᵀY).
+// Assembly on `stream`, one launch: out [K, N] = γ·g + wᵀS − γ·(uᵀY);
+// `vec` (N % 4 == 0 and 16-byte aligned bases) selects 16-byte loads.
 int compact_assembly_launch(const float* s, const float* y, const float* g, const float* w,
                             const float* u, const float* h_diag, const int* count, float* out,
                             int K, int m, long long n, int vec, void* stream) {
-  if (m < 1 || m > kMaxM || K < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  if (m < 1 || m > kMaxM || K < 1 || K > 65535 || n < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long cols_per_block = 4LL * kThreads;
+  const long long cols_per_block = (vec ? 4LL : 1LL) * kThreads;
   const dim3 grid((unsigned)((n + cols_per_block - 1) / cols_per_block), K);
   if (vec)
-    assembly_kernel<true><<<grid, kThreads, 0, st>>>(s, y, g, w, u, h_diag, count, out, m, n);
+    assembly_vec_kernel<<<grid, kThreads, 0, st>>>(s, y, g, w, u, h_diag, count, out, m, n);
   else
-    assembly_kernel<false><<<grid, kThreads, 0, st>>>(s, y, g, w, u, h_diag, count, out, m, n);
+    assembly_lane_kernel<<<grid, kThreads, 0, st>>>(s, y, g, w, u, h_diag, count, out, m, n);
   return (int)cudaGetLastError();
 }
 

@@ -209,3 +209,31 @@ def test_gram_repeats_bitwise_and_matches_plain(n):
     for a, b, ref in zip(first, second, cc.fused_gram_projections_plain(s, y, g, count)):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
         assert bool(torch.isfinite(a).all()) and _rel(a, ref) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [850, 1_001, 5_130, 890_410, 890_408])
+def test_assembly_repeats_bitwise_and_matches_plain(n):
+    # the assembly at Net's fc group (850), an odd N, the ResNet fc group
+    # (5,130) and Net1's whole vector (890,410), none a multiple of 4, so
+    # no row is 16-byte aligned (the one-column-a-lane path), and at 890,408
+    # (the 16-byte path): two calls equal bits, and within 1e-5 of the plain
+    # version in float64, with an empty, a partial (NaN-filled invalid row)
+    # and a full history
+    from federated_pytorch_test_tpu_torch.ops import compact_cuda as cc
+
+    _card()
+    rng = np.random.default_rng(n)
+    s, y = (torch.tensor(rng.normal(size=(3, 10, n)).astype(np.float32), device="cuda") for _ in range(2))
+    g = torch.tensor(rng.normal(size=(3, n)).astype(np.float32), device="cuda")
+    w, u = (torch.tensor(rng.normal(size=(3, 10)).astype(np.float32), device="cuda") for _ in range(2))
+    h_diag = torch.tensor([1.0, 0.7, 1.3], device="cuda")
+    s[1, 5] = float("nan")
+    y[1, 5] = float("nan")
+    count = torch.tensor([0, 3, 10], dtype=torch.int32, device="cuda")
+    first = cc.fused_direction_assembly(s, y, g, w, u, h_diag, count)
+    second = cc.fused_direction_assembly(s, y, g, w, u, h_diag, count)
+    ref = cc.fused_direction_assembly_plain(s.double(), y.double(), g.double(), w.double(), u.double(),
+                                            h_diag.double(), count)
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+    assert bool(torch.isfinite(first).all()) and _rel(first.double(), ref) <= 1e-5
