@@ -20,11 +20,12 @@ across the turns of both checkouts.
 Phases, each reported on its own lines; any failure exits non-zero:
 
 1. card     — `nvidia-smi` name and power limit;
-2. build    — nvcc builds the port's three CUDA sources, all at once; ptxas's
+2. build    — nvcc builds the port's four CUDA sources, all at once; ptxas's
               registers and spills and the SASS tensor-core instruction
               counts of every tensor-core instance (the flash forward and
-              backward, causal and not; the grouped GEMM's split-TF32
-              instances), each of which must hold HGMMA and spill nothing;
+              backward, causal and not, split and one-pass; the bf16 flash
+              trio; the grouped GEMM's split-TF32 instances), each of which
+              must hold HGMMA and spill nothing;
 3. kernels  — each compact-direction kernel against its plain PyTorch version
               on the card (K=3, m=10, N at every Net group size, one
               ResNet18-block-sized N, counts {0, 3, 10}, a zero-curvature
@@ -66,6 +67,25 @@ Phases, each reported on its own lines; any failure exits non-zero:
               plain version's error), at the ViT shape, non-causal and
               causal; times at the ViT shape beside the bounds and
               `scaled_dot_product_attention`;
+5a. flash default — the six one-pass ('default') flash kernels against
+              their plain versions (which round as the kernels do, tile by
+              tile): every output within 2^-10 of its largest entry, and at
+              least 4x closer in RMS to the one-pass plain version than to
+              'highest' (`onepass_check`); causal at S 1024 and the
+              rectangular family non-causal and on offsets at every D, and
+              the LM's and the ViT's shapes, there also within 2e-2 of
+              float64; repeats equal bits; times beside the bound (one TF32
+              product, the exps or the bytes) and SDPA in f32;
+5b. flash bf16 — the bf16 causal trio (`cast16`) against its plain versions
+              at every D (S 256, 1024) and at (BH 128, S 2048, D 16) and
+              (BH 32, S 4096, D 64): o, lse and the bf16 cotangents within
+              two bf16 units (2^-8) of their largest entry; the public op
+              `flash_attention(q16, k16, v16, causal=True,
+              precision='default')` forward and backward against float64
+              dense attention at the JAX package's bounds, launching each
+              of the trio exactly once; repeats equal bits; times beside
+              the bound (bf16 products at 989 TFLOP/s, the exps or the
+              bytes) and SDPA on the same bf16 inputs;
 6. parity   — a tiny drive with the plain ('compact') and the fused-kernel
               ('pallas') direction on the card: the first averaging round's
               losses and dual residual agree within relative 1e-3;
@@ -77,6 +97,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
               once per direction the optimizer's records count
               (`expected_launches`), losses must be finite and every
               client's accuracy above chance;
+7a. net bf16 — phase 7's run at compute_dtype bf16 under deterministic
+              cuDNN: finite losses, accuracy above chance, compact launches
+              exact;
 8. lm parity — the LM's first round (K=4, S=256) step by step with
               'dense' attention (plain) and 'flash' (the kernels), both fed
               the same parameters and optimizer state before each step:
@@ -93,6 +116,13 @@ Phases, each reported on its own lines; any failure exits non-zero:
               gradient pass in each layer behind the active group, the
               forward once per model pass in every layer), losses must be
               finite and every client's next-token accuracy above 5/vocab;
+9a. lm model — TransformerLM at full width (K=4 clients of 8 sequences
+              of 2048 tokens) at attn_precision 'default' and dtype bf16,
+              forward and backward: the one-pass causal kernels launch once
+              a block each; loss within 3e-2 of the f32 'highest' model's,
+              gradient cosine at least 0.99; then the attention core dense
+              against flash at S 128 to 2048 at both precisions (the card's
+              'auto' crossover);
 10. vit parity — the ViT's first round (patch 2: 256 tokens, batch 64)
               step by step with 'dense' attention (plain) and 'flash' (the
               rectangular kernels), fed the same parameters and optimizer
@@ -108,6 +138,11 @@ Phases, each reported on its own lines; any failure exits non-zero:
               rectangular flash kernel and compact kernel must have
               launched, exactly as often as the run's records imply, losses
               must be finite and every client's accuracy above chance;
+11a. vit bf16 — phase 11's run at compute_dtype bf16 and attn_precision
+              'default' (the one-pass rectangular kernels), launches gated
+              exactly; then the same with `remat` (the forward launches once
+              more a gradient pass): the trajectory equal within 1e-5, walls
+              and peak memory of both;
 12. grouped — the grouped GEMM (`ops/grouped_gemm.py`) at every shape of
               the MoE ViT path (K=3 clients x E=8 experts = 24 groups,
               20,480 slots an expert, D=64, H=256): both forwards, the
@@ -218,13 +253,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores
 TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core rate; split TF32 takes three products
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 EXPS_PER_S = 16 * 132 * 1.83e9  # exp2 on the SFUs: 16 a clock per SM, 132 SMs, 1.83 GHz boost
 M, K = 10, 3
 NET_GROUP_SIZES = (456, 2416, 48120, 10164, 850)
 LARGE_N = 4_720_644  # ~ResNet18's largest block group; not a multiple of any tile
 REPORT_N = 48120  # the main path's largest group (fc1): the shape the JSON line reports
 RTOL = 1e-5
-SOURCES = ("compact_direction", "flash_attention", "grouped_gemm")  # csrc/<name>.cu
+SOURCES = ("compact_direction", "flash_attention", "flash_bf16", "grouped_gemm")  # csrc/<name>.cu
 FLASH_DIMS = (16, 32, 64)
 FLASH_SEQS = (128, 256, 1024, 2048)
 FLASH_SWEEP_BH = 8
@@ -282,7 +318,8 @@ def fail(msg: str) -> None:
 
 def time_ms(fn, iters: int, queued: int = QUEUED_CALLS) -> tuple:
     """Mean milliseconds per call over `iters` back-to-back calls, after
-    warm-up, as (per call with the host's launch path, device alone).
+    warm-up, as (per call with the host's launch path, device alone;
+    `queued` = 0: the first reading twice).
 
     The first reading times the calls as issued: where the host issues
     slower than the card runs, it measures the host. For the second, a
@@ -303,6 +340,8 @@ def time_ms(fn, iters: int, queued: int = QUEUED_CALLS) -> tuple:
     stop.record()
     torch.cuda.synchronize()
     host_ms = start.elapsed_time(stop) / iters
+    if queued == 0:
+        return host_ms, host_ms
     n_queued = min(iters, queued)
     cycles = 10_000_000
     while True:
@@ -423,16 +462,22 @@ def report_tensor_core_build(lib, label, tc) -> None:
                 fail(f"{name}: no HGMMA in its SASS")
 
 
-TC_KERNELS = ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")  # the tensor-core flash kernels
+TC_KERNELS = ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc",  # the tensor-core flash kernels
+              "flash_fwd_bf16_tc", "flash_bwd_dq_bf16_tc", "flash_bwd_dkv_bf16_tc")
 
 
 def flash_label(mangled: str):
-    """`flash_bwd_dq_tc<16, true>` from a tensor-core flash instance's mangled name."""
-    name = next((k for k in TC_KERNELS if k in mangled), None)
+    """`flash_bwd_dq_tc<16, true, false>` (D, causal, split) or
+    `flash_fwd_bf16_tc<16>` from a tensor-core flash instance's mangled name."""
+    name = next((k for k in TC_KERNELS if k + "I" in mangled), None)
     if name is None:
         return None
-    m = re.search(r"ILi(\d+)ELb([01])E", mangled)
-    return f"{name}<{m.group(1)}, {'true' if m.group(2) == '1' else 'false'}>" if m else name
+    m = re.search(r"ILi(\d+)ELb([01])ELb([01])E", mangled)
+    if m:
+        return f"{name}<{m.group(1)}, {'true' if m.group(2) == '1' else 'false'}, " \
+               f"{'true' if m.group(3) == '1' else 'false'}>"
+    m = re.search(r"ILi(\d+)EE", mangled)
+    return f"{name}<{m.group(1)}>" if m else name
 
 
 def grouped_label(mangled: str):
@@ -806,10 +851,15 @@ def phase_flash():
     return time_flash(f"BH={bh} S={s} D={d}", calls, work, abs_of, flash_fwd_bwd, sdpa_fwd_bwd)
 
 
-def time_flash(label: str, calls: dict, work: dict, abs_of: dict, fwd_bwd, sdpa_fwd_bwd) -> dict:
+def time_flash(label: str, calls: dict, work: dict, abs_of: dict, fwd_bwd, sdpa_fwd_bwd,
+               products: str = "tf32x3", plain_queued: int = QUEUED_CALLS) -> dict:
     """Times of each flash kernel, its plain version and the library call,
-    beside the bound from (bytes, flops); then the whole attention forward
-    and backward through autograd against the library's."""
+    beside the bound from (bytes, flops) with the products at `products`
+    (`flash_bounds`); then the whole attention forward and backward through
+    autograd against the library's. `plain_queued` calls of a plain version
+    are queued for its device time; 0 times it as issued only (a
+    tile-by-tile plain version launches more kernels a call than the
+    launch queue holds), and its device reading is then that one."""
     both = [time_ms(fn, 20) for fn in (fwd_bwd, sdpa_fwd_bwd)]
     print(f"timing fwd+bwd {label} flash_ms={both[0][0]:.6f} flash_device_ms={both[0][1]:.6f} "
           f"library_ms={both[1][0]:.6f} library_device_ms={both[1][1]:.6f}", flush=True)
@@ -819,8 +869,9 @@ def time_flash(label: str, calls: dict, work: dict, abs_of: dict, fwd_bwd, sdpa_
         n_bytes, flops, exps = work[name]
         r = {"bytes": n_bytes, "flops": flops, "exps": exps, "max_abs_err": abs_of[name]}
         for key, fn in zip(("ms", "plain_ms", "library_ms"), fns):
-            r[key], r[key.replace("ms", "device_ms")] = time_ms(fn, 20)
-        r.update(flash_bounds(n_bytes, flops, exps))
+            r[key], r[key.replace("ms", "device_ms")] = time_ms(fn, 20, plain_queued if key == "plain_ms"
+                                                                else QUEUED_CALLS)
+        r.update(flash_bounds(n_bytes, flops, exps, products))
         print(
             f"timing {name} {label} ms={r['ms']:.6f} device_ms={r['device_ms']:.6f} "
             f"plain_ms={r['plain_ms']:.6f} plain_device_ms={r['plain_device_ms']:.6f} "
@@ -834,12 +885,20 @@ def time_flash(label: str, calls: dict, work: dict, abs_of: dict, fwd_bwd, sdpa_
     return report
 
 
-def flash_bounds(n_bytes: int, flops: int, exps: int) -> dict:
+PRODUCT_SECONDS = {  # seconds a flop of the products takes on the tensor cores, by arithmetic
+    "tf32x3": 3 / TF32_FLOPS,  # split TF32: three products ('highest')
+    "tf32x1": 1 / TF32_FLOPS,  # one TF32 product ('default' on f32 inputs)
+    "bf16": 1 / BF16_FLOPS,  # bf16 products (the cast16 trio)
+}
+
+
+def flash_bounds(n_bytes: int, flops: int, exps: int, products: str = "tf32x3") -> dict:
     """The least time of a flash kernel on the card: the largest of its
-    bytes at the memory rate, its products in split TF32 (three passes) at
-    the tensor-core rate, and its exps at the SFU rate; and, beside it, the
-    ceiling of an f32 FFMA design (flops at 67 TFLOP/s or the bytes)."""
-    terms = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3, "tf32x3": 3 * flops / TF32_FLOPS * 1e3,
+    bytes at the memory rate, its products at the tensor-core rate of their
+    arithmetic (`PRODUCT_SECONDS`), and its exps at the SFU rate; and,
+    beside it, the ceiling of an f32 FFMA design (flops at 67 TFLOP/s or the
+    bytes)."""
+    terms = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3, products: flops * PRODUCT_SECONDS[products] * 1e3,
              "exp": exps / EXPS_PER_S * 1e3}
     term = max(terms, key=terms.get)
     return {"bound_ms": terms[term], "bound_by": "bytes" if term == "bytes" else "operations",
@@ -998,6 +1057,384 @@ def phase_flash_rect():
         torch.autograd.grad(F.scaled_dot_product_attention(q4, k4, v4), (q4, k4, v4), do4)
 
     return time_flash(f"BH={bh} S={s} D={d} non-causal", calls, work, abs_of, flash_fwd_bwd, sdpa_fwd_bwd)
+
+
+ONE_PASS_RTOL = 2.0 ** -10  # every output of a one-pass kernel from its plain version: one TF32 unit (`onepass_check`)
+ONE_PASS_SPREAD = 4.0  # the kernel's RMS distance to 'highest' over its RMS distance to its plain version, at least
+DEFAULT_F64_TOL = 2e-2  # the JAX package's 'default' contract against f32 (tests/test_flash.py:127-134)
+BF16_UNITS = 2  # bf16 outputs from their plain version, in bf16 units of the largest entry (`bf16_units`)
+BF16_PATHS = ((128, 2048, 16), (32, 4096, 64))  # (BH, S, D): the LM's, and a longer, wider head
+BF16_REPLACES = {
+    "flash_fwd_bf16": "federated_pytorch_test_tpu/ops/flash_attention.py:559",
+    "flash_bwd_dq_bf16": "federated_pytorch_test_tpu/ops/flash_attention.py:655",
+    "flash_bwd_dkv_bf16": "federated_pytorch_test_tpu/ops/flash_attention.py:673",
+}
+
+
+def onepass_check(bh: int, s_q: int, s_kv: int, d: int, aligned: bool, causal: bool = True, q_off: int = 0,
+                  k_off: int = 0, seed: int = 0, f64: bool = False) -> dict:
+    """The one-pass ('default') kernels of a family against their plain
+    versions at one shape: the aligned causal trio, or the rectangular one
+    in `causal`, `q_off`, `k_off`.
+
+    The plain versions round every operand as the kernels do, but sum the
+    scores in another order and take 2^x by another routine, so where a
+    probability (or dS) sits at a TF32 rounding boundary the two round it
+    one unit apart, a relative 2^-10 of that entry. One such entry moves an
+    output by at most 2^-10 of the largest term it enters, so every output
+    is held within ONE_PASS_RTOL (2^-10) of its largest entry. The rest is
+    summation order, orders of magnitude below; so the kernel must also sit
+    ONE_PASS_SPREAD times closer, in root-mean-square distance, to its plain
+    version than to the 'highest' plain version: it makes the one-pass
+    roundings, all of them. With `f64`, also within the JAX package's
+    'default' bound of float64 (DEFAULT_F64_TOL of the largest entry).
+    Returns the absolute errors."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
+
+    q, k, v, do = rect_inputs(bh, s_q, s_kv, d, seed)
+    scale = 1.0 / d ** 0.5
+    if aligned:
+        mode = ()
+        kern = (fc.flash_fwd, fc.flash_bwd_dq, fc.flash_bwd_dkv)
+        high = (fc.flash_fwd_plain, fc.flash_bwd_dq_plain, fc.flash_bwd_dkv_plain)
+        one = (fc.flash_fwd_1pass_plain, fc.flash_bwd_dq_1pass_plain, fc.flash_bwd_dkv_1pass_plain)
+        label = f"flash default BH={bh} S={s_q} D={d} causal"
+    else:
+        mode = (causal, q_off, k_off)
+        kern = (fc.flash_fwd_rect, fc.flash_bwd_dq_rect, fc.flash_bwd_dkv_rect)
+        high = (fc.flash_fwd_rect_plain, fc.flash_bwd_dq_rect_plain, fc.flash_bwd_dkv_rect_plain)
+        one = (fc.flash_fwd_1pass_plain, fc.flash_bwd_dq_1pass_plain, fc.flash_bwd_dkv_1pass_plain)
+        label = (f"flash default rect BH={bh} Sq={s_q} Skv={s_kv} D={d} "
+                 + (f"causal q_off={q_off} k_off={k_off}" if causal else "non-causal"))
+    one_mode = mode if not aligned else (True, 0, 0)
+    o, lse = kern[0](q, k, v, scale, *mode, precision="default")
+    o_one, lse_one = one[0](q, k, v, scale, *one_mode)
+    o_hi, lse_hi = high[0](q, k, v, scale, *mode)
+    delta = (do * o_one).sum(-1)
+    grads = (kern[1](q, k, v, do, lse_one, delta, scale, *mode, precision="default"),
+             *kern[2](q, k, v, do, lse_one, delta, scale, *mode, precision="default"))
+    grads_one = (one[1](q, k, v, do, lse_one, delta, scale, *one_mode),
+                 *one[2](q, k, v, do, lse_one, delta, scale, *one_mode))
+    grads_hi = (high[1](q, k, v, do, lse_one, delta, scale, *mode), *high[2](q, k, v, do, lse_one, delta, scale, *mode))
+    torch.cuda.synchronize()
+    live = torch.ones(s_q, dtype=torch.bool, device=q.device)
+    if causal and not aligned:
+        live = fc._rect_keep(s_q, s_kv, q_off, k_off, q.device).any(-1)
+    names = ("o", "lse", "dq", "dk", "dv")
+    got = (o, lse[:, live], *grads)
+    ref_one = (o_one, lse_one[:, live], *grads_one)
+    ref_hi = (o_hi, lse_hi[:, live], *grads_hi)
+    errs = {n: rel_err(a, b) if a.numel() else 0.0 for n, a, b in zip(names, got, ref_one)}
+    errs_hi = {n: rel_err(a, b) if a.numel() else 0.0 for n, a, b in zip(names, got, ref_hi)}
+
+    def rms(a, b):
+        return float((a - b).double().pow(2).mean().sqrt()) if a.numel() else 0.0
+
+    spread = {n: rms(a, h) / max(rms(a, b), 1e-30) for n, a, b, h in zip(names, got, ref_one, ref_hi)}
+    abs_errs = {n: float((a - b).abs().max()) if a.numel() else 0.0 for n, a, b in zip(names, got, ref_one)}
+    finite = all(bool(torch.isfinite(a).all()) for a in (o, lse, *grads))
+    dead_exact = True
+    if not bool(live.all()):
+        dead = ~live
+        dead_exact = bool((o[:, dead] == 0).all() and (lse[:, dead] == -1e30).all() and (grads[0][:, dead] == 0).all())
+    vs_f64 = {}
+    if f64:
+        args64 = [t.double() for t in (q, k, v)]
+        o64, lse64 = high[0](*args64, scale, *mode)
+        d64 = (do.double() * o64).sum(-1)
+        g64 = (high[1](*args64, do.double(), lse64, d64, scale, *mode),
+               *high[2](*args64, do.double(), lse64, d64, scale, *mode))
+        vs_f64 = {n: rel_err(a.double(), b) for n, a, b in zip(names, (o, lse[:, live], *grads),
+                                                             (o64, lse64[:, live], *g64))}
+        del args64, o64, g64
+    print(f"{label} " + " ".join(f"{n}={errs[n]:.3e}" for n in names)
+          + " vs_highest " + " ".join(f"{n}={errs_hi[n]:.3e}" for n in names)
+          + " rms_spread " + " ".join(f"{n}={spread[n]:.1f}" for n in names)
+          + ("" if not vs_f64 else " vs_f64 " + " ".join(f"{n}={vs_f64[n]:.3e}" for n in names))
+          + f" finite={finite} dead_rows_exact={dead_exact}", flush=True)
+    if not finite or not dead_exact or not max(errs.values()) <= ONE_PASS_RTOL:
+        fail(f"{label}: one-pass kernel disagrees with its plain version: {errs} (finite={finite}, "
+             f"dead rows exact={dead_exact})")
+    for n in ("o", "dq", "dk", "dv"):
+        if spread[n] < ONE_PASS_SPREAD:
+            fail(f"{label}: {n} sits nearly as close to 'highest' as to the one-pass plain version (RMS ratio "
+                 f"{spread[n]:.2f}): the kernel does not make the one-pass roundings")
+    if vs_f64 and not max(vs_f64.values()) <= DEFAULT_F64_TOL:
+        fail(f"{label}: one-pass kernel strays past {DEFAULT_F64_TOL} from float64: {vs_f64}")
+    return abs_errs
+
+
+def repeat_check(label: str, fn) -> None:
+    """Two calls of `fn` on the same inputs give the same bits."""
+    import torch
+
+    runs = [fn() for _ in range(2)]
+    torch.cuda.synchronize()
+    same = all(bitwise_equal(a, b) for a, b in zip(*runs))
+    print(f"flash repeat {label} bitwise_equal={same}", flush=True)
+    if not same:
+        fail(f"{label}: two launches on the same inputs differ")
+
+
+def phase_flash_default():
+    """The six one-pass ('default') flash kernels against their plain
+    versions (`onepass_check`) at every head dim and at the LM's and the
+    ViT's shapes (also against float64); two launches equal bits at the
+    path shapes; times there beside the bound (one TF32 product, the exps or
+    the bytes) and `scaled_dot_product_attention` in f32."""
+    import torch
+    import torch.nn.functional as F
+
+    from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
+
+    for d in FLASH_DIMS:
+        onepass_check(FLASH_SWEEP_BH, 1024, 1024, d, aligned=True, seed=11 + d)
+        onepass_check(FLASH_SWEEP_BH, 256, 256, d, aligned=False, causal=False, seed=13 + d)
+        onepass_check(FLASH_SWEEP_BH, 256, 256, d, aligned=False, causal=True, q_off=0, k_off=64, seed=17 + d)
+        onepass_check(FLASH_SWEEP_BH, 128, 384, d, aligned=False, causal=True, q_off=256, k_off=64, seed=19 + d)
+    reports = {}
+    for aligned, (bh, s, d) in ((True, FLASH_PATH), (False, RECT_PATH)):
+        abs_errs = onepass_check(bh, s, s, d, aligned=aligned, causal=aligned, seed=23, f64=True)
+        q, k, v, do = flash_inputs(bh, s, d, seed=29)
+        scale = 1.0 / d ** 0.5
+        causal = aligned
+        if aligned:
+            fwd, dq_k, dkv_k = fc.flash_fwd, fc.flash_bwd_dq, fc.flash_bwd_dkv
+            fwd_p, dq_p, dkv_p = fc.flash_fwd_1pass_plain, fc.flash_bwd_dq_1pass_plain, fc.flash_bwd_dkv_1pass_plain
+            names = fc.CAUSAL_KERNELS
+        else:
+            fwd, dq_k, dkv_k = fc.flash_fwd_rect, fc.flash_bwd_dq_rect, fc.flash_bwd_dkv_rect
+            names = fc.RECT_KERNELS
+
+            def fwd_p(q, k, v, scale):
+                return fc.flash_fwd_1pass_plain(q, k, v, scale, False)
+
+            def dq_p(*a):
+                return fc.flash_bwd_dq_1pass_plain(*a, False)
+
+            def dkv_p(*a):
+                return fc.flash_bwd_dkv_1pass_plain(*a, False)
+        o, lse = fwd_p(q, k, v, scale)
+        delta = (do * o).sum(-1)
+        repeat_check(f"{names[0]} default", lambda: fwd(q, k, v, scale, precision="default"))
+        repeat_check(f"{names[1]}+{names[2]} default",
+                     lambda: (dq_k(q, k, v, do, lse, delta, scale, precision="default"),
+                              *dkv_k(q, k, v, do, lse, delta, scale, precision="default")))
+        q4, k4, v4 = (t.detach().view(1, bh, s, d).requires_grad_(True) for t in (q, k, v))
+        o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+        do4 = do.view(1, bh, s, d)
+
+        def sdpa_bwd():
+            torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)
+
+        calls = {
+            fc.ONE_PASS[names[0]]: (
+                lambda: fwd(q, k, v, scale, precision="default"),
+                lambda: fwd_p(q, k, v, scale),
+                lambda: F.scaled_dot_product_attention(q4.detach(), k4.detach(), v4.detach(), is_causal=causal),
+            ),
+            fc.ONE_PASS[names[1]]: (
+                lambda: dq_k(q, k, v, do, lse, delta, scale, precision="default"),
+                lambda: dq_p(q, k, v, do, lse, delta, scale),
+                sdpa_bwd,
+            ),
+            fc.ONE_PASS[names[2]]: (
+                lambda: dkv_k(q, k, v, do, lse, delta, scale, precision="default"),
+                lambda: dkv_p(q, k, v, do, lse, delta, scale),
+                sdpa_bwd,
+            ),
+        }
+        pairs = bh * s * (s + 1) // 2 if causal else bh * s * s
+        operand, row = bh * s * d * 4, bh * s * 4
+        work = {
+            fc.ONE_PASS[names[0]]: (3 * operand + operand + row, 2 * 2 * d * pairs, pairs),
+            fc.ONE_PASS[names[1]]: (4 * operand + 2 * row + operand, 3 * 2 * d * pairs, pairs),
+            fc.ONE_PASS[names[2]]: (4 * operand + 2 * row + 2 * operand, 4 * 2 * d * pairs, pairs),
+        }
+        abs_of = {fc.ONE_PASS[names[0]]: max(abs_errs["o"], abs_errs["lse"]), fc.ONE_PASS[names[1]]: abs_errs["dq"],
+                  fc.ONE_PASS[names[2]]: max(abs_errs["dk"], abs_errs["dv"])}
+        q3, k3, v3 = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+        def flash_fwd_bwd():
+            if causal:
+                out = fc._FlashCausal.apply(q3, k3, v3, scale, "default")
+            else:
+                out = fc._FlashRect.apply(q3, k3, v3, scale, False, 0, 0, "default")[0]
+            torch.autograd.grad(out, (q3, k3, v3), do)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal), (q4, k4, v4), do4)
+
+        label = f"BH={bh} S={s} D={d} {'causal' if causal else 'non-causal'} default"
+        reports.update(time_flash(label, calls, work, abs_of, flash_fwd_bwd, sdpa_fwd_bwd, products="tf32x1",
+                                  plain_queued=0))
+        for r in reports.values():
+            r.setdefault("shape", label)
+        del q, k, v, do, q3, k3, v3, q4, k4, v4, o4
+    return reports
+
+
+def bf16_units(a, b) -> float:
+    """The largest distance of `a` from `b` in bf16 units (2^-8, its unit
+    roundoff) of `b`'s largest entry. Where the kernel and the plain version
+    round a probability or dS to bf16 apart, an output moves by one unit of
+    the largest term it sums, which a causal row or column of few terms can
+    hold alone; so the unit is taken of the output's scale, not of each
+    entry."""
+    scale = float(b.abs().max())
+    return float((a.double() - b.double()).abs().max()) / (2.0 ** -8 * (scale if scale > 0 else 1.0))
+
+
+def bf16_inputs(bh: int, s: int, d: int, seed: int):
+    """Seeded f32 q, k, v, dO `[BH, S, D]` on the card and q, k, v rounded to bf16."""
+    import torch
+
+    q, k, v, do = flash_inputs(bh, s, d, seed)
+    return (q, k, v, do), tuple(t.to(torch.bfloat16) for t in (q, k, v))
+
+
+def bf16_check(bh: int, s: int, d: int, seed: int, f64: bool = False) -> dict:
+    """The bf16 trio against its plain versions at one shape: o, lse (f32)
+    and the bf16 cotangents within BF16_UNITS bf16 units of their largest
+    entry (`bf16_units`); the cotangents bf16. With `f64`, the public
+    op (`flash_attention(q16, k16, v16, causal=True, precision='default')`
+    and its autograd) against float64 dense attention of the unrounded f32
+    inputs at the JAX package's bounds (tests/test_flash.py:338-367): o
+    within rtol 0.06, atol 0.03; each gradient within 0.08 of max(|ref|,
+    1). Returns the absolute errors."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
+    from federated_pytorch_test_tpu_torch.ops.attention import dense_attention
+
+    (q, k, v, do), (q16, k16, v16) = bf16_inputs(bh, s, d, seed)
+    scale = 1.0 / d ** 0.5
+    qs = fc.prescale_q(q16, scale)
+    o, lse = fc.flash_fwd_bf16(qs, k16, v16)
+    o_ref, lse_ref = fc.flash_fwd_bf16_plain(qs, k16, v16)
+    delta = (do * o_ref).sum(-1)
+    do16 = do.to(torch.bfloat16)
+    dq = fc.flash_bwd_dq_bf16(qs, k16, v16, do16, lse_ref, delta, scale)
+    dk, dv = fc.flash_bwd_dkv_bf16(qs, k16, v16, do16, lse_ref, delta)
+    dq_ref = fc.flash_bwd_dq_bf16_plain(qs, k16, v16, do16, lse_ref, delta, scale)
+    dk_ref, dv_ref = fc.flash_bwd_dkv_bf16_plain(qs, k16, v16, do16, lse_ref, delta)
+    torch.cuda.synchronize()
+    pairs = {"o": (o, o_ref), "dq": (dq, dq_ref), "dk": (dk, dk_ref), "dv": (dv, dv_ref)}
+    units = {n: bf16_units(a, b) for n, (a, b) in pairs.items()}
+    units["lse"] = bf16_units(lse, lse_ref)
+    abs_errs = {n: float((a.float() - b.float()).abs().max()) for n, (a, b) in pairs.items()}
+    abs_errs["lse"] = float((lse - lse_ref).abs().max())
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in (o, lse, dq, dk, dv))
+    dtypes = all(t.dtype == torch.bfloat16 for t in (dq, dk, dv)) and o.dtype == torch.float32
+    f64_line, f64_ok, op_launches = "", True, {}
+    if f64:
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q16, k16, v16)]
+        torch.cuda.synchronize()
+        fc.reset_launch_counts()
+        out = fc.flash_attention(*(t.view(1, bh, s, d).transpose(1, 2) for t in leaves), causal=True,
+                                 precision="default")
+        dout = do.view(1, bh, s, d).transpose(1, 2)
+        g = torch.autograd.grad(out, leaves, dout.to(out.dtype))
+        torch.cuda.synchronize()
+        op_launches = {n: c for n, c in fc.LAUNCHES.items() if c}
+        ref_leaves = [t.double().view(1, bh, s, d).transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v)]
+        ref = dense_attention(*ref_leaves, causal=True)
+        g64 = torch.autograd.grad(ref, ref_leaves, dout.double())
+        out_err = float(((out.detach().double() - ref.detach()).abs() - 0.06 * ref.detach().abs()).max())
+        grad_errs = {f"d{n}": float((a.view(1, bh, s, d).transpose(1, 2).double() - b).abs().max()
+                                    / max(float(b.abs().max()), 1.0))
+                     for n, a, b in zip("qkv", g, g64)}
+        f64_ok = (out_err <= 0.03 and max(grad_errs.values()) < 0.08 and out.dtype == torch.bfloat16
+                  and all(t.dtype == torch.bfloat16 for t in g))
+        f64_line = (f" op_vs_f64 o_excess={out_err:.3e} (atol 0.03 past rtol 0.06) "
+                    + " ".join(f"{n}={e:.3e}" for n, e in grad_errs.items()) + f" dtypes_bf16={f64_ok}")
+        del leaves, out, g, ref_leaves, ref, g64
+    print(f"flash bf16 BH={bh} S={s} D={d} " + " ".join(f"{n}_units={u:.3f}" for n, u in units.items())
+          + f" lse_rel={rel_err(lse, lse_ref):.3e} finite={finite} dtypes={dtypes}" + f64_line, flush=True)
+    if not finite or not dtypes or not max(units.values()) <= BF16_UNITS or not f64_ok:
+        fail(f"flash bf16 BH={bh} S={s} D={d}: kernel disagrees with its plain version or float64: {units} "
+             f"(finite={finite}, dtypes={dtypes}, vs float64 ok={f64_ok})")
+    return abs_errs, op_launches
+
+
+def phase_flash_bf16():
+    """The bf16 causal trio (`cast16`) against its plain versions at every head
+    dim and at BF16_PATHS (also the public op against float64); two launches
+    equal bits there; times beside the bound (bf16 products at 989
+    TFLOP/s, the exps or the bytes) and `scaled_dot_product_attention` on the
+    same bf16 inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
+
+    for d in FLASH_DIMS:
+        for s in (256, 1024):
+            bf16_check(FLASH_SWEEP_BH, s, d, seed=31 + s + d)
+    reports, launches = {}, Counter()
+    for bh, s, d in BF16_PATHS:
+        abs_errs, op_launches = bf16_check(bh, s, d, seed=37, f64=True)
+        # the public op, forward and backward: one launch of each of the trio, nothing else
+        counted = {n: op_launches.get(n, 0) for n in fc.BF16_KERNELS}
+        counted["other flash kernels"] = sum(c for n, c in op_launches.items() if n not in fc.BF16_KERNELS)
+        gate_launches(f"flash bf16 op BH={bh} S={s} D={d}", counted,
+                      {**{n: 1 for n in fc.BF16_KERNELS}, "other flash kernels": 0})
+        launches.update(op_launches)
+        (q, k, v, do), (q16, k16, v16) = bf16_inputs(bh, s, d, seed=41)
+        scale = 1.0 / d ** 0.5
+        qs = fc.prescale_q(q16, scale)
+        o, lse = fc.flash_fwd_bf16_plain(qs, k16, v16)
+        delta = (do * o).sum(-1)
+        do16 = do.to(torch.bfloat16)
+        repeat_check(f"flash_fwd_bf16 BH={bh} S={s} D={d}", lambda: fc.flash_fwd_bf16(qs, k16, v16))
+        repeat_check(f"flash_bwd_bf16 BH={bh} S={s} D={d}",
+                     lambda: (fc.flash_bwd_dq_bf16(qs, k16, v16, do16, lse, delta, scale),
+                              *fc.flash_bwd_dkv_bf16(qs, k16, v16, do16, lse, delta)))
+        q4, k4, v4 = (t.detach().view(1, bh, s, d).requires_grad_(True) for t in (q16, k16, v16))
+        o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+        do4 = do16.view(1, bh, s, d)
+
+        def sdpa_bwd():
+            torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)
+
+        calls = {
+            "flash_fwd_bf16": (lambda: fc.flash_fwd_bf16(qs, k16, v16), lambda: fc.flash_fwd_bf16_plain(qs, k16, v16),
+                               lambda: F.scaled_dot_product_attention(q4.detach(), k4.detach(), v4.detach(),
+                                                                      is_causal=True)),
+            "flash_bwd_dq_bf16": (lambda: fc.flash_bwd_dq_bf16(qs, k16, v16, do16, lse, delta, scale),
+                                  lambda: fc.flash_bwd_dq_bf16_plain(qs, k16, v16, do16, lse, delta, scale), sdpa_bwd),
+            "flash_bwd_dkv_bf16": (lambda: fc.flash_bwd_dkv_bf16(qs, k16, v16, do16, lse, delta),
+                                   lambda: fc.flash_bwd_dkv_bf16_plain(qs, k16, v16, do16, lse, delta), sdpa_bwd),
+        }
+        pairs = bh * s * (s + 1) // 2
+        op16, op32, row = bh * s * d * 2, bh * s * d * 4, bh * s * 4
+        work = {  # bf16 operands in, o f32 out (the backward's delta reads it); bf16 cotangents out
+            "flash_fwd_bf16": (3 * op16 + op32 + row, 2 * 2 * d * pairs, pairs),
+            "flash_bwd_dq_bf16": (4 * op16 + 2 * row + op16, 3 * 2 * d * pairs, pairs),
+            "flash_bwd_dkv_bf16": (4 * op16 + 2 * row + 2 * op16, 4 * 2 * d * pairs, pairs),
+        }
+        abs_of = {"flash_fwd_bf16": max(abs_errs["o"], abs_errs["lse"]), "flash_bwd_dq_bf16": abs_errs["dq"],
+                  "flash_bwd_dkv_bf16": max(abs_errs["dk"], abs_errs["dv"])}
+        q3, k3, v3 = (t.detach().requires_grad_(True) for t in (q16, k16, v16))
+
+        def flash_fwd_bwd():
+            torch.autograd.grad(fc._FlashCausalBf16.apply(q3, k3, v3, scale), (q3, k3, v3), do)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(F.scaled_dot_product_attention(q4, k4, v4, is_causal=True), (q4, k4, v4), do4)
+
+        label = f"BH={bh} S={s} D={d} causal bf16"
+        rows = time_flash(label, calls, work, abs_of, flash_fwd_bwd, sdpa_fwd_bwd, products="bf16", plain_queued=0)
+        for name, r in rows.items():
+            r["shape"] = label
+            reports.setdefault(name, r)  # the LM shape's row leads; the others ride along
+            reports[name].setdefault("shapes", {})[label] = {key: r[key] for key in (
+                "device_ms", "ms", "plain_device_ms", "library_device_ms", "bound_ms", "bound_term")}
+        del q, k, v, do, q16, k16, v16, qs, q3, k3, v3, q4, k4, v4, o4
+    return reports, dict(launches)
 
 
 def moe_shapes(cfg):
@@ -1174,7 +1611,7 @@ def active_blocks(model, gid: int) -> int:
     return sum(path[0].startswith("block") for path in model.GROUP_PATHS[gid])
 
 
-def expected_launches(rec, model=None, sweep_passes: int = 0) -> dict:
+def expected_launches(rec, model=None, sweep_passes: int = 0, remat: bool = False) -> dict:
     """The launches a training run's own records imply. Each round records
     the optimizer's batched passes (`objective_passes`: with a gradient,
     without one, and directions, one per inner iteration). The direction
@@ -1182,8 +1619,10 @@ def expected_launches(rec, model=None, sweep_passes: int = 0) -> dict:
     (`backward`) runs once per gradient pass in each block behind the active
     group, and its forward (`forward`) once per pass of any kind in every
     block: the optimizer's passes and `sweep_passes` per evaluation recorded
-    in `test_accuracy`; a weight gradient (`weight_backward`) once per
-    gradient pass in each block the group trains."""
+    in `test_accuracy` — and under `remat` once more per gradient pass, the
+    backward's recomputation (which reruns the evaluation up to the loss);
+    a weight gradient (`weight_backward`) once per gradient pass in each
+    block the group trains."""
     sweeps = Counter((r["nloop"], r["group"]) for r in rec.series["test_accuracy"])
     out = Counter()
     for r in rec.series["objective_passes"]:
@@ -1192,7 +1631,7 @@ def expected_launches(rec, model=None, sweep_passes: int = 0) -> dict:
         if model is not None:
             out["backward"] += attention_grad_layers(model, r["group"]) * passes["grad"]
             out["weight_backward"] += active_blocks(model, r["group"]) * passes["grad"]
-            out["forward"] += model.DEPTH * (passes["grad"] + passes["value"]
+            out["forward"] += model.DEPTH * ((2 if remat else 1) * passes["grad"] + passes["value"]
                                              + sweep_passes * sweeps[(r["nloop"], r["group"])])
     return dict(out)
 
@@ -1567,6 +2006,219 @@ def phase_vit_train(metrics_out, profile: bool):
     if profile:
         profile_epoch(tr)
     return launches, wall
+
+
+VIT_BF16_KWARGS = {**VIT_KWARGS, "attn_precision": "default"}
+REMAT_RTOL = 1e-5  # remat on against off: the JAX package's bound (tests/test_engine.py:254-264)
+LM_BF16_TOL = 3e-2  # the bf16 LM's loss from the f32 one: the JAX package's bf16-vs-f32 bound
+LM_GRAD_COSINE = 0.99  # and its gradient's direction
+
+
+def vit_bf16_run(remat: bool, source):
+    """One loop of the ViT fedavg path at compute_dtype bf16, attention at
+    'default'; the launches gated exactly. (rec, trainer, launches, wall, peak GB)."""
+    import numpy as np
+    import torch
+
+    from federated_pytorch_test_tpu_torch.engine import Trainer, get_preset
+    from federated_pytorch_test_tpu_torch.ops import compact_cuda as cc
+    from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
+
+    cfg = get_preset("fedavg", model="vit", model_kwargs=VIT_BF16_KWARGS, nloop=1, nadmm=1, lbfgs_direction="pallas",
+                     compute_dtype="bfloat16", remat=remat)
+    tr = Trainer(cfg, verbose=False, source=source)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fc.reset_launch_counts()
+    cc.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = tr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = {**dict(fc.LAUNCHES), **dict(cc.LAUNCHES)}
+    n_steps = len(rec.series["train_loss"])
+    label = f"vit bf16 remat={remat}"
+    print(f"{label} train wall_s={wall:.3f} minibatches={n_steps} ms_per_minibatch={1e3 * wall / n_steps:.3f} "
+          f"peak_mem_gb={peak:.3f} launches={json.dumps({k: v for k, v in launches.items() if v})}", flush=True)
+    all_losses = np.asarray([r["value"] for r in rec.series["train_loss"]])
+    if not np.all(np.isfinite(all_losses)) or rec.first_nonfinite is not None:
+        fail(f"{label}: non-finite training loss: {rec.first_nonfinite}")
+    accs = [(r["group"], np.asarray(r["value"])) for r in rec.series["test_accuracy"]]
+    print(f"{label} accuracy per group " + " ".join(f"{g}:{','.join(f'{a:.4f}' for a in v)}" for g, v in accs),
+          flush=True)
+    if not np.all(accs[-1][1] > 1.0 / tr.fed.num_classes):
+        fail(f"{label}: final accuracy {accs[-1][1]} not above chance")
+    exp = expected_launches(rec, tr.model, sweep_passes=len(tr.test_imgs), remat=remat)
+    gate_launches(label, launches, {
+        "flash_fwd_rect_1pass": exp["forward"], "flash_bwd_dq_rect_1pass": exp["backward"],
+        "flash_bwd_dkv_rect_1pass": exp["backward"], **{name: 0 for name in fc.RECT_KERNELS},
+        **{name: exp["direction"] for name in cc.LAUNCHES}})
+    return rec, tr, launches, wall, peak
+
+
+def phase_vit_bf16_train(metrics_out):
+    """The ViT path at compute_dtype bf16 and attention at 'default' (the
+    one-pass rectangular kernels), then the same with `remat`: launches
+    gated exactly in both; the two trajectories equal within REMAT_RTOL;
+    walls and peak memory printed for both."""
+    import numpy as np
+
+    from federated_pytorch_test_tpu_torch.data import synthetic_cifar
+
+    source = synthetic_cifar(VIT_TRAIN, VIT_TEST, seed=0)
+    rec, tr, launches, wall, peak = vit_bf16_run(False, source)
+    if metrics_out:
+        rec.save(metrics_out)
+    flat = tr.flat.detach().cpu().numpy()
+    losses = np.asarray([r["value"] for r in rec.series["train_loss"]])
+    del tr
+    rec_r, tr_r, _, wall_r, peak_r = vit_bf16_run(True, source)
+    flat_r = tr_r.flat.detach().cpu().numpy()
+    losses_r = np.asarray([r["value"] for r in rec_r.series["train_loss"]])
+    errs = {"params": float(np.abs(flat_r - flat).max() / np.abs(flat).max()),
+            "train_loss": float(np.abs(losses_r - losses).max() / np.abs(losses).max())}
+    print(f"vit bf16 remat-vs-plain " + " ".join(f"{k}_rel={v:.3e}" for k, v in errs.items())
+          + f" bitwise={bool(np.array_equal(flat, flat_r))} peak_mem_gb={peak:.3f} remat_peak_mem_gb={peak_r:.3f} "
+          f"wall_s={wall:.3f} remat_wall_s={wall_r:.3f}", flush=True)
+    if losses.shape != losses_r.shape or not max(errs.values()) <= REMAT_RTOL:
+        fail(f"vit bf16: remat changes the trajectory: {errs}")
+    return launches, wall, {"peak_gb": peak, "remat_peak_gb": peak_r, "remat_wall_s": wall_r}
+
+
+def phase_net_bf16_train(metrics_out):
+    """The fedavg preset (Net) at compute_dtype bf16 with the fused-kernel
+    direction on the full-size synthetic stand-in, one loop, cuDNN
+    deterministic: finite losses, accuracy above chance, compact launches
+    exact (the compact kernels stay f32)."""
+    import numpy as np
+    import torch
+
+    from federated_pytorch_test_tpu_torch.data import synthetic_cifar
+    from federated_pytorch_test_tpu_torch.engine import Trainer, get_preset
+    from federated_pytorch_test_tpu_torch.ops import compact_cuda as cc
+
+    cfg = get_preset("fedavg", nloop=1, lbfgs_direction="pallas", compute_dtype="bfloat16")
+    with deterministic_cudnn():
+        tr = Trainer(cfg, verbose=False, source=synthetic_cifar(50_000, 10_000, seed=0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cc.reset_launch_counts()
+        t0 = time.perf_counter()
+        rec = tr.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(cc.LAUNCHES)
+    n_steps = len(rec.series["train_loss"])
+    print(f"net bf16 train wall_s={wall:.3f} minibatches={n_steps} ms_per_minibatch={1e3 * wall / n_steps:.3f} "
+          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.3f} launches={json.dumps(launches)}", flush=True)
+    if metrics_out:
+        rec.save(metrics_out)
+    all_losses = np.asarray([r["value"] for r in rec.series["train_loss"]])
+    if not np.all(np.isfinite(all_losses)) or rec.first_nonfinite is not None:
+        fail(f"net bf16: non-finite training loss: {rec.first_nonfinite}")
+    final_acc = np.asarray(rec.series["test_accuracy"][-1]["value"])
+    print(f"net bf16 final accuracy {final_acc.round(4).tolist()}", flush=True)
+    if not np.all(final_acc > 1.0 / tr.fed.num_classes):
+        fail(f"net bf16: final accuracy {final_acc} not above chance")
+    gate_launches("net bf16", launches, {name: expected_launches(rec)["direction"] for name in cc.LAUNCHES})
+    return launches, wall
+
+
+def phase_lm_default():
+    """TransformerLM at full width (dim 64, 4 heads, S 2048, K=4 clients of 8
+    sequences) at attn_precision 'default' and dtype bf16, forward and
+    backward through the model (the embedding group's gradient crosses every
+    block): the one-pass causal kernels launch exactly once a block each;
+    the loss within LM_BF16_TOL of the f32 'highest' model's on the same
+    parameters and tokens, the gradient's cosine with it at least
+    LM_GRAD_COSINE; walls and peak memory of both."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.engine.steps import GroupContext, _group_params
+    from federated_pytorch_test_tpu_torch.models import TransformerLM, init_client_params
+    from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
+    from federated_pytorch_test_tpu_torch.optim import LBFGSConfig
+
+    k, b, s, vocab = 4, 8, 2048, 256
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    tokens = torch.randint(0, vocab, (k, b, s), device="cuda", generator=gen)
+    labels = torch.randint(0, vocab, (k, b, s), device="cuda", generator=gen)
+    out = {}
+    for label, kw in (("bf16 default", {"attn_precision": "default", "dtype": torch.bfloat16}),
+                      ("f32 highest", {})):
+        model = TransformerLM(attn_impl="flash", **kw)
+        part = model.partition()
+        flat = init_client_params(model, k, seed=0)
+        ctx = GroupContext(model=model, shapes=model.shapes(), partition=part, gid=0, lbfgs=LBFGSConfig(),
+                           reg_on_active=False)
+
+        def loss_grad():
+            x = part.extract(flat, 0).contiguous().requires_grad_(True)
+            dt = model.dtype
+            params = _group_params(ctx, flat.to(dt), x.to(dt))
+            logits = model.forward_batched(params, tokens)
+            loss = torch.nn.functional.cross_entropy(logits.float().reshape(-1, vocab), labels.reshape(-1))
+            return loss.detach(), torch.autograd.grad(loss, x)[0]
+
+        loss_grad()  # warm-up: kernels loaded, allocator primed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fc.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, grad = loss_grad()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(fc.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        print(f"lm model {label} fwd+bwd wall_ms={1e3 * wall:.3f} peak_mem_gb={peak:.3f} loss={float(loss):.6f} "
+              f"launches={json.dumps({n: c for n, c in launches.items() if c})}", flush=True)
+        out[label] = (loss, grad, launches, wall, peak)
+    (loss, grad, launches, wall, peak), (loss32, grad32, _, wall32, peak32) = out["bf16 default"], out["f32 highest"]
+    rel = abs(float(loss) - float(loss32)) / abs(float(loss32))
+    cos = float((grad.double() * grad32.double()).sum() / (grad.double().norm() * grad32.double().norm()))
+    finite = bool(torch.isfinite(grad).all())
+    print(f"lm model bf16-default-vs-f32-highest loss_rel={rel:.3e} grad_cosine={cos:.6f} "
+          f"grad_rel={rel_err(grad, grad32):.3e} finite={finite}", flush=True)
+    depth = TransformerLM.DEPTH
+    gate_launches("lm model", launches, {fc.ONE_PASS["flash_fwd"]: depth, fc.ONE_PASS["flash_bwd_dq"]: depth,
+                                         fc.ONE_PASS["flash_bwd_dkv"]: depth, "flash_fwd": 0})
+    if not finite or not rel <= LM_BF16_TOL or not cos >= LM_GRAD_COSINE:
+        fail(f"lm model at bf16/'default' strays from f32/'highest': loss {rel:.3e}, gradient cosine {cos:.6f}")
+    return launches, wall, {"peak_gb": peak, "f32_wall_s": wall32, "f32_peak_gb": peak32}
+
+
+def phase_auto_crossover() -> dict:
+    """Where flash overtakes dense attention on the card, the measurement
+    behind 'auto' (the JAX package's crossover on a TPU: S = 1024 at
+    'default', 2048 at 'highest'): the LM's attention core (32 sequences of
+    4 heads, D 16, causal) forward and backward through autograd, dense
+    (`ops/attention.py`, f32) against flash at each precision, at S 128
+    (the shortest flash takes) to 2048; device ms of each and the ratio
+    dense / flash."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
+    from federated_pytorch_test_tpu_torch.ops.attention import dense_attention
+
+    out = {}
+    for s in (128, 256, 512, 1024, 2048):
+        gen = torch.Generator(device="cuda").manual_seed(s)
+        q, k, v, do = (torch.randn(32, s, 4, 16, device="cuda", generator=gen) for _ in range(4))
+        leaves = [t.requires_grad_(True) for t in (q, k, v)]
+
+        def run(fn):
+            def call():
+                torch.autograd.grad(fn(*leaves), leaves, do)
+            return time_ms(call, 10, queued=10)[1]
+
+        dense = run(lambda *a: dense_attention(*a, causal=True))
+        for prec in ("default", "highest"):
+            flash = run(lambda *a: fc.flash_attention(*a, causal=True, precision=prec))
+            out[(s, prec)] = {"dense_device_ms": dense, "flash_device_ms": flash}
+            print(f"auto crossover S={s} precision={prec} dense_device_ms={dense:.4f} flash_device_ms={flash:.4f} "
+                  f"dense_over_flash={dense / flash:.3f}", flush=True)
+    return out
 
 
 class plain_grouped:
@@ -2347,6 +2999,8 @@ def main() -> int:
     ap.add_argument("--admm-metrics-out", help="write the admm path's metric series as JSON here")
     ap.add_argument("--resnet-metrics-out", help="write the admm_resnet path's metric series as JSON here")
     ap.add_argument("--no-consensus-metrics-out", help="write the no_consensus path's metric series as JSON here")
+    ap.add_argument("--net-bf16-metrics-out", help="write the bf16 fedavg (Net) path's metric series as JSON here")
+    ap.add_argument("--vit-bf16-metrics-out", help="write the bf16 ViT path's metric series as JSON here")
     ap.add_argument("--profile", action="store_true", help="also profile one epoch of each path")
     ap.add_argument("--ab-parent", metavar="DIR",
                     help="instead of the phases, time the train paths of the checkout in DIR and of this "
@@ -2388,17 +3042,24 @@ def main() -> int:
     for lib, seconds in built:
         print(f"build {lib.name} seconds={seconds:.3f}", flush=True)
     report_tensor_core_build(built[SOURCES.index("flash_attention")][0], "flash_attention", flash_label)
+    report_tensor_core_build(built[SOURCES.index("flash_bf16")][0], "flash_bf16", flash_label)
     report_tensor_core_build(built[SOURCES.index("grouped_gemm")][0], "grouped_gemm", grouped_label)
 
     report = phase_kernels()
     flash_report = phase_flash()
     rect_report = phase_flash_rect()
+    default_report = phase_flash_default()
+    bf16_report, bf16_launches = phase_flash_bf16()
     phase_parity()
     launches, wall = phase_train(args.metrics_out, args.profile)
+    net16_launches, net16_wall = phase_net_bf16_train(args.net_bf16_metrics_out)
     phase_lm_parity()
     lm_launches, lm_wall = phase_lm_train(args.lm_metrics_out, args.profile)
+    lm16_launches, lm16_wall, lm16_extra = phase_lm_default()
+    phase_auto_crossover()
     phase_vit_parity()
     vit_launches, vit_wall = phase_vit_train(args.vit_metrics_out, args.profile)
+    vit16_launches, vit16_wall, vit16_extra = phase_vit_bf16_train(args.vit_bf16_metrics_out)
     grouped_report = phase_grouped()
     phase_vit_moe_parity()
     moe_launches, moe_wall = phase_vit_moe_train(args.vit_moe_metrics_out, args.profile)
@@ -2437,7 +3098,8 @@ def main() -> int:
             "shape": f"K={K} m={M} N={REPORT_N}",
             # each compact path's launches, counted over its run; `launches`
             # above is the fedavg (Net) path's
-            "launches_by_path": {"fedavg": launches[name], "admm": admm_launches[name],
+            "launches_by_path": {"fedavg": launches[name], "fedavg_bf16": net16_launches[name],
+                                 "vit_bf16": vit16_launches[name], "admm": admm_launches[name],
                                  **{p: n[name] for p, n in resnet_launches.items()},
                                  "vit": vit_launches[name], "vit_moe": moe_launches[name],
                                  "no_consensus": nc_launches[name]},
@@ -2505,6 +3167,58 @@ def main() -> int:
             "library_device_ms": r["library_device_ms"],
             "shape": f"BH={bh} S={s} D={d} non-causal",
         })
+    from federated_pytorch_test_tpu_torch.ops.flash_cuda import ONE_PASS
+
+    one_pass_launches = {**{ONE_PASS[n]: lm16_launches[ONE_PASS[n]] for n in FLASH_REPLACES},
+                         **{ONE_PASS[n]: vit16_launches[ONE_PASS[n]] for n in RECT_REPLACES}}
+    for name, r in default_report.items():
+        base = name[: -len("_1pass")]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "federated_pytorch_test_tpu_torch/csrc/flash_attention.cu",
+            "replaces": {**FLASH_REPLACES, **RECT_REPLACES}[base],
+            # the LM model phase (causal) and the bf16 ViT path (rectangular) at 'default'
+            "launches": one_pass_launches[name],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            # bound_ms: one TF32 product at 495 TFLOP/s, the exps or the bytes (bound_term)
+            "bound_term": r["bound_term"],
+            # scaled_dot_product_attention on the same f32 inputs
+            "library_ms": r["library_ms"],
+            "ms_includes_host": True,
+            "device_ms": r["device_ms"],
+            "plain_device_ms": r["plain_device_ms"],
+            "library_device_ms": r["library_device_ms"],
+            "shape": r["shape"],
+        })
+    for name, r in bf16_report.items():
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "federated_pytorch_test_tpu_torch/csrc/flash_bf16.cu",
+            "replaces": BF16_REPLACES[name],
+            # the public op on bf16 inputs at 'default', forward and backward, at both shapes
+            "launches": bf16_launches[name],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            # bound_ms: bf16 products at 989 TFLOP/s, the exps or the bytes (bound_term)
+            "bound_term": r["bound_term"],
+            # scaled_dot_product_attention on the same bf16 inputs
+            "library_ms": r["library_ms"],
+            "ms_includes_host": True,
+            "device_ms": r["device_ms"],
+            "plain_device_ms": r["plain_device_ms"],
+            "library_device_ms": r["library_device_ms"],
+            "shape": r["shape"],
+            "shapes": r["shapes"],
+        })
     for name, r in grouped_report.items():
         kernels.append({
             "name": name,
@@ -2535,7 +3249,10 @@ def main() -> int:
           f"vit_train_wall_s={vit_wall:.3f} vit_moe_train_wall_s={moe_wall:.3f} admm_train_wall_s={admm_wall:.3f} "
           f"admm_resnet_train_wall_s={resnet_walls['admm_resnet']:.3f} "
           f"fedavg_resnet_train_wall_s={resnet_walls['fedavg_resnet']:.3f} "
-          f"no_consensus_train_wall_s={nc_wall:.3f}", flush=True)
+          f"no_consensus_train_wall_s={nc_wall:.3f} net_bf16_train_wall_s={net16_wall:.3f} "
+          f"vit_bf16_train_wall_s={vit16_wall:.3f} vit_bf16_remat_train_wall_s={vit16_extra['remat_wall_s']:.3f} "
+          f"lm_model_bf16_default_fwd_bwd_s={lm16_wall:.3f} lm_model_f32_fwd_bwd_s={lm16_extra['f32_wall_s']:.3f}",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}),

@@ -124,6 +124,18 @@
 //
 // The aligned causal backward is the same two kernels at Sq = Skv and
 // shift 0, as the aligned forward is `flash_fwd_tc` at shift 0.
+//
+// One pass (`passes` = 1, the kernels' Split = false): the path of
+// `precision='default'` on f32 inputs. The TPU's Precision.DEFAULT runs each
+// dot as one bf16 MXU pass; its counterpart here is one TF32 product a
+// product, hi·hi with both operands rounded by `tf32()` — not a
+// block-by-block carry-over of the TPU kernels. TF32 keeps 10 mantissa bits
+// against bf16's 8, inside the JAX package's 'default' contract (2e-2 from
+// f32, tests/test_flash.py). The same kernels are compiled without the lo
+// operands and the lo·hi, hi·lo products; tiles and shared memory are
+// unchanged. Bound: the products take a third of their split time above,
+// which leaves the exps or the bytes the larger term at both paths' shapes
+// (chip_smoke.py computes each).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -219,7 +231,8 @@ __device__ __forceinline__ void load_kv(Smem<D>& sm, int st, const float* kb, co
 // The landed stage `st` into the split operands: K's hi/lo at the same
 // operand-layout index, and Vᵀ's hi/lo with the keys of every 8 in the order
 // 0, 2, 4, 6, 1, 3, 5, 7 (contraction position t holds key 2t, t + 4 key 2t + 1).
-template <int D>
+// One pass (Split false) forms hi alone.
+template <int D, bool Split>
 __device__ __forceinline__ void split_kv(Smem<D>& sm, int st) {
   const float4* kr = reinterpret_cast<const float4*>(sm.raw[st][0]);
 #pragma unroll
@@ -228,7 +241,7 @@ __device__ __forceinline__ void split_kv(Smem<D>& sm, int st) {
     float4 hi, lo;
     split4(kr[i], hi, lo);
     reinterpret_cast<float4*>(sm.k_hi)[i] = hi;
-    reinterpret_cast<float4*>(sm.k_lo)[i] = lo;
+    if constexpr (Split) reinterpret_cast<float4*>(sm.k_lo)[i] = lo;
   }
   const float* vr = sm.raw[st][1];
 #pragma unroll
@@ -242,15 +255,30 @@ __device__ __forceinline__ void split_kv(Smem<D>& sm, int st) {
     split4(x, hi, lo);
     const unsigned at = cidx<D + 8>(d, 4 * pg);
     *reinterpret_cast<float4*>(&sm.vt_hi[at]) = hi;
-    *reinterpret_cast<float4*>(&sm.vt_lo[at]) = lo;
+    if constexpr (Split) *reinterpret_cast<float4*>(&sm.vt_lo[at]) = lo;
   }
 }
 
+// x's TF32 hi and, with Split, the rest lo, in registers (pinned: the
+// wgmmas read them)
+template <int N, bool Split>
+__device__ __forceinline__ void split_frag(const float (&x)[N], uint32_t (&hi)[N], uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    hi[i] = tf32(x[i]);
+    if constexpr (Split) lo[i] = __float_as_uint(x[i] - __uint_as_float(hi[i]));
+  }
+  pin(hi);
+  if constexpr (Split) pin(lo);
+}
+
 // Forward of q [BH, Sq, D] against k, v [BH, Skv, D]; causal keeps the pair
-// (i, j) iff j <= i + shift. Grid (Sq / kRows, BH), kThreads threads,
-// sizeof(Smem<D>) bytes of dynamic shared memory; two blocks an SM up to
-// D = 32 (at most 128 registers a thread).
-template <int D, bool Causal>
+// (i, j) iff j <= i + shift. Split: three TF32 products a product (f32
+// accuracy, the TPU's 'highest'); else one, hi·hi (the TPU's 'default').
+// Grid (Sq / kRows, BH), kThreads threads, sizeof(Smem<D>) bytes of dynamic
+// shared memory; two blocks an SM up to D = 32 (at most 128 registers a
+// thread).
+template <int D, bool Causal, bool Split>
 __global__ void __launch_bounds__(kThreads, D == 64 ? 1 : 2)
 flash_fwd_tc(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
              float* __restrict__ o, float* __restrict__ lse, int s_q, int s_kv, int shift, float scale) {
@@ -279,7 +307,7 @@ flash_fwd_tc(const float* __restrict__ q, const float* __restrict__ k, const flo
     split4(x, hi, lo);
     const unsigned at = r / 64 * 64 * D + cidx<64>(r % 64, i % (D / 4) * 4);
     *reinterpret_cast<float4*>(&sm.q_hi[at]) = hi;
-    *reinterpret_cast<float4*>(&sm.q_lo[at]) = lo;
+    if constexpr (Split) *reinterpret_cast<float4*>(&sm.q_lo[at]) = lo;
   }
   for (unsigned i = threadIdx.x; i < 8 * kKeys; i += kThreads) {  // Vᵀ's rows D … D + 7
     const unsigned r = D + i / kKeys, at = cidx<D + 8>(r, i % kKeys);
@@ -306,7 +334,7 @@ flash_fwd_tc(const float* __restrict__ q, const float* __restrict__ k, const flo
   for (int it = 0; it < n_tiles; ++it) {
     cp_async_wait<kStages - 1>();  // this thread's copies of tile `it` have landed
     __syncthreads();               // everyone's; and the last tile's wgmmas are done
-    split_kv<D>(sm, it % kStages);
+    split_kv<D, Split>(sm, it % kStages);
     proxy_fence();
     __syncthreads();
     if (it + kStages < n_tiles) load_kv<D>(sm, it % kStages, kb, vb, (it + kStages) * kKeys);
@@ -319,16 +347,18 @@ flash_fwd_tc(const float* __restrict__ q, const float* __restrict__ k, const flo
     // s[4j + 2 + e] the same key on row_b.
     float s[32];
     wg_fence();
+    if constexpr (Split) {
 #pragma unroll
-    for (int ks = 0; ks < D / 8; ++ks) {
-      const uint32_t at = 4 * 512 * ks;  // bytes to columns 8ks … 8ks + 7 of a 64-row operand
-      wgmma_ss_n64(s, desc<64>(q16, offsetof(S, q_lo) + at), desc<kKeys>(base16, offsetof(S, k_hi) + at), ks > 0);
-      wgmma_ss_n64(s, desc<64>(q16, offsetof(S, q_hi) + at), desc<kKeys>(base16, offsetof(S, k_lo) + at), 1);
+      for (int ks = 0; ks < D / 8; ++ks) {
+        const uint32_t at = 4 * 512 * ks;  // bytes to columns 8ks … 8ks + 7 of a 64-row operand
+        wgmma_ss_n64(s, desc<64>(q16, offsetof(S, q_lo) + at), desc<kKeys>(base16, offsetof(S, k_hi) + at), ks > 0);
+        wgmma_ss_n64(s, desc<64>(q16, offsetof(S, q_hi) + at), desc<kKeys>(base16, offsetof(S, k_lo) + at), 1);
+      }
     }
 #pragma unroll
     for (int ks = 0; ks < D / 8; ++ks)
       wgmma_ss_n64(s, desc<64>(q16, offsetof(S, q_hi) + 4 * 512 * ks),
-                   desc<kKeys>(base16, offsetof(S, k_hi) + 4 * 512 * ks), 1);
+                   desc<kKeys>(base16, offsetof(S, k_hi) + 4 * 512 * ks), Split || ks > 0);
     wg_commit();
     wg_wait();
     pin(s);
@@ -380,26 +410,22 @@ flash_fwd_tc(const float* __restrict__ q, const float* __restrict__ k, const flo
     // The A fragment of keys 8j … 8j + 7 is (row_a, pos t), (row_b, pos t),
     // (row_a, pos t + 4), (row_b, pos t + 4).
     uint32_t ph[32], pl[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      ph[i] = tf32(s[i]);
-      pl[i] = __float_as_uint(s[i] - __uint_as_float(ph[i]));
-    }
-    pin(ph);
-    pin(pl);
+    split_frag<32, Split>(s, ph, pl);
     float pv[(D + 8) / 2];
     wg_fence();
+    if constexpr (Split) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const uint32_t a_lo[4] = {pl[4 * j], pl[4 * j + 2], pl[4 * j + 1], pl[4 * j + 3]};
-      const uint32_t a_hi[4] = {ph[4 * j], ph[4 * j + 2], ph[4 * j + 1], ph[4 * j + 3]};
-      wgmma_pv<D>(pv, a_lo, desc<D + 8>(base16, offsetof(S, vt_hi) + 32 * (D + 8) * j), j > 0);
-      wgmma_pv<D>(pv, a_hi, desc<D + 8>(base16, offsetof(S, vt_lo) + 32 * (D + 8) * j), 1);
+      for (int j = 0; j < 8; ++j) {
+        const uint32_t a_lo[4] = {pl[4 * j], pl[4 * j + 2], pl[4 * j + 1], pl[4 * j + 3]};
+        const uint32_t a_hi[4] = {ph[4 * j], ph[4 * j + 2], ph[4 * j + 1], ph[4 * j + 3]};
+        wgmma_pv<D>(pv, a_lo, desc<D + 8>(base16, offsetof(S, vt_hi) + 32 * (D + 8) * j), j > 0);
+        wgmma_pv<D>(pv, a_hi, desc<D + 8>(base16, offsetof(S, vt_lo) + 32 * (D + 8) * j), 1);
+      }
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const uint32_t a_hi[4] = {ph[4 * j], ph[4 * j + 2], ph[4 * j + 1], ph[4 * j + 3]};
-      wgmma_pv<D>(pv, a_hi, desc<D + 8>(base16, offsetof(S, vt_hi) + 32 * (D + 8) * j), 1);
+      wgmma_pv<D>(pv, a_hi, desc<D + 8>(base16, offsetof(S, vt_hi) + 32 * (D + 8) * j), Split || j > 0);
     }
     wg_commit();
     wg_wait();
@@ -432,29 +458,46 @@ flash_fwd_tc(const float* __restrict__ q, const float* __restrict__ k, const flo
 }
 
 // One launch of the forward; the cudaError_t of the launch.
-template <int D, bool Causal>
+template <int D, bool Causal, bool Split>
 int launch_fwd(const float* q, const float* k, const float* v, float* o, float* lse, int bh, int s_q, int s_kv,
                int shift, float scale, cudaStream_t st) {
   constexpr int kSmem = sizeof(Smem<D>);
-  const cudaError_t e = cudaFuncSetAttribute(flash_fwd_tc<D, Causal>,
+  const cudaError_t e = cudaFuncSetAttribute(flash_fwd_tc<D, Causal, Split>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (e != cudaSuccess) return (int)e;
-  flash_fwd_tc<D, Causal><<<dim3(s_q / kRows, bh), kThreads, kSmem, st>>>(q, k, v, o, lse, s_q, s_kv, shift,
-                                                                            scale);
+  flash_fwd_tc<D, Causal, Split><<<dim3(s_q / kRows, bh), kThreads, kSmem, st>>>(q, k, v, o, lse, s_q, s_kv,
+                                                                                   shift, scale);
   return (int)cudaGetLastError();
 }
 
+// The instance of a launch template for (d, causal, split): `KERNEL_CASES(fn, args)`
+// expands to the switch cases over D in {16, 32, 64}.
+#define KERNEL_CASES(fn, ...)                                                              \
+  case 0: return fn<16, false, false>(__VA_ARGS__);                                        \
+  case 1: return fn<16, false, true>(__VA_ARGS__);                                         \
+  case 2: return fn<16, true, false>(__VA_ARGS__);                                         \
+  case 3: return fn<16, true, true>(__VA_ARGS__);                                          \
+  case 4: return fn<32, false, false>(__VA_ARGS__);                                        \
+  case 5: return fn<32, false, true>(__VA_ARGS__);                                         \
+  case 6: return fn<32, true, false>(__VA_ARGS__);                                         \
+  case 7: return fn<32, true, true>(__VA_ARGS__);                                          \
+  case 8: return fn<64, false, false>(__VA_ARGS__);                                        \
+  case 9: return fn<64, false, true>(__VA_ARGS__);                                         \
+  case 10: return fn<64, true, false>(__VA_ARGS__);                                        \
+  case 11: return fn<64, true, true>(__VA_ARGS__);
+
+// the case of (d, causal, split), or -1 for a head dim without an instance
+int instance(int d, bool causal, bool split) {
+  const int di = d == 16 ? 0 : d == 32 ? 1 : d == 64 ? 2 : -1;
+  return di < 0 ? -1 : 4 * di + 2 * (causal ? 1 : 0) + (split ? 1 : 0);
+}
+
 int fwd(const float* q, const float* k, const float* v, float* o, float* lse, int bh, int s_q, int s_kv, int d,
-        bool causal, int shift, float scale, void* stream) {
+        bool causal, int shift, float scale, bool split, void* stream) {
   if (!rect_shape_ok(bh, s_q, s_kv)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (d * 2 + (causal ? 1 : 0)) {
-    case 32: return launch_fwd<16, false>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);
-    case 33: return launch_fwd<16, true>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);
-    case 64: return launch_fwd<32, false>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);
-    case 65: return launch_fwd<32, true>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);
-    case 128: return launch_fwd<64, false>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);
-    case 129: return launch_fwd<64, true>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);
+  switch (instance(d, causal, split)) {
+    KERNEL_CASES(launch_fwd, q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st)
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -473,63 +516,57 @@ template <int D>
 constexpr int kDqTile = D == 64 ? 32 : 64;
 constexpr int kDkvTile = 32;
 
-// acc (+)= A·Bᵀ over D columns in split TF32, small products first: A is this
-// warpgroup's 64-row operand (descriptor base a16, hi/lo at byte offsets
-// a_hi, a_lo), B an N-row operand (base b16, offsets b_hi, b_lo), both in
-// shared memory. The first product overwrites acc.
-template <int D, int N>
+// acc (+)= A·Bᵀ over D columns in split TF32, small products first (one
+// pass, hi·hi, without Split): A is this warpgroup's 64-row operand
+// (descriptor base a16, hi/lo at byte offsets a_hi, a_lo), B an N-row operand
+// (base b16, offsets b_hi, b_lo), both in shared memory. The first product
+// overwrites acc.
+template <int D, int N, bool Split>
 __device__ __forceinline__ void ss_split(float (&acc)[N / 2], uint32_t a16, uint32_t a_hi, uint32_t a_lo,
                                          uint32_t b16, uint32_t b_hi, uint32_t b_lo) {
+  if constexpr (Split) {
 #pragma unroll
-  for (int ks = 0; ks < D / 8; ++ks) {  // bytes to columns 8ks … 8ks + 7: 32·R·ks for R rows
-    wgmma_ss<N>(acc, desc<64>(a16, a_lo + 2048 * ks), desc<N>(b16, b_hi + 32 * N * ks), ks > 0);
-    wgmma_ss<N>(acc, desc<64>(a16, a_hi + 2048 * ks), desc<N>(b16, b_lo + 32 * N * ks), 1);
+    for (int ks = 0; ks < D / 8; ++ks) {  // bytes to columns 8ks … 8ks + 7: 32·R·ks for R rows
+      wgmma_ss<N>(acc, desc<64>(a16, a_lo + 2048 * ks), desc<N>(b16, b_hi + 32 * N * ks), ks > 0);
+      wgmma_ss<N>(acc, desc<64>(a16, a_hi + 2048 * ks), desc<N>(b16, b_lo + 32 * N * ks), 1);
+    }
   }
 #pragma unroll
   for (int ks = 0; ks < D / 8; ++ks)
-    wgmma_ss<N>(acc, desc<64>(a16, a_hi + 2048 * ks), desc<N>(b16, b_hi + 32 * N * ks), 1);
-}
-
-// x's TF32 hi and the rest lo, in registers (pinned: the wgmmas read them)
-template <int N>
-__device__ __forceinline__ void split_frag(const float (&x)[N], uint32_t (&hi)[N], uint32_t (&lo)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    hi[i] = tf32(x[i]);
-    lo[i] = __float_as_uint(x[i] - __uint_as_float(hi[i]));
-  }
-  pin(hi);
-  pin(lo);
+    wgmma_ss<N>(acc, desc<64>(a16, a_hi + 2048 * ks), desc<N>(b16, b_hi + 32 * N * ks), Split || ks > 0);
 }
 
 // acc (+)= X·B over T contraction positions in split TF32, small products
-// first; with accumulate = 0 the first product overwrites acc. X is the
+// first (one pass, hi·hi, without Split); with accumulate = 0 the first
+// product overwrites acc. X is the
 // [64 x T] accumulator of an earlier product, split into xh/xl:
 // a thread holds its columns 8j + 2t + e, which the TF32 A fragment takes at
 // positions {t, t + 4}; B (N rows by T positions, base b16, hi/lo at b_hi,
 // b_lo) stores each 8 of its positions in the order 0, 2, 4, 6, 1, 3, 5, 7 to
 // match, so the registers are the fragment as they stand.
-template <int N, int T>
+template <int N, int T, bool Split>
 __device__ __forceinline__ void rs_split(float (&acc)[N / 2], const uint32_t (&xh)[T / 2],
                                          const uint32_t (&xl)[T / 2], uint32_t b16, uint32_t b_hi, uint32_t b_lo,
                                          int accumulate = 1) {
+  if constexpr (Split) {
 #pragma unroll
-  for (int j = 0; j < T / 8; ++j) {
-    const uint32_t a_lo[4] = {xl[4 * j], xl[4 * j + 2], xl[4 * j + 1], xl[4 * j + 3]};
-    const uint32_t a_hi[4] = {xh[4 * j], xh[4 * j + 2], xh[4 * j + 1], xh[4 * j + 3]};
-    wgmma_rs<N>(acc, a_lo, desc<N>(b16, b_hi + 32 * N * j), j > 0 || accumulate);
-    wgmma_rs<N>(acc, a_hi, desc<N>(b16, b_lo + 32 * N * j), 1);
+    for (int j = 0; j < T / 8; ++j) {
+      const uint32_t a_lo[4] = {xl[4 * j], xl[4 * j + 2], xl[4 * j + 1], xl[4 * j + 3]};
+      const uint32_t a_hi[4] = {xh[4 * j], xh[4 * j + 2], xh[4 * j + 1], xh[4 * j + 3]};
+      wgmma_rs<N>(acc, a_lo, desc<N>(b16, b_hi + 32 * N * j), j > 0 || accumulate);
+      wgmma_rs<N>(acc, a_hi, desc<N>(b16, b_lo + 32 * N * j), 1);
+    }
   }
 #pragma unroll
   for (int j = 0; j < T / 8; ++j) {
     const uint32_t a_hi[4] = {xh[4 * j], xh[4 * j + 2], xh[4 * j + 1], xh[4 * j + 3]};
-    wgmma_rs<N>(acc, a_hi, desc<N>(b16, b_hi + 32 * N * j), 1);
+    wgmma_rs<N>(acc, a_hi, desc<N>(b16, b_hi + 32 * N * j), Split || j > 0 || accumulate);
   }
 }
 
 // rows [row0, row0 + kRows) of a [S, D] matrix (src at row0) split into hi/lo
 // in the operand layout of two 64-row operands, one a warpgroup
-template <int D>
+template <int D, bool Split>
 __device__ __forceinline__ void split_rows(float* hi, float* lo, const float* src) {
   const float4* s4 = reinterpret_cast<const float4*>(src);
 #pragma unroll
@@ -539,7 +576,7 @@ __device__ __forceinline__ void split_rows(float* hi, float* lo, const float* sr
     split4(__ldg(s4 + i), h, l);
     const unsigned at = r / 64 * 64 * D + cidx<64>(r % 64, i % (D / 4) * 4);
     *reinterpret_cast<float4*>(&hi[at]) = h;
-    *reinterpret_cast<float4*>(&lo[at]) = l;
+    if constexpr (Split) *reinterpret_cast<float4*>(&lo[at]) = l;
   }
 }
 
@@ -553,14 +590,14 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src) {
 }
 
 // A landed tile in operand layout into its hi/lo at the same index.
-template <int D, int T>
+template <int D, int T, bool Split>
 __device__ __forceinline__ void split_same(const float* raw, float* hi, float* lo) {
 #pragma unroll
   for (unsigned i = threadIdx.x; i < T * D / 4; i += kThreads) {
     float4 h, l;
     split4(reinterpret_cast<const float4*>(raw)[i], h, l);
     reinterpret_cast<float4*>(hi)[i] = h;
-    reinterpret_cast<float4*>(lo)[i] = l;
+    if constexpr (Split) reinterpret_cast<float4*>(lo)[i] = l;
   }
 }
 
@@ -568,7 +605,7 @@ __device__ __forceinline__ void split_same(const float* raw, float* hi, float* l
 // rows by D, contraction over D) and its transpose (D rows by T positions,
 // the rows of every 8 stored in the order 0, 2, 4, 6, 1, 3, 5, 7, as
 // `rs_split` reads them).
-template <int D, int T>
+template <int D, int T, bool Split>
 __device__ __forceinline__ void split_both(const float* raw, float* hi, float* lo, float* t_hi, float* t_lo) {
 #pragma unroll
   for (unsigned i = threadIdx.x; i < T * D / 4; i += kThreads) {
@@ -576,7 +613,7 @@ __device__ __forceinline__ void split_both(const float* raw, float* hi, float* l
     split4(reinterpret_cast<const float4*>(raw)[i], h, l);
     const unsigned at = cidx<T>(i / (D / 4), i % (D / 4) * 4);
     *reinterpret_cast<float4*>(&hi[at]) = h;
-    *reinterpret_cast<float4*>(&lo[at]) = l;
+    if constexpr (Split) *reinterpret_cast<float4*>(&lo[at]) = l;
   }
 #pragma unroll
   for (unsigned i = threadIdx.x; i < T * D / 4; i += kThreads) {
@@ -587,7 +624,7 @@ __device__ __forceinline__ void split_both(const float* raw, float* hi, float* l
     split4(x, h, l);
     const unsigned at = cidx<D>(d, 4 * pg);
     *reinterpret_cast<float4*>(&t_hi[at]) = h;
-    *reinterpret_cast<float4*>(&t_lo[at]) = l;
+    if constexpr (Split) *reinterpret_cast<float4*>(&t_lo[at]) = l;
   }
 }
 
@@ -621,10 +658,11 @@ struct SmemDkv {
 };
 static_assert(sizeof(SmemDq<64>) <= 232448 && sizeof(SmemDkv<64>) <= 232448, "over 227 KB of shared memory");
 
-// dq of q, dO [BH, Sq, D] against k, v [BH, Skv, D]: dq = scale · Σ_j dS_ij k_j.
+// dq of q, dO [BH, Sq, D] against k, v [BH, Skv, D]: dq = scale · Σ_j dS_ij k_j,
+// in split TF32 or (without Split) one pass.
 // Grid (Sq / kRows, BH), kThreads threads, sizeof(SmemDq<D>) bytes of
 // dynamic shared memory; two blocks an SM at D = 16 (at most 128 registers).
-template <int D, bool Causal>
+template <int D, bool Causal, bool Split>
 __global__ void __launch_bounds__(kThreads, D == 16 ? 2 : 1)
 flash_bwd_dq_tc(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                 const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
@@ -649,8 +687,8 @@ flash_bwd_dq_tc(const float* __restrict__ q, const float* __restrict__ k, const 
     cp_async_commit();
   }
   const size_t qrow = (size_t)bh * s_q + row0;
-  split_rows<D>(sm.q_hi, sm.q_lo, q + qrow * D);
-  split_rows<D>(sm.do_hi, sm.do_lo, dout + qrow * D);
+  split_rows<D, Split>(sm.q_hi, sm.q_lo, q + qrow * D);
+  split_rows<D, Split>(sm.do_hi, sm.do_lo, dout + qrow * D);
   proxy_fence();
 
   const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
@@ -671,8 +709,8 @@ flash_bwd_dq_tc(const float* __restrict__ q, const float* __restrict__ k, const 
     const int st = it % kStages;
     cp_async_wait<kStages - 1>();  // this thread's copies of tile `it` have landed
     __syncthreads();               // everyone's; and the last tile's wgmmas are done
-    split_both<D, T>(sm.raw[st][0], sm.k_hi, sm.k_lo, sm.kt_hi, sm.kt_lo);
-    split_same<D, T>(sm.raw[st][1], sm.v_hi, sm.v_lo);
+    split_both<D, T, Split>(sm.raw[st][0], sm.k_hi, sm.k_lo, sm.kt_hi, sm.kt_lo);
+    split_same<D, T, Split>(sm.raw[st][1], sm.v_hi, sm.v_lo);
     proxy_fence();
     __syncthreads();
     if (it + kStages < n_tiles) {
@@ -688,8 +726,9 @@ flash_bwd_dq_tc(const float* __restrict__ q, const float* __restrict__ k, const 
     // s[4j + 2 + e] the same key on row_b; dp likewise.
     float s[T / 2], dp[T / 2];
     wg_fence();
-    ss_split<D, T>(s, a16, offsetof(S, q_hi), offsetof(S, q_lo), base16, offsetof(S, k_hi), offsetof(S, k_lo));
-    ss_split<D, T>(dp, a16, offsetof(S, do_hi), offsetof(S, do_lo), base16, offsetof(S, v_hi), offsetof(S, v_lo));
+    ss_split<D, T, Split>(s, a16, offsetof(S, q_hi), offsetof(S, q_lo), base16, offsetof(S, k_hi), offsetof(S, k_lo));
+    ss_split<D, T, Split>(dp, a16, offsetof(S, do_hi), offsetof(S, do_lo), base16, offsetof(S, v_hi),
+                          offsetof(S, v_lo));
     wg_commit();
     wg_wait();
     pin(s);
@@ -715,18 +754,18 @@ flash_bwd_dq_tc(const float* __restrict__ q, const float* __restrict__ k, const 
     // dq += dS·K with dS in registers, against Kᵀ; causal: the tile's
     // product sums apart and joins acc in f32 adds
     uint32_t xh[T / 2], xl[T / 2];
-    split_frag(s, xh, xl);
+    split_frag<T / 2, Split>(s, xh, xl);
     wg_fence();
     if constexpr (Causal) {
       float part[D / 2];
-      rs_split<D, T>(part, xh, xl, base16, offsetof(S, kt_hi), offsetof(S, kt_lo), 0);
+      rs_split<D, T, Split>(part, xh, xl, base16, offsetof(S, kt_hi), offsetof(S, kt_lo), 0);
       wg_commit();
       wg_wait();
       pin(part);
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] += part[i];
     } else {
-      rs_split<D, T>(acc, xh, xl, base16, offsetof(S, kt_hi), offsetof(S, kt_lo));
+      rs_split<D, T, Split>(acc, xh, xl, base16, offsetof(S, kt_hi), offsetof(S, kt_lo));
       wg_commit();
       wg_wait();
       pin(acc);
@@ -743,10 +782,10 @@ flash_bwd_dq_tc(const float* __restrict__ q, const float* __restrict__ k, const 
 }
 
 // dk, dv of k, v [BH, Skv, D] from the same inputs: dv = Σ_i P_ijᵀ dO_i,
-// dk = scale · Σ_i dS_ijᵀ q_i. Grid (Skv / kRows, BH), kThreads threads,
-// sizeof(SmemDkv<D>) bytes of dynamic shared memory; two blocks an SM at
-// D = 16 (at most 128 registers).
-template <int D, bool Causal>
+// dk = scale · Σ_i dS_ijᵀ q_i, in split TF32 or (without Split) one pass.
+// Grid (Skv / kRows, BH), kThreads threads, sizeof(SmemDkv<D>) bytes of
+// dynamic shared memory; two blocks an SM at D = 16 (at most 128 registers).
+template <int D, bool Causal, bool Split>
 __global__ void __launch_bounds__(kThreads, D == 16 ? 2 : 1)
 flash_bwd_dkv_tc(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                  const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
@@ -779,8 +818,8 @@ flash_bwd_dkv_tc(const float* __restrict__ q, const float* __restrict__ k, const
     cp_async_commit();
   }
   const size_t krow = (size_t)bh * s_kv + key0;
-  split_rows<D>(sm.k_hi, sm.k_lo, k + krow * D);
-  split_rows<D>(sm.v_hi, sm.v_lo, v + krow * D);
+  split_rows<D, Split>(sm.k_hi, sm.k_lo, k + krow * D);
+  split_rows<D, Split>(sm.v_hi, sm.v_lo, v + krow * D);
   proxy_fence();
 
   const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
@@ -799,8 +838,8 @@ flash_bwd_dkv_tc(const float* __restrict__ q, const float* __restrict__ k, const
     const int st = it % kStages;
     cp_async_wait<kStages - 1>();
     __syncthreads();
-    split_both<D, T>(sm.raw[st][0], sm.q_hi, sm.q_lo, sm.qt_hi, sm.qt_lo);
-    split_both<D, T>(sm.raw[st][1], sm.do_hi, sm.do_lo, sm.dot_hi, sm.dot_lo);
+    split_both<D, T, Split>(sm.raw[st][0], sm.q_hi, sm.q_lo, sm.qt_hi, sm.qt_lo);
+    split_both<D, T, Split>(sm.raw[st][1], sm.do_hi, sm.do_lo, sm.dot_hi, sm.dot_lo);
     if (threadIdx.x < T) {
       sm.lse2[threadIdx.x] = lse2(sm.raw_stats[st][0][threadIdx.x]);
       sm.delta[threadIdx.x] = sm.raw_stats[st][1][threadIdx.x];
@@ -818,8 +857,9 @@ flash_bwd_dkv_tc(const float* __restrict__ q, const float* __restrict__ k, const
     // delta are per column.
     float s[T / 2], dp[T / 2];
     wg_fence();
-    ss_split<D, T>(s, a16, offsetof(S, k_hi), offsetof(S, k_lo), base16, offsetof(S, q_hi), offsetof(S, q_lo));
-    ss_split<D, T>(dp, a16, offsetof(S, v_hi), offsetof(S, v_lo), base16, offsetof(S, do_hi), offsetof(S, do_lo));
+    ss_split<D, T, Split>(s, a16, offsetof(S, k_hi), offsetof(S, k_lo), base16, offsetof(S, q_hi), offsetof(S, q_lo));
+    ss_split<D, T, Split>(dp, a16, offsetof(S, v_hi), offsetof(S, v_lo), base16, offsetof(S, do_hi),
+                          offsetof(S, do_lo));
     wg_commit();
     wg_wait();
     pin(s);
@@ -855,18 +895,18 @@ flash_bwd_dkv_tc(const float* __restrict__ q, const float* __restrict__ k, const
       // live at a time beside the two accumulators
       float part[D / 2];
       uint32_t ph[T / 2], pl[T / 2];
-      split_frag(s, ph, pl);
+      split_frag<T / 2, Split>(s, ph, pl);
       wg_fence();
-      rs_split<D, T>(part, ph, pl, base16, offsetof(S, dot_hi), offsetof(S, dot_lo), 0);
+      rs_split<D, T, Split>(part, ph, pl, base16, offsetof(S, dot_hi), offsetof(S, dot_lo), 0);
       wg_commit();
       wg_wait();
       pin(part);
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) dva[i] += part[i];
       uint32_t dh[T / 2], dl[T / 2];
-      split_frag(dp, dh, dl);
+      split_frag<T / 2, Split>(dp, dh, dl);
       wg_fence();
-      rs_split<D, T>(part, dh, dl, base16, offsetof(S, qt_hi), offsetof(S, qt_lo), 0);
+      rs_split<D, T, Split>(part, dh, dl, base16, offsetof(S, qt_hi), offsetof(S, qt_lo), 0);
       wg_commit();
       wg_wait();
       pin(part);
@@ -874,11 +914,11 @@ flash_bwd_dkv_tc(const float* __restrict__ q, const float* __restrict__ k, const
       for (int i = 0; i < D / 2; ++i) dka[i] += part[i];
     } else {
       uint32_t ph[T / 2], pl[T / 2], dh[T / 2], dl[T / 2];
-      split_frag(s, ph, pl);
-      split_frag(dp, dh, dl);
+      split_frag<T / 2, Split>(s, ph, pl);
+      split_frag<T / 2, Split>(dp, dh, dl);
       wg_fence();
-      rs_split<D, T>(dva, ph, pl, base16, offsetof(S, dot_hi), offsetof(S, dot_lo));
-      rs_split<D, T>(dka, dh, dl, base16, offsetof(S, qt_hi), offsetof(S, qt_lo));
+      rs_split<D, T, Split>(dva, ph, pl, base16, offsetof(S, dot_hi), offsetof(S, dot_lo));
+      rs_split<D, T, Split>(dka, dh, dl, base16, offsetof(S, qt_hi), offsetof(S, qt_lo));
       wg_commit();
       wg_wait();
       pin(dva);
@@ -909,48 +949,39 @@ int launch_bwd(Kernel kernel, int smem, dim3 grid, cudaStream_t st, Args... args
   return (int)cudaGetLastError();
 }
 
-template <int D, bool Causal>
+template <int D, bool Causal, bool Split>
 int bwd_dq_d(const float* q, const float* k, const float* v, const float* dout, const float* lse,
              const float* delta, float* dq, int bh, int s_q, int s_kv, int shift, float scale, cudaStream_t st) {
-  return launch_bwd(flash_bwd_dq_tc<D, Causal>, (int)sizeof(SmemDq<D>), dim3(s_q / kRows, bh), st, q, k, v, dout,
-                    lse, delta, dq, s_q, s_kv, shift, scale);
+  return launch_bwd(flash_bwd_dq_tc<D, Causal, Split>, (int)sizeof(SmemDq<D>), dim3(s_q / kRows, bh), st, q, k, v,
+                    dout, lse, delta, dq, s_q, s_kv, shift, scale);
 }
 
-template <int D, bool Causal>
+template <int D, bool Causal, bool Split>
 int bwd_dkv_d(const float* q, const float* k, const float* v, const float* dout, const float* lse,
               const float* delta, float* dk, float* dv, int bh, int s_q, int s_kv, int shift, float scale,
               cudaStream_t st) {
-  return launch_bwd(flash_bwd_dkv_tc<D, Causal>, (int)sizeof(SmemDkv<D>), dim3(s_kv / kRows, bh), st, q, k, v,
-                    dout, lse, delta, dk, dv, s_q, s_kv, shift, scale);
+  return launch_bwd(flash_bwd_dkv_tc<D, Causal, Split>, (int)sizeof(SmemDkv<D>), dim3(s_kv / kRows, bh), st, q,
+                    k, v, dout, lse, delta, dk, dv, s_q, s_kv, shift, scale);
 }
 
 int bwd_dq(const float* q, const float* k, const float* v, const float* dout, const float* lse, const float* delta,
-           float* dq, int bh, int s_q, int s_kv, int d, bool causal, int shift, float scale, void* stream) {
+           float* dq, int bh, int s_q, int s_kv, int d, bool causal, int shift, float scale, bool split,
+           void* stream) {
   if (!rect_shape_ok(bh, s_q, s_kv)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (d * 2 + (causal ? 1 : 0)) {
-    case 32: return bwd_dq_d<16, false>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, shift, scale, st);
-    case 33: return bwd_dq_d<16, true>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, shift, scale, st);
-    case 64: return bwd_dq_d<32, false>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, shift, scale, st);
-    case 65: return bwd_dq_d<32, true>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, shift, scale, st);
-    case 128: return bwd_dq_d<64, false>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, shift, scale, st);
-    case 129: return bwd_dq_d<64, true>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, shift, scale, st);
+  switch (instance(d, causal, split)) {
+    KERNEL_CASES(bwd_dq_d, q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, shift, scale, st)
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 int bwd_dkv(const float* q, const float* k, const float* v, const float* dout, const float* lse, const float* delta,
-            float* dk, float* dv, int bh, int s_q, int s_kv, int d, bool causal, int shift, float scale,
+            float* dk, float* dv, int bh, int s_q, int s_kv, int d, bool causal, int shift, float scale, bool split,
             void* stream) {
   if (!rect_shape_ok(bh, s_q, s_kv)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (d * 2 + (causal ? 1 : 0)) {
-    case 32: return bwd_dkv_d<16, false>(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, shift, scale, st);
-    case 33: return bwd_dkv_d<16, true>(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, shift, scale, st);
-    case 64: return bwd_dkv_d<32, false>(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, shift, scale, st);
-    case 65: return bwd_dkv_d<32, true>(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, shift, scale, st);
-    case 128: return bwd_dkv_d<64, false>(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, shift, scale, st);
-    case 129: return bwd_dkv_d<64, true>(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, shift, scale, st);
+  switch (instance(d, causal, split)) {
+    KERNEL_CASES(bwd_dkv_d, q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, shift, scale, st)
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -961,47 +992,51 @@ int bwd_dkv(const float* q, const float* k, const float* v, const float* dout, c
 
 extern "C" {
 
+// `passes` (every entry point): 3 for split TF32 (f32 accuracy), 1 for one
+// TF32 product a product. Returns the cudaError_t of the launch.
+
 // Forward on `stream`: o [BH, S, D], lse [BH, S]. D in {16, 32, 64},
-// S a multiple of 128. Returns the cudaError_t of the launch.
+// S a multiple of 128.
 int flash_fwd_launch(const float* q, const float* k, const float* v, float* o, float* lse, int bh, int s,
-                     int d, float scale, void* stream) {
-  return tc::fwd(q, k, v, o, lse, bh, s, s, d, true, 0, scale, stream);
+                     int d, float scale, int passes, void* stream) {
+  return tc::fwd(q, k, v, o, lse, bh, s, s, d, true, 0, scale, passes == 3, stream);
 }
 
 // dq [BH, S, D] from q, k, v, dO [BH, S, D] and lse, delta [BH, S].
 int flash_bwd_dq_launch(const float* q, const float* k, const float* v, const float* dout, const float* lse,
-                        const float* delta, float* dq, int bh, int s, int d, float scale, void* stream) {
-  return tc::bwd_dq(q, k, v, dout, lse, delta, dq, bh, s, s, d, true, 0, scale, stream);
+                        const float* delta, float* dq, int bh, int s, int d, float scale, int passes, void* stream) {
+  return tc::bwd_dq(q, k, v, dout, lse, delta, dq, bh, s, s, d, true, 0, scale, passes == 3, stream);
 }
 
 // dk, dv [BH, S, D] from the same inputs.
 int flash_bwd_dkv_launch(const float* q, const float* k, const float* v, const float* dout, const float* lse,
-                         const float* delta, float* dk, float* dv, int bh, int s, int d, float scale,
+                         const float* delta, float* dk, float* dv, int bh, int s, int d, float scale, int passes,
                          void* stream) {
-  return tc::bwd_dkv(q, k, v, dout, lse, delta, dk, dv, bh, s, s, d, true, 0, scale, stream);
+  return tc::bwd_dkv(q, k, v, dout, lse, delta, dk, dv, bh, s, s, d, true, 0, scale, passes == 3, stream);
 }
 
 // Rectangular forward: o [BH, Sq, D], lse [BH, Sq] from q [BH, Sq, D] and
 // k, v [BH, Skv, D]; `causal` masks on the global positions q_off + i,
 // k_off + j. Sq and Skv multiples of 128, D in {16, 32, 64}.
 int flash_fwd_rect_launch(const float* q, const float* k, const float* v, float* o, float* lse, int bh, int s_q,
-                          int s_kv, int d, int causal, int q_off, int k_off, float scale, void* stream) {
-  return tc::fwd(q, k, v, o, lse, bh, s_q, s_kv, d, causal != 0, q_off - k_off, scale, stream);
+                          int s_kv, int d, int causal, int q_off, int k_off, float scale, int passes, void* stream) {
+  return tc::fwd(q, k, v, o, lse, bh, s_q, s_kv, d, causal != 0, q_off - k_off, scale, passes == 3, stream);
 }
 
 // Rectangular dq [BH, Sq, D] from q, dO [BH, Sq, D], k, v [BH, Skv, D] and lse, delta [BH, Sq].
 int flash_bwd_dq_rect_launch(const float* q, const float* k, const float* v, const float* dout, const float* lse,
                              const float* delta, float* dq, int bh, int s_q, int s_kv, int d, int causal,
-                             int q_off, int k_off, float scale, void* stream) {
-  return tc::bwd_dq(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, d, causal != 0, q_off - k_off, scale, stream);
+                             int q_off, int k_off, float scale, int passes, void* stream) {
+  return tc::bwd_dq(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, d, causal != 0, q_off - k_off, scale,
+                    passes == 3, stream);
 }
 
 // Rectangular dk, dv [BH, Skv, D] from the same inputs.
 int flash_bwd_dkv_rect_launch(const float* q, const float* k, const float* v, const float* dout, const float* lse,
                               const float* delta, float* dk, float* dv, int bh, int s_q, int s_kv, int d,
-                              int causal, int q_off, int k_off, float scale, void* stream) {
+                              int causal, int q_off, int k_off, float scale, int passes, void* stream) {
   return tc::bwd_dkv(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, d, causal != 0, q_off - k_off, scale,
-                     stream);
+                     passes == 3, stream);
 }
 
 }  // extern "C"

@@ -31,6 +31,13 @@ class ExperimentConfig:
     # weight of the switch load-balance term in each client's loss when the
     # model has experts (`model_kwargs={"moe_experts": E}`); ignored otherwise
     moe_aux_coef: float = 0.01
+    # 'bfloat16' runs the models' convolutions and matmuls, and the norms'
+    # elementwise math, in bf16; parameters, the loss and all L-BFGS math
+    # stay f32 (mixed precision, the JAX package's meaning)
+    compute_dtype: str = "float32"
+    # recompute the forward during the backward (torch.utils.checkpoint):
+    # activation memory for compute; line-search probes are forward-only
+    remat: bool = False
     dataset: str = "cifar10"  # cifar10 | cifar100
     data_root: str | None = None  # None => $CIFAR_DATA_DIR or ./torchdata
     synthetic_n_train: int | None = None  # shrink the synthetic stand-in only
@@ -107,6 +114,8 @@ class ExperimentConfig:
             raise ValueError(
                 f"reg_mode must be 'active_linear', 'first_linear' or 'none', got {self.reg_mode!r}"
             )
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', got {self.compute_dtype!r}")
         if self.lbfgs_direction not in DIRECTIONS:
             raise ValueError(
                 f"lbfgs_direction must be one of {sorted(DIRECTIONS)}, got {self.lbfgs_direction!r}"

@@ -24,6 +24,16 @@ Counterpart of the none, fedavg and admm paths of the JAX package's
   keep their own x.
 * `evaluate` — per-client correct counts over the test set, a BatchNorm
   model normalizing with each client's running averages.
+
+Mixed precision (a model whose `dtype` is bf16, the engine's
+`compute_dtype`), as the JAX package's step: the frozen coordinates are
+cast to the model's dtype once a minibatch, the active group's inside each
+evaluation (so its gradient comes back f32), the logits are cast to f32
+before the cross-entropy, and the elastic net, the ADMM term and the
+optimizer stay f32. `remat` wraps each evaluation in
+`torch.utils.checkpoint` (non-reentrant): the gradient passes recompute the
+forward instead of keeping its activations, and the line-search probes,
+which take no gradient, run as before.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..consensus import (
     ADMMConfig,
@@ -71,6 +82,7 @@ class GroupContext:
     moe_aux_coef: float = 0.0  # weight of the MoE load-balance term (0: the model has no experts)
     strategy: str = "fedavg"  # none | fedavg | admm
     admm: ADMMConfig = ADMMConfig()
+    remat: bool = False  # recompute each evaluation's forward in its backward
 
 
 def data_loss(ctx: GroupContext, params: dict, images: torch.Tensor, labels: torch.Tensor):
@@ -86,9 +98,10 @@ def data_loss(ctx: GroupContext, params: dict, images: torch.Tensor, labels: tor
 
 
 def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Per-client mean cross-entropy `[K]` of logits `[K, B, C]`."""
+    """Per-client mean cross-entropy `[K]` of logits `[K, B, C]`, in f32
+    whatever the logits' dtype."""
     k, b, c = logits.shape
-    ce = F.cross_entropy(logits.reshape(k * b, c), labels.reshape(k * b).long(), reduction="none")
+    ce = F.cross_entropy(logits.float().reshape(k * b, c), labels.reshape(k * b).long(), reduction="none")
     return ce.reshape(k, b).mean(dim=1)
 
 
@@ -132,13 +145,24 @@ def _segments(ctx: GroupContext, base: torch.Tensor, x: torch.Tensor) -> torch.T
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
 
 
-def objective(ctx: GroupContext, base: torch.Tensor, x: torch.Tensor, stats: dict, images, labels, cstate=None):
+def objective(ctx: GroupContext, base: torch.Tensor, x: torch.Tensor, stats: dict, images, labels, cstate=None,
+              base_c: Optional[torch.Tensor] = None):
     """The clients' objective `[K]` at the active group's coordinates
     `x [K, G]` (the rest of the parameters from `base [K, N]`): the data
     loss, the elastic net on the active group or on `ctx.reg_segments`,
     and under ADMM the augmented-Lagrangian term. Returns `(objective,
-    data loss, new statistics)` on normalized `images`."""
-    dl, new_stats = data_loss_and_stats(ctx, _group_params(ctx, base, x), stats, images, labels)
+    data loss, new statistics)` on normalized `images`.
+
+    The model runs on parameters in its compute dtype: `base_c` is `base`
+    already cast to it (once a minibatch; cast here when None), `x` is cast
+    here, so the gradient reaches the f32 `x`. The penalties read the f32
+    coordinates."""
+    dt = ctx.model.dtype
+    if dt != torch.float32:
+        params = _group_params(ctx, base.to(dt) if base_c is None else base_c, x.to(dt))
+    else:
+        params = _group_params(ctx, base, x)
+    dl, new_stats = data_loss_and_stats(ctx, params, stats, images, labels)
     loss = dl
     if ctx.reg_on_active:
         loss = loss + elastic_net(x, ctx.lambda1, ctx.lambda2)
@@ -171,11 +195,18 @@ def client_train_step(
     """
     images = normalize(images_u8, mean, std)
     base = flat.detach()
+    dt = ctx.model.dtype
+    base_c = base.to(dt) if dt != torch.float32 else None  # the frozen coordinates, cast once a minibatch
     names = list(stats)
 
-    def loss_fn(x):
-        loss, dl, new_stats = objective(ctx, base, x, stats, images, labels, cstate)
+    def evaluation(x):
+        loss, dl, new_stats = objective(ctx, base, x, stats, images, labels, cstate, base_c)
         return loss, (dl, *(new_stats[n] for n in names))
+
+    def loss_fn(x):
+        if ctx.remat and torch.is_grad_enabled():
+            return checkpoint(evaluation, x, use_reentrant=False)
+        return evaluation(x)
 
     x0 = ctx.partition.extract(flat, ctx.gid).contiguous()
     x1, lstate, aux = lbfgs_step(loss_fn, x0, lstate, ctx.lbfgs, has_aux=True)

@@ -48,6 +48,7 @@ import torch
 
 from ..data import load_cifar, make_federated
 from ..models import MODELS, init_client_params
+from ..models.base import COMPUTE_DTYPES
 from ..partition import Partition, Segment
 from ..utils import MetricsRecorder, load_checkpoint, resolve_device, save_checkpoint
 from .config import ExperimentConfig
@@ -62,17 +63,21 @@ from .steps import (
 
 
 def build_model(cfg: ExperimentConfig, num_classes: int):
-    """`MODELS[cfg.model]` with `num_classes` and `cfg.model_kwargs`, whose
-    keys must be constructor arguments of the model class."""
+    """`MODELS[cfg.model]` with `num_classes`, the compute dtype
+    (`cfg.compute_dtype`) and `cfg.model_kwargs`, whose keys must be
+    constructor arguments of the model class."""
     model_cls = MODELS[cfg.model]
     settable = set(inspect.signature(model_cls.__init__).parameters) - {"self"}
     bad = sorted(set(cfg.model_kwargs) - settable)
     if bad:
         raise ValueError(
             f"model_kwargs {bad} are not fields of {cfg.model!r} ({model_cls.__name__}); "
-            f"valid extras: {sorted(settable - {'num_classes'})}"
+            f"valid extras: {sorted(settable - {'num_classes', 'dtype'})}"
         )
-    return model_cls(**{"num_classes": num_classes, **cfg.model_kwargs})
+    kw = {"num_classes": num_classes}
+    if "dtype" in settable:
+        kw["dtype"] = COMPUTE_DTYPES[cfg.compute_dtype]
+    return model_cls(**{**kw, **cfg.model_kwargs})
 
 
 def _epoch_seed(base: int, *parts: int) -> np.random.Generator:
@@ -194,6 +199,7 @@ class Trainer:
             moe_aux_coef=cfg.moe_aux_coef if getattr(self.model, "moe_experts", 0) else 0.0,
             strategy=cfg.strategy,
             admm=cfg.admm_config(),
+            remat=cfg.remat,
         )
 
     def epoch_indices(self, *loop_ids: int) -> np.ndarray:

@@ -11,6 +11,12 @@ as in the JAX package) and has two forwards:
   and batched matmuls), so one kernel launch serves every client.
 
 Both take NHWC images, the JAX package's layout, at the public boundary.
+
+Every model carries a compute dtype (`dtype`, the engine's
+`compute_dtype`), as the JAX package's models do: parameters stay f32
+(the engine may hand them over already cast), and each layer casts its
+weights and input to `dtype` for its convolutions and matmuls; each
+model's docstring says what else runs in it.
 """
 
 from __future__ import annotations
@@ -41,6 +47,16 @@ DENSE, CONV, BIAS, EMBED, SCALE, NORM_BIAS, ARRAY, EXPERT_WEIGHT, EXPERT_BIAS = 
     "dense", "conv", "bias", "embed", "scale", "norm_bias", "array", "expert_weight", "expert_bias"
 )
 BARE_KINDS = (ARRAY, EXPERT_WEIGHT, EXPERT_BIAS)  # bare leaves of the JAX tree, converted as they are
+
+# the JAX package's `compute_dtype` values
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def resolve_dtype(dtype: torch.dtype) -> torch.dtype:
+    """`dtype`, checked to be one of `COMPUTE_DTYPES`' values."""
+    if dtype not in COMPUTE_DTYPES.values():
+        raise ValueError(f"dtype must be one of {list(COMPUTE_DTYPES.values())}, got {dtype!r}")
+    return dtype
 
 
 def xavier_bound(shape: Tuple[int, ...]) -> float:
@@ -85,6 +101,7 @@ class PartitionedModel(nn.Module):
     GROUP_PATHS: Tuple = ()
     LINEAR_GROUP_IDS: Tuple[int, ...] = ()
     TRAIN_ORDER: Tuple[int, ...] = ()
+    dtype: torch.dtype = torch.float32  # compute dtype; each model's constructor takes it
 
     def shapes(self) -> Dict[str, Tuple[int, ...]]:
         return param_shapes(self)

@@ -50,10 +50,16 @@ class MoEMLP(nn.Module):
 
     LEAF_KINDS = {"w1": EXPERT_WEIGHT, "w2": EXPERT_WEIGHT, "b1": EXPERT_BIAS, "b2": EXPERT_BIAS}
 
-    def __init__(self, dim: int, n_experts: int, mlp_ratio: int = 4, capacity_factor: float = 1.25):
+    def __init__(self, dim: int, n_experts: int, mlp_ratio: int = 4, capacity_factor: float = 1.25,
+                 dtype=torch.float32):
         super().__init__()
         if n_experts < 1:
             raise ValueError(f"n_experts must be >= 1, got {n_experts}")
+        if dtype != torch.float32:
+            # the grouped kernel (ops/grouped_gemm.py) takes f32 operands only
+            raise NotImplementedError(
+                f"switch-MoE experts under compute dtype {dtype} need a bf16 grouped GEMM kernel, which is "
+                "not ported yet (queued in ROADMAP.md); run MoE models with compute_dtype='float32'")
         self.dim, self.n_experts, self.hidden = dim, n_experts, mlp_ratio * dim
         self.capacity_factor = capacity_factor
         self.gate = nn.Linear(dim, n_experts)

@@ -23,6 +23,18 @@ Torch computes the normalizing batch variance by another formula than
 E[x²] − E[x]²; at f32 the two agree to a few ulps of the variance
 (tests/test_torch_resnet.py states the logits' tolerance).
 
+Mixed precision (`dtype=torch.bfloat16`, the JAX model's `dtype`,
+`resnet.py:51-72,97`): the convolutions, BatchNorm's normalization, ELU,
+the residual sum (the shortcut cast to the block's dtype), the pooling
+and the head run in bf16; BatchNorm's scale and bias stay f32 and its
+running averages are kept in f32, updated from statistics taken in f32
+of the bf16 activations. One difference from the JAX model: there the
+bf16 layer also takes its batch statistics in bf16
+(`force_float32_reductions=False`, a two-pass variance — a fusion choice
+measured on a v5e); here `F.batch_norm` (cuDNN on the card) accumulates
+them in f32. The two agree within the JAX package's own bf16-vs-f32 bound
+(tests/test_torch_mixed_precision.py).
+
 Padding. Flax's "SAME" pads `(k − 1 + (out − 1)·s − in)` in total, the
 smaller half first: symmetric (1, 1) for the stride-1 3x3 convs but (0, 1)
 for stride 2 on an even input, which torch's `padding=` cannot express, so
@@ -37,7 +49,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .base import PartitionedModel
+from .base import PartitionedModel, resolve_dtype
 
 MOMENTUM = 0.9  # Flax's: new = MOMENTUM·old + (1 − MOMENTUM)·batch
 EPS = 1e-5
@@ -94,9 +106,10 @@ class ResNet18(PartitionedModel):
     LINEAR_GROUP_IDS = ()  # the reference's ResNet scripts put no elastic net in their closures
     TRAIN_ORDER = tuple(range(10))  # the presets shuffle it (`shuffle_group_order`)
 
-    def __init__(self, num_classes: int = 10):
+    def __init__(self, num_classes: int = 10, dtype=torch.float32):
         super().__init__()
         self.num_classes = num_classes
+        self.dtype = resolve_dtype(dtype)
         self.conv1 = nn.Conv2d(3, STEM_PLANES, 3, bias=False)
         self.bn1 = _bn(STEM_PLANES)
         self.stages = tuple(self.STAGES)  # fixed at construction
@@ -126,12 +139,13 @@ class ResNet18(PartitionedModel):
         the logits, normalized with the running averages `stats`.
         """
         k, b, hh, ww, c = x.shape
+        dt = self.dtype
         if not train and stats is None:
             raise ValueError("eval mode normalizes with the running averages: pass `stats`")
         new_stats = {} if train and stats is not None else None
 
         def conv(h, name, stride):
-            w = params[f"{name}.weight"]
+            w = params[f"{name}.weight"].to(dt)
             _, o, i, kh, kw = w.shape
             w = w.reshape(k * o, i, kh, kw)
             if kh == 1:  # the shortcut: "VALID"
@@ -142,13 +156,13 @@ class ResNet18(PartitionedModel):
             return F.conv2d(F.pad(h, (left, right, top, bottom)), w, stride=stride, groups=k)
 
         def bn(h, name):
-            w, bias = params[f"{name}.weight"].reshape(-1), params[f"{name}.bias"].reshape(-1)
+            w, bias = params[f"{name}.weight"].reshape(-1).float(), params[f"{name}.bias"].reshape(-1).float()
             if not train:
                 return F.batch_norm(h, stats[f"{name}.mean"].reshape(-1), stats[f"{name}.var"].reshape(-1),
                                     w, bias, training=False, eps=EPS)
             if new_stats is not None:
                 with torch.no_grad():
-                    hd = h.detach()
+                    hd = h.detach().float()
                     mean = hd.mean(dim=(0, 2, 3))
                     var = torch.clamp((hd * hd).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
                     for key, batch in (("mean", mean), ("var", var)):
@@ -156,7 +170,7 @@ class ResNet18(PartitionedModel):
                         new_stats[f"{name}.{key}"] = MOMENTUM * old + (1.0 - MOMENTUM) * batch.reshape(old.shape)
             return F.batch_norm(h, None, None, w, bias, training=True, eps=EPS)
 
-        h = x.permute(1, 0, 4, 2, 3).reshape(b, k * c, hh, ww)
+        h = x.permute(1, 0, 4, 2, 3).reshape(b, k * c, hh, ww).to(dt)
         h = F.elu(bn(conv(h, "conv1", 1), "bn1"))
         for i, (_, stride) in enumerate(self.stages):
             name = f"block{i}"
@@ -169,7 +183,8 @@ class ResNet18(PartitionedModel):
         _, kc, fh, fw = h.shape
         # NHWC flatten, as the JAX model does before the head
         h = h.reshape(b, k, kc // k, fh, fw).permute(1, 0, 3, 4, 2).reshape(k, b, -1)
-        logits = torch.baddbmm(params["linear.bias"][:, None, :], h, params["linear.weight"].transpose(1, 2))
+        logits = torch.baddbmm(params["linear.bias"].to(dt)[:, None, :], h,
+                               params["linear.weight"].to(dt).transpose(1, 2))
         return (logits, new_stats) if train else logits
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,10 @@ g-th layer in construction order.
 The JAX models flatten the last feature map in NHWC order (h, w, c)
 before `fc1`. `forward_batched` permutes to channels-last before its
 flatten, so `fc1.weight` is the plain transpose of the Flax kernel.
+
+With `dtype=torch.bfloat16` every layer — convolutions, dense layers,
+ELU and pooling — runs in bf16 and the logits come out bf16, as the JAX
+models with `dtype=bfloat16` do (`simple.py:62-68`).
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .base import PartitionedModel
+from .base import PartitionedModel, resolve_dtype
 
 # (name, in_channels, out_channels, kernel, padding, pool_after)
 ConvSpec = Tuple[str, int, int, int, int, bool]
@@ -32,9 +36,10 @@ class SimpleCNN(PartitionedModel):
     CONVS: Tuple[ConvSpec, ...] = ()
     DENSES: Tuple[DenseSpec, ...] = ()
 
-    def __init__(self, num_classes: int = 10):
+    def __init__(self, num_classes: int = 10, dtype=torch.float32):
         super().__init__()
         self.num_classes = num_classes
+        self.dtype = resolve_dtype(dtype)
         for name, cin, cout, k, _pad, _pool in self.CONVS:
             setattr(self, name, nn.Conv2d(cin, cout, k))
         for i, (name, fin, fout) in enumerate(self.DENSES):
@@ -50,11 +55,12 @@ class SimpleCNN(PartitionedModel):
         weights.
         """
         k, b, hh, ww, c = x.shape
-        h = x.permute(1, 0, 4, 2, 3).reshape(b, k * c, hh, ww)
+        dt = self.dtype
+        h = x.permute(1, 0, 4, 2, 3).reshape(b, k * c, hh, ww).to(dt)
         cout = c
         for name, cin, cout, ks, pad, pool in self.CONVS:
-            w = params[f"{name}.weight"].reshape(k * cout, cin, ks, ks)
-            bias = params[f"{name}.bias"].reshape(k * cout)
+            w = params[f"{name}.weight"].reshape(k * cout, cin, ks, ks).to(dt)
+            bias = params[f"{name}.bias"].reshape(k * cout).to(dt)
             h = F.elu(F.conv2d(h, w, bias, padding=pad, groups=k))
             if pool:
                 h = F.max_pool2d(h, 2, 2)
@@ -62,8 +68,8 @@ class SimpleCNN(PartitionedModel):
         # NHWC flatten, as the JAX models do before fc1
         h = h.reshape(b, k, cout, fh, fw).permute(1, 0, 3, 4, 2).reshape(k, b, fh * fw * cout)
         for i, (name, _fin, _fout) in enumerate(self.DENSES):
-            w = params[f"{name}.weight"]
-            h = torch.baddbmm(params[f"{name}.bias"][:, None, :], h, w.transpose(1, 2))
+            w = params[f"{name}.weight"].to(dt)
+            h = torch.baddbmm(params[f"{name}.bias"].to(dt)[:, None, :], h, w.transpose(1, 2))
             if i < len(self.DENSES) - 1:
                 h = F.elu(h)
         return h

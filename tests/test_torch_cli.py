@@ -39,6 +39,8 @@ def _long_flags(parser: argparse.ArgumentParser) -> set:
     "--n-clients 2 --model net1 --seed 3",
     "--lbfgs-history 5 --lbfgs-lr 0.5 --no-check-results",
     "--max-groups 1 --data-root /x",
+    "--compute-dtype bfloat16 --remat",
+    "--compute-dtype float32 --no-remat",
 ], ids=lambda a: a.split()[0].lstrip("-") + "_" + a.split()[-1].lstrip("-/"))
 def test_flags_parse_as_the_jax_cli_parses_them(argv):
     port = _overrides(cli.build_parser().parse_args(argv.split()), ExperimentConfig)

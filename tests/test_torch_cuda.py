@@ -237,3 +237,71 @@ def test_assembly_repeats_bitwise_and_matches_plain(n):
                                             h_diag.double(), count)
     assert torch.equal(first.view(torch.int32), second.view(torch.int32))
     assert bool(torch.isfinite(first).all()) and _rel(first.double(), ref) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned,s_q,s_kv,d,causal,q_off,k_off", [
+    (True, 1024, 1024, 16, True, 0, 0), (True, 256, 256, 64, True, 0, 0), (False, 256, 256, 16, False, 0, 0),
+    (False, 256, 256, 32, True, 0, 64), (False, 128, 384, 64, True, 256, 64)])
+def test_one_pass_kernels_match_plain(aligned, s_q, s_kv, d, causal, q_off, k_off):
+    # 'default': one TF32 product a product. The plain versions round as the
+    # kernels do but sum in another order, so a probability at a TF32
+    # rounding boundary may round one unit apart: every output within 2^-10
+    # of its largest entry (chip_smoke.py's ONE_PASS_RTOL), and the kernel
+    # at least 4x closer in RMS to its plain version than to 'highest'
+    _card()
+    rng = np.random.default_rng(s_q + s_kv + d)
+    q, do = (torch.tensor(rng.normal(size=(4, s_q, d)).astype(np.float32), device="cuda") for _ in range(2))
+    k, v = (torch.tensor(rng.normal(size=(4, s_kv, d)).astype(np.float32), device="cuda") for _ in range(2))
+    scale = 1.0 / d ** 0.5
+    fc = flash_cuda
+    if aligned:
+        kern, high, mode = (fc.flash_fwd, fc.flash_bwd_dq, fc.flash_bwd_dkv), (
+            fc.flash_fwd_plain, fc.flash_bwd_dq_plain, fc.flash_bwd_dkv_plain), ()
+    else:
+        kern, high, mode = (fc.flash_fwd_rect, fc.flash_bwd_dq_rect, fc.flash_bwd_dkv_rect), (
+            fc.flash_fwd_rect_plain, fc.flash_bwd_dq_rect_plain, fc.flash_bwd_dkv_rect_plain), (causal, q_off, k_off)
+    one_mode = (causal, q_off, k_off)
+    o1, lse1 = fc.flash_fwd_1pass_plain(q, k, v, scale, *one_mode)
+    delta = (do * o1).sum(-1)
+    got = (*kern[0](q, k, v, scale, *mode, precision="default"),
+           kern[1](q, k, v, do, lse1, delta, scale, *mode, precision="default"),
+           *kern[2](q, k, v, do, lse1, delta, scale, *mode, precision="default"))
+    one = (o1, lse1, fc.flash_bwd_dq_1pass_plain(q, k, v, do, lse1, delta, scale, *one_mode),
+           *fc.flash_bwd_dkv_1pass_plain(q, k, v, do, lse1, delta, scale, *one_mode))
+    hi = (*high[0](q, k, v, scale, *mode), high[1](q, k, v, do, lse1, delta, scale, *mode),
+          *high[2](q, k, v, do, lse1, delta, scale, *mode))
+    live = lse1 > -1e29
+    for n, a, b, h in zip(("o", "lse", "dq", "dk", "dv"), got, one, hi):
+        if n == "lse":
+            a, b, h = a[live], b[live], h[live]
+        assert bool(torch.isfinite(a).all()) and _rel(a, b) <= 2.0 ** -10, n
+        if n != "lse":
+            rms = [float((a - r).double().pow(2).mean().sqrt()) for r in (b, h)]
+            assert rms[1] >= 4 * rms[0], (n, rms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,d", [(256, 16), (1024, 32), (512, 64)])
+def test_bf16_trio_matches_plain_and_repeats_bitwise(s, d):
+    # the cast16 trio: o, lse and the bf16 cotangents within two bf16 units
+    # (2^-8) of their largest entry (chip_smoke.py's BF16_UNITS)
+    _card()
+    rng = np.random.default_rng(s + d)
+    q, k, v = (torch.tensor(rng.normal(size=(4, s, d)), dtype=torch.bfloat16, device="cuda") for _ in range(3))
+    do = torch.tensor(rng.normal(size=(4, s, d)).astype(np.float32), device="cuda")
+    fc = flash_cuda
+    qs = fc.prescale_q(q, 1.0 / d ** 0.5)
+    o, lse = fc.flash_fwd_bf16(qs, k, v)
+    o_ref, lse_ref = fc.flash_fwd_bf16_plain(qs, k, v)
+    delta, do16 = (do * o_ref).sum(-1), do.to(torch.bfloat16)
+    runs = [(fc.flash_bwd_dq_bf16(qs, k, v, do16, lse_ref, delta, 1.0 / d ** 0.5),
+             *fc.flash_bwd_dkv_bf16(qs, k, v, do16, lse_ref, delta)) for _ in range(2)]
+    ref = (fc.flash_bwd_dq_bf16_plain(qs, k, v, do16, lse_ref, delta, 1.0 / d ** 0.5),
+           *fc.flash_bwd_dkv_bf16_plain(qs, k, v, do16, lse_ref, delta))
+    for a, b in ((o, o_ref), (lse, lse_ref), *zip(runs[0], ref)):
+        assert bool(torch.isfinite(a.float()).all())
+        assert float((a.float() - b.float()).abs().max()) <= 2 * 2.0 ** -8 * float(b.float().abs().max())
+    assert all(t.dtype == torch.bfloat16 for t in runs[0])
+    for a, b in zip(*runs):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))

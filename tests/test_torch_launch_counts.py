@@ -80,6 +80,28 @@ def test_vit_launches_equal_the_count_its_records_imply(monkeypatch):
                       "fused_gram_projections": exp["direction"], "fused_direction_assembly": exp["direction"]}
 
 
+@pytest.mark.parametrize("remat", [False, True])
+def test_vit_bf16_launches_equal_the_count_its_records_imply(monkeypatch, remat):
+    # the mixed-precision ViT path (compute_dtype bf16, attention at
+    # 'default'): the same wrappers, at one pass; under remat every gradient
+    # pass runs each block's forward once more (the backward's recomputation)
+    counts = {}
+    _count_calls(monkeypatch, flash_cuda, flash_cuda.RECT_KERNELS, counts)
+    _count_calls(monkeypatch, compact_cuda, tuple(compact_cuda.LAUNCHES), counts)
+    cfg = ExperimentConfig(model="vit", model_kwargs=chip_smoke.VIT_BF16_KWARGS, device="cpu", batch=8,
+                           eval_batch=8, nloop=1, nadmm=1, max_groups=2, lbfgs_direction="pallas",
+                           compute_dtype="bfloat16", remat=remat)
+    tr = Trainer(cfg, verbose=False, source=synthetic_cifar(24, 16))
+    rec = tr.run()
+    exp = chip_smoke.expected_launches(rec, tr.model, sweep_passes=len(tr.test_imgs), remat=remat)
+    plain = chip_smoke.expected_launches(rec, tr.model, sweep_passes=len(tr.test_imgs))
+    assert exp["forward"] - plain["forward"] == (tr.model.DEPTH * sum(r["value"]["grad"] for r in
+                                                                       rec.series["objective_passes"]) if remat else 0)
+    assert counts == {"flash_fwd_rect": exp["forward"], "flash_bwd_dq_rect": exp["backward"],
+                      "flash_bwd_dkv_rect": exp["backward"],
+                      "fused_gram_projections": exp["direction"], "fused_direction_assembly": exp["direction"]}
+
+
 def test_admm_launches_equal_the_count_its_records_imply(monkeypatch):
     # the admm drive of tests/test_torch_admm_slice.py: one direction (a
     # gram and an assembly) per inner iteration, whatever BB does with rho
