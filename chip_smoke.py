@@ -468,16 +468,17 @@ TC_KERNELS = ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc",  # the tens
 
 def flash_label(mangled: str):
     """`flash_bwd_dq_tc<16, true, false>` (D, causal, split) or
-    `flash_fwd_bf16_tc<16>` from a tensor-core flash instance's mangled name."""
+    `flash_fwd_bf16_tc<64, 128, 0>` (D, keys a tile, cut) from a tensor-core
+    flash instance's mangled name."""
     name = next((k for k in TC_KERNELS if k + "I" in mangled), None)
     if name is None:
         return None
-    m = re.search(r"ILi(\d+)ELb([01])ELb([01])E", mangled)
-    if m:
-        return f"{name}<{m.group(1)}, {'true' if m.group(2) == '1' else 'false'}, " \
-               f"{'true' if m.group(3) == '1' else 'false'}>"
-    m = re.search(r"ILi(\d+)EE", mangled)
-    return f"{name}<{m.group(1)}>" if m else name
+    m = re.match(r"((?:L[ib]\d+E)+)E", mangled.split(name + "I", 1)[1])
+    if not m:
+        return name
+    args = [v if kind == "i" else ("true" if v == "1" else "false")
+            for kind, v in re.findall(r"L([ib])(\d+)E", m.group(1))]
+    return f"{name}<{', '.join(args)}>"
 
 
 def grouped_label(mangled: str):
@@ -2914,6 +2915,26 @@ for n in asm_sizes:
     times[f"assembly N={n}"] = cs.time_ms(lambda: cc.fused_direction_assembly(s, y, g, w, u, h_diag, full),
                                           20 if n > 200_000 else 200)[1]
     del s, y, g
+import torch.nn.functional as F
+from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
+for bh, s_len, d in cs.BF16_PATHS:  # the bf16 trio, and its autograd forward and backward beside SDPA's
+    (q, k, v, do), (q16, k16, v16) = cs.bf16_inputs(bh, s_len, d, seed=41)
+    scale = 1.0 / d ** 0.5
+    qs = fc.prescale_q(q16, scale)
+    o, lse = fc.flash_fwd_bf16(qs, k16, v16)
+    delta, do16 = (do * o).sum(-1), do.to(torch.bfloat16)
+    tag = f"BH={bh} S={s_len} D={d}"
+    times[f"flash_fwd_bf16 {tag}"] = cs.time_ms(lambda: fc.flash_fwd_bf16(qs, k16, v16), 20)[1]
+    times[f"flash_bwd_dq_bf16 {tag}"] = cs.time_ms(
+        lambda: fc.flash_bwd_dq_bf16(qs, k16, v16, do16, lse, delta, scale), 20)[1]
+    times[f"flash_bwd_dkv_bf16 {tag}"] = cs.time_ms(lambda: fc.flash_bwd_dkv_bf16(qs, k16, v16, do16, lse, delta), 20)[1]
+    q3, k3, v3 = (t.detach().requires_grad_(True) for t in (q16, k16, v16))
+    times[f"fwd+bwd bf16 {tag}"] = cs.time_ms(
+        lambda: torch.autograd.grad(fc._FlashCausalBf16.apply(q3, k3, v3, scale), (q3, k3, v3), do), 20)[1]
+    q4, k4, v4 = (t.detach().view(1, bh, s_len, d).requires_grad_(True) for t in (q16, k16, v16))
+    times[f"sdpa fwd+bwd bf16 {tag}"] = cs.time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(q4, k4, v4, is_causal=True), (q4, k4, v4), do16.view(1, bh, s_len, d)), 20)[1]
+    del q, k, v, do, q16, k16, v16, qs, o, lse, delta, do16, q3, k3, v3, q4, k4, v4
 print("ab kernels " + json.dumps(times), flush=True)
 walls = {}
 with tempfile.TemporaryDirectory() as d:
@@ -2941,9 +2962,10 @@ AB_BUILD = ("import sys; sys.path.insert(0, '.'); import chip_smoke as cs; "
 
 
 def run_ab(parent: str, runs: int, phases) -> None:
-    """The kernel times and the walls of the train `phases` of another
-    checkout (`parent`, e.g. `git archive` of the parent commit unpacked)
-    and of this one, `runs` turns each, in fresh processes taking turns
+    """The kernel times (grouped GEMM, gram, assembly, and the bf16 flash
+    trio with its autograd forward and backward beside SDPA's at
+    `BF16_PATHS`) and the walls of the train `phases` of another checkout
+    (`parent`, e.g. `git archive` of the parent commit unpacked) and of this one, `runs` turns each, in fresh processes taking turns
     parent, change, change, parent, ... after both have built their
     kernels. Every line of a turn is printed with its checkout's tag; then
     each kernel's device ms per turn and the median ratio (change over

@@ -3,9 +3,9 @@
 
 Run from the root of a checkout:
 
-    python3 chip_sweep.py [grouped] [gram] [assembly]
+    python3 chip_sweep.py [grouped] [gram] [assembly] [bf16]
 
-Three sweeps (all of them without arguments), each printed one line per
+Four sweeps (all of them without arguments), each printed one line per
 setting with its device ms (calls queued behind a sleep kernel,
 `chip_smoke.time_ms`) and its error:
 
@@ -22,7 +22,14 @@ setting with its device ms (calls queued behind a sleep kernel,
    aligned 890,408, the ResNet18 groups), full history, on its
    one-column-a-lane path at every N and on its 16-byte path where the
    rows allow it: equal bits to the shipped path's result, and
-   `torch.matmul(coef, X)` timed beside them as the yardstick.
+   `torch.matmul(coef, X)` timed beside them as the yardstick;
+4. bf16 — the bf16 causal forward and dk/dv kernels (`csrc/flash_bf16.cu`)
+   at both `chip_smoke.BF16_PATHS`, from the library built with
+   `-DFLASH_BF16_CUTS` (`flash_*_bf16_cut_launch`): the forward at every
+   key tile it has, each kernel whole and with its attribution cuts (no
+   exps, no products, loads only, products only), each beside its bound
+   (`chip_smoke.flash_bounds`); a whole kernel's outputs within two bf16
+   units of its plain version at that tile (`chip_smoke.bf16_units`).
 
 The port's own settings (`grouped_gemm.tiles`, `SPLIT_CHUNK`,
 `compact_cuda.gram_chunks`, `compact_cuda._vec_ok`) are not changed: each setting is launched
@@ -155,6 +162,68 @@ def sweep_assembly() -> None:
         del s, y, g, out
 
 
+BF16_CUTS = ("full", "no_exp", "no_mma", "loads_only", "mma_only")  # kFull … kMmaOnly in csrc/flash_bf16.cu
+BF16_KEYS = (64, 128)  # the forward's candidate key tiles
+
+
+def sweep_bf16() -> None:
+    import ctypes
+
+    import torch
+
+    from federated_pytorch_test_tpu_torch.ops import build
+    from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
+
+    lib = build.load("flash_bf16", ("FLASH_BF16_CUTS",))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.flash_fwd_bf16_cut_launch.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
+    lib.flash_bwd_dkv_bf16_cut_launch.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
+    for bh, s, d in cs.BF16_PATHS:
+        (_, _, _, do), (q16, k16, v16) = cs.bf16_inputs(bh, s, d, seed=41)
+        qs = fc.prescale_q(q16, 1.0 / d ** 0.5)
+        o_ref, lse_ref = fc.flash_fwd_bf16_plain(qs, k16, v16)
+        delta, do16 = (do * o_ref).sum(-1), do.to(torch.bfloat16)
+        dk_ref, dv_ref = fc.flash_bwd_dkv_bf16_plain(qs, k16, v16, do16, lse_ref, delta)
+        pairs = bh * s * (s + 1) // 2
+        op16, op32, row = bh * s * d * 2, bh * s * d * 4, bh * s * 4
+        bound_fwd = cs.flash_bounds(3 * op16 + op32 + row, 2 * 2 * d * pairs, pairs, "bf16")["bound_ms"]
+        bound_dkv = cs.flash_bounds(4 * op16 + 2 * row + 2 * op16, 4 * 2 * d * pairs, pairs, "bf16")["bound_ms"]
+        stream = torch.cuda.current_stream().cuda_stream
+        label = f"BH={bh} S={s} D={d}"
+        o, lse = torch.empty_like(o_ref), torch.empty_like(lse_ref)
+        dk, dv = torch.empty_like(k16), torch.empty_like(v16)
+        for keys in BF16_KEYS:
+            want = fc.flash_fwd_bf16_plain(qs, k16, v16, keys=keys)
+            for cut, cut_name in enumerate(BF16_CUTS):
+                def fwd():
+                    return lib.flash_fwd_bf16_cut_launch(qs.data_ptr(), k16.data_ptr(), v16.data_ptr(), o.data_ptr(),
+                                                         lse.data_ptr(), bh, s, d, keys, cut, stream)
+
+                if fwd() != 0:
+                    print(f"sweep bf16 fwd {label} keys={keys} cut={cut_name} no instance", flush=True)
+                    continue
+                _, device_ms = cs.time_ms(fwd, 20)
+                check = "" if cut else (f" o_units={cs.bf16_units(o, want[0]):.3f} "
+                                        f"lse_units={cs.bf16_units(lse, want[1]):.3f}")
+                print(f"sweep bf16 fwd {label} keys={keys} cut={cut_name} device_ms={device_ms:.6f} "
+                      f"bound_ms={bound_fwd:.6f} share_of_bound={bound_fwd / device_ms:.3f}{check}", flush=True)
+        for cut, cut_name in enumerate(BF16_CUTS):
+            def dkv():
+                return lib.flash_bwd_dkv_bf16_cut_launch(qs.data_ptr(), k16.data_ptr(), v16.data_ptr(), do16.data_ptr(),
+                                                         lse_ref.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                                                         dv.data_ptr(), bh, s, d, cut, stream)
+
+            if dkv() != 0:
+                print(f"sweep bf16 dkv {label} cut={cut_name} no instance", flush=True)
+                continue
+            _, device_ms = cs.time_ms(dkv, 20)
+            check = "" if cut else (f" dk_units={cs.bf16_units(dk, dk_ref):.3f} "
+                                    f"dv_units={cs.bf16_units(dv, dv_ref):.3f}")
+            print(f"sweep bf16 dkv {label} cut={cut_name} device_ms={device_ms:.6f} bound_ms={bound_dkv:.6f} "
+                  f"share_of_bound={bound_dkv / device_ms:.3f}{check}", flush=True)
+        del q16, k16, v16, qs, do, do16, o_ref, lse_ref, delta, dk_ref, dv_ref, o, lse, dk, dv
+
+
 def main() -> int:
     import torch
 
@@ -165,7 +234,7 @@ def main() -> int:
     configure_precision()
     print(cs.subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                             capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    sweeps = {"grouped": sweep_grouped, "gram": sweep_gram, "assembly": sweep_assembly}
+    sweeps = {"grouped": sweep_grouped, "gram": sweep_gram, "assembly": sweep_assembly, "bf16": sweep_bf16}
     for name in sys.argv[1:] or sweeps:
         if name not in sweeps:
             cs.fail(f"unknown sweep {name!r}; have {sorted(sweeps)}")

@@ -3,7 +3,7 @@
 // ops/flash_attention.py, taken there when q is bf16 and the precision is
 // 'default' (`flash_attention` :860).
 //
-//   _fwd_tri     :559 (_fwd_kernel_tri :253, cast16, fuse_l)    -> flash_fwd_bf16_launch     -> flash_fwd_bf16_tc<D>
+//   _fwd_tri     :559 (_fwd_kernel_tri :253, cast16, fuse_l)    -> flash_fwd_bf16_launch     -> flash_fwd_bf16_tc<D, Keys>
 //   _bwd_tri dq  :655 (_bwd_dq_kernel_tri :341, cast16)         -> flash_bwd_dq_bf16_launch  -> flash_bwd_dq_bf16_tc<D>
 //   _bwd_tri dkv :673 (_bwd_dkv_kernel_tri :365, cast16)        -> flash_bwd_dkv_bf16_launch -> flash_bwd_dkv_bf16_tc<D>
 //
@@ -12,9 +12,10 @@
 //   * Q arrives pre-scaled into the base-2 score domain by the caller,
 //     qs = bf16(f32(q) · scale·log2 e) (`_prescale_q` :537), so a score is
 //     s = qs·kᵀ and P = 2^(s − m).
-//   * Forward: per row the running max m and, per tile, P = 2^(s − m_new)
-//     rounded to bf16 (to nearest even) before P·V; the row sum l is summed
-//     over the ROUNDED P, through a ones column appended to V (`fuse_l`,
+//   * Forward: per row the running max m and, per tile of Keys keys,
+//     P = 2^(s − m_new) rounded to bf16 (to nearest even) before P·V; the
+//     row sum l is summed over the ROUNDED P, on the tensor cores as the
+//     JAX package's ones column appended to V does (`fuse_l`,
 //     `_augmented_v` :527). o = acc / max(l, 1e-30) and
 //     lse = (m + log2 l)·ln 2, both f32 (o stays f32 for delta; the caller
 //     rounds the output to bf16).
@@ -26,34 +27,67 @@
 //
 // Not a block-by-block carry-over of the TPU kernels (1024-row tiles and a
 // triangular grid of tile pairs, sized for a v5e's VMEM). Bound on an H100
-// SXM at the LM path's shape (BH = 128, S = 2048, D = 16, the causal
-// triangle: 2.7e8 pairs): the products at 989 TFLOP/s bf16 take 0.017 ms
-// (forward), 0.026 (dq), 0.035 (dk/dv), the bytes 0.013 ms or less, the
-// exps (16 a clock per SM) 0.070 ms: the exps bound all three. The design:
-//   * A block owns 128 rows (queries for the forward and dq, keys for
-//     dk/dv) as two consumer warpgroups of 64, 256 threads, and loads its
-//     own operands once. The other side streams in tiles of 64 rows through
-//     a three-stage cp.async ring: tile t + 2 is in flight while tile t is
-//     computed, and the tile a stage held is done with (the warpgroups
-//     waited for their wgmmas before the barrier that opens iteration t).
-//     Operands land straight in wgmma's K-major layout (16-byte chunks are
-//     core-matrix rows); only operands read along their rows (Vᵀ, Kᵀ, Qᵀ,
-//     dOᵀ) take a transpose pass in shared memory.
+// SXM, the causal triangle of (BH, S) = (128, 2048) or (32, 4096), 2.7e8
+// pairs: the exps (16 a clock per SM) take 0.070 ms; the bf16 products at
+// 989 TFLOP/s 0.017 ms (forward, D 16) to 0.070 (forward, D 64) and 0.139
+// (dk/dv, D 64); the bytes 0.013 ms or less. The forward is bound by the
+// exps at every D, with the products level at D 64; dk/dv by the products
+// at D 64. Every block also re-reads the K/V (or qs/dO) tiles before its
+// diagonal from L2, 0.55 GB for the forward at (32, 4096, 64).
+//
+// The forward and dk/dv (redesigned for the card; `chip_sweep.py bf16` times
+// them whole and with their attribution cuts, the template argument Cut,
+// which the shipped entry points never take):
+//   * Persistent: a CTA an SM takes the 128-row blocks (queries for the
+//     forward, keys for dk/dv) heaviest first, dealt out in a snake
+//     (`Schedule`). Its two consumer warpgroups own 64 rows each; a third,
+//     producer warpgroup keeps a kRing-stage ring of the streamed tiles full
+//     and double-buffers each block's own rows (qs, or k and v), running
+//     ahead across blocks so that a block's start and its epilogue hide
+//     behind the next block's loads. One producer thread issues a TMA copy
+//     a tile (and a bulk copy each for dk/dv's lse and delta) against the
+//     stage's `full` mbarrier; a consumer warp frees a stage on its `empty`
+//     mbarrier. The mainloop has no block-wide barrier, and setmaxnreg moves
+//     the producer's registers to the consumers.
+//   * No transpose: the TMA lands each tile with the swizzle of its row
+//     width (32, 64 or 128 bytes), which the tensor cores read as it landed,
+//     K-major (qs, k for the scores; qs·kᵀ, k·qsᵀ, v·dOᵀ) or MN-major
+//     (imm-trans-b = 1: V for P·V, dO and qs for Pᵀ·dO and dSᵀ·qs):
+//     `desc_sw`. The forward's row sum l over the rounded P (`fuse_l`) is
+//     P·[1 | 0] on the warp's tensor cores (mma.sync against a ones column
+//     held in registers), beside the asynchronous P·V.
+//   * Products overlap the exps. The two consumer warpgroups take turns to
+//     issue their products (FA3's ping-pong, named barriers), so that one
+//     warpgroup's products run under the other's softmax; within a
+//     warpgroup the forward issues tile t + 1's qs·kᵀ and tile t's P·V
+//     before tile t + 1's softmax and waits for the scores alone
+//     (wgmma.wait_group 1), and dk/dv queues tile t + 1's score products
+//     right behind tile t's dv and dk products.
+//   * 128 keys a forward tile at every D (kFwdKeys; 64 measured slower at D
+//     16 and 64); dk/dv streams 64 queries a tile (128 would not fit its
+//     registers).
+//   * Causal: a block reads only the tiles that can see it; a warpgroup
+//     skips a tile wholly outside its triangle and masks by select only the
+//     one tile across its diagonal, a separate compile-time branch.
+//   * Each output row is summed by one warpgroup in a fixed order: no
+//     atomics, bitwise repeatable.
+//
+// dq keeps the first port's design: all 256 threads cp.async a three-stage
+// ring, two barriers a 64-key tile, Kᵀ built by a transpose in shared
+// memory.
 //   * Products are bf16 m64nNk16 wgmmas with f32 accumulators: the score
 //     products from shared memory, the P and dS products with P or dS in
 //     registers, whose accumulator fragment is the A fragment as it stands.
 //     Sums over the streamed tiles stay in the tensor cores' accumulator.
-//   * Causal: a block reads only the tiles that can see it; a warpgroup
-//     skips a tile wholly outside its triangle and masks by select only a
-//     tile across its diagonal. Blocks launch heaviest first.
-//   * Each output row is summed by one warpgroup in a fixed order: no
-//     atomics, bitwise repeatable.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "bf16_wgmma.cuh"
 #include "tf32_wgmma.cuh"
@@ -62,11 +96,13 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 using bf16_wgmma::bidx;
+using bf16_wgmma::desc_sw;
 using bf16_wgmma::pack_a;
+using bf16_wgmma::wg_wait_group;
 using bf16_wgmma::wgmma_rs_bf16;
+using bf16_wgmma::wgmma_ss_bf16;
 using bf16_wgmma::wgmma_ss_bf16_n64;
 using tf32_wgmma::cp_async16;
-using tf32_wgmma::cp_async4;
 using tf32_wgmma::cp_async_commit;
 using tf32_wgmma::cp_async_wait;
 using tf32_wgmma::desc;
@@ -77,11 +113,24 @@ using tf32_wgmma::wg_fence;
 using tf32_wgmma::wg_wait;
 
 constexpr int kRows = 128;    // rows a block owns
-constexpr int kThreads = 256;  // two warpgroups of 64 rows
-constexpr int kTile = 64;     // rows of a streamed tile
-constexpr int kStages = 3;    // depth of the cp.async ring
+constexpr int kThreads = 256;  // dq: two warpgroups of 64 rows
+constexpr int kTile = 64;     // dq: rows of a streamed tile
+constexpr int kStages = 3;    // dq: depth of the cp.async ring
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+
+// The forward and dk/dv: two consumer warpgroups and a producer warpgroup
+constexpr int kWsThreads = 384;  // the producer warpgroup last
+constexpr int kConsumerWarps = 8;  // each frees a stage with one arrival
+constexpr int kRing = 4;           // stages of the producer's ring
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // setmaxnreg: 128·24 + 256·240 <= 65,536
+constexpr int kDkvTile = 64;       // queries a dk/dv tile
+// keys a forward tile, by head dim (chip_sweep.py bf16 times 64 and 128; BF16_FWD_KEYS in ops/flash_cuda.py)
+template <int D>
+constexpr int kFwdKeys = 128;
+
+// attribution cuts (the template argument Cut; the shipped entry points take kFull)
+constexpr int kFull = 0, kNoExp = 1, kNoMma = 2, kLoadsOnly = 3, kMmaOnly = 4;
 
 bool shape_ok(int bh, int s) { return bh >= 1 && bh <= 65535 && s >= kRows && s % kRows == 0; }
 
@@ -126,153 +175,395 @@ __device__ __forceinline__ void transpose(bf16* dst, const bf16* src) {
 }
 
 // ---------------------------------------------------------------------------
+// The producer's ring: mbarriers, TMA, setmaxnreg
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// returns once the phase of `bar` with this parity has completed
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// the producer's arrival on a stage's `full` barrier, which then also waits for `bytes` to land
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// TMA: the box of `map` (whole rows of a [rows, D] bf16 matrix) from row `row` into dst; lands on `bar`
+__device__ __forceinline__ void tma_rows(void* dst, const CUtensorMap& map, int row, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(0), "r"(row), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// bulk copy of `bytes` (a multiple of 16) of device memory into dst; lands on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes), "r"(smem_u32(bar))
+               : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Ping-pong of the two consumer warpgroups (FA3): warpgroup w issues its
+// products only on its turn, `turn_wait` on named barrier 1 + w, and then
+// hands the turn over (`turn_pass`), so that one warpgroup's products run
+// on the tensor cores under the other's softmax. Without it the two start
+// in step and stay there, and the exps and the products take turns.
+__device__ __forceinline__ void turn_wait(int wg) { asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory"); }
+__device__ __forceinline__ void turn_pass(int wg) { asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory"); }
+
+// The ring's mbarriers, set up by thread 0 before the block's one barrier
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kRing; ++i) {
+      bar_init(&full[i], 1);  // the producer's bar_expect; then the bytes
+      bar_init(&empty[i], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+}
+
+// A consumer warp's part: wait for the stage of tile `it` to be full / free it
+__device__ __forceinline__ void wait_full(uint64_t* full, int it) { bar_wait(&full[it % kRing], (it / kRing) & 1); }
+__device__ __forceinline__ void release(uint64_t* empty, int it) {
+  if (threadIdx.x % 32 == 0) bar_arrive(&empty[it % kRing]);
+}
+
+// The producer's wait before it refills the stage of tile `it`: the stage's last tile freed
+__device__ __forceinline__ void wait_empty(uint64_t* empty, int it) {
+  if (it >= kRing) bar_wait(&empty[it % kRing], (it / kRing - 1) & 1);
+}
+
+// d += A·B on the warp's tensor cores (mma.sync m16n8k16): A this warp's 16
+// rows of a wgmma A fragment, B 16 x 8 with b the lane's two registers.
+// With B's column 0 all ones (b = two bf16 ones in lanes 0-3, else 0), d's
+// column 0 (d[0], d[2] of lanes t = 0) sums each row of A in f32.
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b), "r"(b));
+}
+
+// The block's shared storage S from the dynamic shared memory, 1024-byte
+// aligned for the TMA's swizzle (the launch asks for 1 KB more)
+template <typename S>
+__device__ __forceinline__ S& aligned_smem(unsigned char* raw) {
+  return *reinterpret_cast<S*>(raw + (1024 - smem_u32(raw) % 1024) % 1024);
+}
+
+// The 128-row blocks of a launch in order of decreasing work (block row r
+// of every head before row r + 1), dealt to the persistent CTAs in a
+// snake — CTA c takes c, 2G − 1 − c, 2G + c, … of G CTAs — so that the
+// causal rows' uneven work evens out across the CTAs.
+struct Schedule {
+  int heads, rows;  // BH, and 128-row blocks a head
+  // this CTA's n-th block: head bh, block row r (0 the heaviest); false past the last
+  __device__ __forceinline__ bool next(int n, int& bh, int& r) const {
+    const int g = gridDim.x, c = blockIdx.x;
+    const int idx = n * g + (n % 2 == 0 ? c : g - 1 - c);
+    if (idx >= heads * rows) return false;
+    r = idx / heads;
+    bh = idx % heads;
+    return true;
+  }
+};
+
+// ---------------------------------------------------------------------------
 // Forward
 // ---------------------------------------------------------------------------
 
-template <int D>
-struct SmemFwd {
-  bf16 q[kRows * D];              // two 64-row operands of qs
-  bf16 k[kStages][kTile * D];     // landed K tiles, 64-row operands
-  bf16 v[kStages][kTile * D];     // landed V tiles, the same layout
-  bf16 vt[(D + 8) * kTile];       // [V | 1 | 0]ᵀ: D + 8 rows by 64 keys; row D all ones
+template <int D, int T>
+struct FwdStage {
+  alignas(1024) bf16 k[T * D];  // a K tile as the TMA wrote it: read K-major for qs·kᵀ
+  alignas(1024) bf16 v[T * D];  // the V tile, the same: read MN-major for P·V
 };
 
-// Grid (S / kRows, BH), kThreads threads, sizeof(SmemFwd<D>) bytes of
-// dynamic shared memory.
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_bf16_tc(const bf16* __restrict__ qs, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                  float* __restrict__ o, float* __restrict__ lse, int s_len) {
-  using S = SmemFwd<D>;
-  extern __shared__ __align__(128) unsigned char smem_bytes[];
-  S& sm = *reinterpret_cast<S*>(smem_bytes);
-  const int bh = blockIdx.y;
-  const int row0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // heaviest first
-  const size_t base = (size_t)bh * s_len * D;
-  const int n_tiles = (row0 + kRows) / kTile;  // keys [0, row0 + kRows)
+template <int D, int T>
+struct SmemFwd {
+  FwdStage<D, T> st[kRing];
+  alignas(1024) bf16 q[2][kRows * D];  // two blocks' rows of qs as the TMA wrote them, one 64-row operand a warpgroup
+  uint64_t full[kRing], empty[kRing], q_full[2], q_empty[2];
+};
 
-  auto load = [&](int st, int kt) {
-    load_operand<D, kTile>(sm.k[st], k + base + (size_t)kt * D);
-    load_operand<D, kTile>(sm.v[st], v + base + (size_t)kt * D);
-  };
-  load_block<D>(sm.q, qs + base + (size_t)row0 * D);
-  load(0, 0);
-  cp_async_commit();
-  load(1, kTile);  // n_tiles >= 2
-  cp_async_commit();
-  for (int i = threadIdx.x; i < 8 * kTile; i += kThreads) {  // rows D … D + 7 of vt: [1 | 0]
-    const int r = D + i / kTile;
-    sm.vt[bidx<D + 8>(r, i % kTile)] = __float2bfloat16_rn(r == D ? 1.f : 0.f);
-  }
-
-  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wrow0 = row0 + 64 * wg;
-  const int row_a = wrow0 + 16 * warp + g, row_b = row_a + 8;
-  const uint32_t base16 = static_cast<uint32_t>(__cvta_generic_to_shared(smem_bytes)) >> 4;
-  const uint32_t q16 = base16 + 64 * D * 2 / 16 * wg;  // this warpgroup's rows of qs
-
-  float acc[(D + 8) / 2];  // O and, in column D, the row sum l
+// Online softmax of a tile of T keys from key kt, in place: sc[4j + e] is
+// (row_a, key kt + 8j + 2t + e) and sc[4j + 2 + e] row_a + 8. The running
+// maxima move to the tile's, corr = 2^(m_old − m_new), and sc becomes
+// 2^(sc − m_new), 0 where masked. Masked: the tile crosses this
+// warpgroup's diagonal (a compile-time branch: the compiler if-converts a
+// run-time one into every tile).
+template <int T, int Cut, bool Masked>
+__device__ __forceinline__ void online_softmax(float (&sc)[T / 2], int kt, int row_a, int t, float& m_a, float& m_b,
+                                               float& corr_a, float& corr_b) {
+  if constexpr (Masked) {
 #pragma unroll
-  for (int i = 0; i < (D + 8) / 2; ++i) acc[i] = 0.f;
-  float m_a = -1e30f, m_b = -1e30f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int st = it % kStages;
-    cp_async_wait<kStages - 2>();  // this thread's copies of tile `it` have landed
-    __syncthreads();               // everyone's; and every wgmma of tile it − 1 is done
-    if (it + 2 < n_tiles) load((it + 2) % kStages, (it + 2) * kTile);
-    cp_async_commit();
-    transpose<D, kTile, D + 8>(sm.vt, sm.v[st]);
-    proxy_fence();
-    __syncthreads();
-
-    const int kt = it * kTile;
-    if (kt > wrow0 + 63) continue;  // wholly in this warpgroup's future
-
-    // s = qs·kᵀ (base 2). s[4j + e] is (row_a, key kt + 8j + 2t + e), s[4j + 2 + e] row_b.
-    float s[32];
-    wg_fence();
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks)
-      wgmma_ss_bf16_n64(s, desc<64>(q16, 2048 * ks),
-                        desc<kTile>(base16, offsetof(S, k) + st * kTile * D * 2 + 2048 * ks), ks > 0);
-    wg_commit();
-    wg_wait();
-    pin(s);
-
-    const bool mask = kt + kTile - 1 > wrow0;  // the tile crosses the diagonal
-    if (mask) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int key = kt + 8 * j + 2 * t + e;
-          if (key > row_a) s[4 * j + e] = -INFINITY;
-          if (key > row_b) s[4 * j + 2 + e] = -INFINITY;
-        }
-    }
-    float mx_a = -INFINITY, mx_b = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      mx_a = fmaxf(mx_a, fmaxf(s[4 * j], s[4 * j + 1]));
-      mx_b = fmaxf(mx_b, fmaxf(s[4 * j + 2], s[4 * j + 3]));
-    }
-#pragma unroll
-    for (int off = 1; off <= 2; off *= 2) {
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
-    }
-    // every row sees key kt here (kt <= wrow0 <= row), so the max is finite
-    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-    const float corr_a = exp2_ftz(m_a - mn_a), corr_b = exp2_ftz(m_b - mn_b);
-    m_a = mn_a;
-    m_b = mn_b;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < T / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        s[4 * j + e] = exp2_ftz(s[4 * j + e] - mn_a);  // masked: 2^-inf = 0
-        s[4 * j + 2 + e] = exp2_ftz(s[4 * j + 2 + e] - mn_b);
+        const int key = kt + 8 * j + 2 * t + e;
+        if (key > row_a) sc[4 * j + e] = -INFINITY;
+        if (key > row_a + 8) sc[4 * j + 2 + e] = -INFINITY;
       }
+  }
+  float mx_a[4], mx_b[4];  // four partial maxima a row: short dependency chains
 #pragma unroll
-    for (int j = 0; j < (D + 8) / 8; ++j) {
-      acc[4 * j] *= corr_a;
-      acc[4 * j + 1] *= corr_a;
-      acc[4 * j + 2] *= corr_b;
-      acc[4 * j + 3] *= corr_b;
+  for (int i = 0; i < 4; ++i) mx_a[i] = mx_b[i] = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < T / 8; ++j) {
+    mx_a[j % 4] = fmaxf(mx_a[j % 4], fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx_b[j % 4] = fmaxf(mx_b[j % 4], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+  float mxa = fmaxf(fmaxf(mx_a[0], mx_a[1]), fmaxf(mx_a[2], mx_a[3]));
+  float mxb = fmaxf(fmaxf(mx_b[0], mx_b[1]), fmaxf(mx_b[2], mx_b[3]));
+#pragma unroll
+  for (int off = 1; off <= 2; off *= 2) {
+    mxa = fmaxf(mxa, __shfl_xor_sync(0xffffffffu, mxa, off));
+    mxb = fmaxf(mxb, __shfl_xor_sync(0xffffffffu, mxb, off));
+  }
+  // every row sees key 0 in its first tile, so the max is finite from there on
+  const float mn_a = fmaxf(m_a, mxa), mn_b = fmaxf(m_b, mxb);
+  corr_a = Cut == kNoExp ? 1.f : exp2_ftz(m_a - mn_a);
+  corr_b = Cut == kNoExp ? 1.f : exp2_ftz(m_b - mn_b);
+  m_a = mn_a;
+  m_b = mn_b;
+#pragma unroll
+  for (int j = 0; j < T / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if constexpr (Cut == kNoExp) {
+        sc[4 * j + e] -= mn_a;
+        sc[4 * j + 2 + e] -= mn_b;
+      } else {
+        sc[4 * j + e] = exp2_ftz(sc[4 * j + e] - mn_a);  // masked: 2^-inf = 0
+        sc[4 * j + 2 + e] = exp2_ftz(sc[4 * j + 2 + e] - mn_b);
+      }
     }
-    // acc += bf16(P)·[V | 1 | 0], 16 keys a wgmma
-    uint32_t a[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) pack_a(s, kk, a[kk]);
-    pin(a[0]);
-    pin(a[1]);
-    pin(a[2]);
-    pin(a[3]);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_bf16<D + 8>(acc, a[kk], desc<D + 8>(base16, offsetof(S, vt) + 32 * (D + 8) * kk), 1);
-    wg_commit();
-    wg_wait();
-    pin(acc);
+}
+
+// Persistent: grid min(SMs, blocks), kWsThreads threads,
+// sizeof(SmemFwd<D, T>) + 1024 bytes of dynamic shared memory; a CTA takes
+// the 128-row blocks of `Schedule` in turn, T keys a tile; qs, K and V
+// through TMA maps of [BH·S, D] (qs in 128-row boxes, K and V in T-row ones).
+template <int D, int T, int Cut = kFull>
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_fwd_bf16_tc(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                  const __grid_constant__ CUtensorMap map_v, float* __restrict__ o, float* __restrict__ lse,
+                  int bh_count, int s_len) {
+  using S = SmemFwd<D, T>;
+  extern __shared__ unsigned char smem_raw[];
+  S& sm = aligned_smem<S>(smem_raw);
+  const Schedule sched{bh_count, s_len / kRows};
+  const int wg = threadIdx.x / 128;
+
+  init_ring(sm.full, sm.empty);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      bar_init(&sm.q_full[i], 1);
+      bar_init(&sm.q_empty[i], kConsumerWarps);
+    }
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // the producer: one thread issues every copy, running ahead across blocks
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x == 2 * 128) {
+      int gt = 0;  // tiles of this CTA so far: the ring's position
+      for (int n = 0, bh, r; sched.next(n, bh, r); ++n) {
+        const int row0 = (sched.rows - 1 - r) * kRows, n_tiles = (row0 + kRows) / T;
+        if (n >= 2) bar_wait(&sm.q_empty[n % 2], (n / 2 - 1) & 1);
+        bar_expect(&sm.q_full[n % 2], kRows * D * 2);
+        tma_rows(sm.q[n % 2], map_q, bh * s_len + row0, &sm.q_full[n % 2]);
+        for (int it = 0; it < n_tiles; ++it, ++gt) {
+          FwdStage<D, T>& stage = sm.st[gt % kRing];
+          wait_empty(sm.empty, gt);
+          bar_expect(&sm.full[gt % kRing], 2 * T * D * 2);
+          tma_rows(stage.k, map_k, bh * s_len + it * T, &sm.full[gt % kRing]);
+          tma_rows(stage.v, map_v, bh * s_len + it * T, &sm.full[gt % kRing]);
+        }
+      }
+    }
+    return;
   }
 
-  // l: column D, held by the quad's thread t = 0
-  const float l_a = fmaxf(__shfl_sync(0xffffffffu, acc[D / 2], lane & ~3), 1e-30f);
-  const float l_b = fmaxf(__shfl_sync(0xffffffffu, acc[D / 2 + 2], lane & ~3), 1e-30f);
-  float* oa = o + base + (size_t)row_a * D + 2 * t;
-  float* ob = o + base + (size_t)row_b * D + 2 * t;
+  regs_inc<kConsumerRegs>();
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const uint32_t ones = g == 0 ? 0x3F803F80u : 0u;  // B of l = bf16(P)·[1 | 0]: column 0 ones
+  if (wg == 1 && Cut != kLoadsOnly) turn_pass(wg);  // warpgroup 0 goes first
+  int gt = 0;
+  for (int n = 0, bh, r; sched.next(n, bh, r); ++n) {
+    const int row0 = (sched.rows - 1 - r) * kRows, n_tiles = (row0 + kRows) / T;
+    const size_t base = (size_t)bh * s_len * D;
+    const int wrow0 = row0 + 64 * wg;
+    const int row_a = wrow0 + 16 * warp + g, row_b = row_a + 8;
+    const int n_live = (wrow0 + 64 + T - 1) / T;  // the tiles holding a key these rows see
+    const uint32_t q_addr = smem_u32(sm.q[n % 2] + 64 * D * wg);
+
+    float acc[D / 2], l4[4][4];  // O, and l in column 0 of bf16(P)·[1 | 0], four partial sums
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    *reinterpret_cast<float2*>(oa + 8 * j) = make_float2(acc[4 * j] / l_a, acc[4 * j + 1] / l_a);
-    *reinterpret_cast<float2*>(ob + 8 * j) = make_float2(acc[4 * j + 2] / l_b, acc[4 * j + 3] / l_b);
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) l4[i / 4][i % 4] = 0.f;
+    float sc[T / 2];         // a tile's scores, then 2^(s − m) in place
+    uint32_t pa[T / 16][4];  // bf16(P): A fragments of 16 keys each
+    float m_a = -1e30f, m_b = -1e30f, corr_a = 1.f, corr_b = 1.f;
+
+    // sc = qs·kᵀ of tile `it`, issued as one wgmma group
+    auto scores = [&](int it) {
+      wait_full(sm.full, gt + it);
+      if constexpr (Cut == kNoMma) {
+#pragma unroll
+        for (int i = 0; i < T / 2; ++i) sc[i] = 0.125f * (i & 7);
+      } else {
+        const uint32_t k_addr = smem_u32(sm.st[(gt + it) % kRing].k);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_bf16<T>(sc, desc_sw<D>(q_addr + 32 * kk), desc_sw<D>(k_addr + 32 * kk), kk > 0);
+        wg_commit();
+      }
+    };
+    // acc += bf16(P)·V of tile `it`, issued as one wgmma group
+    auto pv = [&](int it) {
+      if constexpr (Cut != kNoMma) {
+        const uint32_t v_addr = smem_u32(sm.st[(gt + it) % kRing].v);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < T / 16; ++kk) wgmma_rs_bf16<D, 1>(acc, pa[kk], desc_sw<D>(v_addr + 32 * D * kk), 1);
+        wg_commit();
+      }
+    };
+    auto rescale = [&]() {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j] *= corr_a;
+        acc[4 * j + 1] *= corr_a;
+        acc[4 * j + 2] *= corr_b;
+        acc[4 * j + 3] *= corr_b;
+      }
+    };
+    // only the last tile these rows see crosses their diagonal (masked)
+    auto softmax = [&](int it, auto masked) {
+      if constexpr (Cut != kMmaOnly)
+        online_softmax<T, Cut, decltype(masked)::value>(sc, it * T, row_a, t, m_a, m_b, corr_a, corr_b);
+    };
+    // P rounded to bf16 as A fragments, and l = l·corr + Σ bf16(P) (the plain version's order of updates)
+    auto pack = [&]() {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        l4[i][0] *= corr_a;
+        l4[i][1] *= corr_a;
+        l4[i][2] *= corr_b;
+        l4[i][3] *= corr_b;
+      }
+#pragma unroll
+      for (int kk = 0; kk < T / 16; ++kk) pack_a(sc, kk, pa[kk]);
+#pragma unroll
+      for (int kk = 0; kk < T / 16; ++kk) mma_16816(l4[kk % 4], pa[kk], ones);
+    };
+    auto pin_pv = [&]() {  // P's registers stay untouched until its product is done
+      pin(acc);
+#pragma unroll
+      for (int kk = 0; kk < T / 16; ++kk) pin(pa[kk]);
+    };
+
+    bar_wait(&sm.q_full[n % 2], (n / 2) & 1);
+    if constexpr (Cut == kLoadsOnly) {
+      for (int it = 0; it < n_tiles; ++it) {
+        wait_full(sm.full, gt + it);
+        release(sm.empty, gt + it);
+      }
+    } else {
+      // n_tiles + 1 turns a warpgroup: the first scores, n_live − 1 of
+      // scores and P·V, the last P·V, and an empty turn a tile these rows skip
+      turn_wait(wg);
+      scores(0);
+      turn_pass(wg);
+      wg_wait_group<0>();
+      pin(sc);
+      if (n_live == 1)
+        softmax(0, std::true_type{});
+      else
+        softmax(0, std::false_type{});
+      pack();
+      for (int it = 1; it < n_live; ++it) {
+        turn_wait(wg);
+        scores(it);
+        rescale();  // by tile it − 1's correction, under the score product
+        pv(it - 1);
+        turn_pass(wg);
+        wg_wait_group<1>();  // the scores; P·V may still run
+        pin(sc);
+        if (it == n_live - 1)
+          softmax(it, std::true_type{});
+        else
+          softmax(it, std::false_type{});
+        wg_wait_group<0>();
+        pin_pv();
+        release(sm.empty, gt + it - 1);
+        pack();
+      }
+      turn_wait(wg);
+      rescale();
+      pv(n_live - 1);
+      turn_pass(wg);
+      wg_wait_group<0>();
+      pin_pv();
+      release(sm.empty, gt + n_live - 1);
+      for (int it = n_live; it < n_tiles; ++it) {  // wholly in these rows' future: free it unread
+        turn_wait(wg);
+        turn_pass(wg);
+        wait_full(sm.full, gt + it);
+        release(sm.empty, gt + it);
+      }
+    }
+    if (lane == 0) bar_arrive(&sm.q_empty[n % 2]);  // every product that read this block's qs is done
+    gt += n_tiles;
+
+    // l: column 0 of bf16(P)·[1 | 0], held by the quad's thread t = 0
+    const float l_a = fmaxf(__shfl_sync(0xffffffffu, (l4[0][0] + l4[1][0]) + (l4[2][0] + l4[3][0]), lane & ~3), 1e-30f);
+    const float l_b = fmaxf(__shfl_sync(0xffffffffu, (l4[0][2] + l4[1][2]) + (l4[2][2] + l4[3][2]), lane & ~3), 1e-30f);
+    float* oa = o + base + (size_t)row_a * D + 2 * t;
+    float* ob = o + base + (size_t)row_b * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<float2*>(oa + 8 * j) = make_float2(acc[4 * j] / l_a, acc[4 * j + 1] / l_a);
+      *reinterpret_cast<float2*>(ob + 8 * j) = make_float2(acc[4 * j + 2] / l_b, acc[4 * j + 3] / l_b);
+    }
+    if (t == 0) {
+      lse[(size_t)bh * s_len + row_a] = (m_a + log2f(l_a)) * kLn2;
+      lse[(size_t)bh * s_len + row_b] = (m_b + log2f(l_b)) * kLn2;
+    }
   }
-  if (t == 0) {
-    lse[(size_t)bh * s_len + row_a] = (m_a + log2f(l_a)) * kLn2;
-    lse[(size_t)bh * s_len + row_b] = (m_b + log2f(l_b)) * kLn2;
-  }
+  if (wg == 0 && Cut != kLoadsOnly) turn_wait(wg);  // warpgroup 1's last pass
 }
 
 // ---------------------------------------------------------------------------
@@ -405,155 +696,300 @@ flash_bwd_dq_bf16_tc(const bf16* __restrict__ qs, const bf16* __restrict__ k, co
 // ---------------------------------------------------------------------------
 
 template <int D>
+struct DkvStage {
+  alignas(1024) bf16 q[kDkvTile * D];     // a qs tile as the TMA wrote it: K-major for k·qsᵀ, MN-major for dSᵀ·qs
+  alignas(1024) bf16 dout[kDkvTile * D];  // the dO tile, the same: v·dOᵀ, Pᵀ·dO
+  float lse[kDkvTile], delta[kDkvTile];
+};
+
+template <int D>
 struct SmemDkv {
-  bf16 k[kRows * D], v[kRows * D];  // two 64-row operands each
-  bf16 q[kStages][kTile * D];       // landed qs tiles (64-row operands)
-  bf16 dout[kStages][kTile * D];    // landed dO tiles
-  float stats[kStages][2][kTile];   // the tiles' lse and delta
-  bf16 qt[D * kTile], dot[D * kTile];  // qsᵀ and dOᵀ: D rows by 64 queries
+  DkvStage<D> st[kRing];
+  alignas(1024) bf16 k[2][kRows * D];  // two blocks' rows of k as the TMA wrote them, one 64-row operand a warpgroup
+  alignas(1024) bf16 v[2][kRows * D];  // and of v
+  uint64_t full[kRing], empty[kRing], kv_full[2], kv_empty[2];
 };
 
 // dk, dv of k, v from the same inputs: dv = Σ_i bf16(P_ij)ᵀ dO_i, dk = ln 2 ·
-// Σ_i bf16(dS_ij)ᵀ qs_i. Grid (S / kRows, BH), kThreads threads,
-// sizeof(SmemDkv<D>) bytes of dynamic shared memory.
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkv_bf16_tc(const bf16* __restrict__ qs, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                      const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-                      bf16* __restrict__ dk, bf16* __restrict__ dv, int s_len) {
+// Σ_i bf16(dS_ij)ᵀ qs_i. Persistent: grid min(SMs, blocks), kWsThreads
+// threads, sizeof(SmemDkv<D>) + 1024 bytes of dynamic shared memory; a CTA
+// takes the 128-key blocks of `Schedule` in turn; qs and dO through TMA
+// maps in kDkvTile-row boxes, k and v in 128-row ones.
+template <int D, int Cut = kFull>
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_bwd_dkv_bf16_tc(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_do,
+                      const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
+                      const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, int bh_count, int s_len) {
   using S = SmemDkv<D>;
-  extern __shared__ __align__(128) unsigned char smem_bytes[];
-  S& sm = *reinterpret_cast<S*>(smem_bytes);
-  const int bh = blockIdx.y;
-  const int key0 = blockIdx.x * kRows;  // the first blocks see the most queries
-  const size_t base = (size_t)bh * s_len * D;
-  const size_t srow = (size_t)bh * s_len;
-  const int n_tiles = (s_len - key0) / kTile;  // queries before key0 see none of these keys
+  extern __shared__ unsigned char smem_raw[];
+  S& sm = aligned_smem<S>(smem_raw);
+  const Schedule sched{bh_count, s_len / kRows};
+  const int wg = threadIdx.x / 128;
 
-  auto load = [&](int st, int qt) {
-    load_operand<D, kTile>(sm.q[st], qs + base + (size_t)qt * D);
-    load_operand<D, kTile>(sm.dout[st], dout + base + (size_t)qt * D);
-    if (threadIdx.x < kTile) {
-      cp_async4(&sm.stats[st][0][threadIdx.x], lse + srow + qt + threadIdx.x);
-      cp_async4(&sm.stats[st][1][threadIdx.x], delta + srow + qt + threadIdx.x);
+  init_ring(sm.full, sm.empty);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      bar_init(&sm.kv_full[i], 1);
+      bar_init(&sm.kv_empty[i], kConsumerWarps);
     }
-  };
-  load_block<D>(sm.k, k + base + (size_t)key0 * D);
-  load_block<D>(sm.v, v + base + (size_t)key0 * D);
-  load(0, key0);
-  cp_async_commit();
-  load(1, key0 + kTile);
-  cp_async_commit();
+  }
+  __syncthreads();
 
-  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wkey0 = key0 + 64 * wg;
-  const int key_a = wkey0 + 16 * warp + g, key_b = key_a + 8;
-  const uint32_t base16 = static_cast<uint32_t>(__cvta_generic_to_shared(smem_bytes)) >> 4;
-  const uint32_t wg_off = 64 * D * 2 * wg;
-
-  float dka[D / 2], dva[D / 2];  // dk / ln 2 and dv
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int st = it % kStages;
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    if (it + 2 < n_tiles) load((it + 2) % kStages, key0 + (it + 2) * kTile);
-    cp_async_commit();
-    transpose<D, kTile, D>(sm.qt, sm.q[st]);
-    transpose<D, kTile, D>(sm.dot, sm.dout[st]);
-    proxy_fence();
-    __syncthreads();
-
-    const int qt = key0 + it * kTile;
-    if (qt + kTile - 1 < wkey0) continue;  // every query of the tile precedes this warpgroup's keys
-
-    // sᵀ = k·qsᵀ and dpᵀ = v·dOᵀ; s[4j + e] is (key_a, query qt + 8j + 2t + e)
-    float s[32], dp[32];
-    const uint32_t q_off = offsetof(S, q) + st * kTile * D * 2, do_off = offsetof(S, dout) + st * kTile * D * 2;
-    wg_fence();
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks)
-      wgmma_ss_bf16_n64(s, desc<64>(base16, offsetof(S, k) + wg_off + 2048 * ks),
-                        desc<kTile>(base16, q_off + 2048 * ks), ks > 0);
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks)
-      wgmma_ss_bf16_n64(dp, desc<64>(base16, offsetof(S, v) + wg_off + 2048 * ks),
-                        desc<kTile>(base16, do_off + 2048 * ks), ks > 0);
-    wg_commit();
-    wg_wait();
-    pin(s);
-    pin(dp);
-
-    // Pᵀ into s, dSᵀ = Pᵀ ∘ (dPᵀ − delta) into dp; the query's lse and delta are per column
-    const bool mask = wkey0 + 63 > qt;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 ls = *reinterpret_cast<const float2*>(&sm.stats[st][0][8 * j + 2 * t]);
-      const float2 dl = *reinterpret_cast<const float2*>(&sm.stats[st][1][8 * j + 2 * t]);
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float l2 = (e ? ls.y : ls.x) * kLog2e, d = e ? dl.y : dl.x;
-        float pa = exp2_ftz(s[4 * j + e] - l2);
-        float pb = exp2_ftz(s[4 * j + 2 + e] - l2);
-        if (mask) {
-          const int query = qt + 8 * j + 2 * t + e;
-          pa = key_a > query ? 0.f : pa;
-          pb = key_b > query ? 0.f : pb;
+  if (wg == 2) {  // the producer: one thread issues every copy, running ahead across blocks
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x == 2 * 128) {
+      int gt = 0;  // tiles of this CTA so far: the ring's position
+      for (int n = 0, bh, r; sched.next(n, bh, r); ++n) {
+        const int key0 = r * kRows, n_tiles = (s_len - key0) / kDkvTile;  // the first blocks see the most queries
+        if (n >= 2) bar_wait(&sm.kv_empty[n % 2], (n / 2 - 1) & 1);
+        bar_expect(&sm.kv_full[n % 2], 2 * kRows * D * 2);
+        tma_rows(sm.k[n % 2], map_k, bh * s_len + key0, &sm.kv_full[n % 2]);
+        tma_rows(sm.v[n % 2], map_v, bh * s_len + key0, &sm.kv_full[n % 2]);
+        for (int it = 0; it < n_tiles; ++it, ++gt) {
+          const int row = bh * s_len + key0 + it * kDkvTile;
+          DkvStage<D>& stage = sm.st[gt % kRing];
+          uint64_t* full = &sm.full[gt % kRing];
+          wait_empty(sm.empty, gt);
+          bar_expect(full, 2 * kDkvTile * D * 2 + 2 * kDkvTile * 4);
+          tma_rows(stage.q, map_q, row, full);
+          tma_rows(stage.dout, map_do, row, full);
+          bulk_copy(stage.lse, lse + row, kDkvTile * 4, full);
+          bulk_copy(stage.delta, delta + row, kDkvTile * 4, full);
         }
-        s[4 * j + e] = pa;
-        s[4 * j + 2 + e] = pb;
-        dp[4 * j + e] = pa * (dp[4 * j + e] - d);
-        dp[4 * j + 2 + e] = pb * (dp[4 * j + 2 + e] - d);
       }
     }
-
-    // dv += bf16(P)ᵀ·dO against dOᵀ; dk += bf16(dS)ᵀ·qs against qsᵀ
-    uint32_t pa[4][4], da[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      pack_a(s, kk, pa[kk]);
-      pack_a(dp, kk, da[kk]);
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      pin(pa[kk]);
-      pin(da[kk]);
-    }
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_bf16<D>(dva, pa[kk], desc<D>(base16, offsetof(S, dot) + 32 * D * kk), 1);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_bf16<D>(dka, da[kk], desc<D>(base16, offsetof(S, qt) + 32 * D * kk), 1);
-    wg_commit();
-    wg_wait();
-    pin(dva);
-    pin(dka);
+    return;
   }
 
-  const size_t ra = base + (size_t)key_a * D + 2 * t, rb = base + (size_t)key_b * D + 2 * t;
+  regs_inc<kConsumerRegs>();
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int first = 64 * wg / kDkvTile;  // the tiles before hold only queries that precede these keys
+  if (wg == 1 && Cut != kLoadsOnly) turn_pass(wg);  // warpgroup 0 goes first
+  int gt = 0;
+  for (int n = 0, bh, r; sched.next(n, bh, r); ++n) {
+    const int key0 = r * kRows, n_tiles = (s_len - key0) / kDkvTile;
+    const size_t base = (size_t)bh * s_len * D;
+    const int wkey0 = key0 + 64 * wg;
+    const int key_a = wkey0 + 16 * warp + g, key_b = key_a + 8;
+    const uint32_t k_addr = smem_u32(sm.k[n % 2] + 64 * D * wg), v_addr = smem_u32(sm.v[n % 2] + 64 * D * wg);
+
+    float s[32], dp[32];  // sᵀ = k·qsᵀ and dpᵀ = v·dOᵀ: s[4j + e] is (key_a, query qt + 8j + 2t + e)
+    uint32_t pa[4][4], da[4][4];  // bf16(Pᵀ) and bf16(dSᵀ) as A fragments of 16 queries each
+    float dka[D / 2], dva[D / 2];  // dk / ln 2 and dv
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    *reinterpret_cast<uint32_t*>(dk + ra + 8 * j) = bf16_wgmma::pack2(dka[4 * j] * kLn2, dka[4 * j + 1] * kLn2);
-    *reinterpret_cast<uint32_t*>(dk + rb + 8 * j) = bf16_wgmma::pack2(dka[4 * j + 2] * kLn2, dka[4 * j + 3] * kLn2);
-    *reinterpret_cast<uint32_t*>(dv + ra + 8 * j) = bf16_wgmma::pack2(dva[4 * j], dva[4 * j + 1]);
-    *reinterpret_cast<uint32_t*>(dv + rb + 8 * j) = bf16_wgmma::pack2(dva[4 * j + 2], dva[4 * j + 3]);
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+
+    // sᵀ and dpᵀ of tile `it`, issued as one wgmma group
+    auto scores = [&](int it) {
+      wait_full(sm.full, gt + it);
+      if constexpr (Cut == kNoMma) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.125f * (i & 7);
+      } else {
+        const DkvStage<D>& stage = sm.st[(gt + it) % kRing];
+        const uint32_t q_addr = smem_u32(stage.q), do_addr = smem_u32(stage.dout);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_bf16_n64(s, desc_sw<D>(k_addr + 32 * kk), desc_sw<D>(q_addr + 32 * kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_bf16_n64(dp, desc_sw<D>(v_addr + 32 * kk), desc_sw<D>(do_addr + 32 * kk), kk > 0);
+        wg_commit();
+      }
+    };
+    // Pᵀ into s, dSᵀ = Pᵀ ∘ (dPᵀ − delta) into dp; the query's lse and delta
+    // are per column. Only the first tile these keys see crosses their
+    // diagonal (masked: a compile-time branch, as the forward's)
+    auto elementwise = [&](int it, auto masked) {
+      const int qt = key0 + it * kDkvTile;
+      const DkvStage<D>& stage = sm.st[(gt + it) % kRing];
+#pragma unroll
+      for (int j = 0; j < 8 * (Cut != kMmaOnly); ++j) {
+        const float2 ls = *reinterpret_cast<const float2*>(&stage.lse[8 * j + 2 * t]);
+        const float2 dl = *reinterpret_cast<const float2*>(&stage.delta[8 * j + 2 * t]);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float l2 = (e ? ls.y : ls.x) * kLog2e, d = e ? dl.y : dl.x;
+          float p_a = Cut == kNoExp ? s[4 * j + e] - l2 : exp2_ftz(s[4 * j + e] - l2);
+          float p_b = Cut == kNoExp ? s[4 * j + 2 + e] - l2 : exp2_ftz(s[4 * j + 2 + e] - l2);
+          if constexpr (decltype(masked)::value) {
+            const int query = qt + 8 * j + 2 * t + e;
+            p_a = key_a > query ? 0.f : p_a;
+            p_b = key_b > query ? 0.f : p_b;
+          }
+          s[4 * j + e] = p_a;
+          s[4 * j + 2 + e] = p_b;
+          dp[4 * j + e] = p_a * (dp[4 * j + e] - d);
+          dp[4 * j + 2 + e] = p_b * (dp[4 * j + 2 + e] - d);
+        }
+      }
+    };
+    auto pin_all = [&]() {
+      pin(s);
+      pin(dp);
+      pin(dka);
+      pin(dva);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        pin(pa[kk]);
+        pin(da[kk]);
+      }
+    };
+
+    bar_wait(&sm.kv_full[n % 2], (n / 2) & 1);
+    if constexpr (Cut == kLoadsOnly) {
+      for (int it = 0; it < n_tiles; ++it) {
+        wait_full(sm.full, gt + it);
+        release(sm.empty, gt + it);
+      }
+    } else {
+      // n_tiles + 1 turns a warpgroup: the first scores, then a tile's dv
+      // and dk with the next tile's scores, and an empty turn a tile skipped
+      for (int it = 0; it < first; ++it) {  // every query of these tiles precedes this warpgroup's keys
+        turn_wait(wg);
+        turn_pass(wg);
+        wait_full(sm.full, gt + it);
+        release(sm.empty, gt + it);
+      }
+      turn_wait(wg);
+      scores(first);
+      turn_pass(wg);
+      wg_wait_group<0>();
+      pin(s);
+      pin(dp);
+      for (int it = first; it < n_tiles; ++it) {
+        if (it == first)
+          elementwise(it, std::true_type{});
+        else
+          elementwise(it, std::false_type{});
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          pack_a(s, kk, pa[kk]);
+          pack_a(dp, kk, da[kk]);
+        }
+        // dv += bf16(Pᵀ)·dO and dk += bf16(dSᵀ)·qs, both tiles read MN-major as they landed
+        turn_wait(wg);
+        if constexpr (Cut != kNoMma) {
+          const DkvStage<D>& stage = sm.st[(gt + it) % kRing];
+          const uint32_t q_addr = smem_u32(stage.q), do_addr = smem_u32(stage.dout);
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) wgmma_rs_bf16<D, 1>(dva, pa[kk], desc_sw<D>(do_addr + 32 * D * kk), 1);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) wgmma_rs_bf16<D, 1>(dka, da[kk], desc_sw<D>(q_addr + 32 * D * kk), 1);
+          wg_commit();
+        }
+        if (it + 1 < n_tiles) scores(it + 1);  // queued right behind them
+        turn_pass(wg);
+        wg_wait_group<0>();
+        pin_all();
+        release(sm.empty, gt + it);
+      }
+    }
+    if (lane == 0) bar_arrive(&sm.kv_empty[n % 2]);  // every product that read this block's k and v is done
+    gt += n_tiles;
+
+    const size_t ra = base + (size_t)key_a * D + 2 * t, rb = base + (size_t)key_b * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + ra + 8 * j) = bf16_wgmma::pack2(dka[4 * j] * kLn2, dka[4 * j + 1] * kLn2);
+      *reinterpret_cast<uint32_t*>(dk + rb + 8 * j) = bf16_wgmma::pack2(dka[4 * j + 2] * kLn2, dka[4 * j + 3] * kLn2);
+      *reinterpret_cast<uint32_t*>(dv + ra + 8 * j) = bf16_wgmma::pack2(dva[4 * j], dva[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(dv + rb + 8 * j) = bf16_wgmma::pack2(dva[4 * j + 2], dva[4 * j + 3]);
+    }
   }
+  if (wg == 0 && Cut != kLoadsOnly) turn_wait(wg);  // warpgroup 1's last pass
 }
 
-static_assert(sizeof(SmemFwd<64>) <= 232448 && sizeof(SmemDq<64>) <= 232448 && sizeof(SmemDkv<64>) <= 232448,
+static_assert(sizeof(SmemFwd<64, 128>) + 1024 <= 232448 && sizeof(SmemDq<64>) <= 232448 &&
+                  sizeof(SmemDkv<64>) + 1024 <= 232448,
               "over 227 KB of shared memory");
 
+// ---------------------------------------------------------------------------
+// Host: TMA maps and launches
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of the CUDA driver API, reached through the runtime (the library links no libcuda)
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// `map`: the row-major [rows, D] bf16 matrix at `base` in boxes of `box`
+// whole rows, swizzled by the row's width (desc_sw reads them)
+template <int D>
+int tensor_map(CUtensorMap* map, const bf16* base, int rows, int box) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {D, (cuuint64_t)rows}, strides[1] = {D * 2};
+  const cuuint32_t boxes[2] = {D, (cuuint32_t)box}, unit[2] = {1, 1};
+  const CUtensorMapSwizzle swizzle =
+      D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(base), dims, strides, boxes,
+                            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int smem, dim3 grid, cudaStream_t st, Args... args) {
+int launch(Kernel kernel, int smem, dim3 grid, int threads, cudaStream_t st, Args... args) {
   const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<grid, kThreads, smem, st>>>(args...);
+  kernel<<<grid, threads, smem, st>>>(args...);
   return (int)cudaGetLastError();
+}
+
+// the persistent grid: a CTA an SM, or one a block if there are fewer
+int persistent_grid(int blocks, int* grid) {
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  *grid = blocks < sms ? blocks : sms;
+  return (int)e;
+}
+
+template <int D, int T, int Cut = kFull>
+int launch_fwd(cudaStream_t st, const bf16* qs, const bf16* k, const bf16* v, float* o, float* lse, int bh, int s) {
+  CUtensorMap map_q, map_k, map_v;
+  int grid = 0;
+  int e = tensor_map<D>(&map_q, qs, bh * s, kRows);
+  if (e == 0) e = tensor_map<D>(&map_k, k, bh * s, T);
+  if (e == 0) e = tensor_map<D>(&map_v, v, bh * s, T);
+  if (e == 0) e = persistent_grid(bh * (s / kRows), &grid);
+  if (e != 0) return e;
+  return launch(flash_fwd_bf16_tc<D, T, Cut>, (int)sizeof(SmemFwd<D, T>) + 1024, dim3(grid), kWsThreads, st, map_q,
+                map_k, map_v, o, lse, bh, s);
+}
+
+template <int D, int Cut = kFull>
+int launch_dkv(cudaStream_t st, const bf16* qs, const bf16* k, const bf16* v, const bf16* dout, const float* lse,
+               const float* delta, bf16* dk, bf16* dv, int bh, int s) {
+  CUtensorMap map_q, map_do, map_k, map_v;
+  int grid = 0;
+  int e = tensor_map<D>(&map_q, qs, bh * s, kDkvTile);
+  if (e == 0) e = tensor_map<D>(&map_do, dout, bh * s, kDkvTile);
+  if (e == 0) e = tensor_map<D>(&map_k, k, bh * s, kRows);
+  if (e == 0) e = tensor_map<D>(&map_v, v, bh * s, kRows);
+  if (e == 0) e = persistent_grid(bh * (s / kRows), &grid);
+  if (e != 0) return e;
+  return launch(flash_bwd_dkv_bf16_tc<D, Cut>, (int)sizeof(SmemDkv<D>) + 1024, dim3(grid), kWsThreads, st, map_q,
+                map_do, map_k, map_v, lse, delta, dk, dv, bh, s);
 }
 
 }  // namespace
@@ -567,11 +1003,10 @@ int flash_fwd_bf16_launch(const bf16* qs, const bf16* k, const bf16* v, float* o
                           void* stream) {
   if (!shape_ok(bh, s)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(s / kRows, bh);
   switch (d) {
-    case 16: return launch(flash_fwd_bf16_tc<16>, (int)sizeof(SmemFwd<16>), grid, st, qs, k, v, o, lse, s);
-    case 32: return launch(flash_fwd_bf16_tc<32>, (int)sizeof(SmemFwd<32>), grid, st, qs, k, v, o, lse, s);
-    case 64: return launch(flash_fwd_bf16_tc<64>, (int)sizeof(SmemFwd<64>), grid, st, qs, k, v, o, lse, s);
+    case 16: return launch_fwd<16, kFwdKeys<16>>(st, qs, k, v, o, lse, bh, s);
+    case 32: return launch_fwd<32, kFwdKeys<32>>(st, qs, k, v, o, lse, bh, s);
+    case 64: return launch_fwd<64, kFwdKeys<64>>(st, qs, k, v, o, lse, bh, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -583,9 +1018,9 @@ int flash_bwd_dq_bf16_launch(const bf16* qs, const bf16* k, const bf16* v, const
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(s / kRows, bh);
   switch (d) {
-    case 16: return launch(flash_bwd_dq_bf16_tc<16>, (int)sizeof(SmemDq<16>), grid, st, qs, k, v, dout, lse, delta, dq, s, scale);
-    case 32: return launch(flash_bwd_dq_bf16_tc<32>, (int)sizeof(SmemDq<32>), grid, st, qs, k, v, dout, lse, delta, dq, s, scale);
-    case 64: return launch(flash_bwd_dq_bf16_tc<64>, (int)sizeof(SmemDq<64>), grid, st, qs, k, v, dout, lse, delta, dq, s, scale);
+    case 16: return launch(flash_bwd_dq_bf16_tc<16>, (int)sizeof(SmemDq<16>), grid, kThreads, st, qs, k, v, dout, lse, delta, dq, s, scale);
+    case 32: return launch(flash_bwd_dq_bf16_tc<32>, (int)sizeof(SmemDq<32>), grid, kThreads, st, qs, k, v, dout, lse, delta, dq, s, scale);
+    case 64: return launch(flash_bwd_dq_bf16_tc<64>, (int)sizeof(SmemDq<64>), grid, kThreads, st, qs, k, v, dout, lse, delta, dq, s, scale);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -595,13 +1030,40 @@ int flash_bwd_dkv_bf16_launch(const bf16* qs, const bf16* k, const bf16* v, cons
                               const float* delta, bf16* dk, bf16* dv, int bh, int s, int d, void* stream) {
   if (!shape_ok(bh, s)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(s / kRows, bh);
   switch (d) {
-    case 16: return launch(flash_bwd_dkv_bf16_tc<16>, (int)sizeof(SmemDkv<16>), grid, st, qs, k, v, dout, lse, delta, dk, dv, s);
-    case 32: return launch(flash_bwd_dkv_bf16_tc<32>, (int)sizeof(SmemDkv<32>), grid, st, qs, k, v, dout, lse, delta, dk, dv, s);
-    case 64: return launch(flash_bwd_dkv_bf16_tc<64>, (int)sizeof(SmemDkv<64>), grid, st, qs, k, v, dout, lse, delta, dk, dv, s);
+    case 16: return launch_dkv<16>(st, qs, k, v, dout, lse, delta, dk, dv, bh, s);
+    case 32: return launch_dkv<32>(st, qs, k, v, dout, lse, delta, dk, dv, bh, s);
+    case 64: return launch_dkv<64>(st, qs, k, v, dout, lse, delta, dk, dv, bh, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+#ifdef FLASH_BF16_CUTS
+// The attribution cuts (chip_sweep.py bf16), built only with -DFLASH_BF16_CUTS
+// and never reached by the wrappers: the forward at `keys` keys a tile and
+// dk/dv, each with `cut` in kFull … kLoadsOnly. Returns cudaErrorInvalidValue
+// for a pair the source has no instance of.
+int flash_fwd_bf16_cut_launch(const bf16* qs, const bf16* k, const bf16* v, float* o, float* lse, int bh, int s, int d,
+                              int keys, int cut, void* stream) {
+  if (!shape_ok(bh, s)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FWD_CUT(DD, TT, CC) \
+  if (d == DD && keys == TT && cut == CC) return launch_fwd<DD, TT, CC>(st, qs, k, v, o, lse, bh, s);
+#define FWD_CUTS(DD, TT) FWD_CUT(DD, TT, kFull) FWD_CUT(DD, TT, kNoExp) FWD_CUT(DD, TT, kNoMma) FWD_CUT(DD, TT, kLoadsOnly) FWD_CUT(DD, TT, kMmaOnly)
+  FWD_CUTS(16, 64) FWD_CUTS(16, 128) FWD_CUTS(32, 64) FWD_CUTS(32, 128) FWD_CUTS(64, 64) FWD_CUTS(64, 128)
+  return (int)cudaErrorInvalidValue;
+}
+
+int flash_bwd_dkv_bf16_cut_launch(const bf16* qs, const bf16* k, const bf16* v, const bf16* dout, const float* lse,
+                                  const float* delta, bf16* dk, bf16* dv, int bh, int s, int d, int cut, void* stream) {
+  if (!shape_ok(bh, s)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define DKV_CUT(DD, CC) \
+  if (d == DD && cut == CC) return launch_dkv<DD, CC>(st, qs, k, v, dout, lse, delta, dk, dv, bh, s);
+#define DKV_CUTS(DD) DKV_CUT(DD, kFull) DKV_CUT(DD, kNoExp) DKV_CUT(DD, kNoMma) DKV_CUT(DD, kLoadsOnly) DKV_CUT(DD, kMmaOnly)
+  DKV_CUTS(16) DKV_CUTS(32) DKV_CUTS(64)
+  return (int)cudaErrorInvalidValue;
+}
+#endif
 
 }  // extern "C"

@@ -37,9 +37,10 @@ The outputs and the cotangents come back in the input dtype.
 
 Each wrapper takes its plain PyTorch version for CPU tensors and only
 then; for CUDA tensors it launches the kernel or raises. The one-pass and
-bf16 plain versions repeat the kernels' roundings tile by tile (64 keys a
-tile, the running max per tile), so that the card's gate can hold each
-kernel to its own arithmetic. `LAUNCHES` counts kernel launches per
+bf16 plain versions repeat the kernels' roundings tile by tile (the running
+max per tile; `TILE` keys a tile for the f32 kernels, `BF16_FWD_KEYS[D]`
+for the bf16 forward), so that the card's gate can hold each kernel to its
+own arithmetic. `LAUNCHES` counts kernel launches per
 wrapper and variant, so a run can show that it went through the kernels.
 """
 
@@ -62,7 +63,8 @@ ONE_PASS = {name: f"{name}_1pass" for name in CAUSAL_KERNELS + RECT_KERNELS}
 BF16_KERNELS = ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")
 LAUNCHES: Dict[str, int] = {name: 0 for name in (*CAUSAL_KERNELS, *RECT_KERNELS, *ONE_PASS.values(), *BF16_KERNELS)}
 PRECISIONS = ("highest", "default")
-TILE = 64  # keys a forward tile (kKeys in csrc/flash_attention.cu, kTile in csrc/flash_bf16.cu)
+TILE = 64  # keys a forward tile of the f32 kernels (kKeys in csrc/flash_attention.cu)
+BF16_FWD_KEYS = {16: 128, 32: 128, 64: 128}  # keys a tile of flash_fwd_bf16_tc by head dim (kFwdKeys in csrc/flash_bf16.cu)
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 
@@ -495,22 +497,24 @@ def _causal_keep(s: int, device) -> torch.Tensor:
     return torch.ones((s, s), dtype=torch.bool, device=device).tril()
 
 
-def flash_fwd_bf16_plain(qs, k3, v3) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_fwd_bf16_plain(qs, k3, v3, keys: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of `flash_fwd_bf16`, tile by tile as the kernel
-    runs it: (o, lse) f32 from bf16 `qs` (pre-scaled), k, v."""
+    runs it: (o, lse) f32 from bf16 `qs` (pre-scaled), k, v; `keys` keys a
+    tile (the kernel's, `BF16_FWD_KEYS[D]`, unless given)."""
     bh, s, d = qs.shape
+    keys = BF16_FWD_KEYS[d] if keys is None else keys
     dev = qs.device
     qf, kf, vf = qs.float(), k3.float(), v3.float()
     keep = _causal_keep(s, dev)
     m = torch.full((bh, s), -1e30, device=dev)
     acc = torch.zeros((bh, s, d), device=dev)
     l = torch.zeros((bh, s), device=dev)
-    for kt in range(0, s, TILE):
-        sc = torch.where(keep[:, kt:kt + TILE], torch.matmul(qf, kf[:, kt:kt + TILE].transpose(-1, -2)), -math.inf)
+    for kt in range(0, s, keys):
+        sc = torch.where(keep[:, kt:kt + keys], torch.matmul(qf, kf[:, kt:kt + keys].transpose(-1, -2)), -math.inf)
         mn = torch.maximum(m, sc.amax(-1))
         corr = torch.exp2(m - mn)
         p = bf16_round(torch.exp2(sc - mn[..., None]))  # 0 where masked
-        acc = acc * corr[..., None] + torch.matmul(p, vf[:, kt:kt + TILE])
+        acc = acc * corr[..., None] + torch.matmul(p, vf[:, kt:kt + keys])
         l = l * corr + p.sum(-1)
         m = mn
     l = l.clamp_min(1e-30)

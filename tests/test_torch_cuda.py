@@ -282,10 +282,12 @@ def test_one_pass_kernels_match_plain(aligned, s_q, s_kv, d, causal, q_off, k_of
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,d", [(256, 16), (1024, 32), (512, 64)])
+@pytest.mark.parametrize("s,d", [(256, 16), (1024, 32), (512, 64), (128, 16), (128, 64)])
 def test_bf16_trio_matches_plain_and_repeats_bitwise(s, d):
     # the cast16 trio: o, lse and the bf16 cotangents within two bf16 units
-    # (2^-8) of their largest entry (chip_smoke.py's BF16_UNITS)
+    # (2^-8) of their largest entry (chip_smoke.py's BF16_UNITS); S = 128 is
+    # the smallest grid, one block a head. Every S the kernels take (a
+    # multiple of 128) is a multiple of each forward key tile (64 or 128).
     _card()
     rng = np.random.default_rng(s + d)
     q, k, v = (torch.tensor(rng.normal(size=(4, s, d)), dtype=torch.bfloat16, device="cuda") for _ in range(3))
@@ -294,6 +296,8 @@ def test_bf16_trio_matches_plain_and_repeats_bitwise(s, d):
     qs = fc.prescale_q(q, 1.0 / d ** 0.5)
     o, lse = fc.flash_fwd_bf16(qs, k, v)
     o_ref, lse_ref = fc.flash_fwd_bf16_plain(qs, k, v)
+    o2, lse2 = fc.flash_fwd_bf16(qs, k, v)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
     delta, do16 = (do * o_ref).sum(-1), do.to(torch.bfloat16)
     runs = [(fc.flash_bwd_dq_bf16(qs, k, v, do16, lse_ref, delta, 1.0 / d ** 0.5),
              *fc.flash_bwd_dkv_bf16(qs, k, v, do16, lse_ref, delta)) for _ in range(2)]

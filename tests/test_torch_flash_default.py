@@ -19,7 +19,8 @@ view) and run the forward tile by tile as the kernel does; the bf16 trio
 * the bf16 trio against `flash_attention(q16, k16, v16, causal=True,
   precision='default')` in interpret mode at S = 256, D = 16 (the JAX path
   with `fuse_l`): the output and the bf16 cotangents within
-  rtol = atol = 1e-2 (two bf16 units at magnitude one), all in bf16, and
+  rtol = atol = 1e-2 (two bf16 units at magnitude one), all in bf16 — the
+  plain forward so at both key tiles the kernel has (64, 128) — and
   both packages within the JAX package's bounds from float64 dense
   attention (values rtol 0.06 / atol 0.03, gradients 0.08 of max(|ref|, 1);
   tests/test_flash.py:338-367);
@@ -164,6 +165,15 @@ def test_bf16_trio_matches_jax_cast16():
     np.testing.assert_allclose(out.float().numpy(), np.asarray(jout, np.float32), rtol=BF16_TOL, atol=BF16_TOL)
     for a, b in zip(grads, jgrads):
         np.testing.assert_allclose(a.float().numpy(), np.asarray(b, np.float32), rtol=BF16_TOL, atol=BF16_TOL)
+    # the plain forward at every key tile the kernel has (64, 128; BF16_FWD_KEYS picks one a head
+    # dim): the tile sets how P rounds
+    qs = fc.prescale_q(fc._to3(leaves[0].detach(), torch.bfloat16), 1.0 / 16 ** 0.5)
+    k3, v3 = (fc._to3(x.detach(), torch.bfloat16) for x in leaves[1:])
+    for keys in sorted({64, 128} | set(fc.BF16_FWD_KEYS.values())):
+        o3, _ = fc.flash_fwd_bf16_plain(qs, k3, v3, keys=keys)
+        o_keys = o3.reshape(1, 2, 256, 16).permute(0, 2, 1, 3).to(torch.bfloat16)
+        np.testing.assert_allclose(o_keys.float().numpy(), np.asarray(jout, np.float32), rtol=BF16_TOL,
+                                   atol=BF16_TOL)
 
     # both against float64 dense attention of the unrounded inputs, at the JAX package's bounds
     leaves64 = [torch.tensor(x, dtype=torch.float64, requires_grad=True) for x in (q, k, v)]
