@@ -13,9 +13,10 @@ at every MoE ViT path shape, the gram at every Net group size, the
 assembly at every Net, Net1 and ResNet group size and the train phases
 named by `--ab-phases` (default: the Net, LM, ViT and MoE ViT trains), of
 the checkout in DIR (e.g. the parent commit, `git archive`d) and of this
-one in turns, in fresh processes (`run_ab`); it also says whether the
-assembly's outputs and the train phases' loss series are equal in bits
-across the turns of both checkouts.
+one in turns, in fresh processes (`run_ab`), with the bf16 trio and its
+autograd forward and backward beside SDPA's; it also says whether the
+assembly's outputs, bf16 dq's outputs and the train phases' loss series
+are equal in bits across the turns of both checkouts.
 
 Phases, each reported on its own lines; any failure exits non-zero:
 
@@ -2871,11 +2872,12 @@ def phase_resume():
 # checkout, its arguments JSON lists of train phases and of assembly sizes
 # (AB_ASSEMBLY_SIZES): the device ms of the
 # grouped GEMM at every MoE ViT path shape, of the gram at every Net group
-# size and of the assembly at every one of those sizes (full history), as
-# one JSON line; the digests of the assembly's outputs (with
-# `history`'s counts: a NaN-filled invalid row) and of each train phase's
-# loss series, as one JSON line; then the walls of those train phases of
-# that checkout (the LM's group-0 epoch profiled) as one JSON line.
+# size, of the assembly at every one of those sizes (full history) and of
+# the bf16 trio at BF16_PATHS, as one JSON line; the digests of the
+# assembly's outputs (with `history`'s counts: a NaN-filled invalid row),
+# of bf16 dq's and of each train phase's loss series, as one JSON line;
+# then the walls of those train phases of that checkout (the LM's group-0
+# epoch profiled) as one JSON line.
 AB_TURN = """
 import hashlib, json, os, sys, tempfile
 phases, asm_sizes = json.loads(sys.argv[1]), json.loads(sys.argv[2])
@@ -2927,6 +2929,8 @@ for bh, s_len, d in cs.BF16_PATHS:  # the bf16 trio, and its autograd forward an
     times[f"flash_fwd_bf16 {tag}"] = cs.time_ms(lambda: fc.flash_fwd_bf16(qs, k16, v16), 20)[1]
     times[f"flash_bwd_dq_bf16 {tag}"] = cs.time_ms(
         lambda: fc.flash_bwd_dq_bf16(qs, k16, v16, do16, lse, delta, scale), 20)[1]
+    digests[f"flash_bwd_dq_bf16 {tag}"] = digest(
+        fc.flash_bwd_dq_bf16(qs, k16, v16, do16, lse, delta, scale).view(torch.int16))
     times[f"flash_bwd_dkv_bf16 {tag}"] = cs.time_ms(lambda: fc.flash_bwd_dkv_bf16(qs, k16, v16, do16, lse, delta), 20)[1]
     q3, k3, v3 = (t.detach().requires_grad_(True) for t in (q16, k16, v16))
     times[f"fwd+bwd bf16 {tag}"] = cs.time_ms(
@@ -2970,7 +2974,8 @@ def run_ab(parent: str, runs: int, phases) -> None:
     kernels. Every line of a turn is printed with its checkout's tag; then
     each kernel's device ms per turn and the median ratio (change over
     parent), each wall's pair differences (change minus parent) and their
-    median, and for each digest (an assembly output, a phase's loss series)
+    median, and for each digest (an assembly output, bf16 dq's output, a
+    phase's loss series)
     whether every turn of both checkouts gave the same bits."""
     import statistics
 

@@ -23,13 +23,14 @@ setting with its device ms (calls queued behind a sleep kernel,
    one-column-a-lane path at every N and on its 16-byte path where the
    rows allow it: equal bits to the shipped path's result, and
    `torch.matmul(coef, X)` timed beside them as the yardstick;
-4. bf16 — the bf16 causal forward and dk/dv kernels (`csrc/flash_bf16.cu`)
+4. bf16 — the bf16 causal trio (`csrc/flash_bf16.cu`: forward, dq, dk/dv)
    at both `chip_smoke.BF16_PATHS`, from the library built with
-   `-DFLASH_BF16_CUTS` (`flash_*_bf16_cut_launch`): the forward at every
-   key tile it has, each kernel whole and with its attribution cuts (no
-   exps, no products, loads only, products only), each beside its bound
-   (`chip_smoke.flash_bounds`); a whole kernel's outputs within two bf16
-   units of its plain version at that tile (`chip_smoke.bf16_units`).
+   `-DFLASH_BF16_CUTS` (`flash_*_bf16_cut_launch`): the forward and dq at
+   every key tile they have, each kernel whole and with its attribution
+   cuts (no exps, no products, loads only, products only), each beside its
+   bound (`chip_smoke.flash_bounds`); a whole kernel's outputs within two
+   bf16 units of its plain version (the forward's at that tile;
+   `chip_smoke.bf16_units`).
 
 The port's own settings (`grouped_gemm.tiles`, `SPLIT_CHUNK`,
 `compact_cuda.gram_chunks`, `compact_cuda._vec_ok`) are not changed: each setting is launched
@@ -163,7 +164,7 @@ def sweep_assembly() -> None:
 
 
 BF16_CUTS = ("full", "no_exp", "no_mma", "loads_only", "mma_only")  # kFull … kMmaOnly in csrc/flash_bf16.cu
-BF16_KEYS = (64, 128)  # the forward's candidate key tiles
+BF16_KEYS = (64, 128)  # the forward's and dq's candidate key tiles
 
 
 def sweep_bf16() -> None:
@@ -177,21 +178,25 @@ def sweep_bf16() -> None:
     lib = build.load("flash_bf16", ("FLASH_BF16_CUTS",))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.flash_fwd_bf16_cut_launch.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
+    lib.flash_bwd_dq_bf16_cut_launch.argtypes = [ptr] * 7 + [i32] * 3 + [ctypes.c_float] + [i32] * 2 + [ptr]
     lib.flash_bwd_dkv_bf16_cut_launch.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
     for bh, s, d in cs.BF16_PATHS:
         (_, _, _, do), (q16, k16, v16) = cs.bf16_inputs(bh, s, d, seed=41)
-        qs = fc.prescale_q(q16, 1.0 / d ** 0.5)
+        scale = 1.0 / d ** 0.5
+        qs = fc.prescale_q(q16, scale)
         o_ref, lse_ref = fc.flash_fwd_bf16_plain(qs, k16, v16)
         delta, do16 = (do * o_ref).sum(-1), do.to(torch.bfloat16)
+        dq_ref = fc.flash_bwd_dq_bf16_plain(qs, k16, v16, do16, lse_ref, delta, scale)
         dk_ref, dv_ref = fc.flash_bwd_dkv_bf16_plain(qs, k16, v16, do16, lse_ref, delta)
         pairs = bh * s * (s + 1) // 2
         op16, op32, row = bh * s * d * 2, bh * s * d * 4, bh * s * 4
         bound_fwd = cs.flash_bounds(3 * op16 + op32 + row, 2 * 2 * d * pairs, pairs, "bf16")["bound_ms"]
+        bound_dq = cs.flash_bounds(4 * op16 + 2 * row + op16, 3 * 2 * d * pairs, pairs, "bf16")["bound_ms"]
         bound_dkv = cs.flash_bounds(4 * op16 + 2 * row + 2 * op16, 4 * 2 * d * pairs, pairs, "bf16")["bound_ms"]
         stream = torch.cuda.current_stream().cuda_stream
         label = f"BH={bh} S={s} D={d}"
         o, lse = torch.empty_like(o_ref), torch.empty_like(lse_ref)
-        dk, dv = torch.empty_like(k16), torch.empty_like(v16)
+        dq, dk, dv = torch.empty_like(q16), torch.empty_like(k16), torch.empty_like(v16)
         for keys in BF16_KEYS:
             want = fc.flash_fwd_bf16_plain(qs, k16, v16, keys=keys)
             for cut, cut_name in enumerate(BF16_CUTS):
@@ -207,6 +212,20 @@ def sweep_bf16() -> None:
                                         f"lse_units={cs.bf16_units(lse, want[1]):.3f}")
                 print(f"sweep bf16 fwd {label} keys={keys} cut={cut_name} device_ms={device_ms:.6f} "
                       f"bound_ms={bound_fwd:.6f} share_of_bound={bound_fwd / device_ms:.3f}{check}", flush=True)
+        for keys in BF16_KEYS:
+            for cut, cut_name in enumerate(BF16_CUTS):
+                def dq_call():
+                    return lib.flash_bwd_dq_bf16_cut_launch(qs.data_ptr(), k16.data_ptr(), v16.data_ptr(),
+                                                            do16.data_ptr(), lse_ref.data_ptr(), delta.data_ptr(),
+                                                            dq.data_ptr(), bh, s, d, scale, keys, cut, stream)
+
+                if dq_call() != 0:
+                    print(f"sweep bf16 dq {label} keys={keys} cut={cut_name} no instance", flush=True)
+                    continue
+                _, device_ms = cs.time_ms(dq_call, 20)
+                check = "" if cut else f" dq_units={cs.bf16_units(dq, dq_ref):.3f}"
+                print(f"sweep bf16 dq {label} keys={keys} cut={cut_name} device_ms={device_ms:.6f} "
+                      f"bound_ms={bound_dq:.6f} share_of_bound={bound_dq / device_ms:.3f}{check}", flush=True)
         for cut, cut_name in enumerate(BF16_CUTS):
             def dkv():
                 return lib.flash_bwd_dkv_bf16_cut_launch(qs.data_ptr(), k16.data_ptr(), v16.data_ptr(), do16.data_ptr(),
@@ -221,7 +240,7 @@ def sweep_bf16() -> None:
                                     f"dv_units={cs.bf16_units(dv, dv_ref):.3f}")
             print(f"sweep bf16 dkv {label} cut={cut_name} device_ms={device_ms:.6f} bound_ms={bound_dkv:.6f} "
                   f"share_of_bound={bound_dkv / device_ms:.3f}{check}", flush=True)
-        del q16, k16, v16, qs, do, do16, o_ref, lse_ref, delta, dk_ref, dv_ref, o, lse, dk, dv
+        del q16, k16, v16, qs, do, do16, o_ref, lse_ref, delta, dq_ref, dk_ref, dv_ref, o, lse, dq, dk, dv
 
 
 def main() -> int:

@@ -1,13 +1,11 @@
 // bf16 tensor-core helpers for Hopper (sm_90a), for the kernels that take
 // bf16 operands on the tensor cores with f32 accumulators (flash_bf16.cu).
 //
-// Operands live in shared memory, in wgmma's K-major layout without
-// swizzle (`bidx`, descriptors from tf32_wgmma.cuh's `desc`, whose strides
-// are in bytes and so serve both types) or as the TMA wrote them with the
-// swizzle of their row width (`desc_sw`, read K-major or MN-major), or in
-// registers as the A fragment of the `wgmma_rs_bf16_*` forms. An f32 accumulator's fragment is the A
-// fragment of the next product as it stands (`pack_a`): no permutation of
-// the contraction axis, unlike TF32.
+// Operands live in shared memory as the TMA wrote them, with the swizzle
+// of their row width (`desc_sw`, read K-major or MN-major), or in
+// registers as the A fragment of the `wgmma_rs_bf16_*` forms. An f32
+// accumulator's fragment is the A fragment of the next product as it
+// stands (`pack_a`): no permutation of the contraction axis, unlike TF32.
 
 #pragma once
 
@@ -16,18 +14,6 @@
 #include <stdint.h>
 
 namespace bf16_wgmma {
-
-// Element index of (r, c) of an operand with R rows whose contraction axis
-// is c, in wgmma's K-major layout without swizzle: core matrices of 8 rows
-// by 8 bf16 (16 bytes a row, 128 bytes in all), 8-row groups 128 bytes
-// apart, 8-column groups R/8 core matrices apart. A k16 step of the
-// operand starts 32·R·step bytes in, and the stride between its two
-// 8-column halves is (R/8)·128 bytes: tf32_wgmma::desc<R>'s leading byte
-// offset.
-template <int R>
-__device__ __forceinline__ unsigned bidx(unsigned r, unsigned c) {
-  return (((c >> 3) * (R >> 3) + (r >> 3)) << 6) + ((r & 7) << 3) + (c & 7);
-}
 
 // two f32 as one register of two bf16, each rounded to nearest even; `lo`
 // in the low half (the lower contraction position)
@@ -95,7 +81,7 @@ __device__ __forceinline__ void wgmma_ss_bf16(float (&d)[N / 2], uint64_t a, uin
 
 // D[64 x N] (+)= A·B, A bf16 in registers (a0..a3: the A fragment of one
 // k16 step), B bf16 in shared memory: K-major (B given as Bᵀ, TransB = 0)
-// or MN-major (TransB = 1, descriptor `desc_mn`). One form a width N.
+// or MN-major (TransB = 1), descriptor `desc_sw`. One form a width N.
 template <int TransB>
 __device__ __forceinline__ void wgmma_rs_bf16_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t b, int accumulate) {
   asm volatile(

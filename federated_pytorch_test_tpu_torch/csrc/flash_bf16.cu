@@ -4,7 +4,7 @@
 // 'default' (`flash_attention` :860).
 //
 //   _fwd_tri     :559 (_fwd_kernel_tri :253, cast16, fuse_l)    -> flash_fwd_bf16_launch     -> flash_fwd_bf16_tc<D, Keys>
-//   _bwd_tri dq  :655 (_bwd_dq_kernel_tri :341, cast16)         -> flash_bwd_dq_bf16_launch  -> flash_bwd_dq_bf16_tc<D>
+//   _bwd_tri dq  :655 (_bwd_dq_kernel_tri :341, cast16)         -> flash_bwd_dq_bf16_launch  -> flash_bwd_dq_bf16_tc<D, Keys>
 //   _bwd_tri dkv :673 (_bwd_dkv_kernel_tri :365, cast16)        -> flash_bwd_dkv_bf16_launch -> flash_bwd_dkv_bf16_tc<D>
 //
 // What they compute, as the TPU kernels do (and the plain versions in
@@ -29,52 +29,53 @@
 // triangular grid of tile pairs, sized for a v5e's VMEM). Bound on an H100
 // SXM, the causal triangle of (BH, S) = (128, 2048) or (32, 4096), 2.7e8
 // pairs: the exps (16 a clock per SM) take 0.070 ms; the bf16 products at
-// 989 TFLOP/s 0.017 ms (forward, D 16) to 0.070 (forward, D 64) and 0.139
-// (dk/dv, D 64); the bytes 0.013 ms or less. The forward is bound by the
-// exps at every D, with the products level at D 64; dk/dv by the products
-// at D 64. Every block also re-reads the K/V (or qs/dO) tiles before its
-// diagonal from L2, 0.55 GB for the forward at (32, 4096, 64).
+// 989 TFLOP/s 0.017 ms (forward, D 16) to 0.070 (forward, D 64), 0.104 (dq,
+// D 64) and 0.139 (dk/dv, D 64); the bytes 0.013 ms or less. The forward is
+// bound by the exps at every D, with the products level at D 64; dq and
+// dk/dv by the products at D 64. Every block also re-reads the tiles before
+// its diagonal (K/V for the forward and dq, qs/dO for dk/dv) from L2, 0.55
+// GB for the forward at (32, 4096, 64).
 //
-// The forward and dk/dv (redesigned for the card; `chip_sweep.py bf16` times
-// them whole and with their attribution cuts, the template argument Cut,
-// which the shipped entry points never take):
+// One design for the three (`chip_sweep.py bf16` times each whole and with
+// its attribution cuts, the template argument Cut, which the shipped entry
+// points never take):
 //   * Persistent: a CTA an SM takes the 128-row blocks (queries for the
-//     forward, keys for dk/dv) heaviest first, dealt out in a snake
+//     forward and dq, keys for dk/dv) heaviest first, dealt out in a snake
 //     (`Schedule`). Its two consumer warpgroups own 64 rows each; a third,
-//     producer warpgroup keeps a kRing-stage ring of the streamed tiles full
-//     and double-buffers each block's own rows (qs, or k and v), running
-//     ahead across blocks so that a block's start and its epilogue hide
-//     behind the next block's loads. One producer thread issues a TMA copy
-//     a tile (and a bulk copy each for dk/dv's lse and delta) against the
-//     stage's `full` mbarrier; a consumer warp frees a stage on its `empty`
-//     mbarrier. The mainloop has no block-wide barrier, and setmaxnreg moves
-//     the producer's registers to the consumers.
+//     producer warpgroup keeps a kRing-stage ring of the streamed tiles
+//     (K and V for the forward and dq, qs and dO for dk/dv) full and
+//     double-buffers each block's own rows (qs, qs and dO, or k and v),
+//     running ahead across blocks so that a block's start and its epilogue
+//     hide behind the next block's loads. One producer thread issues a TMA
+//     copy a tile (and a bulk copy each for dk/dv's lse and delta) against
+//     the stage's `full` mbarrier; a consumer warp frees a stage on its
+//     `empty` mbarrier. The mainloop has no block-wide barrier, and
+//     setmaxnreg moves the producer's registers to the consumers. dq's rows
+//     read their lse and delta from device memory into registers.
 //   * No transpose: the TMA lands each tile with the swizzle of its row
 //     width (32, 64 or 128 bytes), which the tensor cores read as it landed,
-//     K-major (qs, k for the scores; qs·kᵀ, k·qsᵀ, v·dOᵀ) or MN-major
-//     (imm-trans-b = 1: V for P·V, dO and qs for Pᵀ·dO and dSᵀ·qs):
-//     `desc_sw`. The forward's row sum l over the rounded P (`fuse_l`) is
-//     P·[1 | 0] on the warp's tensor cores (mma.sync against a ones column
-//     held in registers), beside the asynchronous P·V.
+//     K-major (qs·kᵀ and dO·vᵀ of the forward and dq; k·qsᵀ and v·dOᵀ of
+//     dk/dv) or MN-major (imm-trans-b = 1: V for P·V, K for dq's dS·K, dO
+//     and qs for Pᵀ·dO and dSᵀ·qs): `desc_sw`. The forward's row sum l over
+//     the rounded P (`fuse_l`) is P·[1 | 0] on the warp's tensor cores
+//     (mma.sync against a ones column held in registers), beside the
+//     asynchronous P·V.
 //   * Products overlap the exps. The two consumer warpgroups take turns to
 //     issue their products (FA3's ping-pong, named barriers), so that one
-//     warpgroup's products run under the other's softmax; within a
-//     warpgroup the forward issues tile t + 1's qs·kᵀ and tile t's P·V
-//     before tile t + 1's softmax and waits for the scores alone
-//     (wgmma.wait_group 1), and dk/dv queues tile t + 1's score products
-//     right behind tile t's dv and dk products.
-//   * 128 keys a forward tile at every D (kFwdKeys; 64 measured slower at D
-//     16 and 64); dk/dv streams 64 queries a tile (128 would not fit its
-//     registers).
+//     warpgroup's products run under the other's exps; within a warpgroup
+//     the forward issues tile t + 1's qs·kᵀ and tile t's P·V before tile
+//     t + 1's softmax and waits for the scores alone (wgmma.wait_group 1),
+//     and dq and dk/dv queue tile t + 1's score products right behind tile
+//     t's dS (and P) products.
+//   * Tiles: 128 keys a forward tile at every D (kFwdKeys; 64 measured
+//     slower at D 16 and 64); kDqKeys keys a dq tile by D, by measurement;
+//     dk/dv streams 64 queries a tile (128 would not fit its registers).
 //   * Causal: a block reads only the tiles that can see it; a warpgroup
-//     skips a tile wholly outside its triangle and masks by select only the
-//     one tile across its diagonal, a separate compile-time branch.
+//     frees a tile wholly outside its triangle unread and masks by select
+//     only the one tile across its diagonal, a separate compile-time branch
+//     (a run-time one is if-converted into every tile).
 //   * Each output row is summed by one warpgroup in a fixed order: no
 //     atomics, bitwise repeatable.
-//
-// dq keeps the first port's design: all 256 threads cp.async a three-stage
-// ring, two barriers a 64-key tile, Kᵀ built by a transpose in shared
-// memory.
 //   * Products are bf16 m64nNk16 wgmmas with f32 accumulators: the score
 //     products from shared memory, the P and dS products with P or dS in
 //     registers, whose accumulator fragment is the A fragment as it stands.
@@ -95,31 +96,21 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-using bf16_wgmma::bidx;
 using bf16_wgmma::desc_sw;
 using bf16_wgmma::pack_a;
 using bf16_wgmma::wg_wait_group;
 using bf16_wgmma::wgmma_rs_bf16;
 using bf16_wgmma::wgmma_ss_bf16;
 using bf16_wgmma::wgmma_ss_bf16_n64;
-using tf32_wgmma::cp_async16;
-using tf32_wgmma::cp_async_commit;
-using tf32_wgmma::cp_async_wait;
-using tf32_wgmma::desc;
 using tf32_wgmma::pin;
-using tf32_wgmma::proxy_fence;
 using tf32_wgmma::wg_commit;
 using tf32_wgmma::wg_fence;
-using tf32_wgmma::wg_wait;
 
-constexpr int kRows = 128;    // rows a block owns
-constexpr int kThreads = 256;  // dq: two warpgroups of 64 rows
-constexpr int kTile = 64;     // dq: rows of a streamed tile
-constexpr int kStages = 3;    // dq: depth of the cp.async ring
+constexpr int kRows = 128;  // rows a block owns
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// The forward and dk/dv: two consumer warpgroups and a producer warpgroup
+// Two consumer warpgroups and a producer warpgroup
 constexpr int kWsThreads = 384;  // the producer warpgroup last
 constexpr int kConsumerWarps = 8;  // each frees a stage with one arrival
 constexpr int kRing = 4;           // stages of the producer's ring
@@ -128,6 +119,9 @@ constexpr int kDkvTile = 64;       // queries a dk/dv tile
 // keys a forward tile, by head dim (chip_sweep.py bf16 times 64 and 128; BF16_FWD_KEYS in ops/flash_cuda.py)
 template <int D>
 constexpr int kFwdKeys = 128;
+// keys a dq tile, by head dim (chip_sweep.py bf16 times 64 and 128; the plain version takes any)
+template <int D>
+constexpr int kDqKeys = 128;
 
 // attribution cuts (the template argument Cut; the shipped entry points take kFull)
 constexpr int kFull = 0, kNoExp = 1, kNoMma = 2, kLoadsOnly = 3, kMmaOnly = 4;
@@ -139,39 +133,6 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   float r;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x));
   return r;
-}
-
-// cp.async of the R rows of a row-major [·, D] bf16 matrix (src at the
-// first) into an R-row operand (K-major over D)
-template <int D, int R>
-__device__ __forceinline__ void load_operand(bf16* dst, const bf16* src) {
-  for (int i = threadIdx.x; i < R * D / 8; i += kThreads) {  // chunk i: row i / (D/8), columns 8·(i % (D/8)) …
-    const int r = i / (D / 8), c = i % (D / 8) * 8;
-    cp_async16(reinterpret_cast<float*>(dst + bidx<R>(r, c)), reinterpret_cast<const float*>(src + 8 * i));
-  }
-}
-
-// rows [row0, row0 + kRows) of a [S, D] matrix into two 64-row operands, one a warpgroup
-template <int D>
-__device__ __forceinline__ void load_block(bf16* dst, const bf16* src) {
-  for (int i = threadIdx.x; i < kRows * D / 8; i += kThreads) {
-    const int r = i / (D / 8), c = i % (D / 8) * 8;
-    cp_async16(reinterpret_cast<float*>(dst + r / 64 * 64 * D + bidx<64>(r % 64, c)),
-               reinterpret_cast<const float*>(src + 8 * i));
-  }
-}
-
-// The transpose of a T-row operand (T rows by D, K-major over D) as an
-// N-row operand (rows d < D, K-major over the T rows): dst(d, r) = src(r, d)
-template <int D, int T, int N>
-__device__ __forceinline__ void transpose(bf16* dst, const bf16* src) {
-  for (int i = threadIdx.x; i < T * D / 2; i += kThreads) {  // a pair of rows 2p, 2p + 1 at column d
-    const int d = i % D, r = 2 * (i / D);
-    __nv_bfloat162 x;
-    x.x = src[bidx<T>(r, d)];
-    x.y = src[bidx<T>(r + 1, d)];
-    *reinterpret_cast<__nv_bfloat162*>(&dst[bidx<N>(d, r)]) = x;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -570,125 +531,190 @@ flash_fwd_bf16_tc(const __grid_constant__ CUtensorMap map_q, const __grid_consta
 // Backward: dq
 // ---------------------------------------------------------------------------
 
-template <int D>
-struct SmemDq {
-  bf16 q[kRows * D], dout[kRows * D];  // two 64-row operands each
-  bf16 k[kStages][kTile * D];          // landed K tiles (64-row operands)
-  bf16 v[kStages][kTile * D];          // landed V tiles
-  bf16 kt[D * kTile];                  // Kᵀ: D rows by 64 keys
+template <int D, int T>
+struct DqStage {
+  alignas(1024) bf16 k[T * D];  // a K tile as the TMA wrote it: K-major for qs·kᵀ, MN-major for dS·K
+  alignas(1024) bf16 v[T * D];  // the V tile, the same: K-major for dO·vᵀ
 };
 
-// dq of qs, dO against k, v: dq = scale · Σ_j bf16(dS_ij) k_j. Grid (S / kRows,
-// BH), kThreads threads, sizeof(SmemDq<D>) bytes of dynamic shared memory.
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq_bf16_tc(const bf16* __restrict__ qs, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                     const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dq, int s_len, float scale) {
-  using S = SmemDq<D>;
-  extern __shared__ __align__(128) unsigned char smem_bytes[];
-  S& sm = *reinterpret_cast<S*>(smem_bytes);
-  const int bh = blockIdx.y;
-  const int row0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // heaviest first
-  const size_t base = (size_t)bh * s_len * D;
-  const int n_tiles = (row0 + kRows) / kTile;
+template <int D, int T>
+struct SmemDq {
+  DqStage<D, T> st[kRing];
+  alignas(1024) bf16 q[2][kRows * D];     // two blocks' rows of qs as the TMA wrote them, one 64-row operand a warpgroup
+  alignas(1024) bf16 dout[2][kRows * D];  // and of dO
+  uint64_t full[kRing], empty[kRing], qd_full[2], qd_empty[2];
+};
 
-  auto load = [&](int st, int kt) {
-    load_operand<D, kTile>(sm.k[st], k + base + (size_t)kt * D);
-    load_operand<D, kTile>(sm.v[st], v + base + (size_t)kt * D);
-  };
-  load_block<D>(sm.q, qs + base + (size_t)row0 * D);
-  load_block<D>(sm.dout, dout + base + (size_t)row0 * D);
-  load(0, 0);
-  cp_async_commit();
-  load(1, kTile);
-  cp_async_commit();
+// dq of qs, dO against k, v: dq = scale · Σ_j bf16(dS_ij) k_j. Persistent:
+// grid min(SMs, blocks), kWsThreads threads, sizeof(SmemDq<D, T>) + 1024
+// bytes of dynamic shared memory; a CTA takes the 128-query blocks of
+// `Schedule` in turn, T keys a tile; qs and dO through TMA maps of [BH·S,
+// D] in 128-row boxes, K and V in T-row ones.
+template <int D, int T, int Cut = kFull>
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_bwd_dq_bf16_tc(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_do,
+                     const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
+                     const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dq,
+                     int bh_count, int s_len, float scale) {
+  using S = SmemDq<D, T>;
+  extern __shared__ unsigned char smem_raw[];
+  S& sm = aligned_smem<S>(smem_raw);
+  const Schedule sched{bh_count, s_len / kRows};
+  const int wg = threadIdx.x / 128;
 
-  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wrow0 = row0 + 64 * wg;
-  const int row_a = wrow0 + 16 * warp + g, row_b = row_a + 8;
-  const uint32_t base16 = static_cast<uint32_t>(__cvta_generic_to_shared(smem_bytes)) >> 4;
-  const uint32_t wg_off = 64 * D * 2 * wg;  // bytes to this warpgroup's rows of qs and dO
-  const size_t srow = (size_t)bh * s_len;
-  const float l2_a = __ldg(lse + srow + row_a) * kLog2e, l2_b = __ldg(lse + srow + row_b) * kLog2e;
-  const float dl_a = __ldg(delta + srow + row_a), dl_b = __ldg(delta + srow + row_b);
+  init_ring(sm.full, sm.empty);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      bar_init(&sm.qd_full[i], 1);
+      bar_init(&sm.qd_empty[i], kConsumerWarps);
+    }
+  }
+  __syncthreads();
 
-  float acc[D / 2];  // dq / scale
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int st = it % kStages;
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    if (it + 2 < n_tiles) load((it + 2) % kStages, (it + 2) * kTile);
-    cp_async_commit();
-    transpose<D, kTile, D>(sm.kt, sm.k[st]);
-    proxy_fence();
-    __syncthreads();
-
-    const int kt = it * kTile;
-    if (kt > wrow0 + 63) continue;
-
-    // s = qs·kᵀ and dp = dO·vᵀ; s[4j + e] is (row_a, key kt + 8j + 2t + e)
-    float s[32], dp[32];
-    const uint32_t k_off = offsetof(S, k) + st * kTile * D * 2, v_off = offsetof(S, v) + st * kTile * D * 2;
-    wg_fence();
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks)
-      wgmma_ss_bf16_n64(s, desc<64>(base16, offsetof(S, q) + wg_off + 2048 * ks),
-                        desc<kTile>(base16, k_off + 2048 * ks), ks > 0);
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks)
-      wgmma_ss_bf16_n64(dp, desc<64>(base16, offsetof(S, dout) + wg_off + 2048 * ks),
-                        desc<kTile>(base16, v_off + 2048 * ks), ks > 0);
-    wg_commit();
-    wg_wait();
-    pin(s);
-    pin(dp);
-
-    // dS = P ∘ (dP − delta) into s; masked pairs have P = 0
-    const bool mask = kt + kTile - 1 > wrow0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float pa = exp2_ftz(s[4 * j + e] - l2_a);
-        float pb = exp2_ftz(s[4 * j + 2 + e] - l2_b);
-        if (mask) {
-          const int key = kt + 8 * j + 2 * t + e;
-          pa = key > row_a ? 0.f : pa;
-          pb = key > row_b ? 0.f : pb;
+  if (wg == 2) {  // the producer: one thread issues every copy, running ahead across blocks
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x == 2 * 128) {
+      int gt = 0;  // tiles of this CTA so far: the ring's position
+      for (int n = 0, bh, r; sched.next(n, bh, r); ++n) {
+        const int row0 = (sched.rows - 1 - r) * kRows, n_tiles = (row0 + kRows) / T;
+        if (n >= 2) bar_wait(&sm.qd_empty[n % 2], (n / 2 - 1) & 1);
+        bar_expect(&sm.qd_full[n % 2], 2 * kRows * D * 2);
+        tma_rows(sm.q[n % 2], map_q, bh * s_len + row0, &sm.qd_full[n % 2]);
+        tma_rows(sm.dout[n % 2], map_do, bh * s_len + row0, &sm.qd_full[n % 2]);
+        for (int it = 0; it < n_tiles; ++it, ++gt) {
+          DqStage<D, T>& stage = sm.st[gt % kRing];
+          wait_empty(sm.empty, gt);
+          bar_expect(&sm.full[gt % kRing], 2 * T * D * 2);
+          tma_rows(stage.k, map_k, bh * s_len + it * T, &sm.full[gt % kRing]);
+          tma_rows(stage.v, map_v, bh * s_len + it * T, &sm.full[gt % kRing]);
         }
-        s[4 * j + e] = pa * (dp[4 * j + e] - dl_a);
-        s[4 * j + 2 + e] = pb * (dp[4 * j + 2 + e] - dl_b);
       }
-
-    // acc += bf16(dS)·K against Kᵀ
-    uint32_t a[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) pack_a(s, kk, a[kk]);
-    pin(a[0]);
-    pin(a[1]);
-    pin(a[2]);
-    pin(a[3]);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_bf16<D>(acc, a[kk], desc<D>(base16, offsetof(S, kt) + 32 * D * kk), 1);
-    wg_commit();
-    wg_wait();
-    pin(acc);
+    }
+    return;
   }
 
-  bf16* da = dq + base + (size_t)row_a * D + 2 * t;
-  bf16* db = dq + base + (size_t)row_b * D + 2 * t;
+  regs_inc<kConsumerRegs>();
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  if (wg == 1 && Cut != kLoadsOnly) turn_pass(wg);  // warpgroup 0 goes first
+  int gt = 0;
+  for (int n = 0, bh, r; sched.next(n, bh, r); ++n) {
+    const int row0 = (sched.rows - 1 - r) * kRows, n_tiles = (row0 + kRows) / T;
+    const int wrow0 = row0 + 64 * wg;
+    const int row_a = wrow0 + 16 * warp + g, row_b = row_a + 8;
+    const int n_live = (wrow0 + 64 + T - 1) / T;  // the tiles holding a key these rows see
+    const size_t srow = (size_t)bh * s_len;
+    const float l2_a = __ldg(lse + srow + row_a) * kLog2e, l2_b = __ldg(lse + srow + row_b) * kLog2e;
+    const float dl_a = __ldg(delta + srow + row_a), dl_b = __ldg(delta + srow + row_b);
+    const uint32_t q_addr = smem_u32(sm.q[n % 2] + 64 * D * wg), do_addr = smem_u32(sm.dout[n % 2] + 64 * D * wg);
+
+    float acc[D / 2];  // dq / scale
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    *reinterpret_cast<uint32_t*>(da + 8 * j) = bf16_wgmma::pack2(acc[4 * j] * scale, acc[4 * j + 1] * scale);
-    *reinterpret_cast<uint32_t*>(db + 8 * j) = bf16_wgmma::pack2(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float s[T / 2], dp[T / 2];  // s = qs·kᵀ and dp = dO·vᵀ of a tile: s[4j + e] is (row_a, key kt + 8j + 2t + e)
+    uint32_t da[T / 16][4];     // bf16(dS): A fragments of 16 keys each
+
+    // s and dp of tile `it`, issued as one wgmma group
+    auto scores = [&](int it) {
+      wait_full(sm.full, gt + it);
+      if constexpr (Cut == kNoMma) {
+#pragma unroll
+        for (int i = 0; i < T / 2; ++i) s[i] = dp[i] = 0.125f * (i & 7);
+      } else {
+        const DqStage<D, T>& stage = sm.st[(gt + it) % kRing];
+        const uint32_t k_addr = smem_u32(stage.k), v_addr = smem_u32(stage.v);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_bf16<T>(s, desc_sw<D>(q_addr + 32 * kk), desc_sw<D>(k_addr + 32 * kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_bf16<T>(dp, desc_sw<D>(do_addr + 32 * kk), desc_sw<D>(v_addr + 32 * kk), kk > 0);
+        wg_commit();
+      }
+    };
+    // dS = P ∘ (dP − delta), P = 2^(s − lse·log2 e), rounded to bf16 as A
+    // fragments. Only the last tile these rows see crosses their diagonal
+    // (masked: a compile-time branch, as the forward's)
+    auto elementwise = [&](int it, auto masked) {
+#pragma unroll
+      for (int j = 0; j < T / 8 * (Cut != kMmaOnly); ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float p_a = Cut == kNoExp ? s[4 * j + e] - l2_a : exp2_ftz(s[4 * j + e] - l2_a);
+          float p_b = Cut == kNoExp ? s[4 * j + 2 + e] - l2_b : exp2_ftz(s[4 * j + 2 + e] - l2_b);
+          if constexpr (decltype(masked)::value) {
+            const int key = it * T + 8 * j + 2 * t + e;
+            p_a = key > row_a ? 0.f : p_a;
+            p_b = key > row_b ? 0.f : p_b;
+          }
+          s[4 * j + e] = p_a * (dp[4 * j + e] - dl_a);
+          s[4 * j + 2 + e] = p_b * (dp[4 * j + 2 + e] - dl_b);
+        }
+#pragma unroll
+      for (int kk = 0; kk < T / 16; ++kk) pack_a(s, kk, da[kk]);
+    };
+    auto pin_all = [&]() {
+      pin(s);
+      pin(dp);
+      pin(acc);
+#pragma unroll
+      for (int kk = 0; kk < T / 16; ++kk) pin(da[kk]);
+    };
+
+    bar_wait(&sm.qd_full[n % 2], (n / 2) & 1);
+    if constexpr (Cut == kLoadsOnly) {
+      for (int it = 0; it < n_tiles; ++it) {
+        wait_full(sm.full, gt + it);
+        release(sm.empty, gt + it);
+      }
+    } else {
+      // n_tiles + 1 turns a warpgroup: the first scores, then a tile's dS·K
+      // with the next tile's scores, and an empty turn a tile these rows skip
+      turn_wait(wg);
+      scores(0);
+      turn_pass(wg);
+      wg_wait_group<0>();
+      pin(s);
+      pin(dp);
+      for (int it = 0; it < n_live; ++it) {
+        if (it == n_live - 1)
+          elementwise(it, std::true_type{});
+        else
+          elementwise(it, std::false_type{});
+        // acc += bf16(dS)·K, the K tile read MN-major as it landed
+        turn_wait(wg);
+        if constexpr (Cut != kNoMma) {
+          const uint32_t k_addr = smem_u32(sm.st[(gt + it) % kRing].k);
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < T / 16; ++kk) wgmma_rs_bf16<D, 1>(acc, da[kk], desc_sw<D>(k_addr + 32 * D * kk), 1);
+          wg_commit();
+        }
+        if (it + 1 < n_live) scores(it + 1);  // queued right behind it
+        turn_pass(wg);
+        wg_wait_group<0>();
+        pin_all();
+        release(sm.empty, gt + it);
+      }
+      for (int it = n_live; it < n_tiles; ++it) {  // wholly in these rows' future: free it unread
+        turn_wait(wg);
+        turn_pass(wg);
+        wait_full(sm.full, gt + it);
+        release(sm.empty, gt + it);
+      }
+    }
+    if (lane == 0) bar_arrive(&sm.qd_empty[n % 2]);  // every product that read this block's qs and dO is done
+    gt += n_tiles;
+
+    const size_t ra = srow * D + (size_t)row_a * D + 2 * t, rb = srow * D + (size_t)row_b * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dq + ra + 8 * j) = bf16_wgmma::pack2(acc[4 * j] * scale, acc[4 * j + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dq + rb + 8 * j) = bf16_wgmma::pack2(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
+    }
   }
+  if (wg == 0 && Cut != kLoadsOnly) turn_wait(wg);  // warpgroup 1's last pass
 }
 
 // ---------------------------------------------------------------------------
@@ -904,7 +930,7 @@ flash_bwd_dkv_bf16_tc(const __grid_constant__ CUtensorMap map_q, const __grid_co
   if (wg == 0 && Cut != kLoadsOnly) turn_wait(wg);  // warpgroup 1's last pass
 }
 
-static_assert(sizeof(SmemFwd<64, 128>) + 1024 <= 232448 && sizeof(SmemDq<64>) <= 232448 &&
+static_assert(sizeof(SmemFwd<64, 128>) + 1024 <= 232448 && sizeof(SmemDq<64, 128>) + 1024 <= 232448 &&
                   sizeof(SmemDkv<64>) + 1024 <= 232448,
               "over 227 KB of shared memory");
 
@@ -992,6 +1018,21 @@ int launch_dkv(cudaStream_t st, const bf16* qs, const bf16* k, const bf16* v, co
                 map_do, map_k, map_v, lse, delta, dk, dv, bh, s);
 }
 
+template <int D, int T, int Cut = kFull>
+int launch_dq(cudaStream_t st, const bf16* qs, const bf16* k, const bf16* v, const bf16* dout, const float* lse,
+              const float* delta, bf16* dq, int bh, int s, float scale) {
+  CUtensorMap map_q, map_do, map_k, map_v;
+  int grid = 0;
+  int e = tensor_map<D>(&map_q, qs, bh * s, kRows);
+  if (e == 0) e = tensor_map<D>(&map_do, dout, bh * s, kRows);
+  if (e == 0) e = tensor_map<D>(&map_k, k, bh * s, T);
+  if (e == 0) e = tensor_map<D>(&map_v, v, bh * s, T);
+  if (e == 0) e = persistent_grid(bh * (s / kRows), &grid);
+  if (e != 0) return e;
+  return launch(flash_bwd_dq_bf16_tc<D, T, Cut>, (int)sizeof(SmemDq<D, T>) + 1024, dim3(grid), kWsThreads, st, map_q,
+                map_do, map_k, map_v, lse, delta, dq, bh, s, scale);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1016,11 +1057,10 @@ int flash_bwd_dq_bf16_launch(const bf16* qs, const bf16* k, const bf16* v, const
                              const float* delta, bf16* dq, int bh, int s, int d, float scale, void* stream) {
   if (!shape_ok(bh, s)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(s / kRows, bh);
   switch (d) {
-    case 16: return launch(flash_bwd_dq_bf16_tc<16>, (int)sizeof(SmemDq<16>), grid, kThreads, st, qs, k, v, dout, lse, delta, dq, s, scale);
-    case 32: return launch(flash_bwd_dq_bf16_tc<32>, (int)sizeof(SmemDq<32>), grid, kThreads, st, qs, k, v, dout, lse, delta, dq, s, scale);
-    case 64: return launch(flash_bwd_dq_bf16_tc<64>, (int)sizeof(SmemDq<64>), grid, kThreads, st, qs, k, v, dout, lse, delta, dq, s, scale);
+    case 16: return launch_dq<16, kDqKeys<16>>(st, qs, k, v, dout, lse, delta, dq, bh, s, scale);
+    case 32: return launch_dq<32, kDqKeys<32>>(st, qs, k, v, dout, lse, delta, dq, bh, s, scale);
+    case 64: return launch_dq<64, kDqKeys<64>>(st, qs, k, v, dout, lse, delta, dq, bh, s, scale);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1040,9 +1080,9 @@ int flash_bwd_dkv_bf16_launch(const bf16* qs, const bf16* k, const bf16* v, cons
 
 #ifdef FLASH_BF16_CUTS
 // The attribution cuts (chip_sweep.py bf16), built only with -DFLASH_BF16_CUTS
-// and never reached by the wrappers: the forward at `keys` keys a tile and
-// dk/dv, each with `cut` in kFull … kLoadsOnly. Returns cudaErrorInvalidValue
-// for a pair the source has no instance of.
+// and never reached by the wrappers: the forward and dq at `keys` keys a
+// tile and dk/dv, each with `cut` in kFull … kMmaOnly. Returns
+// cudaErrorInvalidValue for a pair the source has no instance of.
 int flash_fwd_bf16_cut_launch(const bf16* qs, const bf16* k, const bf16* v, float* o, float* lse, int bh, int s, int d,
                               int keys, int cut, void* stream) {
   if (!shape_ok(bh, s)) return (int)cudaErrorInvalidValue;
@@ -1051,6 +1091,18 @@ int flash_fwd_bf16_cut_launch(const bf16* qs, const bf16* k, const bf16* v, floa
   if (d == DD && keys == TT && cut == CC) return launch_fwd<DD, TT, CC>(st, qs, k, v, o, lse, bh, s);
 #define FWD_CUTS(DD, TT) FWD_CUT(DD, TT, kFull) FWD_CUT(DD, TT, kNoExp) FWD_CUT(DD, TT, kNoMma) FWD_CUT(DD, TT, kLoadsOnly) FWD_CUT(DD, TT, kMmaOnly)
   FWD_CUTS(16, 64) FWD_CUTS(16, 128) FWD_CUTS(32, 64) FWD_CUTS(32, 128) FWD_CUTS(64, 64) FWD_CUTS(64, 128)
+  return (int)cudaErrorInvalidValue;
+}
+
+int flash_bwd_dq_bf16_cut_launch(const bf16* qs, const bf16* k, const bf16* v, const bf16* dout, const float* lse,
+                                 const float* delta, bf16* dq, int bh, int s, int d, float scale, int keys, int cut,
+                                 void* stream) {
+  if (!shape_ok(bh, s)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define DQ_CUT(DD, TT, CC) \
+  if (d == DD && keys == TT && cut == CC) return launch_dq<DD, TT, CC>(st, qs, k, v, dout, lse, delta, dq, bh, s, scale);
+#define DQ_CUTS(DD, TT) DQ_CUT(DD, TT, kFull) DQ_CUT(DD, TT, kNoExp) DQ_CUT(DD, TT, kNoMma) DQ_CUT(DD, TT, kLoadsOnly) DQ_CUT(DD, TT, kMmaOnly)
+  DQ_CUTS(16, 64) DQ_CUTS(16, 128) DQ_CUTS(32, 64) DQ_CUTS(32, 128) DQ_CUTS(64, 64) DQ_CUTS(64, 128)
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,22 +1,25 @@
-"""The causal tile schedule of the bf16 forward and dk/dv kernels, replayed.
+"""The causal tile schedule of the bf16 trio's kernels, replayed.
 
-`flash_fwd_bf16_tc<D, Keys>` and `flash_bwd_dkv_bf16_tc<D>`
-(`csrc/flash_bf16.cu`) are persistent: G = min(SMs, blocks) CTAs take the
-128-row blocks of every head through `Schedule`, heaviest first and dealt
-out in a snake. Their causal decisions are integer arithmetic on CTA,
-block, tile and warpgroup indices, written out here as the kernels write
-them: the block a CTA takes (`Schedule::next`), its first row (`row0` for
-the forward, `key0` for dk/dv), the tiles the producer warpgroup loads
-(`n_tiles`), and per consumer warpgroup the tiles it computes (the
-forward's `n_live`, dk/dv's `first`), freeing the rest unread, and which
-of those it masks by select. Replayed on the CPU for S in {128, 256, 2048}
-and two heads, at every key tile the forward has an instance of (64, 128)
+`flash_fwd_bf16_tc<D, Keys>`, `flash_bwd_dq_bf16_tc<D, Keys>` and
+`flash_bwd_dkv_bf16_tc<D>` (`csrc/flash_bf16.cu`) are persistent: G =
+min(SMs, blocks) CTAs take the 128-row blocks of every head through
+`Schedule`, heaviest first and dealt out in a snake. Their causal
+decisions are integer arithmetic on CTA, block, tile and warpgroup
+indices, written out here as the kernels write them: the block a CTA
+takes (`Schedule::next`), its first row (`row0` for the forward and dq,
+`key0` for dk/dv), the tiles the producer warpgroup loads (`n_tiles`), and
+per consumer warpgroup the tiles it computes (the forward's and dq's
+`n_live`, dk/dv's `first`), freeing the rest unread, and which of those it
+masks by select. Replayed on the CPU for S in {128, 256, 2048} and two
+heads, at every key tile the forward and dq have an instance of (64, 128)
 and dk/dv's 64 queries, with one CTA, three and an SM's worth: every pair
 j <= i of every head is computed exactly once, no pair j > i is computed
 without its mask, a tile a warpgroup frees unread holds no pair it needs,
-and blocks are handed out heaviest first. The forward's key tile by head
-dim is read from the source and must be the plain version's
-(`BF16_FWD_KEYS`), which rounds P tile by tile as the kernel does.
+and blocks are handed out heaviest first. The key tiles by head dim are
+read from the source: the forward's must be the plain version's
+(`BF16_FWD_KEYS`), which rounds P tile by tile as the kernel does; dq's
+plain version takes P from lse, so any tile is its arithmetic, and dq's
+must be one of the tiles replayed here.
 """
 
 import re
@@ -62,6 +65,24 @@ def fwd_schedule(s, t, g):
             wrow0 = row0 + 64 * wg
             n_live = (wrow0 + 64 + t - 1) // t
             computed += [(idx, bh, wrow0, it * t, it * t + t - 1 > wrow0) for it in range(n_live)]
+            freed += [(bh, wrow0, it * t) for it in range(n_live, n_tiles)]
+    return computed, freed
+
+
+def dq_schedule(s, t, g):
+    """As `fwd_schedule` for dq, which walks the same tiles: T-key tiles
+    against a warpgroup's 64 query rows, (idx, bh, wrow0, kt, masked); the
+    one masked tile is the last live one, a compile-time branch taken where
+    `it == n_live - 1`."""
+    rows = s // ROWS
+    computed, freed = [], []
+    for _, _, idx, bh, r in blocks(HEADS, rows, g):
+        row0 = (rows - 1 - r) * ROWS  # heaviest first
+        n_tiles = (row0 + ROWS) // t  # the producer loads keys [0, row0 + 128)
+        for wg in range(2):
+            wrow0 = row0 + 64 * wg
+            n_live = (wrow0 + 64 + t - 1) // t
+            computed += [(idx, bh, wrow0, it * t, it == n_live - 1) for it in range(n_live)]
             freed += [(bh, wrow0, it * t) for it in range(n_live, n_tiles)]
     return computed, freed
 
@@ -146,6 +167,35 @@ def test_dkv_schedule_computes_each_causal_pair_once(s):
         _heaviest_first(computed, HEADS * s // ROWS)
 
 
+DQ_TILES = [64, 128]  # the key tiles dq has instances of (`DQ_CUTS` in csrc/flash_bf16.cu)
+
+
+@pytest.mark.parametrize("s", [128, 256, 2048])
+@pytest.mark.parametrize("t", DQ_TILES)
+def test_dq_schedule_computes_each_causal_pair_once(s, t):
+    for g in _ctas(s):
+        computed, freed = dq_schedule(s, t, g)
+        np.testing.assert_array_equal(_covered(computed, s, t, queries_are_rows=True),
+                                      np.broadcast_to(np.tri(s, dtype=np.int32), (HEADS, s, s)))
+        _none_needed(freed, t, queries_are_rows=True)
+        _heaviest_first(computed, HEADS * s // ROWS)
+        # each warpgroup's one masked tile holds its diagonal, and no tile before it does
+        for _, _, wrow0, kt, masked in computed:
+            assert masked == (kt <= wrow0 + 63 < kt + t)
+
+
+@pytest.mark.parametrize("t", DQ_TILES)
+def test_dq_masks_one_tile_a_warpgroup(t):
+    s = 2048
+    computed, freed = dq_schedule(s, t, SMS)
+    assert sum(masked for *_, masked in computed) == HEADS * s // 64
+    # a 128-key tile: the first warpgroup frees nothing, and computes the
+    # 64 x 64 square wholly in its future (masked); a 64-key tile: it frees that square's tile
+    wasted = s // 64 * (64 * 63 // 2) + (s // ROWS * 64 * 64 if t == 128 else 0)
+    assert 64 * t * len(computed) == HEADS * (s * (s + 1) // 2 + wasted)
+    assert len(freed) == (HEADS * s // ROWS if t == 64 else 0)
+
+
 @pytest.mark.parametrize("t", [64, 128])
 def test_only_the_diagonal_tiles_are_masked(t):
     # at S = 2048 each warpgroup of 64 rows masks the one tile across its
@@ -170,3 +220,16 @@ def test_forward_key_tiles_are_the_plain_versions():
     keys.update({int(d): int(k) for d, k in re.findall(r"constexpr int kFwdKeys<(\d+)> = (\d+);", src)})
     assert keys == fc.BF16_FWD_KEYS
     assert set(keys.values()) <= {64, 128}  # the widths replayed above
+
+
+def test_dq_key_tiles_are_replayed():
+    src = SOURCE.read_text()
+    default = re.search(r"template <int D>\s*constexpr int kDqKeys = (\d+);", src)
+    assert default, "kDqKeys not found in csrc/flash_bf16.cu"
+    keys = {d: int(default.group(1)) for d in fc.HEAD_DIMS}
+    keys.update({int(d): int(k) for d, k in re.findall(r"constexpr int kDqKeys<(\d+)> = (\d+);", src)})
+    assert set(keys) == {16, 32, 64}
+    assert set(keys.values()) <= {64, 128}
+    instances = {(int(d), int(k)) for d, k in re.findall(r"DQ_CUTS\((\d+), (\d+)\)", src)}
+    assert {k for _, k in instances} == set(DQ_TILES)
+    assert {(d, k) for d, k in keys.items()} <= instances  # the shipped tile is one the sweep times
