@@ -5,7 +5,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--metrics-out PATH] [--lm-metrics-out PATH] [--vit-metrics-out PATH]
                           [--vit-moe-metrics-out PATH] [--admm-metrics-out PATH]
-                          [--resnet-metrics-out PATH] [--no-consensus-metrics-out PATH] [--profile]
+                          [--resnet-metrics-out PATH] [--no-consensus-metrics-out PATH]
+                          [--scale64-metrics-out PATH] [--fan-metrics-out PATH] [--profile]
     python3 chip_smoke.py --ab-parent DIR [--ab-phases phase_train,...]
 
 The second form runs none of the phases below: it times the grouped GEMM
@@ -193,7 +194,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
               relative 1e-3;
 17. resnet train — the ResNet paths at full width with the fused-kernel
               direction on a synthetic stand-in of 1,536 train images (16
-              minibatches of 32 a client) and the 10,000 test images:
+              minibatches of 32 a client) and 2,000 test images (a
+              `reduced` line):
               admm_resnet over all ten groups in the preset's shuffled order,
               nadmm 3; then fedavg_resnet over its first three groups, nadmm
               1. Compact launches gated exactly on both runs; losses and
@@ -229,7 +231,30 @@ Phases, each reported on its own lines; any failure exits non-zero:
               `save_model` then continued by a fresh Trainer with
               `load_model=True`: final parameters, rho store and the second
               loop's series bitwise equal (the largest differences printed
-              either way), on 12,288 train images (a `reduced` line).
+              either way), on 12,288 train images (a `reduced` line);
+21. scale64 — the two scale64 presets (K=64 ResNet18 clients on CIFAR-100,
+              the 64 clients the batch axis of one card) at full width on
+              8,192 synthetic train images (4 minibatches of 32 a client; a
+              `reduced` line): fedavg_scale64 over one round of block7 (N =
+              4,720,640, the largest group, its `[64, 10, N]` history updated
+              in place), nadmm 1, and admm_scale64 over one round of the
+              linear head (N = 51,300), nadmm 3, with the fused-kernel
+              direction. Compact launches gated exactly; losses and
+              residuals finite; every BatchNorm running statistic finite and
+              moved; the peak of allocated memory printed and below the
+              card's. Then both compact kernels at K=64 at both N: clients 0,
+              31 and 63 against the plain version in float64 (relative
+              1e-5), timed beside the bytes bound and the `matmul` yardstick;
+22. probe fan — the fedavg preset (Net, K=3, phase 7's inputs, fused-kernel
+              direction, cuDNN deterministic) at `linesearch_probes=1`, its
+              loss series bitwise equal to phase 7's over the first group's
+              rounds (the rounds before a convolution's weight gradient,
+              which phase 7's default cuDNN does not reproduce run to run),
+              then at 4 under `client_fold` 'gemm' and 'vmap': compact
+              launches gated, the accepted step sizes of every step equal to
+              those at 1; walls and the optimizer's host reads of each; then
+              one ViT round (block1) at 4 with the rectangular flash and
+              compact launches gated.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`. Without CUDA, or without the
@@ -290,12 +315,23 @@ GROUPED_REPLACES = "federated_pytorch_test_tpu/ops/grouped_gemm.py:74"
 GROUPED_TAILS = ((3, 13, 257, 9), (3, 300, 40, 270))  # (G, M, K, N) from the card test's list
 LARGE_SLACK = 2.0  # q, k x 8: the kernel's error from float64 may reach this multiple of the f32 plain version's
 QUEUED_CALLS = 50  # calls queued per device-only timing (a plain version launches ~8 kernels)
-RESNET_TRAIN, RESNET_TEST = 1_536, 10_000  # 16 minibatches of 32 per client; the full test set
+# 16 minibatches of 32 per client; 2,000 of the 10,000 test images (the 30
+# evaluations of the full set took 114 s of the phase's ~210 s)
+RESNET_TRAIN, RESNET_TEST = 1_536, 2_000
 NO_CONSENSUS_N = 890_410  # Net1, the no_consensus path's one group: the whole vector
 ALIGNED_NO_CONSENSUS_N = 890_408  # beside it, the nearest N whose rows are 16-byte aligned
 NO_CONSENSUS_EPOCHS = 2  # of the preset's 12
 NO_CONSENSUS_PROFILE_STEPS = 50  # minibatches of the profiled no_consensus window, of ~520
 RESUME_TRAIN = 12_288  # 8 minibatches of 512 per client
+SCALE64_K = 64  # the scale64 presets' clients
+SCALE64_TRAIN, SCALE64_TEST = 8_192, 500  # 4 minibatches of 32 a client; the presets evaluate nothing
+SCALE64_SIZES = (4_720_640, 51_300)  # ResNet18's block7 and its 100-class head
+SCALE64_CHECK = (0, 31, 63)  # the clients held against float64
+FAN_PROBES = 4  # linesearch_probes of the fan phase
+# a fan's loss at a rung against the sequential search's: float32's
+# resolution of a cross-entropy near a memorized batch (1 − p rounds in
+# steps of 2^-24, twice that), or relative 1e-6
+FAN_TIE_ATOL, FAN_TIE_RTOL = 2.0**-23, 1e-6
 
 
 @contextmanager
@@ -1624,8 +1660,14 @@ def expected_launches(rec, model=None, sweep_passes: int = 0, remat: bool = Fals
     in `test_accuracy` — and under `remat` once more per gradient pass, the
     backward's recomputation (which reruns the evaluation up to the loss);
     a weight gradient (`weight_backward`) once per gradient pass in each
-    block the group trains."""
-    sweeps = Counter((r["nloop"], r["group"]) for r in rec.series["test_accuracy"])
+    block the group trains.
+
+    A probe fan (`linesearch_probes > 1`) is one value pass whatever its
+    width P: the compact kernels do not run in it, and a transformer runs
+    each block once in it — the blocks below the active group for K
+    clients, the others for K·P — so each attention layer's forward
+    launches once a fan, with no new term."""
+    sweeps = Counter((r["nloop"], r["group"]) for r in rec.series.get("test_accuracy", []))
     out = Counter()
     for r in rec.series["objective_passes"]:
         passes = r["value"]
@@ -1742,7 +1784,7 @@ def phase_train(metrics_out, profile: bool):
     gate_launches("train", launches, {name: n_dir for name in cc.LAUNCHES})
     if profile:
         profile_epoch(tr)
-    return launches, wall
+    return launches, wall, rec
 
 
 def profile_epoch(tr, gid=None, max_steps=None):
@@ -1806,7 +1848,7 @@ def phase_lm_parity():
     from federated_pytorch_test_tpu_torch.consensus import FedAvgState, fedavg_round
     from federated_pytorch_test_tpu_torch.engine.steps import _group_params
     from federated_pytorch_test_tpu_torch.federated_lm import FederatedLM, LMConfig, lm_loss, lm_train_step
-    from federated_pytorch_test_tpu_torch.optim import lbfgs_init
+    from federated_pytorch_test_tpu_torch.optim import clone_state, lbfgs_init
 
     def grad(ctx, flat, toks):
         x = ctx.partition.extract(flat, ctx.gid).contiguous().requires_grad_(True)
@@ -1825,7 +1867,7 @@ def phase_lm_parity():
     for s in range(dense.train.shape[1]):
         toks = dense.train[:, s]
         gd, gf = (grad(ctx, flat, toks) for ctx in ctxs.values())  # at the step's entry
-        out = {impl: lm_train_step(ctx, flat.clone(), state, toks) for impl, ctx in ctxs.items()}
+        out = {impl: lm_train_step(ctx, flat.clone(), clone_state(state), toks) for impl, ctx in ctxs.items()}
         (fd, sd, ld), (ff, sf, lf) = out["dense"], out["flash"]
         xd, xf = dense.partition.extract(fd, gid), dense.partition.extract(ff, gid)
         step = {"train_loss": float(((lf - ld).abs() / ld.abs()).max()),
@@ -1924,6 +1966,7 @@ def phase_vit_parity():
     from federated_pytorch_test_tpu_torch.data import synthetic_cifar
     from federated_pytorch_test_tpu_torch.engine import Trainer, get_preset
     from federated_pytorch_test_tpu_torch.engine.steps import client_train_step, epoch_batches, round_init
+    from federated_pytorch_test_tpu_torch.optim import clone_state
 
     source = synthetic_cifar(3 * 256, 100, seed=1)
     trs = {impl: Trainer(get_preset("fedavg", model="vit", model_kwargs={**VIT_KWARGS, "attn_impl": impl}, batch=64,
@@ -1938,7 +1981,8 @@ def phase_vit_parity():
     idx = dense.epoch_indices(0, gid, 0, 0)
     worst = {"train_loss": 0.0, "params": 0.0, "dual_residual": 0.0}
     for s, (imgs, labels) in enumerate(epoch_batches(dense.shard_imgs, dense.shard_labels, idx)):
-        out = {impl: client_train_step(ctx, flat.clone(), state, {}, imgs, labels, dense.mean, dense.std)
+        out = {impl: client_train_step(ctx, flat.clone(), clone_state(state), {}, imgs, labels, dense.mean,
+                                       dense.std)
                for impl, ctx in ctxs.items()}
         (fd, sd, _, ld), (ff, _, _, lf) = out["dense"], out["flash"]
         xd, xf = dense.partition.extract(fd, gid), dense.partition.extract(ff, gid)
@@ -2152,8 +2196,8 @@ def phase_lm_default():
         model = TransformerLM(attn_impl="flash", **kw)
         part = model.partition()
         flat = init_client_params(model, k, seed=0)
-        ctx = GroupContext(model=model, shapes=model.shapes(), partition=part, gid=0, lbfgs=LBFGSConfig(),
-                           reg_on_active=False)
+        ctx = GroupContext(model=model, shapes=model.shapes(), partition=part, gid=0,
+                           lbfgs=LBFGSConfig(line_search=True, batch_mode=True), reg_on_active=False)
 
         def loss_grad():
             x = part.extract(flat, 0).contiguous().requires_grad_(True)
@@ -2260,6 +2304,7 @@ def phase_vit_moe_parity():
     from federated_pytorch_test_tpu_torch.data import synthetic_cifar
     from federated_pytorch_test_tpu_torch.engine import Trainer, get_preset
     from federated_pytorch_test_tpu_torch.engine.steps import client_train_step, epoch_batches, round_init
+    from federated_pytorch_test_tpu_torch.optim import clone_state
     from federated_pytorch_test_tpu_torch.ops import grouped_gemm as gg
 
     source = synthetic_cifar(3 * 512, 100, seed=2)
@@ -2277,9 +2322,10 @@ def phase_vit_moe_parity():
     gg.reset_launch_counts()
     for s, (imgs, labels) in enumerate(epoch_batches(plain.shard_imgs, plain.shard_labels, idx)):
         with plain_grouped():
-            fd, sd, _, ld = client_train_step(ctxs["dense"], flat.clone(), state, {}, imgs, labels, plain.mean,
-                                              plain.std)
-        ff, _, _, lf = client_train_step(ctxs["flash"], flat.clone(), state, {}, imgs, labels, plain.mean, plain.std)
+            fd, sd, _, ld = client_train_step(ctxs["dense"], flat.clone(), clone_state(state), {}, imgs, labels,
+                                              plain.mean, plain.std)
+        ff, _, _, lf = client_train_step(ctxs["flash"], flat.clone(), clone_state(state), {}, imgs, labels,
+                                         plain.mean, plain.std)
         xd, xf = plain.partition.extract(fd, gid), plain.partition.extract(ff, gid)
         step = {"train_loss": float(((lf - ld).abs() / ld.abs()).max()),
                 "params": float((xf - xd).abs().max() / xd.abs().max())}
@@ -2497,6 +2543,7 @@ def resnet_parity():
     from federated_pytorch_test_tpu_torch.data import synthetic_cifar
     from federated_pytorch_test_tpu_torch.engine import Trainer, get_preset
     from federated_pytorch_test_tpu_torch.engine.steps import admm_consensus, client_train_step, epoch_batches, round_init
+    from federated_pytorch_test_tpu_torch.optim import clone_state
 
     cfg = get_preset("admm_resnet", nloop=1, lbfgs_direction="pallas")
     tr = Trainer(cfg, verbose=False, source=synthetic_cifar(RESNET_TRAIN, 100, seed=1))
@@ -2516,7 +2563,8 @@ def resnet_parity():
                 out = {}
                 for d, c in ctxs.items():
                     with direction_f64(probe=n_steps == 0 and d == "pallas"):
-                        out[d] = client_train_step(c, flat.clone(), state, stats, imgs, labels, tr.mean, tr.std, cstate)
+                        out[d] = client_train_step(c, flat.clone(), clone_state(state), stats, imgs, labels,
+                                                   tr.mean, tr.std, cstate)
                 (fc, sc, stc, lc), (fp, _, stp, lp) = out["plain"], out["pallas"]
                 xc, xp = tr.partition.extract(fc, gid), tr.partition.extract(fp, gid)
                 step = {"train_loss": float(((lp - lc).abs() / lc.abs()).max()),
@@ -2597,6 +2645,8 @@ def phase_resnet_train(metrics_out, profile: bool):
     from federated_pytorch_test_tpu_torch.ops import compact_cuda as cc
     from federated_pytorch_test_tpu_torch.optim.compact import compact_solves, history_valid
 
+    print(f"reduced resnet: {RESNET_TRAIN} train images of 50,000 (synthetic stand-in), {RESNET_TEST} test images "
+          f"of 10,000, one outer loop of 12", flush=True)
     source = synthetic_cifar(RESNET_TRAIN, RESNET_TEST, seed=0)
     tr, rec, launches, wall = resnet_train_run("admm_resnet", source)
     if metrics_out:
@@ -2868,6 +2918,364 @@ def phase_resume():
                     bb_epsilon=1e-12, bb_rhomax=1e6)
 
 
+def scale64_run(preset: str, gid: int, nadmm: int, source):
+    """One round of group `gid` of a scale64 preset (K=64 ResNet18 clients
+    on CIFAR-100) at full width with the kernels' launches counted: gated
+    exactly; losses, residuals and BatchNorm statistics checked; the peak
+    of allocated device memory, from before the Trainer was built, below
+    the card's memory."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.engine import Trainer, get_preset
+    from federated_pytorch_test_tpu_torch.ops import compact_cuda as cc
+
+    cfg = get_preset(preset, nloop=1, nadmm=nadmm, lbfgs_direction="pallas")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, verbose=False, source=source)
+    tr.group_order = [gid]
+    init_stats = {n: t.clone() for n, t in tr.stats.items()}
+    print(f"{preset} setup: K={cfg.n_clients} batch={cfg.batch} nadmm={nadmm} group={gid} "
+          f"N={tr.partition.group_size(gid)} params={tr.n_params} classes={tr.fed.num_classes} "
+          f"shard={tr.fed.shard_size} steps/epoch={tr.fed.steps_per_epoch(cfg.batch)} "
+          f"setup_s={time.perf_counter() - t0:.3f}", flush=True)
+    cc.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = tr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cc.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    n_steps = len(rec.series["train_loss"])
+    passes = rec.series["objective_passes"][-1]["value"]
+    print(f"{preset} train wall_s={wall:.3f} minibatches={n_steps} ms_per_minibatch={1e3 * wall / n_steps:.3f} "
+          f"peak_mem_gb={peak / 1e9:.3f} device_mem_gb={total / 1e9:.3f} passes={json.dumps(passes)} "
+          f"launches={json.dumps(launches)}", flush=True)
+    last = [r["value"] for r in rec.series["train_loss"]][-1]
+    print(f"{preset} last train_loss min={min(last):.6e} max={max(last):.6e}", flush=True)
+    check_finite_run(preset, rec)
+    moved = sum(not torch.equal(t, init_stats[n]) for n, t in tr.stats.items())
+    finite = all(bool(torch.isfinite(t).all()) for t in tr.stats.values())
+    print(f"{preset} batchnorm statistics: {moved} of {len(tr.stats)} moved, finite={finite}", flush=True)
+    if not finite or moved != len(tr.stats):
+        fail(f"{preset}: BatchNorm running statistics non-finite or unmoved ({moved} of {len(tr.stats)} moved)")
+    if not peak < total:
+        fail(f"{preset}: peak allocated memory {peak} not below the card's {total}")
+    gate_launches(preset, launches, {name: expected_launches(rec)["direction"] for name in cc.LAUNCHES})
+    return rec, launches, wall, peak
+
+
+def scale64_kernels(n: int) -> dict:
+    """Both compact kernels at K=64, m=10 and N = `n` on a seeded history
+    (full for the timings; for the check, client 31 holds 3 pairs and a
+    NaN-filled invalid row, client 63 seven): clients 0, 31 and 63 against
+    the plain version computed in float64 (relative 1e-5 of the largest
+    reference entry; a float64 history of all 64 clients would not fit);
+    device ms beside the bytes bound and the `matmul` yardstick on the
+    history stacked as one `[K, 2m+1, N]` tensor. Returns the rows."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.ops import compact_cuda as cc
+    from federated_pytorch_test_tpu_torch.optim.compact import compact_solves, history_valid
+
+    k = SCALE64_K
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    x = torch.empty((k, 2 * M + 1, n), device="cuda")
+    x[:, :M].normal_(0.0, 0.1, generator=gen)
+    d = 0.5 + 1.5 * torch.rand(k, 1, n, device="cuda", generator=gen)
+    x[:, M : 2 * M] = x[:, :M] * d + 0.01 * torch.randn(k, M, n, device="cuda", generator=gen)
+    x[:, 2 * M].normal_(generator=gen)
+    del d
+    s, y, g = x[:, :M].contiguous(), x[:, M : 2 * M].contiguous(), x[:, 2 * M].contiguous()
+    count = torch.full((k,), M, dtype=torch.int32, device="cuda")
+    count[31], count[63] = 3, 7
+    s[31, 5], y[31, 5] = float("nan"), float("nan")
+    h_diag = 0.5 + torch.rand(k, device="cuda", generator=gen)
+    gram = cc.fused_gram_projections(s, y, g, count)
+    sy, yy, p, q = gram
+    u, w, _, _ = compact_solves(sy, p, q, history_valid(count, M), h_diag,
+                                lambda uu: (torch.matmul(yy, uu[..., None])[..., 0], None))
+    asm = cc.fused_direction_assembly(s, y, g, w, u, h_diag, count)
+    errs = {}
+    for c in SCALE64_CHECK:
+        sl = slice(c, c + 1)
+        s64, y64, g64 = s[sl].double(), y[sl].double(), g[sl].double()
+        ref = cc.fused_gram_projections_plain(s64, y64, g64, count[sl])
+        errs[f"gram[{c}]"] = max(rel_err(a[sl].double(), b) for a, b in zip(gram, ref))
+        ref_asm = cc.fused_direction_assembly_plain(s64, y64, g64, w[sl].double(), u[sl].double(),
+                                                    h_diag[sl].double(), count[sl])
+        errs[f"assembly[{c}]"] = rel_err(asm[sl].double(), ref_asm)
+        del s64, y64, g64
+    finite = all(bool(torch.isfinite(t).all()) for t in (*gram, asm))
+    print(f"scale64 kernels K={k} N={n} vs_f64 " + " ".join(f"{nm}={v:.3e}" for nm, v in errs.items())
+          + f" finite={finite}", flush=True)
+    if not finite or not max(errs.values()) <= RTOL:
+        fail(f"compact kernel disagrees with float64 at K={k} N={n}: {errs} (finite={finite})")
+
+    s.nan_to_num_(0.0)
+    y.nan_to_num_(0.0)
+    x[:, :M], x[:, M : 2 * M] = s, y
+    full = torch.full((k,), M, dtype=torch.int32, device="cuda")
+    coef = torch.cat([w, -h_diag[:, None] * u, h_diag[:, None]], dim=1)[:, None, :]
+    iters = 5 if n > 1_000_000 else 50
+    calls = {
+        "fused_gram_projections": (lambda: cc.fused_gram_projections(s, y, g, full),
+                                   lambda: torch.matmul(x, x.transpose(1, 2)), (2 * M + 1) * n * 4 * k),
+        "fused_direction_assembly": (lambda: cc.fused_direction_assembly(s, y, g, w, u, h_diag, full),
+                                     lambda: torch.matmul(coef, x), (2 * M + 2) * n * 4 * k),
+    }
+    chunks, per_block = cc.gram_chunks(n)
+    rows = {}
+    for name, (kernel, library, n_bytes) in calls.items():
+        ms, device_ms = time_ms(kernel, iters)
+        _, library_device_ms = time_ms(library, iters)
+        bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        rows[name] = {"device_ms": device_ms, "ms": ms, "bound_ms": bound_ms, "library_device_ms": library_device_ms}
+        print(f"timing {name} K={k} N={n} m={M} ms={ms:.6f} device_ms={device_ms:.6f} bound_ms={bound_ms:.6f} "
+              f"(bytes) share_of_bound={bound_ms / device_ms:.3f} library_device_ms={library_device_ms:.6f}"
+              + (f" grid={chunks}x{k} tiles_per_block={per_block}" if name == "fused_gram_projections" else ""),
+              flush=True)
+    del x, s, y, g
+    return rows
+
+
+def phase_scale64_train(metrics_out, profile: bool):
+    """The scale64 presets (K=64 ResNet18 clients on CIFAR-100) at full
+    width on one card: fedavg_scale64 over one round of block7 (N =
+    4,720,640 a client, the largest group: a `[64, 10, N]` history of 12.08
+    GB for s and for y, updated in place), nadmm 1, then admm_scale64 over
+    one round of the linear head (N = 51,300), nadmm 3, both with the
+    fused-kernel direction, on 8,192 synthetic train images (a `reduced`
+    line); then both compact kernels at K=64 at both N."""
+    from federated_pytorch_test_tpu_torch.data import synthetic_cifar
+
+    print(f"reduced scale64: {SCALE64_TRAIN} train images of CIFAR-100's 50,000 (synthetic stand-in, "
+          f"{SCALE64_TRAIN // SCALE64_K // 32} minibatches of 32 a client), one round of one group a preset, "
+          f"nloop 1 of 12", flush=True)
+    source = synthetic_cifar(SCALE64_TRAIN, SCALE64_TEST, num_classes=100, seed=0)
+    launches, walls, peaks = {}, {}, {}
+    for preset, gid, nadmm in (("fedavg_scale64", 8, 1), ("admm_scale64", 9, 3)):
+        rec, launches[preset], walls[preset], peaks[preset] = scale64_run(preset, gid, nadmm, source)
+    if metrics_out:
+        rec.save(metrics_out)
+    del source, rec
+    times = {n: scale64_kernels(n) for n in SCALE64_SIZES}
+    return launches, sum(walls.values()), walls, peaks, times
+
+
+def fan_run(cfg, source, label: str, group_order=None):
+    """One Trainer run with launches counted; returns (trainer, rec,
+    launches of every kernel family, wall)."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.engine import Trainer
+    from federated_pytorch_test_tpu_torch.ops import compact_cuda as cc
+    from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
+
+    tr = Trainer(cfg, verbose=False, source=source)
+    if group_order is not None:
+        tr.group_order = group_order
+    cc.reset_launch_counts()
+    fc.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = tr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**cc.LAUNCHES, **fc.LAUNCHES}
+    reads = sum(r["value"]["host_reads"] for r in rec.series["objective_passes"])
+    passes = Counter()
+    for r in rec.series["objective_passes"]:
+        passes.update({k: v for k, v in r["value"].items() if k != "host_reads"})
+    n_steps = len(rec.series["train_loss"])
+    print(f"fan {label} wall_s={wall:.3f} minibatches={n_steps} ms_per_minibatch={1e3 * wall / n_steps:.3f} "
+          f"host_reads={reads} host_reads_per_minibatch={reads / n_steps:.3f} passes={json.dumps(dict(passes))}",
+          flush=True)
+    check_finite_run(f"fan {label}", rec)
+    return tr, rec, launches, wall
+
+
+class record_searches:
+    """Within the block, every Armijo search `lbfgs_step` runs is recorded:
+    `self.calls` gets, per call, the rungs evaluated (step sizes and losses,
+    `[K, R]` each, in the order evaluated) and the accepted step sizes `[K]`."""
+
+    def __enter__(self):
+        import torch
+
+        from federated_pytorch_test_tpu_torch.optim import lbfgs
+
+        self.calls, self.module = [], lbfgs
+        self.saved = lbfgs.backtracking_armijo_aux, lbfgs.backtracking_armijo_probes_aux
+        sequential, fan = self.saved
+
+        def record(search, widen):
+            def recorded(evaluate, *args, **kw):
+                seen = []
+
+                def evaluated(alpha):
+                    out = evaluate(alpha)
+                    seen.append((widen(alpha), widen(out[0])))
+                    return out
+
+                out = search(evaluated, *args, **kw)
+                self.calls.append((torch.cat([a for a, _ in seen], 1), torch.cat([f for _, f in seen], 1), out[0]))
+                return out
+
+            return recorded
+
+        lbfgs.backtracking_armijo_aux = record(sequential, lambda t: t[:, None])
+        lbfgs.backtracking_armijo_probes_aux = record(fan, lambda t: t)
+        return self
+
+    def __exit__(self, *exc):
+        self.module.backtracking_armijo_aux, self.module.backtracking_armijo_probes_aux = self.saved
+
+
+def search_ties(seq_calls, fan_calls) -> list:
+    """The searches of two steps from one state, call by call, up to and
+    including the first call whose accepted step differs for a client
+    (the calls after it start elsewhere): for each such client, the rung
+    where the decisions part (the larger accepted step: one search took
+    it, the other rejected it) and the two evaluations' losses there. Returns [(call, client, step size, sequential
+    loss, fan loss)]."""
+    out, parted = [], set()
+    for i, ((a1, f1, acc1), (a4, f4, acc4)) in enumerate(zip(seq_calls, fan_calls)):
+        for k in range(acc1.shape[0]):
+            if k in parted or bool(acc1[k] == acc4[k]):
+                continue
+            parted.add(k)
+            alpha = max(float(acc1[k]), float(acc4[k]))
+            pick = lambda a, f: float(f[k][a[k] == alpha][0])
+            out.append((i, k, alpha, pick(a1, f1), pick(a4, f4)))
+    return out
+
+
+def fan_vs_sequential(source) -> dict:
+    """The fedavg preset's loop (Net, K=3, batch 512, phase 7's inputs) step
+    by step under deterministic cuDNN: the sequential search (P=1) makes
+    the trajectory, and before each step the fan at `FAN_PROBES` under
+    'gemm' and 'vmap' gets the same parameters and optimizer state. Every
+    accepted step size of every search is compared; where a client's
+    parts from the sequential one, the two evaluations of the parting rung
+    (the larger of the two accepted step sizes: one search accepted it, the
+    other did not) must agree within float32's resolution of a
+    cross-entropy, `FAN_TIE_ATOL` or relative `FAN_TIE_RTOL`: the rung sat
+    on the Armijo threshold. Returns the counts per fold."""
+    import dataclasses
+
+    import torch
+
+    from federated_pytorch_test_tpu_torch.engine import Trainer, get_preset
+    from federated_pytorch_test_tpu_torch.engine.steps import (client_train_step, epoch_batches, fedavg_consensus,
+                                                               round_init)
+    from federated_pytorch_test_tpu_torch.optim import clone_state
+
+    tr = Trainer(get_preset("fedavg", nloop=1, lbfgs_direction="pallas"), verbose=False, source=source)
+    counts = {fold: Counter() for fold in ("gemm", "vmap")}
+    worst = {fold: 0.0 for fold in counts}
+    for gid in tr.group_order:
+        ctx = tr.ctx(gid)
+        fans = {fold: dataclasses.replace(ctx, lbfgs=dataclasses.replace(ctx.lbfgs, ls_probes=FAN_PROBES),
+                                          client_fold=fold) for fold in counts}
+        state, cstate = round_init(ctx, tr.flat)
+        for a in range(tr.cfg.nadmm):
+            idx = tr.epoch_indices(0, gid, a, 0)
+            for imgs, labels in epoch_batches(tr.shard_imgs, tr.shard_labels, idx):
+                args = (imgs, labels, tr.mean, tr.std)
+                with record_searches() as seq:
+                    flat, state_next, _, _ = client_train_step(ctx, tr.flat.clone(), clone_state(state), {}, *args)
+                for fold, c in fans.items():
+                    with record_searches() as fan:
+                        flat4, st4, _, _ = client_train_step(c, tr.flat.clone(), clone_state(state), {}, *args)
+                    cnt = counts[fold]
+                    cnt["searches"] += len(seq.calls)
+                    cnt["steps"] += 1
+                    cnt["equal_params_steps"] += bool(torch.equal(flat4, flat))
+                    for call, k, alpha, f1, f4 in search_ties(seq.calls, fan.calls):
+                        cnt["parted"] += 1
+                        diff = abs(f1 - f4)
+                        worst[fold] = max(worst[fold], diff)
+                        tie = diff <= max(FAN_TIE_ATOL, FAN_TIE_RTOL * abs(f1))
+                        cnt["ties" if tie else "not_ties"] += 1
+                        print(f"fan parted fold={fold} group={gid} step={cnt['steps'] - 1} search={call} client={k} "
+                              f"rung_step={alpha:.6e} loss_sequential={f1:.9e} loss_fan={f4:.9e} tie={tie}",
+                              flush=True)
+                tr.flat, state = flat, state_next
+            tr.flat, cstate, _ = fedavg_consensus(ctx, tr.flat, cstate)
+    for fold, cnt in counts.items():
+        print(f"fan steps from one state fold={fold} steps={cnt['steps']} searches={cnt['searches']} "
+              f"steps_with_equal_params={cnt['equal_params_steps']} parted={cnt['parted']} ties={cnt['ties']} "
+              f"not_ties={cnt['not_ties']} max_parting_loss_diff={worst[fold]:.3e}", flush=True)
+        if cnt["not_ties"]:
+            fail(f"fan fold={fold}: {cnt['not_ties']} searches parted from the sequential one at a rung whose two "
+                 "losses differ by more than float32's resolution")
+    return counts
+
+
+def phase_probe_fan_train(metrics_out, profile: bool, reference=None):
+    """The line search's probe fan on the card: the fedavg preset (Net, K=3,
+    batch 512, phase 7's inputs) with the fused-kernel direction at
+    `linesearch_probes=1`, then at 4 under both folds, 'gemm' and 'vmap',
+    all three under deterministic cuDNN (the default conv weight gradient
+    is not reproducible run to run): compact launches gated exactly, walls
+    and host reads printed. The run at 1 against `reference` (phase 7's
+    loss series, default cuDNN): bitwise on the rounds of the first group
+    of the order, whose passes run no convolution's backward, and the
+    largest difference after it printed. Then the same loop step by step
+    from one state (`fan_vs_sequential`): the fan's accepted steps equal the
+    sequential search's up to rungs on the Armijo threshold. Then one ViT
+    round (block1, patch 2, flash attention) at 4 with the rectangular
+    flash and compact launches gated."""
+    import numpy as np
+
+    from federated_pytorch_test_tpu_torch.data import synthetic_cifar
+    from federated_pytorch_test_tpu_torch.engine import get_preset
+    from federated_pytorch_test_tpu_torch.ops import compact_cuda as cc
+
+    source = synthetic_cifar(50_000, 10_000, seed=0)
+    runs, walls, launches = {}, {}, {}
+    with deterministic_cudnn():
+        for p, fold in ((1, "gemm"), (FAN_PROBES, "gemm"), (FAN_PROBES, "vmap")):
+            label = f"net P={p} fold={fold}"
+            cfg = get_preset("fedavg", nloop=1, lbfgs_direction="pallas", linesearch_probes=p, client_fold=fold)
+            tr, rec, launch, walls[label] = fan_run(cfg, source, label)
+            runs[label] = rec
+            launches[label] = launch
+            gate_launches(f"fan {label}", launch, {name: expected_launches(rec)["direction"] for name in cc.LAUNCHES})
+        base_rec = runs["net P=1 fold=gemm"]
+        if metrics_out:
+            base_rec.save(metrics_out)
+        if reference is not None:
+            first = tr.group_order[0]
+            rows = base_rec.series["train_loss"]
+            n_first = sum(r["group"] == first for r in rows)
+            losses = [r["value"] for r in rows]
+            same = losses[:n_first] == reference[:n_first]
+            diff = max(abs(a - b) for x, y in zip(losses, reference) for a, b in zip(x, y))
+            print(f"fan net P=1 train_loss bitwise_equal_to_phase_7 group={first} ({n_first} minibatches)={same} "
+                  f"all_{len(losses)}_minibatches={losses == reference} max_abs_diff={diff:.3e}", flush=True)
+            if not same or len(losses) != len(reference):
+                fail(f"fan: the linesearch_probes=1 run's loss series differs from phase 7's in group {first}")
+        fan_vs_sequential(source)
+
+    label = f"vit P={FAN_PROBES} fold=gemm block1"
+    cfg = get_preset("fedavg", model="vit", model_kwargs=VIT_KWARGS, nloop=1, nadmm=1, lbfgs_direction="pallas",
+                     linesearch_probes=FAN_PROBES)
+    vit_source = synthetic_cifar(VIT_TRAIN, VIT_TEST, seed=0)
+    tr, rec, launch, walls[label] = fan_run(cfg, vit_source, label, group_order=[2])
+    launches[label] = launch
+    exp = expected_launches(rec, tr.model, sweep_passes=len(tr.test_imgs))  # an evaluation: one pass a test batch
+    gate_launches(f"fan {label}", launch, {
+        **{name: exp["direction"] for name in cc.LAUNCHES},
+        "flash_fwd_rect": exp["forward"], "flash_bwd_dq_rect": exp["backward"], "flash_bwd_dkv_rect": exp["backward"]})
+    final_acc = np.asarray(rec.series["test_accuracy"][-1]["value"])
+    print(f"fan {label} accuracy {final_acc.round(4).tolist()}", flush=True)
+    return launches, sum(walls.values()), walls
+
+
 # One turn of `--ab-parent`, run in a fresh process from the root of a
 # checkout, its arguments JSON lists of train phases and of assembly sizes
 # (AB_ASSEMBLY_SIZES): the device ms of the
@@ -2956,6 +3364,9 @@ print("ab walls " + json.dumps(walls), flush=True)
 """
 AB_RUNS = 3  # turns of each checkout
 AB_PHASES = "phase_train,phase_lm_train,phase_vit_train,phase_vit_moe_train"  # `--ab-phases` default
+AB_CHOICES = ("phase_train", "phase_lm_train", "phase_vit_train", "phase_vit_moe_train", "phase_admm_train",
+              "phase_no_consensus_train", "phase_scale64_train",
+              "phase_probe_fan_train")  # the phases whose `phase(metrics_out, profile)[1]` is a wall
 # the assembly's sizes in an A/B: Net's groups, Net1's whole vector and the
 # aligned N beside it, the ResNet18 groups (admm_resnet's, largest first)
 # and `LARGE_N`
@@ -3028,12 +3439,15 @@ def main() -> int:
     ap.add_argument("--no-consensus-metrics-out", help="write the no_consensus path's metric series as JSON here")
     ap.add_argument("--net-bf16-metrics-out", help="write the bf16 fedavg (Net) path's metric series as JSON here")
     ap.add_argument("--vit-bf16-metrics-out", help="write the bf16 ViT path's metric series as JSON here")
+    ap.add_argument("--scale64-metrics-out", help="write the admm_scale64 run's metric series as JSON here")
+    ap.add_argument("--fan-metrics-out", help="write the probe fan phase's P=1 run's metric series as JSON here")
     ap.add_argument("--profile", action="store_true", help="also profile one epoch of each path")
     ap.add_argument("--ab-parent", metavar="DIR",
                     help="instead of the phases, time the train paths of the checkout in DIR and of this "
                          "one in turns (see run_ab)")
     ap.add_argument("--ab-phases", default=AB_PHASES,
-                    help="the train phases an --ab-parent turn runs, comma-separated (default: %(default)s)")
+                    help="the train phases an --ab-parent turn runs, comma-separated, of " + ", ".join(AB_CHOICES)
+                         + " (default: %(default)s)")
     args = ap.parse_args()
 
     import torch
@@ -3078,7 +3492,7 @@ def main() -> int:
     default_report = phase_flash_default()
     bf16_report, bf16_launches = phase_flash_bf16()
     phase_parity()
-    launches, wall = phase_train(args.metrics_out, args.profile)
+    launches, wall, train_rec = phase_train(args.metrics_out, args.profile)
     net16_launches, net16_wall = phase_net_bf16_train(args.net_bf16_metrics_out)
     phase_lm_parity()
     lm_launches, lm_wall = phase_lm_train(args.lm_metrics_out, args.profile)
@@ -3096,6 +3510,9 @@ def main() -> int:
     nc_launches, nc_wall = phase_no_consensus_train(args.no_consensus_metrics_out, args.profile)
     nc_rows = phase_compact_no_consensus()
     phase_resume()
+    s64_launches, _, s64_walls, s64_peaks, s64_times = phase_scale64_train(args.scale64_metrics_out, args.profile)
+    fan_launches, _, fan_walls = phase_probe_fan_train(
+        args.fan_metrics_out, args.profile, reference=[r["value"] for r in train_rec.series["train_loss"]])
 
     kernels = []
     replaces = {
@@ -3129,7 +3546,12 @@ def main() -> int:
                                  "vit_bf16": vit16_launches[name], "admm": admm_launches[name],
                                  **{p: n[name] for p, n in resnet_launches.items()},
                                  "vit": vit_launches[name], "vit_moe": moe_launches[name],
-                                 "no_consensus": nc_launches[name]},
+                                 "no_consensus": nc_launches[name],
+                                 **{p: n[name] for p, n in s64_launches.items()},
+                                 **{f"fan {p}": n[name] for p, n in fan_launches.items()}},
+            # device ms at K=64 (the scale64 paths) at block7 and at the
+            # 100-class head, beside the bytes bound and the `matmul` yardstick
+            "scale64_sizes": {str(n): r[name] for n, r in s64_times.items()},
             # device ms at every ResNet group size the ResNet paths reach, beside
             # the bound, the plain version and the `matmul` yardstick
             "resnet_sizes": {str(n): r[name] for n, r in resnet_times.items()},
@@ -3278,7 +3700,9 @@ def main() -> int:
           f"fedavg_resnet_train_wall_s={resnet_walls['fedavg_resnet']:.3f} "
           f"no_consensus_train_wall_s={nc_wall:.3f} net_bf16_train_wall_s={net16_wall:.3f} "
           f"vit_bf16_train_wall_s={vit16_wall:.3f} vit_bf16_remat_train_wall_s={vit16_extra['remat_wall_s']:.3f} "
-          f"lm_model_bf16_default_fwd_bwd_s={lm16_wall:.3f} lm_model_f32_fwd_bwd_s={lm16_extra['f32_wall_s']:.3f}",
+          f"lm_model_bf16_default_fwd_bwd_s={lm16_wall:.3f} lm_model_f32_fwd_bwd_s={lm16_extra['f32_wall_s']:.3f} "
+          + " ".join(f"{p}_train_wall_s={w:.3f} {p}_peak_gb={s64_peaks[p] / 1e9:.3f}" for p, w in s64_walls.items())
+          + " " + " ".join(f"fan_{p.replace(' ', '_')}_wall_s={w:.3f}" for p, w in fan_walls.items()),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,9 @@
 
 Run from the root of a checkout:
 
-    python3 chip_sweep.py [grouped] [gram] [assembly] [bf16]
+    python3 chip_sweep.py [grouped] [gram] [assembly] [bf16] [scale64]
 
-Four sweeps (all of them without arguments), each printed one line per
+Five sweeps (all of them without arguments), each printed one line per
 setting with its device ms (calls queued behind a sleep kernel,
 `chip_smoke.time_ms`) and its error:
 
@@ -30,7 +30,12 @@ setting with its device ms (calls queued behind a sleep kernel,
    cuts (no exps, no products, loads only, products only), each beside its
    bound (`chip_smoke.flash_bounds`); a whole kernel's outputs within two
    bf16 units of its plain version (the forward's at that tile;
-   `chip_smoke.bf16_units`).
+   `chip_smoke.bf16_units`);
+5. scale64 — the direction backends (`lbfgs_direction`) at the largest
+   scale64 shape: one optimizer step of fedavg_scale64's block7 round (K=64
+   ResNet18 clients, N = 4,720,640) with 'pallas', then 'compact', each
+   from a fresh Trainer: its wall and peak allocated memory, or that it
+   ran out of the card's memory (no device time; a step, not a kernel).
 
 The port's own settings (`grouped_gemm.tiles`, `SPLIT_CHUNK`,
 `compact_cuda.gram_chunks`, `compact_cuda._vec_ok`) are not changed: each setting is launched
@@ -42,6 +47,7 @@ from __future__ import annotations
 
 import math
 import sys
+import time
 
 import chip_smoke as cs
 
@@ -243,6 +249,43 @@ def sweep_bf16() -> None:
         del q16, k16, v16, qs, do, do16, o_ref, lse_ref, delta, dq_ref, dk_ref, dv_ref, o, lse, dq, dk, dv
 
 
+def scale64_step(direction: str, source, gid: int) -> None:
+    """One optimizer step of fedavg_scale64's round of group `gid` with the
+    `direction` backend, from a fresh Trainer; every tensor it made is
+    freed when it returns."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.engine import Trainer, get_preset
+    from federated_pytorch_test_tpu_torch.engine.steps import client_train_step, epoch_batches, round_init
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(get_preset("fedavg_scale64", lbfgs_direction=direction), verbose=False, source=source)
+    ctx = tr.ctx(gid)
+    state, _ = round_init(ctx, tr.flat)
+    imgs, labels = next(epoch_batches(tr.shard_imgs, tr.shard_labels, tr.epoch_indices(0, gid, 0, 0)))
+    t0 = time.perf_counter()
+    client_train_step(ctx, tr.flat, state, tr.stats, imgs, labels, tr.mean, tr.std)
+    torch.cuda.synchronize()
+    print(f"sweep scale64 direction={direction} K={tr.cfg.n_clients} N={tr.partition.group_size(gid)} "
+          f"step_s={time.perf_counter() - t0:.3f} peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.3f} "
+          f"fits=True", flush=True)
+
+
+def sweep_scale64() -> None:
+    import torch
+
+    from federated_pytorch_test_tpu_torch.data import synthetic_cifar
+
+    source = synthetic_cifar(cs.SCALE64_TRAIN, cs.SCALE64_TEST, num_classes=100, seed=0)
+    for direction in ("pallas", "compact"):
+        try:
+            scale64_step(direction, source, gid=8)  # block7
+        except torch.cuda.OutOfMemoryError as e:
+            print(f"sweep scale64 direction={direction} fits=False "
+                  f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.3f} ({str(e).splitlines()[0]})", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -253,7 +296,8 @@ def main() -> int:
     configure_precision()
     print(cs.subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                             capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    sweeps = {"grouped": sweep_grouped, "gram": sweep_gram, "assembly": sweep_assembly, "bf16": sweep_bf16}
+    sweeps = {"grouped": sweep_grouped, "gram": sweep_gram, "assembly": sweep_assembly, "bf16": sweep_bf16,
+              "scale64": sweep_scale64}
     for name in sys.argv[1:] or sweeps:
         if name not in sweeps:
             cs.fail(f"unknown sweep {name!r}; have {sorted(sweeps)}")

@@ -1,11 +1,16 @@
 """Command line: `python -m federated_pytorch_test_tpu_torch --preset NAME [...]`.
 
 Presets: no_consensus (Net1, independent training), fedavg, admm (Net),
-fedavg_resnet, admm_resnet (ResNet18); `--list-presets` prints them. Every
+fedavg_resnet, admm_resnet (ResNet18), fedavg_scale64, admm_scale64 (64
+ResNet18 clients on CIFAR-100); `--list-presets` prints them. Every
 field of `ExperimentConfig` is a flag, `--` + the field with `_` as `-`,
 booleans as `--x/--no-x`; a flag left out keeps the preset's value. Runs on
 the card unless `--device cpu` is given; `--lbfgs-direction pallas` opts into the fused
-compact-direction kernels, `two_loop` into the sequential recursion.
+compact-direction kernels, `two_loop` into the sequential recursion;
+`--linesearch-probes P` evaluates the Armijo ladder in fans of P step sizes
+a batched pass (`--client-fold gemm|vmap`); `--average-model` starts every
+client from the clients' mean; `--no-synthetic-ok` refuses the synthetic
+stand-in when no CIFAR archive is found.
 `--save-model` checkpoints the full state under `--checkpoint-dir` after
 every outer loop; `--load-model` continues from the newest checkpoint there
 (and requires one), `--resume auto` does so when there is one.
@@ -19,6 +24,8 @@ same). Examples:
     python -m federated_pytorch_test_tpu_torch --preset no_consensus --lbfgs-direction pallas
     python -m federated_pytorch_test_tpu_torch --preset admm --lbfgs-direction pallas
     python -m federated_pytorch_test_tpu_torch --preset admm_resnet --lbfgs-direction pallas
+    python -m federated_pytorch_test_tpu_torch --preset fedavg_scale64 --lbfgs-direction pallas
+    python -m federated_pytorch_test_tpu_torch --preset fedavg --linesearch-probes 4 --lbfgs-direction pallas
     python -m federated_pytorch_test_tpu_torch --preset fedavg --device cpu \\
         --synthetic-n-train 240 --synthetic-n-test 60 --batch 40 --nloop 1 --nadmm 2 --max-groups 2
     python -m federated_pytorch_test_tpu_torch --preset no_consensus --device cpu \\

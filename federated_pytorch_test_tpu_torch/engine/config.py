@@ -1,8 +1,10 @@
 """Experiment configuration: the knobs of the ported paths and their presets.
 
 Counterpart of the subset of the JAX package's `engine/config.py` that
-the `no_consensus`, `fedavg`, `admm`, `fedavg_resnet` and `admm_resnet`
-paths read, with its checkpoint fields. Field
+the `no_consensus`, `fedavg`, `admm`, `fedavg_resnet`, `admm_resnet`,
+`fedavg_scale64` and `admm_scale64` paths read, with its checkpoint
+fields, the line search's probe fan (`linesearch_probes`, `client_fold`),
+`average_model` and `synthetic_ok`. Field
 names and defaults are the JAX package's, so a configuration reads the
 same in both; `device` is the port's own (the card unless the caller asks
 for the CPU).
@@ -40,6 +42,7 @@ class ExperimentConfig:
     remat: bool = False
     dataset: str = "cifar10"  # cifar10 | cifar100
     data_root: str | None = None  # None => $CIFAR_DATA_DIR or ./torchdata
+    synthetic_ok: bool = True  # fall back to synthetic data if no archive
     synthetic_n_train: int | None = None  # shrink the synthetic stand-in only
     synthetic_n_test: int | None = None
 
@@ -70,6 +73,17 @@ class ExperimentConfig:
     # plain PyTorch) or 'pallas' (the fused CUDA kernels; the name is the
     # JAX package's value for its fused-kernel backend)
     lbfgs_direction: str = "compact"
+    # rungs of the Armijo halving ladder evaluated in one batched pass (a
+    # fan), the first rung that satisfies the condition picked on the card;
+    # 1 is the sequential search. The picked rung is the sequential one's up
+    # to ties on the Armijo threshold, so this changes trajectories by ulps
+    linesearch_probes: int = 1
+    # how a fan batches the P probes: 'vmap' runs the model on K·P clients
+    # (every parameter repeated P times); 'gemm' gives the probe axis only to
+    # the active group's parameters: the layers below it run once a fan, the
+    # frozen ones above it on a P-times-wider batch. Same objective values
+    # up to the wider reductions' order; no effect at linesearch_probes=1
+    client_fold: str = "gemm"
 
     # ADMM (the reference's consensus_admm_trio.py constants)
     admm_rho0: float = 1e-3
@@ -94,6 +108,7 @@ class ExperimentConfig:
     check_results: bool = True  # evaluate after each averaging round
     # with check_results, also evaluate after every minibatch
     eval_every_batch: bool = False
+    average_model: bool = False  # one-shot whole-model mean over the clients before training
 
     seed: int = 0
     eval_batch: int = 500
@@ -116,6 +131,12 @@ class ExperimentConfig:
             )
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', got {self.compute_dtype!r}")
+        if not isinstance(self.linesearch_probes, int) or isinstance(self.linesearch_probes, bool):
+            raise ValueError(f"linesearch_probes must be an int >= 1, got {self.linesearch_probes!r}")
+        if self.linesearch_probes < 1:
+            raise ValueError(f"linesearch_probes must be >= 1, got {self.linesearch_probes}")
+        if self.client_fold not in ("gemm", "vmap"):
+            raise ValueError(f"client_fold must be 'gemm' or 'vmap', got {self.client_fold!r}")
         if self.lbfgs_direction not in DIRECTIONS:
             raise ValueError(
                 f"lbfgs_direction must be one of {sorted(DIRECTIONS)}, got {self.lbfgs_direction!r}"
@@ -131,7 +152,10 @@ class ExperimentConfig:
             lr=self.lbfgs_lr,
             max_iter=self.lbfgs_max_iter,
             history_size=self.lbfgs_history,
+            line_search=True,
+            batch_mode=True,
             direction=self.lbfgs_direction,
+            ls_probes=self.linesearch_probes,
         )
 
     def admm_config(self) -> ADMMConfig:
@@ -191,6 +215,34 @@ PRESETS = {
         biased_input=False,
         bb_update=False,
         shuffle_group_order=True,
+    ),
+    # BASELINE.json config 5 (scale-out, no reference script): K=64 ResNet18
+    # clients on CIFAR-100; on one card the clients are the batch axis
+    "fedavg_scale64": ExperimentConfig(
+        name="fedavg_scale64",
+        model="resnet18",
+        dataset="cifar100",
+        n_clients=64,
+        batch=32,
+        strategy="fedavg",
+        reg_mode="none",
+        biased_input=False,
+        shuffle_group_order=True,
+        check_results=False,
+    ),
+    "admm_scale64": ExperimentConfig(
+        name="admm_scale64",
+        model="resnet18",
+        dataset="cifar100",
+        n_clients=64,
+        batch=32,
+        strategy="admm",
+        nadmm=3,
+        reg_mode="none",
+        biased_input=False,
+        bb_update=False,
+        shuffle_group_order=True,
+        check_results=False,
     ),
 }
 

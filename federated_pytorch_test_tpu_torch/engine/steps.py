@@ -15,6 +15,13 @@ Counterpart of the none, fedavg and admm paths of the JAX package's
   JAX package's `fold` path): the Armijo-accepted evaluation is at the
   step's final parameters, so its data loss and statistics come without
   an extra model pass, and no line-search probe touches the statistics.
+* `fan_objective` — the objective at a fan of P line-search probes a
+  client (`linesearch_probes > 1`), one batched pass, in either fold
+  (`client_fold`): 'vmap' runs K·P clients, every leaf and input repeated
+  P times (the fan's plain reference); 'gemm' repeats only the active
+  group's leaves, so the layers below it run once a fan and the frozen
+  layers above it on a P-times-wider batch (`models/base.py`), BatchNorm
+  statistics and MoE capacities kept per (client, probe).
 * `run_epoch` — the lockstep minibatches of one epoch.
 * `round_init` — a fresh optimizer state and consensus state per group
   round (independent training: none; FedAvg: z = 0; ADMM: y = z = 0,
@@ -59,6 +66,7 @@ from ..consensus import (
 )
 from ..data import normalize
 from ..models import PartitionedModel
+from ..models.base import widen_clients
 from ..optim import LBFGSConfig, LBFGSState, lbfgs_init, lbfgs_step
 from ..optim.linesearch import select
 from ..partition import Partition, Segment, leaf_offsets, unflatten_params
@@ -83,6 +91,7 @@ class GroupContext:
     strategy: str = "fedavg"  # none | fedavg | admm
     admm: ADMMConfig = ADMMConfig()
     remat: bool = False  # recompute each evaluation's forward in its backward
+    client_fold: str = "vmap"  # how a probe fan batches its probes: 'vmap' | 'gemm' (the engine's default)
 
 
 def data_loss(ctx: GroupContext, params: dict, images: torch.Tensor, labels: torch.Tensor):
@@ -94,12 +103,13 @@ def data_loss(ctx: GroupContext, params: dict, images: torch.Tensor, labels: tor
     else:
         logits = ctx.model.forward_batched(params, images)
     loss = _cross_entropy(logits, labels)
-    return loss + ctx.moe_aux_coef * aux if ctx.moe_aux_coef else loss
+    return loss + ctx.moe_aux_coef * widen_clients(aux, loss.shape[0]) if ctx.moe_aux_coef else loss
 
 
 def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Per-client mean cross-entropy `[K]` of logits `[K, B, C]`, in f32
-    whatever the logits' dtype."""
+    whatever the logits' dtype (labels `[K, B]`, repeated for a fan's K·P)."""
+    labels = widen_clients(labels, logits.shape[0])
     k, b, c = logits.shape
     ce = F.cross_entropy(logits.float().reshape(k * b, c), labels.reshape(k * b).long(), reduction="none")
     return ce.reshape(k, b).mean(dim=1)
@@ -140,7 +150,7 @@ def _segments(ctx: GroupContext, base: torch.Tensor, x: torch.Tensor) -> torch.T
     taken from `x`, concatenated: the coordinates the group trains carry
     its gradient, the frozen ones are constants. Under strategy 'none' the
     group is the whole vector, so every segment is read from `x`."""
-    full = ctx.partition.insert(base, ctx.gid, x)
+    full = ctx.partition.insert(widen_clients(base, x.shape[0]), ctx.gid, x)
     parts = [full[:, s.start : s.start + s.size] for s in ctx.reg_segments]
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
 
@@ -171,6 +181,26 @@ def objective(ctx: GroupContext, base: torch.Tensor, x: torch.Tensor, stats: dic
     if ctx.strategy == "admm":
         loss = loss + admm_penalty(x, cstate.y, cstate.z, cstate.rho)
     return loss, dl, new_stats
+
+
+def fan_objective(ctx: GroupContext, base: torch.Tensor, x: torch.Tensor, stats: dict, images, labels,
+                  cstate=None, base_c: Optional[torch.Tensor] = None):
+    """`objective` at a fan's K·P points `x [K·P, G]` (client-major: row
+    k·P + p is client k's probe p) in one batched pass, by `ctx.client_fold`:
+    'vmap' repeats every input P times and runs K·P clients; 'gemm' hands
+    the model the K clients' frozen leaves and images as they are and the
+    active leaves P-wide (module docstring). Returns `(objective [K·P],
+    data loss [K·P], new statistics {name: [K·P, ...]})`."""
+    kp = x.shape[0]
+    if ctx.client_fold == "vmap":
+        base = widen_clients(base, kp)
+        base_c = None if base_c is None else widen_clients(base_c, kp)
+        stats = {n: widen_clients(t, kp) for n, t in stats.items()}
+        images = widen_clients(images, kp)
+    if cstate is not None:
+        cstate = cstate._replace(y=widen_clients(cstate.y, kp), rho=widen_clients(cstate.rho, kp))
+    loss, dl, new_stats = objective(ctx, base, x, stats, images, labels, cstate, base_c)
+    return loss, dl, {n: widen_clients(t, kp) for n, t in new_stats.items()}
 
 
 def client_train_step(
@@ -208,8 +238,15 @@ def client_train_step(
             return checkpoint(evaluation, x, use_reentrant=False)
         return evaluation(x)
 
+    def fan_fn(x, d, alphas):
+        # the probes x + α·d as the sequential search forms each one
+        k, p = alphas.shape
+        xs = (x[:, None, :] + alphas[:, :, None] * d[:, None, :]).reshape(k * p, -1)
+        loss, dl, new_stats = fan_objective(ctx, base, xs, stats, images, labels, cstate, base_c)
+        return loss.reshape(k, p), tuple(t.reshape(k, p, *t.shape[1:]) for t in (dl, *(new_stats[n] for n in names)))
+
     x0 = ctx.partition.extract(flat, ctx.gid).contiguous()
-    x1, lstate, aux = lbfgs_step(loss_fn, x0, lstate, ctx.lbfgs, has_aux=True)
+    x1, lstate, aux = lbfgs_step(loss_fn, x0, lstate, ctx.lbfgs, has_aux=True, fan_fn=fan_fn)
     ctx.partition.insert_(flat, ctx.gid, x1)
     dl_final, *stats_final = aux.aux
     stats = dict(zip(names, select(aux.aux_ok, tuple(stats_final), tuple(stats[n] for n in names))))

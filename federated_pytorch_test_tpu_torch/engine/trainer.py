@@ -11,7 +11,11 @@ machinery. Kept from it:
   strategy 'none' (independent training) the partition is one group, the
   whole vector, and nothing is exchanged;
 * every client starts from the same draw, or with `init_model=False` from
-  its own (`init_client_params(common=False)`);
+  its own (`init_client_params(common=False)`); with `average_model` the
+  clients' parameters (restored ones included) are replaced once by their
+  mean before training;
+* without a CIFAR archive the deterministic synthetic stand-in is used,
+  unless `synthetic_ok` is False, which raises;
 * each client reshuffles its shard every epoch with the same numpy
   recipe (`_epoch_seed(seed + 69, nloop, gid, nadmm, epoch)`), so both
   packages train on identical minibatches;
@@ -109,6 +113,7 @@ class Trainer:
             source = load_cifar(
                 cfg.dataset,
                 cfg.data_root,
+                synthetic_ok=cfg.synthetic_ok,
                 synthetic_n_train=cfg.synthetic_n_train,
                 synthetic_n_test=cfg.synthetic_n_test,
             )
@@ -175,6 +180,9 @@ class Trainer:
             except FileNotFoundError:
                 if cfg.load_model:
                     raise  # load_model requires a checkpoint; resume='auto' starts fresh
+        if cfg.average_model:
+            # one-shot whole-model mean over the clients before training
+            self.flat = self.flat.mean(dim=0, keepdim=True).expand_as(self.flat).contiguous()
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -200,6 +208,7 @@ class Trainer:
             strategy=cfg.strategy,
             admm=cfg.admm_config(),
             remat=cfg.remat,
+            client_fold=cfg.client_fold,
         )
 
     def epoch_indices(self, *loop_ids: int) -> np.ndarray:

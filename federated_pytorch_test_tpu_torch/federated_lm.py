@@ -66,7 +66,7 @@ class LMConfig:
     device: str = "cuda"
 
     def lbfgs_config(self) -> LBFGSConfig:
-        return LBFGSConfig(max_iter=4, history_size=10)
+        return LBFGSConfig(max_iter=4, history_size=10, line_search=True, batch_mode=True)
 
 
 def markov_corpus(client: int, n_seq: int, seq: int, vocab: int, rng: np.random.Generator) -> np.ndarray:

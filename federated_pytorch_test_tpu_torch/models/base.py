@@ -12,6 +12,18 @@ as in the JAX package) and has two forwards:
 
 Both take NHWC images, the JAX package's layout, at the public boundary.
 
+Probe fans (`client_fold='gemm'`, `engine/steps.py`). A fan of P line-
+search probes gives the probe axis only to the active group's parameters:
+their leaves arrive with K·P clients (client-major, row k·P + p), every
+other leaf with K. `client_linear`, `client_affine` and `client_conv2d`
+take activations of either width against weights of either width: a
+narrow activation meets P-wide weights by being repeated P times (the
+first active layer: below it the forward runs once a fan), and a P-wide
+activation meets frozen weights as K clients on a P-times-wider batch.
+Layers whose result depends on the whole batch — BatchNorm's statistics,
+the switch MoE's capacity — instead repeat their frozen parameters P
+times, so that each (client, probe) keeps its own.
+
 Every model carries a compute dtype (`dtype`, the engine's
 `compute_dtype`), as the JAX package's models do: parameters stay f32
 (the engine may hand them over already cast), and each layer casts its
@@ -26,6 +38,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..partition import Partition, build_partition, flatten_params, leaf_order, param_shapes
@@ -57,6 +70,72 @@ def resolve_dtype(dtype: torch.dtype) -> torch.dtype:
     if dtype not in COMPUTE_DTYPES.values():
         raise ValueError(f"dtype must be one of {list(COMPUTE_DTYPES.values())}, got {dtype!r}")
     return dtype
+
+
+def widen_clients(h: torch.Tensor, k: int) -> torch.Tensor:
+    """`h [Kc, ...]` repeated to `k` clients where `k` is wider, each
+    client's rows P = k/Kc times in a row (client-major, as a fan's widened
+    leaves); `h` itself where it already has `k` or more."""
+    return h if h.shape[0] >= k else h.repeat_interleave(k // h.shape[0], dim=0)
+
+
+def client_linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Per-client dense layer `x [Kc, M, in] -> [max(Kc, Kw), M, out]` with
+    `weight [Kw, out, in]`, `bias [Kw, out]`, where Kc and Kw may differ by
+    a fan's factor P (module docstring)."""
+    kc, kw = x.shape[0], weight.shape[0]
+    if kw > kc:
+        x, kc = widen_clients(x, kw), kw
+    if kc == kw:
+        return torch.baddbmm(bias[:, None, :], x, weight.transpose(1, 2))
+    _, m, n_in = x.shape  # frozen weights: K clients on a P-times-wider batch
+    out = torch.baddbmm(bias[:, None, :], x.reshape(kw, (kc // kw) * m, n_in), weight.transpose(1, 2))
+    return out.reshape(kc, m, -1)
+
+
+def client_affine(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """`y [Kc, M, D] · scale + bias` with per-client `[Kw, D]` terms, Kc and
+    Kw as in `client_linear`."""
+    kc, kw = y.shape[0], scale.shape[0]
+    if kw > kc:
+        y, kc = widen_clients(y, kw), kw
+    if kc == kw:
+        return y * scale[:, None, :] + bias[:, None, :]
+    m = y.shape[1]
+    return (y.reshape(kw, (kc // kw) * m, -1) * scale[:, None, :] + bias[:, None, :]).reshape(y.shape)
+
+
+def widen_channels(h: torch.Tensor, kc: int, k: int) -> torch.Tensor:
+    """A grouped-channel activation `[B, Kc·C, H, W]` of `kc` clients
+    repeated to `k` clients where `k` is wider (each client's channels P
+    times in a row)."""
+    if k <= kc:
+        return h
+    b, ch, hh, ww = h.shape
+    return h.reshape(b, kc, 1, ch // kc, hh, ww).expand(b, kc, k // kc, ch // kc, hh, ww).reshape(b, k * (ch // kc),
+                                                                                                    hh, ww)
+
+
+def client_conv2d(h: torch.Tensor, kc: int, weight: torch.Tensor, bias=None, **kw) -> Tuple[torch.Tensor, int]:
+    """Grouped convolution of `kc` clients' channels `h [B, Kc·C, H, W]`
+    with `weight [Kw, O, I, kh, kw]` (and `bias [Kw, O]`); returns the
+    output `[B, Kc'·O, H', W']` and its client count Kc' = max(Kc, Kw).
+    Frozen weights under a P-wide activation run on the P probes' images
+    as one batch of P·B (`kw` are `F.conv2d`'s keyword arguments)."""
+    n_w, o, i, kh, kww = weight.shape
+    if n_w > kc:
+        h, kc = widen_channels(h, kc, n_w), n_w
+    w = weight.reshape(n_w * o, i, kh, kww)
+    b2 = None if bias is None else bias.reshape(n_w * o)
+    if kc == n_w:
+        return F.conv2d(h, w, b2, groups=n_w, **kw), kc
+    p = kc // n_w
+    b, _, hh, ww = h.shape
+    folded = h.reshape(b, n_w, p, i, hh, ww).permute(2, 0, 1, 3, 4, 5).reshape(p * b, n_w * i, hh, ww)
+    out = F.conv2d(folded, w, b2, groups=n_w, **kw)
+    _, _, oh, ow = out.shape
+    out = out.reshape(p, b, n_w, o, oh, ow).permute(1, 2, 0, 3, 4, 5).reshape(b, kc * o, oh, ow)
+    return out, kc
 
 
 def xavier_bound(shape: Tuple[int, ...]) -> float:

@@ -37,7 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.grouped_gemm import grouped_matmul
-from .base import EXPERT_BIAS, EXPERT_WEIGHT
+from .base import EXPERT_BIAS, EXPERT_WEIGHT, widen_clients
 
 
 class MoEMLP(nn.Module):
@@ -87,7 +87,16 @@ class MoEMLP(nn.Module):
 
     def forward_batched(self, params: Dict[str, torch.Tensor], prefix: str, y: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """`y [K, T, D]` -> (output `[K, T, D]`, load-balance term `[K]`)."""
+        """`y [K, T, D]` -> (output `[K, T, D]`, load-balance term `[K]`).
+
+        Under a probe fan (`models/base.py`) a P-wide `y` meets frozen
+        parameters repeated P times: the capacity counts one (client,
+        probe)'s tokens, as for each probe alone."""
+        names = [f"{prefix}.{n}" for n in ("gate.weight", "gate.bias", "w1", "b1", "w2", "b2")]
+        kw = params[names[0]].shape[0]
+        y = widen_clients(y, kw)
+        if y.shape[0] > kw:
+            params = {**params, **{n: widen_clients(params[n], y.shape[0]) for n in names}}
         k, t, d = y.shape
         e, h = self.n_experts, self.hidden
         cap = self.capacity(t)

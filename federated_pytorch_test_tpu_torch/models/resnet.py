@@ -8,7 +8,10 @@ The 10 groups are the reference's `upidx` table read structurally:
 
 `forward_batched` runs K clients at once, as `SimpleCNN` does: the client
 axis rides the channel axis of grouped convolutions, and BatchNorm over
-K·C channels gives each client its own statistics.
+K·C channels gives each client its own statistics. Under a probe fan
+(`models/base.py`) a BatchNorm above the active group runs over K·P·C
+channels, its scale and bias repeated, so each probe keeps its own
+statistics, and the new running averages come out for K·P clients there.
 
 BatchNorm follows Flax's `nn.BatchNorm(momentum=0.9, epsilon=1e-5)` in
 f32 (`use_fast_variance=True`):
@@ -49,7 +52,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .base import PartitionedModel, resolve_dtype
+from .base import PartitionedModel, client_conv2d, client_linear, resolve_dtype, widen_channels, widen_clients
 
 MOMENTUM = 0.9  # Flax's: new = MOMENTUM·old + (1 − MOMENTUM)·batch
 EPS = 1e-5
@@ -143,20 +146,28 @@ class ResNet18(PartitionedModel):
         if not train and stats is None:
             raise ValueError("eval mode normalizes with the running averages: pass `stats`")
         new_stats = {} if train and stats is not None else None
+        # clients of the activation: K, or K·P from a probe fan's first active layer on
+        kc = k
 
         def conv(h, name, stride):
+            nonlocal kc
             w = params[f"{name}.weight"].to(dt)
-            _, o, i, kh, kw = w.shape
-            w = w.reshape(k * o, i, kh, kw)
+            kh, kw = w.shape[-2:]
             if kh == 1:  # the shortcut: "VALID"
-                return F.conv2d(h, w, stride=stride, groups=k)
+                out, kc = client_conv2d(h, kc, w, stride=stride)
+                return out
             (top, bottom), (left, right) = _same_pads(h.shape[2], kh, stride), _same_pads(h.shape[3], kw, stride)
             if top == bottom and left == right:
-                return F.conv2d(h, w, stride=stride, padding=(top, left), groups=k)
-            return F.conv2d(F.pad(h, (left, right, top, bottom)), w, stride=stride, groups=k)
+                out, kc = client_conv2d(h, kc, w, stride=stride, padding=(top, left))
+            else:
+                out, kc = client_conv2d(F.pad(h, (left, right, top, bottom)), kc, w, stride=stride)
+            return out
 
         def bn(h, name):
-            w, bias = params[f"{name}.weight"].reshape(-1).float(), params[f"{name}.bias"].reshape(-1).float()
+            # frozen scale and bias under a P-wide activation are repeated, so
+            # that each (client, probe) normalizes with its own batch statistics
+            w = widen_clients(params[f"{name}.weight"], kc).reshape(-1).float()
+            bias = widen_clients(params[f"{name}.bias"], kc).reshape(-1).float()
             if not train:
                 return F.batch_norm(h, stats[f"{name}.mean"].reshape(-1), stats[f"{name}.var"].reshape(-1),
                                     w, bias, training=False, eps=EPS)
@@ -166,7 +177,7 @@ class ResNet18(PartitionedModel):
                     mean = hd.mean(dim=(0, 2, 3))
                     var = torch.clamp((hd * hd).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
                     for key, batch in (("mean", mean), ("var", var)):
-                        old = stats[f"{name}.{key}"]
+                        old = widen_clients(stats[f"{name}.{key}"], kc)
                         new_stats[f"{name}.{key}"] = MOMENTUM * old + (1.0 - MOMENTUM) * batch.reshape(old.shape)
             return F.batch_norm(h, None, None, w, bias, training=True, eps=EPS)
 
@@ -174,17 +185,20 @@ class ResNet18(PartitionedModel):
         h = F.elu(bn(conv(h, "conv1", 1), "bn1"))
         for i, (_, stride) in enumerate(self.stages):
             name = f"block{i}"
+            # a block's leaves share one width: widen the input, shortcut included
+            kb = params[f"{name}.conv1.weight"].shape[0]
+            if kb > kc:
+                h, kc = widen_channels(h, kc, kb), kb
             out = F.elu(bn(conv(h, f"{name}.conv1", stride), f"{name}.bn1"))
             out = bn(conv(out, f"{name}.conv2", 1), f"{name}.bn2")
             if getattr(self, name).shortcut:
                 h = bn(conv(h, f"{name}.sc_conv", stride), f"{name}.sc_bn")
             h = F.elu(out + h)
         h = F.avg_pool2d(h, 4, 4)  # 4x4 -> 1x1
-        _, kc, fh, fw = h.shape
+        _, kch, fh, fw = h.shape
         # NHWC flatten, as the JAX model does before the head
-        h = h.reshape(b, k, kc // k, fh, fw).permute(1, 0, 3, 4, 2).reshape(k, b, -1)
-        logits = torch.baddbmm(params["linear.bias"].to(dt)[:, None, :], h,
-                               params["linear.weight"].to(dt).transpose(1, 2))
+        h = h.reshape(b, kc, kch // kc, fh, fw).permute(1, 0, 3, 4, 2).reshape(kc, b, -1)
+        logits = client_linear(h, params["linear.weight"].to(dt), params["linear.bias"].to(dt))
         return (logits, new_stats) if train else logits
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

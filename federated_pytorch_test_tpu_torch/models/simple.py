@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .base import PartitionedModel, resolve_dtype
+from .base import PartitionedModel, client_conv2d, client_linear, resolve_dtype
 
 # (name, in_channels, out_channels, kernel, padding, pool_after)
 ConvSpec = Tuple[str, int, int, int, int, bool]
@@ -52,24 +52,23 @@ class SimpleCNN(PartitionedModel):
         The client axis rides the channel axis of a grouped convolution
         (`groups=K`) and the batch axis of `bmm`, so each layer is one
         launch for all clients, and client k only ever reads its own
-        weights.
+        weights. Under a probe fan (`models/base.py`) the logits come out
+        for K·P clients.
         """
         k, b, hh, ww, c = x.shape
         dt = self.dtype
         h = x.permute(1, 0, 4, 2, 3).reshape(b, k * c, hh, ww).to(dt)
-        cout = c
+        cout, kc = c, k
         for name, cin, cout, ks, pad, pool in self.CONVS:
-            w = params[f"{name}.weight"].reshape(k * cout, cin, ks, ks).to(dt)
-            bias = params[f"{name}.bias"].reshape(k * cout).to(dt)
-            h = F.elu(F.conv2d(h, w, bias, padding=pad, groups=k))
+            h, kc = client_conv2d(h, kc, params[f"{name}.weight"].to(dt), params[f"{name}.bias"].to(dt), padding=pad)
+            h = F.elu(h)
             if pool:
                 h = F.max_pool2d(h, 2, 2)
         _, _, fh, fw = h.shape
         # NHWC flatten, as the JAX models do before fc1
-        h = h.reshape(b, k, cout, fh, fw).permute(1, 0, 3, 4, 2).reshape(k, b, fh * fw * cout)
+        h = h.reshape(b, kc, cout, fh, fw).permute(1, 0, 3, 4, 2).reshape(kc, b, fh * fw * cout)
         for i, (name, _fin, _fout) in enumerate(self.DENSES):
-            w = params[f"{name}.weight"].to(dt)
-            h = torch.baddbmm(params[f"{name}.bias"].to(dt)[:, None, :], h, w.transpose(1, 2))
+            h = client_linear(h, params[f"{name}.weight"].to(dt), params[f"{name}.bias"].to(dt))
             if i < len(self.DENSES) - 1:
                 h = F.elu(h)
         return h

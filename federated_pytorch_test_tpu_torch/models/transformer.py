@@ -48,7 +48,7 @@ from torch import nn
 
 from ..ops.attention import dense_attention
 from ..ops.flash_cuda import BLOCK, check_shape, flash_attention
-from .base import PartitionedModel, resolve_dtype
+from .base import PartitionedModel, client_affine, client_linear, resolve_dtype, widen_clients
 from .moe import MoEMLP
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default
@@ -78,16 +78,16 @@ def resolve_attn_impl(impl: str, seq: int, precision: str = "highest") -> str:
 
 
 def _linear(params, name, x, dt=torch.float32):
-    """Per-client dense layer in `dt`: x `[K, M, in]` -> `[K, M, out]`."""
-    return torch.baddbmm(params[f"{name}.bias"].to(dt)[:, None, :], x.to(dt),
-                         params[f"{name}.weight"].to(dt).transpose(1, 2))
+    """Per-client dense layer in `dt`: x `[K, M, in]` -> `[K, M, out]` (a
+    probe fan's widths as `models/base.py` `client_linear`)."""
+    return client_linear(x.to(dt), params[f"{name}.weight"].to(dt), params[f"{name}.bias"].to(dt))
 
 
 def _layer_norm(params, name, x, dt=torch.float32):
     """Per-client LayerNorm over the last axis of `x [K, M, dim]`: statistics,
     normalization, scale and bias in f32, the output in `dt`."""
     y = F.layer_norm(x.float(), x.shape[-1:], eps=LN_EPS)
-    return (y * params[f"{name}.weight"].float()[:, None, :] + params[f"{name}.bias"].float()[:, None, :]).to(dt)
+    return client_affine(y, params[f"{name}.weight"].float(), params[f"{name}.bias"].float()).to(dt)
 
 
 class MultiHeadAttention(nn.Module):
@@ -136,7 +136,11 @@ class Block(nn.Module):
 
     def forward_batched(self, params, prefix: str, x: torch.Tensor, impl: str, precision: str = "highest",
                         dt=torch.float32):
-        """x `[K, B, S, dim]` -> (`[K, B, S, dim]`, the MoE's load-balance term `[K]`, or None)."""
+        """x `[K, B, S, dim]` -> (`[K, B, S, dim]`, the MoE's load-balance term `[K]`, or None).
+
+        Under a probe fan a block whose leaves are P-wide widens its input
+        first, so that the residual stream is P-wide from there on."""
+        x = widen_clients(x, params[f"{prefix}.ln1.weight"].shape[0])
         k, b, s, dim = x.shape
         y = _layer_norm(params, f"{prefix}.ln1", x.reshape(k, b * s, dim), dt).reshape(k, b, s, dim)
         x = x + self.attn.forward_batched(params, f"{prefix}.attn", y, impl, precision, dt)
@@ -157,7 +161,7 @@ def _blocks(model, params, x, impl):
         x, block_aux = getattr(model, f"block{i}").forward_batched(params, f"block{i}", x, impl,
                                                                     model.attn_precision, model.dtype)
         if block_aux is not None:
-            aux = aux + block_aux
+            aux = widen_clients(aux, block_aux.shape[0]) + block_aux
     return x, aux
 
 
@@ -268,11 +272,12 @@ class ViT(PartitionedModel):
         patches = x.reshape(k, b, hh // p, p, ww // p, p, c).permute(0, 1, 2, 4, 6, 3, 5)
         patches = patches.reshape(k, b * t, c * p * p)
         dt = self.dtype
-        w = params["embed.weight"].reshape(k, self.dim, c * p * p).to(dt)
-        h = torch.baddbmm(params["embed.bias"].to(dt)[:, None, :], patches.to(dt), w.transpose(1, 2))
-        h = h.reshape(k, b, t, self.dim) + params["pos_embed"]  # [K, 1, T, dim]
+        w = params["embed.weight"].reshape(-1, self.dim, c * p * p).to(dt)
+        h = client_linear(patches.to(dt), w, params["embed.bias"].to(dt))
+        h = h.reshape(-1, b, t, self.dim) + params["pos_embed"]  # [K, 1, T, dim]
         impl = resolve_attn_impl(self.attn_impl, t, self.attn_precision)
         h, aux = _blocks(self, params, h, impl)
-        h = _layer_norm(params, "ln_out", h.reshape(k, b * t, self.dim), dt).reshape(k, b, t, self.dim)
+        kc = h.shape[0]
+        h = _layer_norm(params, "ln_out", h.reshape(kc, b * t, self.dim), dt).reshape(kc, b, t, self.dim)
         logits = _linear(params, "head", h.mean(dim=2), dt)
         return (logits, aux) if return_aux else logits

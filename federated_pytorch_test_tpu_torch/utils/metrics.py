@@ -107,8 +107,10 @@ class MetricsRecorder:
 
     def objective_passes(self, lstate, *, nloop, group) -> None:
         """A round's batched model passes, from its optimizer state: with a
-        gradient, without one, and directions (one per inner iteration)."""
-        value = {"grad": lstate.grad_passes, "value": lstate.value_passes, "direction": lstate.direction_passes}
+        gradient, without one (a probe fan is one), directions (one per
+        inner iteration), and the optimizer's host reads."""
+        value = {"grad": lstate.grad_passes, "value": lstate.value_passes, "direction": lstate.direction_passes,
+                 "host_reads": lstate.host_reads}
         self.log("objective_passes", value, nloop=nloop, group=group)
 
     def step_time(self, phase: str, seconds: float, **context) -> None:

@@ -41,6 +41,11 @@ def _long_flags(parser: argparse.ArgumentParser) -> set:
     "--max-groups 1 --data-root /x",
     "--compute-dtype bfloat16 --remat",
     "--compute-dtype float32 --no-remat",
+    "--linesearch-probes 4 --client-fold vmap",
+    "--client-fold gemm --linesearch-probes 1",
+    "--average-model --no-synthetic-ok",
+    "--no-average-model --synthetic-ok",
+    "--preset fedavg_scale64 --lbfgs-direction pallas",
 ], ids=lambda a: a.split()[0].lstrip("-") + "_" + a.split()[-1].lstrip("-/"))
 def test_flags_parse_as_the_jax_cli_parses_them(argv):
     port = _overrides(cli.build_parser().parse_args(argv.split()), ExperimentConfig)
@@ -62,12 +67,13 @@ def test_every_field_has_a_flag_and_every_flag_is_the_jax_clis_or_the_ports_own(
 def test_list_presets_prints_the_jax_clis_lines(capsys):
     assert cli.main(["--list-presets"]) == 0
     lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == len(cli.PRESETS)
+    assert len(lines) == len(cli.PRESETS) == 7  # the scale64 pair included
     assert jax_cli.main(["--list-presets"]) == 0
     ref = set(capsys.readouterr().out.splitlines())
     for name, line in zip(sorted(cli.PRESETS), lines):
         assert re.fullmatch(rf"{name} +model=\S+ +strategy=\S+ +batch=\d+ nloop=\d+ nadmm=\d+", line), line
         assert line in ref, line
+    assert set(lines) == ref
 
 
 def test_a_run_reaches_the_trainer_with_the_flags(monkeypatch):

@@ -15,8 +15,9 @@ each), the no_consensus drive (Net1, one group, two epochs), and the
 switch-MoE ViT over the ViT's two groups, whose grouped
 GEMM launches twice a block in every forward, twice in each
 block the gradient crosses and twice more (the weight gradients) in the
-block the group trains (`expected_grouped`). Counts are exact: no
-tolerance.
+block the group trains (`expected_grouped`), and the same MoE ViT with
+probe fans of 4 under both folds, each fan one forward pass. Counts are
+exact: no tolerance.
 """
 
 import importlib.util
@@ -156,6 +157,37 @@ def test_vit_moe_launches_equal_the_count_its_records_imply(monkeypatch):
                       "flash_bwd_dkv_rect": exp["backward"]}
 
 
+@pytest.mark.parametrize("fold", ["gemm", "vmap"])
+def test_a_probe_fan_is_one_forward_in_every_block(monkeypatch, fold):
+    # `linesearch_probes=4` on the switch-MoE ViT over block1 (block0 below
+    # it runs once a fan for K clients, the blocks above it for K·P) and the
+    # head (every block below it): each fan is one value pass, each block's
+    # attention and experts launch once in it, so the formula needs no new
+    # term; the compact kernels, one per direction, do not run in a fan
+    counts = {}
+    _count_calls(monkeypatch, grouped_gemm, ("grouped_matmul_fwd", "grouped_matmul_dlhs", "grouped_matmul_drhs"),
+                 counts)
+    _count_calls(monkeypatch, flash_cuda, flash_cuda.RECT_KERNELS, counts)
+    _count_calls(monkeypatch, compact_cuda, tuple(compact_cuda.LAUNCHES), counts)
+    cfg = ExperimentConfig(model="vit", model_kwargs={"patch": 2, "attn_impl": "flash", "dim": 32, "num_heads": 2,
+                                                      "moe_experts": 2},
+                           device="cpu", batch=8, eval_batch=8, nloop=1, nadmm=1, lbfgs_direction="pallas",
+                           linesearch_probes=4, client_fold=fold)
+    tr = Trainer(cfg, verbose=False, source=synthetic_cifar(24, 16))
+    tr.group_order = [2, 5]
+    rec = tr.run()
+    passes = [r["value"] for r in rec.series["objective_passes"]]
+    assert all(p["value"] > 0 for p in passes)  # the fans ran
+    exp = chip_smoke.expected_launches(rec, tr.model, sweep_passes=len(tr.test_imgs))
+    grouped = chip_smoke.expected_grouped(exp, cfg)
+    assert counts == {"grouped_matmul_fwd": grouped["grouped_matmul"],
+                      "grouped_matmul_dlhs": grouped["grouped_matmul_dlhs"],
+                      "grouped_matmul_drhs": grouped["grouped_matmul_drhs"],
+                      "flash_fwd_rect": exp["forward"], "flash_bwd_dq_rect": exp["backward"],
+                      "flash_bwd_dkv_rect": exp["backward"],
+                      "fused_gram_projections": exp["direction"], "fused_direction_assembly": exp["direction"]}
+
+
 def test_grouped_formula_at_the_chip_shapes():
     # the MoE ViT path's own shapes: both weight gradients split, once each
     cfg = get_preset("fedavg", model="vit", model_kwargs=chip_smoke.VIT_MOE_KWARGS)
@@ -187,7 +219,7 @@ def test_batched_passes_agree_with_the_per_client_counters():
     def loss(x):
         return 0.5 * (x * (mats @ x[..., None])[..., 0]).sum(-1) - (rhs * x).sum(-1)
 
-    cfg = LBFGSConfig(max_iter=6, history_size=4)
+    cfg = LBFGSConfig(max_iter=6, history_size=4, line_search=True, batch_mode=True)
     x = torch.zeros(3, n)
     state = lbfgs_init(x, cfg)
     grad = value = direction = 0

@@ -71,7 +71,7 @@ def test_two_lbfgs_steps_on_fc1_match_jax(direction):
     jfinal = np.asarray(jpart.insert(jflat, GID, x))
 
     model = Net()
-    cfg = LBFGSConfig(max_iter=4, history_size=10, direction=direction)
+    cfg = LBFGSConfig(max_iter=4, history_size=10, line_search=True, batch_mode=True, direction=direction)
     ctx = GroupContext(
         model=model, shapes=model.shapes(), partition=model.partition(), gid=GID,
         lbfgs=cfg, reg_on_active=True, lambda1=L1, lambda2=L2,
@@ -110,7 +110,7 @@ def test_batched_clients_equal_independent_runs():
         r = rhs[:k] if k == 3 else rhs[sel[0] : sel[0] + 1]
         return 0.5 * (x * (m @ x[..., None])[..., 0]).sum(-1) - (r * x).sum(-1)
 
-    cfg = LBFGSConfig(max_iter=6, history_size=4)
+    cfg = LBFGSConfig(max_iter=6, history_size=4, line_search=True, batch_mode=True)
     x0 = torch.zeros(3, n)
     x0[2, 0] = float("nan")  # client 2 enters with a NaN gradient
     sel = [0]

@@ -161,8 +161,8 @@ def test_bf16_model_matches_jax(name, monkeypatch):
             .long(), reduction="none").mean(-1)
         new_stats = {}
     else:
-        ctx = GroupContext(model=model, shapes=shapes, partition=part, gid=gid, lbfgs=LBFGSConfig(),
-                           reg_on_active=False)
+        ctx = GroupContext(model=model, shapes=shapes, partition=part, gid=gid,
+                           lbfgs=LBFGSConfig(line_search=True, batch_mode=True), reg_on_active=False)
         stats = {}
         if jstats is not None:
             stats = {n: t[None].repeat(K, *([1] * t.dim())) for n, t in stats_from_jax(jstats, model).items()}
@@ -214,7 +214,7 @@ def test_bf16_lbfgs_step_on_fc1_matches_jax():
     jfinal = np.asarray(jpart.insert(jflat, gid, x))
 
     model = Net(dtype=torch.bfloat16)
-    cfg = LBFGSConfig(max_iter=4, history_size=10)
+    cfg = LBFGSConfig(max_iter=4, history_size=10, line_search=True, batch_mode=True)
     ctx = GroupContext(model=model, shapes=model.shapes(), partition=model.partition(), gid=gid, lbfgs=cfg,
                        reg_on_active=True, lambda1=lam, lambda2=lam)
     flat = torch.from_numpy(flat_from_jax(np.asarray(jflat), model))[None].clone()

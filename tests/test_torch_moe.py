@@ -203,8 +203,8 @@ def test_data_loss_matches_jax_with_and_without_the_aux_term(jax_moe_ctx):
     model = ViT(dim=DIM, num_heads=2, moe_experts=2)
     flat = torch.from_numpy(flat_from_jax(flat0, model))[None]
     params = unflatten_params(flat, model.shapes())
-    ctx = GroupContext(model=model, shapes=model.shapes(), partition=model.partition(), gid=0, lbfgs=LBFGSConfig(),
-                       reg_on_active=False, moe_aux_coef=coef)
+    ctx = GroupContext(model=model, shapes=model.shapes(), partition=model.partition(), gid=0,
+                       lbfgs=LBFGSConfig(line_search=True, batch_mode=True), reg_on_active=False, moe_aux_coef=coef)
     got = {}
     for c in (coef, 0.0):
         with torch.no_grad():

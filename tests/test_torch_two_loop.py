@@ -104,7 +104,7 @@ def test_two_loop_lbfgs_steps_match_jax_and_compact():
 
     got = {}
     for direction in ("two_loop", "compact"):
-        cfg = LBFGSConfig(max_iter=10, history_size=5, direction=direction)
+        cfg = LBFGSConfig(max_iter=10, history_size=5, line_search=True, batch_mode=True, direction=direction)
         x = torch.zeros((K, 8), dtype=torch.float64)
         st = lbfgs_init(x, cfg)
         for _ in range(3):
