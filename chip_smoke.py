@@ -4,7 +4,8 @@
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--metrics-out PATH] [--lm-metrics-out PATH] [--vit-metrics-out PATH]
-                          [--vit-moe-metrics-out PATH] [--admm-metrics-out PATH]
+                          [--vit-moe-metrics-out PATH] [--vit-moe-bf16-metrics-out PATH]
+                          [--admm-metrics-out PATH]
                           [--resnet-metrics-out PATH] [--no-consensus-metrics-out PATH]
                           [--scale64-metrics-out PATH] [--fan-metrics-out PATH] [--profile]
     python3 chip_smoke.py --ab-parent DIR [--ab-phases phase_train,...]
@@ -19,15 +20,16 @@ autograd forward and backward beside SDPA's; it also says whether the
 assembly's outputs, bf16 dq's outputs and the train phases' loss series
 are equal in bits across the turns of both checkouts.
 
-Phases, each reported on its own lines; any failure exits non-zero:
+Phases, each reported on its own lines and followed by its wall (`phase
+<name> seconds=`); any failure exits non-zero:
 
 1. card     — `nvidia-smi` name and power limit;
-2. build    — nvcc builds the port's four CUDA sources, all at once; ptxas's
+2. build    — nvcc builds the port's five CUDA sources, all at once; ptxas's
               registers and spills and the SASS tensor-core instruction
               counts of every tensor-core instance (the flash forward and
               backward, causal and not, split and one-pass; the bf16 flash
-              trio; the grouped GEMM's split-TF32 instances), each of which
-              must hold HGMMA and spill nothing;
+              trio; the grouped GEMM's split-TF32 and bf16 instances), each
+              of which must hold HGMMA and spill nothing;
 3. kernels  — each compact-direction kernel against its plain PyTorch version
               on the card (K=3, m=10, N at every Net group size, one
               ResNet18-block-sized N, counts {0, 3, 10}, a zero-curvature
@@ -99,9 +101,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
               once per direction the optimizer's records count
               (`expected_launches`), losses must be finite and every
               client's accuracy above chance;
-7a. net bf16 — phase 7's run at compute_dtype bf16 under deterministic
-              cuDNN: finite losses, accuracy above chance, compact launches
-              exact;
+7a. net bf16 — phase 7's run at compute_dtype bf16: finite losses,
+              accuracy above chance, compact launches exact;
 8. lm parity — the LM's first round (K=4, S=256) step by step with
               'dense' attention (plain) and 'flash' (the kernels), both fed
               the same parameters and optimizer state before each step:
@@ -160,6 +161,14 @@ Phases, each reported on its own lines; any failure exits non-zero:
               (the bytes, or three TF32 products) and the FFMA ceiling; the
               split sum's with the L2 cache flushed before every call, so
               that its bytes bound holds (each reading must not beat it);
+12″. grouped bf16 — the bf16 grouped GEMM (`csrc/grouped_gemm_bf16.cu`)
+              on bf16 operands at every shape of phase 12 and both ragged
+              shapes: within two bf16 units of the largest entry of the
+              float64 product of the same bf16 operands, rounded to bf16;
+              two launches equal bits; the bf16 split sum equal in bits to
+              its plain version; times of the kernel, the plain version and
+              `torch.bmm` on the bf16 operands beside the bound (bf16
+              products at 989 TFLOP/s or the bytes);
 13. vit_moe parity — the MoE ViT's block-0 round (its experts train; the
               gradient crosses every block) step by step at batch 128: the
               plain side ('dense' attention, the grouped GEMM's plain
@@ -174,6 +183,11 @@ Phases, each reported on its own lines; any failure exits non-zero:
               must have launched exactly as often as the run's records imply
               (`expected_grouped`), losses must be finite and every
               client's accuracy above chance;
+14″. vit_moe bf16 — phase 14 at compute_dtype bf16 with attn_precision
+              'default': launches of the bf16 grouped roles, the one-pass
+              rectangular flash kernels and the compact pair gated exactly;
+              finite losses, every client above chance; wall and peak
+              printed beside phase 14's;
 15. admm train — the admm path: the admm preset (Net, K=3, batch 512,
               nadmm 5, BB rho from 1e-3) on the full-size synthetic stand-in
               with the fused-kernel direction, one outer loop over all five
@@ -189,7 +203,7 @@ Phases, each reported on its own lines; any failure exits non-zero:
               from float64 than the kernel's; the first step prints both
               distances) and the 'pallas' direction, fed the same
               parameters, BatchNorm statistics, optimizer and ADMM state
-              before each step (cuDNN deterministic): losses, parameters,
+              before each step: losses, parameters,
               statistics and the primal and dual residuals within
               relative 1e-3;
 17. resnet train — the ResNet paths at full width with the fused-kernel
@@ -210,7 +224,7 @@ Phases, each reported on its own lines; any failure exits non-zero:
               elastic net on fc1 only) on the full-size synthetic stand-in
               with the fused-kernel direction, 2 of its 12 epochs (a
               `reduced` line says so), evaluated after every epoch and at
-              the end, cuDNN deterministic (restored after). Compact
+              the end. Compact
               launches gated exactly; losses finite; every
               client's accuracy above chance; the clients' parameters
               pairwise different; one minibatch's objective within relative
@@ -224,7 +238,7 @@ Phases, each reported on its own lines; any failure exits non-zero:
               direction at 48,120 and 890,410 against the plain compact
               direction in float64 (relative 1e-5), timed beside the kernel
               direction;
-20. resume   — on the card, cuDNN deterministic: fedavg (Net, two groups)
+20. resume   — on the card, under the port's defaults: fedavg (Net, two groups)
               and admm (Net's first group, nadmm 5, BB with its thresholds
               opened so that the second loop starts from an accepted rho),
               each run for two outer loops straight and for one loop with
@@ -232,6 +246,12 @@ Phases, each reported on its own lines; any failure exits non-zero:
               `load_model=True`: final parameters, rho store and the second
               loop's series bitwise equal (the largest differences printed
               either way), on 12,288 train images (a `reduced` line);
+20a. repeat  — the first round of the Net fedavg path (conv1), admm_resnet
+              (conv1), the LM (its embedding), the ViT and the MoE ViT at
+              f32 and bf16 (block0), each run twice from a fresh Trainer
+              under the port's defaults (deterministic cuDNN): final
+              parameters and loss series bitwise equal (a `reduced` line:
+              1,000 test images);
 21. scale64 — the two scale64 presets (K=64 ResNet18 clients on CIFAR-100,
               the 64 clients the batch axis of one card) at full width on
               8,192 synthetic train images (4 minibatches of 32 a client; a
@@ -246,11 +266,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
               31 and 63 against the plain version in float64 (relative
               1e-5), timed beside the bytes bound and the `matmul` yardstick;
 22. probe fan — the fedavg preset (Net, K=3, phase 7's inputs, fused-kernel
-              direction, cuDNN deterministic) at `linesearch_probes=1`, its
-              loss series bitwise equal to phase 7's over the first group's
-              rounds (the rounds before a convolution's weight gradient,
-              which phase 7's default cuDNN does not reproduce run to run),
-              then at 4 under `client_fold` 'gemm' and 'vmap': compact
+              direction) at `linesearch_probes=1`, its loss series bitwise
+              equal to phase 7's over the whole loop, then at 4 under `client_fold` 'gemm' and 'vmap': compact
               launches gated, the accepted step sizes of every step equal to
               those at 1; walls and the optimizer's host reads of each; then
               one ViT round (block1) at 4 with the rectangular flash and
@@ -273,7 +290,6 @@ import sys
 import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import contextmanager
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -286,7 +302,7 @@ NET_GROUP_SIZES = (456, 2416, 48120, 10164, 850)
 LARGE_N = 4_720_644  # ~ResNet18's largest block group; not a multiple of any tile
 REPORT_N = 48120  # the main path's largest group (fc1): the shape the JSON line reports
 RTOL = 1e-5
-SOURCES = ("compact_direction", "flash_attention", "flash_bf16", "grouped_gemm")  # csrc/<name>.cu
+SOURCES = ("compact_direction", "flash_attention", "flash_bf16", "grouped_gemm", "grouped_gemm_bf16")  # csrc/<name>.cu
 FLASH_DIMS = (16, 32, 64)
 FLASH_SEQS = (128, 256, 1024, 2048)
 FLASH_SWEEP_BH = 8
@@ -313,6 +329,9 @@ VIT_TRAIN, VIT_TEST = 12_288, 10_000  # 8 minibatches of 512 per client; the ful
 VIT_MOE_KWARGS = {**VIT_KWARGS, "moe_experts": 8}  # the JAX config's own example of E
 GROUPED_REPLACES = "federated_pytorch_test_tpu/ops/grouped_gemm.py:74"
 GROUPED_TAILS = ((3, 13, 257, 9), (3, 300, 40, 270))  # (G, M, K, N) from the card test's list
+# the bf16 grouped kernel from the float64 product of its operands rounded to
+# bf16: bf16 units (2^-8) of the largest entry (`bf16_units`)
+GROUPED_BF16_UNITS = 2.0
 LARGE_SLACK = 2.0  # q, k x 8: the kernel's error from float64 may reach this multiple of the f32 plain version's
 QUEUED_CALLS = 50  # calls queued per device-only timing (a plain version launches ~8 kernels)
 # 16 minibatches of 32 per client; 2,000 of the 10,000 test images (the 30
@@ -334,18 +353,12 @@ FAN_PROBES = 4  # linesearch_probes of the fan phase
 FAN_TIE_ATOL, FAN_TIE_RTOL = 2.0**-23, 1e-6
 
 
-@contextmanager
-def deterministic_cudnn():
-    """cuDNN in its deterministic mode, without autotuning, for the block;
-    the caller's settings are put back after it."""
-    import torch
-
-    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+def timed(phase, *args, **kwargs):
+    """`phase(*args, **kwargs)`, its wall printed after it (`phase <name> seconds=`)."""
+    t0 = time.perf_counter()
+    out = phase(*args, **kwargs)
+    print(f"phase {phase.__name__} seconds={time.perf_counter() - t0:.3f}", flush=True)
+    return out
 
 
 def fail(msg: str) -> None:
@@ -525,6 +538,17 @@ def grouped_label(mangled: str):
     if not m:
         return None
     return f"grouped_gemm_tc<{m.group(1)}, {'A' if m.group(2) == '1' else 'AT'}, {'BT' if m.group(3) == '1' else 'B'}>"
+
+
+def grouped_bf16_label(mangled: str):
+    """`grouped_gemm_bf16_tc<128, A, BT>` from a bf16 grouped GEMM instance's
+    mangled name (A, B: read K-major; AT, BT: read MN-major, not K-major
+    for A, B row-major for B)."""
+    m = re.search(r"grouped_gemm_bf16_tcILi(\d+)ELb([01])ELb([01])E", mangled)
+    if not m:
+        return None
+    return (f"grouped_gemm_bf16_tc<{m.group(1)}, {'A' if m.group(2) == '1' else 'AT'}, "
+            f"{'BT' if m.group(3) == '1' else 'B'}>")
 
 
 def history(n: int, seed: int):
@@ -1574,60 +1598,135 @@ def phase_grouped():
     return report
 
 
-def grouped_tail_check(g: int, m: int, k: int, n: int) -> None:
+def grouped_tail_check(g: int, m: int, k: int, n: int, dtype=None) -> None:
     """Every role of the grouped GEMM at a ragged shape (M, K, N off the
-    tiles, rows off 16 bytes: the kernel's 4-byte copies), its operand views
-    as autograd passes them: within RTOL of float64, two launches equal bits."""
+    tiles, rows off 16 bytes: the kernel's narrow copies), its operand views
+    as autograd passes them, two launches equal bits: f32 operands within
+    RTOL of float64; bf16 operands within GROUPED_BF16_UNITS of the float64
+    product rounded to bf16."""
     import torch
 
+    dtype = dtype or torch.float32
     gen = torch.Generator(device="cuda").manual_seed(g + m + k + n)
-    a, b, dc = (torch.randn(*sh, device="cuda", generator=gen) for sh in ((g, m, k), (g, k, n), (g, m, n)))
+    a, b, dc = (torch.randn(*sh, device="cuda", generator=gen).to(dtype) for sh in ((g, m, k), (g, k, n), (g, m, n)))
     for role, args in (("grouped_matmul", (a, b)), ("grouped_matmul_dlhs", (dc, b)), ("grouped_matmul_drhs", (a, dc))):
         kernel, plain, _, _ = grouped_role(role)
         runs = [kernel(*args) for _ in range(2)]
         ref64 = plain(*(t.double() for t in args))
         torch.cuda.synchronize()
-        same = torch.equal(runs[0].view(torch.int32), runs[1].view(torch.int32))
-        err = rel_err(runs[0].double(), ref64)
+        same = bitwise_equal(runs[0], runs[1])
         finite = bool(torch.isfinite(runs[0]).all())
-        print(f"grouped tail {role} G={g} M={m} K={k} N={n} kernel_vs_f64={err:.3e} bitwise_equal={same} "
-              f"finite={finite}", flush=True)
-        if not finite or not same or not err <= RTOL or runs[0].shape != ref64.shape:
-            fail(f"grouped tail {role} ({g}, {m}, {k}, {n}): kernel vs float64 {err:.3e} (bitwise equal {same})")
+        if dtype == torch.bfloat16:
+            err = bf16_units(runs[0], ref64.to(dtype))
+            ok, what = err <= GROUPED_BF16_UNITS and runs[0].dtype == dtype, "bf16_units_vs_f64"
+        else:
+            err = rel_err(runs[0].double(), ref64)
+            ok, what = err <= RTOL, "kernel_vs_f64"
+        tag = "grouped tail" + (" bf16" if dtype == torch.bfloat16 else "")
+        print(f"{tag} {role} G={g} M={m} K={k} N={n} {what}={err:.3e} bitwise_equal={same} finite={finite}",
+              flush=True)
+        if not finite or not same or not ok or runs[0].shape != ref64.shape:
+            fail(f"{tag} {role} ({g}, {m}, {k}, {n}): {what} {err:.3e} (bitwise equal {same})")
 
 
-def sum_check(g: int, m: int, n: int, splits: int, seed: int) -> dict:
+def sum_check(g: int, m: int, n: int, splits: int, seed: int, dtype=None) -> dict:
     """The split sum kernel against its plain version (the same order: equal
-    bits) at a weight gradient's partials `[S, G, M, N]`; its times with the
-    L2 flushed (on the path the partials, 31 MB, are still in L2 from the
+    bits) at a weight gradient's partials `[S, G, M, N]`, its sum written in
+    `dtype` (float32, or bfloat16 rounded once); its times with the L2
+    flushed (on the path the partials, 31 MB, are still in L2 from the
     launch that wrote them, and a warm reading beats the bytes bound)."""
     import torch
 
     from federated_pytorch_test_tpu_torch.ops import grouped_gemm as gg
 
+    dtype = dtype or torch.float32
+    role = "grouped_matmul_sum" + ("_bf16" if dtype == torch.bfloat16 else "")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     part = torch.randn(splits, g, m, n, device="cuda", generator=gen)
-    got, want = gg.grouped_sum(part), gg.grouped_sum_plain(part)
+    out = torch.empty((g, m, n), dtype=dtype, device="cuda")
+    got, want = gg.grouped_sum(part, out), gg.grouped_sum_plain(part, dtype)
     torch.cuda.synchronize()
-    same = torch.equal(got.view(torch.int32), want.view(torch.int32))
-    print(f"grouped sum [{splits},{g},{m},{n}] bitwise_equal_to_plain={same}", flush=True)
+    same = bitwise_equal(got, want)
+    print(f"{role} [{splits},{g},{m},{n}] bitwise_equal_to_plain={same}", flush=True)
     if not same:
-        fail("grouped_sum differs from its plain version (the same order of additions)")
-    r = {"max_abs_err": float((got - want).abs().max()), "shape": f"[{splits},{g},{m},{n}]", "splits": splits,
-         "l2": "flushed before every call"}
-    for key, fn in (("ms", gg.grouped_sum), ("plain_ms", gg.grouped_sum_plain), ("library_ms", lambda p: p.sum(0))):
+        fail(f"{role} differs from its plain version (the same order of additions)")
+    r = {"max_abs_err": float((got.float() - want.float()).abs().max()), "shape": f"[{splits},{g},{m},{n}]",
+         "splits": splits, "l2": "flushed before every call"}
+    for key, fn in (("ms", lambda p: gg.grouped_sum(p, out)),
+                    ("plain_ms", lambda p: gg.grouped_sum_plain(p, dtype)),
+                    ("library_ms", lambda p: p.sum(0).to(dtype))):
         r[key], r[key.replace("ms", "device_ms")] = time_cold_ms(lambda: fn(part), 20)
-    r.update(flash_bounds((splits + 1) * g * m * n * 4, (splits - 1) * g * m * n, 0))
+    out_bytes = 2 if dtype == torch.bfloat16 else 4
+    r.update(flash_bounds(splits * g * m * n * 4 + g * m * n * out_bytes, (splits - 1) * g * m * n, 0))
     r["ffma_bound_ms"] = r["bound_ms"]
-    print(f"timing grouped_matmul_sum [{splits},{g},{m},{n}] l2=flushed ms={r['ms']:.6f} "
+    print(f"timing {role} [{splits},{g},{m},{n}] l2=flushed ms={r['ms']:.6f} "
           f"device_ms={r['device_ms']:.6f} plain_ms={r['plain_ms']:.6f} plain_device_ms={r['plain_device_ms']:.6f} "
           f"library_ms={r['library_ms']:.6f} library_device_ms={r['library_device_ms']:.6f} "
           f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) share_of_bound={r['bound_ms'] / r['device_ms']:.3f}",
           flush=True)
     beaten = [key for key in ("device_ms", "plain_device_ms", "library_device_ms") if r[key] < r["bound_ms"]]
     if beaten:
-        fail(f"grouped_matmul_sum: {beaten} below the bytes bound {r['bound_ms']:.6f} ms (the L2 flush failed)")
+        fail(f"{role}: {beaten} below the bytes bound {r['bound_ms']:.6f} ms (the L2 flush failed)")
     return r
+
+
+def phase_grouped_bf16():
+    """12″. The bf16 grouped GEMM (`csrc/grouped_gemm_bf16.cu`) at every
+    shape of the MoE ViT path on bf16 operands (`grouped_cases`: both
+    forwards, the evaluation forward, both input gradients with Bᵀ a view,
+    both weight gradients split in 20 and summed): within GROUPED_BF16_UNITS
+    bf16 units of the float64 product of the same bf16 operands rounded to
+    bf16, two launches equal bits; the bf16 split sum equal in bits to its
+    plain version; every role at the ragged shapes; times of the kernel, the
+    plain version (f32 `torch.bmm`, rounded) and `torch.bmm` on the bf16
+    operands beside the bound (bf16 products at 989 TFLOP/s or the bytes)."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.engine import get_preset
+    from federated_pytorch_test_tpu_torch.ops import grouped_gemm as gg
+
+    cfg = get_preset("fedavg", model="vit", model_kwargs=VIT_MOE_KWARGS)
+    report = {}
+    for i, (label, role, shapes) in enumerate(grouped_cases(cfg)):
+        gen = torch.Generator(device="cuda").manual_seed(300 + i)
+        a, b = (torch.randn(*sh, device="cuda", generator=gen).to(torch.bfloat16) for sh in shapes)
+        kernel, plain, library, views = grouped_role(role)
+        lhs, rhs = views(a, b)
+        (g, m, k), n = lhs.shape, rhs.shape[2]
+        runs = [kernel(a, b) for _ in range(2)]
+        ref = plain(a.double(), b.double()).to(torch.bfloat16)
+        out_plain = plain(a, b)
+        torch.cuda.synchronize()
+        same = bitwise_equal(runs[0], runs[1])
+        units, plain_units = bf16_units(runs[0], ref), bf16_units(out_plain, ref)
+        splits, _ = gg.split_k(g, m, n, k)
+        finite = bool(torch.isfinite(runs[0]).all())
+        print(f"grouped bf16 {label} [{g},{m},{k}]x[{g},{k},{n}] lhs_t={int(lhs.stride(1) == 1)} "
+              f"rhs_t={int(rhs.stride(1) == 1)} splits={splits} dtype={str(runs[0].dtype)[6:]} "
+              f"bf16_units_vs_f64={units:.3f} plain_bf16_units_vs_f64={plain_units:.3f} bitwise_equal={same} "
+              f"finite={finite}", flush=True)
+        if not finite or not same or not units <= GROUPED_BF16_UNITS or runs[0].dtype != torch.bfloat16:
+            fail(f"grouped bf16 {label}: {units:.3f} bf16 units from float64 (bitwise equal {same}, finite {finite})")
+        r = {"max_abs_err": float((runs[0].float() - out_plain.float()).abs().max()),
+             "shape": f"[{g},{m},{k}]x[{g},{k},{n}]", "splits": splits}
+        del runs, ref, out_plain
+        for key, fn in (("ms", kernel), ("plain_ms", plain), ("library_ms", library)):
+            r[key], r[key.replace("ms", "device_ms")] = time_ms(lambda: fn(a, b), 20)
+        flops = 2 * g * m * k * n
+        r.update(flash_bounds((g * m * k + g * k * n + g * m * n) * 2, flops, 0, products="bf16"))
+        print(f"timing {role}_bf16 {label} ms={r['ms']:.6f} device_ms={r['device_ms']:.6f} "
+              f"plain_ms={r['plain_ms']:.6f} plain_device_ms={r['plain_device_ms']:.6f} "
+              f"library_ms={r['library_ms']:.6f} library_device_ms={r['library_device_ms']:.6f} "
+              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}: {r['bound_term']}) gflop={flops / 1e9:.3f} "
+              f"achieved_tflops={flops / r['device_ms'] / 1e9:.3f} share_of_bound={r['bound_ms'] / r['device_ms']:.3f}",
+              flush=True)
+        report.setdefault(f"{role}_bf16", r)  # each role at its first (fc1 or fc2 training) shape
+        if role == "grouped_matmul_drhs" and "grouped_matmul_sum_bf16" not in report and splits > 1:
+            report["grouped_matmul_sum_bf16"] = sum_check(g, m, n, splits, seed=400 + i, dtype=torch.bfloat16)
+        del a, b
+    for shape in GROUPED_TAILS:
+        grouped_tail_check(*shape, dtype=torch.bfloat16)
+    return report
 
 
 def attention_grad_layers(model, gid: int) -> int:
@@ -1684,13 +1783,16 @@ def expected_grouped(exp: dict, cfg) -> dict:
     """The grouped GEMM's launches on the MoE ViT path from `expected_launches`:
     two a block (fc1, fc2) in every forward, two input gradients in every
     block the gradient crosses, two weight gradients in the trained block,
-    and one split sum per weight gradient where `split_k` splits it."""
+    and one split sum per weight gradient where `split_k` splits it; under
+    the roles of the config's compute dtype (`_bf16` at bfloat16), and 0
+    under the other dtype's."""
     from federated_pytorch_test_tpu_torch.ops import grouped_gemm as gg
 
     g, c, _, d, h = moe_shapes(cfg)
     split = sum(gg.split_k(g, m, n, c)[0] > 1 for m, n in ((d, h), (h, d)))  # dW1 [D, H], dW2 [H, D]
-    return {"grouped_matmul": 2 * exp["forward"], "grouped_matmul_dlhs": 2 * exp["backward"],
-            "grouped_matmul_drhs": 2 * exp["weight_backward"], "grouped_matmul_sum": split * exp["weight_backward"]}
+    counts = (2 * exp["forward"], 2 * exp["backward"], 2 * exp["weight_backward"], split * exp["weight_backward"])
+    roles = gg.BF16_ROLES if cfg.compute_dtype == "bfloat16" else gg.ROLES
+    return {**dict.fromkeys((*gg.ROLES, *gg.BF16_ROLES), 0), **dict(zip(roles, counts))}
 
 
 def gate_launches(path: str, launches: dict, expected: dict) -> None:
@@ -2055,6 +2157,7 @@ def phase_vit_train(metrics_out, profile: bool):
 
 
 VIT_BF16_KWARGS = {**VIT_KWARGS, "attn_precision": "default"}
+VIT_MOE_BF16_KWARGS = {**VIT_MOE_KWARGS, "attn_precision": "default"}
 REMAT_RTOL = 1e-5  # remat on against off: the JAX package's bound (tests/test_engine.py:254-264)
 LM_BF16_TOL = 3e-2  # the bf16 LM's loss from the f32 one: the JAX package's bf16-vs-f32 bound
 LM_GRAD_COSINE = 0.99  # and its gradient's direction
@@ -2134,9 +2237,9 @@ def phase_vit_bf16_train(metrics_out):
 
 def phase_net_bf16_train(metrics_out):
     """The fedavg preset (Net) at compute_dtype bf16 with the fused-kernel
-    direction on the full-size synthetic stand-in, one loop, cuDNN
-    deterministic: finite losses, accuracy above chance, compact launches
-    exact (the compact kernels stay f32)."""
+    direction on the full-size synthetic stand-in, one loop: finite losses,
+    accuracy above chance, compact launches exact (the compact kernels stay
+    f32)."""
     import numpy as np
     import torch
 
@@ -2145,15 +2248,14 @@ def phase_net_bf16_train(metrics_out):
     from federated_pytorch_test_tpu_torch.ops import compact_cuda as cc
 
     cfg = get_preset("fedavg", nloop=1, lbfgs_direction="pallas", compute_dtype="bfloat16")
-    with deterministic_cudnn():
-        tr = Trainer(cfg, verbose=False, source=synthetic_cifar(50_000, 10_000, seed=0))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        cc.reset_launch_counts()
-        t0 = time.perf_counter()
-        rec = tr.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    tr = Trainer(cfg, verbose=False, source=synthetic_cifar(50_000, 10_000, seed=0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cc.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = tr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     launches = dict(cc.LAUNCHES)
     n_steps = len(rec.series["train_loss"])
     print(f"net bf16 train wall_s={wall:.3f} minibatches={n_steps} ms_per_minibatch={1e3 * wall / n_steps:.3f} "
@@ -2342,7 +2444,7 @@ def phase_vit_moe_parity():
           flush=True)
     if not max(worst.values()) <= 1e-3:
         fail(f"vit_moe parity: a step differs between the plain path and the kernels: {worst}")
-    if not all(launches[k] > 0 for k in launches):
+    if not all(launches[k] > 0 for k in gg.ROLES):
         fail(f"vit_moe parity: the kernel side did not run every grouped kernel: {launches}")
 
 
@@ -2374,6 +2476,7 @@ def phase_vit_moe_train(metrics_out, profile: bool):
     rec = tr.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
     launches = {**dict(fc.LAUNCHES), **dict(cc.LAUNCHES), **dict(gg.LAUNCHES)}
 
     for r in rec.series["step_time"]:
@@ -2381,7 +2484,7 @@ def phase_vit_moe_train(metrics_out, profile: bool):
             print(f"vit_moe round group={r['group']} wall_s={r['value']['seconds']:.3f}", flush=True)
     n_steps = len(rec.series["train_loss"])
     print(f"vit_moe train wall_s={wall:.3f} minibatches={n_steps} ms_per_minibatch={1e3 * wall / n_steps:.3f} "
-          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.3f} launches={json.dumps(launches)}", flush=True)
+          f"peak_mem_gb={peak:.3f} launches={json.dumps(launches)}", flush=True)
     if metrics_out:
         rec.save(metrics_out)
 
@@ -2394,7 +2497,7 @@ def phase_vit_moe_train(metrics_out, profile: bool):
     chance = 1.0 / tr.fed.num_classes
     if not np.all(accs[-1][1] > chance):
         fail(f"vit_moe final accuracy {accs[-1][1]} not above chance {chance}")
-    for name in (*fc.RECT_KERNELS, *gg.LAUNCHES):
+    for name in (*fc.RECT_KERNELS, *gg.ROLES):
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the MoE ViT path")
     exp = expected_launches(rec, tr.model, sweep_passes=len(tr.test_imgs))  # an evaluation: one pass a test batch
@@ -2404,7 +2507,62 @@ def phase_vit_moe_train(metrics_out, profile: bool):
                                         **expected_grouped(exp, cfg)})
     if profile:
         profile_epoch(tr, tr.group_order[1])
-    return launches, wall
+    return launches, wall, peak
+
+
+def phase_vit_moe_bf16_train(metrics_out, f32_wall: float, f32_peak: float):
+    """14″. Phase 14's switch-MoE ViT path at compute_dtype bf16 with
+    attention at 'default' (`VIT_MOE_BF16_KWARGS`): the experts on the bf16
+    grouped kernel, the one-pass rectangular flash kernels. Launches of the
+    bf16 grouped roles, the one-pass flash kernels and the compact pair
+    gated exactly (the f32 grouped roles and split flash kernels at 0);
+    losses finite, every client above chance; wall and peak printed beside
+    phase 14's f32 run."""
+    import numpy as np
+    import torch
+
+    from federated_pytorch_test_tpu_torch.data import synthetic_cifar
+    from federated_pytorch_test_tpu_torch.engine import Trainer, get_preset
+    from federated_pytorch_test_tpu_torch.ops import compact_cuda as cc
+    from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
+    from federated_pytorch_test_tpu_torch.ops import grouped_gemm as gg
+
+    cfg = get_preset("fedavg", model="vit", model_kwargs=VIT_MOE_BF16_KWARGS, nloop=1, nadmm=1,
+                     lbfgs_direction="pallas", compute_dtype="bfloat16")
+    tr = Trainer(cfg, verbose=False, source=synthetic_cifar(VIT_TRAIN, VIT_TEST, seed=0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (fc, cc, gg):
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = tr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = {**dict(fc.LAUNCHES), **dict(cc.LAUNCHES), **dict(gg.LAUNCHES)}
+    n_steps = len(rec.series["train_loss"])
+    print(f"vit_moe bf16 train wall_s={wall:.3f} minibatches={n_steps} ms_per_minibatch={1e3 * wall / n_steps:.3f} "
+          f"peak_mem_gb={peak:.3f} f32_wall_s={f32_wall:.3f} f32_peak_mem_gb={f32_peak:.3f} "
+          f"launches={json.dumps({k: v for k, v in launches.items() if v})}", flush=True)
+    if metrics_out:
+        rec.save(metrics_out)
+    all_losses = np.asarray([r["value"] for r in rec.series["train_loss"]])
+    if not np.all(np.isfinite(all_losses)) or rec.first_nonfinite is not None:
+        fail(f"vit_moe bf16: non-finite training loss: {rec.first_nonfinite}")
+    accs = [(r["group"], np.asarray(r["value"])) for r in rec.series["test_accuracy"]]
+    print("vit_moe bf16 accuracy per group " + " ".join(f"{g}:{','.join(f'{a:.4f}' for a in v)}" for g, v in accs),
+          flush=True)
+    if not np.all(accs[-1][1] > 1.0 / tr.fed.num_classes):
+        fail(f"vit_moe bf16: final accuracy {accs[-1][1]} not above chance")
+    for name in gg.BF16_ROLES:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the bf16 MoE ViT path")
+    exp = expected_launches(rec, tr.model, sweep_passes=len(tr.test_imgs))
+    gate_launches("vit_moe bf16", launches, {
+        "flash_fwd_rect_1pass": exp["forward"], "flash_bwd_dq_rect_1pass": exp["backward"],
+        "flash_bwd_dkv_rect_1pass": exp["backward"], **{name: 0 for name in fc.RECT_KERNELS},
+        **{name: exp["direction"] for name in cc.LAUNCHES}, **expected_grouped(exp, cfg)})
+    return launches, wall, peak
 
 
 def check_finite_run(path: str, rec) -> None:
@@ -2527,15 +2685,9 @@ def phase_resnet_parity():
     optimizer state and ADMM state, taken from the plain trajectory; after
     each ADMM round's last step both sides' consensus runs from the same
     ADMM state. The first step also prints each direction's distance from
-    float64, the kernel's and the float32 plain version's. cuDNN runs in
-    its deterministic mode here, so that the two sides differ by their
-    directions and not by the convolutions' run-to-run rounding."""
-    with deterministic_cudnn():
-        resnet_parity()
-
-
-def resnet_parity():
-    """The body of `phase_resnet_parity`."""
+    float64, the kernel's and the float32 plain version's. cuDNN is
+    deterministic (the port's default), so that the two sides differ by
+    their directions and not by the convolutions' run-to-run rounding."""
     import dataclasses
 
     import torch
@@ -2680,20 +2832,14 @@ def phase_no_consensus_train(metrics_out, profile: bool):
     (N = 890,410) one group, the elastic net on fc1 only, each client its
     own initial draw, through the entry points a user calls.
 
-    cuDNN runs in its deterministic mode here, so that the phase takes one
-    trajectory on every run. With the default algorithms two runs differ
-    from the first step on, and the memorizing clients' trajectories part:
-    on some of them a client reaches the optimizer's non-finite mode, which
-    the JAX package and the reference share (`no_consensus_probe.py`
-    finds and replays it): curvature pairs with y·y near 1e-17 set a
-    huge h_diag, the next hard minibatch's direction overflows the
-    forward, and the Armijo test, false for a NaN loss, accepts the step."""
-    with deterministic_cudnn():
-        return no_consensus_train(metrics_out, profile)
-
-
-def no_consensus_train(metrics_out, profile: bool):
-    """The body of `phase_no_consensus_train`."""
+    The port's deterministic cuDNN gives the phase one trajectory on every
+    run. With cuDNN's default algorithms two runs differ from the first
+    step on, and the memorizing clients' trajectories part: on some of them
+    a client reaches the optimizer's non-finite mode, which the JAX package
+    and the reference share (`no_consensus_probe.py --nondeterministic`
+    finds and replays it): curvature pairs with y·y near 1e-17 set a huge
+    h_diag, the next hard minibatch's direction overflows the forward, and
+    the Armijo test, false for a NaN loss, accepts the step."""
     import numpy as np
     import torch
 
@@ -2848,12 +2994,13 @@ def phase_compact_no_consensus() -> dict:
 
 
 def bitwise_equal(a, b) -> bool:
-    """Equal bits (NaN included), for float32 tensors or nested lists of floats."""
+    """Equal bits (NaN included), for float32 or bfloat16 tensors or nested lists of floats."""
     import numpy as np
     import torch
 
     if isinstance(a, torch.Tensor):
-        return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+        view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(view), b.view(view))
     x, z = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return x.shape == z.shape and np.array_equal(x.view(np.int64), z.view(np.int64))
 
@@ -2903,8 +3050,8 @@ def phase_resume():
     """A resumed run against the uninterrupted one on the card, bit for bit:
     fedavg (Net, two groups) and admm (Net's first group, nadmm 5, BB with
     its thresholds opened so that it accepts a proposal and the second
-    loop starts from the restored rho), the kernel direction, cuDNN
-    deterministic (restored after)."""
+    loop starts from the restored rho), the kernel direction, under the
+    port's defaults (deterministic cuDNN, as every entry point sets it)."""
     import tempfile
 
     from federated_pytorch_test_tpu_torch.data import synthetic_cifar
@@ -2912,10 +3059,80 @@ def phase_resume():
     print(f"reduced resume train images={RESUME_TRAIN} of 50,000 (8 minibatches of 512 a client): the script's time",
           flush=True)
     source = synthetic_cifar(RESUME_TRAIN, 10_000, seed=0)
-    with deterministic_cudnn(), tempfile.TemporaryDirectory() as d:
+    with tempfile.TemporaryDirectory() as d:
         resume_pair("fedavg", "fedavg", source, os.path.join(d, "fedavg"), max_groups=2)
         resume_pair("admm", "admm", source, os.path.join(d, "admm"), max_groups=1, nadmm=5, bb_update=True,
                     bb_epsilon=1e-12, bb_rhomax=1e6)
+
+
+REPEAT_TEST = 1_000  # test images of the repeat phase's runs (each round ends in an evaluation)
+
+
+def repeat_pair(label: str, run) -> float:
+    """`run()` (a fresh run of one round, returning its final parameters and
+    loss series) twice under the port's defaults: both bitwise equal. The
+    largest parameter difference is printed either way; returns the wall of
+    one run."""
+    import torch
+
+    walls, outs = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        outs.append(run())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    (flat_a, loss_a), (flat_b, loss_b) = outs
+    same = {"params": bitwise_equal(flat_a, flat_b), "train_loss": bitwise_equal(loss_a, loss_b)}
+    print(f"repeat {label} params={flat_a.numel()} minibatches={len(loss_a)} "
+          + " ".join(f"{k}_bitwise={v}" for k, v in same.items())
+          + f" params_max_abs_diff={float((flat_a - flat_b).abs().max()):.3e} wall_s={walls[0]:.3f},{walls[1]:.3f}",
+          flush=True)
+    if not all(same.values()):
+        fail(f"repeat {label}: two runs under the port's defaults differ: {same}")
+    return walls[0]
+
+
+def phase_repeat() -> dict:
+    """The first round of each train path run twice under the port's
+    defaults (deterministic cuDNN, `utils/device.py`), each run a fresh
+    Trainer: final parameters and loss series bitwise equal. Net fedavg and
+    admm_resnet train conv1 (group 0), whose weight gradient cuDNN's default
+    algorithms add in an order that changes from run to run; the LM its
+    embedding (the attention backward in every block); the ViT, and the
+    MoE ViT at f32 and bf16, block0 (every block's backward, the experts'
+    weight gradients in block0). Returns the wall of one run a path."""
+    from federated_pytorch_test_tpu_torch.data import synthetic_cifar
+    from federated_pytorch_test_tpu_torch.engine import Trainer, get_preset
+    from federated_pytorch_test_tpu_torch.federated_lm import FederatedLM, LMConfig
+
+    print(f"reduced repeat test images={REPEAT_TEST} of 10,000; one round a path: the script's time", flush=True)
+
+    def trainer_round(cfg, source, gid):
+        def run():
+            tr = Trainer(cfg, verbose=False, source=source)
+            tr.group_order = [gid]
+            rec = tr.run()
+            return tr.flat, [r["value"] for r in rec.series["train_loss"]]
+        return run
+
+    def lm_round():
+        lm = FederatedLM(LMConfig(max_groups=1), verbose=False)
+        rec = lm.run()
+        return lm.flat, [r["value"] for r in rec.series["train_loss"]]
+
+    walls = {}
+    one_round = dict(nloop=1, nadmm=1, lbfgs_direction="pallas")
+    walls["fedavg"] = repeat_pair("fedavg conv1", trainer_round(
+        get_preset("fedavg", **one_round), synthetic_cifar(50_000, REPEAT_TEST, seed=0), 0))
+    walls["admm_resnet"] = repeat_pair("admm_resnet conv1", trainer_round(
+        get_preset("admm_resnet", **one_round), synthetic_cifar(RESNET_TRAIN, REPEAT_TEST, seed=0), 0))
+    walls["lm"] = repeat_pair("lm embedding", lm_round)
+    vit_source = synthetic_cifar(VIT_TRAIN, REPEAT_TEST, seed=0)
+    for label, kwargs, dtype in (("vit", VIT_KWARGS, "float32"), ("vit_moe", VIT_MOE_KWARGS, "float32"),
+                                 ("vit_moe_bf16", VIT_MOE_BF16_KWARGS, "bfloat16")):
+        walls[label] = repeat_pair(f"{label} block0", trainer_round(
+            get_preset("fedavg", model="vit", model_kwargs=kwargs, compute_dtype=dtype, **one_round), vit_source, 1))
+    return walls
 
 
 def scale64_run(preset: str, gid: int, nadmm: int, source):
@@ -3155,7 +3372,7 @@ def search_ties(seq_calls, fan_calls) -> list:
 
 def fan_vs_sequential(source) -> dict:
     """The fedavg preset's loop (Net, K=3, batch 512, phase 7's inputs) step
-    by step under deterministic cuDNN: the sequential search (P=1) makes
+    by step: the sequential search (P=1) makes
     the trajectory, and before each step the fan at `FAN_PROBES` under
     'gemm' and 'vmap' gets the same parameters and optimizer state. Every
     accepted step size of every search is compared; where a client's
@@ -3218,13 +3435,11 @@ def fan_vs_sequential(source) -> dict:
 def phase_probe_fan_train(metrics_out, profile: bool, reference=None):
     """The line search's probe fan on the card: the fedavg preset (Net, K=3,
     batch 512, phase 7's inputs) with the fused-kernel direction at
-    `linesearch_probes=1`, then at 4 under both folds, 'gemm' and 'vmap',
-    all three under deterministic cuDNN (the default conv weight gradient
-    is not reproducible run to run): compact launches gated exactly, walls
-    and host reads printed. The run at 1 against `reference` (phase 7's
-    loss series, default cuDNN): bitwise on the rounds of the first group
-    of the order, whose passes run no convolution's backward, and the
-    largest difference after it printed. Then the same loop step by step
+    `linesearch_probes=1`, then at 4 under both folds, 'gemm' and 'vmap':
+    compact launches gated exactly, walls and host reads printed. The run
+    at 1 against `reference` (phase 7's loss series): bitwise over the
+    whole loop, since the port's defaults make a run repeat bit for bit
+    (deterministic cuDNN). Then the same loop step by step
     from one state (`fan_vs_sequential`): the fan's accepted steps equal the
     sequential search's up to rungs on the Armijo threshold. Then one ViT
     round (block1, patch 2, flash attention) at 4 with the rectangular
@@ -3237,29 +3452,25 @@ def phase_probe_fan_train(metrics_out, profile: bool, reference=None):
 
     source = synthetic_cifar(50_000, 10_000, seed=0)
     runs, walls, launches = {}, {}, {}
-    with deterministic_cudnn():
-        for p, fold in ((1, "gemm"), (FAN_PROBES, "gemm"), (FAN_PROBES, "vmap")):
-            label = f"net P={p} fold={fold}"
-            cfg = get_preset("fedavg", nloop=1, lbfgs_direction="pallas", linesearch_probes=p, client_fold=fold)
-            tr, rec, launch, walls[label] = fan_run(cfg, source, label)
-            runs[label] = rec
-            launches[label] = launch
-            gate_launches(f"fan {label}", launch, {name: expected_launches(rec)["direction"] for name in cc.LAUNCHES})
-        base_rec = runs["net P=1 fold=gemm"]
-        if metrics_out:
-            base_rec.save(metrics_out)
-        if reference is not None:
-            first = tr.group_order[0]
-            rows = base_rec.series["train_loss"]
-            n_first = sum(r["group"] == first for r in rows)
-            losses = [r["value"] for r in rows]
-            same = losses[:n_first] == reference[:n_first]
-            diff = max(abs(a - b) for x, y in zip(losses, reference) for a, b in zip(x, y))
-            print(f"fan net P=1 train_loss bitwise_equal_to_phase_7 group={first} ({n_first} minibatches)={same} "
-                  f"all_{len(losses)}_minibatches={losses == reference} max_abs_diff={diff:.3e}", flush=True)
-            if not same or len(losses) != len(reference):
-                fail(f"fan: the linesearch_probes=1 run's loss series differs from phase 7's in group {first}")
-        fan_vs_sequential(source)
+    for p, fold in ((1, "gemm"), (FAN_PROBES, "gemm"), (FAN_PROBES, "vmap")):
+        label = f"net P={p} fold={fold}"
+        cfg = get_preset("fedavg", nloop=1, lbfgs_direction="pallas", linesearch_probes=p, client_fold=fold)
+        tr, rec, launch, walls[label] = fan_run(cfg, source, label)
+        runs[label] = rec
+        launches[label] = launch
+        gate_launches(f"fan {label}", launch, {name: expected_launches(rec)["direction"] for name in cc.LAUNCHES})
+    base_rec = runs["net P=1 fold=gemm"]
+    if metrics_out:
+        base_rec.save(metrics_out)
+    if reference is not None:
+        losses = [r["value"] for r in base_rec.series["train_loss"]]
+        same = losses == reference
+        diff = max(abs(a - b) for x, y in zip(losses, reference) for a, b in zip(x, y))
+        print(f"fan net P=1 train_loss bitwise_equal_to_phase_7 ({len(losses)} minibatches)={same} "
+              f"max_abs_diff={diff:.3e}", flush=True)
+        if not same:
+            fail("fan: the linesearch_probes=1 run's loss series differs from phase 7's")
+    fan_vs_sequential(source)
 
     label = f"vit P={FAN_PROBES} fold=gemm block1"
     cfg = get_preset("fedavg", model="vit", model_kwargs=VIT_KWARGS, nloop=1, nadmm=1, lbfgs_direction="pallas",
@@ -3439,6 +3650,7 @@ def main() -> int:
     ap.add_argument("--no-consensus-metrics-out", help="write the no_consensus path's metric series as JSON here")
     ap.add_argument("--net-bf16-metrics-out", help="write the bf16 fedavg (Net) path's metric series as JSON here")
     ap.add_argument("--vit-bf16-metrics-out", help="write the bf16 ViT path's metric series as JSON here")
+    ap.add_argument("--vit-moe-bf16-metrics-out", help="write the bf16 MoE ViT path's metric series as JSON here")
     ap.add_argument("--scale64-metrics-out", help="write the admm_scale64 run's metric series as JSON here")
     ap.add_argument("--fan-metrics-out", help="write the probe fan phase's P=1 run's metric series as JSON here")
     ap.add_argument("--profile", action="store_true", help="also profile one epoch of each path")
@@ -3485,34 +3697,40 @@ def main() -> int:
     report_tensor_core_build(built[SOURCES.index("flash_attention")][0], "flash_attention", flash_label)
     report_tensor_core_build(built[SOURCES.index("flash_bf16")][0], "flash_bf16", flash_label)
     report_tensor_core_build(built[SOURCES.index("grouped_gemm")][0], "grouped_gemm", grouped_label)
+    report_tensor_core_build(built[SOURCES.index("grouped_gemm_bf16")][0], "grouped_gemm_bf16", grouped_bf16_label)
 
-    report = phase_kernels()
-    flash_report = phase_flash()
-    rect_report = phase_flash_rect()
-    default_report = phase_flash_default()
-    bf16_report, bf16_launches = phase_flash_bf16()
-    phase_parity()
-    launches, wall, train_rec = phase_train(args.metrics_out, args.profile)
-    net16_launches, net16_wall = phase_net_bf16_train(args.net_bf16_metrics_out)
-    phase_lm_parity()
-    lm_launches, lm_wall = phase_lm_train(args.lm_metrics_out, args.profile)
-    lm16_launches, lm16_wall, lm16_extra = phase_lm_default()
-    phase_auto_crossover()
-    phase_vit_parity()
-    vit_launches, vit_wall = phase_vit_train(args.vit_metrics_out, args.profile)
-    vit16_launches, vit16_wall, vit16_extra = phase_vit_bf16_train(args.vit_bf16_metrics_out)
-    grouped_report = phase_grouped()
-    phase_vit_moe_parity()
-    moe_launches, moe_wall = phase_vit_moe_train(args.vit_moe_metrics_out, args.profile)
-    admm_launches, admm_wall = phase_admm_train(args.admm_metrics_out, args.profile)
-    phase_resnet_parity()
-    resnet_launches, resnet_walls, resnet_times = phase_resnet_train(args.resnet_metrics_out, args.profile)
-    nc_launches, nc_wall = phase_no_consensus_train(args.no_consensus_metrics_out, args.profile)
-    nc_rows = phase_compact_no_consensus()
-    phase_resume()
-    s64_launches, _, s64_walls, s64_peaks, s64_times = phase_scale64_train(args.scale64_metrics_out, args.profile)
-    fan_launches, _, fan_walls = phase_probe_fan_train(
-        args.fan_metrics_out, args.profile, reference=[r["value"] for r in train_rec.series["train_loss"]])
+    report = timed(phase_kernels)
+    flash_report = timed(phase_flash)
+    rect_report = timed(phase_flash_rect)
+    default_report = timed(phase_flash_default)
+    bf16_report, bf16_launches = timed(phase_flash_bf16)
+    timed(phase_parity)
+    launches, wall, train_rec = timed(phase_train, args.metrics_out, args.profile)
+    net16_launches, net16_wall = timed(phase_net_bf16_train, args.net_bf16_metrics_out)
+    timed(phase_lm_parity)
+    lm_launches, lm_wall = timed(phase_lm_train, args.lm_metrics_out, args.profile)
+    lm16_launches, lm16_wall, lm16_extra = timed(phase_lm_default)
+    timed(phase_auto_crossover)
+    timed(phase_vit_parity)
+    vit_launches, vit_wall = timed(phase_vit_train, args.vit_metrics_out, args.profile)
+    vit16_launches, vit16_wall, vit16_extra = timed(phase_vit_bf16_train, args.vit_bf16_metrics_out)
+    grouped_report = timed(phase_grouped)
+    grouped_bf16_report = timed(phase_grouped_bf16)
+    timed(phase_vit_moe_parity)
+    moe_launches, moe_wall, moe_peak = timed(phase_vit_moe_train, args.vit_moe_metrics_out, args.profile)
+    moe16_launches, moe16_wall, moe16_peak = timed(phase_vit_moe_bf16_train, args.vit_moe_bf16_metrics_out,
+                                                   moe_wall, moe_peak)
+    admm_launches, admm_wall = timed(phase_admm_train, args.admm_metrics_out, args.profile)
+    timed(phase_resnet_parity)
+    resnet_launches, resnet_walls, resnet_times = timed(phase_resnet_train, args.resnet_metrics_out, args.profile)
+    nc_launches, nc_wall = timed(phase_no_consensus_train, args.no_consensus_metrics_out, args.profile)
+    nc_rows = timed(phase_compact_no_consensus)
+    timed(phase_resume)
+    repeat_walls = timed(phase_repeat)
+    s64_launches, _, s64_walls, s64_peaks, s64_times = timed(phase_scale64_train, args.scale64_metrics_out,
+                                                             args.profile)
+    fan_launches, _, fan_walls = timed(phase_probe_fan_train, args.fan_metrics_out, args.profile,
+                                       reference=[r["value"] for r in train_rec.series["train_loss"]])
 
     kernels = []
     replaces = {
@@ -3546,6 +3764,7 @@ def main() -> int:
                                  "vit_bf16": vit16_launches[name], "admm": admm_launches[name],
                                  **{p: n[name] for p, n in resnet_launches.items()},
                                  "vit": vit_launches[name], "vit_moe": moe_launches[name],
+                                 "vit_moe_bf16": moe16_launches[name],
                                  "no_consensus": nc_launches[name],
                                  **{p: n[name] for p, n in s64_launches.items()},
                                  **{f"fan {p}": n[name] for p, n in fan_launches.items()}},
@@ -3694,15 +3913,44 @@ def main() -> int:
             "splits": r["splits"],
             "l2": r.get("l2", "as left by the previous call"),
         })
+    for name, r in grouped_bf16_report.items():
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "federated_pytorch_test_tpu_torch/csrc/grouped_gemm_bf16.cu",
+            "replaces": GROUPED_REPLACES,
+            # the bf16 MoE ViT path (phase 14″)
+            "launches": moe16_launches[name],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            # bound_ms: bf16 products at 989 TFLOP/s or the bytes (bf16 operands
+            # and output; f32 partials and a bf16 sum for the split sum)
+            "bound_term": r["bound_term"],
+            # torch.bmm on the same bf16 operand views (for the sum: torch.sum, cast to bf16)
+            "library_ms": r["library_ms"],
+            "ms_includes_host": True,
+            "device_ms": r["device_ms"],
+            "plain_device_ms": r["plain_device_ms"],
+            "library_device_ms": r["library_device_ms"],
+            "shape": r["shape"],
+            "splits": r["splits"],
+            "l2": r.get("l2", "as left by the previous call"),
+        })
     print(f"total seconds={time.perf_counter() - t_all:.3f} train_wall_s={wall:.3f} lm_train_wall_s={lm_wall:.3f} "
-          f"vit_train_wall_s={vit_wall:.3f} vit_moe_train_wall_s={moe_wall:.3f} admm_train_wall_s={admm_wall:.3f} "
+          f"vit_train_wall_s={vit_wall:.3f} vit_moe_train_wall_s={moe_wall:.3f} vit_moe_peak_gb={moe_peak:.3f} "
+          f"vit_moe_bf16_train_wall_s={moe16_wall:.3f} vit_moe_bf16_peak_gb={moe16_peak:.3f} "
+          f"admm_train_wall_s={admm_wall:.3f} "
           f"admm_resnet_train_wall_s={resnet_walls['admm_resnet']:.3f} "
           f"fedavg_resnet_train_wall_s={resnet_walls['fedavg_resnet']:.3f} "
           f"no_consensus_train_wall_s={nc_wall:.3f} net_bf16_train_wall_s={net16_wall:.3f} "
           f"vit_bf16_train_wall_s={vit16_wall:.3f} vit_bf16_remat_train_wall_s={vit16_extra['remat_wall_s']:.3f} "
           f"lm_model_bf16_default_fwd_bwd_s={lm16_wall:.3f} lm_model_f32_fwd_bwd_s={lm16_extra['f32_wall_s']:.3f} "
           + " ".join(f"{p}_train_wall_s={w:.3f} {p}_peak_gb={s64_peaks[p] / 1e9:.3f}" for p, w in s64_walls.items())
-          + " " + " ".join(f"fan_{p.replace(' ', '_')}_wall_s={w:.3f}" for p, w in fan_walls.items()),
+          + " " + " ".join(f"fan_{p.replace(' ', '_')}_wall_s={w:.3f}" for p, w in fan_walls.items())
+          + " " + " ".join(f"repeat_{p}_round_wall_s={w:.3f}" for p, w in repeat_walls.items()),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

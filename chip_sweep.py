@@ -3,10 +3,10 @@
 
 Run from the root of a checkout:
 
-    python3 chip_sweep.py [grouped] [gram] [assembly] [bf16] [scale64]
+    python3 chip_sweep.py [grouped] [gram] [assembly] [bf16] [scale64] [determinism] [cudnn]
 
-Five sweeps (all of them without arguments), each printed one line per
-setting with its device ms (calls queued behind a sleep kernel,
+Seven sweeps (all of them without arguments), the first five printed one
+line per setting with its device ms (calls queued behind a sleep kernel,
 `chip_smoke.time_ms`) and its error:
 
 1. grouped — the grouped GEMM (`ops/grouped_gemm.py`) at every MoE ViT path
@@ -35,7 +35,26 @@ setting with its device ms (calls queued behind a sleep kernel,
    scale64 shape: one optimizer step of fedavg_scale64's block7 round (K=64
    ResNet18 clients, N = 4,720,640) with 'pallas', then 'compact', each
    from a fresh Trainer: its wall and peak allocated memory, or that it
-   ran out of the card's memory (no device time; a step, not a kernel).
+   ran out of the card's memory (no device time; a step, not a kernel);
+6. determinism — a diagnostic, not a setting of the port: one round of
+   each train path (Net fedavg, admm, no_consensus, an admm_resnet round,
+   the LM, the ViT, the MoE ViT at f32 and at bf16) on a small synthetic
+   set under `torch.use_deterministic_algorithms(True, warn_only=True)`,
+   with `CUBLAS_WORKSPACE_CONFIG=:4096:8` (set by this script before the
+   first cuBLAS call when the sweep is named): every op PyTorch reports
+   as having no deterministic implementation, with its count, a line
+   each, and the path's wall. It cannot see the ops that PyTorch swaps
+   for a deterministic version in this mode (the backward of
+   `index_select` and `gather`, `scatter`): those run without a word, so
+   a silent path shows only that no op without a deterministic version
+   ran, not that the default path is free of atomics;
+7. cudnn — what the port's deterministic cuDNN costs: the Net fedavg loop
+   (`chip_smoke.py` phase 7), admm_resnet's block7 round (1,536 train and
+   2,000 test images, as phase 17) and fedavg_scale64's block7 round (as
+   phase 21), each from a fresh Trainer in turns deterministic, cuDNN's
+   default algorithms, default, deterministic (the setting switched after
+   the Trainer is built, since every entry point sets the deterministic
+   default): wall and peak allocated memory of each turn.
 
 The port's own settings (`grouped_gemm.tiles`, `SPLIT_CHUNK`,
 `compact_cuda.gram_chunks`, `compact_cuda._vec_ok`) are not changed: each setting is launched
@@ -286,9 +305,115 @@ def sweep_scale64() -> None:
                   f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.3f} ({str(e).splitlines()[0]})", flush=True)
 
 
-def main() -> int:
+DETERMINISM_TRAIN, DETERMINISM_TEST = 3_072, 500  # images of the determinism sweep's runs
+
+
+def deterministic_path(label: str, run) -> None:
+    """`run()` under `torch.use_deterministic_algorithms(True, warn_only=True)`:
+    each op PyTorch warns about, printed with its count."""
+    import warnings
+    from collections import Counter
+
     import torch
 
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ops = Counter(str(w.message).splitlines()[0] for w in caught if "determinis" in str(w.message))
+    print(f"sweep determinism {label} s={wall:.3f} ops_warned={len(ops)}", flush=True)
+    for msg, n in sorted(ops.items()):
+        print(f"sweep determinism {label} x{n}: {msg}", flush=True)
+
+
+def sweep_determinism() -> None:
+    from federated_pytorch_test_tpu_torch.data import synthetic_cifar
+    from federated_pytorch_test_tpu_torch.engine import Trainer, get_preset
+    from federated_pytorch_test_tpu_torch.federated_lm import FederatedLM, LMConfig
+
+    def trainer(cfg, source, order=None):
+        def run():
+            tr = Trainer(cfg, verbose=False, source=source)
+            if order is not None:
+                tr.group_order = order
+            tr.run()
+        return run
+
+    small = synthetic_cifar(DETERMINISM_TRAIN, DETERMINISM_TEST, seed=0)
+    one = dict(nloop=1, nadmm=1, lbfgs_direction="pallas")
+    deterministic_path("fedavg conv1", trainer(get_preset("fedavg", **one), small, [0]))
+    deterministic_path("admm conv1", trainer(get_preset("admm", **{**one, "nadmm": 2}), small, [0]))
+    deterministic_path("no_consensus", trainer(get_preset("no_consensus", nepoch=1, lbfgs_direction="pallas"), small))
+    deterministic_path("admm_resnet conv1", trainer(get_preset("admm_resnet", **one), small, [0]))
+    deterministic_path("lm embedding", lambda: FederatedLM(LMConfig(max_groups=1), verbose=False).run())
+    for label, kwargs, dtype in (("vit", cs.VIT_KWARGS, "float32"), ("vit_moe", cs.VIT_MOE_KWARGS, "float32"),
+                                 ("vit_moe_bf16", cs.VIT_MOE_BF16_KWARGS, "bfloat16")):
+        deterministic_path(f"{label} block0", trainer(
+            get_preset("fedavg", model="vit", model_kwargs=kwargs, compute_dtype=dtype, **one), small, [1]))
+
+
+CUDNN_TURNS = ("deterministic", "default", "default", "deterministic")
+
+
+def cudnn_turns(label: str, build, run) -> None:
+    """`run(build())` in CUDNN_TURNS, each turn a fresh object from `build`
+    with `cudnn.deterministic` set after it; the wall and peak of each."""
+    import gc
+
+    import torch
+
+    for mode in CUDNN_TURNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        obj = build()
+        torch.backends.cudnn.deterministic = mode == "deterministic"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(obj)
+        torch.cuda.synchronize()
+        print(f"sweep cudnn {label} mode={mode} wall_s={time.perf_counter() - t0:.3f} "
+              f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.3f}", flush=True)
+        del obj
+    torch.backends.cudnn.deterministic = True
+
+
+def sweep_cudnn() -> None:
+    from federated_pytorch_test_tpu_torch.data import synthetic_cifar
+    from federated_pytorch_test_tpu_torch.engine import Trainer, get_preset
+
+    def trainer(cfg, source, order=None):
+        def build():
+            tr = Trainer(cfg, verbose=False, source=source)
+            if order is not None:
+                tr.group_order = order
+            return tr
+        return build
+
+    cudnn_turns("fedavg loop", trainer(get_preset("fedavg", nloop=1, lbfgs_direction="pallas"),
+                                       synthetic_cifar(50_000, 10_000, seed=0)), lambda tr: tr.run())
+    cudnn_turns("admm_resnet block7 round", trainer(get_preset("admm_resnet", nloop=1, lbfgs_direction="pallas"),
+                                                    synthetic_cifar(cs.RESNET_TRAIN, cs.RESNET_TEST, seed=0), [8]),
+                lambda tr: tr.run())
+    cudnn_turns("fedavg_scale64 block7 round",
+                trainer(get_preset("fedavg_scale64", nloop=1, nadmm=1, lbfgs_direction="pallas"),
+                        synthetic_cifar(cs.SCALE64_TRAIN, cs.SCALE64_TEST, num_classes=100, seed=0), [8]),
+                lambda tr: tr.run())
+
+
+def main() -> int:
+    import os
+
+    import torch
+
+    if "determinism" in sys.argv[1:] or not sys.argv[1:]:
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")  # before the first cuBLAS handle
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is false: the sweeps need an NVIDIA GPU")
     from federated_pytorch_test_tpu_torch.utils import configure_precision
@@ -297,7 +422,7 @@ def main() -> int:
     print(cs.subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                             capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     sweeps = {"grouped": sweep_grouped, "gram": sweep_gram, "assembly": sweep_assembly, "bf16": sweep_bf16,
-              "scale64": sweep_scale64}
+              "scale64": sweep_scale64, "determinism": sweep_determinism, "cudnn": sweep_cudnn}
     for name in sys.argv[1:] or sweeps:
         if name not in sweeps:
             cs.fail(f"unknown sweep {name!r}; have {sorted(sweeps)}")

@@ -1,8 +1,10 @@
 // bf16 tensor-core helpers for Hopper (sm_90a), for the kernels that take
-// bf16 operands on the tensor cores with f32 accumulators (flash_bf16.cu).
+// bf16 operands on the tensor cores with f32 accumulators (flash_bf16.cu,
+// grouped_gemm_bf16.cu).
 //
-// Operands live in shared memory as the TMA wrote them, with the swizzle
-// of their row width (`desc_sw`, read K-major or MN-major), or in
+// Operands live in shared memory as the TMA wrote them (or as cp.async
+// copies placed them in the same pattern), with the swizzle of their row
+// width (`desc_sw`, read K-major or MN-major), or in
 // registers as the A fragment of the `wgmma_rs_bf16_*` forms. An f32
 // accumulator's fragment is the A fragment of the next product as it
 // stands (`pack_a`): no permutation of the contraction axis, unlike TF32.
@@ -67,6 +69,24 @@ __device__ __forceinline__ void wgmma_ss_bf16_n128(float (&d)[64], uint64_t a, u
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A·B, A and B bf16 in shared memory, each read K-major
+// (Trans = 0) or MN-major (Trans = 1: A with M contiguous, B with N
+// contiguous), descriptors `desc_sw`
+template <int TransA, int TransB>
+__device__ __forceinline__ void wgmma_ss_bf16_n64_t(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TransA), "n"(TransB));
 }
 
 template <int N>

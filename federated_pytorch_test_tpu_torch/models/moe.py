@@ -17,6 +17,15 @@ ported. Per client, as there:
   tanh GELU, then `[K·E, C, H] x [K·E, H, D]`, each plus its bias;
 * the load-balance term is E · Σ_e frac_e · mean_prob_e per client.
 
+Under a bf16 compute dtype the dtypes follow the JAX `MoEMLP` step by
+step: the gate, its softmax and the load-balance term in f32 from the f32
+view of the input; the dispatched slots, the expert weights and biases,
+both grouped products (the bf16 kernel, f32 accumulation) and the GELU in
+bf16; the combine in f32 from the f32 view of the expert outputs, its
+result cast to bf16. Parameters are kept in f32; the engine hands the
+model their bf16 cast (as the JAX step does), so the gate takes the f32
+view of its bf16 weights, as the JAX gate's f32 `nn.Dense` does.
+
 The JAX package dispatches with dense one-hot einsums over `[T, E, C]`;
 at the ViT path's width that mask is 2.1e10 floats a client. Here tokens
 move by index instead, which gives the same numbers: each kept slot
@@ -24,7 +33,9 @@ receives exactly one token at weight 1 and every other einsum term is an
 exact zero. Both moves are gathers whose backward scatters onto distinct
 rows (every slot is written once; each token row is read at most once),
 so the gradients are deterministic. Empty slots read a zero row; dropped
-tokens read a zero row of the expert outputs.
+tokens read a zero row of the expert outputs. Those two pad rows are the
+only rows that gather many terms in the backward, and their gradient is
+thrown away.
 """
 
 from __future__ import annotations
@@ -55,11 +66,7 @@ class MoEMLP(nn.Module):
         super().__init__()
         if n_experts < 1:
             raise ValueError(f"n_experts must be >= 1, got {n_experts}")
-        if dtype != torch.float32:
-            # the grouped kernel (ops/grouped_gemm.py) takes f32 operands only
-            raise NotImplementedError(
-                f"switch-MoE experts under compute dtype {dtype} need a bf16 grouped GEMM kernel, which is "
-                "not ported yet (queued in ROADMAP.md); run MoE models with compute_dtype='float32'")
+        self.dtype = dtype  # the experts' compute dtype
         self.dim, self.n_experts, self.hidden = dim, n_experts, mlp_ratio * dim
         self.capacity_factor = capacity_factor
         self.gate = nn.Linear(dim, n_experts)
@@ -74,8 +81,10 @@ class MoEMLP(nn.Module):
 
     def route(self, params: Dict[str, torch.Tensor], prefix: str, y: torch.Tensor):
         """Routing of `y [K, T, D]`: (probs `[K, T, E]`, expert `[K, T]`,
-        gate weight `[K, T]`, slot `[K, T]`, keep `[K, T]`)."""
-        gw, gb = params[f"{prefix}.gate.weight"], params[f"{prefix}.gate.bias"]
+        gate weight `[K, T]`, slot `[K, T]`, keep `[K, T]`), in f32 whatever
+        the dtype of the gate's parameters (bf16 from the engine under a
+        bf16 compute dtype)."""
+        gw, gb = params[f"{prefix}.gate.weight"].float(), params[f"{prefix}.gate.bias"].float()
         probs = torch.softmax(torch.baddbmm(gb[:, None, :], y, gw.transpose(1, 2)), dim=-1)
         expert = probs.argmax(dim=-1)
         gate = probs.gather(-1, expert[..., None])[..., 0]
@@ -98,9 +107,9 @@ class MoEMLP(nn.Module):
         if y.shape[0] > kw:
             params = {**params, **{n: widen_clients(params[n], y.shape[0]) for n in names}}
         k, t, d = y.shape
-        e, h = self.n_experts, self.hidden
+        e, h, dt = self.n_experts, self.hidden, self.dtype
         cap = self.capacity(t)
-        probs, expert, gate, slot, keep = self.route(params, prefix, y)
+        probs, expert, gate, slot, keep = self.route(params, prefix, y.float())
         n_slots = k * e * cap
         clients = torch.arange(k, device=y.device)[:, None]
         tokens = torch.arange(k * t, device=y.device)
@@ -111,19 +120,20 @@ class MoEMLP(nn.Module):
         # Dropped tokens write past the slots, each to a position of its own.
         src = torch.full((n_slots + k * t,), k * t, dtype=torch.long, device=y.device)
         src.scatter_(0, torch.where(kept, row, n_slots + tokens), tokens)
-        y_pad = torch.cat([y.reshape(k * t, d), y.new_zeros(1, d)])
+        # (each slot takes one token, so the slots in the compute dtype are exact)
+        y_pad = torch.cat([y.reshape(k * t, d), y.new_zeros(1, d)]).to(dt)
         x_e = y_pad.index_select(0, src[:n_slots]).view(k * e, cap, d)
 
-        w1 = params[f"{prefix}.w1"].reshape(k * e, d, h)
-        w2 = params[f"{prefix}.w2"].reshape(k * e, h, d)
-        hid = grouped_matmul(x_e, w1) + params[f"{prefix}.b1"].reshape(k * e, 1, h)
+        w1 = params[f"{prefix}.w1"].reshape(k * e, d, h).to(dt)
+        w2 = params[f"{prefix}.w2"].reshape(k * e, h, d).to(dt)
+        hid = grouped_matmul(x_e, w1) + params[f"{prefix}.b1"].reshape(k * e, 1, h).to(dt)
         hid = F.gelu(hid, approximate="tanh")
-        out_e = grouped_matmul(hid, w2) + params[f"{prefix}.b2"].reshape(k * e, 1, d)
+        out_e = grouped_matmul(hid, w2) + params[f"{prefix}.b2"].reshape(k * e, 1, d).to(dt)
 
-        # combine: token -> its slot's output x gate; dropped tokens read the zero row
-        out_pad = torch.cat([out_e.reshape(n_slots, d), out_e.new_zeros(1, d)])
+        # combine in f32: token -> its slot's output x gate; dropped tokens read the zero row
+        out_pad = torch.cat([out_e.reshape(n_slots, d), out_e.new_zeros(1, d)]).float()
         out = out_pad.index_select(0, torch.where(kept, row, n_slots)).view(k, t, d)
-        out = out * (gate * keep)[..., None]
+        out = (out * (gate * keep)[..., None]).to(dt)
 
         frac = F.one_hot(expert, e).float().mean(dim=1)  # [K, E]
         aux = e * (frac * probs.mean(dim=1)).sum(dim=-1)

@@ -12,10 +12,11 @@ the fused qkv projection's head-major column order (`[h0(q,k,v), h1(q,k,v),
 …]`, read as `reshape(b, s, h, 3, hd)`). The attention core runs in f32.
 
 Mixed precision (`dtype=torch.bfloat16`, the JAX models' `dtype`): the
-projections, the patch embedding, the MLP and the head run in bf16, and
-LayerNorm takes its statistics and normalizes in f32 (Flax's default)
-before rounding its output to bf16; the attention core still takes f32
-q, k, v. The residual stream carries the dtype its terms promote to, as
+projections, the patch embedding, the MLP and the head run in bf16 (a
+switch MoE's experts too, on the bf16 grouped kernel, with its gate and
+combine in f32: `models/moe.py`), and LayerNorm takes its statistics and
+normalizes in f32 (Flax's default) before rounding its output to bf16;
+the attention core still takes f32 q, k, v. The residual stream carries the dtype its terms promote to, as
 in the JAX models.
 
 Attention is `'dense'` (`ops/attention.py`), `'flash'` (the flash kernels,

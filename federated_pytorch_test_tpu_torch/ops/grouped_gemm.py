@@ -5,10 +5,13 @@ the TPU kernel; `grouped_matmul`, its public entry). The switch-MoE MLP
 (`models/moe.py`) runs its experts through it: `[K·E, C, D] x [K·E, D, H]`
 and back, K clients times E experts as the groups.
 
-`grouped_matmul` is an autograd function over one kernel
-(`csrc/grouped_gemm.cu`, built on first use: split-TF32 products on the
-tensor cores, `wgmma`) that serves three roles, each counted under its own
-name in `LAUNCHES`:
+`grouped_matmul` is an autograd function over one kernel a dtype, built on
+first use: f32 operands take `csrc/grouped_gemm.cu` (split-TF32 products on
+the tensor cores, `wgmma`), bf16 operands `csrc/grouped_gemm_bf16.cu` (bf16
+`wgmma`, f32 accumulators, the output rounded to bf16 once, as the Pallas
+kernel writes lhs's dtype). Each serves three roles, each counted under its
+own name in `LAUNCHES` (bf16 launches under the same names with `_bf16`
+appended):
 
 * `grouped_matmul` — the forward, C = A·B;
 * `grouped_matmul_dlhs` — the input gradient dA = dC·Bᵀ, with Bᵀ a view;
@@ -22,9 +25,10 @@ Each gradient is computed only when autograd asks for it, so frozen
 experts cost no weight gradient. Every sum has a fixed order and no
 atomics: two launches give equal bits.
 
-Each role takes its plain PyTorch version (`torch.bmm`, f32) for CPU
-tensors and only then; for CUDA tensors it launches the kernel or raises.
-Only float32 is taken (the port has no bf16 path).
+Each role takes its plain PyTorch version (`torch.bmm` in f32, rounded to
+bf16 for bf16 operands) for CPU tensors and only then; for CUDA tensors it
+launches the kernel or raises. Both operands are float32 or both bfloat16;
+the gradients come back in the operands' dtype.
 """
 
 from __future__ import annotations
@@ -37,12 +41,13 @@ import torch
 
 from .compact_cuda import _on_cpu
 
+ROLES = ("grouped_matmul", "grouped_matmul_dlhs", "grouped_matmul_drhs", "grouped_matmul_sum")
+BF16_ROLES = tuple(f"{r}_bf16" for r in ROLES)
 # kernel launches per role since the last `reset_launch_counts()`
-LAUNCHES: Dict[str, int] = {
-    "grouped_matmul": 0, "grouped_matmul_dlhs": 0, "grouped_matmul_drhs": 0, "grouped_matmul_sum": 0,
-}
+LAUNCHES: Dict[str, int] = dict.fromkeys((*ROLES, *BF16_ROLES), 0)
+DTYPES = (torch.float32, torch.bfloat16)  # the operand dtypes the kernels take
 
-TK = 32  # kBK in the CUDA source: the contraction positions a stage
+TK = 32  # kBK in the f32 source: the contraction positions a stage (64 in the bf16 one)
 # Where the output has fewer tiles than SPLIT_TILES (two blocks for each of
 # an H100's 132 SMs), the contraction runs in chunks of SPLIT_CHUNK. A
 # function of the shapes alone, so a result does not depend on the card.
@@ -52,7 +57,7 @@ SPLIT_CHUNK = 1024
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_lib = None
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launch_counts() -> None:
@@ -60,21 +65,27 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def _kernels():
-    global _lib
-    if _lib is None:
+def _kernels(dtype=torch.float32):
+    """The loaded library for `dtype` operands: `grouped_gemm` (f32) or
+    `grouped_gemm_bf16`, each with its GEMM and split-sum entry points
+    bound as `gemm` and `sum`."""
+    name = "grouped_gemm_bf16" if dtype == torch.bfloat16 else "grouped_gemm"
+    if name not in _libs:
         from .build import load
 
-        lib = load("grouped_gemm")
-        lib.grouped_gemm_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _L, _L, _I, _I, _I, _P]
-        lib.grouped_gemm_launch.restype = _I
-        lib.grouped_sum_launch.argtypes = [_P, _P, _L, _I, _P]
-        lib.grouped_sum_launch.restype = _I
-        _lib = lib
-    return _lib
+        lib = load(name)
+        suffix = "_bf16" if dtype == torch.bfloat16 else ""
+        lib.gemm = getattr(lib, f"grouped_gemm{suffix}_launch")
+        lib.gemm.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _L, _L, _I, _I, _I, _P]
+        lib.gemm.restype = _I
+        lib.sum = getattr(lib, f"grouped_sum{suffix}_launch")
+        lib.sum.argtypes = [_P, _P, _L, _I, _P]
+        lib.sum.restype = _I
+        _libs[name] = lib
+    return _libs[name]
 
 
-def check_operands(lhs: torch.Tensor, rhs: torch.Tensor, dtypes=(torch.float32,)) -> Tuple[int, int, int, int]:
+def check_operands(lhs: torch.Tensor, rhs: torch.Tensor, dtypes=DTYPES) -> Tuple[int, int, int, int]:
     """(G, M, K, N) of `lhs [G, M, K]` and `rhs [G, K, N]`; raises ValueError
     on shapes that disagree (as the JAX package's kernel does) and on a
     dtype outside `dtypes`."""
@@ -104,8 +115,12 @@ def split_k(g: int, m: int, n: int, k: int) -> Tuple[int, int]:
 
 def grouped_matmul_plain(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: `torch.bmm` (full f32 unless TF32 is enabled;
-    float64 too, the reference the kernel is held against on the card)."""
-    check_operands(lhs, rhs, (torch.float32, torch.float64))
+    float64 too, the reference the kernel is held against on the card). On
+    bf16 operands the exact products are summed in f32 and rounded to bf16
+    once, as the kernel does."""
+    check_operands(lhs, rhs, (*DTYPES, torch.float64))
+    if lhs.dtype == torch.bfloat16:
+        return torch.bmm(lhs.float(), rhs.float()).to(torch.bfloat16)
     return torch.bmm(lhs, rhs)
 
 
@@ -126,7 +141,8 @@ def _layout(t: torch.Tensor) -> Tuple[torch.Tensor, int, int, int]:
 
 def _launch(lhs: torch.Tensor, rhs: torch.Tensor, role: str) -> torch.Tensor:
     """`lhs @ rhs` per group on the card, counted under `role` (and the
-    chunk sum under `grouped_matmul_sum` where the contraction is split)."""
+    chunk sum under `grouped_matmul_sum` where the contraction is split),
+    with `_bf16` appended for bf16 operands."""
     g, m, k, n = check_operands(lhs, rhs)
     if min(g, m, k, n) < 1:
         raise ValueError(f"grouped_matmul needs non-empty operands, got {tuple(lhs.shape)} x {tuple(rhs.shape)}")
@@ -138,40 +154,53 @@ def _launch(lhs: torch.Tensor, rhs: torch.Tensor, role: str) -> torch.Tensor:
     b, b_t, b_g, ldb = _layout(rhs if not a_t else rhs.contiguous())
     bm, bn = tiles(m, n)
     splits, chunk = split_k(g, m, n, k)
-    out = torch.empty((g, m, n), dtype=torch.float32, device=lhs.device)
+    out = torch.empty((g, m, n), dtype=lhs.dtype, device=lhs.device)
+    # the split contraction's partials stay f32 whatever the operands' dtype
     dst = out if splits == 1 else torch.empty((splits, g, m, n), dtype=torch.float32, device=lhs.device)
-    rc = _kernels().grouped_gemm_launch(
+    rc = _kernels(lhs.dtype).gemm(
         a.data_ptr(), b.data_ptr(), dst.data_ptr(), g, m, n, k, a_t, a_g, lda, b_t, b_g, ldb, bm, bn, chunk,
         torch.cuda.current_stream(lhs.device).cuda_stream,
     )
+    if lhs.dtype == torch.bfloat16:
+        role += "_bf16"
     if rc != 0:
         raise RuntimeError(f"{role}: CUDA launch failed (cudaError {rc})")
     LAUNCHES[role] += 1
     return out if splits == 1 else grouped_sum(dst, out)
 
 
-def grouped_sum_plain(partials: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of `grouped_sum`: the splits added in order."""
+def grouped_sum_plain(partials: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """Plain PyTorch version of `grouped_sum`: the splits added in order,
+    the sum rounded to `dtype` once."""
     out = partials[0].clone()
     for p in partials[1:]:
         out += p
-    return out
+    return out.to(dtype)
 
 
 def grouped_sum(partials: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
-    """Σ_s partials[s] of contiguous f32 `partials [S, ...]`, added in split order (into `out`)."""
+    """Σ_s partials[s] of contiguous f32 `partials [S, ...]`, added in split
+    order and rounded once to `out`'s dtype (float32 or bfloat16; float32
+    where no `out` is given), into `out`."""
+    dtype = torch.float32 if out is None else out.dtype
+    if dtype not in DTYPES:
+        raise ValueError(f"grouped_sum writes float32 or bfloat16, got {dtype}")
     if _on_cpu(partials):
-        return grouped_sum_plain(partials)
+        return grouped_sum_plain(partials, dtype)
     if partials.dtype != torch.float32 or not partials.is_contiguous() or partials.shape[0] < 1:
         raise ValueError(f"grouped_sum takes contiguous float32 partials [S, ...], got {partials.dtype} "
                          f"{tuple(partials.shape)}")
     if out is None:
-        out = torch.empty(partials.shape[1:], dtype=torch.float32, device=partials.device)
-    rc = _kernels().grouped_sum_launch(partials.data_ptr(), out.data_ptr(), out.numel(), partials.shape[0],
-                                       torch.cuda.current_stream(partials.device).cuda_stream)
+        out = torch.empty(partials.shape[1:], dtype=dtype, device=partials.device)
+    elif out.shape != partials.shape[1:] or not out.is_contiguous() or out.device != partials.device:
+        raise ValueError(f"grouped_sum: out must be a contiguous {tuple(partials.shape[1:])} tensor on "
+                         f"{partials.device}, got {tuple(out.shape)} on {out.device}")
+    role = "grouped_matmul_sum_bf16" if dtype == torch.bfloat16 else "grouped_matmul_sum"
+    rc = _kernels(dtype).sum(partials.data_ptr(), out.data_ptr(), out.numel(), partials.shape[0],
+                             torch.cuda.current_stream(partials.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"grouped_matmul_sum: CUDA launch failed (cudaError {rc})")
-    LAUNCHES["grouped_matmul_sum"] += 1
+        raise RuntimeError(f"{role}: CUDA launch failed (cudaError {rc})")
+    LAUNCHES[role] += 1
     return out
 
 
@@ -213,6 +242,7 @@ class _GroupedMatmul(torch.autograd.Function):
 
 
 def grouped_matmul(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-    """`[G, M, K] x [G, K, N] -> [G, M, N]` in f32, differentiable in both operands."""
+    """`[G, M, K] x [G, K, N] -> [G, M, N]` in the operands' dtype (f32 or
+    bf16), differentiable in both operands."""
     check_operands(lhs, rhs)
     return _GroupedMatmul.apply(lhs, rhs)

@@ -3,7 +3,7 @@
 
 Run from the root of a checkout:
 
-    python3 no_consensus_probe.py [--runs 6] [--epochs 2] [--deterministic] [--poison]
+    python3 no_consensus_probe.py [--runs 6] [--epochs 2] [--nondeterministic] [--poison]
 
 Each run trains the `no_consensus` preset (Net1, K=3, batch 32, the whole
 vector of 890,410 one group, the fc1 elastic net) with the kernel
@@ -19,7 +19,11 @@ saved state with every direction and every objective evaluation of that
 client printed: the direction's norm against the compact direction
 computed in float64, g·d, and the history's y·s, s·s and y·y a slot.
 
-`--deterministic` runs cuDNN in its deterministic mode. `--poison` first
+The port runs cuDNN deterministically (`utils/device.py`), so every run
+takes one trajectory; `--nondeterministic` switches each Trainer back to
+cuDNN's default algorithms, whose convolution weight gradients add in an
+order that changes from run to run (the mode in which the non-finite step
+was first seen, in 3 of 19 two-epoch runs). `--poison` first
 fills the caching allocator with NaN, so that a read of memory nobody
 wrote shows as NaN. Without CUDA the script exits non-zero.
 """
@@ -48,6 +52,8 @@ def run(args) -> bool:
 
     cfg = get_preset("no_consensus", lbfgs_direction=DIRECTION, nepoch=args.epochs)
     tr = Trainer(cfg, verbose=False, source=synthetic_cifar(50_000, 10_000, seed=0))
+    if args.nondeterministic:  # after the Trainer, which sets the port's deterministic default
+        torch.backends.cudnn.deterministic = False
     ctx = tr.ctx(0)
     lstate, _ = st.round_init(ctx, tr.flat)
     idx = np.concatenate([tr.epoch_indices(0, 0, 0, e) for e in range(args.epochs)])
@@ -123,7 +129,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=6)
     ap.add_argument("--epochs", type=int, default=2)
-    ap.add_argument("--deterministic", action="store_true", help="cuDNN's deterministic mode")
+    ap.add_argument("--nondeterministic", action="store_true",
+                    help="cuDNN's default algorithms instead of the port's deterministic ones")
     ap.add_argument("--poison", action="store_true", help="fill the caching allocator with NaN first")
     args = ap.parse_args()
     import torch
@@ -131,11 +138,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL no CUDA device", flush=True)
         return 1
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = args.deterministic, False
     if args.poison:
         junk = torch.full((30 * 2**30 // 4,), float("nan"), device="cuda")  # 30 GiB, back to the cache
         del junk
-    print(f"probe direction={DIRECTION} epochs={args.epochs} deterministic={args.deterministic} "
+    print(f"probe direction={DIRECTION} epochs={args.epochs} nondeterministic={args.nondeterministic} "
           f"poison={args.poison}", flush=True)
     finite = [run(args) for _ in range(args.runs)]
     print(f"probe runs={len(finite)} finite={sum(finite)}", flush=True)

@@ -188,6 +188,54 @@ def test_grouped_matmul_autograd_takes_strided_and_transposed_operands():
     assert _rel(a.grad.double(), a64.grad) <= 1e-5 and _rel(b.grad.double(), b64.grad) <= 1e-5
 
 
+def _bf16_units(a, ref):
+    """Distance of bf16 `a` from the float64 `ref` rounded to bf16, in bf16
+    units (2^-8) of the largest entry (`chip_smoke.bf16_units`)."""
+    r = ref.to(torch.bfloat16).double()
+    return float((a.double() - r).abs().max()) / (2.0 ** -8 * max(float(r.abs().max()), 1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,m,k,n", [(4, 160, 400, 120), (3, 13, 257, 9), (3, 300, 40, 270), (6, 8192, 64, 256)])
+def test_grouped_matmul_bf16_roles_match_float64_and_repeat_bitwise(g, m, k, n):
+    # the bf16 kernel (csrc/grouped_gemm_bf16.cu), every role on bf16
+    # operands: within two bf16 units of the float64 product rounded to
+    # bf16, two calls equal bits; the last shape splits the contraction
+    from federated_pytorch_test_tpu_torch.ops import grouped_gemm as gg
+
+    _card()
+    rng = np.random.default_rng(g + m + k + n + 1)
+    a, b, dc = (torch.tensor(rng.normal(size=s).astype(np.float32), device="cuda").bfloat16()
+                for s in ((g, m, k), (g, k, n), (g, m, n)))
+    cases = ((gg.grouped_matmul_fwd, (a, b), a.double() @ b.double()),
+             (gg.grouped_matmul_dlhs, (dc, b), dc.double() @ b.double().transpose(1, 2)),
+             (gg.grouped_matmul_drhs, (a, dc), a.double().transpose(1, 2) @ dc.double()))
+    for fn, args, ref in cases:
+        first, second = fn(*args), fn(*args)
+        assert first.dtype == torch.bfloat16 and torch.equal(first.view(torch.int16), second.view(torch.int16))
+        assert first.shape == ref.shape and _bf16_units(first, ref) <= 2.0
+
+
+@pytest.mark.cuda
+def test_grouped_matmul_bf16_autograd_takes_strided_and_transposed_operands():
+    # as the f32 test below: the backward gets a transposed dC beside the
+    # transposed Bᵀ and Aᵀ (one operand copied), all bf16
+    from federated_pytorch_test_tpu_torch.ops import grouped_gemm as gg
+
+    _card()
+    rng = np.random.default_rng(8)
+    a_full, b, w = (torch.tensor(rng.normal(size=s).astype(np.float32), device="cuda").bfloat16()
+                    for s in ((3, 96, 2 * 80), (3, 80, 72), (3, 72, 96)))
+    a = a_full[:, :, ::2].requires_grad_(True)
+    b.requires_grad_(True)
+    dout = w.transpose(1, 2)
+    gg.grouped_matmul(a, b).transpose(1, 2).backward(w)
+    a64, b64 = a.detach().double(), b.detach().double()
+    assert a.grad.dtype == b.grad.dtype == torch.bfloat16
+    assert _bf16_units(a.grad, dout.double() @ b64.transpose(1, 2)) <= 2.0
+    assert _bf16_units(b.grad, a64.transpose(1, 2) @ dout.double()) <= 2.0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1_001, 70_003])
 def test_gram_repeats_bitwise_and_matches_plain(n):

@@ -23,6 +23,15 @@ Two kinds of inputs, both drawn from a numpy seed:
 
 The kernel's split of long contractions (`split_k`) is a function of the
 shapes alone and covers the contraction exactly.
+
+On bf16 operands (the MoE under `compute_dtype="bfloat16"`) the port's
+plain version sums the exact products in f32 and rounds once to bf16, as
+the Pallas kernel does (f32 accumulation, the output in lhs's dtype). It is
+held against `grouped_matmul_pallas` in interpret mode on the same bf16
+operands within 2^-8 (one bf16 unit) of the largest entry: the two sum in
+other orders, so an output may round to the neighbouring bf16 value. Its
+autograd gradients, bf16 as JAX's, are held against `jax.vjp` of the
+einsum backend on bf16 within two bf16 units of the largest entry.
 """
 
 import jax
@@ -36,6 +45,8 @@ from federated_pytorch_test_tpu.ops.grouped_gemm import grouped_matmul_pallas
 from federated_pytorch_test_tpu_torch.ops import grouped_gemm as gg
 
 SHAPES = [(4, 160, 400, 120), (3, 13, 257, 9), (3, 300, 40, 270)]  # (G, M, K, N)
+BF16_SHAPES = [(3, 13, 257, 9), (3, 300, 40, 270), (2, 64, 64, 256)]
+BF16_UNIT = 2.0 ** -8
 TOL = dict(rtol=1e-6, atol=1e-5)
 SLACK = 2.0  # the port's distance from float64 may reach this multiple of the JAX side's
 REL_FLOOR = 1e-5  # ... or this much of the largest float64 entry
@@ -107,17 +118,25 @@ def test_validation_raises_as_the_jax_kernel_does():
         gg.grouped_matmul(torch.zeros(2, 4, 3), torch.zeros(2, 4, 5))
     with pytest.raises(ValueError, match="shapes"):
         gg.grouped_matmul(torch.zeros(4, 3), torch.zeros(3, 5))
-    with pytest.raises(ValueError, match="float32"):  # no bf16 path in the port
-        gg.grouped_matmul(torch.zeros(2, 4, 3, dtype=torch.bfloat16), torch.zeros(2, 3, 5, dtype=torch.bfloat16))
+    out = gg.grouped_matmul(torch.zeros(2, 4, 3, dtype=torch.bfloat16), torch.zeros(2, 3, 5, dtype=torch.bfloat16))
+    assert out.dtype == torch.bfloat16 and out.shape == (2, 4, 5)  # bf16 is taken, as the Pallas kernel takes it
     with pytest.raises(ValueError, match="float32"):
         gg.grouped_matmul(torch.zeros(2, 4, 3), torch.zeros(2, 3, 5, dtype=torch.float64))
+    with pytest.raises(ValueError, match="bfloat16"):  # mixed dtypes
+        gg.grouped_matmul(torch.zeros(2, 4, 3, dtype=torch.bfloat16), torch.zeros(2, 3, 5))
+    with pytest.raises(ValueError, match="float32"):
+        gg.grouped_matmul(torch.zeros(2, 4, 3, dtype=torch.float16), torch.zeros(2, 3, 5, dtype=torch.float16))
 
 
 def test_cpu_calls_launch_no_kernel():
     gg.reset_launch_counts()
-    lhs, rhs, _ = (torch.from_numpy(t).requires_grad_(True) for t in _operands(2, 8, 5, 3, seed=1, grid=False))
-    gg.grouped_matmul(lhs, rhs).sum().backward()
+    for dtype in (torch.float32, torch.bfloat16):
+        lhs, rhs, _ = (torch.from_numpy(t).to(dtype).requires_grad_(True)
+                       for t in _operands(2, 8, 5, 3, seed=1, grid=False))
+        gg.grouped_matmul(lhs, rhs).float().sum().backward()
+        assert lhs.grad.dtype == rhs.grad.dtype == dtype
     assert all(n == 0 for n in gg.LAUNCHES.values()), gg.LAUNCHES
+    assert set(gg.LAUNCHES) == {*gg.ROLES, *(f"{r}_bf16" for r in gg.ROLES)}
 
 
 @pytest.mark.parametrize("g,m,n,k,splits", [
@@ -140,6 +159,47 @@ def test_split_sum_adds_the_chunks_in_order():
     want = (((part[0] + part[1]) + part[2]) + part[3]) + part[4]
     assert torch.equal(got, want)
     np.testing.assert_allclose(got.numpy(), part.double().sum(0).numpy(), rtol=1e-6, atol=1e-6)
+
+
+def _bf16_operands(g, m, k, n, seed):
+    """lhs, rhs, cotangent drawn in f32 from a numpy seed, rounded to bf16 once,
+    as float32 numpy arrays holding bf16 values."""
+    return tuple(torch.from_numpy(t).bfloat16().float().numpy() for t in _operands(g, m, k, n, seed, grid=False))
+
+
+def _within_bf16_units(got, want, units, label):
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got.astype(np.float64) - want).max())
+    assert err <= units * BF16_UNIT * scale, (label, err / (BF16_UNIT * scale))
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_bf16_plain_matches_the_pallas_kernel(shape):
+    lhs, rhs, _ = _bf16_operands(*shape, seed=sum(shape) + 2)
+    want = grouped_matmul_pallas(jnp.asarray(lhs, jnp.bfloat16), jnp.asarray(rhs, jnp.bfloat16))
+    got = gg.grouped_matmul(torch.from_numpy(lhs).bfloat16(), torch.from_numpy(rhs).bfloat16())
+    assert want.dtype == jnp.bfloat16 and got.dtype == torch.bfloat16
+    _within_bf16_units(got.float().numpy(), np.asarray(want, np.float64), 1.0, "out")
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_bf16_gradients_match_jax_vjp(shape):
+    lhs, rhs, cot = _bf16_operands(*shape, seed=sum(shape) + 3)
+    j16 = [jnp.asarray(t, jnp.bfloat16) for t in (lhs, rhs, cot)]
+    _, vjp = jax.vjp(lambda a, b: j_grouped_matmul(a, b, backend="einsum"), j16[0], j16[1])
+    want = vjp(j16[2])
+    a, b = (torch.from_numpy(t).bfloat16().requires_grad_(True) for t in (lhs, rhs))
+    gg.grouped_matmul(a, b).backward(torch.from_numpy(cot).bfloat16())
+    for name, got, w in zip(("dlhs", "drhs"), (a.grad, b.grad), want):
+        assert got.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16, name
+        _within_bf16_units(got.float().numpy(), np.asarray(w, np.float64), 2.0, name)
+
+
+def test_bf16_split_sum_rounds_once():
+    part = torch.from_numpy(np.random.default_rng(4).normal(size=(5, 2, 3, 4)).astype(np.float32))
+    got = gg.grouped_sum(part, torch.empty(part.shape[1:], dtype=torch.bfloat16))
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, gg.grouped_sum(part).to(torch.bfloat16))  # the f32 sum in split order, rounded once
 
 
 def test_layout_reads_views_in_place():

@@ -16,7 +16,9 @@ switch-MoE ViT over the ViT's two groups, whose grouped
 GEMM launches twice a block in every forward, twice in each
 block the gradient crosses and twice more (the weight gradients) in the
 block the group trains (`expected_grouped`), and the same MoE ViT with
-probe fans of 4 under both folds, each fan one forward pass. Counts are
+probe fans of 4 under both folds, each fan one forward pass, and the same
+MoE ViT at compute_dtype bfloat16, whose grouped GEMMs take bf16 operands
+and count under the `_bf16` roles (`expected_grouped` by dtype). Counts are
 exact: no tolerance.
 """
 
@@ -188,13 +190,47 @@ def test_a_probe_fan_is_one_forward_in_every_block(monkeypatch, fold):
                       "fused_gram_projections": exp["direction"], "fused_direction_assembly": exp["direction"]}
 
 
-def test_grouped_formula_at_the_chip_shapes():
-    # the MoE ViT path's own shapes: both weight gradients split, once each
-    cfg = get_preset("fedavg", model="vit", model_kwargs=chip_smoke.VIT_MOE_KWARGS)
+def test_vit_moe_bf16_launches_equal_the_count_its_records_imply(monkeypatch):
+    # the MoE ViT at compute_dtype bf16 (attention at 'default'): every
+    # grouped call takes bf16 operands, counted under its `_bf16` role;
+    # no f32 role runs
+    counts = {}
+    for role, fn_name in zip(grouped_gemm.ROLES, ("grouped_matmul_fwd", "grouped_matmul_dlhs",
+                                                  "grouped_matmul_drhs")):
+        fn = getattr(grouped_gemm, fn_name)
+
+        def counted(*args, _fn=fn, _role=role):
+            assert args[0].dtype == args[1].dtype
+            name = _role + ("_bf16" if args[0].dtype == torch.bfloat16 else "")
+            counts[name] = counts.get(name, 0) + 1
+            return _fn(*args)
+
+        monkeypatch.setattr(grouped_gemm, fn_name, counted)
+    cfg = ExperimentConfig(model="vit", model_kwargs={"patch": 2, "attn_impl": "flash", "dim": 32, "num_heads": 2,
+                                                      "moe_experts": 2, "attn_precision": "default"},
+                           device="cpu", batch=8, eval_batch=8, nloop=1, nadmm=1, max_groups=2,
+                           compute_dtype="bfloat16")
+    tr = Trainer(cfg, verbose=False, source=synthetic_cifar(24, 16))
+    rec = tr.run()
+    exp = chip_smoke.expected_launches(rec, tr.model, sweep_passes=len(tr.test_imgs))
+    grouped = chip_smoke.expected_grouped(exp, cfg)
+    assert grouped["grouped_matmul_sum_bf16"] == 2 * exp["weight_backward"] > 0
+    assert all(grouped[r] == 0 for r in grouped_gemm.ROLES)
+    assert counts == {r: grouped[r] for r in grouped_gemm.BF16_ROLES[:3]}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_formula_at_the_chip_shapes(dtype):
+    # the MoE ViT path's own shapes: both weight gradients split, once each,
+    # under the roles of the compute dtype; the other dtype's roles at 0
+    cfg = get_preset("fedavg", model="vit", model_kwargs=chip_smoke.VIT_MOE_KWARGS, compute_dtype=dtype)
     assert chip_smoke.moe_shapes(cfg) == (24, 20480, 20000, 64, 256)
     exp = {"forward": 10, "backward": 7, "weight_backward": 3}
-    assert chip_smoke.expected_grouped(exp, cfg) == {"grouped_matmul": 20, "grouped_matmul_dlhs": 14,
-                                                     "grouped_matmul_drhs": 6, "grouped_matmul_sum": 6}
+    want = dict(zip(grouped_gemm.ROLES, (20, 14, 6, 6)))
+    zero = dict.fromkeys(grouped_gemm.BF16_ROLES, 0)
+    if dtype == "bfloat16":
+        want, zero = {f"{r}_bf16": n for r, n in want.items()}, dict.fromkeys(grouped_gemm.ROLES, 0)
+    assert chip_smoke.expected_grouped(exp, cfg) == {**want, **zero}
 
 
 def test_gate_fails_on_any_difference(capsys):

@@ -26,7 +26,11 @@ casts the logits to f32 before the cross-entropy.
   within 3e-2 of the largest.
 * `remat` on and off: the same trajectory within the JAX package's
   rtol 1e-5, atol 1e-6 (tests/test_engine.py:254-264).
-* A switch-MoE model under bf16 raises (no bf16 grouped GEMM yet).
+* The switch-MoE ViT (dim 32, 2 heads, patch 2, 2 experts, 'flash' at
+  'default') at bf16 like the models above, and its routing (each
+  token's expert in every block) equal to the JAX model's, read from the
+  JAX gate's logits; a bf16 MoE ViT Trainer run on the CPU with f32
+  parameters and finite losses.
 """
 
 import jax
@@ -52,6 +56,7 @@ from federated_pytorch_test_tpu_torch.data import synthetic_cifar
 from federated_pytorch_test_tpu_torch.engine import ExperimentConfig, Trainer, get_preset
 from federated_pytorch_test_tpu_torch.engine.steps import GroupContext, client_train_step, objective
 from federated_pytorch_test_tpu_torch.models import Net, ResNet18, TransformerLM, ViT
+from federated_pytorch_test_tpu_torch.models.moe import MoEMLP
 from federated_pytorch_test_tpu_torch.optim import LBFGSConfig, lbfgs_init
 from federated_pytorch_test_tpu_torch.partition import unflatten_params
 
@@ -112,8 +117,8 @@ def _case(name):
         return jmodel, model, init["params"], inputs, labels, 0, None
     images = rng.normal(size=(K, 4, 32, 32, 3)).astype(np.float32)
     labels = rng.integers(0, 10, size=(K, 4)).astype(np.int32)
-    if name == "vit":
-        kw = dict(dim=32, num_heads=2, patch=2)
+    if name in ("vit", "vit_moe"):
+        kw = dict(dim=32, num_heads=2, patch=2, **({"moe_experts": 2} if name == "vit_moe" else {}))
         jmodel = JViT(**kw, attn_impl="flash", attn_precision="default", dtype=jnp.bfloat16)
         init = JViT(**kw).init(jax.random.PRNGKey(3), jnp.zeros((1, 32, 32, 3)))
         model = ViT(**kw, attn_impl="flash", attn_precision="default", dtype=torch.bfloat16)
@@ -126,11 +131,64 @@ def _case(name):
             init["batch_stats"])
 
 
-@pytest.mark.parametrize("name", ["net", "resnet", "vit", "lm"])
+ROUTE_UNITS = 2.0  # bf16 units of each input of the gate by which the two packages' bf16 LayerNorm outputs may differ
+
+
+def _jax_routing(jmodel, params, inputs):
+    """Each block's (gate logits `[T, E]`, the gate's input `[T, D]`, the
+    gate's kernel `[D, E]`) in the JAX model on each client's inputs."""
+    apply = jax.jit(lambda p, x: jmodel.apply({"params": p}, x, mutable=["intermediates"],
+                                              capture_intermediates=lambda mdl, _: mdl.name in ("gate", "ln2")))
+    out = []
+    for x in inputs:
+        inter = apply(params, jnp.asarray(x))[1]["intermediates"]
+        out.append([(np.asarray(inter[f"block{i}"]["moe"]["gate"]["__call__"][0], np.float64),
+                     np.asarray(inter[f"block{i}"]["ln2"]["__call__"][0], np.float64).reshape(
+                         -1, params[f"block{i}"]["moe"]["gate"]["kernel"].shape[0]),
+                     np.asarray(params[f"block{i}"]["moe"]["gate"]["kernel"], np.float64)) for i in range(4)])
+    return out
+
+
+def _routing_matches(routes, jmodel, unravel, jpart, gid, jflat16, x0, inputs):
+    """The port's experts per token (`routes`: each block's [K, T] in call
+    order) against the argmax of the JAX gate's logits, block by block.
+
+    The gate reads the bf16 LayerNorm output, which the two packages round
+    at other places; a token may route apart only where that explains it:
+    its JAX logit margin between the two experts is within what a change
+    of ROUTE_UNITS bf16 units in each gate input can move it
+    (`ROUTE_UNITS · 2^-8 · Σ_d |y_d| · |w_d,a − w_d,b|`), or the same token
+    already routed apart in an earlier block, so that its input differs
+    there by more than rounding. Prints every flip with its margin."""
+    params = unravel(jpart.insert(jflat16, gid, x0.astype(jnp.bfloat16)))
+    flips, unexplained = [], []
+    for c, blocks in enumerate(_jax_routing(jmodel, params, inputs)):
+        apart = set()
+        for i, (logits, y, w) in enumerate(blocks):
+            jexp = logits.argmax(-1)
+            for t in np.flatnonzero(routes[i][c] != jexp):
+                a, b = int(jexp[t]), int(routes[i][c][t])
+                margin = float(logits[t, a] - logits[t, b])
+                bound = ROUTE_UNITS * 2.0 ** -8 * float(np.abs(y[t]) @ np.abs(w[:, a] - w[:, b]))
+                flips.append((c, i, int(t), round(margin, 4), round(bound, 4)))
+                if margin > bound and t not in apart:
+                    unexplained.append(flips[-1])
+                apart.add(t)
+    print(f"routing: {len(routes[0][0]) * K * len(routes)} tokens x blocks, {len(flips)} routed apart "
+          f"(client, block, token, JAX margin, rounding bound): {flips}")
+    assert not unexplained, unexplained
+
+
+@pytest.mark.parametrize("name", ["net", "resnet", "vit", "lm", "vit_moe"])
 def test_bf16_model_matches_jax(name, monkeypatch):
     if name == "resnet":
         monkeypatch.setattr(JResNet18, "STAGES", NARROW)
         monkeypatch.setattr(ResNet18, "STAGES", NARROW)
+    routes = []
+    if name == "vit_moe":  # each block's experts per token, in call order
+        route = MoEMLP.route
+        monkeypatch.setattr(MoEMLP, "route", lambda self, *a: (lambda r: routes.append(r[1].numpy()) or r)(
+            route(self, *a)))
     jmodel, model, jparams, inputs, labels, gid, jstats = _case(name)
     jparams = jax.tree.map(np.asarray, jparams)
     jflat, unravel = jflatten(jparams)
@@ -190,6 +248,8 @@ def test_bf16_model_matches_jax(name, monkeypatch):
             worst = max(worst, float(np.abs(a - b).max()) / scale)
     if want_stats:
         print(f"{name} running statistics: worst max |port - jax| / max|jax| = {worst:.3e}")
+    if name == "vit_moe":
+        _routing_matches(routes[:4], jmodel, unravel, jpart, gid, jflat16, x0, inputs)
 
 def test_bf16_lbfgs_step_on_fc1_matches_jax():
     gid, lam = 2, 1e-4
@@ -257,8 +317,17 @@ def test_bf16_trainer_runs_with_f32_parameters():
     assert 0.0 <= float(np.min(rec.series["test_accuracy"][-1]["value"])) <= 1.0
 
 
-def test_moe_under_bf16_raises():
-    cfg = ExperimentConfig(model="vit", model_kwargs={"patch": 2, "dim": 32, "num_heads": 2, "moe_experts": 2},
-                           compute_dtype="bfloat16", device="cpu", batch=8)
-    with pytest.raises(NotImplementedError, match="bf16 grouped GEMM"):
-        Trainer(cfg, verbose=False, source=synthetic_cifar(24, 16))
+def test_bf16_moe_vit_trainer_runs_with_f32_parameters():
+    # the switch-MoE ViT at bf16 through the engine, at the path's own
+    # configuration (dim 64, 8 experts) on a tiny set: experts, their
+    # products and the GELU in bf16, parameters and the optimizer in f32
+    cfg = get_preset("fedavg", model="vit", model_kwargs={"patch": 2, "attn_impl": "flash",
+                                                          "attn_precision": "default", "moe_experts": 8},
+                     compute_dtype="bfloat16", device="cpu", batch=8, nloop=1, nadmm=1, max_groups=1,
+                     check_results=False)
+    tr = Trainer(cfg, verbose=False, source=synthetic_cifar(24, 16))
+    assert tr.model.block0.moe.dtype == torch.bfloat16 and tr.flat.dtype == torch.float32
+    rec = tr.run()
+    losses = np.asarray([r["value"] for r in rec.series["train_loss"]])
+    assert tr.flat.dtype == torch.float32 and np.isfinite(tr.flat.numpy()).all()
+    assert losses.size and np.isfinite(losses).all() and rec.first_nonfinite is None

@@ -42,6 +42,24 @@ def test_no_module_names_the_jax_package(path):
     assert not re.search(r"^\s*(import|from)\s+(jax|flax|optax)\b", text, re.M), path
 
 
+def test_resolve_device_runs_cudnn_deterministically():
+    # every entry point goes through `resolve_device`, which sets the
+    # port's numeric defaults: cuDNN deterministic, no autotuning
+    from federated_pytorch_test_tpu_torch.utils import resolve_device
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, True
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert torch.backends.cudnn.deterministic and not torch.backends.cudnn.benchmark
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_no_module_turns_cudnn_autotuning_on():
+    for path in sorted(PKG.rglob("*.py")):
+        text = path.read_text()
+        assert not re.search(r"cudnn\.benchmark\s*=\s*True", text), path
+        assert not re.search(r"cudnn\.deterministic\s*=\s*False", text), path
+
+
 def test_trainer_defaults_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU: the default device exists")
