@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
                           [--vit-moe-metrics-out PATH] [--vit-moe-bf16-metrics-out PATH]
                           [--admm-metrics-out PATH]
                           [--resnet-metrics-out PATH] [--no-consensus-metrics-out PATH]
-                          [--scale64-metrics-out PATH] [--fan-metrics-out PATH] [--profile]
+                          [--scale64-metrics-out PATH] [--fan-metrics-out PATH]
+                          [--lm-d128-metrics-out PATH] [--vit-d128-metrics-out PATH] [--profile]
     python3 chip_smoke.py --ab-parent DIR [--ab-phases phase_train,...]
 
 The second form runs none of the phases below: it times the grouped GEMM
@@ -46,9 +47,9 @@ Phases, each reported on its own lines and followed by its wall (`phase
               its registers and its time beside its bound;
 4. flash    — the three causal flash-attention kernels (the tensor-core
               kernels at Sq = Skv, shift 0) against their plain versions (D
-              in {16, 32, 64} x S in {128, 256, 1024, 2048} at BH=8, the
-              headroom S=4096 at BH=8 and every D, and the LM path's BH=128,
-              S=2048, D=16): o and lse within relative 1e-5 of the largest
+              in {16, 32, 64, 128} x S in {128, 256, 1024, 2048} at BH=8, the
+              headroom S=4096 at BH=8 and every D, and the LM paths' BH=128,
+              S=2048 at D=16 and D=128): o and lse within relative 1e-5 of the largest
               reference entry, dq, dk, dv within 1e-4 (from S=2048 on, also
               printed against the plain version in float64); at the path's
               shape the forward and the dq, dk/dv pair twice on the same
@@ -57,10 +58,15 @@ Phases, each reported on its own lines and followed by its wall (`phase
               times at the path's shape beside two bounds (split TF32 on the
               tensor cores, exps, bytes; and the ceiling of an f32 FFMA
               design) and `scaled_dot_product_attention` (forward; backward)
-              as the yardstick;
+              as the yardstick; then `padded_check`: the public op at D=80,
+              which pads to the D-128 instance, against the plain versions at
+              D=80, each kernel launched once, and its fwd+bwd time beside
+              the op's at D=128 (the padding's price);
 5. flash rect — the three rectangular flash kernels against their plain
-              versions: non-causal at D in {16, 32, 64} x S in {128, 256,
-              1024} (BH=8) and the ViT path's BH=6144, S=256, D=16; causal
+              versions: non-causal at D in {16, 32, 64, 128} x S in {128, 256,
+              1024} (BH=8; S=2048 at D=128, also read against float64), the
+              ViT path's BH=6144, S=256, D=16 and the D-128 ViT's BH=3072,
+              S=256, D=128; causal
               with global offsets (q_off, k_off) in {(0,0), (128,0),
               (0,128) fully future, (0,64) unaligned} and two s_q != s_kv
               cases (one at q_off 37, off the 64-key tile grid); same tolerances, and rows that see no key exactly o = 0,
@@ -68,28 +74,31 @@ Phases, each reported on its own lines and followed by its wall (`phase
               cotangents against autograd through the plain forward; the
               repeat and x8 checks of the forward, and of dq and dk/dv
               (`bwd_extra_checks`, within 1e-4 of float64 or twice the f32
-              plain version's error), at the ViT shape, non-causal and
-              causal; times at the ViT shape beside the bounds and
-              `scaled_dot_product_attention`;
+              plain version's error), at both ViT shapes, non-causal and
+              causal; times there beside the bounds and
+              `scaled_dot_product_attention`; `padded_check` non-causal;
 5a. flash default — the six one-pass ('default') flash kernels against
               their plain versions (which round as the kernels do, tile by
               tile): every output within 2^-10 of its largest entry, and at
               least 4x closer in RMS to the one-pass plain version than to
               'highest' (`onepass_check`); causal at S 1024 and the
-              rectangular family non-causal and on offsets at every D, and
-              the LM's and the ViT's shapes, there also within 2e-2 of
-              float64; repeats equal bits; times beside the bound (one TF32
-              product, the exps or the bytes) and SDPA in f32;
+              rectangular family non-causal and on offsets at every D, causal
+              at S 128, 256 and 2048 at D 128, and the LM's and the ViT's
+              shapes at D 16 and D 128, there (and at S 2048) also within
+              2e-2 of float64; repeats equal bits; times beside the bound
+              (one TF32 product, the exps or the bytes) and SDPA in f32;
+              `padded_check` at 'default';
 5b. flash bf16 — the bf16 causal trio (`cast16`) against its plain versions
-              at every D (S 256, 1024) and at (BH 128, S 2048, D 16) and
-              (BH 32, S 4096, D 64): o, lse and the bf16 cotangents within
+              at every D (S 256, 1024; at D 128 also S 128 and 2048) and at
+              (BH 128, S 2048, D 16), (BH 32, S 4096, D 64) and (BH 128,
+              S 2048, D 128): o, lse and the bf16 cotangents within
               two bf16 units (2^-8) of their largest entry; the public op
               `flash_attention(q16, k16, v16, causal=True,
               precision='default')` forward and backward against float64
               dense attention at the JAX package's bounds, launching each
               of the trio exactly once; repeats equal bits; times beside
               the bound (bf16 products at 989 TFLOP/s, the exps or the
-              bytes) and SDPA on the same bf16 inputs;
+              bytes) and SDPA on the same bf16 inputs; `padded_check` bf16;
 6. parity   — a tiny drive with the plain ('compact') and the fused-kernel
               ('pallas') direction on the card: the first averaging round's
               losses and dual residual agree within relative 1e-3;
@@ -126,6 +135,13 @@ Phases, each reported on its own lines and followed by its wall (`phase
               gradient cosine at least 0.99; then the attention core dense
               against flash at S 128 to 2048 at both precisions (the card's
               'auto' crossover);
+9b. lm d128 — the LM at head dim 128 (`LM128_DIMS`: dim 512, 4 heads of
+              128, LMConfig's other defaults): one round of block0's group
+              through `federated_lm` at 'highest' (the causal split kernels
+              at BH=128, S=2048, D=128), launches gated exactly, finite
+              losses, accuracy above 5/vocab; then phase 9a's check of the
+              model at bf16/'default' (the one-pass causal kernels at D 128)
+              against f32/'highest';
 10. vit parity — the ViT's first round (patch 2: 256 tokens, batch 64)
               step by step with 'dense' attention (plain) and 'flash' (the
               rectangular kernels), fed the same parameters and optimizer
@@ -146,6 +162,12 @@ Phases, each reported on its own lines and followed by its wall (`phase
               exactly; then the same with `remat` (the forward launches once
               more a gradient pass): the trajectory equal within 1e-5, walls
               and peak memory of both;
+11b. vit d128 — the ViT at head dim 128 (`VIT128_KWARGS`: dim 256, 2 heads
+              of 128, patch 2): the fedavg preset's round of block1 at f32
+              (the rectangular split kernels at BH=3072, S=256, D=128) and at
+              compute_dtype bf16 with attention at 'default' (the one-pass
+              rectangular kernels), flash and compact launches gated
+              exactly, finite losses, every client above chance;
 12. grouped — the grouped GEMM (`ops/grouped_gemm.py`) at every shape of
               the MoE ViT path (K=3 clients x E=8 experts = 24 groups,
               20,480 slots an expert, D=64, H=256): both forwards, the
@@ -303,10 +325,15 @@ LARGE_N = 4_720_644  # ~ResNet18's largest block group; not a multiple of any ti
 REPORT_N = 48120  # the main path's largest group (fc1): the shape the JSON line reports
 RTOL = 1e-5
 SOURCES = ("compact_direction", "flash_attention", "flash_bf16", "grouped_gemm", "grouped_gemm_bf16")  # csrc/<name>.cu
-FLASH_DIMS = (16, 32, 64)
+FLASH_DIMS = (16, 32, 64, 128)
 FLASH_SEQS = (128, 256, 1024, 2048)
 FLASH_SWEEP_BH = 8
 FLASH_PATH = (128, 2048, 16)  # (BH, S, D) of the LM path: K·batch·heads, sequence, head dim
+# the LM at head dim 128: LMConfig(dim=512, num_heads=4), a Llama-style head on the
+# repo's TransformerLM, the rest at its defaults (K=4, batch 8, S 2048): K·batch·heads 128
+LM128_DIMS = {"dim": 512, "num_heads": 4}
+LM128_PATH = (128, 2048, 128)
+PADDED_D = 80  # a head dim between instances: the public entries pad it to 128
 FLASH_HEADROOM_S = 4096  # a sequence beyond the LM's, at BH=8 and every D
 FLASH_GRAD_RTOL = 1e-4
 FLASH_REPLACES = {
@@ -325,6 +352,9 @@ RECT_REPLACES = {
     "flash_bwd_dkv_rect": "federated_pytorch_test_tpu/ops/flash_attention.py:744",
 }
 VIT_KWARGS = {"patch": 2, "attn_impl": "flash"}
+# the ViT at head dim 128: dim 256, 2 heads; K·batch·heads 3·512·2 over 256 tokens
+VIT128_KWARGS = {**VIT_KWARGS, "dim": 256, "num_heads": 2}
+VIT128_PATH = (3072, 256, 128)
 VIT_TRAIN, VIT_TEST = 12_288, 10_000  # 8 minibatches of 512 per client; the full test set
 VIT_MOE_KWARGS = {**VIT_KWARGS, "moe_experts": 8}  # the JAX config's own example of E
 GROUPED_REPLACES = "federated_pytorch_test_tpu/ops/grouped_gemm.py:74"
@@ -844,23 +874,47 @@ def bwd_extra_checks(label: str, inputs, scale: float, mode=(), aligned: bool = 
                  f"{plain_errs[n]:.3e}; finite={finite})")
 
 
+def add_shape(reports: dict, rows: dict, label: str) -> None:
+    """Timing rows of one path shape into `reports`: the first shape's row
+    leads (the kernel JSON's numbers), every shape's device times ride along
+    under `shapes`."""
+    for name, r in rows.items():
+        r.setdefault("shape", label)
+        reports.setdefault(name, r)
+        reports[name].setdefault("shapes", {})[label] = {key: r[key] for key in (
+            "device_ms", "ms", "plain_device_ms", "library_device_ms", "bound_ms", "bound_term")}
+
+
 def phase_flash():
     """The flash kernels against their plain versions at every shape; timings
-    at the LM path's shape."""
-    import torch
-    import torch.nn.functional as F
-
-    from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
-
+    at the LM paths' shapes (D 16, and D 128 at dim 512); a padded head dim
+    through the public op."""
     for d in FLASH_DIMS:
         for s in FLASH_SEQS:
             flash_check(FLASH_SWEEP_BH, s, d, seed=s + d, f64=s >= FLASH_PATH[1])
     for d in FLASH_DIMS:  # twice the LM's sequence: the gradients sum over twice the tiles
         flash_check(FLASH_SWEEP_BH, FLASH_HEADROOM_S, d, seed=FLASH_HEADROOM_S + d, f64=True, label="flash headroom")
-    bh, s, d = FLASH_PATH
+    reports = {}
+    for bh, s, d in (FLASH_PATH, LM128_PATH):
+        add_shape(reports, time_causal(bh, s, d), f"BH={bh} S={s} D={d} causal")
+    padded_check("highest", True)
+    return reports
+
+
+def time_causal(bh: int, s: int, d: int) -> dict:
+    """At one path shape of the aligned causal kernels: the check against
+    the plain version (and float64), the repeat and x8 checks, then the
+    times beside the bounds and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
+
     abs_errs = flash_check(bh, s, d, seed=1, f64=True)
-    fwd_extra_checks("flash_fwd", fc.flash_fwd, fc.flash_fwd_plain, flash_inputs(bh, s, d, seed=5)[:3], 1.0 / d ** 0.5)
-    bwd_extra_checks("flash_bwd", flash_inputs(bh, s, d, seed=7), 1.0 / d ** 0.5, aligned=True)
+    tag = "" if d == FLASH_PATH[2] else f" D={d}"
+    fwd_extra_checks("flash_fwd" + tag, fc.flash_fwd, fc.flash_fwd_plain, flash_inputs(bh, s, d, seed=5)[:3],
+                     1.0 / d ** 0.5)
+    bwd_extra_checks("flash_bwd" + tag, flash_inputs(bh, s, d, seed=7), 1.0 / d ** 0.5, aligned=True)
 
     q, k, v, do = flash_inputs(bh, s, d, seed=1)
     scale = 1.0 / d ** 0.5
@@ -967,6 +1021,99 @@ def flash_bounds(n_bytes: int, flops: int, exps: int, products: str = "tf32x3") 
             "bound_term": term, "ffma_bound_ms": max(terms["bytes"], flops / F32_FLOPS * 1e3)}
 
 
+PADDED_SHAPE = (2, 1024, 4)  # (B, S, H) of the padded head dim's checks
+PADDED = {}  # the padding's price by family: the public op's fwd+bwd device ms at PADDED_D and at 128
+
+
+def padded_check(family: str, causal: bool) -> None:
+    """The public op (`flash_attention`) at a head dim between instances,
+    PADDED_D, on the card: it pads q, k, v up to the D-128 instance and
+    slices the padding off. Held against the plain versions at the true D
+    (o and the cotangents, at the family's tolerance: 'highest' RTOL and
+    FLASH_GRAD_RTOL, 'default' ONE_PASS_RTOL, 'bf16' BF16_UNITS), each
+    kernel of the family launched once; then its forward and backward
+    timed beside the same op at D 128, the padding's price."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
+
+    b, s, h = PADDED_SHAPE
+    d = PADDED_D
+    gen = torch.Generator(device="cuda").manual_seed(d + causal)
+    q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen) for _ in range(4))
+    dtype = torch.bfloat16 if family == "bf16" else torch.float32
+    precision = "highest" if family == "highest" else "default"
+    kernels = fc.BF16_KERNELS if family == "bf16" else fc.CAUSAL_KERNELS if causal else fc.RECT_KERNELS
+    if family == "default":
+        kernels = tuple(fc.ONE_PASS[n] for n in kernels)
+    leaves = [t.to(dtype).requires_grad_(True) for t in (q, k, v)]
+
+    def op():
+        out = fc.flash_attention(*leaves, causal=causal, precision=precision)
+        return out, torch.autograd.grad(out, leaves, do.to(out.dtype))
+
+    torch.cuda.synchronize()
+    fc.reset_launch_counts()
+    out, grads = op()
+    torch.cuda.synchronize()
+    launched = {n: c for n, c in fc.LAUNCHES.items() if c}
+
+    scale = 1.0 / d ** 0.5
+    q3, k3, v3 = (fc._to3(t, dtype) for t in (q, k, v))
+    if family == "bf16":
+        qs = fc.prescale_q(q3, scale)
+        do3 = fc._to3(do.to(torch.bfloat16).float())
+        o, lse = fc.flash_fwd_bf16_plain(qs, k3, v3)
+        delta = (do3 * o).sum(-1)
+        do16 = do3.to(torch.bfloat16)
+        ref = (o, fc.flash_bwd_dq_bf16_plain(qs, k3, v3, do16, lse, delta, scale),
+               *fc.flash_bwd_dkv_bf16_plain(qs, k3, v3, do16, lse, delta))
+    else:
+        do3 = fc._to3(do)
+        mode = () if causal else (False, 0, 0)
+        if family == "default":
+            plains = (fc.flash_fwd_1pass_plain, fc.flash_bwd_dq_1pass_plain, fc.flash_bwd_dkv_1pass_plain)
+            mode = (causal, 0, 0)
+        elif causal:
+            plains = (fc.flash_fwd_plain, fc.flash_bwd_dq_plain, fc.flash_bwd_dkv_plain)
+        else:
+            plains = (fc.flash_fwd_rect_plain, fc.flash_bwd_dq_rect_plain, fc.flash_bwd_dkv_rect_plain)
+        o, lse = plains[0](q3, k3, v3, scale, *mode)
+        delta = (do3 * o).sum(-1)
+        ref = (o, plains[1](q3, k3, v3, do3, lse, delta, scale, *mode), *plains[2](q3, k3, v3, do3, lse, delta, scale, *mode))
+    got = [fc._to3(t, t.dtype) for t in (out.detach(), *grads)]
+    names = ("o", "dq", "dk", "dv")
+    if family == "bf16":
+        errs = {n: bf16_units(a, b) for n, a, b in zip(names, got, ref)}
+        ok = max(errs.values()) <= BF16_UNITS
+    else:
+        errs = {n: rel_err(a, b) for n, a, b in zip(names, got, ref)}
+        tol = {"o": RTOL} if family == "highest" else {}
+        ok = all(e <= tol.get(n, FLASH_GRAD_RTOL if family == "highest" else ONE_PASS_RTOL) for n, e in errs.items())
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in got)
+    shapes = out.shape == q.shape and all(g.shape == q.shape for g in grads)
+    label = f"flash padded {family} {'causal' if causal else 'non-causal'} D={d}->{fc.padded_dim(d)} B={b} S={s} H={h}"
+    print(f"{label} " + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
+          + f" finite={finite} shapes={shapes} launches={json.dumps(launched)}", flush=True)
+    if not ok or not finite or not shapes:
+        fail(f"{label}: the padded op disagrees with the plain versions at the true D: {errs} (finite={finite})")
+    gate_launches(label, launched, {**{n: 1 for n in kernels}, **{n: 0 for n in launched if n not in kernels}})
+
+    wide = [t.to(dtype).requires_grad_(True) for t in (torch.randn(b, s, h, 128, device="cuda", generator=gen)
+                                                        for _ in range(3))]
+    do_wide = torch.randn(b, s, h, 128, device="cuda", generator=gen)
+
+    def op_wide():
+        out = fc.flash_attention(*wide, causal=causal, precision=precision)
+        torch.autograd.grad(out, wide, do_wide.to(out.dtype))
+
+    t_pad, t_wide = time_ms(op, 10), time_ms(op_wide, 10)
+    PADDED[f"{family} {'causal' if causal else 'non-causal'}"] = {"d": d, "device_ms": t_pad[1],
+                                                                   "d128_device_ms": t_wide[1]}
+    print(f"timing padded {label} fwd+bwd ms={t_pad[0]:.6f} device_ms={t_pad[1]:.6f} at D=128: ms={t_wide[0]:.6f} "
+          f"device_ms={t_wide[1]:.6f} price_device={t_pad[1] / t_wide[1]:.3f}x", flush=True)
+
+
 def rect_inputs(bh: int, s_q: int, s_kv: int, d: int, seed: int):
     """Seeded q, k, v, dO f32 on the card: q and dO `[BH, Sq, D]`, k and v `[BH, Skv, D]`."""
     import torch
@@ -975,9 +1122,12 @@ def rect_inputs(bh: int, s_q: int, s_kv: int, d: int, seed: int):
     return [torch.randn(bh, n, d, device="cuda", generator=gen) for n in (s_q, s_kv, s_kv, s_q)]
 
 
-def rect_check(bh: int, s_q: int, s_kv: int, d: int, causal: bool, q_off: int, k_off: int, seed: int) -> dict:
+def rect_check(bh: int, s_q: int, s_kv: int, d: int, causal: bool, q_off: int, k_off: int, seed: int,
+               f64: bool = False) -> dict:
     """Each rectangular kernel against its plain version at one shape and
-    offset; rows that see no key must be exact. Returns the absolute errors."""
+    offset; rows that see no key must be exact. With `f64`, the kernels'
+    gradients and the f32 plain version's are also read against the plain
+    version in float64 (printed, not gated). Returns the absolute errors."""
     import torch
 
     from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
@@ -1003,8 +1153,16 @@ def rect_check(bh: int, s_q: int, s_kv: int, d: int, causal: bool, q_off: int, k
     dead = ~live
     exact = bool((o[:, dead] == 0).all() and (lse[:, dead] == -1e30).all() and (dq[:, dead] == 0).all())
     mode = f"causal q_off={q_off} k_off={k_off}" if causal else "non-causal"
+    vs_f64 = ""
+    if f64:
+        args64 = [t.double() for t in (q, k, v, do, lse_ref, delta)]
+        ref64 = (fc.flash_bwd_dq_rect_plain(*args64, *args), *fc.flash_bwd_dkv_rect_plain(*args64, *args))
+        for side, i in (("kernel", 0), ("plain_f32", 1)):
+            vs_f64 += f" {side}_vs_f64 " + " ".join(f"{n}={rel_err(pairs[n][i].double(), r):.3e}"
+                                                     for n, r in zip(("dq", "dk", "dv"), ref64))
+        del args64, ref64
     print(f"flash rect BH={bh} Sq={s_q} Skv={s_kv} D={d} {mode} dead_rows={int(dead.sum())} "
-          + " ".join(f"{k}={v:.3e}" for k, v in errs.items()) + f" finite={finite} dead_rows_exact={exact}",
+          + " ".join(f"{k}={v:.3e}" for k, v in errs.items()) + f" finite={finite} dead_rows_exact={exact}" + vs_f64,
           flush=True)
     worst_fwd = max(errs["o"], errs["lse"])
     worst_bwd = max(errs["dq"], errs["dk"], errs["dv"])
@@ -1048,28 +1206,40 @@ def block_autograd_check(s_q: int, s_kv: int, causal: bool, q_off: int, k_off: i
 
 def phase_flash_rect():
     """The rectangular flash kernels against their plain versions, both modes;
-    `flash_block`'s autograd; timings at the ViT path's shape."""
+    `flash_block`'s autograd; timings at the ViT paths' shapes (D 16, and D
+    128 at dim 256); a padded head dim through the public op."""
+    for d in FLASH_DIMS:
+        for s in (*RECT_SEQS, *((2048,) if d == 128 else ())):  # S 2048 at D 128, also against float64
+            rect_check(FLASH_SWEEP_BH, s, s, d, False, 0, 0, seed=3 * s + d, f64=s == 2048)
+        for s_q, s_kv, q_off, k_off in RECT_OFFSETS:
+            rect_check(FLASH_SWEEP_BH, s_q, s_kv, d, True, q_off, k_off, seed=s_q + s_kv + q_off + k_off + d)
+    for s_q, s_kv, causal, q_off, k_off in ((256, 256, False, 0, 0), (256, 256, True, 0, 64), (128, 384, True, 256, 64)):
+        block_autograd_check(s_q, s_kv, causal, q_off, k_off)
+    reports = {}
+    for bh, s, d in (RECT_PATH, VIT128_PATH):
+        add_shape(reports, time_rect(bh, s, d), f"BH={bh} S={s} D={d} non-causal")
+    padded_check("highest", False)
+    return reports
+
+
+def time_rect(bh: int, s: int, d: int) -> dict:
+    """At one path shape of the rectangular kernels: the check against the
+    plain version, the repeat and x8 checks (non-causal and causal at
+    q_off 64), then the times beside the bounds and SDPA."""
     import torch
     import torch.nn.functional as F
 
     from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
 
-    for d in FLASH_DIMS:
-        for s in RECT_SEQS:
-            rect_check(FLASH_SWEEP_BH, s, s, d, False, 0, 0, seed=3 * s + d)
-        for s_q, s_kv, q_off, k_off in RECT_OFFSETS:
-            rect_check(FLASH_SWEEP_BH, s_q, s_kv, d, True, q_off, k_off, seed=s_q + s_kv + q_off + k_off + d)
-    for s_q, s_kv, causal, q_off, k_off in ((256, 256, False, 0, 0), (256, 256, True, 0, 64), (128, 384, True, 256, 64)):
-        block_autograd_check(s_q, s_kv, causal, q_off, k_off)
-    bh, s, d = RECT_PATH
     abs_errs = rect_check(bh, s, s, d, False, 0, 0, seed=2)
     inputs = rect_inputs(bh, s, s, d, seed=6)
     qkv = inputs[:3]
-    fwd_extra_checks("flash_fwd_rect", fc.flash_fwd_rect, fc.flash_fwd_rect_plain, qkv, 1.0 / d ** 0.5)
-    fwd_extra_checks("flash_fwd_rect causal q_off=64 k_off=0", fc.flash_fwd_rect, fc.flash_fwd_rect_plain, qkv,
+    tag = "" if d == RECT_PATH[2] else f" D={d}"
+    fwd_extra_checks("flash_fwd_rect" + tag, fc.flash_fwd_rect, fc.flash_fwd_rect_plain, qkv, 1.0 / d ** 0.5)
+    fwd_extra_checks(f"flash_fwd_rect{tag} causal q_off=64 k_off=0", fc.flash_fwd_rect, fc.flash_fwd_rect_plain, qkv,
                      1.0 / d ** 0.5, True, 64, 0)
-    bwd_extra_checks("flash_bwd_rect", inputs, 1.0 / d ** 0.5)
-    bwd_extra_checks("flash_bwd_rect causal q_off=64 k_off=0", inputs, 1.0 / d ** 0.5, (True, 64, 0))
+    bwd_extra_checks("flash_bwd_rect" + tag, inputs, 1.0 / d ** 0.5)
+    bwd_extra_checks(f"flash_bwd_rect{tag} causal q_off=64 k_off=0", inputs, 1.0 / d ** 0.5, (True, 64, 0))
     del inputs, qkv
 
     q, k, v, do = rect_inputs(bh, s, s, d, seed=2)
@@ -1125,7 +1295,7 @@ ONE_PASS_RTOL = 2.0 ** -10  # every output of a one-pass kernel from its plain v
 ONE_PASS_SPREAD = 4.0  # the kernel's RMS distance to 'highest' over its RMS distance to its plain version, at least
 DEFAULT_F64_TOL = 2e-2  # the JAX package's 'default' contract against f32 (tests/test_flash.py:127-134)
 BF16_UNITS = 2  # bf16 outputs from their plain version, in bf16 units of the largest entry (`bf16_units`)
-BF16_PATHS = ((128, 2048, 16), (32, 4096, 64))  # (BH, S, D): the LM's, and a longer, wider head
+BF16_PATHS = ((128, 2048, 16), (32, 4096, 64), LM128_PATH)  # (BH, S, D): the LM's, a longer, wider head, the LM's at D 128
 BF16_REPLACES = {
     "flash_fwd_bf16": "federated_pytorch_test_tpu/ops/flash_attention.py:559",
     "flash_bwd_dq_bf16": "federated_pytorch_test_tpu/ops/flash_attention.py:655",
@@ -1256,8 +1426,11 @@ def phase_flash_default():
         onepass_check(FLASH_SWEEP_BH, 256, 256, d, aligned=False, causal=False, seed=13 + d)
         onepass_check(FLASH_SWEEP_BH, 256, 256, d, aligned=False, causal=True, q_off=0, k_off=64, seed=17 + d)
         onepass_check(FLASH_SWEEP_BH, 128, 384, d, aligned=False, causal=True, q_off=256, k_off=64, seed=19 + d)
+    for s in (128, 256, 2048):  # D 128 at the other sequences, against float64 from S 2048
+        onepass_check(FLASH_SWEEP_BH, s, s, 128, aligned=True, seed=11 + s, f64=s == 2048)
+    padded_check("default", True)
     reports = {}
-    for aligned, (bh, s, d) in ((True, FLASH_PATH), (False, RECT_PATH)):
+    for aligned, (bh, s, d) in ((True, FLASH_PATH), (False, RECT_PATH), (True, LM128_PATH), (False, VIT128_PATH)):
         abs_errs = onepass_check(bh, s, s, d, aligned=aligned, causal=aligned, seed=23, f64=True)
         q, k, v, do = flash_inputs(bh, s, d, seed=29)
         scale = 1.0 / d ** 0.5
@@ -1280,8 +1453,8 @@ def phase_flash_default():
                 return fc.flash_bwd_dkv_1pass_plain(*a, False)
         o, lse = fwd_p(q, k, v, scale)
         delta = (do * o).sum(-1)
-        repeat_check(f"{names[0]} default", lambda: fwd(q, k, v, scale, precision="default"))
-        repeat_check(f"{names[1]}+{names[2]} default",
+        repeat_check(f"{names[0]} default D={d}", lambda: fwd(q, k, v, scale, precision="default"))
+        repeat_check(f"{names[1]}+{names[2]} default D={d}",
                      lambda: (dq_k(q, k, v, do, lse, delta, scale, precision="default"),
                               *dkv_k(q, k, v, do, lse, delta, scale, precision="default")))
         q4, k4, v4 = (t.detach().view(1, bh, s, d).requires_grad_(True) for t in (q, k, v))
@@ -1330,10 +1503,8 @@ def phase_flash_default():
             torch.autograd.grad(F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal), (q4, k4, v4), do4)
 
         label = f"BH={bh} S={s} D={d} {'causal' if causal else 'non-causal'} default"
-        reports.update(time_flash(label, calls, work, abs_of, flash_fwd_bwd, sdpa_fwd_bwd, products="tf32x1",
-                                  plain_queued=0))
-        for r in reports.values():
-            r.setdefault("shape", label)
+        add_shape(reports, time_flash(label, calls, work, abs_of, flash_fwd_bwd, sdpa_fwd_bwd, products="tf32x1",
+                                      plain_queued=0), label)
         del q, k, v, do, q3, k3, v3, q4, k4, v4, o4
     return reports
 
@@ -1436,6 +1607,9 @@ def phase_flash_bf16():
     for d in FLASH_DIMS:
         for s in (256, 1024):
             bf16_check(FLASH_SWEEP_BH, s, d, seed=31 + s + d)
+    for s in (128, 2048):  # D 128 at the other sequences, the public op against float64 from S 2048
+        bf16_check(FLASH_SWEEP_BH, s, 128, seed=31 + s, f64=s == 2048)
+    padded_check("bf16", True)
     reports, launches = {}, Counter()
     for bh, s, d in BF16_PATHS:
         abs_errs, op_launches = bf16_check(bh, s, d, seed=37, f64=True)
@@ -1490,11 +1664,7 @@ def phase_flash_bf16():
 
         label = f"BH={bh} S={s} D={d} causal bf16"
         rows = time_flash(label, calls, work, abs_of, flash_fwd_bwd, sdpa_fwd_bwd, products="bf16", plain_queued=0)
-        for name, r in rows.items():
-            r["shape"] = label
-            reports.setdefault(name, r)  # the LM shape's row leads; the others ride along
-            reports[name].setdefault("shapes", {})[label] = {key: r[key] for key in (
-                "device_ms", "ms", "plain_device_ms", "library_device_ms", "bound_ms", "bound_term")}
+        add_shape(reports, rows, label)  # the LM shape's row leads; the others ride along
         del q, k, v, do, q16, k16, v16, qs, q3, k3, v3, q4, k4, v4, o4
     return reports, dict(launches)
 
@@ -2281,6 +2451,13 @@ def phase_lm_default():
     the loss within LM_BF16_TOL of the f32 'highest' model's on the same
     parameters and tokens, the gradient's cosine with it at least
     LM_GRAD_COSINE; walls and peak memory of both."""
+    return lm_model_check("lm model", {})
+
+
+def lm_model_check(path: str, dims: dict):
+    """`phase_lm_default`'s check for a TransformerLM of `dims` (its
+    constructor's widths; the class defaults where empty), printed under
+    `path`: (launches, bf16 wall, extras)."""
     import torch
 
     from federated_pytorch_test_tpu_torch.engine.steps import GroupContext, _group_params
@@ -2295,7 +2472,7 @@ def phase_lm_default():
     out = {}
     for label, kw in (("bf16 default", {"attn_precision": "default", "dtype": torch.bfloat16}),
                       ("f32 highest", {})):
-        model = TransformerLM(attn_impl="flash", **kw)
+        model = TransformerLM(attn_impl="flash", **dims, **kw)
         part = model.partition()
         flat = init_client_params(model, k, seed=0)
         ctx = GroupContext(model=model, shapes=model.shapes(), partition=part, gid=0,
@@ -2319,21 +2496,137 @@ def phase_lm_default():
         wall = time.perf_counter() - t0
         launches = dict(fc.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() / 1e9
-        print(f"lm model {label} fwd+bwd wall_ms={1e3 * wall:.3f} peak_mem_gb={peak:.3f} loss={float(loss):.6f} "
+        print(f"{path} {label} fwd+bwd wall_ms={1e3 * wall:.3f} peak_mem_gb={peak:.3f} loss={float(loss):.6f} "
               f"launches={json.dumps({n: c for n, c in launches.items() if c})}", flush=True)
         out[label] = (loss, grad, launches, wall, peak)
     (loss, grad, launches, wall, peak), (loss32, grad32, _, wall32, peak32) = out["bf16 default"], out["f32 highest"]
     rel = abs(float(loss) - float(loss32)) / abs(float(loss32))
     cos = float((grad.double() * grad32.double()).sum() / (grad.double().norm() * grad32.double().norm()))
     finite = bool(torch.isfinite(grad).all())
-    print(f"lm model bf16-default-vs-f32-highest loss_rel={rel:.3e} grad_cosine={cos:.6f} "
+    print(f"{path} bf16-default-vs-f32-highest loss_rel={rel:.3e} grad_cosine={cos:.6f} "
           f"grad_rel={rel_err(grad, grad32):.3e} finite={finite}", flush=True)
     depth = TransformerLM.DEPTH
-    gate_launches("lm model", launches, {fc.ONE_PASS["flash_fwd"]: depth, fc.ONE_PASS["flash_bwd_dq"]: depth,
-                                         fc.ONE_PASS["flash_bwd_dkv"]: depth, "flash_fwd": 0})
+    gate_launches(path, launches, {fc.ONE_PASS["flash_fwd"]: depth, fc.ONE_PASS["flash_bwd_dq"]: depth,
+                                   fc.ONE_PASS["flash_bwd_dkv"]: depth, "flash_fwd": 0})
     if not finite or not rel <= LM_BF16_TOL or not cos >= LM_GRAD_COSINE:
-        fail(f"lm model at bf16/'default' strays from f32/'highest': loss {rel:.3e}, gradient cosine {cos:.6f}")
+        fail(f"{path} at bf16/'default' strays from f32/'highest': loss {rel:.3e}, gradient cosine {cos:.6f}")
     return launches, wall, {"peak_gb": peak, "f32_wall_s": wall32, "f32_peak_gb": peak32}
+
+
+def phase_lm_d128(metrics_out, profile: bool):
+    """The LM at head dim 128, full width (`LM128_DIMS`: dim 512, 4 heads of
+    128, the rest LMConfig's defaults): one round of block0's group (its
+    gradient crosses every block) through `federated_lm` at 'highest', the
+    causal split kernels at LM128_PATH, launches gated exactly against the
+    records, finite losses, every client's next-token accuracy above
+    5/vocab; then the model's forward and backward at bf16/'default' (the
+    one-pass causal kernels at D 128; the models take f32 q, k, v into the
+    attention core) against f32/'highest' (`lm_model_check`). With
+    `profile`, block0's epoch profiled. Returns (launches of the round, its
+    wall, its peak GB, the model check's)."""
+    import numpy as np
+    import torch
+
+    from federated_pytorch_test_tpu_torch.federated_lm import FederatedLM, LMConfig
+    from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
+
+    cfg = LMConfig(**LM128_DIMS)
+    lm = FederatedLM(cfg, verbose=False)
+    lm.group_order = [1]  # block0
+    print(f"lm d128 setup: K={cfg.k} vocab={cfg.vocab} dim={cfg.dim} heads={cfg.num_heads} "
+          f"head_dim={cfg.dim // cfg.num_heads} seq={cfg.seq} batch={cfg.batch} params={lm.partition.total} "
+          f"groups={lm.group_order}", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fc.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = lm.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = dict(fc.LAUNCHES)
+    n_steps = len(rec.series["train_loss"])
+    print(f"lm d128 train wall_s={wall:.3f} minibatches={n_steps} ms_per_minibatch={1e3 * wall / n_steps:.3f} "
+          f"peak_mem_gb={peak:.3f} launches={json.dumps({n: c for n, c in launches.items() if c})}", flush=True)
+    if metrics_out:
+        rec.save(metrics_out)
+    check_finite_run("lm d128", rec)
+    final_acc = np.asarray(rec.series["test_accuracy"][-1]["value"])
+    floor = 5.0 / cfg.vocab
+    print(f"lm d128 final next-token accuracy {final_acc.round(4).tolist()} (floor {floor:.4f})", flush=True)
+    if not np.all(final_acc > floor):
+        fail(f"lm d128: final accuracy {final_acc} not above {floor}")
+    exp = expected_launches(rec, lm.model, sweep_passes=1)
+    gate_launches("lm d128", launches, {"flash_fwd": exp["forward"], "flash_bwd_dq": exp["backward"],
+                                        "flash_bwd_dkv": exp["backward"],
+                                        **{n: 0 for n in launches if n not in fc.CAUSAL_KERNELS}})
+    if profile:
+        profile_lm_epoch(lm)
+    model_launches, model_wall, model_extra = lm_model_check("lm d128 model", LM128_DIMS)
+    return launches, wall, {"peak_gb": peak, "model_launches": model_launches, "model_bf16_wall_s": model_wall,
+                            **{f"model_{k}": v for k, v in model_extra.items()}}
+
+
+def phase_vit_d128(metrics_out, profile: bool):
+    """The ViT at head dim 128 (`VIT128_KWARGS`: dim 256, 2 heads of 128,
+    patch 2): the fedavg preset with the fused-kernel direction, one round
+    of block1 (group 2), at f32 (the rectangular split kernels at
+    VIT128_PATH) and at compute_dtype bf16 with attention at 'default' (the
+    one-pass rectangular kernels); each with flash and compact launches
+    gated exactly against the records, finite losses and every client's
+    accuracy above chance. With `profile`, each run's block1 epoch
+    profiled. Returns ({label: launches}, {label: wall}, {label: peak GB})."""
+    import numpy as np
+    import torch
+
+    from federated_pytorch_test_tpu_torch.data import synthetic_cifar
+    from federated_pytorch_test_tpu_torch.engine import Trainer, get_preset
+    from federated_pytorch_test_tpu_torch.ops import compact_cuda as cc
+    from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
+
+    source = synthetic_cifar(VIT_TRAIN, VIT_TEST, seed=0)
+    launches, walls, peaks = {}, {}, {}
+    for label, extra, names in (
+            ("vit d128 f32", {}, fc.RECT_KERNELS),
+            ("vit d128 bf16", {"compute_dtype": "bfloat16"}, tuple(fc.ONE_PASS[n] for n in fc.RECT_KERNELS))):
+        kwargs = {**VIT128_KWARGS, **({"attn_precision": "default"} if extra else {})}
+        cfg = get_preset("fedavg", model="vit", model_kwargs=kwargs, nloop=1, nadmm=1, lbfgs_direction="pallas",
+                         **extra)
+        tr = Trainer(cfg, verbose=False, source=source)
+        tr.group_order = [2]  # block1
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fc.reset_launch_counts()
+        cc.reset_launch_counts()
+        t0 = time.perf_counter()
+        rec = tr.run()
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        peaks[label] = torch.cuda.max_memory_allocated() / 1e9
+        launch = launches[label] = {**dict(fc.LAUNCHES), **dict(cc.LAUNCHES)}
+        n_steps = len(rec.series["train_loss"])
+        print(f"{label} setup: K={cfg.n_clients} batch={cfg.batch} {kwargs} tokens={tr.model.tokens} "
+              f"params={tr.n_params} groups={tr.group_order} train wall_s={walls[label]:.3f} minibatches={n_steps} "
+              f"ms_per_minibatch={1e3 * walls[label] / n_steps:.3f} peak_mem_gb={peaks[label]:.3f} "
+              f"launches={json.dumps({n: c for n, c in launch.items() if c})}", flush=True)
+        if metrics_out and not extra:
+            rec.save(metrics_out)
+        check_finite_run(label, rec)
+        final_acc = np.asarray(rec.series["test_accuracy"][-1]["value"])
+        chance = 1.0 / tr.fed.num_classes
+        print(f"{label} accuracy {final_acc.round(4).tolist()} (chance {chance})", flush=True)
+        if not np.all(final_acc > chance):
+            fail(f"{label}: final accuracy {final_acc} not above chance {chance}")
+        exp = expected_launches(rec, tr.model, sweep_passes=len(tr.test_imgs))
+        gate_launches(label, launch, {
+            names[0]: exp["forward"], names[1]: exp["backward"], names[2]: exp["backward"],
+            **{n: 0 for n in fc.LAUNCHES if n not in names},
+            **{name: exp["direction"] for name in cc.LAUNCHES}})
+        if profile:
+            print(f"{label} profile", flush=True)
+            profile_epoch(tr)
+        del tr
+    return launches, walls, peaks
 
 
 def phase_auto_crossover() -> dict:
@@ -3653,6 +3946,8 @@ def main() -> int:
     ap.add_argument("--vit-moe-bf16-metrics-out", help="write the bf16 MoE ViT path's metric series as JSON here")
     ap.add_argument("--scale64-metrics-out", help="write the admm_scale64 run's metric series as JSON here")
     ap.add_argument("--fan-metrics-out", help="write the probe fan phase's P=1 run's metric series as JSON here")
+    ap.add_argument("--lm-d128-metrics-out", help="write the head-dim-128 LM round's metric series as JSON here")
+    ap.add_argument("--vit-d128-metrics-out", help="write the head-dim-128 ViT round's (f32) metric series as JSON here")
     ap.add_argument("--profile", action="store_true", help="also profile one epoch of each path")
     ap.add_argument("--ab-parent", metavar="DIR",
                     help="instead of the phases, time the train paths of the checkout in DIR and of this "
@@ -3710,10 +4005,12 @@ def main() -> int:
     timed(phase_lm_parity)
     lm_launches, lm_wall = timed(phase_lm_train, args.lm_metrics_out, args.profile)
     lm16_launches, lm16_wall, lm16_extra = timed(phase_lm_default)
+    lm128_launches, lm128_wall, lm128_extra = timed(phase_lm_d128, args.lm_d128_metrics_out, args.profile)
     timed(phase_auto_crossover)
     timed(phase_vit_parity)
     vit_launches, vit_wall = timed(phase_vit_train, args.vit_metrics_out, args.profile)
     vit16_launches, vit16_wall, vit16_extra = timed(phase_vit_bf16_train, args.vit_bf16_metrics_out)
+    vit128_launches, vit128_walls, vit128_peaks = timed(phase_vit_d128, args.vit_d128_metrics_out, args.profile)
     grouped_report = timed(phase_grouped)
     grouped_bf16_report = timed(phase_grouped_bf16)
     timed(phase_vit_moe_parity)
@@ -3808,6 +4105,9 @@ def main() -> int:
             "plain_device_ms": r["plain_device_ms"],
             "library_device_ms": r["library_device_ms"],
             "shape": f"BH={bh} S={s} D={d} causal",
+            # device times at each path shape (the LM's at D 16 and at D 128); the D-128 LM round's launches
+            "shapes": r["shapes"],
+            "launches_by_path": {"lm": lm_launches[name], "lm d128": lm128_launches[name]},
         })
     bh, s, d = RECT_PATH
     for name, r in rect_report.items():
@@ -3834,11 +4134,16 @@ def main() -> int:
             "plain_device_ms": r["plain_device_ms"],
             "library_device_ms": r["library_device_ms"],
             "shape": f"BH={bh} S={s} D={d} non-causal",
+            # device times at each path shape (the ViT's at D 16 and at D 128); the D-128 ViT round's launches
+            "shapes": r["shapes"],
+            "launches_by_path": {"vit": vit_launches[name], "vit d128": vit128_launches["vit d128 f32"][name]},
         })
     from federated_pytorch_test_tpu_torch.ops.flash_cuda import ONE_PASS
 
     one_pass_launches = {**{ONE_PASS[n]: lm16_launches[ONE_PASS[n]] for n in FLASH_REPLACES},
                          **{ONE_PASS[n]: vit16_launches[ONE_PASS[n]] for n in RECT_REPLACES}}
+    one_pass_d128 = {**{ONE_PASS[n]: lm128_extra["model_launches"][ONE_PASS[n]] for n in FLASH_REPLACES},
+                     **{ONE_PASS[n]: vit128_launches["vit d128 bf16"][ONE_PASS[n]] for n in RECT_REPLACES}}
     for name, r in default_report.items():
         base = name[: -len("_1pass")]
         kernels.append({
@@ -3862,6 +4167,9 @@ def main() -> int:
             "plain_device_ms": r["plain_device_ms"],
             "library_device_ms": r["library_device_ms"],
             "shape": r["shape"],
+            "shapes": r["shapes"],
+            # the D-128 LM model at bf16/'default' (causal) and the D-128 ViT round at bf16 (rectangular)
+            "launches_d128": one_pass_d128[name],
         })
     for name, r in bf16_report.items():
         kernels.append({
@@ -3948,6 +4256,11 @@ def main() -> int:
           f"no_consensus_train_wall_s={nc_wall:.3f} net_bf16_train_wall_s={net16_wall:.3f} "
           f"vit_bf16_train_wall_s={vit16_wall:.3f} vit_bf16_remat_train_wall_s={vit16_extra['remat_wall_s']:.3f} "
           f"lm_model_bf16_default_fwd_bwd_s={lm16_wall:.3f} lm_model_f32_fwd_bwd_s={lm16_extra['f32_wall_s']:.3f} "
+          f"lm_d128_round_wall_s={lm128_wall:.3f} lm_d128_peak_gb={lm128_extra['peak_gb']:.3f} "
+          + " ".join(f"{p.replace(' ', '_')}_round_wall_s={w:.3f} {p.replace(' ', '_')}_peak_gb={vit128_peaks[p]:.3f}"
+                     for p, w in vit128_walls.items()) + " "
+          + " ".join(f"padded_{k.replace(' ', '_')}_fwd_bwd_device_ms={v['device_ms']:.6f}_vs_d128_{v['d128_device_ms']:.6f}"
+                     for k, v in PADDED.items()) + " "
           + " ".join(f"{p}_train_wall_s={w:.3f} {p}_peak_gb={s64_peaks[p] / 1e9:.3f}" for p, w in s64_walls.items())
           + " " + " ".join(f"fan_{p.replace(' ', '_')}_wall_s={w:.3f}" for p, w in fan_walls.items())
           + " " + " ".join(f"repeat_{p}_round_wall_s={w:.3f}" for p, w in repeat_walls.items()),

@@ -50,6 +50,18 @@ __device__ __forceinline__ void wgmma_ss_bf16_n64(float (&d)[32], uint64_t a, ui
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// D[64 x 32] (+)= A·Bᵀ, A and B bf16 in shared memory (K-major, descriptors)
+__device__ __forceinline__ void wgmma_ss_bf16_n32(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // D[64 x 128] (+)= A·Bᵀ, A and B bf16 in shared memory (K-major, descriptors)
 __device__ __forceinline__ void wgmma_ss_bf16_n128(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
   asm volatile(
@@ -91,7 +103,9 @@ __device__ __forceinline__ void wgmma_ss_bf16_n64_t(float (&d)[32], uint64_t a, 
 
 template <int N>
 __device__ __forceinline__ void wgmma_ss_bf16(float (&d)[N / 2], uint64_t a, uint64_t b, int accumulate) {
-  if constexpr (N == 64) {
+  if constexpr (N == 32) {
+    wgmma_ss_bf16_n32(d, a, b, accumulate);
+  } else if constexpr (N == 64) {
     wgmma_ss_bf16_n64(d, a, b, accumulate);
   } else {
     static_assert(N == 128, "no wgmma_ss_bf16 instance of this width");

@@ -72,6 +72,16 @@
 //     atomics, bitwise repeatable. A row that saw no key (l = 0) stores
 //     o = 0 and lse = −1e30 exactly (`_fwd_kernel` :428-433).
 //
+// Head dim 128 (`Plan<D>`): the 128-row blocks below take 397 KB (forward),
+// 590 KB (dq) and 460 KB (dk/dv) of shared memory there, past the 227 KB a
+// block may have. At D = 128 a block owns 64 rows (one warpgroup, 128
+// threads) and streams 32 keys a forward tile, 16 keys (dq) or queries
+// (dk/dv) a backward tile, through the same two-stage ring: 198,656,
+// 212,992 and 229,760 bytes. P·[V | 1 | 0] is 136 columns wide, an m64n64
+// and an m64n72 product; an N = 128 product from registers is two m64n64
+// ones; the causal dk/dv sums a tile's product 64 columns at a time, so
+// that its partial sum fits beside the two 64-register accumulators.
+//
 // Backward, both families: dq (`flash_bwd_dq_tc`) and dk/dv (`flash_bwd_dkv_tc`)
 // on the tensor cores, in the forward's split TF32 (lo·hi + hi·lo + hi·hi).
 //   Bound on an H100 SXM: dq's three products (S, dP, dS·K) and dk/dv's four
@@ -146,9 +156,9 @@
 
 namespace {
 
-constexpr int kRows = 128;  // rows a block owns
+constexpr int kBlock = 128;  // S (queries and keys) must be a multiple: the rows of the largest block
 
-bool shape_ok(int bh, int s) { return bh >= 1 && bh <= 65535 && s >= kRows && s % kRows == 0; }
+bool shape_ok(int bh, int s) { return bh >= 1 && bh <= 65535 && s >= kBlock && s % kBlock == 0; }
 
 // ---------------------------------------------------------------------------
 // The rectangular family: q [BH, Sq, D] against k, v [BH, Skv, D], either
@@ -160,9 +170,10 @@ bool shape_ok(int bh, int s) { return bh >= 1 && bh <= 65535 && s >= kRows && s 
 // the backward, as the TPU kernels' masked-row guards give.
 // ---------------------------------------------------------------------------
 
-// keys [0, kend) can be seen by a query block whose last row is row0 + kRows − 1
+// keys [0, kend) can be seen by a query block whose last row is row0 + Rows − 1
+template <int Rows>
 __device__ __forceinline__ int key_end(int row0, int shift, int s_kv) {
-  return min(max(row0 + kRows + shift, 0), s_kv);
+  return min(max(row0 + Rows + shift, 0), s_kv);
 }
 
 bool rect_shape_ok(int bh, int s_q, int s_kv) { return shape_ok(bh, s_q) && shape_ok(bh, s_kv); }
@@ -175,10 +186,24 @@ namespace tc {
 
 using namespace tf32_wgmma;
 
-constexpr int kWarpgroups = 2;               // consumer warpgroups a block, 64 query rows each
-constexpr int kThreads = 128 * kWarpgroups;  // kRows query rows a block
-constexpr int kKeys = 64;                    // keys a K/V tile
-constexpr int kStages = 2;                   // depth of the K/V ring
+// A block's plan by head dim (the note at the top: head dim 128); the
+// sizes stand in the static_asserts below each shared-memory struct.
+template <int D>
+struct Plan {
+  static constexpr int kWarpgroups = D == 128 ? 1 : 2;
+  static constexpr int kRows = 64 * kWarpgroups;      // rows a block owns
+  static constexpr int kThreads = 128 * kWarpgroups;
+  static constexpr int kKeys = D == 128 ? 32 : 64;    // keys a forward K/V tile
+  // rows of the streamed operand a backward tile. dq streams 64 keys, 32
+  // at D = 64 and 16 at D = 128, where more would take the block past the
+  // 227 KB of shared memory it can have. dk/dv streams 32 queries (16 at
+  // D = 128): then its two products' split register operands (2 · 32
+  // registers) fit beside the accumulators in the 128 registers of two
+  // blocks an SM, and are issued together.
+  static constexpr int kDqTile = D == 128 ? 16 : D == 64 ? 32 : 64;
+  static constexpr int kDkvTile = D == 128 ? 16 : 32;
+};
+constexpr int kStages = 2;  // depth of the streamed tiles' ring
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -189,7 +214,9 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return r;
 }
 
-// P·[V | 1 | 0]: the D + 8 columns of Vᵀ's operand (see Smem)
+// P·[V | 1 | 0]: the D + 8 columns of Vᵀ's operand (see Smem). At D = 128
+// the 136 columns are an m64n64 and an m64n72 product, on Vᵀ's rows 0 … 63
+// and 64 … 135 (row 64 lies 1 KB, 64 descriptor units, past row 0).
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&d)[(D + 8) / 2], const uint32_t (&a)[4], uint64_t b,
                                          int accumulate) {
@@ -197,33 +224,39 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[(D + 8) / 2], const uint32_t
     wgmma_rs_n24(d, a, b, accumulate);
   } else if constexpr (D == 32) {
     wgmma_rs_n40(d, a, b, accumulate);
-  } else {
+  } else if constexpr (D == 64) {
     wgmma_rs_n72(d, a, b, accumulate);
+  } else {
+    static_assert(D == 128, "no P·V product of this head dim");
+    wgmma_rs_n64(cols<64>(d, 0), a, b, accumulate);
+    wgmma_rs_n72(cols<72>(d, 64), a, b + 64, accumulate);
   }
 }
 
 template <int D>
 struct Smem {
-  float q_hi[kRows * D], q_lo[kRows * D];  // per warpgroup a 64-row operand
-  float raw[kStages][2][kKeys * D];        // landed tiles: K (operand layout) and V (row-major)
-  float k_hi[kKeys * D], k_lo[kKeys * D];  // operand layout, 64 rows (keys) by D
-  // Vᵀ: D + 8 rows by 64 permuted keys; rows D … D + 7 hold [1 | 0] (ones in
+  static constexpr int R = Plan<D>::kRows, T = Plan<D>::kKeys;
+  float q_hi[R * D], q_lo[R * D];  // per warpgroup a 64-row operand
+  float raw[kStages][2][T * D];    // landed tiles: K (operand layout) and V (row-major)
+  float k_hi[T * D], k_lo[T * D];  // operand layout, T rows (keys) by D
+  // Vᵀ: D + 8 rows by T permuted keys; rows D … D + 7 hold [1 | 0] (ones in
   // row D of hi), so that P·V's column D is P's row sum
-  float vt_hi[(D + 8) * kKeys], vt_lo[(D + 8) * kKeys];
+  float vt_hi[(D + 8) * T], vt_lo[(D + 8) * T];
 };
+static_assert(sizeof(Smem<64>) <= 232448 && sizeof(Smem<128>) == 198656, "over 227 KB of shared memory");
 
 template <int D>
-constexpr int kTileChunks = kKeys * D / 4 / kThreads;  // 16-byte chunks of a K or V tile a thread moves
+constexpr int kTileChunks = Plan<D>::kKeys * D / 4 / Plan<D>::kThreads;  // 16-byte chunks of a K or V tile a thread moves
 
-// cp.async of keys [kt, kt + kKeys) of K and V into ring stage `st`
+// cp.async of keys [kt, kt + T) of K and V into ring stage `st`
 template <int D>
 __device__ __forceinline__ void load_kv(Smem<D>& sm, int st, const float* kb, const float* vb, int kt) {
   const float* kt_b = kb + (size_t)kt * D;
   const float* vt_b = vb + (size_t)kt * D;
 #pragma unroll
   for (int n = 0; n < kTileChunks<D>; ++n) {
-    const unsigned i = threadIdx.x + n * kThreads;  // chunk i: row i / (D/4), columns 4·(i % (D/4)) + 0..3
-    cp_async16(&sm.raw[st][0][cidx<kKeys>(i / (D / 4), i % (D / 4) * 4)], kt_b + 4 * i);
+    const unsigned i = threadIdx.x + n * Plan<D>::kThreads;  // chunk i: row i / (D/4), columns 4·(i % (D/4)) + 0..3
+    cp_async16(&sm.raw[st][0][cidx<Plan<D>::kKeys>(i / (D / 4), i % (D / 4) * 4)], kt_b + 4 * i);
     cp_async16(&sm.raw[st][1][4 * i], vt_b + 4 * i);
   }
 }
@@ -237,7 +270,7 @@ __device__ __forceinline__ void split_kv(Smem<D>& sm, int st) {
   const float4* kr = reinterpret_cast<const float4*>(sm.raw[st][0]);
 #pragma unroll
   for (int n = 0; n < kTileChunks<D>; ++n) {
-    const unsigned i = threadIdx.x + n * kThreads;
+    const unsigned i = threadIdx.x + n * Plan<D>::kThreads;
     float4 hi, lo;
     split4(kr[i], hi, lo);
     reinterpret_cast<float4*>(sm.k_hi)[i] = hi;
@@ -246,7 +279,7 @@ __device__ __forceinline__ void split_kv(Smem<D>& sm, int st) {
   const float* vr = sm.raw[st][1];
 #pragma unroll
   for (int n = 0; n < kTileChunks<D>; ++n) {
-    const unsigned i = threadIdx.x + n * kThreads;
+    const unsigned i = threadIdx.x + n * Plan<D>::kThreads;
     const unsigned d = i % D, pg = i / D;          // positions 4pg … 4pg + 3 of Vᵀ's row d
     const unsigned key0 = (pg >> 1) * 8 + (pg & 1);  // hold keys key0 + 0, 2, 4, 6
     float4 x = make_float4(vr[key0 * D + d], vr[(key0 + 2) * D + d], vr[(key0 + 4) * D + d],
@@ -275,21 +308,22 @@ __device__ __forceinline__ void split_frag(const float (&x)[N], uint32_t (&hi)[N
 // Forward of q [BH, Sq, D] against k, v [BH, Skv, D]; causal keeps the pair
 // (i, j) iff j <= i + shift. Split: three TF32 products a product (f32
 // accuracy, the TPU's 'highest'); else one, hi·hi (the TPU's 'default').
-// Grid (Sq / kRows, BH), kThreads threads, sizeof(Smem<D>) bytes of dynamic
-// shared memory; two blocks an SM up to D = 32 (at most 128 registers a
-// thread).
+// Grid (Sq / kRows, BH), kThreads threads (`Plan<D>`), sizeof(Smem<D>)
+// bytes of dynamic shared memory; two blocks an SM up to D = 32 (at most
+// 128 registers a thread).
 template <int D, bool Causal, bool Split>
-__global__ void __launch_bounds__(kThreads, D == 64 ? 1 : 2)
+__global__ void __launch_bounds__(Plan<D>::kThreads, D >= 64 ? 1 : 2)
 flash_fwd_tc(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
              float* __restrict__ o, float* __restrict__ lse, int s_q, int s_kv, int shift, float scale) {
+  constexpr int kRows = Plan<D>::kRows, kThreads = Plan<D>::kThreads, kKeys = Plan<D>::kKeys;
   extern __shared__ __align__(128) unsigned char smem_bytes[];
   Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_bytes);
   const int bh = blockIdx.y;
   const int row0 = (Causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kRows;  // causal: heaviest first
   const float* kb = k + (size_t)bh * s_kv * D;
   const float* vb = v + (size_t)bh * s_kv * D;
-  const int kend = Causal ? key_end(row0, shift, s_kv) : s_kv;
-  const int n_tiles = (kend + kKeys - 1) / kKeys;  // tiles past s_kv are never read: s_kv % kRows == 0
+  const int kend = Causal ? key_end<kRows>(row0, shift, s_kv) : s_kv;
+  const int n_tiles = (kend + kKeys - 1) / kKeys;  // tiles past s_kv are never read: s_kv % kBlock == 0
 
 #pragma unroll
   for (int st = 0; st < kStages; ++st) {
@@ -300,7 +334,7 @@ flash_fwd_tc(const float* __restrict__ q, const float* __restrict__ k, const flo
   const float sgn = scale < 0.f ? -1.f : 1.f;
   const float4* qb = reinterpret_cast<const float4*>(q + ((size_t)bh * s_q + row0) * D);
 #pragma unroll
-  for (int n = 0; n < 2 * kTileChunks<D>; ++n) {
+  for (int n = 0; n < kRows * D / 4 / kThreads; ++n) {
     const unsigned i = threadIdx.x + n * kThreads, r = i / (D / 4);
     float4 x = __ldg(qb + i), hi, lo;
     x = make_float4(sgn * x.x, sgn * x.y, sgn * x.z, sgn * x.w);
@@ -345,20 +379,21 @@ flash_fwd_tc(const float* __restrict__ q, const float* __restrict__ k, const flo
 
     // S = Q·Kᵀ, small products first. s[4j + e] is (row_a, key kt + 8j + 2t + e),
     // s[4j + 2 + e] the same key on row_b.
-    float s[32];
+    float s[kKeys / 2];
     wg_fence();
     if constexpr (Split) {
 #pragma unroll
       for (int ks = 0; ks < D / 8; ++ks) {
-        const uint32_t at = 4 * 512 * ks;  // bytes to columns 8ks … 8ks + 7 of a 64-row operand
-        wgmma_ss_n64(s, desc<64>(q16, offsetof(S, q_lo) + at), desc<kKeys>(base16, offsetof(S, k_hi) + at), ks > 0);
-        wgmma_ss_n64(s, desc<64>(q16, offsetof(S, q_hi) + at), desc<kKeys>(base16, offsetof(S, k_lo) + at), 1);
+        const uint32_t at = 32 * 64 * ks, kat = 32 * kKeys * ks;  // bytes to columns 8ks … 8ks + 7 of Q, K
+        wgmma_ss<kKeys>(s, desc<64>(q16, offsetof(S, q_lo) + at), desc<kKeys>(base16, offsetof(S, k_hi) + kat),
+                        ks > 0);
+        wgmma_ss<kKeys>(s, desc<64>(q16, offsetof(S, q_hi) + at), desc<kKeys>(base16, offsetof(S, k_lo) + kat), 1);
       }
     }
 #pragma unroll
     for (int ks = 0; ks < D / 8; ++ks)
-      wgmma_ss_n64(s, desc<64>(q16, offsetof(S, q_hi) + 4 * 512 * ks),
-                   desc<kKeys>(base16, offsetof(S, k_hi) + 4 * 512 * ks), Split || ks > 0);
+      wgmma_ss<kKeys>(s, desc<64>(q16, offsetof(S, q_hi) + 32 * 64 * ks),
+                      desc<kKeys>(base16, offsetof(S, k_hi) + 32 * kKeys * ks), Split || ks > 0);
     wg_commit();
     wg_wait();
     pin(s);
@@ -366,7 +401,7 @@ flash_fwd_tc(const float* __restrict__ q, const float* __restrict__ k, const flo
     const bool mask = Causal && kt + kKeys - 1 > wrow0 + shift;  // the tile crosses the diagonal
     if (mask) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < kKeys / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int key = kt + 8 * j + 2 * t + e;
@@ -376,7 +411,7 @@ flash_fwd_tc(const float* __restrict__ q, const float* __restrict__ k, const flo
     }
     float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < kKeys / 8; ++j) {
       mx_a = fmaxf(mx_a, fmaxf(s[4 * j], s[4 * j + 1]));
       mx_b = fmaxf(mx_b, fmaxf(s[4 * j + 2], s[4 * j + 3]));
     }
@@ -390,7 +425,7 @@ flash_fwd_tc(const float* __restrict__ q, const float* __restrict__ k, const flo
     m_a = mn_a;
     m_b = mn_b;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < kKeys / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         float pa = exp2_ftz(fmaf(s[4 * j + e], c, -mn_a));
@@ -409,13 +444,13 @@ flash_fwd_tc(const float* __restrict__ q, const float* __restrict__ k, const flo
     // grows with the terms they add).
     // The A fragment of keys 8j … 8j + 7 is (row_a, pos t), (row_b, pos t),
     // (row_a, pos t + 4), (row_b, pos t + 4).
-    uint32_t ph[32], pl[32];
-    split_frag<32, Split>(s, ph, pl);
+    uint32_t ph[kKeys / 2], pl[kKeys / 2];
+    split_frag<kKeys / 2, Split>(s, ph, pl);
     float pv[(D + 8) / 2];
     wg_fence();
     if constexpr (Split) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < kKeys / 8; ++j) {
         const uint32_t a_lo[4] = {pl[4 * j], pl[4 * j + 2], pl[4 * j + 1], pl[4 * j + 3]};
         const uint32_t a_hi[4] = {ph[4 * j], ph[4 * j + 2], ph[4 * j + 1], ph[4 * j + 3]};
         wgmma_pv<D>(pv, a_lo, desc<D + 8>(base16, offsetof(S, vt_hi) + 32 * (D + 8) * j), j > 0);
@@ -423,7 +458,7 @@ flash_fwd_tc(const float* __restrict__ q, const float* __restrict__ k, const flo
       }
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < kKeys / 8; ++j) {
       const uint32_t a_hi[4] = {ph[4 * j], ph[4 * j + 2], ph[4 * j + 1], ph[4 * j + 3]};
       wgmma_pv<D>(pv, a_hi, desc<D + 8>(base16, offsetof(S, vt_hi) + 32 * (D + 8) * j), Split || j > 0);
     }
@@ -465,13 +500,13 @@ int launch_fwd(const float* q, const float* k, const float* v, float* o, float* 
   const cudaError_t e = cudaFuncSetAttribute(flash_fwd_tc<D, Causal, Split>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (e != cudaSuccess) return (int)e;
-  flash_fwd_tc<D, Causal, Split><<<dim3(s_q / kRows, bh), kThreads, kSmem, st>>>(q, k, v, o, lse, s_q, s_kv,
-                                                                                   shift, scale);
+  flash_fwd_tc<D, Causal, Split><<<dim3(s_q / Plan<D>::kRows, bh), Plan<D>::kThreads, kSmem, st>>>(
+      q, k, v, o, lse, s_q, s_kv, shift, scale);
   return (int)cudaGetLastError();
 }
 
 // The instance of a launch template for (d, causal, split): `KERNEL_CASES(fn, args)`
-// expands to the switch cases over D in {16, 32, 64}.
+// expands to the switch cases over D in {16, 32, 64, 128}.
 #define KERNEL_CASES(fn, ...)                                                              \
   case 0: return fn<16, false, false>(__VA_ARGS__);                                        \
   case 1: return fn<16, false, true>(__VA_ARGS__);                                         \
@@ -484,11 +519,15 @@ int launch_fwd(const float* q, const float* k, const float* v, float* o, float* 
   case 8: return fn<64, false, false>(__VA_ARGS__);                                        \
   case 9: return fn<64, false, true>(__VA_ARGS__);                                         \
   case 10: return fn<64, true, false>(__VA_ARGS__);                                        \
-  case 11: return fn<64, true, true>(__VA_ARGS__);
+  case 11: return fn<64, true, true>(__VA_ARGS__);                                         \
+  case 12: return fn<128, false, false>(__VA_ARGS__);                                      \
+  case 13: return fn<128, false, true>(__VA_ARGS__);                                       \
+  case 14: return fn<128, true, false>(__VA_ARGS__);                                       \
+  case 15: return fn<128, true, true>(__VA_ARGS__);
 
 // the case of (d, causal, split), or -1 for a head dim without an instance
 int instance(int d, bool causal, bool split) {
-  const int di = d == 16 ? 0 : d == 32 ? 1 : d == 64 ? 2 : -1;
+  const int di = d == 16 ? 0 : d == 32 ? 1 : d == 64 ? 2 : d == 128 ? 3 : -1;
   return di < 0 ? -1 : 4 * di + 2 * (causal ? 1 : 0) + (split ? 1 : 0);
 }
 
@@ -506,15 +545,6 @@ int fwd(const float* q, const float* k, const float* v, float* o, float* lse, in
 // ---------------------------------------------------------------------------
 // The backward on the tensor cores, both families (see the note at the top).
 // ---------------------------------------------------------------------------
-
-// rows of the streamed operand a backward tile. dq streams 64 keys, 32 at
-// D = 64, where 64 would take the block past the 227 KB of shared memory it
-// can have. dk/dv streams 32 queries: then its two products' split register
-// operands (2 · 32 registers) fit beside the accumulators in the 128
-// registers of two blocks an SM, and are issued together.
-template <int D>
-constexpr int kDqTile = D == 64 ? 32 : 64;
-constexpr int kDkvTile = 32;
 
 // acc (+)= A·Bᵀ over D columns in split TF32, small products first (one
 // pass, hi·hi, without Split): A is this warpgroup's 64-row operand
@@ -543,8 +573,9 @@ __device__ __forceinline__ void ss_split(float (&acc)[N / 2], uint32_t a16, uint
 // a thread holds its columns 8j + 2t + e, which the TF32 A fragment takes at
 // positions {t, t + 4}; B (N rows by T positions, base b16, hi/lo at b_hi,
 // b_lo) stores each 8 of its positions in the order 0, 2, 4, 6, 1, 3, 5, 7 to
-// match, so the registers are the fragment as they stand.
-template <int N, int T, bool Split>
+// match, so the registers are the fragment as they stand. B's N rows may be
+// rows of an operand of L rows (b_hi, b_lo then point at the first).
+template <int N, int T, bool Split, int L = N>
 __device__ __forceinline__ void rs_split(float (&acc)[N / 2], const uint32_t (&xh)[T / 2],
                                          const uint32_t (&xl)[T / 2], uint32_t b16, uint32_t b_hi, uint32_t b_lo,
                                          int accumulate = 1) {
@@ -553,21 +584,22 @@ __device__ __forceinline__ void rs_split(float (&acc)[N / 2], const uint32_t (&x
     for (int j = 0; j < T / 8; ++j) {
       const uint32_t a_lo[4] = {xl[4 * j], xl[4 * j + 2], xl[4 * j + 1], xl[4 * j + 3]};
       const uint32_t a_hi[4] = {xh[4 * j], xh[4 * j + 2], xh[4 * j + 1], xh[4 * j + 3]};
-      wgmma_rs<N>(acc, a_lo, desc<N>(b16, b_hi + 32 * N * j), j > 0 || accumulate);
-      wgmma_rs<N>(acc, a_hi, desc<N>(b16, b_lo + 32 * N * j), 1);
+      wgmma_rs<N>(acc, a_lo, desc<L>(b16, b_hi + 32 * L * j), j > 0 || accumulate);
+      wgmma_rs<N>(acc, a_hi, desc<L>(b16, b_lo + 32 * L * j), 1);
     }
   }
 #pragma unroll
   for (int j = 0; j < T / 8; ++j) {
     const uint32_t a_hi[4] = {xh[4 * j], xh[4 * j + 2], xh[4 * j + 1], xh[4 * j + 3]};
-    wgmma_rs<N>(acc, a_hi, desc<N>(b16, b_hi + 32 * N * j), Split || j > 0 || accumulate);
+    wgmma_rs<N>(acc, a_hi, desc<L>(b16, b_hi + 32 * L * j), Split || j > 0 || accumulate);
   }
 }
 
 // rows [row0, row0 + kRows) of a [S, D] matrix (src at row0) split into hi/lo
-// in the operand layout of two 64-row operands, one a warpgroup
+// in the operand layout of 64-row operands, one a warpgroup
 template <int D, bool Split>
 __device__ __forceinline__ void split_rows(float* hi, float* lo, const float* src) {
+  constexpr int kRows = Plan<D>::kRows, kThreads = Plan<D>::kThreads;
   const float4* s4 = reinterpret_cast<const float4*>(src);
 #pragma unroll
   for (int n = 0; n < kRows * D / 4 / kThreads; ++n) {
@@ -585,7 +617,7 @@ __device__ __forceinline__ void split_rows(float* hi, float* lo, const float* sr
 template <int D, int T, bool Operand>
 __device__ __forceinline__ void load_rows(float* dst, const float* src) {
 #pragma unroll
-  for (unsigned i = threadIdx.x; i < T * D / 4; i += kThreads)  // chunk i: row i / (D/4), columns 4·(i % (D/4)) + 0..3
+  for (unsigned i = threadIdx.x; i < T * D / 4; i += Plan<D>::kThreads)  // chunk i: row i / (D/4), columns 4·(i % (D/4)) + 0..3
     cp_async16(dst + (Operand ? cidx<T>(i / (D / 4), i % (D / 4) * 4) : 4 * i), src + 4 * i);
 }
 
@@ -593,7 +625,7 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src) {
 template <int D, int T, bool Split>
 __device__ __forceinline__ void split_same(const float* raw, float* hi, float* lo) {
 #pragma unroll
-  for (unsigned i = threadIdx.x; i < T * D / 4; i += kThreads) {
+  for (unsigned i = threadIdx.x; i < T * D / 4; i += Plan<D>::kThreads) {
     float4 h, l;
     split4(reinterpret_cast<const float4*>(raw)[i], h, l);
     reinterpret_cast<float4*>(hi)[i] = h;
@@ -608,7 +640,7 @@ __device__ __forceinline__ void split_same(const float* raw, float* hi, float* l
 template <int D, int T, bool Split>
 __device__ __forceinline__ void split_both(const float* raw, float* hi, float* lo, float* t_hi, float* t_lo) {
 #pragma unroll
-  for (unsigned i = threadIdx.x; i < T * D / 4; i += kThreads) {
+  for (unsigned i = threadIdx.x; i < T * D / 4; i += Plan<D>::kThreads) {
     float4 h, l;
     split4(reinterpret_cast<const float4*>(raw)[i], h, l);
     const unsigned at = cidx<T>(i / (D / 4), i % (D / 4) * 4);
@@ -616,7 +648,7 @@ __device__ __forceinline__ void split_both(const float* raw, float* hi, float* l
     if constexpr (Split) *reinterpret_cast<float4*>(&lo[at]) = l;
   }
 #pragma unroll
-  for (unsigned i = threadIdx.x; i < T * D / 4; i += kThreads) {
+  for (unsigned i = threadIdx.x; i < T * D / 4; i += Plan<D>::kThreads) {
     const unsigned d = i % D, pg = i / D;          // positions 4pg … 4pg + 3 of the transpose's row d
     const unsigned r0 = (pg >> 1) * 8 + (pg & 1);  // hold rows r0 + 0, 2, 4, 6
     float4 x = make_float4(raw[r0 * D + d], raw[(r0 + 2) * D + d], raw[(r0 + 4) * D + d], raw[(r0 + 6) * D + d]);
@@ -634,9 +666,9 @@ __device__ __forceinline__ float lse2(float lse) { return lse > -0.5e30f ? lse *
 
 template <int D>
 struct SmemDq {
-  static constexpr int T = kDqTile<D>;
-  float q_hi[kRows * D], q_lo[kRows * D];    // per warpgroup a 64-row operand
-  float do_hi[kRows * D], do_lo[kRows * D];  // the same for dO
+  static constexpr int R = Plan<D>::kRows, T = Plan<D>::kDqTile;
+  float q_hi[R * D], q_lo[R * D];            // per warpgroup a 64-row operand
+  float do_hi[R * D], do_lo[R * D];          // the same for dO
   float raw[kStages][2][T * D];              // landed tiles: K (row-major) and V (operand layout)
   float k_hi[T * D], k_lo[T * D];            // operand layout, T rows (keys) by D
   float v_hi[T * D], v_lo[T * D];
@@ -645,9 +677,9 @@ struct SmemDq {
 
 template <int D>
 struct SmemDkv {
-  static constexpr int T = kDkvTile;
-  float k_hi[kRows * D], k_lo[kRows * D];    // per warpgroup a 64-row operand
-  float v_hi[kRows * D], v_lo[kRows * D];
+  static constexpr int R = Plan<D>::kRows, T = Plan<D>::kDkvTile;
+  float k_hi[R * D], k_lo[R * D];            // per warpgroup a 64-row operand
+  float v_hi[R * D], v_lo[R * D];
   float raw[kStages][2][T * D];              // landed tiles: Q and dO, row-major
   float raw_stats[kStages][2][T];            // and the tile's lse and delta
   float q_hi[T * D], q_lo[T * D];            // operand layout, T rows (queries) by D
@@ -657,17 +689,21 @@ struct SmemDkv {
   float lse2[T], delta[T];
 };
 static_assert(sizeof(SmemDq<64>) <= 232448 && sizeof(SmemDkv<64>) <= 232448, "over 227 KB of shared memory");
+// D = 128, one warpgroup of 64 rows and 16-row tiles: 212,992 and 229,760 bytes
+static_assert(sizeof(SmemDq<128>) == 212992 && sizeof(SmemDkv<128>) == 229760, "the D = 128 plans moved");
+static_assert(sizeof(SmemDq<128>) <= 232448 && sizeof(SmemDkv<128>) <= 232448, "over 227 KB of shared memory");
 
 // dq of q, dO [BH, Sq, D] against k, v [BH, Skv, D]: dq = scale · Σ_j dS_ij k_j,
 // in split TF32 or (without Split) one pass.
-// Grid (Sq / kRows, BH), kThreads threads, sizeof(SmemDq<D>) bytes of
-// dynamic shared memory; two blocks an SM at D = 16 (at most 128 registers).
+// Grid (Sq / kRows, BH), kThreads threads (`Plan<D>`), sizeof(SmemDq<D>)
+// bytes of dynamic shared memory; two blocks an SM at D = 16 (at most 128
+// registers).
 template <int D, bool Causal, bool Split>
-__global__ void __launch_bounds__(kThreads, D == 16 ? 2 : 1)
+__global__ void __launch_bounds__(Plan<D>::kThreads, D == 16 ? 2 : 1)
 flash_bwd_dq_tc(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                 const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
                 float* __restrict__ dq, int s_q, int s_kv, int shift, float scale) {
-  constexpr int T = kDqTile<D>;
+  constexpr int T = Plan<D>::kDqTile, kRows = Plan<D>::kRows;
   using S = SmemDq<D>;
   extern __shared__ __align__(128) unsigned char smem_bytes[];
   S& sm = *reinterpret_cast<S*>(smem_bytes);
@@ -675,8 +711,8 @@ flash_bwd_dq_tc(const float* __restrict__ q, const float* __restrict__ k, const 
   const int row0 = (Causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kRows;  // causal: heaviest first
   const float* kb = k + (size_t)bh * s_kv * D;
   const float* vb = v + (size_t)bh * s_kv * D;
-  const int kend = Causal ? key_end(row0, shift, s_kv) : s_kv;
-  const int n_tiles = (kend + T - 1) / T;  // tiles past s_kv are never read: s_kv % kRows == 0
+  const int kend = Causal ? key_end<kRows>(row0, shift, s_kv) : s_kv;
+  const int n_tiles = (kend + T - 1) / T;  // tiles past s_kv are never read: s_kv % kBlock == 0
 
 #pragma unroll
   for (int st = 0; st < kStages; ++st) {
@@ -783,14 +819,15 @@ flash_bwd_dq_tc(const float* __restrict__ q, const float* __restrict__ k, const 
 
 // dk, dv of k, v [BH, Skv, D] from the same inputs: dv = Σ_i P_ijᵀ dO_i,
 // dk = scale · Σ_i dS_ijᵀ q_i, in split TF32 or (without Split) one pass.
-// Grid (Skv / kRows, BH), kThreads threads, sizeof(SmemDkv<D>) bytes of
-// dynamic shared memory; two blocks an SM at D = 16 (at most 128 registers).
+// Grid (Skv / kRows, BH), kThreads threads (`Plan<D>`), sizeof(SmemDkv<D>)
+// bytes of dynamic shared memory; two blocks an SM at D = 16 (at most 128
+// registers).
 template <int D, bool Causal, bool Split>
-__global__ void __launch_bounds__(kThreads, D == 16 ? 2 : 1)
+__global__ void __launch_bounds__(Plan<D>::kThreads, D == 16 ? 2 : 1)
 flash_bwd_dkv_tc(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                  const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
                  float* __restrict__ dk, float* __restrict__ dv, int s_q, int s_kv, int shift, float scale) {
-  constexpr int T = kDkvTile;
+  constexpr int T = Plan<D>::kDkvTile, kRows = Plan<D>::kRows;
   using S = SmemDkv<D>;
   extern __shared__ __align__(128) unsigned char smem_bytes[];
   S& sm = *reinterpret_cast<S*>(smem_bytes);
@@ -892,26 +929,36 @@ flash_bwd_dkv_tc(const float* __restrict__ q, const float* __restrict__ k, const
     if constexpr (Causal) {
       // each product of the tile sums apart and joins dv, dk in f32 adds; one
       // after the other, so that one partial sum and one split operand are
-      // live at a time beside the two accumulators
-      float part[D / 2];
+      // live at a time beside the two accumulators. At D = 128 a partial sum
+      // spans 64 of the columns (H), so that it fits beside dk and dv.
+      constexpr int H = D == 128 ? 64 : D;
+      float part[H / 2];
       uint32_t ph[T / 2], pl[T / 2];
       split_frag<T / 2, Split>(s, ph, pl);
-      wg_fence();
-      rs_split<D, T, Split>(part, ph, pl, base16, offsetof(S, dot_hi), offsetof(S, dot_lo), 0);
-      wg_commit();
-      wg_wait();
-      pin(part);
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) dva[i] += part[i];
+      for (int h = 0; h < D / H; ++h) {  // rows [H·h, H·h + H) of the D-row operand start 16·H·h bytes in
+        wg_fence();
+        rs_split<H, T, Split, D>(part, ph, pl, base16, offsetof(S, dot_hi) + 16 * H * h,
+                                 offsetof(S, dot_lo) + 16 * H * h, 0);
+        wg_commit();
+        wg_wait();
+        pin(part);
+#pragma unroll
+        for (int i = 0; i < H / 2; ++i) cols<H>(dva, H * h)[i] += part[i];
+      }
       uint32_t dh[T / 2], dl[T / 2];
       split_frag<T / 2, Split>(dp, dh, dl);
-      wg_fence();
-      rs_split<D, T, Split>(part, dh, dl, base16, offsetof(S, qt_hi), offsetof(S, qt_lo), 0);
-      wg_commit();
-      wg_wait();
-      pin(part);
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) dka[i] += part[i];
+      for (int h = 0; h < D / H; ++h) {
+        wg_fence();
+        rs_split<H, T, Split, D>(part, dh, dl, base16, offsetof(S, qt_hi) + 16 * H * h,
+                                 offsetof(S, qt_lo) + 16 * H * h, 0);
+        wg_commit();
+        wg_wait();
+        pin(part);
+#pragma unroll
+        for (int i = 0; i < H / 2; ++i) cols<H>(dka, H * h)[i] += part[i];
+      }
     } else {
       uint32_t ph[T / 2], pl[T / 2], dh[T / 2], dl[T / 2];
       split_frag<T / 2, Split>(s, ph, pl);
@@ -942,26 +989,26 @@ flash_bwd_dkv_tc(const float* __restrict__ q, const float* __restrict__ k, const
 // One launch of a backward kernel with its dynamic shared memory; the
 // cudaError_t of the launch.
 template <typename Kernel, typename... Args>
-int launch_bwd(Kernel kernel, int smem, dim3 grid, cudaStream_t st, Args... args) {
+int launch_bwd(Kernel kernel, int smem, dim3 grid, int threads, cudaStream_t st, Args... args) {
   const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<grid, kThreads, smem, st>>>(args...);
+  kernel<<<grid, threads, smem, st>>>(args...);
   return (int)cudaGetLastError();
 }
 
 template <int D, bool Causal, bool Split>
 int bwd_dq_d(const float* q, const float* k, const float* v, const float* dout, const float* lse,
              const float* delta, float* dq, int bh, int s_q, int s_kv, int shift, float scale, cudaStream_t st) {
-  return launch_bwd(flash_bwd_dq_tc<D, Causal, Split>, (int)sizeof(SmemDq<D>), dim3(s_q / kRows, bh), st, q, k, v,
-                    dout, lse, delta, dq, s_q, s_kv, shift, scale);
+  return launch_bwd(flash_bwd_dq_tc<D, Causal, Split>, (int)sizeof(SmemDq<D>), dim3(s_q / Plan<D>::kRows, bh),
+                    Plan<D>::kThreads, st, q, k, v, dout, lse, delta, dq, s_q, s_kv, shift, scale);
 }
 
 template <int D, bool Causal, bool Split>
 int bwd_dkv_d(const float* q, const float* k, const float* v, const float* dout, const float* lse,
               const float* delta, float* dk, float* dv, int bh, int s_q, int s_kv, int shift, float scale,
               cudaStream_t st) {
-  return launch_bwd(flash_bwd_dkv_tc<D, Causal, Split>, (int)sizeof(SmemDkv<D>), dim3(s_kv / kRows, bh), st, q,
-                    k, v, dout, lse, delta, dk, dv, s_q, s_kv, shift, scale);
+  return launch_bwd(flash_bwd_dkv_tc<D, Causal, Split>, (int)sizeof(SmemDkv<D>), dim3(s_kv / Plan<D>::kRows, bh),
+                    Plan<D>::kThreads, st, q, k, v, dout, lse, delta, dk, dv, s_q, s_kv, shift, scale);
 }
 
 int bwd_dq(const float* q, const float* k, const float* v, const float* dout, const float* lse, const float* delta,
@@ -995,7 +1042,7 @@ extern "C" {
 // `passes` (every entry point): 3 for split TF32 (f32 accuracy), 1 for one
 // TF32 product a product. Returns the cudaError_t of the launch.
 
-// Forward on `stream`: o [BH, S, D], lse [BH, S]. D in {16, 32, 64},
+// Forward on `stream`: o [BH, S, D], lse [BH, S]. D in {16, 32, 64, 128},
 // S a multiple of 128.
 int flash_fwd_launch(const float* q, const float* k, const float* v, float* o, float* lse, int bh, int s,
                      int d, float scale, int passes, void* stream) {
@@ -1017,7 +1064,7 @@ int flash_bwd_dkv_launch(const float* q, const float* k, const float* v, const f
 
 // Rectangular forward: o [BH, Sq, D], lse [BH, Sq] from q [BH, Sq, D] and
 // k, v [BH, Skv, D]; `causal` masks on the global positions q_off + i,
-// k_off + j. Sq and Skv multiples of 128, D in {16, 32, 64}.
+// k_off + j. Sq and Skv multiples of 128, D in {16, 32, 64, 128}.
 int flash_fwd_rect_launch(const float* q, const float* k, const float* v, float* o, float* lse, int bh, int s_q,
                           int s_kv, int d, int causal, int q_off, int k_off, float scale, int passes, void* stream) {
   return tc::fwd(q, k, v, o, lse, bh, s_q, s_kv, d, causal != 0, q_off - k_off, scale, passes == 3, stream);

@@ -69,7 +69,18 @@
 //     t's dS (and P) products.
 //   * Tiles: 128 keys a forward tile at every D (kFwdKeys; 64 measured
 //     slower at D 16 and 64); kDqKeys keys a dq tile by D, by measurement;
-//     dk/dv streams 64 queries a tile (128 would not fit its registers).
+//     dk/dv streams 64 queries a tile (128 would not fit its registers;
+//     32 at D = 128, kDkvTile).
+//   * D = 128 (kRing, kSlab, kDkvOverlap): a ring of two stages, not four,
+//     and dq's tile 64 keys, so that each plan fits 227 KB (the
+//     static_asserts state the bytes); every tile lands as 64-column slabs
+//     with the 128-byte swizzle, two TMA boxes a tile, read K-major a slab
+//     a k16 step and MN-major as two N = 64 products, one a slab; the row
+//     sum l is the same sum of the rounded P as at D <= 64 (the JAX
+//     package's l scratch, `fuse_l` false at D 128, sums the same terms);
+//     dk/dv streams 32-query tiles, so that its next tile's scores fit in
+//     flight beside the two 64-register accumulators (64-query tiles
+//     spilled), and masks the first two tiles a warpgroup sees.
 //   * Causal: a block reads only the tiles that can see it; a warpgroup
 //     frees a tile wholly outside its triangle unread and masks by select
 //     only the one tile across its diagonal, a separate compile-time branch
@@ -102,6 +113,7 @@ using bf16_wgmma::wg_wait_group;
 using bf16_wgmma::wgmma_rs_bf16;
 using bf16_wgmma::wgmma_ss_bf16;
 using bf16_wgmma::wgmma_ss_bf16_n64;
+using tf32_wgmma::cols;
 using tf32_wgmma::pin;
 using tf32_wgmma::wg_commit;
 using tf32_wgmma::wg_fence;
@@ -113,15 +125,28 @@ constexpr float kLn2 = 0.6931471805599453f;
 // Two consumer warpgroups and a producer warpgroup
 constexpr int kWsThreads = 384;  // the producer warpgroup last
 constexpr int kConsumerWarps = 8;  // each frees a stage with one arrival
-constexpr int kRing = 4;           // stages of the producer's ring
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // setmaxnreg: 128·24 + 256·240 <= 65,536
-constexpr int kDkvTile = 64;       // queries a dk/dv tile
+// queries a dk/dv tile, by head dim: 64, and 32 at D = 128, where dk's and
+// dv's accumulators take 128 registers a thread and 64-query tiles spilled
+// 36 bytes at the dv and dk products' issue; 32-query tiles halve the
+// registers of sᵀ, dPᵀ and their bf16 fragments
+template <int D>
+constexpr int kDkvTile = D == 128 ? 32 : 64;
 // keys a forward tile, by head dim (chip_sweep.py bf16 times 64 and 128; BF16_FWD_KEYS in ops/flash_cuda.py)
 template <int D>
 constexpr int kFwdKeys = 128;
-// keys a dq tile, by head dim (chip_sweep.py bf16 times 64 and 128; the plain version takes any)
+// keys a dq tile, by head dim (chip_sweep.py bf16 times 64 and 128; the plain version takes any). At
+// D = 128 a 128-key ring stage is 64 KB, and two of them beside the double-buffered qs and dO pass 227 KB
 template <int D>
 constexpr int kDqKeys = 128;
+template <>
+constexpr int kDqKeys<128> = 64;
+// stages of the producer's ring, by head dim: four up to D = 64; two at D =
+// 128, where a stage (a K and a V tile, or a qs and a dO tile) is 64 KB
+// (forward), 32 KB (dq) or 16 KB (dk/dv) and the block's own rows take 64 KB
+// a buffer (the plans' bytes stand in the static_asserts after the kernels)
+template <int D>
+constexpr int kRing = D == 128 ? 2 : 4;
 
 // attribution cuts (the template argument Cut; the shipped entry points take kFull)
 constexpr int kFull = 0, kNoExp = 1, kNoMma = 2, kLoadsOnly = 3, kMmaOnly = 4;
@@ -166,13 +191,64 @@ __device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
 }
 
-// TMA: the box of `map` (whole rows of a [rows, D] bf16 matrix) from row `row` into dst; lands on `bar`
-__device__ __forceinline__ void tma_rows(void* dst, const CUtensorMap& map, int row, uint64_t* bar) {
+// TMA: the box of `map` (kSlab<D> columns from `col` of a [rows, D] bf16
+// matrix, box-many rows) from row `row` into dst; lands on `bar`
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap& map, int col, int row, uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
           smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(&map)), "r"(0), "r"(row), "r"(smem_u32(bar))
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(col), "r"(row), "r"(smem_u32(bar))
       : "memory");
+}
+
+// A tile of R rows in shared memory. Up to D = 64 a row is 2·D bytes,
+// swizzled by its width (32, 64 or 128 bytes) as the TMA wrote it. At D =
+// 128 a row (256 bytes) exceeds the 128-byte span of one swizzle, so the
+// tile is two slabs of R rows by 64 columns (128 bytes, 128-byte swizzle):
+// columns 0 … 63, then 64 … 127 at R·128 bytes, each landed by a TMA box of
+// its own and read as `desc_sw<64>` reads a D = 64 tile.
+template <int D>
+constexpr int kSlab = D == 128 ? 64 : D;  // columns a slab
+
+// rows [row, row + R) of `map` into the R-row tile at dst, a box a slab
+template <int D, int R>
+__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap& map, int row, uint64_t* bar) {
+#pragma unroll
+  for (int h = 0; h < D / kSlab<D>; ++h) tma_box(dst + h * R * kSlab<D>, map, h * kSlab<D>, row, bar);
+}
+
+// shared address of k16 step kk (columns 16kk … 16kk + 15) of the R-row tile at `tile`, read K-major
+template <int D, int R>
+__device__ __forceinline__ uint32_t k_step(uint32_t tile, int kk) {
+  constexpr int kSteps = kSlab<D> / 16;  // k16 steps a slab
+  return tile + kk / kSteps * R * 2 * kSlab<D> + 32 * (kk % kSteps);
+}
+
+// acc = A·Bᵀ over D, N columns: A the 64-row operand at `a` (rows of an
+// RA-row tile), B the N-row tile at `b` (RB rows), both read K-major; issued
+// into the open wgmma group
+template <int N, int D, int RA, int RB>
+__device__ __forceinline__ void ss_rows(float (&acc)[N / 2], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_bf16<N>(acc, desc_sw<kSlab<D>>(k_step<D, RA>(a, kk)), desc_sw<kSlab<D>>(k_step<D, RB>(b, kk)), kk > 0);
+}
+
+// acc += A·B over k16 step kk: A in registers, B the R-row tile at `tile`
+// read MN-major (its rows 16kk … 16kk + 15 the contraction, its D columns
+// the product's), a product a slab; issued into the open wgmma group
+template <int D, int R>
+__device__ __forceinline__ void rs_cols(float (&acc)[D / 2], const uint32_t (&a)[4], uint32_t tile, int kk) {
+#pragma unroll
+  for (int h = 0; h < D / kSlab<D>; ++h)
+    wgmma_rs_bf16<kSlab<D>, 1>(cols<kSlab<D>>(acc, kSlab<D> * h), a,
+                               desc_sw<kSlab<D>>(tile + h * R * 2 * kSlab<D> + 32 * kSlab<D> * kk), 1);
+}
+
+// shared address of warpgroup wg's 64 rows in a tile of R rows (D columns)
+template <int D>
+__device__ __forceinline__ uint32_t wg_rows(const bf16* tile, int wg) {
+  return smem_u32(tile) + 64 * wg * 2 * kSlab<D>;
 }
 
 // bulk copy of `bytes` (a multiple of 16) of device memory into dst; lands on `bar`
@@ -201,9 +277,10 @@ __device__ __forceinline__ void turn_wait(int wg) { asm volatile("bar.sync %0, 2
 __device__ __forceinline__ void turn_pass(int wg) { asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory"); }
 
 // The ring's mbarriers, set up by thread 0 before the block's one barrier
+template <int Ring>
 __device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
   if (threadIdx.x == 0) {
-    for (int i = 0; i < kRing; ++i) {
+    for (int i = 0; i < Ring; ++i) {
       bar_init(&full[i], 1);  // the producer's bar_expect; then the bytes
       bar_init(&empty[i], kConsumerWarps);
     }
@@ -212,14 +289,17 @@ __device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
 }
 
 // A consumer warp's part: wait for the stage of tile `it` to be full / free it
-__device__ __forceinline__ void wait_full(uint64_t* full, int it) { bar_wait(&full[it % kRing], (it / kRing) & 1); }
+template <int Ring>
+__device__ __forceinline__ void wait_full(uint64_t* full, int it) { bar_wait(&full[it % Ring], (it / Ring) & 1); }
+template <int Ring>
 __device__ __forceinline__ void release(uint64_t* empty, int it) {
-  if (threadIdx.x % 32 == 0) bar_arrive(&empty[it % kRing]);
+  if (threadIdx.x % 32 == 0) bar_arrive(&empty[it % Ring]);
 }
 
 // The producer's wait before it refills the stage of tile `it`: the stage's last tile freed
+template <int Ring>
 __device__ __forceinline__ void wait_empty(uint64_t* empty, int it) {
-  if (it >= kRing) bar_wait(&empty[it % kRing], (it / kRing - 1) & 1);
+  if (it >= Ring) bar_wait(&empty[it % Ring], (it / Ring - 1) & 1);
 }
 
 // d += A·B on the warp's tensor cores (mma.sync m16n8k16): A this warp's 16
@@ -270,9 +350,9 @@ struct FwdStage {
 
 template <int D, int T>
 struct SmemFwd {
-  FwdStage<D, T> st[kRing];
+  FwdStage<D, T> st[kRing<D>];
   alignas(1024) bf16 q[2][kRows * D];  // two blocks' rows of qs as the TMA wrote them, one 64-row operand a warpgroup
-  uint64_t full[kRing], empty[kRing], q_full[2], q_empty[2];
+  uint64_t full[kRing<D>], empty[kRing<D>], q_full[2], q_empty[2];
 };
 
 // Online softmax of a tile of T keys from key kt, in place: sc[4j + e] is
@@ -339,12 +419,13 @@ flash_fwd_bf16_tc(const __grid_constant__ CUtensorMap map_q, const __grid_consta
                   const __grid_constant__ CUtensorMap map_v, float* __restrict__ o, float* __restrict__ lse,
                   int bh_count, int s_len) {
   using S = SmemFwd<D, T>;
+  constexpr int Ring = kRing<D>;
   extern __shared__ unsigned char smem_raw[];
   S& sm = aligned_smem<S>(smem_raw);
   const Schedule sched{bh_count, s_len / kRows};
   const int wg = threadIdx.x / 128;
 
-  init_ring(sm.full, sm.empty);
+  init_ring<Ring>(sm.full, sm.empty);
   if (threadIdx.x == 0) {
     for (int i = 0; i < 2; ++i) {
       bar_init(&sm.q_full[i], 1);
@@ -361,13 +442,13 @@ flash_fwd_bf16_tc(const __grid_constant__ CUtensorMap map_q, const __grid_consta
         const int row0 = (sched.rows - 1 - r) * kRows, n_tiles = (row0 + kRows) / T;
         if (n >= 2) bar_wait(&sm.q_empty[n % 2], (n / 2 - 1) & 1);
         bar_expect(&sm.q_full[n % 2], kRows * D * 2);
-        tma_rows(sm.q[n % 2], map_q, bh * s_len + row0, &sm.q_full[n % 2]);
+        tma_tile<D, kRows>(sm.q[n % 2], map_q, bh * s_len + row0, &sm.q_full[n % 2]);
         for (int it = 0; it < n_tiles; ++it, ++gt) {
-          FwdStage<D, T>& stage = sm.st[gt % kRing];
-          wait_empty(sm.empty, gt);
-          bar_expect(&sm.full[gt % kRing], 2 * T * D * 2);
-          tma_rows(stage.k, map_k, bh * s_len + it * T, &sm.full[gt % kRing]);
-          tma_rows(stage.v, map_v, bh * s_len + it * T, &sm.full[gt % kRing]);
+          FwdStage<D, T>& stage = sm.st[gt % Ring];
+          wait_empty<Ring>(sm.empty, gt);
+          bar_expect(&sm.full[gt % Ring], 2 * T * D * 2);
+          tma_tile<D, T>(stage.k, map_k, bh * s_len + it * T, &sm.full[gt % Ring]);
+          tma_tile<D, T>(stage.v, map_v, bh * s_len + it * T, &sm.full[gt % Ring]);
         }
       }
     }
@@ -386,7 +467,7 @@ flash_fwd_bf16_tc(const __grid_constant__ CUtensorMap map_q, const __grid_consta
     const int wrow0 = row0 + 64 * wg;
     const int row_a = wrow0 + 16 * warp + g, row_b = row_a + 8;
     const int n_live = (wrow0 + 64 + T - 1) / T;  // the tiles holding a key these rows see
-    const uint32_t q_addr = smem_u32(sm.q[n % 2] + 64 * D * wg);
+    const uint32_t q_addr = wg_rows<D>(sm.q[n % 2], wg);
 
     float acc[D / 2], l4[4][4];  // O, and l in column 0 of bf16(P)·[1 | 0], four partial sums
 #pragma unroll
@@ -399,26 +480,24 @@ flash_fwd_bf16_tc(const __grid_constant__ CUtensorMap map_q, const __grid_consta
 
     // sc = qs·kᵀ of tile `it`, issued as one wgmma group
     auto scores = [&](int it) {
-      wait_full(sm.full, gt + it);
+      wait_full<Ring>(sm.full, gt + it);
       if constexpr (Cut == kNoMma) {
 #pragma unroll
         for (int i = 0; i < T / 2; ++i) sc[i] = 0.125f * (i & 7);
       } else {
-        const uint32_t k_addr = smem_u32(sm.st[(gt + it) % kRing].k);
+        const uint32_t k_addr = smem_u32(sm.st[(gt + it) % Ring].k);
         wg_fence();
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss_bf16<T>(sc, desc_sw<D>(q_addr + 32 * kk), desc_sw<D>(k_addr + 32 * kk), kk > 0);
+        ss_rows<T, D, kRows, T>(sc, q_addr, k_addr);
         wg_commit();
       }
     };
     // acc += bf16(P)·V of tile `it`, issued as one wgmma group
     auto pv = [&](int it) {
       if constexpr (Cut != kNoMma) {
-        const uint32_t v_addr = smem_u32(sm.st[(gt + it) % kRing].v);
+        const uint32_t v_addr = smem_u32(sm.st[(gt + it) % Ring].v);
         wg_fence();
 #pragma unroll
-        for (int kk = 0; kk < T / 16; ++kk) wgmma_rs_bf16<D, 1>(acc, pa[kk], desc_sw<D>(v_addr + 32 * D * kk), 1);
+        for (int kk = 0; kk < T / 16; ++kk) rs_cols<D, T>(acc, pa[kk], v_addr, kk);
         wg_commit();
       }
     };
@@ -459,8 +538,8 @@ flash_fwd_bf16_tc(const __grid_constant__ CUtensorMap map_q, const __grid_consta
     bar_wait(&sm.q_full[n % 2], (n / 2) & 1);
     if constexpr (Cut == kLoadsOnly) {
       for (int it = 0; it < n_tiles; ++it) {
-        wait_full(sm.full, gt + it);
-        release(sm.empty, gt + it);
+        wait_full<Ring>(sm.full, gt + it);
+        release<Ring>(sm.empty, gt + it);
       }
     } else {
       // n_tiles + 1 turns a warpgroup: the first scores, n_live − 1 of
@@ -489,7 +568,7 @@ flash_fwd_bf16_tc(const __grid_constant__ CUtensorMap map_q, const __grid_consta
           softmax(it, std::false_type{});
         wg_wait_group<0>();
         pin_pv();
-        release(sm.empty, gt + it - 1);
+        release<Ring>(sm.empty, gt + it - 1);
         pack();
       }
       turn_wait(wg);
@@ -498,12 +577,12 @@ flash_fwd_bf16_tc(const __grid_constant__ CUtensorMap map_q, const __grid_consta
       turn_pass(wg);
       wg_wait_group<0>();
       pin_pv();
-      release(sm.empty, gt + n_live - 1);
+      release<Ring>(sm.empty, gt + n_live - 1);
       for (int it = n_live; it < n_tiles; ++it) {  // wholly in these rows' future: free it unread
         turn_wait(wg);
         turn_pass(wg);
-        wait_full(sm.full, gt + it);
-        release(sm.empty, gt + it);
+        wait_full<Ring>(sm.full, gt + it);
+        release<Ring>(sm.empty, gt + it);
       }
     }
     if (lane == 0) bar_arrive(&sm.q_empty[n % 2]);  // every product that read this block's qs is done
@@ -539,10 +618,10 @@ struct DqStage {
 
 template <int D, int T>
 struct SmemDq {
-  DqStage<D, T> st[kRing];
+  DqStage<D, T> st[kRing<D>];
   alignas(1024) bf16 q[2][kRows * D];     // two blocks' rows of qs as the TMA wrote them, one 64-row operand a warpgroup
   alignas(1024) bf16 dout[2][kRows * D];  // and of dO
-  uint64_t full[kRing], empty[kRing], qd_full[2], qd_empty[2];
+  uint64_t full[kRing<D>], empty[kRing<D>], qd_full[2], qd_empty[2];
 };
 
 // dq of qs, dO against k, v: dq = scale · Σ_j bf16(dS_ij) k_j. Persistent:
@@ -557,12 +636,13 @@ flash_bwd_dq_bf16_tc(const __grid_constant__ CUtensorMap map_q, const __grid_con
                      const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dq,
                      int bh_count, int s_len, float scale) {
   using S = SmemDq<D, T>;
+  constexpr int Ring = kRing<D>;
   extern __shared__ unsigned char smem_raw[];
   S& sm = aligned_smem<S>(smem_raw);
   const Schedule sched{bh_count, s_len / kRows};
   const int wg = threadIdx.x / 128;
 
-  init_ring(sm.full, sm.empty);
+  init_ring<Ring>(sm.full, sm.empty);
   if (threadIdx.x == 0) {
     for (int i = 0; i < 2; ++i) {
       bar_init(&sm.qd_full[i], 1);
@@ -579,14 +659,14 @@ flash_bwd_dq_bf16_tc(const __grid_constant__ CUtensorMap map_q, const __grid_con
         const int row0 = (sched.rows - 1 - r) * kRows, n_tiles = (row0 + kRows) / T;
         if (n >= 2) bar_wait(&sm.qd_empty[n % 2], (n / 2 - 1) & 1);
         bar_expect(&sm.qd_full[n % 2], 2 * kRows * D * 2);
-        tma_rows(sm.q[n % 2], map_q, bh * s_len + row0, &sm.qd_full[n % 2]);
-        tma_rows(sm.dout[n % 2], map_do, bh * s_len + row0, &sm.qd_full[n % 2]);
+        tma_tile<D, kRows>(sm.q[n % 2], map_q, bh * s_len + row0, &sm.qd_full[n % 2]);
+        tma_tile<D, kRows>(sm.dout[n % 2], map_do, bh * s_len + row0, &sm.qd_full[n % 2]);
         for (int it = 0; it < n_tiles; ++it, ++gt) {
-          DqStage<D, T>& stage = sm.st[gt % kRing];
-          wait_empty(sm.empty, gt);
-          bar_expect(&sm.full[gt % kRing], 2 * T * D * 2);
-          tma_rows(stage.k, map_k, bh * s_len + it * T, &sm.full[gt % kRing]);
-          tma_rows(stage.v, map_v, bh * s_len + it * T, &sm.full[gt % kRing]);
+          DqStage<D, T>& stage = sm.st[gt % Ring];
+          wait_empty<Ring>(sm.empty, gt);
+          bar_expect(&sm.full[gt % Ring], 2 * T * D * 2);
+          tma_tile<D, T>(stage.k, map_k, bh * s_len + it * T, &sm.full[gt % Ring]);
+          tma_tile<D, T>(stage.v, map_v, bh * s_len + it * T, &sm.full[gt % Ring]);
         }
       }
     }
@@ -606,7 +686,7 @@ flash_bwd_dq_bf16_tc(const __grid_constant__ CUtensorMap map_q, const __grid_con
     const size_t srow = (size_t)bh * s_len;
     const float l2_a = __ldg(lse + srow + row_a) * kLog2e, l2_b = __ldg(lse + srow + row_b) * kLog2e;
     const float dl_a = __ldg(delta + srow + row_a), dl_b = __ldg(delta + srow + row_b);
-    const uint32_t q_addr = smem_u32(sm.q[n % 2] + 64 * D * wg), do_addr = smem_u32(sm.dout[n % 2] + 64 * D * wg);
+    const uint32_t q_addr = wg_rows<D>(sm.q[n % 2], wg), do_addr = wg_rows<D>(sm.dout[n % 2], wg);
 
     float acc[D / 2];  // dq / scale
 #pragma unroll
@@ -616,20 +696,16 @@ flash_bwd_dq_bf16_tc(const __grid_constant__ CUtensorMap map_q, const __grid_con
 
     // s and dp of tile `it`, issued as one wgmma group
     auto scores = [&](int it) {
-      wait_full(sm.full, gt + it);
+      wait_full<Ring>(sm.full, gt + it);
       if constexpr (Cut == kNoMma) {
 #pragma unroll
         for (int i = 0; i < T / 2; ++i) s[i] = dp[i] = 0.125f * (i & 7);
       } else {
-        const DqStage<D, T>& stage = sm.st[(gt + it) % kRing];
+        const DqStage<D, T>& stage = sm.st[(gt + it) % Ring];
         const uint32_t k_addr = smem_u32(stage.k), v_addr = smem_u32(stage.v);
         wg_fence();
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss_bf16<T>(s, desc_sw<D>(q_addr + 32 * kk), desc_sw<D>(k_addr + 32 * kk), kk > 0);
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss_bf16<T>(dp, desc_sw<D>(do_addr + 32 * kk), desc_sw<D>(v_addr + 32 * kk), kk > 0);
+        ss_rows<T, D, kRows, T>(s, q_addr, k_addr);
+        ss_rows<T, D, kRows, T>(dp, do_addr, v_addr);
         wg_commit();
       }
     };
@@ -665,8 +741,8 @@ flash_bwd_dq_bf16_tc(const __grid_constant__ CUtensorMap map_q, const __grid_con
     bar_wait(&sm.qd_full[n % 2], (n / 2) & 1);
     if constexpr (Cut == kLoadsOnly) {
       for (int it = 0; it < n_tiles; ++it) {
-        wait_full(sm.full, gt + it);
-        release(sm.empty, gt + it);
+        wait_full<Ring>(sm.full, gt + it);
+        release<Ring>(sm.empty, gt + it);
       }
     } else {
       // n_tiles + 1 turns a warpgroup: the first scores, then a tile's dS·K
@@ -685,23 +761,23 @@ flash_bwd_dq_bf16_tc(const __grid_constant__ CUtensorMap map_q, const __grid_con
         // acc += bf16(dS)·K, the K tile read MN-major as it landed
         turn_wait(wg);
         if constexpr (Cut != kNoMma) {
-          const uint32_t k_addr = smem_u32(sm.st[(gt + it) % kRing].k);
+          const uint32_t k_addr = smem_u32(sm.st[(gt + it) % Ring].k);
           wg_fence();
 #pragma unroll
-          for (int kk = 0; kk < T / 16; ++kk) wgmma_rs_bf16<D, 1>(acc, da[kk], desc_sw<D>(k_addr + 32 * D * kk), 1);
+          for (int kk = 0; kk < T / 16; ++kk) rs_cols<D, T>(acc, da[kk], k_addr, kk);
           wg_commit();
         }
         if (it + 1 < n_live) scores(it + 1);  // queued right behind it
         turn_pass(wg);
         wg_wait_group<0>();
         pin_all();
-        release(sm.empty, gt + it);
+        release<Ring>(sm.empty, gt + it);
       }
       for (int it = n_live; it < n_tiles; ++it) {  // wholly in these rows' future: free it unread
         turn_wait(wg);
         turn_pass(wg);
-        wait_full(sm.full, gt + it);
-        release(sm.empty, gt + it);
+        wait_full<Ring>(sm.full, gt + it);
+        release<Ring>(sm.empty, gt + it);
       }
     }
     if (lane == 0) bar_arrive(&sm.qd_empty[n % 2]);  // every product that read this block's qs and dO is done
@@ -723,24 +799,25 @@ flash_bwd_dq_bf16_tc(const __grid_constant__ CUtensorMap map_q, const __grid_con
 
 template <int D>
 struct DkvStage {
-  alignas(1024) bf16 q[kDkvTile * D];     // a qs tile as the TMA wrote it: K-major for k·qsᵀ, MN-major for dSᵀ·qs
-  alignas(1024) bf16 dout[kDkvTile * D];  // the dO tile, the same: v·dOᵀ, Pᵀ·dO
-  float lse[kDkvTile], delta[kDkvTile];
+  static constexpr int T = kDkvTile<D>;
+  alignas(1024) bf16 q[T * D];     // a qs tile as the TMA wrote it: K-major for k·qsᵀ, MN-major for dSᵀ·qs
+  alignas(1024) bf16 dout[T * D];  // the dO tile, the same: v·dOᵀ, Pᵀ·dO
+  float lse[T], delta[T];
 };
 
 template <int D>
 struct SmemDkv {
-  DkvStage<D> st[kRing];
+  DkvStage<D> st[kRing<D>];
   alignas(1024) bf16 k[2][kRows * D];  // two blocks' rows of k as the TMA wrote them, one 64-row operand a warpgroup
   alignas(1024) bf16 v[2][kRows * D];  // and of v
-  uint64_t full[kRing], empty[kRing], kv_full[2], kv_empty[2];
+  uint64_t full[kRing<D>], empty[kRing<D>], kv_full[2], kv_empty[2];
 };
 
 // dk, dv of k, v from the same inputs: dv = Σ_i bf16(P_ij)ᵀ dO_i, dk = ln 2 ·
 // Σ_i bf16(dS_ij)ᵀ qs_i. Persistent: grid min(SMs, blocks), kWsThreads
 // threads, sizeof(SmemDkv<D>) + 1024 bytes of dynamic shared memory; a CTA
 // takes the 128-key blocks of `Schedule` in turn; qs and dO through TMA
-// maps in kDkvTile-row boxes, k and v in 128-row ones.
+// maps in kDkvTile<D>-row boxes, k and v in 128-row ones.
 template <int D, int Cut = kFull>
 __global__ void __launch_bounds__(kWsThreads, 1)
 flash_bwd_dkv_bf16_tc(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_do,
@@ -748,12 +825,13 @@ flash_bwd_dkv_bf16_tc(const __grid_constant__ CUtensorMap map_q, const __grid_co
                       const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dk,
                       bf16* __restrict__ dv, int bh_count, int s_len) {
   using S = SmemDkv<D>;
+  constexpr int Ring = kRing<D>, T = kDkvTile<D>;
   extern __shared__ unsigned char smem_raw[];
   S& sm = aligned_smem<S>(smem_raw);
   const Schedule sched{bh_count, s_len / kRows};
   const int wg = threadIdx.x / 128;
 
-  init_ring(sm.full, sm.empty);
+  init_ring<Ring>(sm.full, sm.empty);
   if (threadIdx.x == 0) {
     for (int i = 0; i < 2; ++i) {
       bar_init(&sm.kv_full[i], 1);
@@ -767,21 +845,21 @@ flash_bwd_dkv_bf16_tc(const __grid_constant__ CUtensorMap map_q, const __grid_co
     if (threadIdx.x == 2 * 128) {
       int gt = 0;  // tiles of this CTA so far: the ring's position
       for (int n = 0, bh, r; sched.next(n, bh, r); ++n) {
-        const int key0 = r * kRows, n_tiles = (s_len - key0) / kDkvTile;  // the first blocks see the most queries
+        const int key0 = r * kRows, n_tiles = (s_len - key0) / T;  // the first blocks see the most queries
         if (n >= 2) bar_wait(&sm.kv_empty[n % 2], (n / 2 - 1) & 1);
         bar_expect(&sm.kv_full[n % 2], 2 * kRows * D * 2);
-        tma_rows(sm.k[n % 2], map_k, bh * s_len + key0, &sm.kv_full[n % 2]);
-        tma_rows(sm.v[n % 2], map_v, bh * s_len + key0, &sm.kv_full[n % 2]);
+        tma_tile<D, kRows>(sm.k[n % 2], map_k, bh * s_len + key0, &sm.kv_full[n % 2]);
+        tma_tile<D, kRows>(sm.v[n % 2], map_v, bh * s_len + key0, &sm.kv_full[n % 2]);
         for (int it = 0; it < n_tiles; ++it, ++gt) {
-          const int row = bh * s_len + key0 + it * kDkvTile;
-          DkvStage<D>& stage = sm.st[gt % kRing];
-          uint64_t* full = &sm.full[gt % kRing];
-          wait_empty(sm.empty, gt);
-          bar_expect(full, 2 * kDkvTile * D * 2 + 2 * kDkvTile * 4);
-          tma_rows(stage.q, map_q, row, full);
-          tma_rows(stage.dout, map_do, row, full);
-          bulk_copy(stage.lse, lse + row, kDkvTile * 4, full);
-          bulk_copy(stage.delta, delta + row, kDkvTile * 4, full);
+          const int row = bh * s_len + key0 + it * T;
+          DkvStage<D>& stage = sm.st[gt % Ring];
+          uint64_t* full = &sm.full[gt % Ring];
+          wait_empty<Ring>(sm.empty, gt);
+          bar_expect(full, 2 * T * D * 2 + 2 * T * 4);
+          tma_tile<D, T>(stage.q, map_q, row, full);
+          tma_tile<D, T>(stage.dout, map_do, row, full);
+          bulk_copy(stage.lse, lse + row, T * 4, full);
+          bulk_copy(stage.delta, delta + row, T * 4, full);
         }
       }
     }
@@ -791,49 +869,46 @@ flash_bwd_dkv_bf16_tc(const __grid_constant__ CUtensorMap map_q, const __grid_co
   regs_inc<kConsumerRegs>();
   const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int first = 64 * wg / kDkvTile;  // the tiles before hold only queries that precede these keys
+  const int first = 64 * wg / T;  // the tiles before hold only queries that precede these keys
   if (wg == 1 && Cut != kLoadsOnly) turn_pass(wg);  // warpgroup 0 goes first
   int gt = 0;
   for (int n = 0, bh, r; sched.next(n, bh, r); ++n) {
-    const int key0 = r * kRows, n_tiles = (s_len - key0) / kDkvTile;
+    const int key0 = r * kRows, n_tiles = (s_len - key0) / T;
     const size_t base = (size_t)bh * s_len * D;
     const int wkey0 = key0 + 64 * wg;
     const int key_a = wkey0 + 16 * warp + g, key_b = key_a + 8;
-    const uint32_t k_addr = smem_u32(sm.k[n % 2] + 64 * D * wg), v_addr = smem_u32(sm.v[n % 2] + 64 * D * wg);
+    const uint32_t k_addr = wg_rows<D>(sm.k[n % 2], wg), v_addr = wg_rows<D>(sm.v[n % 2], wg);
 
-    float s[32], dp[32];  // sᵀ = k·qsᵀ and dpᵀ = v·dOᵀ: s[4j + e] is (key_a, query qt + 8j + 2t + e)
-    uint32_t pa[4][4], da[4][4];  // bf16(Pᵀ) and bf16(dSᵀ) as A fragments of 16 queries each
+    float s[T / 2], dp[T / 2];  // sᵀ = k·qsᵀ and dpᵀ = v·dOᵀ: s[4j + e] is (key_a, query qt + 8j + 2t + e)
+    uint32_t pa[T / 16][4], da[T / 16][4];  // bf16(Pᵀ) and bf16(dSᵀ) as A fragments of 16 queries each
     float dka[D / 2], dva[D / 2];  // dk / ln 2 and dv
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
 
     // sᵀ and dpᵀ of tile `it`, issued as one wgmma group
     auto scores = [&](int it) {
-      wait_full(sm.full, gt + it);
+      wait_full<Ring>(sm.full, gt + it);
       if constexpr (Cut == kNoMma) {
 #pragma unroll
-        for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.125f * (i & 7);
+        for (int i = 0; i < T / 2; ++i) s[i] = dp[i] = 0.125f * (i & 7);
       } else {
-        const DkvStage<D>& stage = sm.st[(gt + it) % kRing];
+        const DkvStage<D>& stage = sm.st[(gt + it) % Ring];
         const uint32_t q_addr = smem_u32(stage.q), do_addr = smem_u32(stage.dout);
         wg_fence();
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss_bf16_n64(s, desc_sw<D>(k_addr + 32 * kk), desc_sw<D>(q_addr + 32 * kk), kk > 0);
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss_bf16_n64(dp, desc_sw<D>(v_addr + 32 * kk), desc_sw<D>(do_addr + 32 * kk), kk > 0);
+        ss_rows<T, D, kRows, T>(s, k_addr, q_addr);
+        ss_rows<T, D, kRows, T>(dp, v_addr, do_addr);
         wg_commit();
       }
     };
     // Pᵀ into s, dSᵀ = Pᵀ ∘ (dPᵀ − delta) into dp; the query's lse and delta
-    // are per column. Only the first tile these keys see crosses their
-    // diagonal (masked: a compile-time branch, as the forward's)
+    // are per column. Only the first 64 queries these keys see cross their
+    // diagonal: the first tile, or the first two of 32 (masked: a
+    // compile-time branch, as the forward's)
     auto elementwise = [&](int it, auto masked) {
-      const int qt = key0 + it * kDkvTile;
-      const DkvStage<D>& stage = sm.st[(gt + it) % kRing];
+      const int qt = key0 + it * T;
+      const DkvStage<D>& stage = sm.st[(gt + it) % Ring];
 #pragma unroll
-      for (int j = 0; j < 8 * (Cut != kMmaOnly); ++j) {
+      for (int j = 0; j < T / 8 * (Cut != kMmaOnly); ++j) {
         const float2 ls = *reinterpret_cast<const float2*>(&stage.lse[8 * j + 2 * t]);
         const float2 dl = *reinterpret_cast<const float2*>(&stage.delta[8 * j + 2 * t]);
 #pragma unroll
@@ -859,7 +934,7 @@ flash_bwd_dkv_bf16_tc(const __grid_constant__ CUtensorMap map_q, const __grid_co
       pin(dka);
       pin(dva);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < T / 16; ++kk) {
         pin(pa[kk]);
         pin(da[kk]);
       }
@@ -868,8 +943,8 @@ flash_bwd_dkv_bf16_tc(const __grid_constant__ CUtensorMap map_q, const __grid_co
     bar_wait(&sm.kv_full[n % 2], (n / 2) & 1);
     if constexpr (Cut == kLoadsOnly) {
       for (int it = 0; it < n_tiles; ++it) {
-        wait_full(sm.full, gt + it);
-        release(sm.empty, gt + it);
+        wait_full<Ring>(sm.full, gt + it);
+        release<Ring>(sm.empty, gt + it);
       }
     } else {
       // n_tiles + 1 turns a warpgroup: the first scores, then a tile's dv
@@ -877,8 +952,8 @@ flash_bwd_dkv_bf16_tc(const __grid_constant__ CUtensorMap map_q, const __grid_co
       for (int it = 0; it < first; ++it) {  // every query of these tiles precedes this warpgroup's keys
         turn_wait(wg);
         turn_pass(wg);
-        wait_full(sm.full, gt + it);
-        release(sm.empty, gt + it);
+        wait_full<Ring>(sm.full, gt + it);
+        release<Ring>(sm.empty, gt + it);
       }
       turn_wait(wg);
       scores(first);
@@ -887,32 +962,32 @@ flash_bwd_dkv_bf16_tc(const __grid_constant__ CUtensorMap map_q, const __grid_co
       pin(s);
       pin(dp);
       for (int it = first; it < n_tiles; ++it) {
-        if (it == first)
+        if (it < first + 64 / T)
           elementwise(it, std::true_type{});
         else
           elementwise(it, std::false_type{});
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
+        for (int kk = 0; kk < T / 16; ++kk) {
           pack_a(s, kk, pa[kk]);
           pack_a(dp, kk, da[kk]);
         }
         // dv += bf16(Pᵀ)·dO and dk += bf16(dSᵀ)·qs, both tiles read MN-major as they landed
         turn_wait(wg);
         if constexpr (Cut != kNoMma) {
-          const DkvStage<D>& stage = sm.st[(gt + it) % kRing];
+          const DkvStage<D>& stage = sm.st[(gt + it) % Ring];
           const uint32_t q_addr = smem_u32(stage.q), do_addr = smem_u32(stage.dout);
           wg_fence();
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) wgmma_rs_bf16<D, 1>(dva, pa[kk], desc_sw<D>(do_addr + 32 * D * kk), 1);
+          for (int kk = 0; kk < T / 16; ++kk) rs_cols<D, T>(dva, pa[kk], do_addr, kk);
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) wgmma_rs_bf16<D, 1>(dka, da[kk], desc_sw<D>(q_addr + 32 * D * kk), 1);
+          for (int kk = 0; kk < T / 16; ++kk) rs_cols<D, T>(dka, da[kk], q_addr, kk);
           wg_commit();
         }
         if (it + 1 < n_tiles) scores(it + 1);  // queued right behind them
         turn_pass(wg);
         wg_wait_group<0>();
         pin_all();
-        release(sm.empty, gt + it);
+        release<Ring>(sm.empty, gt + it);
       }
     }
     if (lane == 0) bar_arrive(&sm.kv_empty[n % 2]);  // every product that read this block's k and v is done
@@ -932,6 +1007,16 @@ flash_bwd_dkv_bf16_tc(const __grid_constant__ CUtensorMap map_q, const __grid_co
 
 static_assert(sizeof(SmemFwd<64, 128>) + 1024 <= 232448 && sizeof(SmemDq<64, 128>) + 1024 <= 232448 &&
                   sizeof(SmemDkv<64>) + 1024 <= 232448,
+              "over 227 KB of shared memory");
+// D = 128 (two-stage rings, 64-column slabs): the forward's 128-key tiles
+// and the double-buffered qs, 197,632 bytes; dq's 64-key tiles beside qs and
+// dO, 197,632; dk/dv's 32-query tiles (with their lse and delta) beside k
+// and v, 166,912; each with the 1 KB the alignment takes
+static_assert(sizeof(SmemFwd<128, kFwdKeys<128>>) == 197632 && sizeof(SmemDq<128, kDqKeys<128>>) == 197632 &&
+                  sizeof(SmemDkv<128>) == 166912,
+              "the D = 128 plans moved");
+static_assert(sizeof(SmemFwd<128, kFwdKeys<128>>) + 1024 <= 232448 &&
+                  sizeof(SmemDq<128, kDqKeys<128>>) + 1024 <= 232448 && sizeof(SmemDkv<128>) + 1024 <= 232448,
               "over 227 KB of shared memory");
 
 // ---------------------------------------------------------------------------
@@ -958,15 +1043,17 @@ EncodeTiled encode_tiled() {
 }
 
 // `map`: the row-major [rows, D] bf16 matrix at `base` in boxes of `box`
-// whole rows, swizzled by the row's width (desc_sw reads them)
+// rows by kSlab<D> columns (whole rows up to D = 64), swizzled by the box's
+// row width (desc_sw reads them)
 template <int D>
 int tensor_map(CUtensorMap* map, const bf16* base, int rows, int box) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[2] = {D, (cuuint64_t)rows}, strides[1] = {D * 2};
-  const cuuint32_t boxes[2] = {D, (cuuint32_t)box}, unit[2] = {1, 1};
-  const CUtensorMapSwizzle swizzle =
-      D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  const cuuint32_t boxes[2] = {kSlab<D>, (cuuint32_t)box}, unit[2] = {1, 1};
+  const CUtensorMapSwizzle swizzle = kSlab<D> == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : kSlab<D> == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(base), dims, strides, boxes,
                             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -1008,8 +1095,8 @@ int launch_dkv(cudaStream_t st, const bf16* qs, const bf16* k, const bf16* v, co
                const float* delta, bf16* dk, bf16* dv, int bh, int s) {
   CUtensorMap map_q, map_do, map_k, map_v;
   int grid = 0;
-  int e = tensor_map<D>(&map_q, qs, bh * s, kDkvTile);
-  if (e == 0) e = tensor_map<D>(&map_do, dout, bh * s, kDkvTile);
+  int e = tensor_map<D>(&map_q, qs, bh * s, kDkvTile<D>);
+  if (e == 0) e = tensor_map<D>(&map_do, dout, bh * s, kDkvTile<D>);
   if (e == 0) e = tensor_map<D>(&map_k, k, bh * s, kRows);
   if (e == 0) e = tensor_map<D>(&map_v, v, bh * s, kRows);
   if (e == 0) e = persistent_grid(bh * (s / kRows), &grid);
@@ -1038,7 +1125,7 @@ int launch_dq(cudaStream_t st, const bf16* qs, const bf16* k, const bf16* v, con
 extern "C" {
 
 // Forward on `stream`: o [BH, S, D] and lse [BH, S] f32 from qs, k, v
-// [BH, S, D] bf16 (qs pre-scaled by scale·log2 e). D in {16, 32, 64}, S a
+// [BH, S, D] bf16 (qs pre-scaled by scale·log2 e). D in {16, 32, 64, 128}, S a
 // multiple of 128. Returns the cudaError_t of the launch.
 int flash_fwd_bf16_launch(const bf16* qs, const bf16* k, const bf16* v, float* o, float* lse, int bh, int s, int d,
                           void* stream) {
@@ -1048,6 +1135,7 @@ int flash_fwd_bf16_launch(const bf16* qs, const bf16* k, const bf16* v, float* o
     case 16: return launch_fwd<16, kFwdKeys<16>>(st, qs, k, v, o, lse, bh, s);
     case 32: return launch_fwd<32, kFwdKeys<32>>(st, qs, k, v, o, lse, bh, s);
     case 64: return launch_fwd<64, kFwdKeys<64>>(st, qs, k, v, o, lse, bh, s);
+    case 128: return launch_fwd<128, kFwdKeys<128>>(st, qs, k, v, o, lse, bh, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1061,6 +1149,7 @@ int flash_bwd_dq_bf16_launch(const bf16* qs, const bf16* k, const bf16* v, const
     case 16: return launch_dq<16, kDqKeys<16>>(st, qs, k, v, dout, lse, delta, dq, bh, s, scale);
     case 32: return launch_dq<32, kDqKeys<32>>(st, qs, k, v, dout, lse, delta, dq, bh, s, scale);
     case 64: return launch_dq<64, kDqKeys<64>>(st, qs, k, v, dout, lse, delta, dq, bh, s, scale);
+    case 128: return launch_dq<128, kDqKeys<128>>(st, qs, k, v, dout, lse, delta, dq, bh, s, scale);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1074,6 +1163,7 @@ int flash_bwd_dkv_bf16_launch(const bf16* qs, const bf16* k, const bf16* v, cons
     case 16: return launch_dkv<16>(st, qs, k, v, dout, lse, delta, dk, dv, bh, s);
     case 32: return launch_dkv<32>(st, qs, k, v, dout, lse, delta, dk, dv, bh, s);
     case 64: return launch_dkv<64>(st, qs, k, v, dout, lse, delta, dk, dv, bh, s);
+    case 128: return launch_dkv<128>(st, qs, k, v, dout, lse, delta, dk, dv, bh, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1091,6 +1181,7 @@ int flash_fwd_bf16_cut_launch(const bf16* qs, const bf16* k, const bf16* v, floa
   if (d == DD && keys == TT && cut == CC) return launch_fwd<DD, TT, CC>(st, qs, k, v, o, lse, bh, s);
 #define FWD_CUTS(DD, TT) FWD_CUT(DD, TT, kFull) FWD_CUT(DD, TT, kNoExp) FWD_CUT(DD, TT, kNoMma) FWD_CUT(DD, TT, kLoadsOnly) FWD_CUT(DD, TT, kMmaOnly)
   FWD_CUTS(16, 64) FWD_CUTS(16, 128) FWD_CUTS(32, 64) FWD_CUTS(32, 128) FWD_CUTS(64, 64) FWD_CUTS(64, 128)
+  FWD_CUTS(128, 64) FWD_CUTS(128, 128)
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1102,7 +1193,7 @@ int flash_bwd_dq_bf16_cut_launch(const bf16* qs, const bf16* k, const bf16* v, c
 #define DQ_CUT(DD, TT, CC) \
   if (d == DD && keys == TT && cut == CC) return launch_dq<DD, TT, CC>(st, qs, k, v, dout, lse, delta, dq, bh, s, scale);
 #define DQ_CUTS(DD, TT) DQ_CUT(DD, TT, kFull) DQ_CUT(DD, TT, kNoExp) DQ_CUT(DD, TT, kNoMma) DQ_CUT(DD, TT, kLoadsOnly) DQ_CUT(DD, TT, kMmaOnly)
-  DQ_CUTS(16, 64) DQ_CUTS(16, 128) DQ_CUTS(32, 64) DQ_CUTS(32, 128) DQ_CUTS(64, 64) DQ_CUTS(64, 128)
+  DQ_CUTS(16, 64) DQ_CUTS(16, 128) DQ_CUTS(32, 64) DQ_CUTS(32, 128) DQ_CUTS(64, 64) DQ_CUTS(64, 128) DQ_CUTS(128, 64)
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1113,7 +1204,7 @@ int flash_bwd_dkv_bf16_cut_launch(const bf16* qs, const bf16* k, const bf16* v, 
 #define DKV_CUT(DD, CC) \
   if (d == DD && cut == CC) return launch_dkv<DD, CC>(st, qs, k, v, dout, lse, delta, dk, dv, bh, s);
 #define DKV_CUTS(DD) DKV_CUT(DD, kFull) DKV_CUT(DD, kNoExp) DKV_CUT(DD, kNoMma) DKV_CUT(DD, kLoadsOnly) DKV_CUT(DD, kMmaOnly)
-  DKV_CUTS(16) DKV_CUTS(32) DKV_CUTS(64)
+  DKV_CUTS(16) DKV_CUTS(32) DKV_CUTS(64) DKV_CUTS(128)
   return (int)cudaErrorInvalidValue;
 }
 #endif

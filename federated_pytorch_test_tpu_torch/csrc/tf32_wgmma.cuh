@@ -205,23 +205,52 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// D[64 x 16] (+)= A·Bᵀ, A and B tf32 in shared memory (K-major, descriptors)
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// The columns [c0, c0 + W) of an accumulator fragment as an array of their
+// own: an N-column fragment holds columns 8j … 8j + 7 at [4j, 4j + 4), so a
+// product of W columns from column c0 writes these registers as they stand.
+template <int W, int N>
+__device__ __forceinline__ auto cols(float (&d)[N], int c0) -> float (&)[W / 2] {
+  return *reinterpret_cast<float(*)[W / 2]>(&d[c0 / 2]);
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int accumulate) {
-  if constexpr (N == 32) {
+  if constexpr (N == 16) {
+    wgmma_ss_n16(d, a, b, accumulate);
+  } else if constexpr (N == 32) {
     wgmma_ss_n32(d, a, b, accumulate);
   } else {
+    static_assert(N == 64, "no wgmma_ss instance of this width");
     wgmma_ss_n64(d, a, b, accumulate);
   }
 }
 
+// N = 128 is two m64n64 products, on B's rows 0 … 63 and 64 … 127: B is then
+// a 128-row operand (`desc<128>`), whose row 64 lies 1 KB (64 descriptor
+// units) past its row 0.
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b, int accumulate) {
   if constexpr (N == 16) {
     wgmma_rs_n16(d, a, b, accumulate);
   } else if constexpr (N == 32) {
     wgmma_rs_n32(d, a, b, accumulate);
-  } else {
+  } else if constexpr (N == 64) {
     wgmma_rs_n64(d, a, b, accumulate);
+  } else {
+    static_assert(N == 128, "no wgmma_rs instance of this width");
+    wgmma_rs_n64(cols<64>(d, 0), a, b, accumulate);
+    wgmma_rs_n64(cols<64>(d, 64), a, b + 64, accumulate);
   }
 }
 

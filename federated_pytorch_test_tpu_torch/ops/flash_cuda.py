@@ -17,8 +17,13 @@ three kernels in `csrc/flash_attention.cu` (built on first use).
 Every forward returns o and the natural-log row logsumexp lse, never
 forming the `[Sq, Skv]` scores; the backward kernels take (q, k, v, dO,
 lse, delta) with delta = rowsum(dO ∘ o) − dlse a plain reduction, as it
-is outside the Pallas calls in the JAX package. Head dims {16, 32, 64}
-are ported.
+is outside the Pallas calls in the JAX package. The kernels have head
+dims {16, 32, 64, 128} (`HEAD_DIMS`); the public entries (`flash_attention`,
+`flash_block`) zero-pad any other D up to 128 to the next of them and
+slice the padding off the outputs and the cotangents (`_padded`), the
+scale taken from the true D. Zero columns add exact zeros to every
+product, so the padding changes no score. D in (128, 256] raises: those
+instances are not ported yet (ROADMAP B.2).
 
 Precision, as the JAX package's `precision` argument:
 * `'highest'` (the default): f32 products, three TF32 passes a product on
@@ -63,13 +68,15 @@ ONE_PASS = {name: f"{name}_1pass" for name in CAUSAL_KERNELS + RECT_KERNELS}
 BF16_KERNELS = ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")
 LAUNCHES: Dict[str, int] = {name: 0 for name in (*CAUSAL_KERNELS, *RECT_KERNELS, *ONE_PASS.values(), *BF16_KERNELS)}
 PRECISIONS = ("highest", "default")
-TILE = 64  # keys a forward tile of the f32 kernels (kKeys in csrc/flash_attention.cu)
-BF16_FWD_KEYS = {16: 128, 32: 128, 64: 128}  # keys a tile of flash_fwd_bf16_tc by head dim (kFwdKeys in csrc/flash_bf16.cu)
+# keys a forward tile of the f32 kernels by head dim (Plan<D>::kKeys in csrc/flash_attention.cu)
+F32_FWD_KEYS = {16: 64, 32: 64, 64: 64, 128: 32}
+BF16_FWD_KEYS = {16: 128, 32: 128, 64: 128, 128: 128}  # keys a tile of flash_fwd_bf16_tc by head dim (kFwdKeys in csrc/flash_bf16.cu)
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 
-HEAD_DIMS = (16, 32, 64)  # the kernels' template instances
-BLOCK = 128  # rows a kernel block owns (kRows in the CUDA source); S must be a multiple
+HEAD_DIMS = (16, 32, 64, 128)  # the kernels' template instances
+MAX_HEAD_DIM = 256  # the JAX entry's bound (ops/flash_attention.py:512-513)
+BLOCK = 128  # rows of the largest kernel block (kBlock in the CUDA source); S must be a multiple
 MAX_BH = 65535  # the grid's y extent
 MAX_OFFSET = 1 << 30  # |q_off|, |k_off| bound: position arithmetic stays in int32
 
@@ -145,17 +152,29 @@ def bf16_round(x: torch.Tensor) -> torch.Tensor:
 
 def check_shape(s: int, d: int, s_kv: Optional[int] = None) -> None:
     """The JAX entry's checks (S % 128 == 0 for queries and keys, D <= 256),
-    then the port's D set."""
+    then the port's: D up to the largest kernel instance, which the public
+    entries pad D up to (`padded_dim`)."""
     if s % BLOCK != 0 or (s_kv is not None and s_kv % BLOCK != 0):
         got = s if s_kv is None else (s, s_kv)
         raise ValueError(
             f"flash attention needs S divisible by {BLOCK}; got {got} "
             "(use ops.attention.dense_attention for short/ragged sequences)"
         )
-    if d > 256:
-        raise ValueError(f"head dim {d} too large for a single tile")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not ported: the kernels take D in {HEAD_DIMS}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} too large for a single VMEM tile")  # the JAX entry's words
+    if d > HEAD_DIMS[-1]:
+        raise ValueError(f"head dim {d} not ported: the kernels take D up to {HEAD_DIMS[-1]}; "
+                         f"D in ({HEAD_DIMS[-1]}, {MAX_HEAD_DIM}] is ROADMAP B.2's remainder")
+
+
+def padded_dim(d: int) -> int:
+    """The kernel instance a head dim `d` <= 128 runs at: the least of HEAD_DIMS at or above it."""
+    return next(h for h in HEAD_DIMS if h >= d)
+
+
+def _pad_last(x: torch.Tensor, d: int) -> torch.Tensor:
+    """x with its last axis zero-padded to `d` (x itself where it has d already)."""
+    return x if x.shape[-1] == d else torch.nn.functional.pad(x, (0, d - x.shape[-1]))
 
 
 def _causal_scores(q3, k3, scale):
@@ -264,8 +283,10 @@ def _f32(x: float) -> float:
 
 
 def flash_fwd_1pass_plain(q3, k3, v3, scale: float, causal: bool = True, q_off: int = 0, k_off: int = 0):
-    """Plain PyTorch version of the one-pass forward (both families): (o, lse)."""
+    """Plain PyTorch version of the one-pass forward (both families): (o, lse),
+    tile by tile at the kernel's keys a tile for this D (`F32_FWD_KEYS`)."""
     bh, s_q, d = q3.shape
+    tile = F32_FWD_KEYS[padded_dim(d)]
     s_kv = k3.shape[1]
     dev = q3.device
     c = _f32(_f32(abs(scale)) * _f32(LOG2E))  # the kernel's fabsf(scale) · log2 e, an f32 product
@@ -275,14 +296,14 @@ def flash_fwd_1pass_plain(q3, k3, v3, scale: float, causal: bool = True, q_off: 
     acc = torch.zeros((bh, s_q, d), device=dev)
     l = torch.zeros((bh, s_q), device=dev)
     keep = _rect_keep(s_q, s_kv, q_off, k_off, dev) if causal else None
-    for kt in range(0, s_kv, TILE):
-        s = torch.matmul(qr, kr[:, kt:kt + TILE].transpose(-1, -2))
+    for kt in range(0, s_kv, tile):
+        s = torch.matmul(qr, kr[:, kt:kt + tile].transpose(-1, -2))
         if causal:
-            s = torch.where(keep[:, kt:kt + TILE], s, -math.inf)
+            s = torch.where(keep[:, kt:kt + tile], s, -math.inf)
         mn = torch.maximum(m, s.amax(-1) * c)
         corr = torch.exp2(m - mn)
         p = tf32_round(torch.exp2(s * c - mn[..., None]))  # 0 where masked
-        acc = acc * corr[..., None] + torch.matmul(p, vr[:, kt:kt + TILE])
+        acc = acc * corr[..., None] + torch.matmul(p, vr[:, kt:kt + tile])
         l = l * corr + p.sum(-1)
         m = mn
     live = l > 0
@@ -327,6 +348,8 @@ def _check_rect(q3, k3, v3, do=None, lse=None, delta=None, q_off=0, k_off=0, dty
     bh, s_q, d = q3.shape
     s_kv = k3.shape[1]
     check_shape(s_q, d, s_kv)
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d}: the kernels take D in {HEAD_DIMS} (the public entries pad up to one)")
     if bh > MAX_BH:
         raise ValueError(f"batch·heads {bh} exceeds {MAX_BH}")
     if max(abs(q_off), abs(k_off)) >= MAX_OFFSET:
@@ -500,9 +523,12 @@ def _causal_keep(s: int, device) -> torch.Tensor:
 def flash_fwd_bf16_plain(qs, k3, v3, keys: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of `flash_fwd_bf16`, tile by tile as the kernel
     runs it: (o, lse) f32 from bf16 `qs` (pre-scaled), k, v; `keys` keys a
-    tile (the kernel's, `BF16_FWD_KEYS[D]`, unless given)."""
+    tile (the kernel's, `BF16_FWD_KEYS[D]`, unless given). The row sum l is
+    Σ f32(bf16(P)) at every D: the JAX package forms it on the MXU against a
+    ones column of V where D is not a multiple of 128 (`fuse_l`) and in its
+    l scratch where it is (D 128), the same terms either way."""
     bh, s, d = qs.shape
-    keys = BF16_FWD_KEYS[d] if keys is None else keys
+    keys = BF16_FWD_KEYS[padded_dim(d)] if keys is None else keys
     dev = qs.device
     qf, kf, vf = qs.float(), k3.float(), v3.float()
     keep = _causal_keep(s, dev)
@@ -687,7 +713,10 @@ def flash_attention(
     check_shape(s, d)
     passes_of(precision)
     scale = _scale(sm_scale, d)
-    if causal and q.dtype == torch.bfloat16 and precision == "default":  # the JAX package's cast16
+    dp = padded_dim(d)
+    dtype = q.dtype
+    q, k, v = (_pad_last(t, dp) for t in (q, k, v))  # autograd slices the padding off dq, dk, dv
+    if causal and dtype == torch.bfloat16 and precision == "default":  # the JAX package's cast16
         if k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
             raise ValueError(f"bf16 q needs bf16 k and v on the bf16 path, got {k.dtype} and {v.dtype}")
         o = _FlashCausalBf16.apply(*(_to3(t, torch.bfloat16) for t in (q, k, v)), scale)
@@ -695,7 +724,7 @@ def flash_attention(
         o = _FlashCausal.apply(_to3(q), _to3(k), _to3(v), scale, precision)
     else:
         o, _ = _FlashRect.apply(_to3(q), _to3(k), _to3(v), scale, False, 0, 0, precision)
-    return o.reshape(b, h, s, d).permute(0, 2, 1, 3).to(q.dtype)
+    return o.reshape(b, h, s, dp).permute(0, 2, 1, 3)[..., :d].to(dtype)
 
 
 def flash_block(
@@ -711,12 +740,15 @@ def flash_block(
     online-softmax merge folds across blocks (o = 0 and lse = -1e30 for
     causal rows that see no key). Differentiable in q, k, v, including
     through uses of lse. `precision` as in `flash_attention`; the
-    rectangular kernels take inputs upcast to f32.
+    rectangular kernels take inputs upcast to f32. D pads as in
+    `flash_attention`.
     """
     b, s_q, h, d = q.shape
     s_kv = k.shape[1]
     check_shape(s_q, d, s_kv)
     passes_of(precision)
+    dp = padded_dim(d)
+    q, k, v = (_pad_last(t, dp) for t in (q, k, v))
     o, lse = _FlashRect.apply(_to3(q), _to3(k), _to3(v), _scale(sm_scale, d), bool(causal),
                               int(q_offset), int(k_offset), precision)
-    return o.reshape(b, h, s_q, d), lse.reshape(b, h, s_q)
+    return o.reshape(b, h, s_q, dp)[..., :d], lse.reshape(b, h, s_q)

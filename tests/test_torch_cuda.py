@@ -32,7 +32,7 @@ def _rel(a, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,d", [(128, 16), (256, 32), (384, 64)])
+@pytest.mark.parametrize("s,d", [(128, 16), (256, 32), (384, 64), (256, 128)])
 def test_flash_kernels_match_plain(s, d):
     _card()
     rng = np.random.default_rng(s + d)
@@ -46,7 +46,7 @@ def test_flash_kernels_match_plain(s, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("d", [16, 64, 128])
 def test_aligned_backward_at_the_lm_length_matches_plain(d):
     # the LM's S = 2048, where dq, dk and dv each sum 2048 keys or queries
     _card()
@@ -76,7 +76,8 @@ def test_aligned_backward_repeats_bitwise():
 @pytest.mark.parametrize(
     "s_q,s_kv,d,causal,q_off,k_off",
     [(256, 256, 16, False, 0, 0), (128, 384, 32, False, 0, 0), (256, 256, 64, True, 0, 64),
-     (128, 128, 16, True, 0, 128), (128, 384, 32, True, 256, 64), (128, 256, 16, True, 37, 0)],
+     (128, 128, 16, True, 0, 128), (128, 384, 32, True, 256, 64), (128, 256, 16, True, 37, 0),
+     (256, 256, 128, False, 0, 0), (128, 384, 128, True, 256, 64), (256, 256, 128, True, 0, 64)],
 )
 def test_rect_kernels_match_plain(s_q, s_kv, d, causal, q_off, k_off):
     # both modes of the rectangular family; rows that see no key are exact
@@ -290,7 +291,8 @@ def test_assembly_repeats_bitwise_and_matches_plain(n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("aligned,s_q,s_kv,d,causal,q_off,k_off", [
     (True, 1024, 1024, 16, True, 0, 0), (True, 256, 256, 64, True, 0, 0), (False, 256, 256, 16, False, 0, 0),
-    (False, 256, 256, 32, True, 0, 64), (False, 128, 384, 64, True, 256, 64)])
+    (False, 256, 256, 32, True, 0, 64), (False, 128, 384, 64, True, 256, 64), (True, 512, 512, 128, True, 0, 0),
+    (False, 256, 256, 128, False, 0, 0), (False, 128, 384, 128, True, 256, 64)])
 def test_one_pass_kernels_match_plain(aligned, s_q, s_kv, d, causal, q_off, k_off):
     # 'default': one TF32 product a product. The plain versions round as the
     # kernels do but sum in another order, so a probability at a TF32
@@ -330,7 +332,7 @@ def test_one_pass_kernels_match_plain(aligned, s_q, s_kv, d, causal, q_off, k_of
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,d", [(256, 16), (1024, 32), (512, 64), (128, 16), (128, 64)])
+@pytest.mark.parametrize("s,d", [(256, 16), (1024, 32), (512, 64), (128, 16), (128, 64), (512, 128), (128, 128)])
 def test_bf16_trio_matches_plain_and_repeats_bitwise(s, d):
     # the cast16 trio: o, lse and the bf16 cotangents within two bf16 units
     # (2^-8) of their largest entry (chip_smoke.py's BF16_UNITS); S = 128 is
@@ -357,3 +359,32 @@ def test_bf16_trio_matches_plain_and_repeats_bitwise(s, d):
     assert all(t.dtype == torch.bfloat16 for t in runs[0])
     for a, b in zip(*runs):
         assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,causal,dtype,kernels", [
+    (80, True, torch.float32, flash_cuda.CAUSAL_KERNELS), (80, False, torch.float32, flash_cuda.RECT_KERNELS),
+    (80, True, torch.bfloat16, flash_cuda.BF16_KERNELS), (24, True, torch.float32, flash_cuda.CAUSAL_KERNELS)])
+def test_padded_head_dim_launches_the_next_instance(d, causal, dtype, kernels):
+    # the public op zero-pads D up to the next instance (80 -> 128, 24 -> 32)
+    # and slices the padding off: each kernel of its family launches once,
+    # and the result is the same op on CPU tensors (the plain versions, fed
+    # the same padding), within the family's tolerance
+    _card()
+    rng = np.random.default_rng(d)
+    q, k, v, do = (torch.tensor(rng.normal(size=(2, 256, 2, d)).astype(np.float32)) for _ in range(4))
+    precision = "default" if dtype == torch.bfloat16 else "highest"
+    outs = []
+    for dev in ("cuda", "cpu"):
+        leaves = [t.to(dev, dtype).requires_grad_(True) for t in (q, k, v)]
+        flash_cuda.reset_launch_counts()
+        o = flash_cuda.flash_attention(*leaves, causal=causal, precision=precision)
+        grads = torch.autograd.grad(o, leaves, do.to(dev, o.dtype))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert {n: c for n, c in flash_cuda.LAUNCHES.items() if c} == {n: 1 for n in kernels}
+        assert o.shape == q.shape and all(g.shape == q.shape for g in grads)
+        outs.append([t.detach().float().cpu() for t in (o, *grads)])
+    tol = (2 * 2.0 ** -8, 2 * 2.0 ** -8) if dtype == torch.bfloat16 else (1e-5, 1e-4)
+    for i, (a, b) in enumerate(zip(*outs)):
+        assert _rel(a, b) <= tol[min(i, 1)], i

@@ -95,10 +95,21 @@ def test_rejects_what_the_kernels_do_not_take():
     q, k, v = _t(_qkv(64, 16))
     with pytest.raises(ValueError, match="divisible by 128"):
         flash_attention(q, k, v, causal=True)
-    with pytest.raises(ValueError, match="head dim 24 not ported"):
-        flash_attention(*_t(_qkv(128, 24)), causal=True)
-    with pytest.raises(ValueError, match="head dim 128 not ported"):  # the JAX entry takes D <= 256
-        flash_attention(*_t(_qkv(128, 128, b=1, h=1)), causal=False)
+    # D 24 (padded to the D 32 instance) and D 128 (an instance) run and match JAX
+    for d, causal in ((24, True), (128, False)):
+        q, k, v = _qkv(128, d, b=1, h=1, seed=d)
+        ref = np.asarray(j_flash(*map(jnp.asarray, (q, k, v)), causal=causal))
+        with torch.no_grad():
+            out = flash_attention(*_t((q, k, v)), causal=causal).numpy()
+        assert out.shape == ref.shape
+        np.testing.assert_allclose(out, ref, **FWD_TOL)
+    # D in (128, 256] is still to be ported; past 256 both packages refuse it
+    with pytest.raises(ValueError, match="head dim 192 not ported.*ROADMAP B.2"):
+        flash_attention(*_t(_qkv(128, 192, b=1, h=1)), causal=True)
+    with pytest.raises(ValueError, match="head dim 288 too large for a single VMEM tile"):
+        flash_attention(*_t(_qkv(128, 288, b=1, h=1)), causal=True)
+    with pytest.raises(ValueError, match="head dim 288 too large for a single VMEM tile"):
+        j_flash(*map(jnp.asarray, _qkv(128, 288, b=1, h=1)), causal=True)
 
 
 def test_cpu_tensors_launch_no_kernel():

@@ -31,7 +31,8 @@ import pytest
 from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
 
 ROWS = 128  # kRows: rows a block owns, two consumer warpgroups of 64
-DKV_TILE = 64  # kDkvTile
+DKV_TILE = 64  # kDkvTile<D> up to D = 64
+DKV_TILES = (64, 32)  # kDkvTile<D>: 32 queries a tile at D = 128
 HEADS = 2
 SMS = 132  # an H100 SXM's
 SOURCE = Path(fc.__file__).resolve().parents[1] / "csrc" / "flash_bf16.cu"
@@ -89,7 +90,9 @@ def dq_schedule(s, t, g):
 
 def dkv_schedule(s, g, t=DKV_TILE):
     """As `fwd_schedule` for dk/dv: tiles of t queries against a warpgroup's
-    64 keys, (idx, bh, wkey0, qt, masked)."""
+    64 keys, (idx, bh, wkey0, qt, masked); the masked tiles are the first
+    64 queries a warpgroup sees, a compile-time branch taken where
+    `it < first + 64 / T`."""
     rows = s // ROWS
     computed, freed = [], []
     for _, _, idx, bh, r in blocks(HEADS, rows, g):
@@ -99,7 +102,7 @@ def dkv_schedule(s, g, t=DKV_TILE):
             wkey0 = key0 + 64 * wg
             first = 64 * wg // t
             freed += [(bh, wkey0, key0 + it * t) for it in range(first)]
-            computed += [(idx, bh, wkey0, key0 + it * t, wkey0 + 63 > key0 + it * t) for it in range(first, n_tiles)]
+            computed += [(idx, bh, wkey0, key0 + it * t, it < first + 64 // t) for it in range(first, n_tiles)]
     return computed, freed
 
 
@@ -158,12 +161,13 @@ def test_fwd_schedule_computes_each_causal_pair_once(s, t):
 
 
 @pytest.mark.parametrize("s", [128, 256, 2048])
-def test_dkv_schedule_computes_each_causal_pair_once(s):
+@pytest.mark.parametrize("t", DKV_TILES)
+def test_dkv_schedule_computes_each_causal_pair_once(s, t):
     for g in _ctas(s):
-        computed, freed = dkv_schedule(s, g)
-        np.testing.assert_array_equal(_covered(computed, s, DKV_TILE, queries_are_rows=False),
+        computed, freed = dkv_schedule(s, g, t)
+        np.testing.assert_array_equal(_covered(computed, s, t, queries_are_rows=False),
                                       np.broadcast_to(np.tri(s, dtype=np.int32), (HEADS, s, s)))
-        _none_needed(freed, DKV_TILE, queries_are_rows=False)
+        _none_needed(freed, t, queries_are_rows=False)
         _heaviest_first(computed, HEADS * s // ROWS)
 
 
@@ -207,9 +211,10 @@ def test_only_the_diagonal_tiles_are_masked(t):
     assert sum(masked for *_, masked in computed) == HEADS * s // 64
     wasted = s // 64 * (64 * 63 // 2) + (s // ROWS * 64 * 64 if t == 128 else 0)
     assert 64 * t * len(computed) == HEADS * (s * (s + 1) // 2 + wasted)
-    computed, _ = dkv_schedule(s, SMS)
-    assert sum(masked for *_, masked in computed) == HEADS * s // 64
-    assert 64 * DKV_TILE * len(computed) == HEADS * (s * (s + 1) // 2 + s // 64 * (64 * 63 // 2))
+    for dkv_t in DKV_TILES:  # dk/dv masks 64 // T tiles a warpgroup
+        computed, _ = dkv_schedule(s, SMS, dkv_t)
+        assert sum(masked for *_, masked in computed) == HEADS * s // 64 * (64 // dkv_t)
+        assert 64 * dkv_t * len(computed) == HEADS * (s * (s + 1) // 2 + s // 64 * (64 * 63 // 2))
 
 
 def test_forward_key_tiles_are_the_plain_versions():
@@ -228,8 +233,15 @@ def test_dq_key_tiles_are_replayed():
     assert default, "kDqKeys not found in csrc/flash_bf16.cu"
     keys = {d: int(default.group(1)) for d in fc.HEAD_DIMS}
     keys.update({int(d): int(k) for d, k in re.findall(r"constexpr int kDqKeys<(\d+)> = (\d+);", src)})
-    assert set(keys) == {16, 32, 64}
+    assert set(keys) == set(fc.HEAD_DIMS) == {16, 32, 64, 128}
     assert set(keys.values()) <= {64, 128}
     instances = {(int(d), int(k)) for d, k in re.findall(r"DQ_CUTS\((\d+), (\d+)\)", src)}
     assert {k for _, k in instances} == set(DQ_TILES)
     assert {(d, k) for d, k in keys.items()} <= instances  # the shipped tile is one the sweep times
+
+
+def test_dkv_query_tiles_are_replayed():
+    src = SOURCE.read_text()
+    m = re.search(r"template <int D>\s*constexpr int kDkvTile = D == 128 \? (\d+) : (\d+);", src)
+    assert m, "kDkvTile not found in csrc/flash_bf16.cu"
+    assert {int(m.group(1)), int(m.group(2))} == set(DKV_TILES)

@@ -228,8 +228,19 @@ def test_rect_causal_at_zero_offsets_is_the_aligned_family():
 def test_rect_checks():
     with pytest.raises(ValueError, match="divisible by 128"):
         flash_block(*_t(_qkv(128, 16, s_kv=192)), 0, 0)
-    with pytest.raises(ValueError, match="head dim 24 not ported"):
-        flash_block(*_t(_qkv(128, 24)), 0, 0)
+    # D 24 (padded to the D 32 instance) and D 128 run and match JAX's flash_block
+    for d in (24, 128):
+        q, k, v = _qkv(128, d, s_kv=256, seed=d)
+        o_ref, lse_ref = j_block(*map(jnp.asarray, (q, k, v)), 128, 64, causal=True)
+        with torch.no_grad():
+            o, lse = flash_block(*_t((q, k, v)), 128, 64, causal=True)
+        assert o.shape == o_ref.shape
+        np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), **FWD_TOL)
+        np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref), **FWD_TOL)
+    with pytest.raises(ValueError, match="head dim 160 not ported.*ROADMAP B.2"):
+        flash_block(*_t(_qkv(128, 160)), 0, 0)
+    with pytest.raises(ValueError, match="head dim 320 too large for a single VMEM tile"):
+        flash_block(*_t(_qkv(128, 320)), 0, 0)
 
 
 def test_cpu_tensors_launch_no_rect_kernel():

@@ -8,9 +8,10 @@ lo_a·hi_b + hi_a·lo_b + hi_a·hi_b. This file models that kernel in numpy:
 the same rounding bit for bit (`tf32` is the kernel's), the same order of
 products, 64-key tiles with the online softmax in base 2, each tile's
 P·[V | 1] (the ones column gives the row sum l) summed apart and folded
-into O and l as O·corr + P·V. Each tensor-core instruction (8 products) is
+into O and l as O·corr + P·V; at D = 128 a block owns 64 rows and a tile
+holds 32 keys (`plan`, the kernel's `Plan<D>`). Each tensor-core instruction (8 products) is
 modelled as an exact sum rounded once to f32. Held against float64, the model keeps o and lse within 1e-6
-of the largest entry at D in {16, 32, 64}, where one TF32 pass would miss
+of the largest entry at D in {16, 32, 64, 128}, where one TF32 pass would miss
 the forward's 1e-5 gate: the precision argument for the kernel before it
 runs on the card. The layout index arithmetic the kernel uses (operand
 layout and descriptor strides, the P fragment and the key order of Vᵀ) is
@@ -20,10 +21,16 @@ checked here too, as written in the kernel.
 import numpy as np
 import pytest
 
-KEYS = 64  # keys a tile (kKeys)
-ROWS = 128  # query rows a block (kRows)
 LN2 = np.log(2.0)
 LOG2E = np.float32(1.4426950408889634)
+
+
+def plan(d):
+    """(rows a block, keys a forward tile, keys a dq tile, queries a dk/dv
+    tile) of the kernels at head dim d: `Plan<D>` in csrc/flash_attention.cu."""
+    if d == 128:
+        return 64, 32, 16, 16
+    return 128, 64, 32 if d == 64 else 64, 32
 
 
 def tf32(x):
@@ -67,26 +74,27 @@ def kernel_model(q, k, v, scale, causal=False, shift=0, passes=3):
     """(o, lse) of one (batch·head) as the kernel computes them: q [Sq, D],
     k, v [Skv, D] f32; causal keeps (i, j) iff j <= i + shift."""
     s_q, s_kv = q.shape[0], k.shape[0]
+    rows_a_block, keys_a_tile = plan(q.shape[1])[:2]
     c = np.float32(abs(scale)) * LOG2E
     q = np.float32(np.sign(scale) or 1.0) * q
     rows = np.arange(s_q)
     v1 = np.concatenate([v, np.ones((s_kv, 1), np.float32)], 1)
     acc = np.zeros((s_q, v1.shape[1]), np.float32)  # O and, last, the row sum l
     m = np.full(s_q, -1e30, np.float32)
-    for row0 in range(0, s_q, ROWS):
-        kend = min(max(row0 + ROWS + shift, 0), s_kv) if causal else s_kv
-        blk = slice(row0, row0 + ROWS)
-        for kt in range(0, kend, KEYS):
-            s = split_product(q[blk], k[kt:kt + KEYS].T, passes=passes)
+    for row0 in range(0, s_q, rows_a_block):
+        kend = min(max(row0 + rows_a_block + shift, 0), s_kv) if causal else s_kv
+        blk = slice(row0, row0 + rows_a_block)
+        for kt in range(0, kend, keys_a_tile):
+            s = split_product(q[blk], k[kt:kt + keys_a_tile].T, passes=passes)
             keep = np.ones(s.shape, bool)
             if causal:
-                keep = (kt + np.arange(KEYS))[None, :] <= rows[blk, None] + shift
+                keep = (kt + np.arange(keys_a_tile))[None, :] <= rows[blk, None] + shift
             s = np.where(keep, s, -np.inf).astype(np.float32)
             mn = np.maximum(m[blk], (s.max(1) * c).astype(np.float32))
             corr = np.exp2(m[blk] - mn).astype(np.float32)
             x = (s.astype(np.float64) * c - mn[:, None]).astype(np.float32)  # one FFMA
             p = np.where(keep, np.exp2(x), 0.0).astype(np.float32)
-            pv = split_product(p, v1[kt:kt + KEYS], passes=passes)  # P·[V | 1]
+            pv = split_product(p, v1[kt:kt + keys_a_tile], passes=passes)  # P·[V | 1]
             acc[blk] = (acc[blk].astype(np.float64) * corr[:, None] + pv).astype(np.float32)  # one FFMA
             m[blk] = mn
     o, l = acc[:, :-1], acc[:, -1]
@@ -137,7 +145,7 @@ def test_split_is_two_tf32_values_within_2pow21():
 CASES = [(256, 256, True, 0), (256, 256, False, 0), (128, 384, True, 192), (256, 256, True, -64), (128, 256, True, 37)]
 
 
-@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("s_q,s_kv,causal,shift", CASES)
 def test_split_tf32_forward_within_1e6_of_float64(d, s_q, s_kv, causal, shift):
     q, k, v = _qkv(s_q, s_kv, d, seed=d + s_q + shift)
@@ -170,7 +178,7 @@ def cidx(rows, r, c):
     return (((c >> 2) * (rows >> 3) + (r >> 3)) << 5) + ((r & 7) << 2) + (c & 3)
 
 
-@pytest.mark.parametrize("rows", [16, 32, 64])
+@pytest.mark.parametrize("rows", [16, 32, 64, 128, 136])
 def test_operand_layout_matches_the_descriptor_strides(rows):
     # wgmma reads (r, c) of a k8 step at start + (c // 4)·LBO + (r // 8)·SBO + (r % 8)·16 + (c % 4)·4
     # bytes, with the kernel's LBO = rows/8 · 128 and SBO = 128
@@ -219,12 +227,6 @@ def test_p_fragment_and_vt_key_order_give_p_times_v():
 # ---------------------------------------------------------------------------
 
 
-def dq_tile(d):
-    """Keys a tile of `flash_bwd_dq_tc` (`kDqTile<D>`)."""
-    return 32 if d == 64 else 64
-
-
-DKV_TILE = 32  # queries a tile of `flash_bwd_dkv_tc` (`kDkvTile`)
 
 
 def lse2(lse):
@@ -242,15 +244,16 @@ def _p(s, c, l2, keep):
 def dq_model(q, k, v, do, lse, delta, scale, causal=False, shift=0, passes=3):
     """dq of one (batch·head) as `flash_bwd_dq_tc` computes it."""
     s_q, d = q.shape
-    s_kv, t = k.shape[0], dq_tile(d)
+    s_kv = k.shape[0]
+    rows_a_block, _, t, _ = plan(d)
     c = np.float32(scale) * LOG2E
     l2 = lse2(lse)
     rows = np.arange(s_q)
     dq = np.zeros((s_q, d), np.float32)
-    for row0 in range(0, s_q, ROWS):
-        blk = slice(row0, row0 + ROWS)
-        kend = min(max(row0 + ROWS + shift, 0), s_kv) if causal else s_kv
-        acc = np.zeros((ROWS, d), np.float32)
+    for row0 in range(0, s_q, rows_a_block):
+        blk = slice(row0, row0 + rows_a_block)
+        kend = min(max(row0 + rows_a_block + shift, 0), s_kv) if causal else s_kv
+        acc = np.zeros((rows_a_block, d), np.float32)
         for kt in range(0, kend, t):
             keys = slice(kt, kt + t)
             s = split_product(q[blk], k[keys].T, passes=passes)
@@ -270,15 +273,16 @@ def dkv_model(q, k, v, do, lse, delta, scale, causal=False, shift=0, passes=3):
     """(dk, dv) of one (batch·head) as `flash_bwd_dkv_tc` computes them: Sᵀ
     and dPᵀ with the keys as rows, the queries' lse and delta per column."""
     s_q, d = q.shape
-    s_kv, t = k.shape[0], DKV_TILE
+    s_kv = k.shape[0]
+    rows_a_block, _, _, t = plan(d)
     c = np.float32(scale) * LOG2E
     l2 = lse2(lse)
     keys = np.arange(s_kv)
     dk, dv = np.zeros((s_kv, d), np.float32), np.zeros((s_kv, d), np.float32)
-    for key0 in range(0, s_kv, ROWS):
-        blk = slice(key0, key0 + ROWS)
+    for key0 in range(0, s_kv, rows_a_block):
+        blk = slice(key0, key0 + rows_a_block)
         qt0 = min(max(key0 - shift, 0), s_q) // t * t if causal else 0
-        dka, dva = np.zeros((ROWS, d), np.float32), np.zeros((ROWS, d), np.float32)
+        dka, dva = np.zeros((rows_a_block, d), np.float32), np.zeros((rows_a_block, d), np.float32)
         for qt in range(qt0, s_q, t):
             qs = slice(qt, qt + t)
             st = split_product(k[blk], q[qs].T, passes=passes)
@@ -286,7 +290,7 @@ def dkv_model(q, k, v, do, lse, delta, scale, causal=False, shift=0, passes=3):
             keep = keys[blk, None] <= (qt + np.arange(t))[None, :] + shift if causal else True
             p = _p(st, c, l2[None, qs], keep)
             ds = p * (dpt - delta[None, qs])
-            if causal:  # each product of the tile summed apart, then one f32 add
+            if causal:  # each product of the tile summed apart (64 columns at a time at D 128), then one f32 add
                 dva = (dva + split_product(p, do[qs], passes=passes)).astype(np.float32)
                 dka = (dka + split_product(ds, q[qs], passes=passes)).astype(np.float32)
             else:
@@ -322,7 +326,7 @@ def _bwd(q, k, v, do, lse, delta, scale, causal=False, shift=0, passes=3):
             *dkv_model(q, k, v, do, lse, delta, scale, causal, shift, passes))
 
 
-@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("s_q,s_kv,causal,shift", CASES)
 def test_split_tf32_backward_within_1e5_of_float64(d, s_q, s_kv, causal, shift):
     scale = 1.0 / np.sqrt(d)
@@ -388,7 +392,7 @@ def _a_fragments(x, t):
     return frags
 
 
-@pytest.mark.parametrize("d,t", [(16, 64), (32, 64), (64, 32), (16, DKV_TILE), (32, DKV_TILE)])
+@pytest.mark.parametrize("d,t", [(16, 64), (32, 64), (64, 32), (128, 16), (16, 32), (32, 32)])
 def test_transposed_operands_meet_the_register_fragments(d, t):
     # dq += dS·K against Kᵀ (t = the dq tile), and dv += Pᵀ·dO, dk += dSᵀ·Q
     # against dOᵀ, Qᵀ (t = the dk/dv tile), the same arithmetic: each k8 step
@@ -410,3 +414,19 @@ def test_transposed_operands_meet_the_register_fragments(d, t):
     for rows in (64, t):
         for ks in range(d // 8):
             assert 32 * rows * ks == 4 * cidx(rows, 0, 8 * ks)
+
+
+@pytest.mark.parametrize("rows", [128, 136])
+def test_wide_products_split_at_row_64(rows):
+    # an N = 128 product from registers (dq's and dk/dv's at D 128) and the
+    # forward's P·[V | 1 | 0] at D 128 (N = 136) are an m64n64 product on
+    # rows 0 … 63 and one of the rest from row 64, through the same
+    # descriptor plus 64 units (1 KB): row 64's first column sits 1 KB past
+    # row 0's in every k8 step, and the two halves together read every row
+    for ks in range(16):
+        assert 4 * (cidx(rows, 64, 8 * ks) - cidx(rows, 0, 8 * ks)) == 64 * 16
+    lbo, sbo = rows // 8 * 128, 128
+    n, c = np.meshgrid(np.arange(rows), np.arange(8), indexing="ij")
+    base, rel = np.where(n < 64, 0, 1024), np.where(n < 64, n, n - 64)  # the half's start, the row within it
+    addr = base + (c // 4) * lbo + (rel // 8) * sbo + (rel % 8) * 16 + (c % 4) * 4
+    assert (addr == 4 * cidx(rows, n, c)).all()
