@@ -12,14 +12,15 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --ab-parent DIR [--ab-phases phase_train,...]
 
 The second form runs none of the phases below: it times the grouped GEMM
-at every MoE ViT path shape, the gram at every Net group size, the
-assembly at every Net, Net1 and ResNet group size and the train phases
-named by `--ab-phases` (default: the Net, LM, ViT and MoE ViT trains), of
-the checkout in DIR (e.g. the parent commit, `git archive`d) and of this
-one in turns, in fresh processes (`run_ab`), with the bf16 trio and its
-autograd forward and backward beside SDPA's; it also says whether the
-assembly's outputs, bf16 dq's outputs and the train phases' loss series
-are equal in bits across the turns of both checkouts.
+at every MoE ViT path shape (f32 and bf16 operands), the gram at every Net
+group size, the assembly at every Net, Net1 and ResNet group size and the
+train phases named by `--ab-phases` (default: the Net, LM, ViT and MoE ViT
+trains), of the checkout in DIR (e.g. the parent commit, `git archive`d)
+and of this one in turns, in fresh processes (`run_ab`), with the bf16
+trio and its autograd forward and backward beside SDPA's; it also says
+whether the bf16 grouped GEMM's outputs, the assembly's, the bf16 trio's
+and the train phases' loss series are equal in bits across the turns of
+both checkouts, and how far the bf16 grouped outputs of the two lie apart.
 
 Phases, each reported on its own lines and followed by its wall (`phase
 <name> seconds=`); any failure exits non-zero:
@@ -183,11 +184,12 @@ Phases, each reported on its own lines and followed by its wall (`phase
               (the bytes, or three TF32 products) and the FFMA ceiling; the
               split sum's with the L2 cache flushed before every call, so
               that its bytes bound holds (each reading must not beat it);
-12″. grouped bf16 — the bf16 grouped GEMM (`csrc/grouped_gemm_bf16.cu`)
-              on bf16 operands at every shape of phase 12 and both ragged
-              shapes: within two bf16 units of the largest entry of the
-              float64 product of the same bf16 operands, rounded to bf16;
-              two launches equal bits; the bf16 split sum equal in bits to
+12″. grouped bf16 — the bf16 grouped GEMM (`csrc/grouped_gemm_bf16.cu`:
+              persistent, TMA loads, staged 16-byte stores; the weight
+              gradients split in 5) on bf16 operands at every shape of
+              phase 12 and both ragged shapes: within two bf16 units of the
+              largest entry of the float64 product of the same bf16
+              operands, rounded to bf16; two launches equal bits; the bf16 split sum equal in bits to
               its plain version; times of the kernel, the plain version and
               `torch.bmm` on the bf16 operands beside the bound (bf16
               products at 989 TFLOP/s or the bytes);
@@ -571,14 +573,14 @@ def grouped_label(mangled: str):
 
 
 def grouped_bf16_label(mangled: str):
-    """`grouped_gemm_bf16_tc<128, A, BT>` from a bf16 grouped GEMM instance's
-    mangled name (A, B: read K-major; AT, BT: read MN-major, not K-major
-    for A, B row-major for B)."""
-    m = re.search(r"grouped_gemm_bf16_tcILi(\d+)ELb([01])ELb([01])E", mangled)
+    """`grouped_gemm_bf16_tc<128, 256, A, BT, 1>` (output tile, layouts, CTAs
+    an SM) from a bf16 grouped GEMM instance's mangled name (A, BT: read
+    K-major; AT, B: read MN-major)."""
+    m = re.search(r"grouped_gemm_bf16_tcILi(\d+)ELi(\d+)ELb([01])ELb([01])ELi(\d+)E", mangled)
     if not m:
         return None
-    return (f"grouped_gemm_bf16_tc<{m.group(1)}, {'A' if m.group(2) == '1' else 'AT'}, "
-            f"{'BT' if m.group(3) == '1' else 'B'}>")
+    return (f"grouped_gemm_bf16_tc<{m.group(1)}, {m.group(2)}, {'A' if m.group(3) == '1' else 'AT'}, "
+            f"{'BT' if m.group(4) == '1' else 'B'}, {m.group(5)}>")
 
 
 def history(n: int, seed: int):
@@ -1844,7 +1846,7 @@ def phase_grouped_bf16():
     """12″. The bf16 grouped GEMM (`csrc/grouped_gemm_bf16.cu`) at every
     shape of the MoE ViT path on bf16 operands (`grouped_cases`: both
     forwards, the evaluation forward, both input gradients with Bᵀ a view,
-    both weight gradients split in 20 and summed): within GROUPED_BF16_UNITS
+    both weight gradients split in 5 and summed): within GROUPED_BF16_UNITS
     bf16 units of the float64 product of the same bf16 operands rounded to
     bf16, two launches equal bits; the bf16 split sum equal in bits to its
     plain version; every role at the ragged shapes; times of the kernel, the
@@ -1869,7 +1871,7 @@ def phase_grouped_bf16():
         torch.cuda.synchronize()
         same = bitwise_equal(runs[0], runs[1])
         units, plain_units = bf16_units(runs[0], ref), bf16_units(out_plain, ref)
-        splits, _ = gg.split_k(g, m, n, k)
+        splits, _ = gg.split_k(g, m, n, k, torch.bfloat16)
         finite = bool(torch.isfinite(runs[0]).all())
         print(f"grouped bf16 {label} [{g},{m},{k}]x[{g},{k},{n}] lhs_t={int(lhs.stride(1) == 1)} "
               f"rhs_t={int(rhs.stride(1) == 1)} splits={splits} dtype={str(runs[0].dtype)[6:]} "
@@ -1956,10 +1958,13 @@ def expected_grouped(exp: dict, cfg) -> dict:
     and one split sum per weight gradient where `split_k` splits it; under
     the roles of the config's compute dtype (`_bf16` at bfloat16), and 0
     under the other dtype's."""
+    import torch
+
     from federated_pytorch_test_tpu_torch.ops import grouped_gemm as gg
 
     g, c, _, d, h = moe_shapes(cfg)
-    split = sum(gg.split_k(g, m, n, c)[0] > 1 for m, n in ((d, h), (h, d)))  # dW1 [D, H], dW2 [H, D]
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    split = sum(gg.split_k(g, m, n, c, dtype)[0] > 1 for m, n in ((d, h), (h, d)))  # dW1 [D, H], dW2 [H, D]
     counts = (2 * exp["forward"], 2 * exp["backward"], 2 * exp["weight_backward"], split * exp["weight_backward"])
     roles = gg.BF16_ROLES if cfg.compute_dtype == "bfloat16" else gg.ROLES
     return {**dict.fromkeys((*gg.ROLES, *gg.BF16_ROLES), 0), **dict(zip(roles, counts))}
@@ -3782,17 +3787,19 @@ def phase_probe_fan_train(metrics_out, profile: bool, reference=None):
 
 # One turn of `--ab-parent`, run in a fresh process from the root of a
 # checkout, its arguments JSON lists of train phases and of assembly sizes
-# (AB_ASSEMBLY_SIZES): the device ms of the
-# grouped GEMM at every MoE ViT path shape, of the gram at every Net group
-# size, of the assembly at every one of those sizes (full history) and of
-# the bf16 trio at BF16_PATHS, as one JSON line; the digests of the
-# assembly's outputs (with `history`'s counts: a NaN-filled invalid row),
-# of bf16 dq's and of each train phase's loss series, as one JSON line;
-# then the walls of those train phases of that checkout (the LM's group-0
-# epoch profiled) as one JSON line.
+# (AB_ASSEMBLY_SIZES) and a directory (or ""): the device ms of the
+# grouped GEMM at every MoE ViT path shape on f32 and on bf16 operands, of
+# the gram at every Net group size, of the assembly at every one of those
+# sizes (full history) and of the bf16 trio at BF16_PATHS, as one JSON
+# line; the digests of the bf16 grouped GEMM's outputs, of the assembly's
+# (with `history`'s counts: a NaN-filled invalid row), of the bf16 trio's
+# and of each train phase's loss series, as one JSON line; then the walls
+# of those train phases of that checkout (the LM's group-0 epoch profiled)
+# as one JSON line. Given a directory, the bf16 grouped GEMM's outputs are
+# saved there (`ab_units` compares the two checkouts').
 AB_TURN = """
 import hashlib, json, os, sys, tempfile
-phases, asm_sizes = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+phases, asm_sizes, save_dir = json.loads(sys.argv[1]), json.loads(sys.argv[2]), sys.argv[3]
 sys.path.insert(0, ".")
 import chip_smoke as cs
 from federated_pytorch_test_tpu_torch.utils import configure_precision
@@ -3811,6 +3818,17 @@ for i, (label, role, shapes) in enumerate(cs.grouped_cases(get_preset("fedavg", 
     kernel = cs.grouped_role(role)[0]
     times[label] = cs.time_ms(lambda: kernel(a, b), 20)[1]
     del a, b
+for i, (label, role, shapes) in enumerate(cs.grouped_cases(get_preset("fedavg", model="vit",
+                                                                      model_kwargs=cs.VIT_MOE_KWARGS))):
+    gen = torch.Generator(device="cuda").manual_seed(300 + i)  # phase 12's inputs
+    a, b = (torch.randn(*sh, device="cuda", generator=gen).to(torch.bfloat16) for sh in shapes)
+    kernel = cs.grouped_role(role)[0]
+    out = kernel(a, b)
+    digests[f"grouped bf16 {label}"] = digest(out.view(torch.int16))
+    if save_dir:
+        torch.save(out.cpu(), os.path.join(save_dir, f"grouped bf16 {label}.pt"))
+    times[f"grouped bf16 {label}"] = cs.time_ms(lambda: kernel(a, b), 20)[1]
+    del a, b, out
 full = torch.full((cs.K,), cs.M, dtype=torch.int32, device="cuda")
 for n in cs.NET_GROUP_SIZES:
     s, y, g, count, _ = cs.history(n, seed=n)
@@ -3839,6 +3857,9 @@ for bh, s_len, d in cs.BF16_PATHS:  # the bf16 trio, and its autograd forward an
     delta, do16 = (do * o).sum(-1), do.to(torch.bfloat16)
     tag = f"BH={bh} S={s_len} D={d}"
     times[f"flash_fwd_bf16 {tag}"] = cs.time_ms(lambda: fc.flash_fwd_bf16(qs, k16, v16), 20)[1]
+    digests[f"flash_fwd_bf16 {tag}"] = digest(torch.cat([o.flatten(), lse.flatten()]))
+    digests[f"flash_bwd_dkv_bf16 {tag}"] = digest(
+        torch.cat([t.flatten() for t in fc.flash_bwd_dkv_bf16(qs, k16, v16, do16, lse, delta)]).view(torch.int16))
     times[f"flash_bwd_dq_bf16 {tag}"] = cs.time_ms(
         lambda: fc.flash_bwd_dq_bf16(qs, k16, v16, do16, lse, delta, scale), 20)[1]
     digests[f"flash_bwd_dq_bf16 {tag}"] = digest(
@@ -3881,18 +3902,21 @@ AB_BUILD = ("import sys; sys.path.insert(0, '.'); import chip_smoke as cs; "
 
 
 def run_ab(parent: str, runs: int, phases) -> None:
-    """The kernel times (grouped GEMM, gram, assembly, and the bf16 flash
-    trio with its autograd forward and backward beside SDPA's at
-    `BF16_PATHS`) and the walls of the train `phases` of another checkout
-    (`parent`, e.g. `git archive` of the parent commit unpacked) and of this one, `runs` turns each, in fresh processes taking turns
-    parent, change, change, parent, ... after both have built their
+    """The kernel times (the grouped GEMM on f32 and bf16 operands, gram,
+    assembly, and the bf16 flash trio with its autograd forward and backward
+    beside SDPA's at `BF16_PATHS`) and the walls of the train `phases` of
+    another checkout (`parent`, e.g. `git archive` of the parent commit
+    unpacked) and of this one, `runs` turns each, in fresh processes taking
+    turns parent, change, change, parent, ... after both have built their
     kernels. Every line of a turn is printed with its checkout's tag; then
     each kernel's device ms per turn and the median ratio (change over
     parent), each wall's pair differences (change minus parent) and their
-    median, and for each digest (an assembly output, bf16 dq's output, a
-    phase's loss series)
-    whether every turn of both checkouts gave the same bits."""
+    median, and for each digest (a bf16 grouped GEMM output, an assembly
+    output, the bf16 trio's outputs, a phase's loss series) whether every
+    turn of both checkouts gave the same bits; for each bf16 grouped GEMM
+    shape, how far the change's output lies from the parent's (`ab_units`)."""
     import statistics
+    import tempfile
 
     trees = {"parent": os.path.abspath(parent), "change": HERE}
     with ThreadPoolExecutor(2) as pool:  # both builds at once, outside the timed turns
@@ -3905,9 +3929,13 @@ def run_ab(parent: str, runs: int, phases) -> None:
     kernel_ms = {"parent": [], "change": []}
     digests = {"parent": [], "change": []}
     args = [json.dumps(list(phases)), json.dumps(AB_ASSEMBLY_SIZES)]
+    saved = tempfile.TemporaryDirectory()  # each checkout's first turn's bf16 grouped outputs
+    for tag in trees:
+        os.makedirs(os.path.join(saved.name, tag))
     for turn in range(runs):
         for tag in order[turn % 2]:
-            proc = subprocess.run([sys.executable, "-c", AB_TURN, *args], cwd=trees[tag], capture_output=True,
+            save = os.path.join(saved.name, tag) if turn == 0 else ""
+            proc = subprocess.run([sys.executable, "-c", AB_TURN, *args, save], cwd=trees[tag], capture_output=True,
                                   text=True)
             for line in (proc.stdout + proc.stderr).splitlines():
                 print(f"[{tag} {turn}] {line}", flush=True)
@@ -3930,6 +3958,23 @@ def run_ab(parent: str, runs: int, phases) -> None:
         print(f"ab bitwise {key} parent_turns_equal={len(set(par)) == 1} change_turns_equal={len(set(chg)) == 1} "
               f"parent_equals_change={set(par) == set(chg) and len(set(par)) == 1} "
               f"parent={par[0]} change={chg[0]}", flush=True)
+    ab_units(os.path.join(saved.name, "parent"), os.path.join(saved.name, "change"))
+    saved.cleanup()
+
+
+def ab_units(parent_dir: str, change_dir: str) -> None:
+    """For each output saved in both directories (the bf16 grouped GEMM at a
+    MoE ViT shape, from each checkout's first turn): how many elements
+    differ and the largest distance in bf16 units of the largest entry
+    (`bf16_units`)."""
+    import torch
+
+    for name in sorted(set(os.listdir(parent_dir)) & set(os.listdir(change_dir))):
+        par, chg = (torch.load(os.path.join(d, name)).cuda() for d in (parent_dir, change_dir))
+        differ = int((par.view(torch.int16) != chg.view(torch.int16)).sum())
+        print(f"ab units {name[:-3]} elements={par.numel()} differing={differ} "
+              f"change_vs_parent_bf16_units={bf16_units(chg, par):.3f}", flush=True)
+        del par, chg
 
 
 def main() -> int:

@@ -3,9 +3,9 @@
 
 Run from the root of a checkout:
 
-    python3 chip_sweep.py [grouped] [gram] [assembly] [bf16] [scale64] [determinism] [cudnn]
+    python3 chip_sweep.py [grouped] [grouped_bf16] [gram] [assembly] [bf16] [scale64] [determinism] [cudnn]
 
-Seven sweeps (all of them without arguments), the first five printed one
+Eight sweeps (all of them without arguments), the first six printed one
 line per setting with its device ms (calls queued behind a sleep kernel,
 `chip_smoke.time_ms`) and its error:
 
@@ -14,6 +14,17 @@ line per setting with its device ms (calls queued behind a sleep kernel,
    (128 x 64, 64 x 128) and, for the weight gradients, split chunks of
    512 … 4,096 slots (the split sum included), against `torch.bmm` in
    float64;
+1b. grouped_bf16 — the bf16 grouped GEMM (`csrc/grouped_gemm_bf16.cu`,
+   built with `-DGROUPED_BF16_SWEEP`: `grouped_gemm_bf16_sweep_launch`) at
+   every MoE ViT path shape on bf16 operands (phase 12″'s inputs): each
+   output tile the kernel has (128 x 256, 128 x 64, 64 x 256, 256 x 64)
+   and, for the weight gradients, split chunks of 1,920 … 5,120 slots (the
+   split sum included); at the shipped tile and chunk, the ring cut to 2 or
+   4 stages and the attribution cuts (no stores, no loads, no products);
+   then two CTAs an SM at 128 x 64 (a plan of half the shared memory):
+   device ms beside `torch.bmm` on the same bf16 operands and the bound,
+   the distance from the float64 product rounded to bf16 in bf16 units,
+   and whether the output equals the shipped plan's in bits;
 2. gram — the one-launch gram (`ops/compact_cuda.py`) at every Net group
    size and a ResNet18-block N, with at most 16 … 128 blocks a client,
    against the shipped setting's result;
@@ -56,7 +67,7 @@ line per setting with its device ms (calls queued behind a sleep kernel,
    the Trainer is built, since every entry point sets the deterministic
    default): wall and peak allocated memory of each turn.
 
-The port's own settings (`grouped_gemm.tiles`, `SPLIT_CHUNK`,
+The port's own settings (`grouped_gemm.tiles`, `split_k`,
 `compact_cuda.gram_chunks`, `compact_cuda._vec_ok`) are not changed: each setting is launched
 through the kernels' C entry points directly. Without CUDA the script exits
 non-zero.
@@ -109,6 +120,79 @@ def sweep_grouped() -> None:
                       f"splits={splits} device_ms={device_ms:.6f} err_vs_f64={cs.rel_err(out.double(), ref):.2e}",
                       flush=True)
         del a0, b0, a, b, ref
+
+
+GROUPED_BF16_CUTS = ("whole", "no_stores", "no_loads", "no_products")  # kFull … kNoProducts
+
+
+def sweep_grouped_bf16() -> None:
+    import ctypes
+
+    import torch
+
+    from federated_pytorch_test_tpu_torch.engine import get_preset
+    from federated_pytorch_test_tpu_torch.ops import build
+    from federated_pytorch_test_tpu_torch.ops import grouped_gemm as gg
+
+    lib = build.load("grouped_gemm_bf16", ("GROUPED_BF16_SWEEP",))
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    launch = lib.grouped_gemm_bf16_sweep_launch
+    launch.argtypes = [ptr] * 3 + [i32] * 5 + [i64, i64, i32, i64, i64] + [i32] * 6 + [ptr]
+    launch.restype = i32
+    cfg = get_preset("fedavg", model="vit", model_kwargs=cs.VIT_MOE_KWARGS)
+    for two_ctas in (False, True):  # the two-CTA plan (a setmaxnreg plan of its own) after every other
+        for i, (label, role, shapes) in enumerate(cs.grouped_cases(cfg)):
+            gen = torch.Generator(device="cuda").manual_seed(300 + i)  # phase 12″'s inputs
+            a0, b0 = (torch.randn(*sh, device="cuda", generator=gen).to(torch.bfloat16) for sh in shapes)
+            kernel, _, library, views = cs.grouped_role(role)
+            lhs, rhs = views(a0, b0)
+            g, m, k = lhs.shape
+            n = rhs.shape[2]
+            a, a_t, a_g, lda = gg._layout(lhs)
+            b, b_t, b_g, ldb = gg._layout(rhs if not a_t else rhs.contiguous())
+            shipped = kernel(a0, b0)
+            ref = torch.bmm(lhs.double(), rhs.double()).to(torch.bfloat16)
+            _, bmm_ms = cs.time_ms(lambda: library(a0, b0), 20)
+            _, ship_ms = cs.time_ms(lambda: kernel(a0, b0), 20)
+            bound = cs.flash_bounds((g * m * k + g * k * n + g * m * n) * 2, 2 * g * m * k * n, 0, "bf16")["bound_ms"]
+            if not two_ctas:
+                print(f"sweep grouped_bf16 {label} [{g},{m},{k}]x[{g},{k},{n}] "
+                      f"shipped tile={gg.tiles(m, n, torch.bfloat16)} split={gg.split_k(g, m, n, k, torch.bfloat16)} "
+                      f"device_ms={ship_ms:.6f} bmm_device_ms={bmm_ms:.6f} bound_ms={bound:.6f}", flush=True)
+            chunks = (1920, 2560, 4096, 5120) if role == "grouped_matmul_drhs" else (k,)
+            ship_chunk = gg.split_k(g, m, n, k, torch.bfloat16)[1]
+            out = torch.empty((g, m, n), dtype=torch.bfloat16, device="cuda")
+            # (tile, CTAs an SM, ring, chunk, cut): every tile and chunk; at the
+            # shipped tile and chunk, the ring cut and the attribution cuts
+            ship = gg.tiles(m, n, torch.bfloat16)
+            settings = [(tile, 1, 0, chunk, 0) for tile in ((128, 256), (128, 64), (64, 256), (256, 64))
+                        for chunk in chunks]
+            settings += [(ship, 1, ring, ship_chunk, 0) for ring in (2, 4)]
+            settings += [(ship, 1, 0, ship_chunk, cut) for cut in (1, 2, 3)]
+            if two_ctas:
+                settings = [((128, 64), 2, 0, chunk, 0) for chunk in chunks]
+            for (bm, bn), ctas, ring, chunk, cut in settings:
+                splits = math.ceil(k / chunk)
+                dst = out if splits == 1 else torch.empty((splits, g, m, n), device="cuda")
+                stream = torch.cuda.current_stream().cuda_stream
+
+                def call():
+                    rc = launch(a.data_ptr(), b.data_ptr(), dst.data_ptr(), g, m, n, k, a_t, a_g, lda, b_t, b_g, ldb,
+                                bm, bn, chunk, ring, ctas, cut, stream)
+                    if rc != 0:
+                        cs.fail(f"grouped_gemm_bf16_sweep_launch: cudaError {rc}")
+                    if splits > 1:
+                        gg.grouped_sum(dst, out)
+
+                _, device_ms = cs.time_ms(call, 20)
+                check = "" if cut else (f" bf16_units_vs_f64={cs.bf16_units(out, ref):.3f} "
+                                        f"equals_shipped={cs.bitwise_equal(out, shipped)}")
+                print(f"sweep grouped_bf16 {label} tile={bm}x{bn} ctas={ctas} ring={ring} chunk={chunk} "
+                      f"splits={splits} cut={GROUPED_BF16_CUTS[cut]} device_ms={device_ms:.6f} "
+                      f"vs_bmm={device_ms / bmm_ms:.3f} "
+                      f"share_of_bound={bound / device_ms:.3f}{check}", flush=True)
+                del dst
+            del a0, b0, a, b, lhs, rhs, shipped, ref, out
 
 
 def sweep_gram() -> None:
@@ -421,7 +505,7 @@ def main() -> int:
     configure_precision()
     print(cs.subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                             capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    sweeps = {"grouped": sweep_grouped, "gram": sweep_gram, "assembly": sweep_assembly, "bf16": sweep_bf16,
+    sweeps = {"grouped": sweep_grouped, "grouped_bf16": sweep_grouped_bf16, "gram": sweep_gram, "assembly": sweep_assembly, "bf16": sweep_bf16,
               "scale64": sweep_scale64, "determinism": sweep_determinism, "cudnn": sweep_cudnn}
     for name in sys.argv[1:] or sweeps:
         if name not in sweeps:

@@ -102,6 +102,7 @@
 #include <type_traits>
 
 #include "bf16_wgmma.cuh"
+#include "hopper_tma.cuh"
 #include "tf32_wgmma.cuh"
 
 namespace {
@@ -113,6 +114,20 @@ using bf16_wgmma::wg_wait_group;
 using bf16_wgmma::wgmma_rs_bf16;
 using bf16_wgmma::wgmma_ss_bf16;
 using bf16_wgmma::wgmma_ss_bf16_n64;
+using hopper_tma::aligned_smem;
+using hopper_tma::bar_arrive;
+using hopper_tma::bar_expect;
+using hopper_tma::bar_init;
+using hopper_tma::bar_wait;
+using hopper_tma::bulk_copy;
+using hopper_tma::encode_tiled;
+using hopper_tma::EncodeTiled;
+using hopper_tma::launch;
+using hopper_tma::persistent_grid;
+using hopper_tma::regs_dec;
+using hopper_tma::regs_inc;
+using hopper_tma::smem_u32;
+using hopper_tma::tma_box;
 using tf32_wgmma::cols;
 using tf32_wgmma::pin;
 using tf32_wgmma::wg_commit;
@@ -164,43 +179,6 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 // The producer's ring: mbarriers, TMA, setmaxnreg
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-// returns once the phase of `bar` with this parity has completed
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred done;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// the producer's arrival on a stage's `full` barrier, which then also waits for `bytes` to land
-__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-// TMA: the box of `map` (kSlab<D> columns from `col` of a [rows, D] bf16
-// matrix, box-many rows) from row `row` into dst; lands on `bar`
-__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap& map, int col, int row, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
-          smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(&map)), "r"(col), "r"(row), "r"(smem_u32(bar))
-      : "memory");
-}
-
 // A tile of R rows in shared memory. Up to D = 64 a row is 2·D bytes,
 // swizzled by its width (32, 64 or 128 bytes) as the TMA wrote it. At D =
 // 128 a row (256 bytes) exceeds the 128-byte span of one swizzle, so the
@@ -251,23 +229,6 @@ __device__ __forceinline__ uint32_t wg_rows(const bf16* tile, int wg) {
   return smem_u32(tile) + 64 * wg * 2 * kSlab<D>;
 }
 
-// bulk copy of `bytes` (a multiple of 16) of device memory into dst; lands on `bar`
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(bytes), "r"(smem_u32(bar))
-               : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N>
-__device__ __forceinline__ void regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
 // Ping-pong of the two consumer warpgroups (FA3): warpgroup w issues its
 // products only on its turn, `turn_wait` on named barrier 1 + w, and then
 // hands the turn over (`turn_pass`), so that one warpgroup's products run
@@ -312,13 +273,6 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b), "r"(b));
-}
-
-// The block's shared storage S from the dynamic shared memory, 1024-byte
-// aligned for the TMA's swizzle (the launch asks for 1 KB more)
-template <typename S>
-__device__ __forceinline__ S& aligned_smem(unsigned char* raw) {
-  return *reinterpret_cast<S*>(raw + (1024 - smem_u32(raw) % 1024) % 1024);
 }
 
 // The 128-row blocks of a launch in order of decreasing work (block row r
@@ -1023,25 +977,6 @@ static_assert(sizeof(SmemFwd<128, kFwdKeys<128>>) + 1024 <= 232448 &&
 // Host: TMA maps and launches
 // ---------------------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of the CUDA driver API, reached through the runtime (the library links no libcuda)
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
 // `map`: the row-major [rows, D] bf16 matrix at `base` in boxes of `box`
 // rows by kSlab<D> columns (whole rows up to D = 64), swizzled by the box's
 // row width (desc_sw reads them)
@@ -1058,23 +993,6 @@ int tensor_map(CUtensorMap* map, const bf16* base, int rows, int box) {
                             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int smem, dim3 grid, int threads, cudaStream_t st, Args... args) {
-  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<grid, threads, smem, st>>>(args...);
-  return (int)cudaGetLastError();
-}
-
-// the persistent grid: a CTA an SM, or one a block if there are fewer
-int persistent_grid(int blocks, int* grid) {
-  int device = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  *grid = blocks < sms ? blocks : sms;
-  return (int)e;
 }
 
 template <int D, int T, int Cut = kFull>

@@ -47,11 +47,16 @@ BF16_ROLES = tuple(f"{r}_bf16" for r in ROLES)
 LAUNCHES: Dict[str, int] = dict.fromkeys((*ROLES, *BF16_ROLES), 0)
 DTYPES = (torch.float32, torch.bfloat16)  # the operand dtypes the kernels take
 
-TK = 32  # kBK in the f32 source: the contraction positions a stage (64 in the bf16 one)
+TK = 32  # kBK in the f32 source: the contraction positions a stage
+BF16_TK = 64  # kBK in the bf16 source
 # Where the output has fewer tiles than SPLIT_TILES (two blocks for each of
-# an H100's 132 SMs), the contraction runs in chunks of SPLIT_CHUNK. A
-# function of the shapes alone, so a result does not depend on the card.
-SPLIT_TILES = 264
+# an H100's 132 SMs), the contraction runs in chunks of SPLIT_CHUNK (f32).
+# The bf16 kernel is persistent: it cuts the contraction into chunks of a
+# multiple of BF16_TK, as many as its output tiles take the SMS in one
+# round. A function of the shapes alone (SMS is a constant, not read from
+# the card), so a result does not depend on it.
+SMS = 132
+SPLIT_TILES = 2 * SMS
 SPLIT_CHUNK = 1024
 
 _P = ctypes.c_void_p
@@ -97,20 +102,35 @@ def check_operands(lhs: torch.Tensor, rhs: torch.Tensor, dtypes=DTYPES) -> Tuple
     return g, m, k, rhs.shape[2]
 
 
-def tiles(m: int, n: int) -> Tuple[int, int]:
-    """The kernel instance's output tile (BM, BN) for an M x N output: two
-    warpgroups of 64 x 64, side by side in N (64 x 128) where N is wider
-    than one, else stacked in M (128 x 64)."""
+def tiles(m: int, n: int, dtype=torch.float32) -> Tuple[int, int]:
+    """The kernel instance's output tile (BM, BN) for an M x N output. f32:
+    two warpgroups of 64 x 64, side by side in N (64 x 128) where N is
+    wider than one, else stacked in M (128 x 64). bf16: two warpgroups of
+    64 x 128 side by side in N (64 x 256) where N > 64, else two of 128 x 64
+    stacked in M (256 x 64); the kernel has 128 x 256 and 128 x 64 besides,
+    which `chip_sweep.py grouped_bf16` times."""
+    if dtype == torch.bfloat16:
+        return (256, 64) if n <= 64 else (64, 256)
     return (64, 128) if n > 64 else (128, 64)
 
 
-def split_k(g: int, m: int, n: int, k: int) -> Tuple[int, int]:
+def split_k(g: int, m: int, n: int, k: int, dtype=torch.float32) -> Tuple[int, int]:
     """(splits, chunk) of the contraction: one split of K unless the output
-    has too few tiles to fill the card and K is longer than one chunk."""
-    bm, bn = tiles(m, n)
-    if k <= SPLIT_CHUNK or g * math.ceil(m / bm) * math.ceil(n / bn) >= SPLIT_TILES:
+    has too few tiles to fill the card and K is longer than SPLIT_CHUNK.
+    f32: chunks of SPLIT_CHUNK. bf16, where the tiles leave half the SMS
+    idle: SMS // tiles chunks (the tiles times the chunks one round of the
+    card), each a multiple of BF16_TK positions (5 chunks of 4,096 at the
+    MoE ViT's 24 weight-gradient tiles over 20,480 slots)."""
+    bm, bn = tiles(m, n, dtype)
+    t = g * math.ceil(m / bm) * math.ceil(n / bn)
+    if k <= SPLIT_CHUNK or t >= SPLIT_TILES:
         return 1, k
-    return math.ceil(k / SPLIT_CHUNK), SPLIT_CHUNK
+    if dtype != torch.bfloat16:
+        return math.ceil(k / SPLIT_CHUNK), SPLIT_CHUNK
+    if t > SMS // 2:
+        return 1, k
+    chunk = BF16_TK * math.ceil(math.ceil(k / BF16_TK) / (SMS // t))
+    return math.ceil(k / chunk), chunk
 
 
 def grouped_matmul_plain(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
@@ -152,8 +172,8 @@ def _launch(lhs: torch.Tensor, rhs: torch.Tensor, role: str) -> torch.Tensor:
     # one transposed operand at most: a caller that transposes the output
     # hands the backward a transposed dC beside the transposed Bᵀ or Aᵀ
     b, b_t, b_g, ldb = _layout(rhs if not a_t else rhs.contiguous())
-    bm, bn = tiles(m, n)
-    splits, chunk = split_k(g, m, n, k)
+    bm, bn = tiles(m, n, lhs.dtype)
+    splits, chunk = split_k(g, m, n, k, lhs.dtype)
     out = torch.empty((g, m, n), dtype=lhs.dtype, device=lhs.device)
     # the split contraction's partials stay f32 whatever the operands' dtype
     dst = out if splits == 1 else torch.empty((splits, g, m, n), dtype=torch.float32, device=lhs.device)

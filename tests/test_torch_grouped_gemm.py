@@ -139,18 +139,26 @@ def test_cpu_calls_launch_no_kernel():
     assert set(gg.LAUNCHES) == {*gg.ROLES, *(f"{r}_bf16" for r in gg.ROLES)}
 
 
-@pytest.mark.parametrize("g,m,n,k,splits", [
-    (24, 20480, 256, 64, 1),  # the MoE ViT's forward: 3,840 tiles
-    (24, 64, 256, 20480, 20),  # its weight gradients: 48 tiles over 20,480 slots
-    (24, 256, 64, 20480, 20),
-    (24, 64, 256, 20000, 20),  # an evaluation-sized contraction
-    (3, 64, 64, 1024, 1),  # one chunk long: not split
-    (1, 8, 8, 1_000_000, 977),  # a long contraction into one tile: chunks of SPLIT_CHUNK
+@pytest.mark.parametrize("dtype,g,m,n,k,splits", [
+    (torch.float32, 24, 20480, 256, 64, 1),  # the MoE ViT's forward: 3,840 tiles
+    (torch.float32, 24, 64, 256, 20480, 20),  # its weight gradients: 48 tiles over 20,480 slots
+    (torch.float32, 24, 256, 64, 20480, 20),
+    (torch.float32, 24, 64, 256, 20000, 20),  # an evaluation-sized contraction
+    (torch.float32, 3, 64, 64, 1024, 1),  # one chunk long: not split
+    (torch.float32, 1, 8, 8, 1_000_000, 977),  # a long contraction into one tile: chunks of SPLIT_CHUNK
+    # the bf16 kernel: chunks of a multiple of 64 positions, as many as the
+    # output tiles take the SMS in one round (24 tiles x 5, 1 x 132)
+    (torch.bfloat16, 24, 20480, 256, 64, 1),
+    (torch.bfloat16, 24, 64, 256, 20480, 5),
+    (torch.bfloat16, 24, 256, 64, 20480, 5),
+    (torch.bfloat16, 24, 64, 256, 20000, 5),
+    (torch.bfloat16, 3, 64, 64, 1024, 1),
+    (torch.bfloat16, 1, 8, 8, 1_000_000, 132),
 ])
-def test_split_k_covers_the_contraction(g, m, n, k, splits):
-    s, chunk = gg.split_k(g, m, n, k)
+def test_split_k_covers_the_contraction(dtype, g, m, n, k, splits):
+    s, chunk = gg.split_k(g, m, n, k, dtype)
     assert s == splits and (s - 1) * chunk < k <= s * chunk
-    assert s == 1 or chunk % gg.TK == 0
+    assert s == 1 or chunk % (gg.BF16_TK if dtype == torch.bfloat16 else gg.TK) == 0
 
 
 def test_split_sum_adds_the_chunks_in_order():
