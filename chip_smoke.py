@@ -15,12 +15,15 @@ The second form runs none of the phases below: it times the grouped GEMM
 at every MoE ViT path shape (f32 and bf16 operands), the gram at every Net
 group size, the assembly at every Net, Net1 and ResNet group size and the
 train phases named by `--ab-phases` (default: the Net, LM, ViT and MoE ViT
-trains), of the checkout in DIR (e.g. the parent commit, `git archive`d)
-and of this one in turns, in fresh processes (`run_ab`), with the bf16
-trio and its autograd forward and backward beside SDPA's; it also says
-whether the bf16 grouped GEMM's outputs, the assembly's, the bf16 trio's
-and the train phases' loss series are equal in bits across the turns of
-both checkouts, and how far the bf16 grouped outputs of the two lie apart.
+trains; `phase_lm_d128` and `phase_vit_d128` may be named too), of the
+checkout in DIR (e.g. the parent commit, `git archive`d) and of this one
+in turns, in fresh processes (`run_ab`), with the bf16 trio and its
+autograd forward and backward beside SDPA's and the f32 flash forward at
+both precisions at the LM's and the ViT's shapes (D 16 and D 128); it also
+says whether the bf16 grouped GEMM's outputs, the assembly's, the bf16
+trio's, the f32 forward's and the train phases' loss series are equal in
+bits across the turns of both checkouts, and how far the bf16 grouped
+outputs of the two lie apart.
 
 Phases, each reported on its own lines and followed by its wall (`phase
 <name> seconds=`); any failure exits non-zero:
@@ -29,7 +32,8 @@ Phases, each reported on its own lines and followed by its wall (`phase
 2. build    — nvcc builds the port's five CUDA sources, all at once; ptxas's
               registers and spills and the SASS tensor-core instruction
               counts of every tensor-core instance (the flash forward and
-              backward, causal and not, split and one-pass; the bf16 flash
+              backward, causal and not, split and one-pass, the forward at
+              D 128 its own kernel; the bf16 flash
               trio; the grouped GEMM's split-TF32 and bf16 instances), each
               of which must hold HGMMA and spill nothing;
 3. kernels  — each compact-direction kernel against its plain PyTorch version
@@ -345,9 +349,10 @@ FLASH_REPLACES = {
 }
 RECT_SEQS = (128, 256, 1024)
 RECT_PATH = (6144, 256, 16)  # (BH, S, D) of the ViT path: K·batch·heads, tokens, head dim
-# (s_q, s_kv, q_off, k_off) of the causal/offset checks, at BH=8
+# (s_q, s_kv, q_off, k_off) of the causal/offset checks, at BH=8; the last
+# gives the D-128 forward blocks of an odd count of 32-key tiles
 RECT_OFFSETS = ((256, 256, 0, 0), (256, 256, 128, 0), (128, 128, 0, 128), (256, 256, 0, 64), (128, 384, 256, 64),
-                (128, 256, 37, 0))
+                (128, 256, 37, 0), (256, 256, 0, 32))
 RECT_REPLACES = {
     "flash_fwd_rect": "federated_pytorch_test_tpu/ops/flash_attention.py:601",
     "flash_bwd_dq_rect": "federated_pytorch_test_tpu/ops/flash_attention.py:721",
@@ -522,8 +527,9 @@ def report_tensor_core_build(lib, label, tc) -> None:
     """What the compiler made of the tensor-core instances in `lib` (those
     whose mangled name `tc` labels, else None): ptxas's registers, shared
     memory and spills, any warning, and the count of tensor-core
-    instructions in each instance's SASS. Every instance must hold HGMMA
-    and spill nothing."""
+    instructions in each instance's SASS (and of the waits for them,
+    `DEPBAR`: one after every HGMMA where ptxas serialized them). Every
+    instance must hold HGMMA and spill nothing."""
     seen = set()
     for fn, line in ptxas_lines(lib):
         name = tc(fn)
@@ -539,12 +545,12 @@ def report_tensor_core_build(lib, label, tc) -> None:
         name = tc(fn)
         if name:
             print(f"sass {name} HGMMA={chunk.count('HGMMA')} HMMA={chunk.count('HMMA')} "
-                  f"MUFU.EX2={chunk.count('MUFU.EX2')}", flush=True)
+                  f"MUFU.EX2={chunk.count('MUFU.EX2')} DEPBAR={chunk.count('WARPGROUP.DEPBAR')}", flush=True)
             if "HGMMA" not in chunk:
                 fail(f"{name}: no HGMMA in its SASS")
 
 
-TC_KERNELS = ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc",  # the tensor-core flash kernels
+TC_KERNELS = ("flash_fwd_tc", "flash_fwd_d128_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc",  # the tensor-core flash kernels
               "flash_fwd_bf16_tc", "flash_bwd_dq_bf16_tc", "flash_bwd_dkv_bf16_tc")
 
 
@@ -3790,12 +3796,15 @@ def phase_probe_fan_train(metrics_out, profile: bool, reference=None):
 # (AB_ASSEMBLY_SIZES) and a directory (or ""): the device ms of the
 # grouped GEMM at every MoE ViT path shape on f32 and on bf16 operands, of
 # the gram at every Net group size, of the assembly at every one of those
-# sizes (full history) and of the bf16 trio at BF16_PATHS, as one JSON
-# line; the digests of the bf16 grouped GEMM's outputs, of the assembly's
-# (with `history`'s counts: a NaN-filled invalid row), of the bf16 trio's
-# and of each train phase's loss series, as one JSON line; then the walls
-# of those train phases of that checkout (the LM's group-0 epoch profiled)
-# as one JSON line. Given a directory, the bf16 grouped GEMM's outputs are
+# sizes (full history), of the bf16 trio at BF16_PATHS and of the f32
+# forward at both precisions at the LM's and the ViT's shapes (FLASH_PATH,
+# RECT_PATH, LM128_PATH, VIT128_PATH), as one JSON line; the digests of the
+# bf16 grouped GEMM's outputs, of the assembly's (with `history`'s counts: a
+# NaN-filled invalid row), of the bf16 trio's, of the f32 forward's o and
+# lse and of each train phase's loss series, as one JSON line; then the
+# walls of those train phases of that checkout (the LM's group-0 epoch
+# profiled; a phase with walls by label, `phase_vit_d128`, one a label) as
+# one JSON line. Given a directory, the bf16 grouped GEMM's outputs are
 # saved there (`ab_units` compares the two checkouts').
 AB_TURN = """
 import hashlib, json, os, sys, tempfile
@@ -3872,6 +3881,20 @@ for bh, s_len, d in cs.BF16_PATHS:  # the bf16 trio, and its autograd forward an
     times[f"sdpa fwd+bwd bf16 {tag}"] = cs.time_ms(lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(q4, k4, v4, is_causal=True), (q4, k4, v4), do16.view(1, bh, s_len, d)), 20)[1]
     del q, k, v, do, q16, k16, v16, qs, o, lse, delta, do16, q3, k3, v3, q4, k4, v4
+for aligned, (bh, s_len, d) in ((True, cs.FLASH_PATH), (False, cs.RECT_PATH), (True, cs.LM128_PATH),
+                                 (False, cs.VIT128_PATH)):  # the f32 forward at the LM's and the ViT's shapes
+    q, k, v, _ = cs.flash_inputs(bh, s_len, d, seed=43)
+    scale = 1.0 / d ** 0.5
+    for precision in fc.PRECISIONS:
+        if aligned:
+            fwd = lambda: fc.flash_fwd(q, k, v, scale, precision)
+        else:
+            fwd = lambda: fc.flash_fwd_rect(q, k, v, scale, precision=precision)
+        name = ("flash_fwd" if aligned else "flash_fwd_rect") + ("" if precision == "highest" else "_1pass")
+        tag = f"{name} BH={bh} S={s_len} D={d}"
+        digests[tag] = digest(torch.cat([t.flatten() for t in fwd()]))
+        times[tag] = cs.time_ms(fwd, 20)[1]
+    del q, k, v
 print("ab kernels " + json.dumps(times), flush=True)
 walls = {}
 with tempfile.TemporaryDirectory() as d:
@@ -3879,7 +3902,8 @@ with tempfile.TemporaryDirectory() as d:
         if not hasattr(cs, p):
             continue
         out = os.path.join(d, p + ".json")
-        walls[p] = getattr(cs, p)(out, p == "phase_lm_train")[1]
+        wall = getattr(cs, p)(out, p == "phase_lm_train")[1]
+        walls.update({f"{p} {k}": w for k, w in wall.items()} if isinstance(wall, dict) else {p: wall})
         series = json.load(open(out))["series"] if os.path.exists(out) else {}
         if "train_loss" in series:
             losses = [r["value"] for r in series["train_loss"]]
@@ -3891,7 +3915,8 @@ AB_RUNS = 3  # turns of each checkout
 AB_PHASES = "phase_train,phase_lm_train,phase_vit_train,phase_vit_moe_train"  # `--ab-phases` default
 AB_CHOICES = ("phase_train", "phase_lm_train", "phase_vit_train", "phase_vit_moe_train", "phase_admm_train",
               "phase_no_consensus_train", "phase_scale64_train",
-              "phase_probe_fan_train")  # the phases whose `phase(metrics_out, profile)[1]` is a wall
+              "phase_probe_fan_train", "phase_lm_d128",
+              "phase_vit_d128")  # the phases whose `phase(metrics_out, profile)[1]` is a wall (or walls by label)
 # the assembly's sizes in an A/B: Net's groups, Net1's whole vector and the
 # aligned N beside it, the ResNet18 groups (admm_resnet's, largest first)
 # and `LARGE_N`
@@ -3903,8 +3928,9 @@ AB_BUILD = ("import sys; sys.path.insert(0, '.'); import chip_smoke as cs; "
 
 def run_ab(parent: str, runs: int, phases) -> None:
     """The kernel times (the grouped GEMM on f32 and bf16 operands, gram,
-    assembly, and the bf16 flash trio with its autograd forward and backward
-    beside SDPA's at `BF16_PATHS`) and the walls of the train `phases` of
+    assembly, the bf16 flash trio with its autograd forward and backward
+    beside SDPA's at `BF16_PATHS`, the f32 flash forward at the LM's and the
+    ViT's shapes at both precisions) and the walls of the train `phases` of
     another checkout (`parent`, e.g. `git archive` of the parent commit
     unpacked) and of this one, `runs` turns each, in fresh processes taking
     turns parent, change, change, parent, ... after both have built their
@@ -3912,7 +3938,7 @@ def run_ab(parent: str, runs: int, phases) -> None:
     each kernel's device ms per turn and the median ratio (change over
     parent), each wall's pair differences (change minus parent) and their
     median, and for each digest (a bf16 grouped GEMM output, an assembly
-    output, the bf16 trio's outputs, a phase's loss series) whether every
+    output, the bf16 trio's outputs, the f32 forward's, a phase's loss series) whether every
     turn of both checkouts gave the same bits; for each bf16 grouped GEMM
     shape, how far the change's output lies from the parent's (`ab_units`)."""
     import statistics

@@ -3,9 +3,10 @@
 
 Run from the root of a checkout:
 
-    python3 chip_sweep.py [grouped] [grouped_bf16] [gram] [assembly] [bf16] [scale64] [determinism] [cudnn]
+    python3 chip_sweep.py [grouped] [grouped_bf16] [gram] [assembly] [bf16] [flash_f32 [--parent DIR]] [scale64]
+                          [determinism] [cudnn]
 
-Eight sweeps (all of them without arguments), the first six printed one
+Nine sweeps (all of them without arguments), the first seven printed one
 line per setting with its device ms (calls queued behind a sleep kernel,
 `chip_smoke.time_ms`) and its error:
 
@@ -42,6 +43,17 @@ line per setting with its device ms (calls queued behind a sleep kernel,
    bound (`chip_smoke.flash_bounds`); a whole kernel's outputs within two
    bf16 units of its plain version (the forward's at that tile;
    `chip_smoke.bf16_units`);
+4b. flash_f32 — the head-dim-128 f32 forward (`fwd128::flash_fwd_d128_tc`
+   in `csrc/flash_attention.cu`) at `chip_smoke.LM128_PATH` (causal) and
+   `VIT128_PATH` (non-causal), at 'highest' and 'default', from the library
+   built with `-DFLASH_F32_CUTS` (`flash_fwd_d128_cut_launch`): the shipped
+   plan (two operand stages) whole and with its attribution cuts (no exps;
+   no products; loads only — the consumer only waits for and frees each
+   stage; no split — the producer forms no K/V operands), the plan of one
+   stage whole, each beside the shipped entry point's time and the bound;
+   a whole plan's outputs equal the shipped ones in bits. With
+   `--parent DIR`, the shipped forward of the checkout in DIR is timed
+   first in a process of its own at the same shapes (`parent_device_ms`);
 5. scale64 — the direction backends (`lbfgs_direction`) at the largest
    scale64 shape: one optimizer step of fedavg_scale64's block7 round (K=64
    ResNet18 clients, N = 4,720,640) with 'pallas', then 'compact', each
@@ -352,6 +364,104 @@ def sweep_bf16() -> None:
         del q16, k16, v16, qs, do, do16, o_ref, lse_ref, delta, dq_ref, dk_ref, dv_ref, o, lse, dq, dk, dv
 
 
+F32_PLANS = ("ring2", "ring1")  # `plan` of flash_fwd_d128_cut_launch: operand stages; the first is shipped
+F32_CUTS = ("full", "no_exp", "no_mma", "loads_only", "no_split")  # `cut`, kFull … kNoSplit
+# the shipped D-128 forward of a checkout, timed in its own process from that
+# checkout's root: device ms of flash_fwd / flash_fwd_rect at both precisions
+# at LM128_PATH and VIT128_PATH, one JSON line
+F32_PARENT = """
+import json, sys
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
+from federated_pytorch_test_tpu_torch.utils import configure_precision
+configure_precision()
+out = {}
+for aligned, (bh, s, d) in ((True, cs.LM128_PATH), (False, cs.VIT128_PATH)):
+    q, k, v, _ = cs.flash_inputs(bh, s, d, seed=43)
+    for precision in fc.PRECISIONS:
+        fwd = (lambda: fc.flash_fwd(q, k, v, 1.0 / d ** 0.5, precision)) if aligned else (
+            lambda: fc.flash_fwd_rect(q, k, v, 1.0 / d ** 0.5, precision=precision))
+        out[f"{aligned} {precision}"] = cs.time_ms(fwd, 20)[1]
+    del q, k, v
+print("parent " + json.dumps(out))
+"""
+
+
+def sweep_flash_f32(parent: str = "") -> None:
+    """The head-dim-128 f32 forward (`csrc/flash_attention.cu`,
+    `fwd128::flash_fwd_d128_tc`) at both path shapes and both precisions,
+    from the library built with `-DFLASH_F32_CUTS`
+    (`flash_fwd_d128_cut_launch`): the shipped plan (two operand stages)
+    whole and with each attribution cut (no exps, no products, the consumer
+    only waiting for and freeing the stages, the producer forming no K/V
+    operands), the plan of one stage whole, each beside the shipped entry
+    point's time and the bound (`chip_smoke.flash_bounds`); a whole plan's
+    outputs against the shipped ones in bits. With `parent` (a
+    checkout's root, e.g. the parent commit unpacked), that checkout's
+    shipped forward is timed in a process of its own first, at the same
+    shapes."""
+    import ctypes
+    import json
+    import os
+
+    import torch
+
+    from federated_pytorch_test_tpu_torch.ops import build
+    from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
+
+    parent_ms = {}
+    if parent:
+        proc = cs.subprocess.run([sys.executable, "-c", F32_PARENT], cwd=os.path.abspath(parent),
+                                 capture_output=True, text=True)
+        if proc.returncode != 0:
+            cs.fail(f"sweep flash_f32: the parent checkout failed:\n{proc.stdout}{proc.stderr}")
+        parent_ms = json.loads(proc.stdout.split("parent ")[-1].splitlines()[0])
+    lib = build.load("flash_attention", ("FLASH_F32_CUTS",))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.flash_fwd_d128_cut_launch.argtypes = [ptr] * 5 + [i32] * 6 + [ctypes.c_float] + [i32] * 3 + [ptr]
+    for aligned, (bh, s, d) in ((True, cs.LM128_PATH), (False, cs.VIT128_PATH)):
+        q, k, v, _ = cs.flash_inputs(bh, s, d, seed=43)
+        scale = 1.0 / d ** 0.5
+        pairs = bh * s * (s + 1) // 2 if aligned else bh * s * s
+        operand, row = bh * s * d * 4, bh * s * 4
+        stream = torch.cuda.current_stream().cuda_stream
+        label = f"BH={bh} S={s} D={d} {'causal' if aligned else 'non-causal'}"
+        o, lse = torch.empty_like(q), torch.empty((bh, s), device="cuda")
+        for precision in fc.PRECISIONS:
+            passes = fc.passes_of(precision)
+            bound = cs.flash_bounds(4 * operand + row, 2 * 2 * d * pairs, pairs,
+                                    "tf32x3" if passes == 3 else "tf32x1")["bound_ms"]
+            if aligned:
+                shipped = lambda: fc.flash_fwd(q, k, v, scale, precision)
+            else:
+                shipped = lambda: fc.flash_fwd_rect(q, k, v, scale, precision=precision)
+            o_ref, lse_ref = shipped()
+            shipped_ms = cs.time_ms(shipped, 20)[1]
+            par = parent_ms.get(f"{aligned} {precision}")
+            print(f"sweep flash_f32 {label} {precision} shipped device_ms={shipped_ms:.6f} bound_ms={bound:.6f} "
+                  f"share_of_bound={bound / shipped_ms:.3f}"
+                  + (f" parent_device_ms={par:.6f} parent_over_shipped={par / shipped_ms:.3f}" if par else ""),
+                  flush=True)
+            for plan, plan_name in enumerate(F32_PLANS):
+                for cut, cut_name in enumerate(F32_CUTS):
+                    def fwd():
+                        return lib.flash_fwd_d128_cut_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                                             lse.data_ptr(), bh, s, s, int(aligned), 0, 0, scale,
+                                                             passes, plan, cut, stream)
+
+                    if fwd() != 0:
+                        continue  # no instance of this plan and cut
+                    torch.cuda.synchronize()
+                    check = "" if cut else f" bitwise_shipped={torch.equal(o, o_ref) and torch.equal(lse, lse_ref)}"
+                    _, device_ms = cs.time_ms(fwd, 20)
+                    print(f"sweep flash_f32 {label} {precision} plan={plan_name} cut={cut_name} "
+                          f"device_ms={device_ms:.6f} bound_ms={bound:.6f} share_of_bound={bound / device_ms:.3f}"
+                          f"{check}", flush=True)
+            del o_ref, lse_ref
+        del q, k, v, o, lse
+
+
 def scale64_step(direction: str, source, gid: int) -> None:
     """One optimizer step of fedavg_scale64's round of group `gid` with the
     `direction` backend, from a fresh Trainer; every tensor it made is
@@ -505,9 +615,16 @@ def main() -> int:
     configure_precision()
     print(cs.subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                             capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    args = sys.argv[1:]
+    parent = ""
+    if "--parent" in args:  # flash_f32's parent checkout
+        i = args.index("--parent")
+        parent = args[i + 1]
+        del args[i:i + 2]
     sweeps = {"grouped": sweep_grouped, "grouped_bf16": sweep_grouped_bf16, "gram": sweep_gram, "assembly": sweep_assembly, "bf16": sweep_bf16,
-              "scale64": sweep_scale64, "determinism": sweep_determinism, "cudnn": sweep_cudnn}
-    for name in sys.argv[1:] or sweeps:
+              "flash_f32": lambda: sweep_flash_f32(parent), "scale64": sweep_scale64,
+              "determinism": sweep_determinism, "cudnn": sweep_cudnn}
+    for name in args or sweeps:
         if name not in sweeps:
             cs.fail(f"unknown sweep {name!r}; have {sorted(sweeps)}")
         sweeps[name]()

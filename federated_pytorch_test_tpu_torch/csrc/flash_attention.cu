@@ -6,13 +6,13 @@
 //
 //   aligned causal (Sq = Skv, shift 0; the path of
 //   `flash_attention(..., causal=True)`, the LM)
-//     _fwd_tri     :559 (_fwd_kernel_tri :253)      -> flash_fwd_launch      -> flash_fwd_tc<D, true>
+//     _fwd_tri     :559 (_fwd_kernel_tri :253)      -> flash_fwd_launch      -> flash_fwd_tc<D, true> (D 128: fwd128::flash_fwd_d128_tc)
 //     _bwd_tri dq  :655 (_bwd_dq_kernel_tri :341)   -> flash_bwd_dq_launch   -> flash_bwd_dq_tc<D, true>
 //     _bwd_tri dkv :673 (_bwd_dkv_kernel_tri :365)  -> flash_bwd_dkv_launch  -> flash_bwd_dkv_tc<D, true>
 //   rectangular, non-causal or causal on global offsets (q_off, k_off)
 //   (the path of `flash_attention(..., causal=False)`, the ViT, and of
 //   `flash_block`)
-//     _fwd         :601 (_fwd_kernel :395)          -> flash_fwd_rect_launch      -> flash_fwd_tc<D, ·>
+//     _fwd         :601 (_fwd_kernel :395)          -> flash_fwd_rect_launch      -> flash_fwd_tc<D, ·> (D 128: the same)
 //     _flash3_bwd  :721 (_bwd_dq_kernel :436)       -> flash_bwd_dq_rect_launch   -> flash_bwd_dq_tc<D, ·>
 //     _flash3_bwd  :744 (_bwd_dkv_kernel :461)      -> flash_bwd_dkv_rect_launch  -> flash_bwd_dkv_tc<D, ·>
 //
@@ -21,8 +21,9 @@
 // Σ_i dS_ijᵀ q_i with dS = P ∘ (dO vᵀ − delta), P recomputed from
 // (q, k, lse) and delta = rowsum(dO ∘ o) formed by the caller.
 //
-// Forward: one kernel for both families (`flash_fwd_tc`); the aligned
-// forward is the rectangular one with Sq = Skv and shift 0.
+// Forward: one kernel for both families (`flash_fwd_tc`; at D = 128
+// `fwd128::flash_fwd_d128_tc`, below); the aligned forward is the
+// rectangular one with Sq = Skv and shift 0.
 //   Bound on an H100 SXM. The TPU kernels' dots are f32 at
 //   Precision.HIGHEST (several MXU passes). Here each product runs on the
 //   tensor cores in split TF32: x = hi + lo with hi = tf32(x) rounded to
@@ -74,13 +75,64 @@
 //
 // Head dim 128 (`Plan<D>`): the 128-row blocks below take 397 KB (forward),
 // 590 KB (dq) and 460 KB (dk/dv) of shared memory there, past the 227 KB a
-// block may have. At D = 128 a block owns 64 rows (one warpgroup, 128
-// threads) and streams 32 keys a forward tile, 16 keys (dq) or queries
-// (dk/dv) a backward tile, through the same two-stage ring: 198,656,
-// 212,992 and 229,760 bytes. P·[V | 1 | 0] is 136 columns wide, an m64n64
-// and an m64n72 product; an N = 128 product from registers is two m64n64
-// ones; the causal dk/dv sums a tile's product 64 columns at a time, so
-// that its partial sum fits beside the two 64-register accumulators.
+// block may have. The backward at D = 128 gives a block 64 rows (one
+// warpgroup, 128 threads) and streams 16 keys (dq) or queries (dk/dv) a
+// tile through the same two-stage ring: 212,992 and 229,760 bytes. An
+// N = 128 product from registers is two m64n64 ones; the causal dk/dv sums
+// a tile's product 64 columns at a time, so that its partial sum fits
+// beside the two 64-register accumulators.
+//
+// The forward at D = 128 is a kernel of its own, `fwd128::flash_fwd_d128_tc`
+// (both families, split and one pass). It computes what `flash_fwd_tc`
+// computes, at 64 rows a block and 32 keys a tile, in the same order: its
+// outputs are those of that plan bit for bit.
+//   Bound on an H100 SXM: three TF32 products at 495 TFLOP/s take 0.833 ms
+//   at the LM's D-128 shape (BH 128, S 2048, causal) and 0.625 ms at the
+//   ViT's (BH 3072, S 256); one pass a third of that, where the bytes
+//   (0.482 ms at the ViT's shape) and the exps bound instead. What binds
+//   this plan is shared memory: a 64-row warpgroup's m64n32k8 score
+//   products read 3 KB of operands every 16 tensor-core clocks, more than
+//   the 128 bytes a clock an SM's shared memory gives, and every tile's
+//   split operands are written there once (66 KB). Wider tiles do not fit
+//   twice: Q's hi and lo take 64 KB and a 32-key stage (K's hi and lo,
+//   Vᵀ's hi and lo) 66 KB; with two stages and the mbarriers the plan is
+//   201,728 bytes (`Smem<2>`, and 1 KB to align the slabs).
+//   Design:
+//   * Persistent: a CTA an SM walks the 64-row blocks (`Walk`): a head's
+//     blocks side by side, so that its K and V are read from L2 by all of
+//     them, heaviest first within the head, dealt out in a snake.
+//   * Warp specialised, 256 threads (every one may hold 255 registers, so
+//     no setmaxnreg): a producer warpgroup and a consumer warpgroup that
+//     meet only on mbarriers (no block-wide barrier in the mainloop).
+//   * The producer lands each block's Q by TMA (four 64 x 32-float boxes,
+//     128-byte swizzle), rounds it to TF32 in place and writes lo beside it
+//     (the next block's Q is prefetched into L2). K and V it reads itself,
+//     a tile ahead, into registers, and stores each 32-key tile into a ring
+//     of two stages as the consumer reads it: K's hi and lo in the
+//     swizzled layout a TMA box lands in (`desc_sw128`), Vᵀ's hi and lo
+//     key-permuted as `split_kv` writes them; then it arrives on the
+//     stage's `ready` barriers. A TMA-landed V needed a 16 KB buffer that
+//     two stages leave room for once, and its latency then stood in every
+//     tile (`chip_sweep.py flash_f32`'s loads-only cut: the producer alone
+//     took most of the kernel's time).
+//   * The consumer only multiplies and exponentiates: it issues tile t's
+//     scores with tile t − 1's P·[V | 1 | 0], waits for the scores alone
+//     (wgmma.wait_group 1), runs tile t's softmax under that P·V, and frees
+//     the stage's K after the scores and its Vᵀ after P·V on the stage's
+//     `empty` barriers. Every product group is issued and committed in
+//     straight-line code with nothing but wgmmas between its fence and its
+//     wait: ptxas serializes every wgmma of a kernel in which a group's
+//     registers are touched while another group is open (merging P·V under
+//     the next scores did that; `sass … DEPBAR=` in chip_smoke.py's build
+//     gate counts the waits).
+//   * The same arithmetic as `flash_fwd_tc`: hi = tf32(x) rounded to
+//     nearest, lo = x − hi, the three products small ones first (one pass:
+//     hi·hi alone), P·[V | 1 | 0] 136 columns wide (an m64n64 and an m64n72
+//     product), the online softmax in base 2 with the sign of the scale
+//     folded into Q, a fresh accumulator a tile merged into O in FFMAs, a
+//     row that sees no key o = 0 and lse = −1e30, causal on global offsets
+//     with only the tiles across the diagonal masked (a compile-time
+//     branch). No atomics: bitwise repeatable.
 //
 // Backward, both families: dq (`flash_bwd_dq_tc`) and dk/dv (`flash_bwd_dkv_tc`)
 // on the tensor cores, in the forward's split TF32 (lo·hi + hi·lo + hi·hi).
@@ -147,11 +199,13 @@
 // which leaves the exps or the bytes the larger term at both paths' shapes
 // (chip_smoke.py computes each).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "hopper_tma.cuh"
 #include "tf32_wgmma.cuh"
 
 namespace {
@@ -193,7 +247,7 @@ struct Plan {
   static constexpr int kWarpgroups = D == 128 ? 1 : 2;
   static constexpr int kRows = 64 * kWarpgroups;      // rows a block owns
   static constexpr int kThreads = 128 * kWarpgroups;
-  static constexpr int kKeys = D == 128 ? 32 : 64;    // keys a forward K/V tile
+  static constexpr int kKeys = 64;  // keys a forward K/V tile (D = 128 runs fwd128::flash_fwd_d128_tc: 32)
   // rows of the streamed operand a backward tile. dq streams 64 keys, 32
   // at D = 64 and 16 at D = 128, where more would take the block past the
   // 227 KB of shared memory it can have. dk/dv streams 32 queries (16 at
@@ -243,7 +297,7 @@ struct Smem {
   // row D of hi), so that P·V's column D is P's row sum
   float vt_hi[(D + 8) * T], vt_lo[(D + 8) * T];
 };
-static_assert(sizeof(Smem<64>) <= 232448 && sizeof(Smem<128>) == 198656, "over 227 KB of shared memory");
+static_assert(sizeof(Smem<64>) <= 232448, "over 227 KB of shared memory");
 
 template <int D>
 constexpr int kTileChunks = Plan<D>::kKeys * D / 4 / Plan<D>::kThreads;  // 16-byte chunks of a K or V tile a thread moves
@@ -305,8 +359,9 @@ __device__ __forceinline__ void split_frag(const float (&x)[N], uint32_t (&hi)[N
   if constexpr (Split) pin(lo);
 }
 
-// Forward of q [BH, Sq, D] against k, v [BH, Skv, D]; causal keeps the pair
-// (i, j) iff j <= i + shift. Split: three TF32 products a product (f32
+// Forward of q [BH, Sq, D] against k, v [BH, Skv, D] for D up to 64 (D =
+// 128: fwd128::flash_fwd_d128_tc, the same arithmetic); causal keeps the
+// pair (i, j) iff j <= i + shift. Split: three TF32 products a product (f32
 // accuracy, the TPU's 'highest'); else one, hi·hi (the TPU's 'default').
 // Grid (Sq / kRows, BH), kThreads threads (`Plan<D>`), sizeof(Smem<D>)
 // bytes of dynamic shared memory; two blocks an SM up to D = 32 (at most
@@ -492,6 +547,496 @@ flash_fwd_tc(const float* __restrict__ q, const float* __restrict__ k, const flo
   }
 }
 
+// ---------------------------------------------------------------------------
+// The forward at head dim 128 (the note at the top: head dim 128)
+// ---------------------------------------------------------------------------
+namespace fwd128 {
+
+using hopper_tma::aligned_smem;
+using hopper_tma::bar_arrive;
+using hopper_tma::bar_expect;
+using hopper_tma::bar_init;
+using hopper_tma::bar_wait;
+using hopper_tma::smem_u32;
+using hopper_tma::tma_box;
+using hopper_tma::tma_prefetch;
+
+constexpr int kD = 128;
+constexpr int kKeys = 32;           // keys a K/V tile (F32_FWD_KEYS[128] in ops/flash_cuda.py)
+constexpr int kRows = 64;           // query rows a block owns: one consumer warpgroup
+constexpr int kThreads = 256;       // the consumer warpgroup, then the producer warpgroup
+constexpr int kSlab = 32;           // floats a swizzled row (128 bytes): the columns of a slab
+constexpr int kSlabs = kD / kSlab;
+constexpr int kVt = kD + 8;         // Vᵀ's rows: D, then [1 | 0]
+constexpr int kChunks = kKeys * kD / 4 / 128;  // 16-byte chunks of a K tile a producer thread moves
+constexpr int kSmemLimit = 232448;  // shared memory a block may have
+constexpr int kRegisters = 65536;   // registers of an SM
+static_assert(kThreads * 255 <= kRegisters, "every thread may hold 255 registers: no setmaxnreg needed");
+
+// attribution cuts (the template argument Cut, chip_sweep.py flash_f32; the shipped entry points take kFull)
+constexpr int kFull = 0, kNoExp = 1, kNoMma = 2, kLoadsOnly = 3, kNoSplit = 4;
+
+// The operands of a tile of 32 keys: K's hi and lo as four slabs of 32
+// keys by 32 floats with the 128-byte swizzle (the layout a TMA box of 32
+// columns lands in, read with `desc_sw128`), and Vᵀ's hi and lo with the
+// keys of every 8 in the order 0, 2, 4, 6, 1, 3, 5, 7 (`cidx<kVt>`, rows
+// D … D + 7 [1 | 0]).
+struct Stage {
+  float k[kKeys * kD];
+  float k_lo[kKeys * kD];
+  float vt_hi[kVt * kKeys], vt_lo[kVt * kKeys];
+};
+static_assert(sizeof(Stage) == 67584 && sizeof(Stage) % 1024 == 0, "a stage keeps its slabs 1 KB aligned");
+
+template <int Ring>
+struct Smem {
+  alignas(1024) float q[kRows * kD];     // Q as the TMA landed it (four slabs of 64 rows by 32 floats), rounded in place
+  alignas(1024) float q_lo[kRows * kD];  // Q − hi at the same offsets
+  alignas(1024) Stage st[Ring];
+  uint64_t q_land, q_ready, q_empty;
+  uint64_t k_ready[Ring], k_empty[Ring], v_ready[Ring], v_empty[Ring];
+};
+// The plans' bytes (the launch asks for 1 KB more, to align the slabs):
+// two operand stages (shipped), one (chip_sweep.py flash_f32). A third
+// stage does not fit.
+static_assert(sizeof(Smem<2>) == 201728 && sizeof(Smem<2>) + 1024 <= kSmemLimit, "two stages over 227 KB");
+static_assert(sizeof(Smem<1>) == 134144 && sizeof(Smem<1>) + 1024 <= kSmemLimit, "one stage over 227 KB");
+static_assert(sizeof(Smem<2>) + sizeof(Stage) + 1024 > kSmemLimit, "a third stage would fit");
+
+// The blocks of a launch in the order the persistent CTAs take them: a
+// head's blocks side by side, so that its K and V are read from L2 by all
+// of them while they run, and within a head heaviest first (causal: the
+// last rows first), dealt out in a snake — CTA c takes c, 2G − 1 − c,
+// 2G + c, … of G CTAs — so that the causal blocks' uneven work evens out.
+struct Walk {
+  int heads, blocks;  // BH, and blocks a head
+  // this CTA's n-th block: head bh, position r in the head's order; false past the last
+  __device__ __forceinline__ bool next(int n, int& bh, int& r) const {
+    const int g = gridDim.x, c = blockIdx.x;
+    const int idx = n * g + (n % 2 == 0 ? c : g - 1 - c);
+    if (idx >= heads * blocks) return false;
+    bh = idx / blocks;
+    r = idx % blocks;
+    return true;
+  }
+};
+
+// Online softmax of a tile of 32 keys from key kt, in place, as
+// flash_fwd_tc does it: s[4j + e] is (row_a, key kt + 8j + 2t + e),
+// s[4j + 2 + e] the same key on row_b. Masked: the tile crosses these rows'
+// diagonal (a compile-time branch).
+template <bool Masked, int Cut>
+__device__ __forceinline__ void softmax_tile(float (&s)[kKeys / 2], int kt, int row_a, int row_b, int shift, int t,
+                                             float c, float& m_a, float& m_b, float& corr_a, float& corr_b) {
+  if constexpr (Masked) {
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = kt + 8 * j + 2 * t + e;
+        if (key > row_a + shift) s[4 * j + e] = -INFINITY;
+        if (key > row_b + shift) s[4 * j + 2 + e] = -INFINITY;
+      }
+  }
+  float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < kKeys / 8; ++j) {
+    mx_a = fmaxf(mx_a, fmaxf(s[4 * j], s[4 * j + 1]));
+    mx_b = fmaxf(mx_b, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off *= 2) {
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+  }
+  const float mn_a = fmaxf(m_a, mx_a * c), mn_b = fmaxf(m_b, mx_b * c);  // fmaxf drops a NaN
+  corr_a = Cut == kNoExp ? 1.f : exp2_ftz(m_a - mn_a);
+  corr_b = Cut == kNoExp ? 1.f : exp2_ftz(m_b - mn_b);
+  m_a = mn_a;
+  m_b = mn_b;
+#pragma unroll
+  for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float pa = fmaf(s[4 * j + e], c, -mn_a), pb = fmaf(s[4 * j + 2 + e], c, -mn_b);
+      if constexpr (Cut != kNoExp) {
+        pa = exp2_ftz(pa);
+        pb = exp2_ftz(pb);
+      }
+      if constexpr (Masked) {  // exactly 0, whatever the scale
+        pa = s[4 * j + e] == -INFINITY ? 0.f : pa;
+        pb = s[4 * j + 2 + e] == -INFINITY ? 0.f : pb;
+      }
+      s[4 * j + e] = pa;
+      s[4 * j + 2 + e] = pb;
+    }
+}
+
+// S = Q·Kᵀ over D into s, flash_fwd_tc's products in its order (small ones
+// first; one pass: hi·hi): q and k are the descriptors of the Q rows' and
+// the K tile's first slab (hi; lo q_lo, k_lo bytes past them); k8 step ks
+// lies in slab ks / 4, 32·(ks % 4) bytes into its rows.
+template <bool Split>
+__device__ __forceinline__ void issue_scores(float (&s)[kKeys / 2], uint64_t q, uint64_t k, uint32_t q_lo,
+                                             uint32_t k_lo) {
+  constexpr uint32_t kSlabQ = kRows * 128, kSlabK = kKeys * 128;  // bytes of a slab
+  if constexpr (Split) {
+#pragma unroll
+    for (int ks = 0; ks < kD / 8; ++ks) {
+      const uint32_t qo = (ks / 4 * kSlabQ + 32 * (ks % 4)) >> 4, ko = (ks / 4 * kSlabK + 32 * (ks % 4)) >> 4;
+      wgmma_ss<kKeys>(s, q + qo + (q_lo >> 4), k + ko, ks > 0);
+      wgmma_ss<kKeys>(s, q + qo, k + ko + (k_lo >> 4), 1);
+    }
+  }
+#pragma unroll
+  for (int ks = 0; ks < kD / 8; ++ks) {
+    const uint32_t qo = (ks / 4 * kSlabQ + 32 * (ks % 4)) >> 4, ko = (ks / 4 * kSlabK + 32 * (ks % 4)) >> 4;
+    wgmma_ss<kKeys>(s, q + qo, k + ko, Split || ks > 0);
+  }
+}
+
+// pv = P·[V | 1 | 0] of the tile, flash_fwd_tc's products in its order
+// (small ones first; one pass: hi·hi), P split in registers as the A
+// operand, Vᵀ's hi at descriptor base vt16 (lo vt_lo bytes past it)
+template <bool Split>
+__device__ __forceinline__ void issue_pv(float (&pv)[(kD + 8) / 2], const uint32_t (&ph)[kKeys / 2],
+                                         const uint32_t (&pl)[kKeys / 2], uint32_t vt16, uint32_t vt_lo) {
+  if constexpr (Split) {
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) {
+      const uint32_t a_lo[4] = {pl[4 * j], pl[4 * j + 2], pl[4 * j + 1], pl[4 * j + 3]};
+      const uint32_t a_hi[4] = {ph[4 * j], ph[4 * j + 2], ph[4 * j + 1], ph[4 * j + 3]};
+      wgmma_pv<kD>(pv, a_lo, desc<kVt>(vt16, 32 * kVt * j), j > 0);
+      wgmma_pv<kD>(pv, a_hi, desc<kVt>(vt16, vt_lo + 32 * kVt * j), 1);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kKeys / 8; ++j) {
+    const uint32_t a_hi[4] = {ph[4 * j], ph[4 * j + 2], ph[4 * j + 1], ph[4 * j + 3]};
+    wgmma_pv<kD>(pv, a_hi, desc<kVt>(vt16, 32 * kVt * j), Split || j > 0);
+  }
+}
+
+// wait until at most N committed wgmma groups of this warpgroup are pending
+template <int N>
+__device__ __forceinline__ void wait_group() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Forward of q [BH, Sq, 128] against k, v [BH, Skv, 128] as flash_fwd_tc
+// computes it, for Hopper (the note at the top). Persistent: grid
+// min(SMs, blocks), kThreads threads, sizeof(Smem<Ring>) + 1024 bytes of
+// dynamic shared memory; q through a TMA map of [BH·Sq, 128] f32 in boxes
+// of 32 columns by 64 rows, k and v read by the producer's threads.
+template <bool Causal, bool Split, int Ring, int Cut = kFull>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_d128_tc(const __grid_constant__ CUtensorMap map_q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse, int bh_count,
+                  int s_q, int s_kv, int shift, float scale) {
+  using S = Smem<Ring>;
+  extern __shared__ unsigned char smem_raw[];
+  S& sm = aligned_smem<S>(smem_raw);
+  const Walk walk{bh_count, s_q / kRows};
+
+  if (threadIdx.x == 0) {
+    bar_init(&sm.q_land, 1);     // the issuing thread's bar_expect; then the bytes
+    bar_init(&sm.q_ready, 128);  // every producer thread, after its part of the operands
+    bar_init(&sm.q_empty, 4);    // a consumer warp each
+    for (int i = 0; i < Ring; ++i) {
+      bar_init(&sm.k_ready[i], 128);
+      bar_init(&sm.k_empty[i], 4);
+      bar_init(&sm.v_ready[i], 128);
+      bar_init(&sm.v_empty[i], 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (unsigned i = threadIdx.x; i < Ring * 8 * kKeys; i += kThreads) {  // Vᵀ's rows D … D + 7 of every stage
+    const unsigned r = kD + i % (8 * kKeys) / kKeys, at = cidx<kVt>(r, i % kKeys);
+    sm.st[i / (8 * kKeys)].vt_hi[at] = r == kD ? 1.f : 0.f;
+    sm.st[i / (8 * kKeys)].vt_lo[at] = 0.f;
+  }
+  proxy_fence();
+  __syncthreads();
+
+  // a block's first row and its K/V tiles (keys [0, kend) can be seen by its rows)
+  auto block_row0 = [&](int r) { return (Causal ? walk.blocks - 1 - r : r) * kRows; };
+  auto tiles_of = [&](int row0) {
+    return ((Causal ? key_end<kRows>(row0, shift, s_kv) : s_kv) + kKeys - 1) / kKeys;
+  };
+
+  if (threadIdx.x >= 128) {
+    // The producer warpgroup. Thread p = 0 lands each block's Q by TMA and
+    // the warpgroup rounds it in place (lo beside it). K and V it reads
+    // itself, a tile ahead into registers (thread p: K's chunks p + 128n,
+    // V's column p), and stores each tile into its stage as the consumer
+    // reads it: K's hi and lo in the slabs' swizzled layout, Vᵀ's hi and lo
+    // key-permuted; then it arrives on the stage's `ready` barriers. Blocks
+    // without a tile (causal, wholly in the future) are skipped by both
+    // sides.
+    const int p = threadIdx.x - 128;
+    struct Tile {
+      int n, bh, row0, it, n_tiles;  // tile `it` of the n-th block's n_tiles
+    };
+    auto seek = [&](int n, Tile& c) {  // the first tile of the first block from the n-th on that has one
+      for (int bh, r; walk.next(n, bh, r); ++n) {
+        const int row0 = block_row0(r), nt = tiles_of(row0);
+        if (nt > 0) {
+          c = Tile{n, bh, row0, 0, nt};
+          return true;
+        }
+      }
+      return false;
+    };
+    // K's chunks p + 128n (key p / 32 + 4n, columns 4·(p % 32) …) and V's column p of a tile
+    auto load = [&](const Tile& c, float4 (&kr)[kChunks], float (&vr)[kKeys]) {
+      if constexpr (Cut != kNoSplit) {
+        const size_t row = (size_t)c.bh * s_kv + c.it * kKeys;
+        const float4* kg = reinterpret_cast<const float4*>(k + row * kD) + p;
+#pragma unroll
+        for (int n = 0; n < kChunks; ++n) kr[n] = __ldg(kg + 128 * n);
+        const float* vg = v + row * kD + p;
+#pragma unroll
+        for (int key = 0; key < kKeys; ++key) vr[key] = __ldg(vg + key * kD);
+      }
+    };
+    Tile cur;
+    if (!seek(0, cur)) return;
+    float4 k_a[kChunks], k_b[kChunks];
+    float v_a[kKeys], v_b[kKeys];
+    load(cur, k_a, v_a);
+    const float sgn = scale < 0.f ? -1.f : 1.f;  // folded into Q, so that the consumer scales by |scale|
+    int gt = 0, nq = 0;
+    // tile `cur` from registers kc, vc into its stage, the next one's loads into kn, vn meanwhile; false after the last
+    auto step = [&](float4 (&kc)[kChunks], float (&vc)[kKeys], float4 (&kn)[kChunks], float (&vn)[kKeys]) {
+      if (cur.it == 0) {  // a block's first tile: its Q first
+        if (p == 0) {
+          if (nq > 0) bar_wait(&sm.q_empty, (nq - 1) & 1);
+          bar_expect(&sm.q_land, kRows * kD * 4);
+#pragma unroll
+          for (int h = 0; h < kSlabs; ++h)
+            tma_box(sm.q + h * kRows * kSlab, map_q, h * kSlab, cur.bh * s_q + cur.row0, &sm.q_land);
+          Tile after;
+          if (seek(cur.n + 1, after))  // the next block's Q into L2 meanwhile
+#pragma unroll
+            for (int h = 0; h < kSlabs; ++h) tma_prefetch(map_q, h * kSlab, after.bh * s_q + after.row0);
+        }
+        bar_wait(&sm.q_land, nq & 1);
+#pragma unroll 4
+        for (int i = p; i < kRows * kD / 4; i += 128) {
+          float4 x = reinterpret_cast<float4*>(sm.q)[i], hi, lo;
+          split4(make_float4(sgn * x.x, sgn * x.y, sgn * x.z, sgn * x.w), hi, lo);
+          reinterpret_cast<float4*>(sm.q)[i] = hi;
+          if constexpr (Split) reinterpret_cast<float4*>(sm.q_lo)[i] = lo;
+        }
+        proxy_fence();
+        bar_arrive(&sm.q_ready);
+        ++nq;
+      }
+      Tile nxt = cur;
+      const bool more = ++nxt.it < nxt.n_tiles || seek(cur.n + 1, nxt);
+      if (more) load(nxt, kn, vn);  // in flight while this tile is stored
+      const int st = gt % Ring;
+      Stage& stage = sm.st[st];
+      if (gt >= Ring) bar_wait(&sm.k_empty[st], (gt / Ring - 1) & 1);
+      if constexpr (Cut != kNoSplit) {
+#pragma unroll
+        for (int n = 0; n < kChunks; ++n) {  // chunk c4 of key row `key` into slab c4 / 8, 16-byte chunk (c4 % 8) ^ (key % 8)
+          const unsigned key = p / 32 + 4 * n, c4 = p % 32;
+          const unsigned at = c4 / 8 * kKeys * kSlab + key * kSlab + (((c4 % 8) ^ (key & 7)) << 2);
+          float4 hi, lo;
+          split4(kc[n], hi, lo);
+          *reinterpret_cast<float4*>(&stage.k[at]) = hi;
+          if constexpr (Split) *reinterpret_cast<float4*>(&stage.k_lo[at]) = lo;
+        }
+      }
+      proxy_fence();
+      bar_arrive(&sm.k_ready[st]);
+      if (gt >= Ring) bar_wait(&sm.v_empty[st], (gt / Ring - 1) & 1);
+      if constexpr (Cut != kNoSplit) {
+#pragma unroll
+        for (int n = 0; n < kKeys / 4; ++n) {  // Vᵀ's positions 4n … 4n + 3 of row p: keys key0 + 0, 2, 4, 6
+          const int key0 = (n >> 1) * 8 + (n & 1);
+          float4 hi, lo;
+          split4(make_float4(vc[key0], vc[key0 + 2], vc[key0 + 4], vc[key0 + 6]), hi, lo);
+          const unsigned at = cidx<kVt>(p, 4 * n);
+          *reinterpret_cast<float4*>(&stage.vt_hi[at]) = hi;
+          if constexpr (Split) *reinterpret_cast<float4*>(&stage.vt_lo[at]) = lo;
+        }
+      }
+      proxy_fence();
+      bar_arrive(&sm.v_ready[st]);
+      ++gt;
+      cur = nxt;
+      return more;
+    };
+    while (step(k_a, v_a, k_b, v_b) && step(k_b, v_b, k_a, v_a)) {
+    }
+    return;
+  }
+
+  // The consumer warpgroup: rows row0 … row0 + 63 of each block.
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const float c = fabsf(scale) * kLog2e;  // p = 2^(s·c − m): m is in units of log2
+  const uint64_t q_desc = desc_sw128(smem_u32(sm.q));
+  constexpr uint32_t kQLo = offsetof(S, q_lo) - offsetof(S, q);
+  constexpr uint32_t kKLo = offsetof(Stage, k_lo), kVtLo = offsetof(Stage, vt_lo) - offsetof(Stage, vt_hi);
+  auto release = [&](uint64_t* bar) {
+    if (lane == 0) bar_arrive(bar);
+  };
+  int gt = 0, nq = 0;
+  for (int n = 0, bh, r; walk.next(n, bh, r); ++n) {
+    const int row0 = block_row0(r), n_tiles = tiles_of(row0);
+    const int row_a = row0 + 16 * warp + g, row_b = row_a + 8;  // the two rows this thread holds
+    // the tiles no row of the block masks (causal: those wholly below its diagonal)
+    const int n_open = Causal ? min(n_tiles, max(row0 + shift + 1, 0) / kKeys) : n_tiles;
+
+    float acc[(kD + 8) / 2];  // O and, in column D, the row sum l
+#pragma unroll
+    for (int i = 0; i < (kD + 8) / 2; ++i) acc[i] = 0.f;
+    float m_a = -1e30f, m_b = -1e30f;  // finite: m − m_new is never inf − inf
+    if (n_tiles > 0) {
+      bar_wait(&sm.q_ready, nq & 1);
+      // the tile's K (Vᵀ) stored by the producer
+      auto k_ready = [&](int it) { bar_wait(&sm.k_ready[(gt + it) % Ring], ((gt + it) / Ring) & 1); };
+      auto v_ready = [&](int it) { bar_wait(&sm.v_ready[(gt + it) % Ring], ((gt + it) / Ring) & 1); };
+      if constexpr (Cut == kLoadsOnly) {
+        release(&sm.q_empty);
+        for (int it = 0; it < n_tiles; ++it) {
+          k_ready(it);
+          release(&sm.k_empty[(gt + it) % Ring]);
+          v_ready(it);
+          release(&sm.v_empty[(gt + it) % Ring]);
+        }
+      } else {
+        float s[kKeys / 2], pv[(kD + 8) / 2];
+        uint32_t p_hi[kKeys / 2], p_lo[kKeys / 2];
+        float corr_a = 1.f, corr_b = 1.f, cn_a, cn_b;  // the correction of the tile whose P·V is in flight; the next
+        auto scores = [&](int it) {  // S of tile `it`, issued into the open wgmma group
+          if constexpr (Cut == kNoMma) {
+#pragma unroll
+            for (int i = 0; i < kKeys / 2; ++i) s[i] = 0.125f * (i & 7);
+          } else {
+            // the Q descriptor re-read a tile, so that the compiler forms its 32
+            // step descriptors at the products and does not hold them all in registers
+            uint64_t q = q_desc;
+            asm volatile("" : "+l"(q));
+            issue_scores<Split>(s, q, desc_sw128(smem_u32(sm.st[(gt + it) % Ring].k)), kQLo, kKLo);
+          }
+        };
+        auto products = [&](int it) {  // P·[V | 1 | 0] of tile `it`, issued into the open wgmma group
+          if constexpr (Cut == kNoMma) {
+#pragma unroll
+            for (int i = 0; i < (kD + 8) / 2; ++i) pv[i] = 0.f;
+          } else {
+            issue_pv<Split>(pv, p_hi, p_lo, smem_u32(sm.st[(gt + it) % Ring].vt_hi) >> 4, kVtLo);
+          }
+        };
+        auto softmax = [&](int it) {  // only the tiles across the diagonal are masked
+          if (Causal && it >= n_open)
+            softmax_tile<true, Cut>(s, it * kKeys, row_a, row_b, shift, t, c, m_a, m_b, cn_a, cn_b);
+          else
+            softmax_tile<false, Cut>(s, it * kKeys, row_a, row_b, shift, t, c, m_a, m_b, cn_a, cn_b);
+        };
+        // O = O·corr + P·V (and l = l·corr + Σ P) in FFMAs: the tensor
+        // cores' sums span one tile (flash_fwd_tc's order)
+        auto merge = [&]() {
+#pragma unroll
+          for (int j = 0; j < (kD + 8) / 8; ++j) {
+            acc[4 * j] = fmaf(acc[4 * j], corr_a, pv[4 * j]);
+            acc[4 * j + 1] = fmaf(acc[4 * j + 1], corr_a, pv[4 * j + 1]);
+            acc[4 * j + 2] = fmaf(acc[4 * j + 2], corr_b, pv[4 * j + 2]);
+            acc[4 * j + 3] = fmaf(acc[4 * j + 3], corr_b, pv[4 * j + 3]);
+          }
+        };
+        auto next_p = [&]() {  // the softmaxed tile's P as the next A operand, and its correction
+          split_frag<kKeys / 2, Split>(s, p_hi, p_lo);
+          corr_a = cn_a;
+          corr_b = cn_b;
+        };
+        auto pin_pv = [&]() {  // P·V's registers stay untouched until its products are done
+          pin(pv);
+          pin(p_hi);
+          if constexpr (Split) pin(p_lo);
+        };
+        // tile 0's scores; then each tile's scores issued with the last
+        // tile's P·V, which runs under this tile's softmax; the last P·V
+        k_ready(0);
+        wg_fence();
+        scores(0);
+        wg_commit();
+        wg_wait();
+        pin(s);
+        release(&sm.k_empty[gt % Ring]);
+        if (n_tiles == 1) release(&sm.q_empty);
+        softmax(0);
+        next_p();
+        for (int it = 1; it < n_tiles; ++it) {
+          k_ready(it);
+          v_ready(it - 1);
+          wg_fence();
+          scores(it);
+          wg_commit();
+          products(it - 1);
+          wg_commit();
+          wait_group<1>();  // the scores; P·V may still run
+          pin(s);
+          release(&sm.k_empty[(gt + it) % Ring]);
+          if (it == n_tiles - 1) release(&sm.q_empty);
+          softmax(it);
+          wait_group<0>();
+          pin_pv();
+          release(&sm.v_empty[(gt + it - 1) % Ring]);
+          merge();
+          next_p();
+        }
+        v_ready(n_tiles - 1);
+        wg_fence();
+        products(n_tiles - 1);
+        wg_commit();
+        wg_wait();
+        pin_pv();
+        release(&sm.v_empty[(gt + n_tiles - 1) % Ring]);
+        merge();
+      }
+      gt += n_tiles;
+      ++nq;
+    }
+
+    // l: column D, held by the quad's thread t = 0
+    const float l_a = __shfl_sync(0xffffffffu, acc[kD / 2], lane & ~3);
+    const float l_b = __shfl_sync(0xffffffffu, acc[kD / 2 + 2], lane & ~3);
+    // masked-row guard: a row that saw no key has l == 0 and acc == 0
+    const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f, inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
+    float* oa = o + ((size_t)bh * s_q + row_a) * kD + 2 * t;
+    float* ob = o + ((size_t)bh * s_q + row_b) * kD + 2 * t;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      *reinterpret_cast<float2*>(oa + 8 * j) = make_float2(acc[4 * j] * inv_a, acc[4 * j + 1] * inv_a);
+      *reinterpret_cast<float2*>(ob + 8 * j) = make_float2(acc[4 * j + 2] * inv_b, acc[4 * j + 3] * inv_b);
+    }
+    if (t == 0) {
+      lse[(size_t)bh * s_q + row_a] = l_a > 0.f ? fmaf(m_a, kLn2, logf(l_a)) : -1e30f;
+      lse[(size_t)bh * s_q + row_b] = l_b > 0.f ? fmaf(m_b, kLn2, logf(l_b)) : -1e30f;
+    }
+  }
+}
+
+// One launch of the head-dim-128 forward with Ring operand stages; the cudaError_t of the launch.
+template <bool Causal, bool Split, int Ring = 2, int Cut = kFull>
+int launch(const float* q, const float* k, const float* v, float* o, float* lse, int bh, int s_q, int s_kv, int shift,
+           float scale, cudaStream_t st) {
+  CUtensorMap mq;
+  int e = hopper_tma::tensor_map_f32_2d(&mq, q, (long long)bh * s_q, kD, kSlab, kRows);
+  int grid = 0;
+  if (e == 0) e = hopper_tma::persistent_grid(bh * (s_q / kRows), &grid);
+  if (e != 0) return e;
+  return hopper_tma::launch(flash_fwd_d128_tc<Causal, Split, Ring, Cut>, (int)sizeof(Smem<Ring>) + 1024, dim3(grid),
+                            kThreads, st, mq, k, v, o, lse, bh, s_q, s_kv, shift, scale);
+}
+
+}  // namespace fwd128
+
 // One launch of the forward; the cudaError_t of the launch.
 template <int D, bool Causal, bool Split>
 int launch_fwd(const float* q, const float* k, const float* v, float* o, float* lse, int bh, int s_q, int s_kv,
@@ -506,8 +1051,15 @@ int launch_fwd(const float* q, const float* k, const float* v, float* o, float* 
 }
 
 // The instance of a launch template for (d, causal, split): `KERNEL_CASES(fn, args)`
-// expands to the switch cases over D in {16, 32, 64, 128}.
+// expands to the switch cases over D in {16, 32, 64, 128}, `KERNEL_CASES_64` to
+// those up to D = 64.
 #define KERNEL_CASES(fn, ...)                                                              \
+  KERNEL_CASES_64(fn, __VA_ARGS__)                                                         \
+  case 12: return fn<128, false, false>(__VA_ARGS__);                                      \
+  case 13: return fn<128, false, true>(__VA_ARGS__);                                       \
+  case 14: return fn<128, true, false>(__VA_ARGS__);                                       \
+  case 15: return fn<128, true, true>(__VA_ARGS__);
+#define KERNEL_CASES_64(fn, ...)                                                           \
   case 0: return fn<16, false, false>(__VA_ARGS__);                                        \
   case 1: return fn<16, false, true>(__VA_ARGS__);                                         \
   case 2: return fn<16, true, false>(__VA_ARGS__);                                         \
@@ -519,11 +1071,7 @@ int launch_fwd(const float* q, const float* k, const float* v, float* o, float* 
   case 8: return fn<64, false, false>(__VA_ARGS__);                                        \
   case 9: return fn<64, false, true>(__VA_ARGS__);                                         \
   case 10: return fn<64, true, false>(__VA_ARGS__);                                        \
-  case 11: return fn<64, true, true>(__VA_ARGS__);                                         \
-  case 12: return fn<128, false, false>(__VA_ARGS__);                                      \
-  case 13: return fn<128, false, true>(__VA_ARGS__);                                       \
-  case 14: return fn<128, true, false>(__VA_ARGS__);                                       \
-  case 15: return fn<128, true, true>(__VA_ARGS__);
+  case 11: return fn<64, true, true>(__VA_ARGS__);
 
 // the case of (d, causal, split), or -1 for a head dim without an instance
 int instance(int d, bool causal, bool split) {
@@ -536,7 +1084,11 @@ int fwd(const float* q, const float* k, const float* v, float* o, float* lse, in
   if (!rect_shape_ok(bh, s_q, s_kv)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (instance(d, causal, split)) {
-    KERNEL_CASES(launch_fwd, q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st)
+    KERNEL_CASES_64(launch_fwd, q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st)
+    case 12: return fwd128::launch<false, false>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);
+    case 13: return fwd128::launch<false, true>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);
+    case 14: return fwd128::launch<true, false>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);
+    case 15: return fwd128::launch<true, true>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1085,5 +1637,36 @@ int flash_bwd_dkv_rect_launch(const float* q, const float* k, const float* v, co
   return tc::bwd_dkv(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, d, causal != 0, q_off - k_off, scale,
                      passes == 3, stream);
 }
+
+#ifdef FLASH_F32_CUTS
+// The head-dim-128 forward's plans and attribution cuts (chip_sweep.py
+// flash_f32), built only with -DFLASH_F32_CUTS and never reached by the
+// wrappers: `plan` 0 is the shipped one (two operand stages), 1 one
+// stage; `cut` in kFull … kNoSplit at plan 0, kFull at plan 1. Returns
+// cudaErrorInvalidValue for a pair the source has no instance of.
+int flash_fwd_d128_cut_launch(const float* q, const float* k, const float* v, float* o, float* lse, int bh, int s_q,
+                              int s_kv, int causal, int q_off, int k_off, float scale, int passes, int plan, int cut,
+                              void* stream) {
+  if (!rect_shape_ok(bh, s_q, s_kv)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int shift = q_off - k_off;
+  const bool c = causal != 0, sp = passes == 3;
+#define FWD128_CASE(R, CUT)                                                                          \
+  if (plan == (R == 2 ? 0 : 1) && cut == CUT) {                                                        \
+    if (c && sp) return tc::fwd128::launch<true, true, R, CUT>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);   \
+    if (c) return tc::fwd128::launch<true, false, R, CUT>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);        \
+    if (sp) return tc::fwd128::launch<false, true, R, CUT>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);       \
+    return tc::fwd128::launch<false, false, R, CUT>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);              \
+  }
+  FWD128_CASE(2, tc::fwd128::kFull)
+  FWD128_CASE(2, tc::fwd128::kNoExp)
+  FWD128_CASE(2, tc::fwd128::kNoMma)
+  FWD128_CASE(2, tc::fwd128::kLoadsOnly)
+  FWD128_CASE(2, tc::fwd128::kNoSplit)
+  FWD128_CASE(1, tc::fwd128::kFull)
+#undef FWD128_CASE
+  return (int)cudaErrorInvalidValue;
+}
+#endif
 
 }  // extern "C"

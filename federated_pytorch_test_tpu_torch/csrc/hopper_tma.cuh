@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the kernels that feed the tensor cores
-// through the Tensor Memory Accelerator (flash_bf16.cu, grouped_gemm_bf16.cu):
+// through the Tensor Memory Accelerator (flash_bf16.cu, grouped_gemm_bf16.cu,
+// the head-dim-128 forward of flash_attention.cu):
 // mbarriers, TMA loads, bulk copies, setmaxnreg, named barriers, and on the host
 // the tensor maps (cuTensorMapEncodeTiled, reached through the runtime, so a
 // library links no libcuda), a launch with its dynamic shared memory, and
@@ -57,6 +58,13 @@ __device__ __forceinline__ void tma_box3(void* dst, const CUtensorMap& map, int 
       "[%5];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(&map)), "r"(x), "r"(y), "r"(z), "r"(smem_u32(bar))
       : "memory");
+}
+
+// a hint to bring the box at column `col`, row `row` of a 2-D map into L2 (no barrier, no shared memory)
+__device__ __forceinline__ void tma_prefetch(const CUtensorMap& map, int col, int row) {
+  asm volatile("cp.async.bulk.prefetch.tensor.2d.L2.global [%0, {%1, %2}];\n" ::"l"(reinterpret_cast<uint64_t>(&map)),
+               "r"(col), "r"(row)
+               : "memory");
 }
 
 // bulk copy of `bytes` (a multiple of 16) of device memory into dst; lands on `bar`
@@ -125,6 +133,23 @@ inline int tensor_map_bf16_3d(CUtensorMap* map, const void* base, const long lon
   const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)plane * 2};
   const cuuint32_t boxes[3] = {(cuuint32_t)box[0], (cuuint32_t)box[1], 1}, unit[3] = {1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), extents, strides, boxes,
+                            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// `map`: a row-major f32 matrix of `rows` rows of `cols` elements at `base`,
+// in boxes of box_cols x box_rows with the 128-byte swizzle (box_cols = 32:
+// one 128-byte line a row, as `tf32_wgmma::desc_sw128` reads it). Returns
+// 0, or a cudaError_t where the driver refuses the map.
+inline int tensor_map_f32_2d(CUtensorMap* map, const void* base, long long rows, long long cols, int box_cols,
+                             int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t extents[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 4};
+  const cuuint32_t boxes[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows}, unit[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), extents, strides, boxes,
                             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;

@@ -35,6 +35,18 @@ __device__ __forceinline__ uint64_t desc(uint32_t base16, uint32_t off) {
   return ((uint64_t)(kSbo >> 4) << 32) | (base16 + (off >> 4) + ((kLbo >> 4) << 16));
 }
 
+// wgmma shared-memory descriptor of a K-major operand whose rows are 32
+// floats (128 bytes), as the TMA writes them with the 128-byte swizzle: rows
+// back to back, 8-row groups 1 KB apart (stride byte offset), the slab 1 KB
+// aligned; `addr` is the k8 step's shared address, 32 bytes a step along the
+// row (the leading byte offset is unused: a step lies within one swizzle
+// atom). The bits are those of a bf16 operand with 128-byte rows. The
+// address field is the low 14 bits: an offset of a multiple of 16 bytes
+// within shared memory adds to the descriptor as off / 16.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return (1ull << 62) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 16) | ((addr >> 4) & 0x3FFFu);
+}
+
 // round to TF32, to nearest with ties away, as cvt.rna.tf32.f32 does for
 // finite x: half of the 13 dropped bits' unit added to the magnitude, then
 // the low 13 bits cleared (two integer operations)

@@ -68,7 +68,7 @@ ONE_PASS = {name: f"{name}_1pass" for name in CAUSAL_KERNELS + RECT_KERNELS}
 BF16_KERNELS = ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")
 LAUNCHES: Dict[str, int] = {name: 0 for name in (*CAUSAL_KERNELS, *RECT_KERNELS, *ONE_PASS.values(), *BF16_KERNELS)}
 PRECISIONS = ("highest", "default")
-# keys a forward tile of the f32 kernels by head dim (Plan<D>::kKeys in csrc/flash_attention.cu)
+# keys a forward tile of the f32 kernels by head dim (Plan<D>::kKeys, fwd128::kKeys at D = 128, in csrc/flash_attention.cu)
 F32_FWD_KEYS = {16: 64, 32: 64, 64: 64, 128: 32}
 BF16_FWD_KEYS = {16: 128, 32: 128, 64: 128, 128: 128}  # keys a tile of flash_fwd_bf16_tc by head dim (kFwdKeys in csrc/flash_bf16.cu)
 LOG2E = 1.4426950408889634

@@ -77,7 +77,8 @@ def test_aligned_backward_repeats_bitwise():
     "s_q,s_kv,d,causal,q_off,k_off",
     [(256, 256, 16, False, 0, 0), (128, 384, 32, False, 0, 0), (256, 256, 64, True, 0, 64),
      (128, 128, 16, True, 0, 128), (128, 384, 32, True, 256, 64), (128, 256, 16, True, 37, 0),
-     (256, 256, 128, False, 0, 0), (128, 384, 128, True, 256, 64), (256, 256, 128, True, 0, 64)],
+     (256, 256, 128, False, 0, 0), (128, 384, 128, True, 256, 64), (256, 256, 128, True, 0, 64),
+     (256, 256, 128, True, 0, 32)],  # the last: blocks of an odd count of the D-128 forward's 32-key tiles
 )
 def test_rect_kernels_match_plain(s_q, s_kv, d, causal, q_off, k_off):
     # both modes of the rectangular family; rows that see no key are exact
@@ -292,7 +293,7 @@ def test_assembly_repeats_bitwise_and_matches_plain(n):
 @pytest.mark.parametrize("aligned,s_q,s_kv,d,causal,q_off,k_off", [
     (True, 1024, 1024, 16, True, 0, 0), (True, 256, 256, 64, True, 0, 0), (False, 256, 256, 16, False, 0, 0),
     (False, 256, 256, 32, True, 0, 64), (False, 128, 384, 64, True, 256, 64), (True, 512, 512, 128, True, 0, 0),
-    (False, 256, 256, 128, False, 0, 0), (False, 128, 384, 128, True, 256, 64)])
+    (False, 256, 256, 128, False, 0, 0), (False, 128, 384, 128, True, 256, 64), (False, 256, 256, 128, True, 0, 32)])
 def test_one_pass_kernels_match_plain(aligned, s_q, s_kv, d, causal, q_off, k_off):
     # 'default': one TF32 product a product. The plain versions round as the
     # kernels do but sum in another order, so a probability at a TF32
