@@ -551,7 +551,7 @@ def report_tensor_core_build(lib, label, tc) -> None:
 
 
 TC_KERNELS = ("flash_fwd_tc", "flash_fwd_d128_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc",  # the tensor-core flash kernels
-              "flash_fwd_bf16_tc", "flash_bwd_dq_bf16_tc", "flash_bwd_dkv_bf16_tc")
+              "flash_bwd_dkv_d128_tc", "flash_fwd_bf16_tc", "flash_bwd_dq_bf16_tc", "flash_bwd_dkv_bf16_tc")
 
 
 def flash_label(mangled: str):
@@ -3796,12 +3796,14 @@ def phase_probe_fan_train(metrics_out, profile: bool, reference=None):
 # (AB_ASSEMBLY_SIZES) and a directory (or ""): the device ms of the
 # grouped GEMM at every MoE ViT path shape on f32 and on bf16 operands, of
 # the gram at every Net group size, of the assembly at every one of those
-# sizes (full history), of the bf16 trio at BF16_PATHS and of the f32
-# forward at both precisions at the LM's and the ViT's shapes (FLASH_PATH,
-# RECT_PATH, LM128_PATH, VIT128_PATH), as one JSON line; the digests of the
-# bf16 grouped GEMM's outputs, of the assembly's (with `history`'s counts: a
-# NaN-filled invalid row), of the bf16 trio's, of the f32 forward's o and
-# lse and of each train phase's loss series, as one JSON line; then the
+# sizes (full history), of the bf16 trio at BF16_PATHS, of the f32 forward,
+# dq and dk/dv at both precisions at the LM's and the ViT's shapes
+# (FLASH_PATH, RECT_PATH, LM128_PATH, VIT128_PATH; the backward from the
+# plain forward's lse and delta) and of SDPA's f32 backward at the two D-128
+# shapes, as one JSON line; the digests of the bf16 grouped GEMM's outputs,
+# of the assembly's (with `history`'s counts: a NaN-filled invalid row), of
+# the bf16 trio's, of the f32 forward's o and lse, of the f32 dq's and
+# dk/dv's and of each train phase's loss series, as one JSON line; then the
 # walls of those train phases of that checkout (the LM's group-0 epoch
 # profiled; a phase with walls by label, `phase_vit_d128`, one a label) as
 # one JSON line. Given a directory, the bf16 grouped GEMM's outputs are
@@ -3895,6 +3897,33 @@ for aligned, (bh, s_len, d) in ((True, cs.FLASH_PATH), (False, cs.RECT_PATH), (T
         digests[tag] = digest(torch.cat([t.flatten() for t in fwd()]))
         times[tag] = cs.time_ms(fwd, 20)[1]
     del q, k, v
+for aligned, (bh, s_len, d) in ((True, cs.FLASH_PATH), (False, cs.RECT_PATH), (True, cs.LM128_PATH),
+                                 (False, cs.VIT128_PATH)):  # the f32 dq and dk/dv at the same shapes
+    q, k, v, do = cs.flash_inputs(bh, s_len, d, seed=43)
+    scale = 1.0 / d ** 0.5
+    o, lse = fc.flash_fwd_plain(q, k, v, scale) if aligned else fc.flash_fwd_rect_plain(q, k, v, scale)
+    delta = (do * o).sum(-1)
+    del o
+    for precision in fc.PRECISIONS:
+        if aligned:
+            calls = {"flash_bwd_dq": lambda: (fc.flash_bwd_dq(q, k, v, do, lse, delta, scale, precision),),
+                     "flash_bwd_dkv": lambda: fc.flash_bwd_dkv(q, k, v, do, lse, delta, scale, precision)}
+        else:
+            calls = {"flash_bwd_dq_rect": lambda: (fc.flash_bwd_dq_rect(q, k, v, do, lse, delta, scale,
+                                                                        precision=precision),),
+                     "flash_bwd_dkv_rect": lambda: fc.flash_bwd_dkv_rect(q, k, v, do, lse, delta, scale,
+                                                                         precision=precision)}
+        for name, fn in calls.items():
+            tag = f"{name}{'' if precision == 'highest' else '_1pass'} BH={bh} S={s_len} D={d}"
+            digests[tag] = digest(torch.cat([t.flatten() for t in fn()]))
+            times[tag] = cs.time_ms(fn, 20)[1]
+    if d == 128:  # the yardstick: SDPA's whole f32 backward, [1, BH, S, D]
+        q4, k4, v4 = (t.detach().view(1, bh, s_len, d).requires_grad_(True) for t in (q, k, v))
+        o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=aligned)
+        times[f"sdpa bwd f32 BH={bh} S={s_len} D={d}"] = cs.time_ms(lambda: torch.autograd.grad(
+            o4, (q4, k4, v4), do.view(1, bh, s_len, d), retain_graph=True), 20)[1]
+        del q4, k4, v4, o4
+    del q, k, v, do, lse, delta
 print("ab kernels " + json.dumps(times), flush=True)
 walls = {}
 with tempfile.TemporaryDirectory() as d:
@@ -3929,8 +3958,9 @@ AB_BUILD = ("import sys; sys.path.insert(0, '.'); import chip_smoke as cs; "
 def run_ab(parent: str, runs: int, phases) -> None:
     """The kernel times (the grouped GEMM on f32 and bf16 operands, gram,
     assembly, the bf16 flash trio with its autograd forward and backward
-    beside SDPA's at `BF16_PATHS`, the f32 flash forward at the LM's and the
-    ViT's shapes at both precisions) and the walls of the train `phases` of
+    beside SDPA's at `BF16_PATHS`, the f32 flash forward, dq and dk/dv at the
+    LM's and the ViT's shapes at both precisions, SDPA's f32 backward at the
+    D-128 ones) and the walls of the train `phases` of
     another checkout (`parent`, e.g. `git archive` of the parent commit
     unpacked) and of this one, `runs` turns each, in fresh processes taking
     turns parent, change, change, parent, ... after both have built their
@@ -3938,7 +3968,8 @@ def run_ab(parent: str, runs: int, phases) -> None:
     each kernel's device ms per turn and the median ratio (change over
     parent), each wall's pair differences (change minus parent) and their
     median, and for each digest (a bf16 grouped GEMM output, an assembly
-    output, the bf16 trio's outputs, the f32 forward's, a phase's loss series) whether every
+    output, the bf16 trio's outputs, the f32 forward's, dq's and dk/dv's, a
+    phase's loss series) whether every
     turn of both checkouts gave the same bits; for each bf16 grouped GEMM
     shape, how far the change's output lies from the parent's (`ab_units`)."""
     import statistics

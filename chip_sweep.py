@@ -44,16 +44,19 @@ line per setting with its device ms (calls queued behind a sleep kernel,
    bf16 units of its plain version (the forward's at that tile;
    `chip_smoke.bf16_units`);
 4b. flash_f32 — the head-dim-128 f32 forward (`fwd128::flash_fwd_d128_tc`
-   in `csrc/flash_attention.cu`) at `chip_smoke.LM128_PATH` (causal) and
-   `VIT128_PATH` (non-causal), at 'highest' and 'default', from the library
-   built with `-DFLASH_F32_CUTS` (`flash_fwd_d128_cut_launch`): the shipped
-   plan (two operand stages) whole and with its attribution cuts (no exps;
-   no products; loads only — the consumer only waits for and frees each
-   stage; no split — the producer forms no K/V operands), the plan of one
-   stage whole, each beside the shipped entry point's time and the bound;
-   a whole plan's outputs equal the shipped ones in bits. With
-   `--parent DIR`, the shipped forward of the checkout in DIR is timed
-   first in a process of its own at the same shapes (`parent_device_ms`);
+   in `csrc/flash_attention.cu`) and dk/dv (`bwd128::flash_bwd_dkv_d128_tc`)
+   at `chip_smoke.LM128_PATH` (causal) and `VIT128_PATH` (non-causal), at
+   'highest' and 'default', from the library built with `-DFLASH_F32_CUTS`
+   (`flash_fwd_d128_cut_launch`, `flash_bwd_dkv_d128_cut_launch`): the
+   shipped plan (two operand stages) whole and with its attribution cuts
+   (no exps; no products; loads only — the consumer only waits for and
+   frees each stage; no split — the producer forms no K/V, or Q/dO,
+   operands), the plan of one stage whole, each beside the shipped entry
+   point's time and the bound; a whole plan's outputs equal the shipped
+   ones in bits. The D-128 dq (unchanged) is timed beside the dk/dv and
+   SDPA's f32 backward beside both (`pair_over_sdpa`). With `--parent DIR`,
+   the shipped forward, dq and dk/dv of the checkout in DIR are timed first
+   in a process of their own at the same shapes (`parent_device_ms`);
 5. scale64 — the direction backends (`lbfgs_direction`) at the largest
    scale64 shape: one optimizer step of fedavg_scale64's block7 round (K=64
    ResNet18 clients, N = 4,720,640) with 'pallas', then 'compact', each
@@ -365,10 +368,12 @@ def sweep_bf16() -> None:
 
 
 F32_PLANS = ("ring2", "ring1")  # `plan` of flash_fwd_d128_cut_launch: operand stages; the first is shipped
+DKV_PLANS = ("ring2", "ring1")  # `plan` of flash_bwd_dkv_d128_cut_launch: score stages; the first is shipped
 F32_CUTS = ("full", "no_exp", "no_mma", "loads_only", "no_split")  # `cut`, kFull … kNoSplit
-# the shipped D-128 forward of a checkout, timed in its own process from that
-# checkout's root: device ms of flash_fwd / flash_fwd_rect at both precisions
-# at LM128_PATH and VIT128_PATH, one JSON line
+# the shipped D-128 forward, dq and dk/dv of a checkout, timed in its own
+# process from that checkout's root: device ms of each at both precisions at
+# LM128_PATH and VIT128_PATH (the backward from the plain forward's lse and
+# delta), one JSON line
 F32_PARENT = """
 import json, sys
 sys.path.insert(0, ".")
@@ -378,29 +383,42 @@ from federated_pytorch_test_tpu_torch.utils import configure_precision
 configure_precision()
 out = {}
 for aligned, (bh, s, d) in ((True, cs.LM128_PATH), (False, cs.VIT128_PATH)):
-    q, k, v, _ = cs.flash_inputs(bh, s, d, seed=43)
+    q, k, v, do = cs.flash_inputs(bh, s, d, seed=43)
+    scale = 1.0 / d ** 0.5
+    o, lse = fc.flash_fwd_plain(q, k, v, scale) if aligned else fc.flash_fwd_rect_plain(q, k, v, scale)
+    delta = (do * o).sum(-1)
+    del o
     for precision in fc.PRECISIONS:
-        fwd = (lambda: fc.flash_fwd(q, k, v, 1.0 / d ** 0.5, precision)) if aligned else (
-            lambda: fc.flash_fwd_rect(q, k, v, 1.0 / d ** 0.5, precision=precision))
-        out[f"{aligned} {precision}"] = cs.time_ms(fwd, 20)[1]
-    del q, k, v
+        if aligned:
+            calls = {"fwd": lambda: fc.flash_fwd(q, k, v, scale, precision),
+                     "dq": lambda: fc.flash_bwd_dq(q, k, v, do, lse, delta, scale, precision),
+                     "dkv": lambda: fc.flash_bwd_dkv(q, k, v, do, lse, delta, scale, precision)}
+        else:
+            calls = {"fwd": lambda: fc.flash_fwd_rect(q, k, v, scale, precision=precision),
+                     "dq": lambda: fc.flash_bwd_dq_rect(q, k, v, do, lse, delta, scale, precision=precision),
+                     "dkv": lambda: fc.flash_bwd_dkv_rect(q, k, v, do, lse, delta, scale, precision=precision)}
+        for name, fn in calls.items():
+            out[f"{name} {aligned} {precision}"] = cs.time_ms(fn, 20)[1]
+    del q, k, v, do, lse, delta
 print("parent " + json.dumps(out))
 """
 
 
 def sweep_flash_f32(parent: str = "") -> None:
     """The head-dim-128 f32 forward (`csrc/flash_attention.cu`,
-    `fwd128::flash_fwd_d128_tc`) at both path shapes and both precisions,
-    from the library built with `-DFLASH_F32_CUTS`
-    (`flash_fwd_d128_cut_launch`): the shipped plan (two operand stages)
+    `fwd128::flash_fwd_d128_tc`) and dk/dv (`bwd128::flash_bwd_dkv_d128_tc`)
+    at both path shapes and both precisions, from the library built with
+    `-DFLASH_F32_CUTS` (`flash_fwd_d128_cut_launch`,
+    `flash_bwd_dkv_d128_cut_launch`): the shipped plan (two operand stages)
     whole and with each attribution cut (no exps, no products, the consumer
     only waiting for and freeing the stages, the producer forming no K/V
-    operands), the plan of one stage whole, each beside the shipped entry
-    point's time and the bound (`chip_smoke.flash_bounds`); a whole plan's
-    outputs against the shipped ones in bits. With `parent` (a
-    checkout's root, e.g. the parent commit unpacked), that checkout's
-    shipped forward is timed in a process of its own first, at the same
-    shapes."""
+    (Q/dO) operands), the plan of one stage whole, each beside the shipped
+    entry point's time and the bound (`chip_smoke.flash_bounds`); a whole
+    plan's outputs against the shipped ones in bits. The D-128 dq is timed
+    beside the dk/dv, unchanged, and SDPA's f32 backward beside both. With
+    `parent` (a checkout's root, e.g. the parent commit unpacked), that
+    checkout's shipped forward, dq and dk/dv are timed in a process of their
+    own first, at the same shapes."""
     import ctypes
     import json
     import os
@@ -420,6 +438,7 @@ def sweep_flash_f32(parent: str = "") -> None:
     lib = build.load("flash_attention", ("FLASH_F32_CUTS",))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.flash_fwd_d128_cut_launch.argtypes = [ptr] * 5 + [i32] * 6 + [ctypes.c_float] + [i32] * 3 + [ptr]
+    lib.flash_bwd_dkv_d128_cut_launch.argtypes = [ptr] * 8 + [i32] * 6 + [ctypes.c_float] + [i32] * 3 + [ptr]
     for aligned, (bh, s, d) in ((True, cs.LM128_PATH), (False, cs.VIT128_PATH)):
         q, k, v, _ = cs.flash_inputs(bh, s, d, seed=43)
         scale = 1.0 / d ** 0.5
@@ -438,7 +457,7 @@ def sweep_flash_f32(parent: str = "") -> None:
                 shipped = lambda: fc.flash_fwd_rect(q, k, v, scale, precision=precision)
             o_ref, lse_ref = shipped()
             shipped_ms = cs.time_ms(shipped, 20)[1]
-            par = parent_ms.get(f"{aligned} {precision}")
+            par = parent_ms.get(f"fwd {aligned} {precision}")
             print(f"sweep flash_f32 {label} {precision} shipped device_ms={shipped_ms:.6f} bound_ms={bound:.6f} "
                   f"share_of_bound={bound / shipped_ms:.3f}"
                   + (f" parent_device_ms={par:.6f} parent_over_shipped={par / shipped_ms:.3f}" if par else ""),
@@ -459,7 +478,73 @@ def sweep_flash_f32(parent: str = "") -> None:
                           f"device_ms={device_ms:.6f} bound_ms={bound:.6f} share_of_bound={bound / device_ms:.3f}"
                           f"{check}", flush=True)
             del o_ref, lse_ref
-        del q, k, v, o, lse
+        del o, lse
+        sweep_dkv_d128(lib, aligned, (bh, s, d), (q, k, v), parent_ms)
+        del q, k, v
+
+
+def sweep_dkv_d128(lib, aligned: bool, shape, qkv, parent_ms: dict) -> None:
+    """`sweep_flash_f32`'s dk/dv part at one path shape: the shipped dk/dv
+    and dq beside SDPA's f32 backward and the parent's times, then each plan
+    and cut of `flash_bwd_dkv_d128_cut_launch`."""
+    import torch
+    import torch.nn.functional as F
+
+    from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
+
+    bh, s, d = shape
+    q, k, v = qkv
+    do = cs.flash_inputs(bh, s, d, seed=43)[3]
+    scale = 1.0 / d ** 0.5
+    o, lse = fc.flash_fwd_plain(q, k, v, scale) if aligned else fc.flash_fwd_rect_plain(q, k, v, scale)
+    delta = (do * o).sum(-1)
+    del o
+    pairs = bh * s * (s + 1) // 2 if aligned else bh * s * s
+    operand, row = bh * s * d * 4, bh * s * 4
+    label = f"BH={bh} S={s} D={d} {'causal' if aligned else 'non-causal'}"
+    q4, k4, v4 = (t.detach().view(1, bh, s, d).requires_grad_(True) for t in (q, k, v))
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=aligned)
+    sdpa_ms = cs.time_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), do.view(1, bh, s, d), retain_graph=True),
+                         20)[1]
+    del q4, k4, v4, o4
+    print(f"sweep flash_f32 {label} sdpa_bwd device_ms={sdpa_ms:.6f}", flush=True)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    stream = torch.cuda.current_stream().cuda_stream
+    for precision in fc.PRECISIONS:
+        passes = fc.passes_of(precision)
+        products = "tf32x3" if passes == 3 else "tf32x1"
+        bound = cs.flash_bounds(4 * operand + 2 * row + 2 * operand, 4 * 2 * d * pairs, pairs, products)["bound_ms"]
+        if aligned:
+            shipped = lambda: fc.flash_bwd_dkv(q, k, v, do, lse, delta, scale, precision)
+            dq = lambda: fc.flash_bwd_dq(q, k, v, do, lse, delta, scale, precision)
+        else:
+            shipped = lambda: fc.flash_bwd_dkv_rect(q, k, v, do, lse, delta, scale, precision=precision)
+            dq = lambda: fc.flash_bwd_dq_rect(q, k, v, do, lse, delta, scale, precision=precision)
+        dk_ref, dv_ref = shipped()
+        shipped_ms, dq_ms = cs.time_ms(shipped, 20)[1], cs.time_ms(dq, 20)[1]
+        par, par_dq = parent_ms.get(f"dkv {aligned} {precision}"), parent_ms.get(f"dq {aligned} {precision}")
+        print(f"sweep flash_f32 dkv {label} {precision} shipped device_ms={shipped_ms:.6f} bound_ms={bound:.6f} "
+              f"share_of_bound={bound / shipped_ms:.3f} dq_device_ms={dq_ms:.6f} "
+              f"pair_over_sdpa={(shipped_ms + dq_ms) / sdpa_ms:.3f}"
+              + (f" parent_device_ms={par:.6f} parent_over_shipped={par / shipped_ms:.3f}" if par else "")
+              + (f" parent_dq_device_ms={par_dq:.6f}" if par_dq else ""), flush=True)
+        for plan, plan_name in enumerate(DKV_PLANS):
+            for cut, cut_name in enumerate(F32_CUTS):
+                def dkv():
+                    return lib.flash_bwd_dkv_d128_cut_launch(
+                        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                        dk.data_ptr(), dv.data_ptr(), bh, s, s, int(aligned), 0, 0, scale, passes, plan, cut, stream)
+
+                if dkv() != 0:
+                    continue  # no instance of this plan and cut
+                torch.cuda.synchronize()
+                check = "" if cut else f" bitwise_shipped={torch.equal(dk, dk_ref) and torch.equal(dv, dv_ref)}"
+                _, device_ms = cs.time_ms(dkv, 20)
+                print(f"sweep flash_f32 dkv {label} {precision} plan={plan_name} cut={cut_name} "
+                      f"device_ms={device_ms:.6f} bound_ms={bound:.6f} share_of_bound={bound / device_ms:.3f}"
+                      f"{check}", flush=True)
+        del dk_ref, dv_ref
+    del do, lse, delta, dk, dv
 
 
 def scale64_step(direction: str, source, gid: int) -> None:

@@ -8,13 +8,13 @@
 //   `flash_attention(..., causal=True)`, the LM)
 //     _fwd_tri     :559 (_fwd_kernel_tri :253)      -> flash_fwd_launch      -> flash_fwd_tc<D, true> (D 128: fwd128::flash_fwd_d128_tc)
 //     _bwd_tri dq  :655 (_bwd_dq_kernel_tri :341)   -> flash_bwd_dq_launch   -> flash_bwd_dq_tc<D, true>
-//     _bwd_tri dkv :673 (_bwd_dkv_kernel_tri :365)  -> flash_bwd_dkv_launch  -> flash_bwd_dkv_tc<D, true>
+//     _bwd_tri dkv :673 (_bwd_dkv_kernel_tri :365)  -> flash_bwd_dkv_launch  -> flash_bwd_dkv_tc<D, true> (D 128: bwd128::flash_bwd_dkv_d128_tc)
 //   rectangular, non-causal or causal on global offsets (q_off, k_off)
 //   (the path of `flash_attention(..., causal=False)`, the ViT, and of
 //   `flash_block`)
 //     _fwd         :601 (_fwd_kernel :395)          -> flash_fwd_rect_launch      -> flash_fwd_tc<D, ·> (D 128: the same)
 //     _flash3_bwd  :721 (_bwd_dq_kernel :436)       -> flash_bwd_dq_rect_launch   -> flash_bwd_dq_tc<D, ·>
-//     _flash3_bwd  :744 (_bwd_dkv_kernel :461)      -> flash_bwd_dkv_rect_launch  -> flash_bwd_dkv_tc<D, ·>
+//     _flash3_bwd  :744 (_bwd_dkv_kernel :461)      -> flash_bwd_dkv_rect_launch  -> flash_bwd_dkv_tc<D, ·> (D 128: the same)
 //
 // o = softmax(q kᵀ·scale [, causal]) v with the natural-log row logsumexp
 // lse; dq = scale · Σ_j dS_ij k_j, dv = Σ_i P_ijᵀ dO_i, dk = scale ·
@@ -75,12 +75,11 @@
 //
 // Head dim 128 (`Plan<D>`): the 128-row blocks below take 397 KB (forward),
 // 590 KB (dq) and 460 KB (dk/dv) of shared memory there, past the 227 KB a
-// block may have. The backward at D = 128 gives a block 64 rows (one
-// warpgroup, 128 threads) and streams 16 keys (dq) or queries (dk/dv) a
-// tile through the same two-stage ring: 212,992 and 229,760 bytes. An
-// N = 128 product from registers is two m64n64 ones; the causal dk/dv sums
-// a tile's product 64 columns at a time, so that its partial sum fits
-// beside the two 64-register accumulators.
+// block may have. dq at D = 128 gives a block 64 query rows (one
+// warpgroup, 128 threads) and streams 16 keys a tile through the same
+// two-stage ring (212,992 bytes); an N = 128 product from registers is two
+// m64n64 ones. The forward and dk/dv at D = 128 are kernels of their own,
+// below.
 //
 // The forward at D = 128 is a kernel of its own, `fwd128::flash_fwd_d128_tc`
 // (both families, split and one pass). It computes what `flash_fwd_tc`
@@ -133,6 +132,61 @@
 //     row that sees no key o = 0 and lse = −1e30, causal on global offsets
 //     with only the tiles across the diagonal masked (a compile-time
 //     branch). No atomics: bitwise repeatable.
+//
+// dk/dv at D = 128 is a kernel of its own, `bwd128::flash_bwd_dkv_d128_tc`
+// (both families, split and one pass). It computes what `flash_bwd_dkv_tc`
+// computes, at 64 key rows a block and 16 queries a tile, with the same
+// products in the same order (each column's causal partial sum spans one
+// tile, as below): its outputs are bit for bit those of that arithmetic
+// on one warpgroup.
+//   Bound on an H100 SXM: four products, three TF32 passes at 495 TFLOP/s,
+//   take 1.667 ms at the LM's D-128 shape (BH 128, S 2048, causal) and 1.249
+//   ms at the ViT's (BH 3072, S 256); one pass a third, where the bytes bind
+//   the ViT's (0.723 ms). What binds this kernel is shared memory and the
+//   Q/dO a tile brings in: on one warpgroup the 96 m64n16k8 score products
+//   of a 16-query tile re-read the 64-row K and V (2 KB a k8 step) 192 KB a
+//   tile, beside 48 KB for the products and 64 KB of split operands stored,
+//   while the tensor cores need 1,536 clocks a tile; 32-query tiles, or a
+//   second stage of the transposes beside two of the scores' operands, do
+//   not fit 227 KB with K's and V's hi and lo resident (262,400 bytes).
+//   Design:
+//   * Persistent: a CTA an SM walks the (head, 64-key block)s (`Walk`): a
+//     head's blocks side by side, so that its Q and dO tiles are read from
+//     L2 by all of them, the first (causal: heaviest) blocks first, dealt out
+//     in a snake.
+//   * 384 threads: two consumer warpgroups, split by role, and a producer
+//     warpgroup (setmaxnreg 48 / 224), meeting on mbarriers and, between
+//     the consumers, on named barriers.
+//   * Consumer 0 forms Sᵀ = K·Qᵀ, Pᵀ and dv += Pᵀ·dO; consumer 1 dPᵀ = V·dOᵀ,
+//     dSᵀ = Pᵀ ∘ (dPᵀ − delta) and dk += dSᵀ·Q, taking each tile's Pᵀ from
+//     consumer 0 through shared memory (4 KB a tile, thread to thread).
+//     Each holds its own K's (V's) hi in registers as the A fragments of
+//     the score products (64 a thread, formed as the block starts) and
+//     leaves the lo in shared memory in place of the landed rows, so that
+//     two of a score's three passes read only the 512-byte Q (dO) step from
+//     shared memory: the consumers read 168 KB a tile instead of 288. The
+//     same products in the same order as on one warpgroup (an operand from
+//     registers gives the tensor cores the same bits).
+//   * The producer lands each block's K and V by TMA into the consumers'
+//     rows once their last block's scores are done, and each tile's Q, dO,
+//     lse and delta by TMA into a ring of three; it stores a tile's Q and dO
+//     hi and lo in the swizzled layout into a ring of two score stages a
+//     tile ahead of that tile's Qᵀ and dOᵀ hi and lo (the queries of every
+//     8 permuted 0, 2, 4, 6, 1, 3, 5, 7 as `rs_split` reads them) into the
+//     one transposes stage: the wgmma takes TF32 operands K-major only, so
+//     the products' B operands are stored transposed. The transposes are
+//     most of the producer's time (`chip_sweep.py flash_f32`'s cuts).
+//   * Each consumer issues tile t's scores, then, once the transposes are
+//     stored, tile t − 1's products, waits for the scores alone, forms the
+//     tile under those products, and frees the score stage after the scores
+//     and the transposes after the products. Every group is issued and
+//     committed in straight-line code with nothing but wgmmas between its
+//     fence and its wait. The causal instances sum each tile's product in a
+//     fresh partial sum added in f32, 64 columns at a time (32 in the split
+//     one, whose registers are the tightest); the non-causal ones sum in
+//     the accumulator.
+//   * A block that sees no query stores dk = dv = 0; the producer lands
+//     nothing for it and nobody waits. No atomics: bitwise repeatable.
 //
 // Backward, both families: dq (`flash_bwd_dq_tc`) and dk/dv (`flash_bwd_dkv_tc`)
 // on the tensor cores, in the forward's split TF32 (lo·hi + hi·lo + hi·hi).
@@ -250,12 +304,12 @@ struct Plan {
   static constexpr int kKeys = 64;  // keys a forward K/V tile (D = 128 runs fwd128::flash_fwd_d128_tc: 32)
   // rows of the streamed operand a backward tile. dq streams 64 keys, 32
   // at D = 64 and 16 at D = 128, where more would take the block past the
-  // 227 KB of shared memory it can have. dk/dv streams 32 queries (16 at
-  // D = 128): then its two products' split register operands (2 · 32
-  // registers) fit beside the accumulators in the 128 registers of two
-  // blocks an SM, and are issued together.
+  // 227 KB of shared memory it can have. dk/dv streams 32 queries: then its
+  // two products' split register operands (2 · 32 registers) fit beside the
+  // accumulators in the 128 registers of two blocks an SM, and are issued
+  // together (D = 128 runs bwd128::flash_bwd_dkv_d128_tc: 16).
   static constexpr int kDqTile = D == 128 ? 16 : D == 64 ? 32 : 64;
-  static constexpr int kDkvTile = D == 128 ? 16 : 32;
+  static constexpr int kDkvTile = 32;
 };
 constexpr int kStages = 2;  // depth of the streamed tiles' ring
 constexpr float kLog2e = 1.4426950408889634f;
@@ -1241,9 +1295,8 @@ struct SmemDkv {
   float lse2[T], delta[T];
 };
 static_assert(sizeof(SmemDq<64>) <= 232448 && sizeof(SmemDkv<64>) <= 232448, "over 227 KB of shared memory");
-// D = 128, one warpgroup of 64 rows and 16-row tiles: 212,992 and 229,760 bytes
-static_assert(sizeof(SmemDq<128>) == 212992 && sizeof(SmemDkv<128>) == 229760, "the D = 128 plans moved");
-static_assert(sizeof(SmemDq<128>) <= 232448 && sizeof(SmemDkv<128>) <= 232448, "over 227 KB of shared memory");
+// dq at D = 128, one warpgroup of 64 rows and 16-key tiles: 212,992 bytes
+static_assert(sizeof(SmemDq<128>) == 212992 && sizeof(SmemDq<128>) <= 232448, "the D = 128 plan moved");
 
 // dq of q, dO [BH, Sq, D] against k, v [BH, Skv, D]: dq = scale · Σ_j dS_ij k_j,
 // in split TF32 or (without Split) one pass.
@@ -1369,16 +1422,18 @@ flash_bwd_dq_tc(const float* __restrict__ q, const float* __restrict__ k, const 
   }
 }
 
-// dk, dv of k, v [BH, Skv, D] from the same inputs: dv = Σ_i P_ijᵀ dO_i,
-// dk = scale · Σ_i dS_ijᵀ q_i, in split TF32 or (without Split) one pass.
-// Grid (Skv / kRows, BH), kThreads threads (`Plan<D>`), sizeof(SmemDkv<D>)
-// bytes of dynamic shared memory; two blocks an SM at D = 16 (at most 128
-// registers).
+// dk, dv of k, v [BH, Skv, D] from the same inputs for D up to 64: dv =
+// Σ_i P_ijᵀ dO_i, dk = scale · Σ_i dS_ijᵀ q_i, in split TF32 or (without
+// Split) one pass. Grid (Skv / kRows, BH), kThreads threads (`Plan<D>`),
+// sizeof(SmemDkv<D>) bytes of dynamic shared memory; two blocks an SM at
+// D = 16 (at most 128 registers). D = 128 runs bwd128::flash_bwd_dkv_d128_tc
+// (below), the same arithmetic.
 template <int D, bool Causal, bool Split>
 __global__ void __launch_bounds__(Plan<D>::kThreads, D == 16 ? 2 : 1)
 flash_bwd_dkv_tc(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                  const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
                  float* __restrict__ dk, float* __restrict__ dv, int s_q, int s_kv, int shift, float scale) {
+  static_assert(D <= 64, "D = 128 runs bwd128::flash_bwd_dkv_d128_tc");
   constexpr int T = Plan<D>::kDkvTile, kRows = Plan<D>::kRows;
   using S = SmemDkv<D>;
   extern __shared__ __align__(128) unsigned char smem_bytes[];
@@ -1481,36 +1536,26 @@ flash_bwd_dkv_tc(const float* __restrict__ q, const float* __restrict__ k, const
     if constexpr (Causal) {
       // each product of the tile sums apart and joins dv, dk in f32 adds; one
       // after the other, so that one partial sum and one split operand are
-      // live at a time beside the two accumulators. At D = 128 a partial sum
-      // spans 64 of the columns (H), so that it fits beside dk and dv.
-      constexpr int H = D == 128 ? 64 : D;
-      float part[H / 2];
+      // live at a time beside the two accumulators
+      float part[D / 2];
       uint32_t ph[T / 2], pl[T / 2];
       split_frag<T / 2, Split>(s, ph, pl);
+      wg_fence();
+      rs_split<D, T, Split>(part, ph, pl, base16, offsetof(S, dot_hi), offsetof(S, dot_lo), 0);
+      wg_commit();
+      wg_wait();
+      pin(part);
 #pragma unroll
-      for (int h = 0; h < D / H; ++h) {  // rows [H·h, H·h + H) of the D-row operand start 16·H·h bytes in
-        wg_fence();
-        rs_split<H, T, Split, D>(part, ph, pl, base16, offsetof(S, dot_hi) + 16 * H * h,
-                                 offsetof(S, dot_lo) + 16 * H * h, 0);
-        wg_commit();
-        wg_wait();
-        pin(part);
-#pragma unroll
-        for (int i = 0; i < H / 2; ++i) cols<H>(dva, H * h)[i] += part[i];
-      }
+      for (int i = 0; i < D / 2; ++i) dva[i] += part[i];
       uint32_t dh[T / 2], dl[T / 2];
       split_frag<T / 2, Split>(dp, dh, dl);
+      wg_fence();
+      rs_split<D, T, Split>(part, dh, dl, base16, offsetof(S, qt_hi), offsetof(S, qt_lo), 0);
+      wg_commit();
+      wg_wait();
+      pin(part);
 #pragma unroll
-      for (int h = 0; h < D / H; ++h) {
-        wg_fence();
-        rs_split<H, T, Split, D>(part, dh, dl, base16, offsetof(S, qt_hi) + 16 * H * h,
-                                 offsetof(S, qt_lo) + 16 * H * h, 0);
-        wg_commit();
-        wg_wait();
-        pin(part);
-#pragma unroll
-        for (int i = 0; i < H / 2; ++i) cols<H>(dka, H * h)[i] += part[i];
-      }
+      for (int i = 0; i < D / 2; ++i) dka[i] += part[i];
     } else {
       uint32_t ph[T / 2], pl[T / 2], dh[T / 2], dl[T / 2];
       split_frag<T / 2, Split>(s, ph, pl);
@@ -1537,6 +1582,573 @@ flash_bwd_dkv_tc(const float* __restrict__ q, const float* __restrict__ k, const
     *reinterpret_cast<float2*>(vb + 8 * j) = make_float2(dva[4 * j + 2], dva[4 * j + 3]);
   }
 }
+
+// ---------------------------------------------------------------------------
+// dk/dv at head dim 128 (the note at the top: head dim 128)
+// ---------------------------------------------------------------------------
+namespace bwd128 {
+
+using fwd128::kFull;
+using fwd128::kLoadsOnly;
+using fwd128::kNoExp;
+using fwd128::kNoMma;
+using fwd128::kNoSplit;
+using fwd128::wait_group;
+using fwd128::Walk;
+using hopper_tma::aligned_smem;
+using hopper_tma::bar_arrive;
+using hopper_tma::bar_expect;
+using hopper_tma::bar_init;
+using hopper_tma::bar_wait;
+using hopper_tma::bulk_copy;
+using hopper_tma::named_arrive;
+using hopper_tma::named_sync;
+using hopper_tma::regs_dec;
+using hopper_tma::regs_inc;
+using hopper_tma::smem_u32;
+using hopper_tma::tma_box;
+using hopper_tma::tma_prefetch;
+
+constexpr int kD = 128;
+constexpr int kRows = 64;           // key rows a block owns
+constexpr int kTile = 16;           // queries a tile
+constexpr int kThreads = 384;       // consumer warpgroups 0 (Sᵀ, dv) and 1 (dPᵀ, dk), then the producer warpgroup
+constexpr int kSlab = 32;           // floats a swizzled row (128 bytes): the columns of a slab
+constexpr int kSlabs = kD / kSlab;
+constexpr int kRawStages = 3;       // tiles of Q and dO in flight from device memory
+constexpr int kSmemLimit = 232448;  // shared memory a block may have
+constexpr int kRegisters = 65536;   // registers of an SM
+constexpr int kProducerRegs = 48, kConsumerRegs = 224;  // setmaxnreg
+static_assert(128 * kProducerRegs + 256 * kConsumerRegs <= kRegisters, "setmaxnreg over the SM's registers");
+// named barriers (0 is __syncthreads): a tile's P handed from consumer 0 to
+// consumer 1 through slot s (kPFull + s: written; kPFree + s: read), each
+// consumer's own (kOwn + warpgroup), the producer's
+constexpr int kPFull = 1, kPFree = 3, kOwn = 5, kProducerBar = 7;
+
+// A tile's operands of Sᵀ and dPᵀ: Q's and dO's hi and lo, each four slabs
+// of 16 queries by 32 floats with the 128-byte swizzle (`desc_sw128`)
+struct Scores {
+  float q[kTile * kD], q_lo[kTile * kD];
+  float dout[kTile * kD], do_lo[kTile * kD];
+};
+static_assert(sizeof(Scores) == 32768, "a stage keeps its slabs 1 KB aligned");
+
+// A tile of Q and dO as the TMA lands them (the slabs of `Scores`' layout)
+struct Raw {
+  float q[kTile * kD], dout[kTile * kD];
+};
+
+// A tile's operands of dv and dk: Qᵀ's and dOᵀ's hi and lo, D rows by 16
+// queries with the queries of every 8 in the order 0, 2, 4, 6, 1, 3, 5, 7
+// (`cidx<kD>`), as `rs_split` reads them
+struct Transposes {
+  float qt_hi[kD * kTile], qt_lo[kD * kTile];
+  float dot_hi[kD * kTile], dot_lo[kD * kTile];
+};
+
+template <int Ring>
+struct Smem {
+  alignas(1024) float k_lo[kRows * kD];  // K as the TMA landed it (four slabs of 64 rows by 32 floats), then K − hi
+  alignas(1024) float v_lo[kRows * kD];  // V likewise
+  alignas(1024) Scores st[Ring];         // the scores' operands: a ring of Ring stages
+  alignas(1024) Raw raw[kRawStages];     // Q and dO as landed
+  Transposes tr;                         // the products' operands: one stage
+  float4 p[2][2][128];                   // a tile's P, consumer 0's thread i to consumer 1's: [slot][half][i]
+  float raw_stats[kRawStages][2][kTile];  // each raw stage's lse and delta as landed
+  float stats[Ring][2][kTile];            // each score stage's lse2 and delta
+  uint64_t kv_land, kv_empty, raw_full[kRawStages];
+  uint64_t s_ready[Ring], s_empty[Ring], t_ready, t_empty;
+};
+// The plans' bytes (the launch asks for 1 KB more, to align the slabs): two
+// score stages (shipped), one (chip_sweep.py flash_f32). A second stage of
+// the transposes does not fit beside two score stages.
+static_assert(sizeof(Smem<2>) == 222208 && sizeof(Smem<2>) + 1024 <= kSmemLimit, "two stages over 227 KB");
+static_assert(sizeof(Smem<1>) == 189440 && sizeof(Smem<1>) + 1024 <= kSmemLimit, "one stage over 227 KB");
+static_assert(sizeof(Smem<2>) + sizeof(Transposes) + 1024 > kSmemLimit, "a second transposes stage would fit");
+
+// component i of x
+__device__ __forceinline__ float at4(const float4& x, int i) { return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w; }
+
+// float index of element (r, d) of a tile of R rows stored as four slabs of R
+// rows by 32 floats with the 128-byte swizzle (the layout of a TMA box of 32
+// columns): slab d / 32, row r, 16-byte chunk (d % 32 / 4) ^ (r % 8)
+template <int R>
+__device__ __forceinline__ unsigned swz(unsigned r, unsigned d) {
+  return d / kSlab * R * kSlab + r * kSlab + ((((d % kSlab) >> 2) ^ (r & 7)) << 2) + (d & 3);
+}
+
+// the A fragment of k8 step ks among a warpgroup's 64 operand registers
+__device__ __forceinline__ const uint32_t (&frag(const uint32_t (&a)[64], int ks))[4] {
+  return *reinterpret_cast<const uint32_t(*)[4]>(&a[4 * ks]);
+}
+
+// Sᵀ (dPᵀ) = A·Bᵀ over D into s, flash_bwd_dkv_tc's products in its order
+// (small ones first; one pass: hi·hi): A is the block's K (V), its hi in
+// registers (`ah`) and its lo in shared memory (descriptor a_lo of its first
+// slab), B the tile's Q (dO), descriptor b of its hi's first slab, lo b_lo
+// bytes past it; k8 step ks lies in slab ks / 4, 32·(ks % 4) bytes into the
+// rows.
+template <bool Split>
+__device__ __forceinline__ void issue_st(float (&s)[kTile / 2], const uint32_t (&ah)[64], uint64_t a_lo, uint64_t b,
+                                         uint32_t b_lo) {
+  constexpr uint32_t kSlabA = kRows * 128, kSlabB = kTile * 128;  // bytes of a slab
+  if constexpr (Split) {
+#pragma unroll
+    for (int ks = 0; ks < kD / 8; ++ks) {
+      const uint32_t ao = (ks / 4 * kSlabA + 32 * (ks % 4)) >> 4, bo = (ks / 4 * kSlabB + 32 * (ks % 4)) >> 4;
+      wgmma_ss<kTile>(s, a_lo + ao, b + bo, ks > 0);
+      wgmma_rs<kTile>(s, frag(ah, ks), b + bo + (b_lo >> 4), 1);
+    }
+  }
+#pragma unroll
+  for (int ks = 0; ks < kD / 8; ++ks) {
+    const uint32_t bo = (ks / 4 * kSlabB + 32 * (ks % 4)) >> 4;
+    wgmma_rs<kTile>(s, frag(ah, ks), b + bo, Split || ks > 0);
+  }
+}
+
+// Pᵀ into s, as flash_bwd_dkv_tc forms it: s[4j + e] is (key_a, query qt +
+// 8j + 2t + e), s[4j + 2 + e] the same query on key_b; l2[2j + e] is that
+// query's lse2. Masked: the tile crosses the block's diagonal (a
+// compile-time branch).
+template <bool Masked, int Cut>
+__device__ __forceinline__ void p_tile(float (&s)[kTile / 2], const float (&l2)[4], float c, int qt, int key_a,
+                                       int key_b, int shift, int t) {
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float l = l2[2 * j + e];
+      float pa = fmaf(s[4 * j + e], c, -l), pb = fmaf(s[4 * j + 2 + e], c, -l);
+      if constexpr (Cut != kNoExp) {
+        pa = exp2_ftz(pa);
+        pb = exp2_ftz(pb);
+      }
+      if constexpr (Masked) {
+        const int query = qt + 8 * j + 2 * t + e;
+        pa = key_a > query + shift ? 0.f : pa;
+        pb = key_b > query + shift ? 0.f : pb;
+      }
+      s[4 * j + e] = pa;
+      s[4 * j + 2 + e] = pb;
+    }
+}
+
+// A consumer warpgroup's part of every block the CTA walks. Role 0: Sᵀ =
+// K·Qᵀ, Pᵀ, handed to consumer 1, and dv += Pᵀ·dO; role 1: dPᵀ = V·dOᵀ,
+// dSᵀ = Pᵀ ∘ (dPᵀ − delta) and dk += dSᵀ·Q. Each takes its own 64-row
+// operand's hi into registers as the block starts (`ah`, the A fragments of
+// the score products) and leaves its lo in shared memory in place of the
+// landed rows; then it issues tile t's scores before tile t − 1's products,
+// which run under tile t's exps.
+template <int Role, bool Causal, bool Split, int Ring, int Cut>
+__device__ __forceinline__ void consume(Smem<Ring>& sm, const Walk& walk, float* __restrict__ out, int s_q, int s_kv,
+                                        int shift, float scale) {
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const float c = scale * kLog2e;  // P = 2^(s·c − lse2)
+  float* lo_rows = Role == 0 ? sm.k_lo : sm.v_lo;
+  const uint64_t a_lo = desc_sw128(smem_u32(lo_rows));
+  constexpr uint32_t kQLo = offsetof(Scores, q_lo), kDo = offsetof(Scores, dout);
+  constexpr uint32_t kDoLo = offsetof(Scores, do_lo) - offsetof(Scores, dout);
+  // the products' B operand: dOᵀ (role 0) or Qᵀ (role 1), hi and lo; its row 64 lies 1 KB past its row 0
+  const uint32_t tr16 = smem_u32(&sm.tr) >> 4;
+  constexpr uint32_t kTHi = Role == 0 ? offsetof(Transposes, dot_hi) : offsetof(Transposes, qt_hi);
+  constexpr uint32_t kTLo = Role == 0 ? offsetof(Transposes, dot_lo) : offsetof(Transposes, qt_lo);
+  auto release = [&](uint64_t* bar) {
+    if (lane == 0) bar_arrive(bar);
+  };
+  int gt = 0, nb = 0;
+  for (int n = 0, bh, r; walk.next(n, bh, r); ++n) {
+    const int key0 = r * kRows;
+    const int qt0 = Causal ? min(max(key0 - shift, 0), s_q) / kTile * kTile : 0, n_tiles = (s_q - qt0) / kTile;
+    const int key_a = key0 + 16 * warp + g, key_b = key_a + 8;  // the two key rows this thread holds
+    // causal: the first tiles cross the block's diagonal (a query before one of its keys); the rest are open
+    const int reach = key0 + kRows - 1 - shift - qt0;
+    const int n_masked = Causal && reach > 0 ? min(n_tiles, (reach + kTile - 1) / kTile) : 0;
+
+    float acc[kD / 2];  // dv (role 0) or dk / scale (role 1)
+#pragma unroll
+    for (int i = 0; i < kD / 2; ++i) acc[i] = 0.f;
+    if (n_tiles > 0) {
+      bar_wait(&sm.kv_land, nb & 1);
+      auto s_ready = [&](int it) { bar_wait(&sm.s_ready[(gt + it) % Ring], ((gt + it) / Ring) & 1); };
+      auto t_ready = [&](int it) { bar_wait(&sm.t_ready, (gt + it) & 1); };
+      if constexpr (Cut == kLoadsOnly) {
+        for (int it = 0; it < n_tiles; ++it) {
+          s_ready(it);
+          release(&sm.s_empty[(gt + it) % Ring]);
+          if (it == n_tiles - 1) release(&sm.kv_empty);
+          t_ready(it);
+          release(&sm.t_empty);
+        }
+      } else {
+        // the operand's hi into the A fragments (step ks: rows 16·warp + g (+ 8),
+        // columns 8ks + t (+ 4)); each element is read and rewritten as lo by the
+        // thread that holds it
+        uint32_t ah[64];
+#pragma unroll
+        for (int ks = 0; ks < kD / 8; ++ks)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const unsigned at = swz<kRows>(16 * warp + g + 8 * (e & 1), 8 * ks + t + 4 * (e >> 1));
+            const float x = lo_rows[at];
+            ah[4 * ks + e] = tf32(x);
+            if constexpr (Split) lo_rows[at] = x - __uint_as_float(ah[4 * ks + e]);
+          }
+        pin(ah);
+        proxy_fence();
+        named_sync(kOwn + Role, 128);
+
+        // causal: a tile's partial sum spans kPart columns (32 in the split
+        // instance, whose registers are the tightest; 64 else)
+        constexpr int kPart = Causal && Split ? 32 : 64;
+        float s[kTile / 2], l2[4], part[kPart / 2];
+        uint32_t xh[kTile / 2], xl[kTile / 2];  // Pᵀ's (role 0) or dSᵀ's (role 1) hi and lo
+        auto stats = [&](int it) {  // the tile's lse2 (role 0) or delta (role 1) of this thread's queries 8j + 2t + e
+          const float(&x)[kTile] = sm.stats[(gt + it) % Ring][Role];
+#pragma unroll
+          for (int j = 0; j < kTile / 8; ++j) {
+            const float2 a = *reinterpret_cast<const float2*>(&x[8 * j + 2 * t]);
+            l2[2 * j] = a.x;
+            l2[2 * j + 1] = a.y;
+          }
+        };
+        auto scores = [&](int it) {  // Sᵀ (dPᵀ) of tile `it`, issued into the open wgmma group
+          if constexpr (Cut == kNoMma) {
+#pragma unroll
+            for (int i = 0; i < kTile / 2; ++i) s[i] = (Role == 0 ? 0.125f : 0.0625f) * (i & 7);
+          } else {
+            const uint64_t b = desc_sw128(smem_u32(sm.st[(gt + it) % Ring].q)) + (Role == 0 ? 0 : kDo >> 4);
+            issue_st<Split>(s, ah, a_lo, b, Role == 0 ? kQLo : kDoLo);
+          }
+        };
+        // role 0: Pᵀ, into slot (gt + it) % 2 for consumer 1; role 1: dSᵀ from it
+        auto form = [&](int it) {
+          const int slot = (gt + it) & 1;
+          if constexpr (Role == 0) {
+            if (Causal && it < n_masked)
+              p_tile<true, Cut>(s, l2, c, qt0 + it * kTile, key_a, key_b, shift, t);
+            else
+              p_tile<false, Cut>(s, l2, c, qt0 + it * kTile, key_a, key_b, shift, t);
+            if (gt + it >= 2) named_sync(kPFree + slot, 256);  // consumer 1 has read the slot's last P
+            sm.p[slot][0][tid] = make_float4(s[0], s[1], s[2], s[3]);
+            sm.p[slot][1][tid] = make_float4(s[4], s[5], s[6], s[7]);
+            named_arrive(kPFull + slot, 256);
+          } else {
+            named_sync(kPFull + slot, 256);
+#pragma unroll
+            for (int j = 0; j < kTile / 8; ++j) {  // s[4j + e] and s[4j + 2 + e] hold query 8j + 2t + e
+              const float4 pv = sm.p[slot][j][tid];
+              s[4 * j] = pv.x * (s[4 * j] - l2[2 * j]);
+              s[4 * j + 1] = pv.y * (s[4 * j + 1] - l2[2 * j + 1]);
+              s[4 * j + 2] = pv.z * (s[4 * j + 2] - l2[2 * j]);
+              s[4 * j + 3] = pv.w * (s[4 * j + 3] - l2[2 * j + 1]);
+            }
+            named_arrive(kPFree + slot, 256);
+          }
+        };
+        // Non-causal: the tile's product into the accumulator, issued into the
+        // open wgmma group. Causal: its first kPart columns into the fresh partial sum.
+        auto products = [&]() {
+          if constexpr (Cut != kNoMma) {
+            if constexpr (Causal)
+              rs_split<kPart, kTile, Split, kD>(part, xh, xl, tr16, kTHi, kTLo, 0);
+            else
+              rs_split<kD, kTile, Split>(acc, xh, xl, tr16, kTHi, kTLo);
+          }
+        };
+        // after `products` has landed: causal, the partial sum joins the
+        // accumulator in f32 adds, then the other columns kPart at a time
+        // likewise (each column's sum as flash_bwd_dkv_tc forms it)
+        auto rest = [&]() {
+          if constexpr (Cut != kNoMma) {
+            if constexpr (Causal) {
+              pin(part);
+#pragma unroll
+              for (int i = 0; i < kPart / 2; ++i) cols<kPart>(acc, 0)[i] += part[i];
+#pragma unroll
+              for (int h = 1; h < kD / kPart; ++h) {  // rows kPart·h … of the transpose start 16·kPart·h bytes in
+                wg_fence();
+                rs_split<kPart, kTile, Split, kD>(part, xh, xl, tr16, kTHi + 16 * kPart * h, kTLo + 16 * kPart * h, 0);
+                wg_commit();
+                wg_wait();
+                pin(part);
+#pragma unroll
+                for (int i = 0; i < kPart / 2; ++i) cols<kPart>(acc, kPart * h)[i] += part[i];
+              }
+            } else {
+              pin(acc);
+            }
+            pin(xh);
+            if constexpr (Split) pin(xl);
+          }
+        };
+        s_ready(0);
+        wg_fence();
+        scores(0);
+        wg_commit();
+        wg_wait();
+        pin(s);
+        stats(0);
+        release(&sm.s_empty[gt % Ring]);
+        if (n_tiles == 1) release(&sm.kv_empty);
+        form(0);
+        split_frag<kTile / 2, Split>(s, xh, xl);
+        for (int it = 1; it < n_tiles; ++it) {
+          s_ready(it);
+          wg_fence();
+          scores(it);
+          wg_commit();
+          t_ready(it - 1);  // the producer stores the transposes while the scores run
+          wg_fence();
+          products();
+          wg_commit();
+          wait_group<1>();  // the scores; the products may still run
+          pin(s);
+          stats(it);  // read before the stage is freed, held only while the tile is formed
+          release(&sm.s_empty[(gt + it) % Ring]);
+          if (it == n_tiles - 1) release(&sm.kv_empty);
+          form(it);
+          wait_group<0>();
+          rest();
+          release(&sm.t_empty);
+          split_frag<kTile / 2, Split>(s, xh, xl);
+        }
+        t_ready(n_tiles - 1);
+        wg_fence();
+        products();
+        wg_commit();
+        wg_wait();
+        rest();
+        release(&sm.t_empty);
+      }
+      gt += n_tiles;
+      ++nb;
+    }
+
+    const float f = Role == 0 ? 1.f : scale;
+    float* ra = out + ((size_t)bh * s_kv + key_a) * kD + 2 * t;
+    float* rb = out + ((size_t)bh * s_kv + key_b) * kD + 2 * t;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      *reinterpret_cast<float2*>(ra + 8 * j) = make_float2(acc[4 * j] * f, acc[4 * j + 1] * f);
+      *reinterpret_cast<float2*>(rb + 8 * j) = make_float2(acc[4 * j + 2] * f, acc[4 * j + 3] * f);
+    }
+  }
+  // consumer 1 freed the last two tiles' slots without a writer waiting: match them
+  if constexpr (Role == 0 && Cut != kLoadsOnly)
+    for (int x = max(gt - 2, 0); x < gt; ++x) named_sync(kPFree + (x & 1), 256);
+}
+
+// dk, dv of k, v [BH, Skv, 128] as flash_bwd_dkv_tc computes them, for
+// Hopper (the note at the top). Persistent: grid min(SMs, blocks), kThreads
+// threads, sizeof(Smem<Ring>) + 1024 bytes of dynamic shared memory; k, v
+// through TMA maps of [BH·Skv, 128] f32 in boxes of 32 columns by 64 rows,
+// q and dO through maps of [BH·Sq, 128] in boxes of 32 columns by 16 rows.
+template <bool Causal, bool Split, int Ring, int Cut = kFull>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_d128_tc(const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
+                      const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_do,
+                      const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dk,
+                      float* __restrict__ dv, int bh_count, int s_q, int s_kv, int shift, float scale) {
+  using S = Smem<Ring>;
+  extern __shared__ unsigned char smem_raw[];
+  S& sm = aligned_smem<S>(smem_raw);
+  const Walk walk{bh_count, s_kv / kRows};  // block r of a head: keys r·64 …, the first ones heaviest (causal)
+
+  if (threadIdx.x == 0) {
+    bar_init(&sm.kv_land, 1);   // the issuing thread's bar_expect; then the bytes
+    bar_init(&sm.kv_empty, 8);  // a consumer warp each, after the block's last scores
+    for (int i = 0; i < kRawStages; ++i) bar_init(&sm.raw_full[i], 1);
+    for (int i = 0; i < Ring; ++i) {
+      bar_init(&sm.s_ready[i], 128);  // every producer thread, after its part of the operands
+      bar_init(&sm.s_empty[i], 8);
+    }
+    bar_init(&sm.t_ready, 128);
+    bar_init(&sm.t_empty, 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    regs_inc<kConsumerRegs>();
+    consume<0, Causal, Split, Ring, Cut>(sm, walk, dv, s_q, s_kv, shift, scale);
+    return;
+  }
+  if (threadIdx.x < 256) {
+    regs_inc<kConsumerRegs>();
+    consume<1, Causal, Split, Ring, Cut>(sm, walk, dk, s_q, s_kv, shift, scale);
+    return;
+  }
+
+  // The producer warpgroup. Thread p = 0 lands each tile's Q, dO, lse and
+  // delta by TMA into a ring of kRawStages, and each block's K and V into
+  // the consumers' rows once their last block's scores are done. The
+  // warpgroup stores each tile twice from the landed rows (thread p:
+  // queries r0 + 0, 2, 4, 6, columns 4c … 4c + 3): Q's and dO's hi and lo in
+  // the swizzled layout into the scores' ring with the tile's lse2 and delta,
+  // a tile ahead of Qᵀ's and dOᵀ's hi and lo into the transposes' stage (the
+  // four floats of a column are the float4 of positions 4pg … 4pg + 3; the
+  // columns are stored in an order turned by (c / 2) % 4, so that the eight
+  // lanes of a store phase meet eight banks). The consumers' scores of tile
+  // g + 1 then never wait for tile g's transposes, which they read only
+  // after them. Blocks without a tile (causal, every query before their
+  // keys) are skipped by both sides.
+  regs_dec<kProducerRegs>();
+  const int p = threadIdx.x - 256, pg = p / 32, c = p % 32;
+  const int r0 = (pg >> 1) * 8 + (pg & 1);  // this thread's queries of a tile: r0, r0 + 2, r0 + 4, r0 + 6
+  const int turn = (c >> 1) & 3;
+  struct Tile {
+    int n, bh, key0, qt0, it, n_tiles;  // tile `it` of the n-th block's n_tiles, from query qt0
+  };
+  auto seek = [&](int n, Tile& x) {  // the first tile of the first block from the n-th on that has one
+    for (int bh, r; walk.next(n, bh, r); ++n) {
+      const int key0 = r * kRows;
+      const int qt0 = Causal ? min(max(key0 - shift, 0), s_q) / kTile * kTile : 0, nt = (s_q - qt0) / kTile;
+      if (nt > 0) {
+        x = Tile{n, bh, key0, qt0, 0, nt};
+        return true;
+      }
+    }
+    return false;
+  };
+  auto advance = [&](Tile& x) {  // x to its successor in the walk; false after the last tile
+    if (++x.it < x.n_tiles) return true;
+    return seek(x.n + 1, x);
+  };
+  // thread 0: the CTA's g-th tile x's Q, dO, lse and delta into raw stage g % kRawStages
+  auto land_raw = [&](int g, const Tile& x) {
+    if constexpr (Cut != kNoSplit) {
+      const int st = g % kRawStages, row = x.bh * s_q + x.qt0 + x.it * kTile;
+      bar_expect(&sm.raw_full[st], 2 * kTile * kD * 4 + 2 * kTile * 4);
+#pragma unroll
+      for (int h = 0; h < kSlabs; ++h) {
+        tma_box(sm.raw[st].q + h * kTile * kSlab, map_q, h * kSlab, row, &sm.raw_full[st]);
+        tma_box(sm.raw[st].dout + h * kTile * kSlab, map_do, h * kSlab, row, &sm.raw_full[st]);
+      }
+      bulk_copy(sm.raw_stats[st][0], lse + row, kTile * 4, &sm.raw_full[st]);
+      bulk_copy(sm.raw_stats[st][1], delta + row, kTile * 4, &sm.raw_full[st]);
+    }
+  };
+  // the scores' operands of the CTA's g-th tile into ring stage g % Ring
+  auto store_scores = [&](int g) {
+    const int st = g % Ring, rs = g % kRawStages;
+    if (g >= Ring) bar_wait(&sm.s_empty[st], (g / Ring - 1) & 1);
+    if constexpr (Cut != kNoSplit) {
+      bar_wait(&sm.raw_full[rs], (g / kRawStages) & 1);
+      Scores& stage = sm.st[st];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const unsigned at = swz<kTile>(r0 + 2 * i, 4 * c);
+        float4 hi, lo;
+        split4(*reinterpret_cast<const float4*>(&sm.raw[rs].q[at]), hi, lo);
+        *reinterpret_cast<float4*>(&stage.q[at]) = hi;
+        if constexpr (Split) *reinterpret_cast<float4*>(&stage.q_lo[at]) = lo;
+        split4(*reinterpret_cast<const float4*>(&sm.raw[rs].dout[at]), hi, lo);
+        *reinterpret_cast<float4*>(&stage.dout[at]) = hi;
+        if constexpr (Split) *reinterpret_cast<float4*>(&stage.do_lo[at]) = lo;
+      }
+      if (p < 16)
+        sm.stats[st][0][p] = lse2(sm.raw_stats[rs][0][p]);
+      else if (p < 32)
+        sm.stats[st][1][p - 16] = sm.raw_stats[rs][1][p - 16];
+    }
+    proxy_fence();
+    bar_arrive(&sm.s_ready[st]);
+  };
+  // the transposes of one landed [16 x 128] tile x (this thread's rows r0 +
+  // 2i, columns 4c …): column d = 4c + (e + turn) % 4, positions 4pg … 4pg + 3
+  auto transpose = [&](const float* x, float* t_hi, float* t_lo) {
+    float4 v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = *reinterpret_cast<const float4*>(&x[swz<kTile>(r0 + 2 * i, 4 * c)]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = (e + turn) & 3;
+      float4 hi, lo;
+      split4(make_float4(at4(v[0], k), at4(v[1], k), at4(v[2], k), at4(v[3], k)), hi, lo);
+      const unsigned at = cidx<kD>(4 * c + k, 4 * pg);
+      *reinterpret_cast<float4*>(&t_hi[at]) = hi;
+      if constexpr (Split) *reinterpret_cast<float4*>(&t_lo[at]) = lo;
+    }
+  };
+  // the products' operands of the CTA's g-th tile, once the consumers have freed the last tile's
+  auto store_transposes = [&](int g) {
+    if (g >= 1) bar_wait(&sm.t_empty, (g - 1) & 1);
+    if constexpr (Cut != kNoSplit) {
+      const int rs = g % kRawStages;
+      transpose(sm.raw[rs].q, sm.tr.qt_hi, sm.tr.qt_lo);
+      transpose(sm.raw[rs].dout, sm.tr.dot_hi, sm.tr.dot_lo);
+    }
+    proxy_fence();
+    bar_arrive(&sm.t_ready);
+  };
+  int nb = 0;
+  // thread 0: block x's K and V into the consumers' rows once their last block's scores are done (the next block's into L2)
+  auto land_kv = [&](const Tile& x) {
+    if (p == 0) {
+      if (nb > 0) bar_wait(&sm.kv_empty, (nb - 1) & 1);
+      bar_expect(&sm.kv_land, 2 * kRows * kD * 4);
+#pragma unroll
+      for (int h = 0; h < kSlabs; ++h) {
+        tma_box(sm.k_lo + h * kRows * kSlab, map_k, h * kSlab, x.bh * s_kv + x.key0, &sm.kv_land);
+        tma_box(sm.v_lo + h * kRows * kSlab, map_v, h * kSlab, x.bh * s_kv + x.key0, &sm.kv_land);
+      }
+      Tile after;
+      if (seek(x.n + 1, after))
+#pragma unroll
+        for (int h = 0; h < kSlabs; ++h) {
+          tma_prefetch(map_k, h * kSlab, after.bh * s_kv + after.key0);
+          tma_prefetch(map_v, h * kSlab, after.bh * s_kv + after.key0);
+        }
+    }
+    ++nb;
+  };
+
+  Tile nxt, ahead;  // tiles gt + 1 and gt + kRawStages at step gt
+  if (!seek(0, nxt)) return;
+  ahead = nxt;
+  bool ahead_ok = true;
+  for (int g = 0; g < kRawStages && ahead_ok; ++g) {  // the first tiles' rows in flight
+    if (p == 0) land_raw(g, ahead);
+    ahead_ok = advance(ahead);
+  }
+  store_scores(0);
+  land_kv(nxt);
+  bool more = advance(nxt);
+  for (int gt = 0;; ++gt) {  // tile gt + 1 is `nxt` where `more`
+    if (more) store_scores(gt + 1);
+    store_transposes(gt);
+    if (more && nxt.it == 0) land_kv(nxt);
+    named_sync(kProducerBar, 128);  // raw stage gt % kRawStages is read by every thread: refill it
+    if (ahead_ok) {
+      if (p == 0) land_raw(gt + kRawStages, ahead);
+      ahead_ok = advance(ahead);
+    }
+    if (!more) return;
+    more = advance(nxt);
+  }
+}
+
+// One launch of the head-dim-128 dk/dv with Ring score stages; the cudaError_t of the launch.
+template <bool Causal, bool Split, int Ring = 2, int Cut = kFull>
+int launch(const float* q, const float* k, const float* v, const float* dout, const float* lse, const float* delta,
+           float* dk, float* dv, int bh, int s_q, int s_kv, int shift, float scale, cudaStream_t st) {
+  CUtensorMap mk, mv, mq, mdo;
+  int e = hopper_tma::tensor_map_f32_2d(&mk, k, (long long)bh * s_kv, kD, kSlab, kRows);
+  if (e == 0) e = hopper_tma::tensor_map_f32_2d(&mv, v, (long long)bh * s_kv, kD, kSlab, kRows);
+  if (e == 0) e = hopper_tma::tensor_map_f32_2d(&mq, q, (long long)bh * s_q, kD, kSlab, kTile);
+  if (e == 0) e = hopper_tma::tensor_map_f32_2d(&mdo, dout, (long long)bh * s_q, kD, kSlab, kTile);
+  int grid = 0;
+  if (e == 0) e = hopper_tma::persistent_grid(bh * (s_kv / kRows), &grid);
+  if (e != 0) return e;
+  return hopper_tma::launch(flash_bwd_dkv_d128_tc<Causal, Split, Ring, Cut>, (int)sizeof(Smem<Ring>) + 1024,
+                            dim3(grid), kThreads, st, mk, mv, mq, mdo, lse, delta, dk, dv, bh, s_q, s_kv, shift,
+                            scale);
+}
+
+}  // namespace bwd128
 
 // One launch of a backward kernel with its dynamic shared memory; the
 // cudaError_t of the launch.
@@ -1580,7 +2192,11 @@ int bwd_dkv(const float* q, const float* k, const float* v, const float* dout, c
   if (!rect_shape_ok(bh, s_q, s_kv)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (instance(d, causal, split)) {
-    KERNEL_CASES(bwd_dkv_d, q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, shift, scale, st)
+    KERNEL_CASES_64(bwd_dkv_d, q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, shift, scale, st)
+    case 12: return bwd128::launch<false, false>(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, shift, scale, st);
+    case 13: return bwd128::launch<false, true>(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, shift, scale, st);
+    case 14: return bwd128::launch<true, false>(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, shift, scale, st);
+    case 15: return bwd128::launch<true, true>(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, shift, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1665,6 +2281,39 @@ int flash_fwd_d128_cut_launch(const float* q, const float* k, const float* v, fl
   FWD128_CASE(2, tc::fwd128::kNoSplit)
   FWD128_CASE(1, tc::fwd128::kFull)
 #undef FWD128_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The head-dim-128 dk/dv's plans and cuts, as above: `plan` 0 is the
+// shipped one (two score stages), 1 one score stage.
+int flash_bwd_dkv_d128_cut_launch(const float* q, const float* k, const float* v, const float* dout, const float* lse,
+                                  const float* delta, float* dk, float* dv, int bh, int s_q, int s_kv, int causal,
+                                  int q_off, int k_off, float scale, int passes, int plan, int cut, void* stream) {
+  if (!rect_shape_ok(bh, s_q, s_kv)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int shift = q_off - k_off;
+  const bool c = causal != 0, sp = passes == 3;
+#define DKV128_CASE(R, CUT)                                                                                   \
+  if (plan == (R == 2 ? 0 : 1) && cut == CUT) {                                                                 \
+    if (c && sp)                                                                                                \
+      return tc::bwd128::launch<true, true, R, CUT>(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, shift,    \
+                                                    scale, st);                                                 \
+    if (c)                                                                                                      \
+      return tc::bwd128::launch<true, false, R, CUT>(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, shift,   \
+                                                     scale, st);                                                \
+    if (sp)                                                                                                     \
+      return tc::bwd128::launch<false, true, R, CUT>(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, shift,   \
+                                                     scale, st);                                                \
+    return tc::bwd128::launch<false, false, R, CUT>(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, shift,    \
+                                                    scale, st);                                                 \
+  }
+  DKV128_CASE(2, tc::bwd128::kFull)
+  DKV128_CASE(2, tc::bwd128::kNoExp)
+  DKV128_CASE(2, tc::bwd128::kNoMma)
+  DKV128_CASE(2, tc::bwd128::kLoadsOnly)
+  DKV128_CASE(2, tc::bwd128::kNoSplit)
+  DKV128_CASE(1, tc::bwd128::kFull)
+#undef DKV128_CASE
   return (int)cudaErrorInvalidValue;
 }
 #endif

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks of the kernels that feed the tensor cores
 // through the Tensor Memory Accelerator (flash_bf16.cu, grouped_gemm_bf16.cu,
-// the head-dim-128 forward of flash_attention.cu):
+// the head-dim-128 forward and dk/dv of flash_attention.cu):
 // mbarriers, TMA loads, bulk copies, setmaxnreg, named barriers, and on the host
 // the tensor maps (cuTensorMapEncodeTiled, reached through the runtime, so a
 // library links no libcuda), a launch with its dynamic shared memory, and
@@ -87,6 +87,11 @@ __device__ __forceinline__ void regs_inc() {
 // named barrier `id` (1 … 15) over `threads` threads, whole warps
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// arrive at named barrier `id` without waiting (the other `threads` − these sync on it)
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // The block's shared storage S from the dynamic shared memory, 1024-byte

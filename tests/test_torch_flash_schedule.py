@@ -10,9 +10,12 @@ per warpgroup and tile whether it is skipped, masked by select, or computed
 in full. Replayed on the CPU for S in {128, 256, 2048} under both block
 plans (`Plan<D>`): 128 rows a block as two warpgroups, with dq's tiles of
 64 keys (32 at D = 64) and dk/dv's 32 queries; and at D = 128 64 rows a
-block as one warpgroup, with 16-key and 16-query tiles. Every pair j <= i
-is computed exactly once, no pair j > i is computed without its mask, and
-blocks launch in order of non-increasing work.
+block, with 16-key and 16-query tiles (dq on one warpgroup; dk/dv in
+`bwd128::flash_bwd_dkv_d128_tc`, whose persistent walk takes the blocks in
+the order of `blockIdx.x` here, its walk, masks and barriers replayed in
+`test_torch_flash_bwd_dkv_d128_plan.py`). Every pair j <= i is computed
+exactly once, no pair j > i is computed without its mask, and blocks
+launch in order of non-increasing work.
 """
 
 import numpy as np
@@ -20,7 +23,7 @@ import pytest
 
 ROWS = 128  # rows a block owns, two warpgroups of 64 (Plan<D>::kRows up to D = 64)
 DKV_TILE = 32  # queries a dk/dv tile up to D = 64 (Plan<D>::kDkvTile)
-D128 = (64, 16)  # (rows a block: one warpgroup; keys or queries a backward tile) at D = 128
+D128 = (64, 16)  # (rows a block; keys or queries a backward tile) at D = 128
 
 
 def key_end(row0, shift, s_kv, rows=ROWS):
@@ -111,3 +114,17 @@ def test_only_the_diagonal_tiles_are_masked_or_wasted():
                      (dq_schedule(s, t128, rows=rows), t128), (dkv_schedule(s, t128, rows=rows), t128)):
         assert sum(masked for *_, masked in tiles) == 64 // t * s // 64
         assert 64 * t * len(tiles) == s * (s + 1) // 2 + s // 64 * (64 * 63 // 2)
+
+
+def test_the_d128_plans_are_the_sources():
+    # dq's 16-key tiles on Plan<128>'s one warpgroup; dk/dv's 64 key rows and 16-query tiles in bwd128
+    import re
+    from pathlib import Path
+
+    from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
+
+    src = (Path(fc.__file__).resolve().parents[1] / "csrc" / "flash_attention.cu").read_text()
+    ns = src[src.index("namespace bwd128 {"):src.index("}  // namespace bwd128")]
+    assert re.search(r"^constexpr int kRows = 64;", ns, re.M) and re.search(r"^constexpr int kTile = 16;", ns, re.M)
+    assert "static constexpr int kDqTile = D == 128 ? 16 :" in src
+    assert D128 == (64, 16)

@@ -27,7 +27,8 @@ LOG2E = np.float32(1.4426950408889634)
 
 def plan(d):
     """(rows a block, keys a forward tile, keys a dq tile, queries a dk/dv
-    tile) of the kernels at head dim d: `Plan<D>` in csrc/flash_attention.cu."""
+    tile) of the kernels at head dim d: `Plan<D>` in csrc/flash_attention.cu
+    (at D 128 the forward's `fwd128::kKeys` and the dk/dv's `bwd128::kTile`)."""
     if d == 128:
         return 64, 32, 16, 16
     return 128, 64, 32 if d == 64 else 64, 32
