@@ -44,19 +44,22 @@ line per setting with its device ms (calls queued behind a sleep kernel,
    bf16 units of its plain version (the forward's at that tile;
    `chip_smoke.bf16_units`);
 4b. flash_f32 — the head-dim-128 f32 forward (`fwd128::flash_fwd_d128_tc`
-   in `csrc/flash_attention.cu`) and dk/dv (`bwd128::flash_bwd_dkv_d128_tc`)
-   at `chip_smoke.LM128_PATH` (causal) and `VIT128_PATH` (non-causal), at
-   'highest' and 'default', from the library built with `-DFLASH_F32_CUTS`
-   (`flash_fwd_d128_cut_launch`, `flash_bwd_dkv_d128_cut_launch`): the
-   shipped plan (two operand stages) whole and with its attribution cuts
-   (no exps; no products; loads only — the consumer only waits for and
-   frees each stage; no split — the producer forms no K/V, or Q/dO,
-   operands), the plan of one stage whole, each beside the shipped entry
-   point's time and the bound; a whole plan's outputs equal the shipped
-   ones in bits. The D-128 dq (unchanged) is timed beside the dk/dv and
-   SDPA's f32 backward beside both (`pair_over_sdpa`). With `--parent DIR`,
-   the shipped forward, dq and dk/dv of the checkout in DIR are timed first
-   in a process of their own at the same shapes (`parent_device_ms`);
+   in `csrc/flash_attention.cu`), dk/dv (`bwd128::flash_bwd_dkv_d128_tc`)
+   and dq (`dq128::flash_bwd_dq_d128_tc`) at `chip_smoke.LM128_PATH`
+   (causal) and `VIT128_PATH` (non-causal), at 'highest' and 'default',
+   from the library built with `-DFLASH_F32_CUTS`
+   (`flash_fwd_d128_cut_launch`, `flash_bwd_dkv_d128_cut_launch`,
+   `flash_bwd_dq_d128_cut_launch`): the shipped plan (two operand, score or
+   transposes stages) whole and with its attribution cuts (no exps; no
+   products; loads only — the consumers only wait for and free each stage,
+   the producer alone; no split — the producer forms no operands, the
+   consumers alone), the other plan (one operand or score stage; dq three
+   transposes stages) whole, each beside the shipped entry point's time and
+   the bound; a whole plan's outputs equal the shipped ones in bits. SDPA's
+   f32 backward is timed beside the D-128 dq and dk/dv (`pair_over_sdpa`).
+   With `--parent DIR`, the shipped forward, dq and dk/dv of the checkout in
+   DIR are timed first in a process of their own at the same shapes
+   (`parent_device_ms`);
 5. scale64 — the direction backends (`lbfgs_direction`) at the largest
    scale64 shape: one optimizer step of fedavg_scale64's block7 round (K=64
    ResNet18 clients, N = 4,720,640) with 'pallas', then 'compact', each
@@ -369,6 +372,7 @@ def sweep_bf16() -> None:
 
 F32_PLANS = ("ring2", "ring1")  # `plan` of flash_fwd_d128_cut_launch: operand stages; the first is shipped
 DKV_PLANS = ("ring2", "ring1")  # `plan` of flash_bwd_dkv_d128_cut_launch: score stages; the first is shipped
+DQ_PLANS = ("tr2", "tr3")  # `plan` of flash_bwd_dq_d128_cut_launch: transposes stages; the first is shipped
 F32_CUTS = ("full", "no_exp", "no_mma", "loads_only", "no_split")  # `cut`, kFull … kNoSplit
 # the shipped D-128 forward, dq and dk/dv of a checkout, timed in its own
 # process from that checkout's root: device ms of each at both precisions at
@@ -406,16 +410,15 @@ print("parent " + json.dumps(out))
 
 def sweep_flash_f32(parent: str = "") -> None:
     """The head-dim-128 f32 forward (`csrc/flash_attention.cu`,
-    `fwd128::flash_fwd_d128_tc`) and dk/dv (`bwd128::flash_bwd_dkv_d128_tc`)
-    at both path shapes and both precisions, from the library built with
-    `-DFLASH_F32_CUTS` (`flash_fwd_d128_cut_launch`,
-    `flash_bwd_dkv_d128_cut_launch`): the shipped plan (two operand stages)
-    whole and with each attribution cut (no exps, no products, the consumer
-    only waiting for and freeing the stages, the producer forming no K/V
-    (Q/dO) operands), the plan of one stage whole, each beside the shipped
-    entry point's time and the bound (`chip_smoke.flash_bounds`); a whole
-    plan's outputs against the shipped ones in bits. The D-128 dq is timed
-    beside the dk/dv, unchanged, and SDPA's f32 backward beside both. With
+    `fwd128::flash_fwd_d128_tc`), dk/dv (`bwd128::flash_bwd_dkv_d128_tc`)
+    and dq (`dq128::flash_bwd_dq_d128_tc`) at both path shapes and both
+    precisions, from the library built with `-DFLASH_F32_CUTS`
+    (`flash_fwd_d128_cut_launch`, `flash_bwd_dkv_d128_cut_launch`,
+    `flash_bwd_dq_d128_cut_launch`): the shipped plan whole and with each
+    attribution cut (no exps, no products, the consumers only waiting for
+    and freeing the stages, the producer forming no operands), the other
+    plan whole, each beside the shipped entry point's time and the bound (`chip_smoke.flash_bounds`); a whole plan's outputs against the
+    shipped ones in bits; SDPA's f32 backward beside the dq and dk/dv. With
     `parent` (a checkout's root, e.g. the parent commit unpacked), that
     checkout's shipped forward, dq and dk/dv are timed in a process of their
     own first, at the same shapes."""
@@ -439,6 +442,7 @@ def sweep_flash_f32(parent: str = "") -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.flash_fwd_d128_cut_launch.argtypes = [ptr] * 5 + [i32] * 6 + [ctypes.c_float] + [i32] * 3 + [ptr]
     lib.flash_bwd_dkv_d128_cut_launch.argtypes = [ptr] * 8 + [i32] * 6 + [ctypes.c_float] + [i32] * 3 + [ptr]
+    lib.flash_bwd_dq_d128_cut_launch.argtypes = [ptr] * 7 + [i32] * 6 + [ctypes.c_float] + [i32] * 3 + [ptr]
     for aligned, (bh, s, d) in ((True, cs.LM128_PATH), (False, cs.VIT128_PATH)):
         q, k, v, _ = cs.flash_inputs(bh, s, d, seed=43)
         scale = 1.0 / d ** 0.5
@@ -479,14 +483,15 @@ def sweep_flash_f32(parent: str = "") -> None:
                           f"{check}", flush=True)
             del o_ref, lse_ref
         del o, lse
-        sweep_dkv_d128(lib, aligned, (bh, s, d), (q, k, v), parent_ms)
+        sweep_bwd_d128(lib, aligned, (bh, s, d), (q, k, v), parent_ms)
         del q, k, v
 
 
-def sweep_dkv_d128(lib, aligned: bool, shape, qkv, parent_ms: dict) -> None:
-    """`sweep_flash_f32`'s dk/dv part at one path shape: the shipped dk/dv
-    and dq beside SDPA's f32 backward and the parent's times, then each plan
-    and cut of `flash_bwd_dkv_d128_cut_launch`."""
+def sweep_bwd_d128(lib, aligned: bool, shape, qkv, parent_ms: dict) -> None:
+    """`sweep_flash_f32`'s backward part at one path shape: SDPA's f32
+    backward, then for the dk/dv and the dq the shipped kernel beside its
+    bound, the parent's time and the D-128 pair (dq + dk/dv) over SDPA, then
+    each plan and cut of its `flash_bwd_*_d128_cut_launch`."""
     import torch
     import torch.nn.functional as F
 
@@ -508,43 +513,47 @@ def sweep_dkv_d128(lib, aligned: bool, shape, qkv, parent_ms: dict) -> None:
                          20)[1]
     del q4, k4, v4, o4
     print(f"sweep flash_f32 {label} sdpa_bwd device_ms={sdpa_ms:.6f}", flush=True)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    # per kernel: its outputs, plans, cut entry point, output bytes and products
+    kernels = {"dkv": ((torch.empty_like(k), torch.empty_like(v)), DKV_PLANS, lib.flash_bwd_dkv_d128_cut_launch,
+                       2 * operand, 4),
+               "dq": ((torch.empty_like(q),), DQ_PLANS, lib.flash_bwd_dq_d128_cut_launch, operand, 3)}
     stream = torch.cuda.current_stream().cuda_stream
     for precision in fc.PRECISIONS:
         passes = fc.passes_of(precision)
-        products = "tf32x3" if passes == 3 else "tf32x1"
-        bound = cs.flash_bounds(4 * operand + 2 * row + 2 * operand, 4 * 2 * d * pairs, pairs, products)["bound_ms"]
         if aligned:
-            shipped = lambda: fc.flash_bwd_dkv(q, k, v, do, lse, delta, scale, precision)
-            dq = lambda: fc.flash_bwd_dq(q, k, v, do, lse, delta, scale, precision)
+            shipped = {"dkv": lambda: fc.flash_bwd_dkv(q, k, v, do, lse, delta, scale, precision),
+                       "dq": lambda: (fc.flash_bwd_dq(q, k, v, do, lse, delta, scale, precision),)}
         else:
-            shipped = lambda: fc.flash_bwd_dkv_rect(q, k, v, do, lse, delta, scale, precision=precision)
-            dq = lambda: fc.flash_bwd_dq_rect(q, k, v, do, lse, delta, scale, precision=precision)
-        dk_ref, dv_ref = shipped()
-        shipped_ms, dq_ms = cs.time_ms(shipped, 20)[1], cs.time_ms(dq, 20)[1]
-        par, par_dq = parent_ms.get(f"dkv {aligned} {precision}"), parent_ms.get(f"dq {aligned} {precision}")
-        print(f"sweep flash_f32 dkv {label} {precision} shipped device_ms={shipped_ms:.6f} bound_ms={bound:.6f} "
-              f"share_of_bound={bound / shipped_ms:.3f} dq_device_ms={dq_ms:.6f} "
-              f"pair_over_sdpa={(shipped_ms + dq_ms) / sdpa_ms:.3f}"
-              + (f" parent_device_ms={par:.6f} parent_over_shipped={par / shipped_ms:.3f}" if par else "")
-              + (f" parent_dq_device_ms={par_dq:.6f}" if par_dq else ""), flush=True)
-        for plan, plan_name in enumerate(DKV_PLANS):
-            for cut, cut_name in enumerate(F32_CUTS):
-                def dkv():
-                    return lib.flash_bwd_dkv_d128_cut_launch(
-                        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                        dk.data_ptr(), dv.data_ptr(), bh, s, s, int(aligned), 0, 0, scale, passes, plan, cut, stream)
+            shipped = {"dkv": lambda: fc.flash_bwd_dkv_rect(q, k, v, do, lse, delta, scale, precision=precision),
+                       "dq": lambda: (fc.flash_bwd_dq_rect(q, k, v, do, lse, delta, scale, precision=precision),)}
+        refs = {name: fn() for name, fn in shipped.items()}
+        shipped_ms = {name: cs.time_ms(fn, 20)[1] for name, fn in shipped.items()}
+        pair = (shipped_ms["dkv"] + shipped_ms["dq"]) / sdpa_ms
+        for name, (outs, plans, cut_launch, out_bytes, n_products) in kernels.items():
+            bound = cs.flash_bounds(4 * operand + 2 * row + out_bytes, n_products * 2 * d * pairs, pairs,
+                                    "tf32x3" if passes == 3 else "tf32x1")["bound_ms"]
+            ms, par = shipped_ms[name], parent_ms.get(f"{name} {aligned} {precision}")
+            print(f"sweep flash_f32 {name} {label} {precision} shipped device_ms={ms:.6f} bound_ms={bound:.6f} "
+                  f"share_of_bound={bound / ms:.3f} pair_over_sdpa={pair:.3f}"
+                  + (f" parent_device_ms={par:.6f} parent_over_shipped={par / ms:.3f}" if par else ""), flush=True)
+            for plan, plan_name in enumerate(plans):
+                for cut, cut_name in enumerate(F32_CUTS):
+                    def call():
+                        return cut_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                                          delta.data_ptr(), *(t.data_ptr() for t in outs), bh, s, s, int(aligned), 0,
+                                          0, scale, passes, plan, cut, stream)
 
-                if dkv() != 0:
-                    continue  # no instance of this plan and cut
-                torch.cuda.synchronize()
-                check = "" if cut else f" bitwise_shipped={torch.equal(dk, dk_ref) and torch.equal(dv, dv_ref)}"
-                _, device_ms = cs.time_ms(dkv, 20)
-                print(f"sweep flash_f32 dkv {label} {precision} plan={plan_name} cut={cut_name} "
-                      f"device_ms={device_ms:.6f} bound_ms={bound:.6f} share_of_bound={bound / device_ms:.3f}"
-                      f"{check}", flush=True)
-        del dk_ref, dv_ref
-    del do, lse, delta, dk, dv
+                    if call() != 0:
+                        continue  # no instance of this plan and cut
+                    torch.cuda.synchronize()
+                    check = "" if cut else \
+                        f" bitwise_shipped={all(torch.equal(a, b) for a, b in zip(outs, refs[name]))}"
+                    _, device_ms = cs.time_ms(call, 20)
+                    print(f"sweep flash_f32 {name} {label} {precision} plan={plan_name} cut={cut_name} "
+                          f"device_ms={device_ms:.6f} bound_ms={bound:.6f} share_of_bound={bound / device_ms:.3f}"
+                          f"{check}", flush=True)
+        del refs
+    del do, lse, delta, kernels
 
 
 def scale64_step(direction: str, source, gid: int) -> None:

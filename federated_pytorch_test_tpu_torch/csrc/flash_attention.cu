@@ -7,13 +7,13 @@
 //   aligned causal (Sq = Skv, shift 0; the path of
 //   `flash_attention(..., causal=True)`, the LM)
 //     _fwd_tri     :559 (_fwd_kernel_tri :253)      -> flash_fwd_launch      -> flash_fwd_tc<D, true> (D 128: fwd128::flash_fwd_d128_tc)
-//     _bwd_tri dq  :655 (_bwd_dq_kernel_tri :341)   -> flash_bwd_dq_launch   -> flash_bwd_dq_tc<D, true>
+//     _bwd_tri dq  :655 (_bwd_dq_kernel_tri :341)   -> flash_bwd_dq_launch   -> flash_bwd_dq_tc<D, true> (D 128: dq128::flash_bwd_dq_d128_tc)
 //     _bwd_tri dkv :673 (_bwd_dkv_kernel_tri :365)  -> flash_bwd_dkv_launch  -> flash_bwd_dkv_tc<D, true> (D 128: bwd128::flash_bwd_dkv_d128_tc)
 //   rectangular, non-causal or causal on global offsets (q_off, k_off)
 //   (the path of `flash_attention(..., causal=False)`, the ViT, and of
 //   `flash_block`)
 //     _fwd         :601 (_fwd_kernel :395)          -> flash_fwd_rect_launch      -> flash_fwd_tc<D, ·> (D 128: the same)
-//     _flash3_bwd  :721 (_bwd_dq_kernel :436)       -> flash_bwd_dq_rect_launch   -> flash_bwd_dq_tc<D, ·>
+//     _flash3_bwd  :721 (_bwd_dq_kernel :436)       -> flash_bwd_dq_rect_launch   -> flash_bwd_dq_tc<D, ·> (D 128: the same)
 //     _flash3_bwd  :744 (_bwd_dkv_kernel :461)      -> flash_bwd_dkv_rect_launch  -> flash_bwd_dkv_tc<D, ·> (D 128: the same)
 //
 // o = softmax(q kᵀ·scale [, causal]) v with the natural-log row logsumexp
@@ -73,13 +73,11 @@
 //     atomics, bitwise repeatable. A row that saw no key (l = 0) stores
 //     o = 0 and lse = −1e30 exactly (`_fwd_kernel` :428-433).
 //
-// Head dim 128 (`Plan<D>`): the 128-row blocks below take 397 KB (forward),
-// 590 KB (dq) and 460 KB (dk/dv) of shared memory there, past the 227 KB a
-// block may have. dq at D = 128 gives a block 64 query rows (one
-// warpgroup, 128 threads) and streams 16 keys a tile through the same
-// two-stage ring (212,992 bytes); an N = 128 product from registers is two
-// m64n64 ones. The forward and dk/dv at D = 128 are kernels of their own,
-// below.
+// Head dim 128: the 128-row blocks below (`Plan<D>`) would take 397 KB
+// (forward), 590 KB (dq) and 460 KB (dk/dv) of shared memory there, past
+// the 227 KB a block may have. The forward, dq and dk/dv at D = 128 are
+// kernels of their own, below, on blocks of 64 rows; an N = 128 product
+// from registers is two m64n64 ones.
 //
 // The forward at D = 128 is a kernel of its own, `fwd128::flash_fwd_d128_tc`
 // (both families, split and one pass). It computes what `flash_fwd_tc`
@@ -188,6 +186,58 @@
 //   * A block that sees no query stores dk = dv = 0; the producer lands
 //     nothing for it and nobody waits. No atomics: bitwise repeatable.
 //
+// dq at D = 128 is a kernel of its own, `dq128::flash_bwd_dq_d128_tc` (both
+// families, split and one pass). It computes what `flash_bwd_dq_tc`
+// computes, at 64 query rows a block and 16 keys a tile, with the same
+// products in the same order (each causal tile's dS·K summed apart and
+// added in f32): its outputs are bit for bit those of that arithmetic on one
+// warpgroup.
+//   Bound on an H100 SXM: three products, three TF32 passes at 495 TFLOP/s,
+//   take 1.250 ms at the LM's D-128 shape (BH 128, S 2048, causal) and
+//   0.937 ms at the ViT's (BH 3072, S 256); one pass a third, where the exps
+//   (0.417 ms at the LM's) and the bytes (0.603 ms at the ViT's) bind. On one
+//   warpgroup the 96 m64n16k8 score products of a 16-key tile re-read the
+//   64-row Q and dO (2 KB a k8 step) 192 KB a tile, beside 48 KB for the
+//   tile's other operands and 48 KB of split operands stored, while the
+//   tensor cores need ~1,150 clocks a tile.
+//   Design (the dk/dv's, mirrored):
+//   * Persistent: a CTA an SM walks the (head, 64-row block)s (`Walk`): a
+//     head's blocks side by side, so that its K and V tiles are read from L2
+//     by all of them, heaviest (causal: the last rows) first, dealt out in a
+//     snake.
+//   * 384 threads: two consumer warpgroups, split by role, and a producer
+//     warpgroup (setmaxnreg: the producer 48, consumer 1 240, consumer 0
+//     keeps the 168 of the launch), meeting on mbarriers and, between the
+//     consumers, on named barriers.
+//   * Consumer 0 forms S = Q·Kᵀ and P = 2^(s·c − lse2), its rows' lse in
+//     registers, and hands P to consumer 1 through shared memory (4 KB a
+//     tile); consumer 1 forms dP = dO·Vᵀ, dS = P ∘ (dP − delta) and sums
+//     dq += dS·K. Each holds its own Q's (dO's) hi in registers as the A
+//     fragments of its score product (64 a thread, formed as the block
+//     starts) and leaves the lo in shared memory in place of the landed
+//     rows: the scores read 64 KB a tile from shared memory instead of 192.
+//   * The producer lands each block's Q and dO by TMA into the consumers'
+//     rows once their last block's scores are done, and each tile's K and V
+//     by TMA into a ring of two; it stores a tile's K and V hi and lo in the
+//     swizzled layout into a ring of two score stages. Consumer 0, which has
+//     the least to do, copies the tile's K hi and lo from its score stage
+//     into Kᵀ's (the keys of every 8 permuted 0, 2, 4, 6, 1, 3, 5, 7 as
+//     `rs_split` reads them) in a ring of two transposes stages while its
+//     scores run: a producer that also stored the transposes took most of
+//     the kernel's time (`chip_sweep.py flash_f32`'s loads-only cut). With
+//     one stage consumer 0 would wait for the product of the tile before,
+//     which waits for this tile's P; three measured no faster (205,824
+//     bytes).
+//   * Consumer 1 issues tile t's dP, then tile t − 1's dS·K, waits for dP
+//     alone and forms tile t's dS under the product. Every group is issued
+//     and committed in straight-line code with nothing but wgmmas between
+//     its fence and its wait. The causal instances sum each tile's product
+//     in a fresh partial sum of all 128 columns added in f32 (in registers
+//     beside dO's hi and dq: 240 a thread, no spill); the non-causal ones sum
+//     in the accumulator.
+//   * A block that sees no key stores dq = 0; the producer lands nothing for
+//     it and nobody waits. No atomics: bitwise repeatable.
+//
 // Backward, both families: dq (`flash_bwd_dq_tc`) and dk/dv (`flash_bwd_dkv_tc`)
 // on the tensor cores, in the forward's split TF32 (lo·hi + hi·lo + hi·hi).
 //   Bound on an H100 SXM: dq's three products (S, dP, dS·K) and dk/dv's four
@@ -294,21 +344,21 @@ namespace tc {
 
 using namespace tf32_wgmma;
 
-// A block's plan by head dim (the note at the top: head dim 128); the
-// sizes stand in the static_asserts below each shared-memory struct.
+// A block's plan by head dim up to 64 (D = 128 runs kernels of its own: the
+// note at the top); the sizes stand in the static_asserts below each
+// shared-memory struct.
 template <int D>
 struct Plan {
-  static constexpr int kWarpgroups = D == 128 ? 1 : 2;
-  static constexpr int kRows = 64 * kWarpgroups;      // rows a block owns
-  static constexpr int kThreads = 128 * kWarpgroups;
-  static constexpr int kKeys = 64;  // keys a forward K/V tile (D = 128 runs fwd128::flash_fwd_d128_tc: 32)
+  static_assert(D <= 64, "D = 128 runs fwd128, dq128 and bwd128");
+  static constexpr int kRows = 128;     // rows a block owns: two warpgroups of 64
+  static constexpr int kThreads = 256;
+  static constexpr int kKeys = 64;      // keys a forward K/V tile
   // rows of the streamed operand a backward tile. dq streams 64 keys, 32
-  // at D = 64 and 16 at D = 128, where more would take the block past the
-  // 227 KB of shared memory it can have. dk/dv streams 32 queries: then its
-  // two products' split register operands (2 · 32 registers) fit beside the
-  // accumulators in the 128 registers of two blocks an SM, and are issued
-  // together (D = 128 runs bwd128::flash_bwd_dkv_d128_tc: 16).
-  static constexpr int kDqTile = D == 128 ? 16 : D == 64 ? 32 : 64;
+  // at D = 64, where more would take the block past the 227 KB of shared
+  // memory it can have. dk/dv streams 32 queries: then its two products'
+  // split register operands (2 · 32 registers) fit beside the accumulators
+  // in the 128 registers of two blocks an SM, and are issued together.
+  static constexpr int kDqTile = D == 64 ? 32 : 64;
   static constexpr int kDkvTile = 32;
 };
 constexpr int kStages = 2;  // depth of the streamed tiles' ring
@@ -1104,15 +1154,9 @@ int launch_fwd(const float* q, const float* k, const float* v, float* o, float* 
   return (int)cudaGetLastError();
 }
 
-// The instance of a launch template for (d, causal, split): `KERNEL_CASES(fn, args)`
-// expands to the switch cases over D in {16, 32, 64, 128}, `KERNEL_CASES_64` to
-// those up to D = 64.
-#define KERNEL_CASES(fn, ...)                                                              \
-  KERNEL_CASES_64(fn, __VA_ARGS__)                                                         \
-  case 12: return fn<128, false, false>(__VA_ARGS__);                                      \
-  case 13: return fn<128, false, true>(__VA_ARGS__);                                       \
-  case 14: return fn<128, true, false>(__VA_ARGS__);                                       \
-  case 15: return fn<128, true, true>(__VA_ARGS__);
+// The instance of a launch template for (d, causal, split): `KERNEL_CASES_64(fn,
+// args)` expands to the switch cases over D in {16, 32, 64}; D = 128 (cases
+// 12 … 15) runs the kernels of its own.
 #define KERNEL_CASES_64(fn, ...)                                                           \
   case 0: return fn<16, false, false>(__VA_ARGS__);                                        \
   case 1: return fn<16, false, true>(__VA_ARGS__);                                         \
@@ -1295,19 +1339,19 @@ struct SmemDkv {
   float lse2[T], delta[T];
 };
 static_assert(sizeof(SmemDq<64>) <= 232448 && sizeof(SmemDkv<64>) <= 232448, "over 227 KB of shared memory");
-// dq at D = 128, one warpgroup of 64 rows and 16-key tiles: 212,992 bytes
-static_assert(sizeof(SmemDq<128>) == 212992 && sizeof(SmemDq<128>) <= 232448, "the D = 128 plan moved");
 
-// dq of q, dO [BH, Sq, D] against k, v [BH, Skv, D]: dq = scale · Σ_j dS_ij k_j,
-// in split TF32 or (without Split) one pass.
+// dq of q, dO [BH, Sq, D] against k, v [BH, Skv, D] for D up to 64: dq =
+// scale · Σ_j dS_ij k_j, in split TF32 or (without Split) one pass.
 // Grid (Sq / kRows, BH), kThreads threads (`Plan<D>`), sizeof(SmemDq<D>)
 // bytes of dynamic shared memory; two blocks an SM at D = 16 (at most 128
-// registers).
+// registers). D = 128 runs dq128::flash_bwd_dq_d128_tc (below), the same
+// arithmetic.
 template <int D, bool Causal, bool Split>
 __global__ void __launch_bounds__(Plan<D>::kThreads, D == 16 ? 2 : 1)
 flash_bwd_dq_tc(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                 const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
                 float* __restrict__ dq, int s_q, int s_kv, int shift, float scale) {
+  static_assert(D <= 64, "D = 128 runs dq128::flash_bwd_dq_d128_tc");
   constexpr int T = Plan<D>::kDqTile, kRows = Plan<D>::kRows;
   using S = SmemDq<D>;
   extern __shared__ __align__(128) unsigned char smem_bytes[];
@@ -1682,6 +1726,24 @@ __device__ __forceinline__ const uint32_t (&frag(const uint32_t (&a)[64], int ks
   return *reinterpret_cast<const uint32_t(*)[4]>(&a[4 * ks]);
 }
 
+// A 64-row operand as the TMA landed it (`rows`: four slabs of 64 rows by 32
+// floats, swizzled) into its hi as a warpgroup's A fragments (step ks: rows
+// 16·warp + g (+ 8), columns 8ks + t (+ 4)) and, with Split, its lo in
+// place; each element is read and rewritten by the thread that holds it
+template <bool Split>
+__device__ __forceinline__ void take_hi(float* rows, uint32_t (&ah)[64], int warp, int g, int t) {
+#pragma unroll
+  for (int ks = 0; ks < kD / 8; ++ks)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const unsigned at = swz<kRows>(16 * warp + g + 8 * (e & 1), 8 * ks + t + 4 * (e >> 1));
+      const float x = rows[at];
+      ah[4 * ks + e] = tf32(x);
+      if constexpr (Split) rows[at] = x - __uint_as_float(ah[4 * ks + e]);
+    }
+  pin(ah);
+}
+
 // Sᵀ (dPᵀ) = A·Bᵀ over D into s, flash_bwd_dkv_tc's products in its order
 // (small ones first; one pass: hi·hi): A is the block's K (V), its hi in
 // registers (`ah`) and its lo in shared memory (descriptor a_lo of its first
@@ -1783,20 +1845,8 @@ __device__ __forceinline__ void consume(Smem<Ring>& sm, const Walk& walk, float*
           release(&sm.t_empty);
         }
       } else {
-        // the operand's hi into the A fragments (step ks: rows 16·warp + g (+ 8),
-        // columns 8ks + t (+ 4)); each element is read and rewritten as lo by the
-        // thread that holds it
         uint32_t ah[64];
-#pragma unroll
-        for (int ks = 0; ks < kD / 8; ++ks)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const unsigned at = swz<kRows>(16 * warp + g + 8 * (e & 1), 8 * ks + t + 4 * (e >> 1));
-            const float x = lo_rows[at];
-            ah[4 * ks + e] = tf32(x);
-            if constexpr (Split) lo_rows[at] = x - __uint_as_float(ah[4 * ks + e]);
-          }
-        pin(ah);
+        take_hi<Split>(lo_rows, ah, warp, g, t);
         proxy_fence();
         named_sync(kOwn + Role, 128);
 
@@ -2150,6 +2200,534 @@ int launch(const float* q, const float* k, const float* v, const float* dout, co
 
 }  // namespace bwd128
 
+// ---------------------------------------------------------------------------
+// dq at head dim 128 (the note at the top: head dim 128)
+// ---------------------------------------------------------------------------
+namespace dq128 {
+
+using bwd128::at4;
+using bwd128::issue_st;
+using bwd128::swz;
+using bwd128::take_hi;
+using fwd128::kFull;
+using fwd128::kLoadsOnly;
+using fwd128::kNoExp;
+using fwd128::kNoMma;
+using fwd128::kNoSplit;
+using fwd128::wait_group;
+using fwd128::Walk;
+using hopper_tma::aligned_smem;
+using hopper_tma::bar_arrive;
+using hopper_tma::bar_expect;
+using hopper_tma::bar_init;
+using hopper_tma::bar_wait;
+using hopper_tma::named_arrive;
+using hopper_tma::named_sync;
+using hopper_tma::regs_dec;
+using hopper_tma::regs_inc;
+using hopper_tma::smem_u32;
+using hopper_tma::tma_box;
+using hopper_tma::tma_prefetch;
+
+constexpr int kD = 128;
+constexpr int kRows = 64;           // query rows a block owns
+constexpr int kTile = 16;           // keys a tile
+constexpr int kThreads = 384;       // consumer warpgroups 0 (S, P) and 1 (dP, dS, dq), then the producer warpgroup
+constexpr int kSlab = 32;           // floats a swizzled row (128 bytes): the columns of a slab
+constexpr int kSlabs = kD / kSlab;
+constexpr int kScoreStages = 2;     // the scores' operands in flight
+constexpr int kRawStages = 2;       // tiles of K and V in flight from device memory
+constexpr int kSmemLimit = 232448;  // shared memory a block may have
+constexpr int kRegisters = 65536;   // registers of an SM
+constexpr int kLaunchRegs = 168;    // a thread's registers at __launch_bounds__(384, 1); consumer 0 keeps them
+constexpr int kProducerRegs = 48, kConsumerRegs = 240;  // setmaxnreg of the producer and of consumer 1
+static_assert(kLaunchRegs == kRegisters / kThreads / 8 * 8, "the registers of a thread at launch");
+static_assert(128 * (kProducerRegs + kLaunchRegs + kConsumerRegs) <= kThreads * kLaunchRegs,
+              "setmaxnreg over the registers the CTA is launched with");
+static_assert(kRows == bwd128::kRows && kTile == bwd128::kTile, "issue_st's operands: 64 rows by 16");
+// named barriers (0 is __syncthreads): a tile's P handed from consumer 0 to
+// consumer 1 through slot s (kPFull + s: written; kPFree + s: read), each
+// consumer's own (kOwn + warpgroup), the producer's
+constexpr int kPFull = 1, kPFree = 3, kOwn = 5, kProducerBar = 7;
+
+// A tile's operands of S and dP: K's and V's hi and lo, each four slabs of
+// 16 keys by 32 floats with the 128-byte swizzle (`desc_sw128`)
+struct Scores {
+  float k[kTile * kD], k_lo[kTile * kD];
+  float v[kTile * kD], v_lo[kTile * kD];
+};
+static_assert(sizeof(Scores) == 32768, "a stage keeps its slabs 1 KB aligned");
+
+// A tile of K and V as the TMA lands them (the slabs of `Scores`' layout)
+struct Raw {
+  float k[kTile * kD], v[kTile * kD];
+};
+
+// A tile's operand of dq += dS·K: Kᵀ's hi and lo, D rows by 16 keys with the
+// keys of every 8 in the order 0, 2, 4, 6, 1, 3, 5, 7 (`cidx<kD>`), as
+// `rs_split` reads them
+struct Transposes {
+  float kt_hi[kD * kTile], kt_lo[kD * kTile];
+};
+
+template <int Ring>
+struct Smem {
+  alignas(1024) float q_lo[kRows * kD];   // Q as the TMA landed it (four slabs of 64 rows by 32 floats), then Q − hi
+  alignas(1024) float do_lo[kRows * kD];  // dO likewise
+  alignas(1024) Scores st[kScoreStages];  // the scores' operands
+  alignas(1024) Raw raw[kRawStages];      // K and V as landed
+  Transposes tr[Ring];                    // the product's operand: a ring of Ring stages
+  float4 p[2][2][128];                    // a tile's P, consumer 0's thread i to consumer 1's: [slot][half][i]
+  uint64_t qd_land, qd_empty, raw_full[kRawStages];
+  uint64_t s_ready[kScoreStages], s_empty[kScoreStages], t_ready[Ring], t_empty[Ring];
+};
+// The plans' bytes (the launch asks for 1 KB more, to align the slabs): two
+// transposes stages (shipped), three (chip_sweep.py flash_f32). A third
+// score stage does not fit beside them; one transposes stage deadlocks
+// (consumer 0 would wait for the product of the tile before, which waits
+// for this tile's P).
+static_assert(sizeof(Smem<2>) == 205824 && sizeof(Smem<2>) + 1024 <= kSmemLimit, "two stages over 227 KB");
+static_assert(sizeof(Smem<3>) == 222208 && sizeof(Smem<3>) + 1024 <= kSmemLimit, "three stages over 227 KB");
+static_assert(sizeof(Smem<2>) + sizeof(Scores) + 1024 > kSmemLimit, "a third score stage would fit");
+
+// the first row of the walk's block r (causal: the last rows first)
+template <bool Causal>
+__device__ __forceinline__ int block_row0(const Walk& walk, int r) {
+  return (Causal ? walk.blocks - 1 - r : r) * kRows;
+}
+
+// the tiles of a block from row0: keys [0, key_end) can be seen by its rows
+template <bool Causal>
+__device__ __forceinline__ int tiles_of(int row0, int shift, int s_kv) {
+  return ((Causal ? key_end<kRows>(row0, shift, s_kv) : s_kv) + kTile - 1) / kTile;
+}
+
+// Kᵀ's hi and lo of a tile from its score stage (K's hi and lo as the
+// producer split them: the values a split of the landed rows gives), by
+// thread p of a warpgroup: keys r0 + 0, 2, 4, 6 (r0 from the warp), columns
+// 4c … 4c + 3 (c the lane); column d = 4c + (e + turn) % 4 holds the float4
+// of positions 4pg … 4pg + 3, the columns stored in an order turned by (c /
+// 2) % 4, so that the eight lanes of a store phase meet eight banks.
+template <bool Split>
+__device__ __forceinline__ void store_kt(const Scores& st, Transposes& tr, int p) {
+  const int pg = p / 32, c = p % 32;
+  const int r0 = (pg >> 1) * 8 + (pg & 1), turn = (c >> 1) & 3;
+  float4 hi[4], lo[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const unsigned at = swz<kTile>(r0 + 2 * i, 4 * c);
+    hi[i] = *reinterpret_cast<const float4*>(&st.k[at]);
+    if constexpr (Split) lo[i] = *reinterpret_cast<const float4*>(&st.k_lo[at]);
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int k = (e + turn) & 3;
+    const unsigned at = cidx<kD>(4 * c + k, 4 * pg);
+    *reinterpret_cast<float4*>(&tr.kt_hi[at]) = make_float4(at4(hi[0], k), at4(hi[1], k), at4(hi[2], k), at4(hi[3], k));
+    if constexpr (Split)
+      *reinterpret_cast<float4*>(&tr.kt_lo[at]) = make_float4(at4(lo[0], k), at4(lo[1], k), at4(lo[2], k), at4(lo[3], k));
+  }
+}
+
+// P into s, as flash_bwd_dq_tc forms it: s[4j + e] is (row_a, key kt + 8j +
+// 2t + e), s[4j + 2 + e] the same key on row_b; l_a, l_b are the rows'
+// lse2. Masked: the tile crosses the block's diagonal (a compile-time
+// branch).
+template <bool Masked, int Cut>
+__device__ __forceinline__ void p_tile(float (&s)[kTile / 2], float l_a, float l_b, float c, int kt, int row_a,
+                                       int row_b, int shift, int t) {
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float pa = fmaf(s[4 * j + e], c, -l_a), pb = fmaf(s[4 * j + 2 + e], c, -l_b);
+      if constexpr (Cut != kNoExp) {
+        pa = exp2_ftz(pa);
+        pb = exp2_ftz(pb);
+      }
+      if constexpr (Masked) {
+        const int key = kt + 8 * j + 2 * t + e;
+        pa = key > row_a + shift ? 0.f : pa;
+        pb = key > row_b + shift ? 0.f : pb;
+      }
+      s[4 * j + e] = pa;
+      s[4 * j + 2 + e] = pb;
+    }
+}
+
+// A consumer warpgroup's part of every block the CTA walks. Role 0: S =
+// Q·Kᵀ and P, handed to consumer 1, and each tile's Kᵀ for consumer 1's
+// product, copied from the score stage while its scores run; role 1: dP =
+// dO·Vᵀ, dS = P ∘ (dP − delta) and dq += dS·K. Each takes its own 64-row
+// operand's hi into registers as the block starts (`ah`, the A fragments of
+// its score product) and leaves its lo in shared memory in place of the
+// landed rows. Role 1 issues tile t's dP before tile t − 1's dS·K, which
+// runs under tile t's dS.
+template <int Role, bool Causal, bool Split, int Ring, int Cut>
+__device__ __forceinline__ void consume(Smem<Ring>& sm, const Walk& walk, const float* __restrict__ lse,
+                                        const float* __restrict__ delta, float* __restrict__ dq, int s_q, int s_kv,
+                                        int shift, float scale) {
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const float c = scale * kLog2e;  // P = 2^(s·c − lse2)
+  float* lo_rows = Role == 0 ? sm.q_lo : sm.do_lo;
+  const uint64_t a_lo = desc_sw128(smem_u32(lo_rows));
+  // the scores' B operand in a stage: K (role 0) or V (role 1), its hi, and its lo kBLo bytes past it
+  constexpr uint32_t kB = Role == 0 ? offsetof(Scores, k) : offsetof(Scores, v);
+  constexpr uint32_t kBLo = (Role == 0 ? offsetof(Scores, k_lo) : offsetof(Scores, v_lo)) - kB;
+  constexpr uint32_t kTHi = offsetof(Transposes, kt_hi), kTLo = offsetof(Transposes, kt_lo);
+  auto release = [&](uint64_t* bar) {
+    if (lane == 0) bar_arrive(bar);
+  };
+  int gt = 0, nb = 0;
+  for (int n = 0, bh, r; walk.next(n, bh, r); ++n) {
+    const int row0 = block_row0<Causal>(walk, r), n_tiles = tiles_of<Causal>(row0, shift, s_kv);
+    const int row_a = row0 + 16 * warp + g, row_b = row_a + 8;  // the two rows this thread holds
+    // the tiles no row of the block masks (causal: those wholly below its diagonal)
+    const int n_open = Causal ? min(n_tiles, max(row0 + shift + 1, 0) / kTile) : n_tiles;
+
+    float acc[kD / 2];  // dq / scale (role 1)
+#pragma unroll
+    for (int i = 0; i < kD / 2; ++i) acc[i] = 0.f;
+    if (n_tiles > 0) {
+      // the rows' lse2 (role 0) or delta (role 1)
+      const float* stats = (Role == 0 ? lse : delta) + (size_t)bh * s_q;
+      float st_a = __ldg(stats + row_a), st_b = __ldg(stats + row_b);
+      if constexpr (Role == 0) {
+        st_a = lse2(st_a);
+        st_b = lse2(st_b);
+      }
+      bar_wait(&sm.qd_land, nb & 1);
+      auto s_ready = [&](int it) {
+        bar_wait(&sm.s_ready[(gt + it) % kScoreStages], ((gt + it) / kScoreStages) & 1);
+      };
+      auto t_ready = [&](int it) { bar_wait(&sm.t_ready[(gt + it) % Ring], ((gt + it) / Ring) & 1); };
+      auto scores_done = [&](int it) {  // the tile's stage, and after the block's last tile its rows, are free
+        release(&sm.s_empty[(gt + it) % kScoreStages]);
+        if (it == n_tiles - 1) release(&sm.qd_empty);
+      };
+      // role 0: tile `it`'s Kᵀ from its score stage into its transposes stage,
+      // once consumer 1 has freed that stage's last tile (Ring tiles back;
+      // the loads-only cut stores nothing)
+      auto transposes = [&](int it) {
+        const int x = gt + it, ts = x % Ring;
+        if (x >= Ring) bar_wait(&sm.t_empty[ts], (x / Ring - 1) & 1);
+        if constexpr (Cut != kLoadsOnly) {
+          store_kt<Split>(sm.st[x % kScoreStages], sm.tr[ts], tid);
+          proxy_fence();
+        }
+        bar_arrive(&sm.t_ready[ts]);
+      };
+      if constexpr (Cut == kLoadsOnly) {
+        for (int it = 0; it < n_tiles; ++it) {
+          s_ready(it);
+          if constexpr (Role == 0) {
+            transposes(it);
+            scores_done(it);
+          } else {
+            scores_done(it);
+            t_ready(it);
+            release(&sm.t_empty[(gt + it) % Ring]);
+          }
+        }
+      } else {
+        uint32_t ah[64];
+        take_hi<Split>(lo_rows, ah, warp, g, t);
+        proxy_fence();
+        named_sync(kOwn + Role, 128);
+
+        float s[kTile / 2];
+        auto scores = [&](int it) {  // S (dP) of tile `it`, issued into the open wgmma group
+          if constexpr (Cut == kNoMma) {
+#pragma unroll
+            for (int i = 0; i < kTile / 2; ++i) s[i] = (Role == 0 ? 0.125f : 0.0625f) * (i & 7);
+          } else {
+            const uint64_t b = desc_sw128(smem_u32(sm.st[(gt + it) % kScoreStages].k)) + (kB >> 4);
+            issue_st<Split>(s, ah, a_lo, b, kBLo);
+          }
+        };
+        if constexpr (Role == 0) {
+          for (int it = 0; it < n_tiles; ++it) {
+            s_ready(it);
+            wg_fence();
+            scores(it);
+            wg_commit();
+            transposes(it);  // under the scores; consumer 1 reads this Kᵀ a tile later
+            wg_wait();
+            pin(s);
+            scores_done(it);
+            if (Causal && it >= n_open)
+              p_tile<true, Cut>(s, st_a, st_b, c, it * kTile, row_a, row_b, shift, t);
+            else
+              p_tile<false, Cut>(s, st_a, st_b, c, it * kTile, row_a, row_b, shift, t);
+            const int slot = (gt + it) & 1;
+            if (gt + it >= 2) named_sync(kPFree + slot, 256);  // consumer 1 has read the slot's last P
+            sm.p[slot][0][tid] = make_float4(s[0], s[1], s[2], s[3]);
+            sm.p[slot][1][tid] = make_float4(s[4], s[5], s[6], s[7]);
+            named_arrive(kPFull + slot, 256);
+          }
+        } else {
+          float part[Causal ? kD / 2 : 1];  // causal: a tile's product, summed apart
+          uint32_t xh[kTile / 2], xl[kTile / 2];  // dS's hi and lo
+          auto form = [&](int it) {  // dS of tile `it` from the P in slot (gt + it) % 2
+            const int slot = (gt + it) & 1;
+            named_sync(kPFull + slot, 256);
+#pragma unroll
+            for (int j = 0; j < kTile / 8; ++j) {  // s[4j + e] and s[4j + 2 + e] hold key 8j + 2t + e
+              const float4 pv = sm.p[slot][j][tid];
+              s[4 * j] = pv.x * (s[4 * j] - st_a);
+              s[4 * j + 1] = pv.y * (s[4 * j + 1] - st_a);
+              s[4 * j + 2] = pv.z * (s[4 * j + 2] - st_b);
+              s[4 * j + 3] = pv.w * (s[4 * j + 3] - st_b);
+            }
+            named_arrive(kPFree + slot, 256);
+          };
+          // tile `it`'s Kᵀ stage: descriptor base (shared address / 16); its row 64 lies 1 KB past its row 0
+          auto tr16 = [&](int it) { return smem_u32(&sm.tr[(gt + it) % Ring]) >> 4; };
+          // tile `it`'s product, issued into the open wgmma group: into the
+          // accumulator (non-causal) or a fresh partial sum (causal)
+          auto products = [&](int it) {
+            if constexpr (Cut != kNoMma) {
+              if constexpr (Causal)
+                rs_split<kD, kTile, Split>(part, xh, xl, tr16(it), kTHi, kTLo, 0);
+              else
+                rs_split<kD, kTile, Split>(acc, xh, xl, tr16(it), kTHi, kTLo);
+            }
+          };
+          // after `products` has landed: causal, the partial sum joins the
+          // accumulator in f32 adds (flash_bwd_dq_tc's order); Kᵀ's stage is free
+          auto rest = [&](int it) {
+            if constexpr (Cut != kNoMma) {
+              if constexpr (Causal) {
+                pin(part);
+#pragma unroll
+                for (int i = 0; i < kD / 2; ++i) acc[i] += part[i];
+              } else {
+                pin(acc);
+              }
+              pin(xh);
+              if constexpr (Split) pin(xl);
+            }
+            release(&sm.t_empty[(gt + it) % Ring]);
+          };
+          s_ready(0);
+          wg_fence();
+          scores(0);
+          wg_commit();
+          wg_wait();
+          pin(s);
+          scores_done(0);
+          form(0);
+          split_frag<kTile / 2, Split>(s, xh, xl);
+          for (int it = 1; it < n_tiles; ++it) {
+            s_ready(it);
+            wg_fence();
+            scores(it);
+            wg_commit();
+            t_ready(it - 1);  // consumer 0 stored that tile's Kᵀ under its scores
+            wg_fence();
+            products(it - 1);
+            wg_commit();
+            wait_group<1>();  // the scores; the product may still run
+            pin(s);
+            scores_done(it);
+            form(it);
+            wait_group<0>();
+            rest(it - 1);
+            split_frag<kTile / 2, Split>(s, xh, xl);
+          }
+          t_ready(n_tiles - 1);
+          wg_fence();
+          products(n_tiles - 1);
+          wg_commit();
+          wg_wait();
+          rest(n_tiles - 1);
+        }
+      }
+      gt += n_tiles;
+      ++nb;
+    }
+
+    if constexpr (Role == 1) {
+      float* ra = dq + ((size_t)bh * s_q + row_a) * kD + 2 * t;
+      float* rb = dq + ((size_t)bh * s_q + row_b) * kD + 2 * t;
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j) {
+        *reinterpret_cast<float2*>(ra + 8 * j) = make_float2(acc[4 * j] * scale, acc[4 * j + 1] * scale);
+        *reinterpret_cast<float2*>(rb + 8 * j) = make_float2(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
+      }
+    }
+  }
+  // consumer 1 freed the last two tiles' slots without a writer waiting: match them
+  if constexpr (Role == 0 && Cut != kLoadsOnly)
+    for (int x = max(gt - 2, 0); x < gt; ++x) named_sync(kPFree + (x & 1), 256);
+}
+
+// dq of q, dO [BH, Sq, 128] against k, v [BH, Skv, 128] as flash_bwd_dq_tc
+// computes it, for Hopper (the note at the top). Persistent: grid min(SMs,
+// blocks), kThreads threads, sizeof(Smem<Ring>) + 1024 bytes of dynamic
+// shared memory; q and dO through TMA maps of [BH·Sq, 128] f32 in boxes of
+// 32 columns by 64 rows, k and v through maps of [BH·Skv, 128] in boxes of 32
+// columns by 16 rows.
+template <bool Causal, bool Split, int Ring, int Cut = kFull>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_d128_tc(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_do,
+                     const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
+                     const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dq,
+                     int bh_count, int s_q, int s_kv, int shift, float scale) {
+  using S = Smem<Ring>;
+  extern __shared__ unsigned char smem_raw[];
+  S& sm = aligned_smem<S>(smem_raw);
+  const Walk walk{bh_count, s_q / kRows};  // block r of a head: rows (causal: from the last) r·64 …
+
+  if (threadIdx.x == 0) {
+    bar_init(&sm.qd_land, 1);   // the issuing thread's bar_expect; then the bytes
+    bar_init(&sm.qd_empty, 8);  // a consumer warp each, after the block's last scores
+    for (int i = 0; i < kRawStages; ++i) bar_init(&sm.raw_full[i], 1);
+    for (int i = 0; i < kScoreStages; ++i) {
+      bar_init(&sm.s_ready[i], 128);  // every producer thread, after its part of the operands
+      bar_init(&sm.s_empty[i], 8);
+    }
+    for (int i = 0; i < Ring; ++i) {
+      bar_init(&sm.t_ready[i], 128);  // every consumer 0 thread, after its part of Kᵀ
+      bar_init(&sm.t_empty[i], 4);    // consumer 1's warps, after the product
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    consume<0, Causal, Split, Ring, Cut>(sm, walk, lse, delta, dq, s_q, s_kv, shift, scale);
+    return;
+  }
+  if (threadIdx.x < 256) {
+    regs_inc<kConsumerRegs>();
+    consume<1, Causal, Split, Ring, Cut>(sm, walk, lse, delta, dq, s_q, s_kv, shift, scale);
+    return;
+  }
+
+  // The producer warpgroup. Thread p = 0 lands each tile's K and V by TMA
+  // into a ring of kRawStages, and each block's Q and dO into the
+  // consumers' rows once their last block's scores are done. The warpgroup
+  // stores each tile's K's and V's hi and lo in the swizzled layout into the
+  // scores' ring (thread p: keys r0 + 0, 2, 4, 6, columns 4c … 4c + 3);
+  // consumer 0 transposes K from there. Blocks without a tile (causal, every
+  // key after their rows) are skipped by both sides.
+  regs_dec<kProducerRegs>();
+  const int p = threadIdx.x - 256, pg = p / 32, c = p % 32;
+  const int r0 = (pg >> 1) * 8 + (pg & 1);  // this thread's keys of a tile: r0, r0 + 2, r0 + 4, r0 + 6
+  struct Tile {
+    int n, bh, row0, it, n_tiles;  // tile `it` of the n-th block's n_tiles
+  };
+  auto seek = [&](int n, Tile& x) {  // the first tile of the first block from the n-th on that has one
+    for (int bh, r; walk.next(n, bh, r); ++n) {
+      const int row0 = block_row0<Causal>(walk, r), nt = tiles_of<Causal>(row0, shift, s_kv);
+      if (nt > 0) {
+        x = Tile{n, bh, row0, 0, nt};
+        return true;
+      }
+    }
+    return false;
+  };
+  auto advance = [&](Tile& x) {  // x to its successor in the walk; false after the last tile
+    if (++x.it < x.n_tiles) return true;
+    return seek(x.n + 1, x);
+  };
+  // thread 0: the CTA's g-th tile x's K and V into raw stage g % kRawStages
+  auto land_raw = [&](int g, const Tile& x) {
+    if constexpr (Cut != kNoSplit) {
+      const int st = g % kRawStages, row = x.bh * s_kv + x.it * kTile;
+      bar_expect(&sm.raw_full[st], 2 * kTile * kD * 4);
+#pragma unroll
+      for (int h = 0; h < kSlabs; ++h) {
+        tma_box(sm.raw[st].k + h * kTile * kSlab, map_k, h * kSlab, row, &sm.raw_full[st]);
+        tma_box(sm.raw[st].v + h * kTile * kSlab, map_v, h * kSlab, row, &sm.raw_full[st]);
+      }
+    }
+  };
+  // the scores' operands of the CTA's g-th tile into score stage g % kScoreStages
+  auto store_scores = [&](int g) {
+    const int st = g % kScoreStages, rs = g % kRawStages;
+    if (g >= kScoreStages) bar_wait(&sm.s_empty[st], (g / kScoreStages - 1) & 1);
+    if constexpr (Cut != kNoSplit) {
+      bar_wait(&sm.raw_full[rs], (g / kRawStages) & 1);
+      Scores& stage = sm.st[st];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const unsigned at = swz<kTile>(r0 + 2 * i, 4 * c);
+        float4 hi, lo;
+        split4(*reinterpret_cast<const float4*>(&sm.raw[rs].k[at]), hi, lo);
+        *reinterpret_cast<float4*>(&stage.k[at]) = hi;
+        if constexpr (Split) *reinterpret_cast<float4*>(&stage.k_lo[at]) = lo;
+        split4(*reinterpret_cast<const float4*>(&sm.raw[rs].v[at]), hi, lo);
+        *reinterpret_cast<float4*>(&stage.v[at]) = hi;
+        if constexpr (Split) *reinterpret_cast<float4*>(&stage.v_lo[at]) = lo;
+      }
+    }
+    proxy_fence();
+    bar_arrive(&sm.s_ready[st]);
+  };
+  int nb = 0;
+  // thread 0: block x's Q and dO into the consumers' rows once their last block's scores are done (the next block's into L2)
+  auto land_qd = [&](const Tile& x) {
+    if (p == 0) {
+      if (nb > 0) bar_wait(&sm.qd_empty, (nb - 1) & 1);
+      bar_expect(&sm.qd_land, 2 * kRows * kD * 4);
+#pragma unroll
+      for (int h = 0; h < kSlabs; ++h) {
+        tma_box(sm.q_lo + h * kRows * kSlab, map_q, h * kSlab, x.bh * s_q + x.row0, &sm.qd_land);
+        tma_box(sm.do_lo + h * kRows * kSlab, map_do, h * kSlab, x.bh * s_q + x.row0, &sm.qd_land);
+      }
+      Tile after;
+      if (seek(x.n + 1, after))
+#pragma unroll
+        for (int h = 0; h < kSlabs; ++h) {
+          tma_prefetch(map_q, h * kSlab, after.bh * s_q + after.row0);
+          tma_prefetch(map_do, h * kSlab, after.bh * s_q + after.row0);
+        }
+    }
+    ++nb;
+  };
+
+  Tile nxt, ahead;  // tiles g and g + kRawStages at step g
+  if (!seek(0, nxt)) return;
+  ahead = nxt;
+  bool ahead_ok = true;
+  for (int g = 0; g < kRawStages && ahead_ok; ++g) {  // the first tiles' rows in flight
+    if (p == 0) land_raw(g, ahead);
+    ahead_ok = advance(ahead);
+  }
+  land_qd(nxt);
+  for (int g = 0;; ++g) {  // tile g is `nxt`
+    store_scores(g);
+    named_sync(kProducerBar, 128);  // raw stage g % kRawStages is read by every thread: refill it
+    if (ahead_ok) {
+      if (p == 0) land_raw(g + kRawStages, ahead);
+      ahead_ok = advance(ahead);
+    }
+    if (!advance(nxt)) return;
+    if (nxt.it == 0) land_qd(nxt);
+  }
+}
+
+// One launch of the head-dim-128 dq with Ring transposes stages; the cudaError_t of the launch.
+template <bool Causal, bool Split, int Ring = 2, int Cut = kFull>
+int launch(const float* q, const float* k, const float* v, const float* dout, const float* lse, const float* delta,
+           float* dq, int bh, int s_q, int s_kv, int shift, float scale, cudaStream_t st) {
+  CUtensorMap mq, mdo, mk, mv;
+  int e = hopper_tma::tensor_map_f32_2d(&mq, q, (long long)bh * s_q, kD, kSlab, kRows);
+  if (e == 0) e = hopper_tma::tensor_map_f32_2d(&mdo, dout, (long long)bh * s_q, kD, kSlab, kRows);
+  if (e == 0) e = hopper_tma::tensor_map_f32_2d(&mk, k, (long long)bh * s_kv, kD, kSlab, kTile);
+  if (e == 0) e = hopper_tma::tensor_map_f32_2d(&mv, v, (long long)bh * s_kv, kD, kSlab, kTile);
+  int grid = 0;
+  if (e == 0) e = hopper_tma::persistent_grid(bh * (s_q / kRows), &grid);
+  if (e != 0) return e;
+  return hopper_tma::launch(flash_bwd_dq_d128_tc<Causal, Split, Ring, Cut>, (int)sizeof(Smem<Ring>) + 1024,
+                            dim3(grid), kThreads, st, mq, mdo, mk, mv, lse, delta, dq, bh, s_q, s_kv, shift, scale);
+}
+
+}  // namespace dq128
+
 // One launch of a backward kernel with its dynamic shared memory; the
 // cudaError_t of the launch.
 template <typename Kernel, typename... Args>
@@ -2181,7 +2759,11 @@ int bwd_dq(const float* q, const float* k, const float* v, const float* dout, co
   if (!rect_shape_ok(bh, s_q, s_kv)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (instance(d, causal, split)) {
-    KERNEL_CASES(bwd_dq_d, q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, shift, scale, st)
+    KERNEL_CASES_64(bwd_dq_d, q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, shift, scale, st)
+    case 12: return dq128::launch<false, false>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, shift, scale, st);
+    case 13: return dq128::launch<false, true>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, shift, scale, st);
+    case 14: return dq128::launch<true, false>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, shift, scale, st);
+    case 15: return dq128::launch<true, true>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, shift, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -2314,6 +2896,35 @@ int flash_bwd_dkv_d128_cut_launch(const float* q, const float* k, const float* v
   DKV128_CASE(2, tc::bwd128::kNoSplit)
   DKV128_CASE(1, tc::bwd128::kFull)
 #undef DKV128_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The head-dim-128 dq's plans and cuts, as above: `plan` 0 is the shipped
+// one (two transposes stages), 1 three transposes stages.
+int flash_bwd_dq_d128_cut_launch(const float* q, const float* k, const float* v, const float* dout, const float* lse,
+                                 const float* delta, float* dq, int bh, int s_q, int s_kv, int causal, int q_off,
+                                 int k_off, float scale, int passes, int plan, int cut, void* stream) {
+  if (!rect_shape_ok(bh, s_q, s_kv)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int shift = q_off - k_off;
+  const bool c = causal != 0, sp = passes == 3;
+#define DQ128_CASE(R, CUT)                                                                                         \
+  if (plan == (R == 2 ? 0 : 1) && cut == CUT) {                                                                    \
+    if (c && sp)                                                                                                   \
+      return tc::dq128::launch<true, true, R, CUT>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, shift, scale, st);  \
+    if (c)                                                                                                         \
+      return tc::dq128::launch<true, false, R, CUT>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, shift, scale, st); \
+    if (sp)                                                                                                        \
+      return tc::dq128::launch<false, true, R, CUT>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, shift, scale, st); \
+    return tc::dq128::launch<false, false, R, CUT>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, shift, scale, st);  \
+  }
+  DQ128_CASE(2, tc::dq128::kFull)
+  DQ128_CASE(2, tc::dq128::kNoExp)
+  DQ128_CASE(2, tc::dq128::kNoMma)
+  DQ128_CASE(2, tc::dq128::kLoadsOnly)
+  DQ128_CASE(2, tc::dq128::kNoSplit)
+  DQ128_CASE(3, tc::dq128::kFull)
+#undef DQ128_CASE
   return (int)cudaErrorInvalidValue;
 }
 #endif

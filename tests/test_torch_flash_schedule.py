@@ -10,9 +10,10 @@ per warpgroup and tile whether it is skipped, masked by select, or computed
 in full. Replayed on the CPU for S in {128, 256, 2048} under both block
 plans (`Plan<D>`): 128 rows a block as two warpgroups, with dq's tiles of
 64 keys (32 at D = 64) and dk/dv's 32 queries; and at D = 128 64 rows a
-block, with 16-key and 16-query tiles (dq on one warpgroup; dk/dv in
-`bwd128::flash_bwd_dkv_d128_tc`, whose persistent walk takes the blocks in
-the order of `blockIdx.x` here, its walk, masks and barriers replayed in
+block, with 16-key and 16-query tiles (dq in `dq128::flash_bwd_dq_d128_tc`
+and dk/dv in `bwd128::flash_bwd_dkv_d128_tc`, whose persistent walks take
+the blocks in the order of `blockIdx.x` here, their walks, masks and
+barriers replayed in `test_torch_flash_bwd_dq_d128_plan.py` and
 `test_torch_flash_bwd_dkv_d128_plan.py`). Every pair j <= i is computed
 exactly once, no pair j > i is computed without its mask, and blocks
 launch in order of non-increasing work.
@@ -117,14 +118,14 @@ def test_only_the_diagonal_tiles_are_masked_or_wasted():
 
 
 def test_the_d128_plans_are_the_sources():
-    # dq's 16-key tiles on Plan<128>'s one warpgroup; dk/dv's 64 key rows and 16-query tiles in bwd128
+    # dq's 64 query rows and 16-key tiles in dq128; dk/dv's 64 key rows and 16-query tiles in bwd128
     import re
     from pathlib import Path
 
     from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
 
     src = (Path(fc.__file__).resolve().parents[1] / "csrc" / "flash_attention.cu").read_text()
-    ns = src[src.index("namespace bwd128 {"):src.index("}  // namespace bwd128")]
-    assert re.search(r"^constexpr int kRows = 64;", ns, re.M) and re.search(r"^constexpr int kTile = 16;", ns, re.M)
-    assert "static constexpr int kDqTile = D == 128 ? 16 :" in src
+    for name in ("dq128", "bwd128"):
+        ns = src[src.index(f"namespace {name} {{"):src.index(f"}}  // namespace {name}")]
+        assert re.search(r"^constexpr int kRows = 64;", ns, re.M) and re.search(r"^constexpr int kTile = 16;", ns, re.M)
     assert D128 == (64, 16)

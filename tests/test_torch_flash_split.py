@@ -25,12 +25,28 @@ LN2 = np.log(2.0)
 LOG2E = np.float32(1.4426950408889634)
 
 
+def _d128_constant(namespace, name):
+    """`constexpr int name` of a head-dim-128 kernel's namespace in csrc/flash_attention.cu."""
+    import re
+    from pathlib import Path
+
+    src = (Path(__file__).resolve().parents[1] / "federated_pytorch_test_tpu_torch" / "csrc"
+           / "flash_attention.cu").read_text()
+    ns = src[src.index(f"namespace {namespace} {{"):src.index(f"}}  // namespace {namespace}")]
+    return int(re.search(rf"^constexpr int {name} = (\d+);", ns, re.M).group(1))
+
+
 def plan(d):
     """(rows a block, keys a forward tile, keys a dq tile, queries a dk/dv
     tile) of the kernels at head dim d: `Plan<D>` in csrc/flash_attention.cu
-    (at D 128 the forward's `fwd128::kKeys` and the dk/dv's `bwd128::kTile`)."""
+    (at D 128 the kernels of their own: the forward's `fwd128::kKeys`, the
+    dq's `dq128::kTile` and the dk/dv's `bwd128::kTile`, on blocks of 64
+    rows)."""
     if d == 128:
-        return 64, 32, 16, 16
+        rows = {_d128_constant(ns, "kRows") for ns in ("fwd128", "dq128", "bwd128")}
+        assert rows == {64}
+        return 64, _d128_constant("fwd128", "kKeys"), _d128_constant("dq128", "kTile"), _d128_constant(
+            "bwd128", "kTile")
     return 128, 64, 32 if d == 64 else 64, 32
 
 
