@@ -18,7 +18,8 @@ train phases named by `--ab-phases` (default: the Net, LM, ViT and MoE ViT
 trains; `phase_lm_d128` and `phase_vit_d128` may be named too), of the
 checkout in DIR (e.g. the parent commit, `git archive`d) and of this one
 in turns, in fresh processes (`run_ab`), with the bf16 trio and its
-autograd forward and backward beside SDPA's and the f32 flash forward at
+autograd forward and backward beside SDPA's (forward, backward and both)
+and the f32 flash forward at
 both precisions at the LM's and the ViT's shapes (D 16 and D 128); it also
 says whether the bf16 grouped GEMM's outputs, the assembly's, the bf16
 trio's, the f32 forward's and the train phases' loss series are equal in
@@ -34,7 +35,8 @@ Phases, each reported on its own lines and followed by its wall (`phase
               counts of every tensor-core instance (the flash forward and
               backward, causal and not, split and one-pass, the forward at
               D 128 its own kernel; the bf16 flash
-              trio; the grouped GEMM's split-TF32 and bf16 instances), each
+              trio, its forward and dk/dv at D 128 kernels of their own;
+              the grouped GEMM's split-TF32 and bf16 instances), each
               of which must hold HGMMA and spill nothing;
 3. kernels  — each compact-direction kernel against its plain PyTorch version
               on the card (K=3, m=10, N at every Net group size, one
@@ -551,8 +553,8 @@ def report_tensor_core_build(lib, label, tc) -> None:
 
 
 TC_KERNELS = ("flash_fwd_tc", "flash_fwd_d128_tc", "flash_bwd_dq_tc", "flash_bwd_dq_d128_tc",  # the tensor-core flash kernels
-              "flash_bwd_dkv_tc", "flash_bwd_dkv_d128_tc", "flash_fwd_bf16_tc", "flash_bwd_dq_bf16_tc",
-              "flash_bwd_dkv_bf16_tc")
+              "flash_bwd_dkv_tc", "flash_bwd_dkv_d128_tc", "flash_fwd_bf16_tc", "flash_fwd_bf16_d128_tc",
+              "flash_bwd_dq_bf16_tc", "flash_bwd_dkv_bf16_tc", "flash_bwd_dkv_bf16_d128_tc")
 
 
 def flash_label(mangled: str):
@@ -3801,7 +3803,9 @@ def phase_probe_fan_train(metrics_out, profile: bool, reference=None):
 # (AB_ASSEMBLY_SIZES) and a directory (or ""): the device ms of the
 # grouped GEMM at every MoE ViT path shape on f32 and on bf16 operands, of
 # the gram at every Net group size, of the assembly at every one of those
-# sizes (full history), of the bf16 trio at BF16_PATHS, of the f32 forward,
+# sizes (full history), of the bf16 trio at BF16_PATHS (with its autograd
+# forward and backward, and SDPA's forward, backward and both on the same
+# bf16 inputs), of the f32 forward,
 # dq and dk/dv at both precisions at the LM's and the ViT's shapes
 # (FLASH_PATH, RECT_PATH, LM128_PATH, VIT128_PATH; the backward from the
 # plain forward's lse and delta) and of SDPA's f32 backward at the two D-128
@@ -3887,7 +3891,12 @@ for bh, s_len, d in cs.BF16_PATHS:  # the bf16 trio, and its autograd forward an
     q4, k4, v4 = (t.detach().view(1, bh, s_len, d).requires_grad_(True) for t in (q16, k16, v16))
     times[f"sdpa fwd+bwd bf16 {tag}"] = cs.time_ms(lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(q4, k4, v4, is_causal=True), (q4, k4, v4), do16.view(1, bh, s_len, d)), 20)[1]
-    del q, k, v, do, q16, k16, v16, qs, o, lse, delta, do16, q3, k3, v3, q4, k4, v4
+    times[f"sdpa fwd bf16 {tag}"] = cs.time_ms(lambda: F.scaled_dot_product_attention(
+        q4.detach(), k4.detach(), v4.detach(), is_causal=True), 20)[1]
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    times[f"sdpa bwd bf16 {tag}"] = cs.time_ms(lambda: torch.autograd.grad(
+        o4, (q4, k4, v4), do16.view(1, bh, s_len, d), retain_graph=True), 20)[1]
+    del q, k, v, do, q16, k16, v16, qs, o, lse, delta, do16, q3, k3, v3, q4, k4, v4, o4
 for aligned, (bh, s_len, d) in ((True, cs.FLASH_PATH), (False, cs.RECT_PATH), (True, cs.LM128_PATH),
                                  (False, cs.VIT128_PATH)):  # the f32 forward at the LM's and the ViT's shapes
     q, k, v, _ = cs.flash_inputs(bh, s_len, d, seed=43)
@@ -3963,7 +3972,7 @@ AB_BUILD = ("import sys; sys.path.insert(0, '.'); import chip_smoke as cs; "
 def run_ab(parent: str, runs: int, phases) -> None:
     """The kernel times (the grouped GEMM on f32 and bf16 operands, gram,
     assembly, the bf16 flash trio with its autograd forward and backward
-    beside SDPA's at `BF16_PATHS`, the f32 flash forward, dq and dk/dv at the
+    beside SDPA's forward, backward and both at `BF16_PATHS`, the f32 flash forward, dq and dk/dv at the
     LM's and the ViT's shapes at both precisions, SDPA's f32 backward at the
     D-128 ones) and the walls of the train `phases` of
     another checkout (`parent`, e.g. `git archive` of the parent commit

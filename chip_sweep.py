@@ -36,12 +36,16 @@ line per setting with its device ms (calls queued behind a sleep kernel,
    rows allow it: equal bits to the shipped path's result, and
    `torch.matmul(coef, X)` timed beside them as the yardstick;
 4. bf16 — the bf16 causal trio (`csrc/flash_bf16.cu`: forward, dq, dk/dv)
-   at both `chip_smoke.BF16_PATHS`, from the library built with
-   `-DFLASH_BF16_CUTS` (`flash_*_bf16_cut_launch`): the forward and dq at
-   every key tile they have, each kernel whole and with its attribution
-   cuts (no exps, no products, loads only, products only), each beside its
-   bound (`chip_smoke.flash_bounds`); a whole kernel's outputs within two
-   bf16 units of its plain version (the forward's at that tile;
+   at every `chip_smoke.BF16_PATHS` shape, from the library built with
+   `-DFLASH_BF16_CUTS` (`flash_*_bf16_cut_launch`,
+   `flash_*_bf16_d128_cut_launch`): up to D = 64 the forward and dq at
+   every key tile they have, at D = 128 the forward at each of its plans
+   (K, V and qs stages) and dk/dv at each ring depth, each kernel whole and
+   with its attribution cuts (no exps, no products, loads only — the
+   producer alone —, products only, and at D = 128 no loads — the consumers
+   alone, with a `binds` line of both shares), each beside its bound
+   (`chip_smoke.flash_bounds`); a whole kernel's outputs within two bf16
+   units of its plain version (the forward's at that tile;
    `chip_smoke.bf16_units`);
 4b. flash_f32 — the head-dim-128 f32 forward (`fwd128::flash_fwd_d128_tc`
    in `csrc/flash_attention.cu`), dk/dv (`bwd128::flash_bwd_dkv_d128_tc`)
@@ -290,11 +294,21 @@ def sweep_assembly() -> None:
         del s, y, g, out
 
 
-BF16_CUTS = ("full", "no_exp", "no_mma", "loads_only", "mma_only")  # kFull … kMmaOnly in csrc/flash_bf16.cu
-BF16_KEYS = (64, 128)  # the forward's and dq's candidate key tiles
+BF16_CUTS = ("full", "no_exp", "no_mma", "loads_only", "mma_only", "no_loads")  # kFull … kNoLoads in csrc/flash_bf16.cu
+BF16_KEYS = (64, 128)  # the forward's and dq's candidate key tiles up to D = 64 (dq's at D = 128)
+FWD128_PLANS = ("k3v2q2", "k3v3q1", "k2v2q2")  # `plan` of flash_fwd_bf16_d128_cut_launch: FwdDepth's K, V, qs stages
+DKV128_RINGS = (4, 3)  # `ring` of flash_bwd_dkv_bf16_d128_cut_launch: qs/dO stages; the first of each is shipped
 
 
 def sweep_bf16() -> None:
+    """The bf16 trio at every `chip_smoke.BF16_PATHS` shape, from the
+    library built with `-DFLASH_BF16_CUTS`: up to D = 64 the forward and dq
+    at each key tile and dk/dv, each whole and with the cuts kFull …
+    kMmaOnly; at D = 128 the forward of each plan and dk/dv of each ring
+    depth, each with every cut (no_loads: the consumers alone), and dq at 64
+    keys. A whole kernel's outputs are held to its plain version in bf16
+    units; at D = 128 a `binds` line gives the producer alone (loads_only)
+    and the consumers alone (no_loads) as shares of the whole."""
     import ctypes
 
     import torch
@@ -305,8 +319,10 @@ def sweep_bf16() -> None:
     lib = build.load("flash_bf16", ("FLASH_BF16_CUTS",))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.flash_fwd_bf16_cut_launch.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
+    lib.flash_fwd_bf16_d128_cut_launch.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
     lib.flash_bwd_dq_bf16_cut_launch.argtypes = [ptr] * 7 + [i32] * 3 + [ctypes.c_float] + [i32] * 2 + [ptr]
     lib.flash_bwd_dkv_bf16_cut_launch.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
+    lib.flash_bwd_dkv_bf16_d128_cut_launch.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
     for bh, s, d in cs.BF16_PATHS:
         (_, _, _, do), (q16, k16, v16) = cs.bf16_inputs(bh, s, d, seed=41)
         scale = 1.0 / d ** 0.5
@@ -324,49 +340,55 @@ def sweep_bf16() -> None:
         label = f"BH={bh} S={s} D={d}"
         o, lse = torch.empty_like(o_ref), torch.empty_like(lse_ref)
         dq, dk, dv = torch.empty_like(q16), torch.empty_like(k16), torch.empty_like(v16)
-        for keys in BF16_KEYS:
-            want = fc.flash_fwd_bf16_plain(qs, k16, v16, keys=keys)
-            for cut, cut_name in enumerate(BF16_CUTS):
-                def fwd():
-                    return lib.flash_fwd_bf16_cut_launch(qs.data_ptr(), k16.data_ptr(), v16.data_ptr(), o.data_ptr(),
-                                                         lse.data_ptr(), bh, s, d, keys, cut, stream)
 
-                if fwd() != 0:
-                    print(f"sweep bf16 fwd {label} keys={keys} cut={cut_name} no instance", flush=True)
+        def time_cuts(kind: str, variant: str, call, bound: float, check, cuts) -> None:
+            """Each cut of one variant: device ms beside the bound, the whole
+            one's check; at D = 128 the shares of the producer and consumers alone."""
+            ms = {}
+            for cut, cut_name in enumerate(cuts):
+                if call(cut) != 0:
+                    print(f"sweep bf16 {kind} {label} {variant} cut={cut_name} no instance", flush=True)
                     continue
-                _, device_ms = cs.time_ms(fwd, 20)
-                check = "" if cut else (f" o_units={cs.bf16_units(o, want[0]):.3f} "
-                                        f"lse_units={cs.bf16_units(lse, want[1]):.3f}")
-                print(f"sweep bf16 fwd {label} keys={keys} cut={cut_name} device_ms={device_ms:.6f} "
-                      f"bound_ms={bound_fwd:.6f} share_of_bound={bound_fwd / device_ms:.3f}{check}", flush=True)
+                _, ms[cut_name] = cs.time_ms(lambda: call(cut), 20)
+                print(f"sweep bf16 {kind} {label} {variant} cut={cut_name} device_ms={ms[cut_name]:.6f} "
+                      f"bound_ms={bound:.6f} share_of_bound={bound / ms[cut_name]:.3f}"
+                      f"{check() if cut == 0 else ''}", flush=True)
+            if "no_loads" in ms and "full" in ms:
+                print(f"sweep bf16 {kind} {label} {variant} binds producer_alone={ms['loads_only'] / ms['full']:.3f} "
+                      f"consumers_alone={ms['no_loads'] / ms['full']:.3f} (of the whole)", flush=True)
+
+        def fwd_check(want=(o_ref, lse_ref)):
+            return f" o_units={cs.bf16_units(o, want[0]):.3f} lse_units={cs.bf16_units(lse, want[1]):.3f}"
+
+        def dkv_check():
+            return f" dk_units={cs.bf16_units(dk, dk_ref):.3f} dv_units={cs.bf16_units(dv, dv_ref):.3f}"
+
+        if d == 128:
+            for plan, name in enumerate(FWD128_PLANS):
+                time_cuts("fwd", f"plan={name}", lambda cut, plan=plan: lib.flash_fwd_bf16_d128_cut_launch(
+                    qs.data_ptr(), k16.data_ptr(), v16.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, s, plan, cut,
+                    stream), bound_fwd, fwd_check, BF16_CUTS)
+        else:
+            for keys in BF16_KEYS:
+                want = fc.flash_fwd_bf16_plain(qs, k16, v16, keys=keys)
+                time_cuts("fwd", f"keys={keys}", lambda cut, keys=keys: lib.flash_fwd_bf16_cut_launch(
+                    qs.data_ptr(), k16.data_ptr(), v16.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, s, d, keys, cut,
+                    stream), bound_fwd, lambda want=want: fwd_check(want), BF16_CUTS[:5])
         for keys in BF16_KEYS:
-            for cut, cut_name in enumerate(BF16_CUTS):
-                def dq_call():
-                    return lib.flash_bwd_dq_bf16_cut_launch(qs.data_ptr(), k16.data_ptr(), v16.data_ptr(),
-                                                            do16.data_ptr(), lse_ref.data_ptr(), delta.data_ptr(),
-                                                            dq.data_ptr(), bh, s, d, scale, keys, cut, stream)
-
-                if dq_call() != 0:
-                    print(f"sweep bf16 dq {label} keys={keys} cut={cut_name} no instance", flush=True)
-                    continue
-                _, device_ms = cs.time_ms(dq_call, 20)
-                check = "" if cut else f" dq_units={cs.bf16_units(dq, dq_ref):.3f}"
-                print(f"sweep bf16 dq {label} keys={keys} cut={cut_name} device_ms={device_ms:.6f} "
-                      f"bound_ms={bound_dq:.6f} share_of_bound={bound_dq / device_ms:.3f}{check}", flush=True)
-        for cut, cut_name in enumerate(BF16_CUTS):
-            def dkv():
-                return lib.flash_bwd_dkv_bf16_cut_launch(qs.data_ptr(), k16.data_ptr(), v16.data_ptr(), do16.data_ptr(),
-                                                         lse_ref.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                                                         dv.data_ptr(), bh, s, d, cut, stream)
-
-            if dkv() != 0:
-                print(f"sweep bf16 dkv {label} cut={cut_name} no instance", flush=True)
-                continue
-            _, device_ms = cs.time_ms(dkv, 20)
-            check = "" if cut else (f" dk_units={cs.bf16_units(dk, dk_ref):.3f} "
-                                    f"dv_units={cs.bf16_units(dv, dv_ref):.3f}")
-            print(f"sweep bf16 dkv {label} cut={cut_name} device_ms={device_ms:.6f} bound_ms={bound_dkv:.6f} "
-                  f"share_of_bound={bound_dkv / device_ms:.3f}{check}", flush=True)
+            time_cuts("dq", f"keys={keys}", lambda cut, keys=keys: lib.flash_bwd_dq_bf16_cut_launch(
+                qs.data_ptr(), k16.data_ptr(), v16.data_ptr(), do16.data_ptr(), lse_ref.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), bh, s, d, scale, keys, cut, stream), bound_dq,
+                lambda: f" dq_units={cs.bf16_units(dq, dq_ref):.3f}", BF16_CUTS[:5])
+        if d == 128:
+            for ring in DKV128_RINGS:
+                time_cuts("dkv", f"ring={ring}", lambda cut, ring=ring: lib.flash_bwd_dkv_bf16_d128_cut_launch(
+                    qs.data_ptr(), k16.data_ptr(), v16.data_ptr(), do16.data_ptr(), lse_ref.data_ptr(),
+                    delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, s, ring, cut, stream), bound_dkv, dkv_check,
+                    BF16_CUTS)
+        else:
+            time_cuts("dkv", "tile=64", lambda cut: lib.flash_bwd_dkv_bf16_cut_launch(
+                qs.data_ptr(), k16.data_ptr(), v16.data_ptr(), do16.data_ptr(), lse_ref.data_ptr(), delta.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), bh, s, d, cut, stream), bound_dkv, dkv_check, BF16_CUTS[:5])
         del q16, k16, v16, qs, do, do16, o_ref, lse_ref, delta, dq_ref, dk_ref, dv_ref, o, lse, dq, dk, dv
 
 

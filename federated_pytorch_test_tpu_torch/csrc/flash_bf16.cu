@@ -4,8 +4,10 @@
 // 'default' (`flash_attention` :860).
 //
 //   _fwd_tri     :559 (_fwd_kernel_tri :253, cast16, fuse_l)    -> flash_fwd_bf16_launch     -> flash_fwd_bf16_tc<D, Keys>
+//                                                                  (D = 128: flash_fwd_bf16_d128_tc<Plan>)
 //   _bwd_tri dq  :655 (_bwd_dq_kernel_tri :341, cast16)         -> flash_bwd_dq_bf16_launch  -> flash_bwd_dq_bf16_tc<D, Keys>
 //   _bwd_tri dkv :673 (_bwd_dkv_kernel_tri :365, cast16)        -> flash_bwd_dkv_bf16_launch -> flash_bwd_dkv_bf16_tc<D>
+//                                                                  (D = 128: flash_bwd_dkv_bf16_d128_tc<Ring>)
 //
 // What they compute, as the TPU kernels do (and the plain versions in
 // ops/flash_cuda.py repeat):
@@ -69,18 +71,35 @@
 //     t's dS (and P) products.
 //   * Tiles: 128 keys a forward tile at every D (kFwdKeys; 64 measured
 //     slower at D 16 and 64); kDqKeys keys a dq tile by D, by measurement;
-//     dk/dv streams 64 queries a tile (128 would not fit its registers;
-//     32 at D = 128, kDkvTile).
-//   * D = 128 (kRing, kSlab, kDkvOverlap): a ring of two stages, not four,
-//     and dq's tile 64 keys, so that each plan fits 227 KB (the
-//     static_asserts state the bytes); every tile lands as 64-column slabs
-//     with the 128-byte swizzle, two TMA boxes a tile, read K-major a slab
-//     a k16 step and MN-major as two N = 64 products, one a slab; the row
-//     sum l is the same sum of the rounded P as at D <= 64 (the JAX
-//     package's l scratch, `fuse_l` false at D 128, sums the same terms);
-//     dk/dv streams 32-query tiles, so that its next tile's scores fit in
-//     flight beside the two 64-register accumulators (64-query tiles
-//     spilled), and masks the first two tiles a warpgroup sees.
+//     dk/dv streams 64 queries a tile (128 would not fit its registers).
+//   * D = 128: every tile lands as 64-column slabs with the 128-byte
+//     swizzle (kSlab), two TMA boxes a tile, read K-major a slab a k16 step
+//     and MN-major as two N = 64 products, one a slab; the row sum l is the
+//     same sum of the rounded P as at D <= 64 (the JAX package's l scratch,
+//     `fuse_l` false at D 128, sums the same terms). At (BH, S) = (128,
+//     2048) a tensor is 67 MB: K and V of every head do not fit the 50 MB
+//     L2, and `Schedule`, which deals out block row r of every head before
+//     row r + 1, reads them from device memory again for every block
+//     (on an H100 the forward's producer alone took 0.41 of 0.60 ms,
+//     dk/dv's 0.52 of 0.93; chip_sweep.py bf16). So the forward and dk/dv
+//     at D 128 walk a head's blocks side by side (`HeadWalk`: 5 to 10 heads,
+//     at most 15 MB, in flight), each with a plan of its own (the
+//     static_asserts state the bytes):
+//     - the forward (flash_fwd_bf16_d128_tc) keeps two 64-row warpgroups
+//       a 128-query block, ping-pong and 128-key tiles, but frees K and V
+//       apart (K after both warpgroups' scores, V after their P·V) from
+//       rings of their own, K a tile ahead of V and a stage deeper, and
+//       frees qs after the block's last scores (FwdDepth);
+//     - dk/dv (flash_bwd_dkv_bf16_d128_tc) splits its consumers by role
+//       on blocks of 64 keys: warpgroup 0 holds K as its A fragments, forms
+//       Sᵀ = K·qsᵀ and Pᵀ, and sums dv += bf16(Pᵀ)·dO; warpgroup 1 holds V,
+//       forms dPᵀ = V·dOᵀ and dSᵀ from Pᵀ, which it takes in f32 from
+//       warpgroup 0 through two slots of shared memory (dS is formed from
+//       the unrounded P), and sums dk += bf16(dSᵀ)·qs. The score products
+//       read only qs or dO from shared memory (N = 64 queries a tile), the
+//       accumulators take 64 registers a thread, and a ring of
+//       kDkv128Ring qs/dO stages runs ahead.
+//     dq keeps a ring of two stages (kRing) and 64-key tiles.
 //   * Causal: a block reads only the tiles that can see it; a warpgroup
 //     frees a tile wholly outside its triangle unread and masks by select
 //     only the one tile across its diagonal, a separate compile-time branch
@@ -123,6 +142,8 @@ using hopper_tma::bulk_copy;
 using hopper_tma::encode_tiled;
 using hopper_tma::EncodeTiled;
 using hopper_tma::launch;
+using hopper_tma::named_arrive;
+using hopper_tma::named_sync;
 using hopper_tma::persistent_grid;
 using hopper_tma::regs_dec;
 using hopper_tma::regs_inc;
@@ -140,13 +161,14 @@ constexpr float kLn2 = 0.6931471805599453f;
 // Two consumer warpgroups and a producer warpgroup
 constexpr int kWsThreads = 384;  // the producer warpgroup last
 constexpr int kConsumerWarps = 8;  // each frees a stage with one arrival
-constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // setmaxnreg: 128·24 + 256·240 <= 65,536
-// queries a dk/dv tile, by head dim: 64, and 32 at D = 128, where dk's and
-// dv's accumulators take 128 registers a thread and 64-query tiles spilled
-// 36 bytes at the dv and dk products' issue; 32-query tiles halve the
-// registers of sᵀ, dPᵀ and their bf16 fragments
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // setmaxnreg
+constexpr int kLaunchRegs = 65536 / kWsThreads / 8 * 8;   // a thread's registers at __launch_bounds__(384, 1): 168
+// setmaxnreg moves registers within the pool the CTA is launched with
+static_assert(128 * (kProducerRegs + 2 * kConsumerRegs) <= kWsThreads * kLaunchRegs, "setmaxnreg over the CTA's pool");
+// queries a dk/dv tile at every head dim (flash_bwd_dkv_bf16_tc up to D = 64,
+// flash_bwd_dkv_bf16_d128_tc at D = 128)
 template <int D>
-constexpr int kDkvTile = D == 128 ? 32 : 64;
+constexpr int kDkvTile = 64;
 // keys a forward tile, by head dim (chip_sweep.py bf16 times 64 and 128; BF16_FWD_KEYS in ops/flash_cuda.py)
 template <int D>
 constexpr int kFwdKeys = 128;
@@ -156,15 +178,17 @@ template <int D>
 constexpr int kDqKeys = 128;
 template <>
 constexpr int kDqKeys<128> = 64;
-// stages of the producer's ring, by head dim: four up to D = 64; two at D =
-// 128, where a stage (a K and a V tile, or a qs and a dO tile) is 64 KB
-// (forward), 32 KB (dq) or 16 KB (dk/dv) and the block's own rows take 64 KB
-// a buffer (the plans' bytes stand in the static_asserts after the kernels)
+// stages of the producer's ring of the forward, dq and dk/dv up to D = 64
+// (four), and of dq at D = 128 (two: a stage of a K and a V tile is 32 KB
+// and the block's qs and dO take 64 KB a buffer; the plans' bytes stand in
+// the static_asserts after the kernels)
 template <int D>
 constexpr int kRing = D == 128 ? 2 : 4;
 
-// attribution cuts (the template argument Cut; the shipped entry points take kFull)
-constexpr int kFull = 0, kNoExp = 1, kNoMma = 2, kLoadsOnly = 3, kMmaOnly = 4;
+// attribution cuts (the template argument Cut; the shipped entry points
+// take kFull). kNoLoads, the consumers alone, only in the D-128 forward and
+// dk/dv: the producer arrives on each full barrier without a copy
+constexpr int kFull = 0, kNoExp = 1, kNoMma = 2, kLoadsOnly = 3, kMmaOnly = 4, kNoLoads = 5;
 
 bool shape_ok(int bh, int s) { return bh >= 1 && bh <= 65535 && s >= kRows && s % kRows == 0; }
 
@@ -372,6 +396,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 flash_fwd_bf16_tc(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                   const __grid_constant__ CUtensorMap map_v, float* __restrict__ o, float* __restrict__ lse,
                   int bh_count, int s_len) {
+  static_assert(D <= 64, "D = 128 runs flash_fwd_bf16_d128_tc");
   using S = SmemFwd<D, T>;
   constexpr int Ring = kRing<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -778,6 +803,7 @@ flash_bwd_dkv_bf16_tc(const __grid_constant__ CUtensorMap map_q, const __grid_co
                       const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
                       const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dk,
                       bf16* __restrict__ dv, int bh_count, int s_len) {
+  static_assert(D <= 64, "D = 128 runs flash_bwd_dkv_bf16_d128_tc");
   using S = SmemDkv<D>;
   constexpr int Ring = kRing<D>, T = kDkvTile<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -962,16 +988,546 @@ flash_bwd_dkv_bf16_tc(const __grid_constant__ CUtensorMap map_q, const __grid_co
 static_assert(sizeof(SmemFwd<64, 128>) + 1024 <= 232448 && sizeof(SmemDq<64, 128>) + 1024 <= 232448 &&
                   sizeof(SmemDkv<64>) + 1024 <= 232448,
               "over 227 KB of shared memory");
-// D = 128 (two-stage rings, 64-column slabs): the forward's 128-key tiles
-// and the double-buffered qs, 197,632 bytes; dq's 64-key tiles beside qs and
-// dO, 197,632; dk/dv's 32-query tiles (with their lse and delta) beside k
-// and v, 166,912; each with the 1 KB the alignment takes
-static_assert(sizeof(SmemFwd<128, kFwdKeys<128>>) == 197632 && sizeof(SmemDq<128, kDqKeys<128>>) == 197632 &&
-                  sizeof(SmemDkv<128>) == 166912,
+
+// ---------------------------------------------------------------------------
+// D = 128: the forward and dk/dv (the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int kSmemLimit = 232448;  // shared memory a block may have (227 KB)
+
+// The walk of the D-128 forward and dk/dv: the blocks of a launch head by
+// head (block r of head bh is item bh·rows + r, r = 0 the heaviest), dealt
+// to the persistent CTAs in a snake as `Schedule` deals them, so that the
+// CTAs work on a few heads at a time, whose rows stay in L2 while every
+// block of the head reads them again.
+struct HeadWalk {
+  int heads, rows;  // BH, and blocks a head
+  // this CTA's n-th block: head bh, block r (0 the heaviest); false past the last
+  __device__ __forceinline__ bool next(int n, int& bh, int& r) const {
+    const int g = gridDim.x, c = blockIdx.x;
+    const int idx = n * g + (n % 2 == 0 ? c : g - 1 - c);
+    if (idx >= heads * rows) return false;
+    bh = idx / rows;
+    r = idx % rows;
+    return true;
+  }
+};
+
+// The producer's copy of the x-th tile of a ring of Stages stages: R rows
+// of `map` from `row` into stage x % Stages once its last tile is freed;
+// without Copy (the kNoLoads cut) only the arrival
+template <int Stages, int R, bool Copy>
+__device__ __forceinline__ void land(bf16 (&ring)[Stages][R * 128], uint64_t* full, uint64_t* empty, int x,
+                                     const CUtensorMap& map, int row) {
+  wait_empty<Stages>(empty, x);
+  if constexpr (Copy) {
+    bar_expect(&full[x % Stages], R * 128 * 2);
+    tma_tile<128, R>(ring[x % Stages], map, row, &full[x % Stages]);
+  } else {
+    bar_arrive(&full[x % Stages]);
+  }
+}
+
+// Stages of the D-128 forward's rings by plan: K tiles, V tiles and blocks
+// of qs, 32 KB each. Plan kFwd128Plan is shipped; chip_sweep.py bf16 times
+// every plan.
+template <int Plan>
+struct FwdDepth;
+template <>
+struct FwdDepth<0> {
+  static constexpr int k = 3, v = 2, q = 2;
+};
+template <>
+struct FwdDepth<1> {
+  static constexpr int k = 3, v = 3, q = 1;
+};
+template <>
+struct FwdDepth<2> {
+  static constexpr int k = 2, v = 2, q = 2;  // the depth of the D <= 64 plan at D = 128
+};
+constexpr int kFwd128Plan = 0;
+
+template <int Plan>
+struct SmemFwd128 {
+  using P = FwdDepth<Plan>;
+  alignas(1024) bf16 k[P::k][kFwdKeys<128> * 128];  // K tiles as the TMA wrote them: read K-major for qs·kᵀ
+  alignas(1024) bf16 v[P::v][kFwdKeys<128> * 128];  // V tiles, the same: read MN-major for P·V
+  alignas(1024) bf16 q[P::q][kRows * 128];          // blocks' rows of qs, one 64-row operand a warpgroup
+  uint64_t k_full[P::k], k_empty[P::k], v_full[P::v], v_empty[P::v], q_full[P::q], q_empty[P::q];
+};
+
+// The forward at D = 128: flash_fwd_bf16_tc's products, softmax and
+// epilogue in the same order (the same bits), from rings of their own for
+// K, V and qs. Persistent: grid min(SMs, blocks), kWsThreads threads,
+// sizeof(SmemFwd128<Plan>) + 1024 bytes of dynamic shared memory; a CTA
+// takes the 128-row blocks of `HeadWalk` in turn, 128 keys a tile; qs, K
+// and V through TMA maps of [BH·S, 128] in 128-row boxes of 64 columns.
+template <int Plan, int Cut = kFull>
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_fwd_bf16_d128_tc(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v, float* __restrict__ o, float* __restrict__ lse,
+                       int bh_count, int s_len) {
+  using S = SmemFwd128<Plan>;
+  using P = FwdDepth<Plan>;
+  constexpr int D = 128, T = kFwdKeys<128>;
+  static_assert(T == kRows, "both warpgroups see every tile of their block: none is freed unread");
+  extern __shared__ unsigned char smem_raw[];
+  S& sm = aligned_smem<S>(smem_raw);
+  const HeadWalk walk{bh_count, s_len / kRows};
+  const int wg = threadIdx.x / 128;
+
+  init_ring<P::k>(sm.k_full, sm.k_empty);
+  init_ring<P::v>(sm.v_full, sm.v_empty);
+  init_ring<P::q>(sm.q_full, sm.q_empty);
+  __syncthreads();
+
+  if (wg == 2) {  // the producer: one thread issues every copy, K a tile ahead of V, running ahead across blocks
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x == 2 * 128) {
+      constexpr bool kCopy = Cut != kNoLoads;
+      int g = 0, v_row = 0;  // tiles of this CTA so far; the row of tile g − 1, whose V follows tile g's K
+      for (int n = 0, bh, r; walk.next(n, bh, r); ++n) {
+        const int row0 = (walk.rows - 1 - r) * kRows, n_tiles = (row0 + kRows) / T;
+        land<P::q, kRows, kCopy>(sm.q, sm.q_full, sm.q_empty, n, map_q, bh * s_len + row0);
+        for (int it = 0; it < n_tiles; ++it, ++g) {
+          land<P::k, T, kCopy>(sm.k, sm.k_full, sm.k_empty, g, map_k, bh * s_len + it * T);
+          if (g > 0) land<P::v, T, kCopy>(sm.v, sm.v_full, sm.v_empty, g - 1, map_v, v_row);
+          v_row = bh * s_len + it * T;
+        }
+      }
+      if (g > 0) land<P::v, T, kCopy>(sm.v, sm.v_full, sm.v_empty, g - 1, map_v, v_row);
+    }
+    return;
+  }
+
+  regs_inc<kConsumerRegs>();
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const uint32_t ones = g == 0 ? 0x3F803F80u : 0u;  // B of l = bf16(P)·[1 | 0]: column 0 ones
+  if (wg == 1 && Cut != kLoadsOnly) turn_pass(wg);  // warpgroup 0 goes first
+  int gt = 0;
+  for (int n = 0, bh, r; walk.next(n, bh, r); ++n) {
+    const int row0 = (walk.rows - 1 - r) * kRows, n_tiles = (row0 + kRows) / T;
+    const size_t base = (size_t)bh * s_len * D;
+    const int row_a = row0 + 64 * wg + 16 * warp + g, row_b = row_a + 8;
+    const uint32_t q_addr = wg_rows<D>(sm.q[n % P::q], wg);
+
+    float acc[D / 2], l4[4][4];  // O, and l in column 0 of bf16(P)·[1 | 0], four partial sums
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) l4[i / 4][i % 4] = 0.f;
+    float sc[T / 2];         // a tile's scores, then 2^(s − m) in place
+    uint32_t pa[T / 16][4];  // bf16(P): A fragments of 16 keys each
+    float m_a = -1e30f, m_b = -1e30f, corr_a = 1.f, corr_b = 1.f;
+
+    // sc = qs·kᵀ of tile `it`, issued as one wgmma group
+    auto scores = [&](int it) {
+      if constexpr (Cut == kNoMma) {
+#pragma unroll
+        for (int i = 0; i < T / 2; ++i) sc[i] = 0.125f * (i & 7);
+      } else {
+        const uint32_t k_addr = smem_u32(sm.k[(gt + it) % P::k]);
+        wg_fence();
+        ss_rows<T, D, kRows, T>(sc, q_addr, k_addr);
+        wg_commit();
+      }
+    };
+    // acc += bf16(P)·V of tile `it`, issued as one wgmma group
+    auto pv = [&](int it) {
+      if constexpr (Cut != kNoMma) {
+        const uint32_t v_addr = smem_u32(sm.v[(gt + it) % P::v]);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < T / 16; ++kk) rs_cols<D, T>(acc, pa[kk], v_addr, kk);
+        wg_commit();
+      }
+    };
+    auto rescale = [&]() {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j] *= corr_a;
+        acc[4 * j + 1] *= corr_a;
+        acc[4 * j + 2] *= corr_b;
+        acc[4 * j + 3] *= corr_b;
+      }
+    };
+    // only the block's last tile crosses these rows' diagonal (masked)
+    auto softmax = [&](int it, auto masked) {
+      if constexpr (Cut != kMmaOnly)
+        online_softmax<T, Cut, decltype(masked)::value>(sc, it * T, row_a, t, m_a, m_b, corr_a, corr_b);
+    };
+    // P rounded to bf16 as A fragments, and l = l·corr + Σ bf16(P) (the plain version's order of updates)
+    auto pack = [&]() {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        l4[i][0] *= corr_a;
+        l4[i][1] *= corr_a;
+        l4[i][2] *= corr_b;
+        l4[i][3] *= corr_b;
+      }
+#pragma unroll
+      for (int kk = 0; kk < T / 16; ++kk) pack_a(sc, kk, pa[kk]);
+#pragma unroll
+      for (int kk = 0; kk < T / 16; ++kk) mma_16816(l4[kk % 4], pa[kk], ones);
+    };
+    auto pin_pv = [&]() {  // P's registers stay untouched until its product is done
+      pin(acc);
+#pragma unroll
+      for (int kk = 0; kk < T / 16; ++kk) pin(pa[kk]);
+    };
+    auto free_q = [&]() {  // every product that reads this block's qs is done
+      if (lane == 0) bar_arrive(&sm.q_empty[n % P::q]);
+    };
+
+    wait_full<P::q>(sm.q_full, n);
+    if constexpr (Cut == kLoadsOnly) {  // the whole kernel's waits and frees in its order (qs after the last K)
+      for (int it = 0; it < n_tiles; ++it) {
+        wait_full<P::k>(sm.k_full, gt + it);
+        release<P::k>(sm.k_empty, gt + it);
+        if (it == n_tiles - 1) free_q();
+        if (it > 0) {
+          wait_full<P::v>(sm.v_full, gt + it - 1);
+          release<P::v>(sm.v_empty, gt + it - 1);
+        }
+      }
+      wait_full<P::v>(sm.v_full, gt + n_tiles - 1);
+      release<P::v>(sm.v_empty, gt + n_tiles - 1);
+    } else {
+      // n_tiles + 1 turns a warpgroup: the first scores, n_tiles − 1 of
+      // scores and P·V, the last P·V. A K stage is freed after both
+      // warpgroups' scores on it, a V stage after their P·V, qs after the
+      // block's last scores; the data is waited for outside the turn
+      wait_full<P::k>(sm.k_full, gt);
+      turn_wait(wg);
+      scores(0);
+      turn_pass(wg);
+      wg_wait_group<0>();
+      pin(sc);
+      release<P::k>(sm.k_empty, gt);
+      if (n_tiles == 1) {
+        free_q();
+        softmax(0, std::true_type{});
+      } else {
+        softmax(0, std::false_type{});
+      }
+      pack();
+      for (int it = 1; it < n_tiles; ++it) {
+        wait_full<P::k>(sm.k_full, gt + it);
+        wait_full<P::v>(sm.v_full, gt + it - 1);
+        turn_wait(wg);
+        scores(it);
+        rescale();  // by tile it − 1's correction, under the score product
+        pv(it - 1);
+        turn_pass(wg);
+        wg_wait_group<1>();  // the scores; P·V may still run
+        pin(sc);
+        release<P::k>(sm.k_empty, gt + it);
+        if (it == n_tiles - 1) {
+          free_q();
+          softmax(it, std::true_type{});
+        } else {
+          softmax(it, std::false_type{});
+        }
+        wg_wait_group<0>();
+        pin_pv();
+        release<P::v>(sm.v_empty, gt + it - 1);
+        pack();
+      }
+      wait_full<P::v>(sm.v_full, gt + n_tiles - 1);
+      turn_wait(wg);
+      rescale();
+      pv(n_tiles - 1);
+      turn_pass(wg);
+      wg_wait_group<0>();
+      pin_pv();
+      release<P::v>(sm.v_empty, gt + n_tiles - 1);
+    }
+    gt += n_tiles;
+
+    // l: column 0 of bf16(P)·[1 | 0], held by the quad's thread t = 0
+    const float l_a = fmaxf(__shfl_sync(0xffffffffu, (l4[0][0] + l4[1][0]) + (l4[2][0] + l4[3][0]), lane & ~3), 1e-30f);
+    const float l_b = fmaxf(__shfl_sync(0xffffffffu, (l4[0][2] + l4[1][2]) + (l4[2][2] + l4[3][2]), lane & ~3), 1e-30f);
+    float* oa = o + base + (size_t)row_a * D + 2 * t;
+    float* ob = o + base + (size_t)row_b * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<float2*>(oa + 8 * j) = make_float2(acc[4 * j] / l_a, acc[4 * j + 1] / l_a);
+      *reinterpret_cast<float2*>(ob + 8 * j) = make_float2(acc[4 * j + 2] / l_b, acc[4 * j + 3] / l_b);
+    }
+    if (t == 0) {
+      lse[(size_t)bh * s_len + row_a] = (m_a + log2f(l_a)) * kLn2;
+      lse[(size_t)bh * s_len + row_b] = (m_b + log2f(l_b)) * kLn2;
+    }
+  }
+  if (wg == 0 && Cut != kLoadsOnly) turn_wait(wg);  // warpgroup 1's last pass
+}
+
+constexpr int kDkvKeys = 64;    // keys a dk/dv block at D = 128: one warpgroup's rows
+constexpr int kDkv128Ring = 4;  // qs/dO stages of the dk/dv at D = 128 (chip_sweep.py bf16 times 3 too)
+// named barriers of the dk/dv at D = 128 (0 is __syncthreads): a tile's Pᵀ
+// handed from consumer 0 to consumer 1 through slot s (kPFull + s: written;
+// kPFree + s: read)
+constexpr int kPFull = 1, kPFree = 3;
+
+template <int Ring>
+struct SmemDkv128 {
+  DkvStage<128> st[Ring];                     // qs, dO, lse and delta of a 64-query tile
+  alignas(1024) bf16 k[kDkvKeys * 128];       // the block's k as the TMA wrote it, until consumer 0 holds it
+  alignas(1024) bf16 v[kDkvKeys * 128];       // and v, until consumer 1 does
+  float4 p[2][kDkvTile<128> / 8][128];        // a tile's Pᵀ, consumer 0's thread i to consumer 1's: [slot][j][i]
+  uint64_t full[Ring], empty[Ring], kv_full, kv_empty;
+};
+
+// A warpgroup's [64 x 128] tile as the TMA wrote it (two slabs of 64 rows by
+// 64 columns, 128-byte swizzle) as the A fragments of its score products, a
+// k16 step each: step kk holds rows 16·warp + g (+ 8), columns 16kk + 2t
+// (+ 1) and 16kk + 8 + 2t (+ 1), as `pack_a` lays a fragment out
+__device__ __forceinline__ void take_a(const bf16* tile, uint32_t (&a)[8][4], int warp, int g, int t) {
+  const char* base = reinterpret_cast<const char*>(tile);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = 16 * warp + g + 8 * (e & 1), chunk = 2 * (kk % 4) + (e >> 1);  // row % 8 == g
+      a[kk][e] = *reinterpret_cast<const uint32_t*>(base + kk / 4 * kDkvKeys * 128 + row * 128 + ((chunk ^ g) << 4) +
+                                                    4 * t);
+    }
+}
+
+// A consumer warpgroup's part of every block the CTA walks (the note at the
+// top). Role 0: Sᵀ = K·qsᵀ, Pᵀ (handed to consumer 1), dv += bf16(Pᵀ)·dO;
+// role 1: dPᵀ = V·dOᵀ, dSᵀ = Pᵀ ∘ (dPᵀ − delta), dk += bf16(dSᵀ)·qs; `out` is
+// dv or dk. Each takes its K or V as A fragments as the block starts, then
+// issues tile t's scores before tile t − 1's products, which run under
+// tile t's exps (role 0) or its dSᵀ (role 1).
+template <int Role, int Ring, int Cut>
+__device__ __forceinline__ void dkv128_consume(SmemDkv128<Ring>& sm, const HeadWalk& walk, bf16* __restrict__ out,
+                                               int s_len) {
+  constexpr int D = 128, T = kDkvTile<128>;
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  int gt = 0;
+  for (int n = 0, bh, r; walk.next(n, bh, r); ++n) {
+    const int key0 = r * kDkvKeys, n_tiles = (s_len - key0) / T;  // queries [key0, S): the first blocks see the most
+    const int key_a = key0 + 16 * warp + g, key_b = key_a + 8;
+    float acc[D / 2];  // dv (role 0) or dk / ln 2 (role 1)
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    bar_wait(&sm.kv_full, n & 1);
+    if constexpr (Cut == kLoadsOnly) {
+      if (lane == 0) bar_arrive(&sm.kv_empty);
+      for (int it = 0; it < n_tiles; ++it) {
+        wait_full<Ring>(sm.full, gt + it);
+        release<Ring>(sm.empty, gt + it);
+      }
+    } else {
+      uint32_t a[8][4];  // K (role 0) or V (role 1): the score products' A fragments
+      take_a(Role == 0 ? sm.k : sm.v, a, warp, g, t);
+      if (lane == 0) bar_arrive(&sm.kv_empty);  // the next block's k and v may land
+      float s[T / 2];         // Sᵀ or dPᵀ of a tile: s[4j + e] is (key_a, query qt + 8j + 2t + e), s[4j + 2 + e] key_b
+      uint32_t x[T / 16][4];  // bf16(Pᵀ) or bf16(dSᵀ): A fragments of 16 queries each
+
+      // s of tile `it` against the qs (role 0) or dO (role 1) tile read K-major, issued as one wgmma group
+      auto scores = [&](int it) {
+        if constexpr (Cut == kNoMma) {
+#pragma unroll
+          for (int i = 0; i < T / 2; ++i) s[i] = (Role == 0 ? 0.125f : 0.0625f) * (i & 7);
+        } else {
+          const DkvStage<D>& stage = sm.st[(gt + it) % Ring];
+          const uint32_t b = smem_u32(Role == 0 ? stage.q : stage.dout);
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_rs_bf16<T>(s, a[kk], desc_sw<kSlab<D>>(k_step<D, T>(b, kk)), kk > 0);
+          wg_commit();
+        }
+      };
+      // acc += x·(dO or qs) of tile `it`, the tile read MN-major as it landed, issued as one wgmma group
+      auto products = [&](int it) {
+        if constexpr (Cut != kNoMma) {
+          const DkvStage<D>& stage = sm.st[(gt + it) % Ring];
+          const uint32_t b = smem_u32(Role == 0 ? stage.dout : stage.q);
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < T / 16; ++kk) rs_cols<D, T>(acc, x[kk], b, kk);
+          wg_commit();
+        }
+      };
+      // role 0: Pᵀ in s (the query's lse per column; masked: the tile holds
+      // the block's diagonal), then into slot (gt + it) % 2; role 1: dSᵀ in s
+      // from that slot's Pᵀ and the queries' delta
+      auto form = [&](int it, auto masked) {
+        const int slot = (gt + it) & 1, qt = key0 + it * T;
+        const DkvStage<D>& stage = sm.st[(gt + it) % Ring];
+        if constexpr (Role == 0) {
+#pragma unroll
+          for (int j = 0; j < T / 8 * (Cut != kMmaOnly); ++j) {
+            const float2 ls = *reinterpret_cast<const float2*>(&stage.lse[8 * j + 2 * t]);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float l2 = (e ? ls.y : ls.x) * kLog2e;
+              float p_a = Cut == kNoExp ? s[4 * j + e] - l2 : exp2_ftz(s[4 * j + e] - l2);
+              float p_b = Cut == kNoExp ? s[4 * j + 2 + e] - l2 : exp2_ftz(s[4 * j + 2 + e] - l2);
+              if constexpr (decltype(masked)::value) {
+                const int query = qt + 8 * j + 2 * t + e;
+                p_a = key_a > query ? 0.f : p_a;
+                p_b = key_b > query ? 0.f : p_b;
+              }
+              s[4 * j + e] = p_a;
+              s[4 * j + 2 + e] = p_b;
+            }
+          }
+          if (gt + it >= 2) named_sync(kPFree + slot, 256);  // consumer 1 has read the slot's last Pᵀ
+#pragma unroll
+          for (int j = 0; j < T / 8; ++j)
+            sm.p[slot][j][tid] = make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+          named_arrive(kPFull + slot, 256);
+        } else {
+          named_sync(kPFull + slot, 256);
+#pragma unroll
+          for (int j = 0; j < T / 8 * (Cut != kMmaOnly); ++j) {
+            const float4 p = sm.p[slot][j][tid];
+            const float2 dl = *reinterpret_cast<const float2*>(&stage.delta[8 * j + 2 * t]);
+            s[4 * j] = p.x * (s[4 * j] - dl.x);
+            s[4 * j + 1] = p.y * (s[4 * j + 1] - dl.y);
+            s[4 * j + 2] = p.z * (s[4 * j + 2] - dl.x);
+            s[4 * j + 3] = p.w * (s[4 * j + 3] - dl.y);
+          }
+          named_arrive(kPFree + slot, 256);
+        }
+      };
+      auto pack = [&]() {
+#pragma unroll
+        for (int kk = 0; kk < T / 16; ++kk) pack_a(s, kk, x[kk]);
+      };
+      auto pin_products = [&]() {  // x's registers stay untouched until its product is done
+        pin(acc);
+#pragma unroll
+        for (int kk = 0; kk < T / 16; ++kk) pin(x[kk]);
+      };
+
+      wait_full<Ring>(sm.full, gt);
+      scores(0);
+      wg_wait_group<0>();
+      pin(s);
+      form(0, std::true_type{});  // the first tile, queries key0 …, holds the block's diagonal
+      pack();
+      for (int it = 1; it < n_tiles; ++it) {
+        wait_full<Ring>(sm.full, gt + it);
+        scores(it);
+        products(it - 1);
+        wg_wait_group<1>();  // the scores; the products may still run
+        pin(s);
+        form(it, std::false_type{});
+        wg_wait_group<0>();
+        pin_products();
+        release<Ring>(sm.empty, gt + it - 1);
+        pack();
+      }
+      products(n_tiles - 1);
+      wg_wait_group<0>();
+      pin_products();
+      release<Ring>(sm.empty, gt + n_tiles - 1);
+    }
+    gt += n_tiles;
+
+    bf16* ra = out + ((size_t)bh * s_len + key_a) * D + 2 * t;
+    bf16* rb = out + ((size_t)bh * s_len + key_b) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      if constexpr (Role == 0) {
+        *reinterpret_cast<uint32_t*>(ra + 8 * j) = bf16_wgmma::pack2(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<uint32_t*>(rb + 8 * j) = bf16_wgmma::pack2(acc[4 * j + 2], acc[4 * j + 3]);
+      } else {
+        *reinterpret_cast<uint32_t*>(ra + 8 * j) = bf16_wgmma::pack2(acc[4 * j] * kLn2, acc[4 * j + 1] * kLn2);
+        *reinterpret_cast<uint32_t*>(rb + 8 * j) = bf16_wgmma::pack2(acc[4 * j + 2] * kLn2, acc[4 * j + 3] * kLn2);
+      }
+    }
+  }
+  // consumer 1 freed the last two tiles' slots without a writer waiting: match them
+  if constexpr (Role == 0 && Cut != kLoadsOnly)
+    for (int x = max(gt - 2, 0); x < gt; ++x) named_sync(kPFree + (x & 1), 256);
+}
+
+// dk, dv at D = 128 as flash_bwd_dkv_bf16_tc computes them (each row summed
+// in ascending query order a k16 step at a time: the same bits). Persistent:
+// grid min(SMs, blocks), kWsThreads threads, sizeof(SmemDkv128<Ring>) + 1024
+// bytes of dynamic shared memory; a CTA takes the 64-key blocks of
+// `HeadWalk` in turn; qs, dO, k and v through TMA maps of [BH·S, 128] in
+// 64-row boxes of 64 columns.
+template <int Ring, int Cut = kFull>
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_bwd_dkv_bf16_d128_tc(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_do,
+                           const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
+                           const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dk,
+                           bf16* __restrict__ dv, int bh_count, int s_len) {
+  using S = SmemDkv128<Ring>;
+  constexpr int D = 128, T = kDkvTile<128>;
+  extern __shared__ unsigned char smem_raw[];
+  S& sm = aligned_smem<S>(smem_raw);
+  const HeadWalk walk{bh_count, s_len / kDkvKeys};  // block r of a head: keys r·64 …, the first ones heaviest
+
+  init_ring<Ring>(sm.full, sm.empty);
+  init_ring<1>(&sm.kv_full, &sm.kv_empty);
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // the producer: one thread issues every copy, running ahead across blocks
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x == 256) {
+      int gt = 0;  // tiles of this CTA so far: the ring's position
+      for (int n = 0, bh, r; walk.next(n, bh, r); ++n) {
+        const int key0 = r * kDkvKeys, n_tiles = (s_len - key0) / T;
+        if (n >= 1) bar_wait(&sm.kv_empty, (n - 1) & 1);  // both consumers hold the last block's k and v
+        if constexpr (Cut != kNoLoads) {
+          bar_expect(&sm.kv_full, 2 * kDkvKeys * D * 2);
+          tma_tile<D, kDkvKeys>(sm.k, map_k, bh * s_len + key0, &sm.kv_full);
+          tma_tile<D, kDkvKeys>(sm.v, map_v, bh * s_len + key0, &sm.kv_full);
+        } else {
+          bar_arrive(&sm.kv_full);
+        }
+        for (int it = 0; it < n_tiles; ++it, ++gt) {
+          const int row = bh * s_len + key0 + it * T;
+          DkvStage<D>& stage = sm.st[gt % Ring];
+          uint64_t* full = &sm.full[gt % Ring];
+          wait_empty<Ring>(sm.empty, gt);
+          if constexpr (Cut != kNoLoads) {
+            bar_expect(full, 2 * T * D * 2 + 2 * T * 4);
+            tma_tile<D, T>(stage.q, map_q, row, full);
+            tma_tile<D, T>(stage.dout, map_do, row, full);
+            bulk_copy(stage.lse, lse + row, T * 4, full);
+            bulk_copy(stage.delta, delta + row, T * 4, full);
+          } else {
+            bar_arrive(full);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  regs_inc<kConsumerRegs>();
+  if (threadIdx.x < 128)
+    dkv128_consume<0, Ring, Cut>(sm, walk, dv, s_len);
+  else
+    dkv128_consume<1, Ring, Cut>(sm, walk, dk, s_len);
+}
+
+// The D = 128 plans (64-column slabs), each with the 1 KB the alignment
+// takes: the forward's K, V and qs rings of 32 KB tiles, 230,400 bytes
+// (plans 0 and 1: 3, 2, 2 and 3, 3, 1 stages) and 197,632 (plan 2: 2, 2,
+// 2); dq's two stages of 64-key tiles beside qs and dO, 197,632; dk/dv's
+// four stages of 64 queries (qs, dO, lse, delta) beside k, v and the two
+// Pᵀ slots, 201,728 (three stages: 167,936), and a fifth stage would not fit
+static_assert(sizeof(SmemFwd128<0>) == 230400 && sizeof(SmemFwd128<1>) == 230400 &&
+                  sizeof(SmemFwd128<2>) == 197632 && sizeof(SmemDq<128, kDqKeys<128>>) == 197632 &&
+                  sizeof(SmemDkv128<4>) == 201728 && sizeof(SmemDkv128<3>) == 167936,
               "the D = 128 plans moved");
-static_assert(sizeof(SmemFwd<128, kFwdKeys<128>>) + 1024 <= 232448 &&
-                  sizeof(SmemDq<128, kDqKeys<128>>) + 1024 <= 232448 && sizeof(SmemDkv<128>) + 1024 <= 232448,
+static_assert(sizeof(SmemFwd128<0>) + 1024 <= kSmemLimit && sizeof(SmemFwd128<1>) + 1024 <= kSmemLimit &&
+                  sizeof(SmemDq<128, kDqKeys<128>>) + 1024 <= kSmemLimit &&
+                  sizeof(SmemDkv128<kDkv128Ring>) + 1024 <= kSmemLimit,
               "over 227 KB of shared memory");
+static_assert(sizeof(SmemDkv128<kDkv128Ring + 1>) + 1024 > kSmemLimit, "a deeper dk/dv ring would fit");
 
 // ---------------------------------------------------------------------------
 // Host: TMA maps and launches
@@ -1023,6 +1579,34 @@ int launch_dkv(cudaStream_t st, const bf16* qs, const bf16* k, const bf16* v, co
                 map_do, map_k, map_v, lse, delta, dk, dv, bh, s);
 }
 
+template <int Plan, int Cut = kFull>
+int launch_fwd128(cudaStream_t st, const bf16* qs, const bf16* k, const bf16* v, float* o, float* lse, int bh, int s) {
+  CUtensorMap map_q, map_k, map_v;
+  int grid = 0;
+  int e = tensor_map<128>(&map_q, qs, bh * s, kRows);
+  if (e == 0) e = tensor_map<128>(&map_k, k, bh * s, kFwdKeys<128>);
+  if (e == 0) e = tensor_map<128>(&map_v, v, bh * s, kFwdKeys<128>);
+  if (e == 0) e = persistent_grid(bh * (s / kRows), &grid);
+  if (e != 0) return e;
+  return launch(flash_fwd_bf16_d128_tc<Plan, Cut>, (int)sizeof(SmemFwd128<Plan>) + 1024, dim3(grid), kWsThreads, st,
+                map_q, map_k, map_v, o, lse, bh, s);
+}
+
+template <int Ring, int Cut = kFull>
+int launch_dkv128(cudaStream_t st, const bf16* qs, const bf16* k, const bf16* v, const bf16* dout, const float* lse,
+                  const float* delta, bf16* dk, bf16* dv, int bh, int s) {
+  CUtensorMap map_q, map_do, map_k, map_v;
+  int grid = 0;
+  int e = tensor_map<128>(&map_q, qs, bh * s, kDkvTile<128>);
+  if (e == 0) e = tensor_map<128>(&map_do, dout, bh * s, kDkvTile<128>);
+  if (e == 0) e = tensor_map<128>(&map_k, k, bh * s, kDkvKeys);
+  if (e == 0) e = tensor_map<128>(&map_v, v, bh * s, kDkvKeys);
+  if (e == 0) e = persistent_grid(bh * (s / kDkvKeys), &grid);
+  if (e != 0) return e;
+  return launch(flash_bwd_dkv_bf16_d128_tc<Ring, Cut>, (int)sizeof(SmemDkv128<Ring>) + 1024, dim3(grid), kWsThreads,
+                st, map_q, map_do, map_k, map_v, lse, delta, dk, dv, bh, s);
+}
+
 template <int D, int T, int Cut = kFull>
 int launch_dq(cudaStream_t st, const bf16* qs, const bf16* k, const bf16* v, const bf16* dout, const float* lse,
               const float* delta, bf16* dq, int bh, int s, float scale) {
@@ -1053,7 +1637,7 @@ int flash_fwd_bf16_launch(const bf16* qs, const bf16* k, const bf16* v, float* o
     case 16: return launch_fwd<16, kFwdKeys<16>>(st, qs, k, v, o, lse, bh, s);
     case 32: return launch_fwd<32, kFwdKeys<32>>(st, qs, k, v, o, lse, bh, s);
     case 64: return launch_fwd<64, kFwdKeys<64>>(st, qs, k, v, o, lse, bh, s);
-    case 128: return launch_fwd<128, kFwdKeys<128>>(st, qs, k, v, o, lse, bh, s);
+    case 128: return launch_fwd128<kFwd128Plan>(st, qs, k, v, o, lse, bh, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1081,16 +1665,18 @@ int flash_bwd_dkv_bf16_launch(const bf16* qs, const bf16* k, const bf16* v, cons
     case 16: return launch_dkv<16>(st, qs, k, v, dout, lse, delta, dk, dv, bh, s);
     case 32: return launch_dkv<32>(st, qs, k, v, dout, lse, delta, dk, dv, bh, s);
     case 64: return launch_dkv<64>(st, qs, k, v, dout, lse, delta, dk, dv, bh, s);
-    case 128: return launch_dkv<128>(st, qs, k, v, dout, lse, delta, dk, dv, bh, s);
+    case 128: return launch_dkv128<kDkv128Ring>(st, qs, k, v, dout, lse, delta, dk, dv, bh, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 #ifdef FLASH_BF16_CUTS
 // The attribution cuts (chip_sweep.py bf16), built only with -DFLASH_BF16_CUTS
-// and never reached by the wrappers: the forward and dq at `keys` keys a
-// tile and dk/dv, each with `cut` in kFull … kMmaOnly. Returns
-// cudaErrorInvalidValue for a pair the source has no instance of.
+// and never reached by the wrappers: up to D = 64 the forward and dq at
+// `keys` keys a tile and dk/dv, each with `cut` in kFull … kMmaOnly (dq
+// also at D = 128); at D = 128 the forward of each `plan` (FwdDepth) and
+// dk/dv of `ring` stages, with `cut` in kFull … kNoLoads. Returns
+// cudaErrorInvalidValue for a case the source has no instance of.
 int flash_fwd_bf16_cut_launch(const bf16* qs, const bf16* k, const bf16* v, float* o, float* lse, int bh, int s, int d,
                               int keys, int cut, void* stream) {
   if (!shape_ok(bh, s)) return (int)cudaErrorInvalidValue;
@@ -1099,7 +1685,17 @@ int flash_fwd_bf16_cut_launch(const bf16* qs, const bf16* k, const bf16* v, floa
   if (d == DD && keys == TT && cut == CC) return launch_fwd<DD, TT, CC>(st, qs, k, v, o, lse, bh, s);
 #define FWD_CUTS(DD, TT) FWD_CUT(DD, TT, kFull) FWD_CUT(DD, TT, kNoExp) FWD_CUT(DD, TT, kNoMma) FWD_CUT(DD, TT, kLoadsOnly) FWD_CUT(DD, TT, kMmaOnly)
   FWD_CUTS(16, 64) FWD_CUTS(16, 128) FWD_CUTS(32, 64) FWD_CUTS(32, 128) FWD_CUTS(64, 64) FWD_CUTS(64, 128)
-  FWD_CUTS(128, 64) FWD_CUTS(128, 128)
+  return (int)cudaErrorInvalidValue;
+}
+
+int flash_fwd_bf16_d128_cut_launch(const bf16* qs, const bf16* k, const bf16* v, float* o, float* lse, int bh, int s,
+                                   int plan, int cut, void* stream) {
+  if (!shape_ok(bh, s)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FWD128_CUT(PP, CC) \
+  if (plan == PP && cut == CC) return launch_fwd128<PP, CC>(st, qs, k, v, o, lse, bh, s);
+#define FWD128_CUTS(PP) FWD128_CUT(PP, kFull) FWD128_CUT(PP, kNoExp) FWD128_CUT(PP, kNoMma) FWD128_CUT(PP, kLoadsOnly) FWD128_CUT(PP, kMmaOnly) FWD128_CUT(PP, kNoLoads)
+  FWD128_CUTS(0) FWD128_CUTS(1) FWD128_CUTS(2)
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1122,7 +1718,19 @@ int flash_bwd_dkv_bf16_cut_launch(const bf16* qs, const bf16* k, const bf16* v, 
 #define DKV_CUT(DD, CC) \
   if (d == DD && cut == CC) return launch_dkv<DD, CC>(st, qs, k, v, dout, lse, delta, dk, dv, bh, s);
 #define DKV_CUTS(DD) DKV_CUT(DD, kFull) DKV_CUT(DD, kNoExp) DKV_CUT(DD, kNoMma) DKV_CUT(DD, kLoadsOnly) DKV_CUT(DD, kMmaOnly)
-  DKV_CUTS(16) DKV_CUTS(32) DKV_CUTS(64) DKV_CUTS(128)
+  DKV_CUTS(16) DKV_CUTS(32) DKV_CUTS(64)
+  return (int)cudaErrorInvalidValue;
+}
+
+int flash_bwd_dkv_bf16_d128_cut_launch(const bf16* qs, const bf16* k, const bf16* v, const bf16* dout, const float* lse,
+                                       const float* delta, bf16* dk, bf16* dv, int bh, int s, int ring, int cut,
+                                       void* stream) {
+  if (!shape_ok(bh, s)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define DKV128_CUT(RR, CC) \
+  if (ring == RR && cut == CC) return launch_dkv128<RR, CC>(st, qs, k, v, dout, lse, delta, dk, dv, bh, s);
+#define DKV128_CUTS(RR) DKV128_CUT(RR, kFull) DKV128_CUT(RR, kNoExp) DKV128_CUT(RR, kNoMma) DKV128_CUT(RR, kLoadsOnly) DKV128_CUT(RR, kMmaOnly) DKV128_CUT(RR, kNoLoads)
+  DKV128_CUTS(4) DKV128_CUTS(3)
   return (int)cudaErrorInvalidValue;
 }
 #endif
