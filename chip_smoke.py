@@ -15,7 +15,8 @@ The second form runs none of the phases below: it times the grouped GEMM
 at every MoE ViT path shape (f32 and bf16 operands), the gram at every Net
 group size, the assembly at every Net, Net1 and ResNet group size and the
 train phases named by `--ab-phases` (default: the Net, LM, ViT and MoE ViT
-trains; `phase_lm_d128` and `phase_vit_d128` may be named too), of the
+trains; `phase_lm_d128`, `phase_vit_d128`, `phase_vit_bf16_train` and
+`phase_vit_moe_bf16_train` may be named too), of the
 checkout in DIR (e.g. the parent commit, `git archive`d) and of this one
 in turns, in fresh processes (`run_ab`), with the bf16 trio and its
 autograd forward and backward beside SDPA's (forward, backward and both)
@@ -553,7 +554,8 @@ def report_tensor_core_build(lib, label, tc) -> None:
 
 
 TC_KERNELS = ("flash_fwd_tc", "flash_fwd_d128_tc", "flash_bwd_dq_tc", "flash_bwd_dq_d128_tc",  # the tensor-core flash kernels
-              "flash_bwd_dkv_tc", "flash_bwd_dkv_d128_tc", "flash_fwd_bf16_tc", "flash_fwd_bf16_d128_tc",
+              "flash_bwd_dkv_tc", "flash_bwd_dkv_d128_tc", "flash_bwd_dkv_1p_tc", "flash_fwd_bf16_tc",
+              "flash_fwd_bf16_d128_tc",
               "flash_bwd_dq_bf16_tc", "flash_bwd_dkv_bf16_tc", "flash_bwd_dkv_bf16_d128_tc")
 
 
@@ -3945,7 +3947,12 @@ with tempfile.TemporaryDirectory() as d:
         if not hasattr(cs, p):
             continue
         out = os.path.join(d, p + ".json")
-        wall = getattr(cs, p)(out, p == "phase_lm_train")[1]
+        if p == "phase_vit_bf16_train":  # (metrics_out): its remat run beside
+            wall = cs.phase_vit_bf16_train(out)[1]
+        elif p == "phase_vit_moe_bf16_train":  # (metrics_out, f32_wall, f32_peak): no f32 run to print beside
+            wall = cs.phase_vit_moe_bf16_train(out, 0.0, 0.0)[1]
+        else:
+            wall = getattr(cs, p)(out, p == "phase_lm_train")[1]
         walls.update({f"{p} {k}": w for k, w in wall.items()} if isinstance(wall, dict) else {p: wall})
         series = json.load(open(out))["series"] if os.path.exists(out) else {}
         if "train_loss" in series:
@@ -3959,7 +3966,8 @@ AB_PHASES = "phase_train,phase_lm_train,phase_vit_train,phase_vit_moe_train"  # 
 AB_CHOICES = ("phase_train", "phase_lm_train", "phase_vit_train", "phase_vit_moe_train", "phase_admm_train",
               "phase_no_consensus_train", "phase_scale64_train",
               "phase_probe_fan_train", "phase_lm_d128",
-              "phase_vit_d128")  # the phases whose `phase(metrics_out, profile)[1]` is a wall (or walls by label)
+              "phase_vit_d128",  # the phases whose `phase(metrics_out, profile)[1]` is a wall (or walls by label)
+              "phase_vit_bf16_train", "phase_vit_moe_bf16_train")  # and the bf16 ViT paths, called as they stand
 # the assembly's sizes in an A/B: Net's groups, Net1's whole vector and the
 # aligned N beside it, the ResNet18 groups (admm_resnet's, largest first)
 # and `LARGE_N`

@@ -3,10 +3,10 @@
 
 Run from the root of a checkout:
 
-    python3 chip_sweep.py [grouped] [grouped_bf16] [gram] [assembly] [bf16] [flash_f32 [--parent DIR]] [scale64]
-                          [determinism] [cudnn]
+    python3 chip_sweep.py [grouped] [grouped_bf16] [gram] [assembly] [bf16] [flash_1p] [flash_f32] [--parent DIR]
+                          [scale64] [determinism] [cudnn]
 
-Nine sweeps (all of them without arguments), the first seven printed one
+Ten sweeps (all of them without arguments), the first eight printed one
 line per setting with its device ms (calls queued behind a sleep kernel,
 `chip_smoke.time_ms`) and its error:
 
@@ -47,7 +47,20 @@ line per setting with its device ms (calls queued behind a sleep kernel,
    (`chip_smoke.flash_bounds`); a whole kernel's outputs within two bf16
    units of its plain version (the forward's at that tile;
    `chip_smoke.bf16_units`);
-4b. flash_f32 — the head-dim-128 f32 forward (`fwd128::flash_fwd_d128_tc`
+4b. flash_1p — the one-pass f32 dk/dv up to D 64
+   (`onepass::flash_bwd_dkv_1p_tc` in `csrc/flash_attention.cu`) through its
+   entry point at every `ONEPASS_SHAPES` shape (the ViT's and the LM's path
+   shapes at D 16, the same bytes at D 32 and 64) beside the bound; with
+   `--parent DIR`, the one-pass dk/dv of the checkout in DIR, timed first in
+   a process of its own at the same shapes (`parent_device_ms`), and
+   whether its outputs equal these in bits; at D 16, from the library built
+   with `-DFLASH_F32_CUTS` (`flash_bwd_dkv_1p_cut_launch`), the kernel whole
+   and with its attribution cuts (no exps, no products, loads only — the
+   consumers only wait for and free each tile, the producer alone —, no
+   split — nothing landed or formed: the consumers alone), the whole
+   kernel's outputs against the entry point's in bits, and a `binds` line
+   of the loads-only and consumers-alone shares of the whole;
+4c. flash_f32 — the head-dim-128 f32 forward (`fwd128::flash_fwd_d128_tc`
    in `csrc/flash_attention.cu`), dk/dv (`bwd128::flash_bwd_dkv_d128_tc`)
    and dq (`dq128::flash_bwd_dq_d128_tc`) at `chip_smoke.LM128_PATH`
    (causal) and `VIT128_PATH` (non-causal), at 'highest' and 'default',
@@ -392,6 +405,10 @@ def sweep_bf16() -> None:
         del q16, k16, v16, qs, do, do16, o_ref, lse_ref, delta, dq_ref, dk_ref, dv_ref, o, lse, dq, dk, dv
 
 
+# (causal, (BH, S, D)) of flash_1p: the ViT's and the LM's path shapes, then
+# the same bytes at D 32 and 64, where the one-pass dk/dv runs one CTA an SM
+ONEPASS_SHAPES = ((False, cs.RECT_PATH), (True, cs.FLASH_PATH), (False, (3072, 256, 32)), (False, (1536, 256, 64)),
+                  (True, (64, 2048, 32)), (True, (32, 2048, 64)))
 F32_PLANS = ("ring2", "ring1")  # `plan` of flash_fwd_d128_cut_launch: operand stages; the first is shipped
 DKV_PLANS = ("ring2", "ring1")  # `plan` of flash_bwd_dkv_d128_cut_launch: score stages; the first is shipped
 DQ_PLANS = ("tr2", "tr3")  # `plan` of flash_bwd_dq_d128_cut_launch: transposes stages; the first is shipped
@@ -428,6 +445,114 @@ for aligned, (bh, s, d) in ((True, cs.LM128_PATH), (False, cs.VIT128_PATH)):
     del q, k, v, do, lse, delta
 print("parent " + json.dumps(out))
 """
+
+
+# the one-pass dk/dv of a checkout, timed in its own process from that
+# checkout's root: device ms and the digest of dk and dv at each shape of
+# the JSON list in argv[1] (ONEPASS_SHAPES; the backward from the
+# checkout's one-pass forward), one JSON line
+ONEPASS_PARENT = """
+import hashlib, json, sys
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
+from federated_pytorch_test_tpu_torch.utils import configure_precision
+configure_precision()
+out = {}
+for causal, (bh, s, d) in json.loads(sys.argv[1]):
+    q, k, v, do = cs.flash_inputs(bh, s, d, seed=43)
+    scale = 1.0 / d ** 0.5
+    if causal:
+        o, lse = fc.flash_fwd(q, k, v, scale, "default")
+        dkv = lambda: fc.flash_bwd_dkv(q, k, v, do, lse, delta, scale, "default")
+    else:
+        o, lse = fc.flash_fwd_rect(q, k, v, scale, precision="default")
+        dkv = lambda: fc.flash_bwd_dkv_rect(q, k, v, do, lse, delta, scale, precision="default")
+    delta = (do * o).sum(-1)
+    dk, dv = dkv()
+    digest = hashlib.sha256(dk.cpu().numpy().tobytes() + dv.cpu().numpy().tobytes()).hexdigest()[:16]
+    out[f"{causal} {bh} {s} {d}"] = [cs.time_ms(dkv, 20)[1], digest]
+    del q, k, v, do, o, lse, delta, dk, dv
+print("parent " + json.dumps(out))
+"""
+
+
+def sweep_flash_1p(parent: str = "") -> None:
+    """The one-pass f32 dk/dv (`onepass::flash_bwd_dkv_1p_tc`) through its
+    entry point at every `ONEPASS_SHAPES` shape, beside the bound
+    (`chip_smoke.flash_bounds`, one TF32 product) and, with `parent` (a
+    checkout's root), that checkout's one-pass dk/dv timed first in a
+    process of its own (`ONEPASS_PARENT`), its outputs against these in
+    bits; at D 16 the kernel whole and with each attribution cut, from the
+    library built with `-DFLASH_F32_CUTS`, the whole kernel's outputs
+    against the entry point's in bits, and a `binds` line: the loads-only
+    cut (the producer's side alone) and the no-split cut (the consumers
+    alone) over the whole."""
+    import ctypes
+    import hashlib
+    import json
+    import os
+
+    import torch
+
+    from federated_pytorch_test_tpu_torch.ops import build
+    from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
+
+    parent_ms = {}
+    if parent:
+        proc = cs.subprocess.run([sys.executable, "-c", ONEPASS_PARENT, json.dumps(ONEPASS_SHAPES)],
+                                 cwd=os.path.abspath(parent), capture_output=True, text=True)
+        if proc.returncode != 0:
+            cs.fail(f"sweep flash_1p: the parent checkout failed:\n{proc.stdout}{proc.stderr}")
+        parent_ms = json.loads(proc.stdout.split("parent ")[-1].splitlines()[0])
+    lib = build.load("flash_attention", ("FLASH_F32_CUTS",))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.flash_bwd_dkv_1p_cut_launch.argtypes = [ptr] * 8 + [i32] * 7 + [ctypes.c_float] + [i32] + [ptr]
+    stream = torch.cuda.current_stream().cuda_stream
+    for causal, (bh, s, d) in ONEPASS_SHAPES:
+        q, k, v, do = cs.flash_inputs(bh, s, d, seed=43)
+        scale = 1.0 / d ** 0.5
+        pairs = bh * s * (s + 1) // 2 if causal else bh * s * s
+        operand, row = bh * s * d * 4, bh * s * 4
+        label = f"BH={bh} S={s} D={d} {'causal' if causal else 'non-causal'} default"
+        if causal:
+            o, lse = fc.flash_fwd(q, k, v, scale, "default")
+            dkv = lambda: fc.flash_bwd_dkv(q, k, v, do, lse, delta, scale, "default")
+        else:
+            o, lse = fc.flash_fwd_rect(q, k, v, scale, precision="default")
+            dkv = lambda: fc.flash_bwd_dkv_rect(q, k, v, do, lse, delta, scale, precision="default")
+        delta = (do * o).sum(-1)
+        dk_ref, dv_ref = dkv()
+        bound = cs.flash_bounds(6 * operand + 2 * row, 4 * 2 * d * pairs, pairs, "tf32x1")["bound_ms"]
+        shipped_ms = cs.time_ms(dkv, 20)[1]
+        par = parent_ms.get(f"{causal} {bh} {s} {d}")
+        if par:
+            digest = hashlib.sha256(dk_ref.cpu().numpy().tobytes() + dv_ref.cpu().numpy().tobytes()).hexdigest()[:16]
+        print(f"sweep flash_1p dkv {label} shipped device_ms={shipped_ms:.6f} bound_ms={bound:.6f} "
+              f"share_of_bound={bound / shipped_ms:.3f}"
+              + (f" parent_device_ms={par[0]:.6f} parent_over_shipped={par[0] / shipped_ms:.3f} "
+                 f"bitwise_parent={par[1] == digest}" if par else ""), flush=True)
+        if d == 16:
+            dk, dv = torch.empty_like(k), torch.empty_like(v)
+
+            def cut_launch(cut):
+                return lib.flash_bwd_dkv_1p_cut_launch(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                    dk.data_ptr(), dv.data_ptr(), bh, s, s, d, int(causal), 0, 0, scale, cut, stream)
+
+            ms = {}
+            for cut, cut_name in enumerate(F32_CUTS):
+                if cut_launch(cut) != 0:
+                    cs.fail(f"sweep flash_1p: cut {cut_name} did not launch")
+                torch.cuda.synchronize()
+                check = "" if cut else f" bitwise_shipped={torch.equal(dk, dk_ref) and torch.equal(dv, dv_ref)}"
+                ms[cut_name] = cs.time_ms(lambda: cut_launch(cut), 20)[1]
+                print(f"sweep flash_1p dkv {label} cut={cut_name} device_ms={ms[cut_name]:.6f} bound_ms={bound:.6f} "
+                      f"share_of_bound={bound / ms[cut_name]:.3f}{check}", flush=True)
+            print(f"sweep flash_1p dkv {label} binds loads_only_share={ms['loads_only'] / ms['full']:.3f} "
+                  f"consumers_alone_share={ms['no_split'] / ms['full']:.3f}", flush=True)
+            del dk, dv
+        del q, k, v, do, o, lse, delta, dk_ref, dv_ref
 
 
 def sweep_flash_f32(parent: str = "") -> None:
@@ -733,13 +858,13 @@ def main() -> int:
                             capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     args = sys.argv[1:]
     parent = ""
-    if "--parent" in args:  # flash_f32's parent checkout
+    if "--parent" in args:  # flash_1p's and flash_f32's parent checkout
         i = args.index("--parent")
         parent = args[i + 1]
         del args[i:i + 2]
     sweeps = {"grouped": sweep_grouped, "grouped_bf16": sweep_grouped_bf16, "gram": sweep_gram, "assembly": sweep_assembly, "bf16": sweep_bf16,
-              "flash_f32": lambda: sweep_flash_f32(parent), "scale64": sweep_scale64,
-              "determinism": sweep_determinism, "cudnn": sweep_cudnn}
+              "flash_1p": lambda: sweep_flash_1p(parent), "flash_f32": lambda: sweep_flash_f32(parent),
+              "scale64": sweep_scale64, "determinism": sweep_determinism, "cudnn": sweep_cudnn}
     for name in args or sweeps:
         if name not in sweeps:
             cs.fail(f"unknown sweep {name!r}; have {sorted(sweeps)}")

@@ -8,13 +8,13 @@
 //   `flash_attention(..., causal=True)`, the LM)
 //     _fwd_tri     :559 (_fwd_kernel_tri :253)      -> flash_fwd_launch      -> flash_fwd_tc<D, true> (D 128: fwd128::flash_fwd_d128_tc)
 //     _bwd_tri dq  :655 (_bwd_dq_kernel_tri :341)   -> flash_bwd_dq_launch   -> flash_bwd_dq_tc<D, true> (D 128: dq128::flash_bwd_dq_d128_tc)
-//     _bwd_tri dkv :673 (_bwd_dkv_kernel_tri :365)  -> flash_bwd_dkv_launch  -> flash_bwd_dkv_tc<D, true> (D 128: bwd128::flash_bwd_dkv_d128_tc)
+//     _bwd_tri dkv :673 (_bwd_dkv_kernel_tri :365)  -> flash_bwd_dkv_launch  -> flash_bwd_dkv_tc<D, true> (D 128: bwd128::flash_bwd_dkv_d128_tc; one pass: onepass::flash_bwd_dkv_1p_tc)
 //   rectangular, non-causal or causal on global offsets (q_off, k_off)
 //   (the path of `flash_attention(..., causal=False)`, the ViT, and of
 //   `flash_block`)
 //     _fwd         :601 (_fwd_kernel :395)          -> flash_fwd_rect_launch      -> flash_fwd_tc<D, ·> (D 128: the same)
 //     _flash3_bwd  :721 (_bwd_dq_kernel :436)       -> flash_bwd_dq_rect_launch   -> flash_bwd_dq_tc<D, ·> (D 128: the same)
-//     _flash3_bwd  :744 (_bwd_dkv_kernel :461)      -> flash_bwd_dkv_rect_launch  -> flash_bwd_dkv_tc<D, ·> (D 128: the same)
+//     _flash3_bwd  :744 (_bwd_dkv_kernel :461)      -> flash_bwd_dkv_rect_launch  -> flash_bwd_dkv_tc<D, ·> (D 128, one pass: the same)
 //
 // o = softmax(q kᵀ·scale [, causal]) v with the natural-log row logsumexp
 // lse; dq = scale · Σ_j dS_ij k_j, dv = Σ_i P_ijᵀ dO_i, dk = scale ·
@@ -291,17 +291,48 @@
 // The aligned causal backward is the same two kernels at Sq = Skv and
 // shift 0, as the aligned forward is `flash_fwd_tc` at shift 0.
 //
-// One pass (`passes` = 1, the kernels' Split = false): the path of
-// `precision='default'` on f32 inputs. The TPU's Precision.DEFAULT runs each
-// dot as one bf16 MXU pass; its counterpart here is one TF32 product a
-// product, hi·hi with both operands rounded by `tf32()` — not a
-// block-by-block carry-over of the TPU kernels. TF32 keeps 10 mantissa bits
-// against bf16's 8, inside the JAX package's 'default' contract (2e-2 from
-// f32, tests/test_flash.py). The same kernels are compiled without the lo
-// operands and the lo·hi, hi·lo products; tiles and shared memory are
-// unchanged. Bound: the products take a third of their split time above,
-// which leaves the exps or the bytes the larger term at both paths' shapes
-// (chip_smoke.py computes each).
+// One pass (`passes` = 1): the path of `precision='default'` on f32
+// inputs. The TPU's Precision.DEFAULT runs each dot as one bf16 MXU pass;
+// its counterpart here is one TF32 product a product, hi·hi with both
+// operands rounded by `tf32()` — not a block-by-block carry-over of the TPU
+// kernels. TF32 keeps 10 mantissa bits against bf16's 8, inside the JAX
+// package's 'default' contract (2e-2 from f32, tests/test_flash.py). The
+// forward and dq are `flash_fwd_tc` and `flash_bwd_dq_tc` (fwd128, dq128 at
+// D = 128) compiled without the lo operands and the lo·hi, hi·lo products,
+// tiles and shared memory unchanged; dk/dv is bwd128's at D = 128 and up to
+// D = 64 a kernel of its own, `onepass::flash_bwd_dkv_1p_tc`, which sums in
+// the order of the split `flash_bwd_dkv_tc`.
+//   Bound on an H100 SXM: with one TF32 pass the products no longer bind.
+//   At the ViT's shape (BH 6144, S 256, D 16) dk/dv's bytes take 0.184 ms,
+//   its four products ~0.10 and its exps 0.10; at the LM's causal triangle
+//   (BH 128, S 2048) the exps, 0.069 (chip_smoke.py computes each). At S
+//   256 a 128-key block has 8 query tiles: too few to hide a CTA's
+//   prologue, and staging by every thread between block barriers (as
+//   `flash_bwd_dkv_tc` does) puts loads, staging and products one after
+//   another. dk/dv's design:
+//   * Persistent: kCtas CTAs an SM (`DkvPlan`: two at D = 16, one above)
+//     walk the 128-key blocks (`Walk`): a head's blocks side by side, the
+//     causal first keys first, dealt out in a snake, so that a head's Q and
+//     dO are read from L2 by its blocks together.
+//   * Warp specialised, 384 threads: two consumer warpgroups of 64 key rows
+//     and a producer warpgroup (setmaxnreg), meeting on mbarriers; no
+//     block-wide barrier. The producer lands each block's K and V by bulk
+//     copy a block ahead, and each query tile (Q, dO, lse, delta) by
+//     cp.async, several tiles ahead, into raw stages; it rounds each landed
+//     element once and stores Q's and dO's hi, their query-permuted
+//     transposes, lse2 and delta into a ring of kRing stages. A producer
+//     chain takes ~1 µs a tile whatever the tile's bytes, so below D = 64
+//     it runs in two chains that take the tiles in turn (kChains).
+//   * Each consumer warpgroup rounds its block's K and V rows into its own
+//     operand as the block starts, then only multiplies and exponentiates,
+//     a tile at a time, summing in flash_bwd_dkv_tc's order. Overlapping a
+//     tile's products with the next one's exps needs ~110 registers a
+//     consumer, which two CTAs an SM do not have; at one CTA an SM the
+//     overlap measured slower than two CTAs without it.
+//   * Causal: a warpgroup frees the tiles wholly before its keys unread and
+//     masks only those across its diagonal; a block no query sees stores dk
+//     = dv = 0, and the producer lands nothing for it. No atomics: bitwise
+//     repeatable.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -1467,12 +1498,12 @@ flash_bwd_dq_tc(const float* __restrict__ q, const float* __restrict__ k, const 
 }
 
 // dk, dv of k, v [BH, Skv, D] from the same inputs for D up to 64: dv =
-// Σ_i P_ijᵀ dO_i, dk = scale · Σ_i dS_ijᵀ q_i, in split TF32 or (without
-// Split) one pass. Grid (Skv / kRows, BH), kThreads threads (`Plan<D>`),
-// sizeof(SmemDkv<D>) bytes of dynamic shared memory; two blocks an SM at
-// D = 16 (at most 128 registers). D = 128 runs bwd128::flash_bwd_dkv_d128_tc
-// (below), the same arithmetic.
-template <int D, bool Causal, bool Split>
+// Σ_i P_ijᵀ dO_i, dk = scale · Σ_i dS_ijᵀ q_i, in split TF32. Grid (Skv /
+// kRows, BH), kThreads threads (`Plan<D>`), sizeof(SmemDkv<D>) bytes of
+// dynamic shared memory; two blocks an SM at D = 16 (at most 128
+// registers). D = 128 runs bwd128::flash_bwd_dkv_d128_tc (below), the same
+// arithmetic; one pass, onepass::flash_bwd_dkv_1p_tc.
+template <int D, bool Causal>
 __global__ void __launch_bounds__(Plan<D>::kThreads, D == 16 ? 2 : 1)
 flash_bwd_dkv_tc(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                  const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
@@ -1506,8 +1537,8 @@ flash_bwd_dkv_tc(const float* __restrict__ q, const float* __restrict__ k, const
     cp_async_commit();
   }
   const size_t krow = (size_t)bh * s_kv + key0;
-  split_rows<D, Split>(sm.k_hi, sm.k_lo, k + krow * D);
-  split_rows<D, Split>(sm.v_hi, sm.v_lo, v + krow * D);
+  split_rows<D, true>(sm.k_hi, sm.k_lo, k + krow * D);
+  split_rows<D, true>(sm.v_hi, sm.v_lo, v + krow * D);
   proxy_fence();
 
   const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
@@ -1526,8 +1557,8 @@ flash_bwd_dkv_tc(const float* __restrict__ q, const float* __restrict__ k, const
     const int st = it % kStages;
     cp_async_wait<kStages - 1>();
     __syncthreads();
-    split_both<D, T, Split>(sm.raw[st][0], sm.q_hi, sm.q_lo, sm.qt_hi, sm.qt_lo);
-    split_both<D, T, Split>(sm.raw[st][1], sm.do_hi, sm.do_lo, sm.dot_hi, sm.dot_lo);
+    split_both<D, T, true>(sm.raw[st][0], sm.q_hi, sm.q_lo, sm.qt_hi, sm.qt_lo);
+    split_both<D, T, true>(sm.raw[st][1], sm.do_hi, sm.do_lo, sm.dot_hi, sm.dot_lo);
     if (threadIdx.x < T) {
       sm.lse2[threadIdx.x] = lse2(sm.raw_stats[st][0][threadIdx.x]);
       sm.delta[threadIdx.x] = sm.raw_stats[st][1][threadIdx.x];
@@ -1545,8 +1576,8 @@ flash_bwd_dkv_tc(const float* __restrict__ q, const float* __restrict__ k, const
     // delta are per column.
     float s[T / 2], dp[T / 2];
     wg_fence();
-    ss_split<D, T, Split>(s, a16, offsetof(S, k_hi), offsetof(S, k_lo), base16, offsetof(S, q_hi), offsetof(S, q_lo));
-    ss_split<D, T, Split>(dp, a16, offsetof(S, v_hi), offsetof(S, v_lo), base16, offsetof(S, do_hi),
+    ss_split<D, T, true>(s, a16, offsetof(S, k_hi), offsetof(S, k_lo), base16, offsetof(S, q_hi), offsetof(S, q_lo));
+    ss_split<D, T, true>(dp, a16, offsetof(S, v_hi), offsetof(S, v_lo), base16, offsetof(S, do_hi),
                           offsetof(S, do_lo));
     wg_commit();
     wg_wait();
@@ -1583,18 +1614,18 @@ flash_bwd_dkv_tc(const float* __restrict__ q, const float* __restrict__ k, const
       // live at a time beside the two accumulators
       float part[D / 2];
       uint32_t ph[T / 2], pl[T / 2];
-      split_frag<T / 2, Split>(s, ph, pl);
+      split_frag<T / 2, true>(s, ph, pl);
       wg_fence();
-      rs_split<D, T, Split>(part, ph, pl, base16, offsetof(S, dot_hi), offsetof(S, dot_lo), 0);
+      rs_split<D, T, true>(part, ph, pl, base16, offsetof(S, dot_hi), offsetof(S, dot_lo), 0);
       wg_commit();
       wg_wait();
       pin(part);
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) dva[i] += part[i];
       uint32_t dh[T / 2], dl[T / 2];
-      split_frag<T / 2, Split>(dp, dh, dl);
+      split_frag<T / 2, true>(dp, dh, dl);
       wg_fence();
-      rs_split<D, T, Split>(part, dh, dl, base16, offsetof(S, qt_hi), offsetof(S, qt_lo), 0);
+      rs_split<D, T, true>(part, dh, dl, base16, offsetof(S, qt_hi), offsetof(S, qt_lo), 0);
       wg_commit();
       wg_wait();
       pin(part);
@@ -1602,11 +1633,11 @@ flash_bwd_dkv_tc(const float* __restrict__ q, const float* __restrict__ k, const
       for (int i = 0; i < D / 2; ++i) dka[i] += part[i];
     } else {
       uint32_t ph[T / 2], pl[T / 2], dh[T / 2], dl[T / 2];
-      split_frag<T / 2, Split>(s, ph, pl);
-      split_frag<T / 2, Split>(dp, dh, dl);
+      split_frag<T / 2, true>(s, ph, pl);
+      split_frag<T / 2, true>(dp, dh, dl);
       wg_fence();
-      rs_split<D, T, Split>(dva, ph, pl, base16, offsetof(S, dot_hi), offsetof(S, dot_lo));
-      rs_split<D, T, Split>(dka, dh, dl, base16, offsetof(S, qt_hi), offsetof(S, qt_lo));
+      rs_split<D, T, true>(dva, ph, pl, base16, offsetof(S, dot_hi), offsetof(S, dot_lo));
+      rs_split<D, T, true>(dka, dh, dl, base16, offsetof(S, qt_hi), offsetof(S, qt_lo));
       wg_commit();
       wg_wait();
       pin(dva);
@@ -2728,6 +2759,458 @@ int launch(const float* q, const float* k, const float* v, const float* dout, co
 
 }  // namespace dq128
 
+// ---------------------------------------------------------------------------
+// The one-pass dk/dv up to head dim 64 (the note at the top: one pass)
+// ---------------------------------------------------------------------------
+namespace onepass {
+
+using fwd128::kFull;
+using fwd128::kLoadsOnly;
+using fwd128::kNoExp;
+using fwd128::kNoMma;
+using fwd128::kNoSplit;
+using fwd128::Walk;
+using hopper_tma::aligned_smem;
+using hopper_tma::bar_arrive;
+using hopper_tma::bar_expect;
+using hopper_tma::bar_init;
+using hopper_tma::bar_wait;
+using hopper_tma::bulk_copy;
+using hopper_tma::named_sync;
+using hopper_tma::regs_dec;
+using hopper_tma::regs_inc;
+using hopper_tma::smem_u32;
+
+constexpr int kSmemLimit = 232448;  // shared memory a block may have
+constexpr int kSmemSm = 233472;     // shared memory of an SM (1 KB of it reserved a block)
+constexpr int kRegisters = 65536;   // registers of an SM
+constexpr int kThreads = 384;       // consumer warpgroups 0 and 1, then the producer warpgroup
+constexpr int kProducers = 128;
+// a thread's registers at __launch_bounds__(384, ctas): 168 at one CTA an SM, 80 at two
+constexpr int launch_regs(int ctas) { return kRegisters / (kThreads * ctas) / 8 * 8; }
+// setmaxnreg of the producer and the consumers within the CTA's registers
+constexpr bool regs_fit(int ctas, int producer, int consumer) {
+  return producer % 8 == 0 && consumer % 8 == 0 && producer >= 24 &&
+         kProducers * producer + 256 * consumer <= kThreads * launch_regs(ctas);
+}
+// a plan's shared memory (the launch asks for 1 KB more, to align) fits `ctas` CTAs an SM
+constexpr bool smem_fits(int ctas, size_t bytes) {
+  return bytes + 1024 <= kSmemLimit && ctas * (bytes + 1024 + 1024) <= kSmemSm;
+}
+// named barriers (0 is __syncthreads): each producer chain's (kProducerBar
+// + chain); each consumer warpgroup's own (kOwn + warpgroup)
+constexpr int kProducerBar = 1, kOwn = 3;
+
+// x rounded to TF32 (hi) component by component
+__device__ __forceinline__ float4 tf32_4(float4 x) {
+  return make_float4(__uint_as_float(tf32(x.x)), __uint_as_float(tf32(x.y)), __uint_as_float(tf32(x.z)),
+                     __uint_as_float(tf32(x.w)));
+}
+
+// A warpgroup's 64 rows of a landed row-major [R x D] block (from `rows`),
+// rounded into the hi of a 64-row operand (`cidx<64>`), by the warpgroup's
+// thread `tid`
+template <int D>
+__device__ __forceinline__ void form_hi(const float* rows, float* hi, int tid) {
+#pragma unroll
+  for (int n = 0; n < 64 * D / 4 / 128; ++n) {
+    const int i = tid + n * 128, r = i % 64, c4 = i / 64;
+    *reinterpret_cast<float4*>(&hi[cidx<64>(r, 4 * c4)]) =
+        tf32_4(*reinterpret_cast<const float4*>(&rows[r * D + 4 * c4]));
+  }
+}
+
+// The dk/dv's plan by head dim
+template <int D>
+struct DkvPlan {
+  static_assert(D == 16 || D == 32 || D == 64, "D = 128 runs bwd128");
+  // CTAs an SM: two at D = 16, where a consumer's registers (88) hold a tile
+  // at a time; above, one
+  static constexpr int kCtas = D == 16 ? 2 : 1;
+  static constexpr int kRows = 128;                // key rows a block: consumer warpgroups 0 and 1
+  static constexpr int kTile = Plan<D>::kDkvTile;  // queries a tile: flash_bwd_dkv_tc's
+  static constexpr int kKv = D == 64 ? 1 : 2;      // blocks' K and V landed ahead
+  // Q/dO tiles in flight from device memory (34 KB at D = 16)
+  static constexpr int kRaw = D == 64 ? 1 : 8;
+  // producer chains, each landing and storing every kChains-th tile: two
+  // (one at D = 64, a single raw stage), as a chain takes ~1 µs a tile
+  static constexpr int kChains = D == 64 ? 1 : 2;
+  static_assert(kRaw % kChains == 0, "a chain's raw stages");
+  static constexpr int kRing = D == 64 ? 2 : 3;  // operand stages
+  static constexpr int kProducerRegs = kCtas == 2 ? 64 : 88, kConsumerRegs = kCtas == 2 ? 88 : 208;  // setmaxnreg
+  static_assert(regs_fit(kCtas, kProducerRegs, kConsumerRegs), "setmaxnreg over the CTA's registers");
+};
+
+template <int D>
+struct DkvSmem {
+  using P = DkvPlan<D>;
+  static constexpr int T = P::kTile;
+  struct Raw {  // a tile of Q and dO as landed, row-major, and its lse and delta
+    float q[T * D], dout[T * D], stats[2][T];
+  };
+  struct Stage {  // its operands: Q's and dO's hi (`cidx<T>`), Qᵀ's and dOᵀ's hi (`cidx<D>`, queries permuted)
+    float q[T * D], dout[T * D], qt[D * T], dot[D * T];
+    float lse2[T], delta[T];
+  };
+  alignas(128) float kv[P::kKv][2][P::kRows * D];  // a block's K and V as landed
+  alignas(128) float kv_hi[2][2][64 * D];          // each warpgroup's K and V hi, operand layout
+  alignas(128) Raw raw[P::kRaw];
+  alignas(128) Stage st[P::kRing];
+  uint64_t kv_full[P::kKv], kv_empty[P::kKv], ready[P::kRing], empty[P::kRing];
+};
+static_assert(sizeof(DkvSmem<16>) == 109440 && smem_fits(2, sizeof(DkvSmem<16>)), "two CTAs an SM");
+static_assert(sizeof(DkvSmem<32>) == 215936 && smem_fits(1, sizeof(DkvSmem<32>)), "over 227 KB");
+static_assert(sizeof(DkvSmem<64>) == 213888 && smem_fits(1, sizeof(DkvSmem<64>)), "over 227 KB");
+
+// The one-pass dk, dv of k, v [BH, Skv, D] from q, dO [BH, Sq, D] and lse,
+// delta [BH, Sq], D up to 64, in flash_bwd_dkv_tc's order of sums (the note
+// at the top: one pass). Persistent: grid min(blocks, kCtas · SMs), kThreads
+// threads, sizeof(DkvSmem<D>) + 1024 bytes of dynamic shared memory; a tile
+// at a time.
+template <int D, bool Causal, int Cut>
+__global__ void __launch_bounds__(kThreads, DkvPlan<D>::kCtas)
+flash_bwd_dkv_1p_tc(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                    const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dk, float* __restrict__ dv, int bh_count, int s_q, int s_kv, int shift,
+                    float scale) {
+  using P = DkvPlan<D>;
+  using S = DkvSmem<D>;
+  constexpr int kRows = P::kRows, T = P::kTile, kRing = P::kRing, kRaw = P::kRaw, kKv = P::kKv;
+  constexpr int kChains = P::kChains, kChain = kProducers / kChains;  // producer chains, threads a chain
+  extern __shared__ unsigned char smem_raw[];
+  S& sm = aligned_smem<S>(smem_raw);
+  const Walk walk{bh_count, s_kv / kRows};  // block r of a head: keys r·128 …, the first ones heaviest (causal)
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kKv; ++i) {
+      bar_init(&sm.kv_full[i], 1);   // the issuing thread's bar_expect; then the bytes
+      bar_init(&sm.kv_empty[i], 8);  // a consumer warp each, once its warpgroup has formed its K and V
+    }
+    for (int i = 0; i < kRing; ++i) {
+      bar_init(&sm.ready[i], kChain / 32);  // a warp of the tile's chain each, after its part
+      bar_init(&sm.empty[i], 8);            // a consumer warp each, after the tile's products
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // a block's first query tile (causal: queries before key0 − shift see none of its keys)
+  auto first_tile = [&](int key0) { return Causal ? min(max(key0 - shift, 0), s_q) / T * T : 0; };
+
+  if (threadIdx.x >= 256) {
+    regs_dec<P::kProducerRegs>();
+    // The producer warpgroup, in kChains chains that take the tiles in turn.
+    // Thread p = 0 lands the first block's K and V by bulk copy (kKv > 1),
+    // and the first thread of the chain that takes a block's first tile those
+    // of the block kKv − 1 ahead; every thread of a chain lands its part of
+    // each of the chain's query tiles (Q, dO, lse, delta) by cp.async,
+    // kRaw / kChains − 1 of them ahead, and stores its part of each landed
+    // tile's operands into the ring as the consumers free it: Q's and dO's hi
+    // in operand layout, Qᵀ's and dOᵀ's hi with the queries of every 8
+    // permuted 0, 2, 4, 6, 1, 3, 5, 7 (as `rs_split` reads them), the tile's
+    // lse2 and delta. Blocks without a tile (causal, every query before
+    // their keys) are skipped by both sides.
+    const int p = threadIdx.x - 256, h = p / kChain, hp = p % kChain;
+    struct Tile {
+      int n, b, bh, key0, qt0, it, n_tiles;  // tile `it` of the n-th block (the b-th with a tile), from query qt0
+    };
+    auto seek = [&](int n, int b, Tile& x) {  // the first tile of the first block from the n-th on that has one
+      for (int bh, r; walk.next(n, bh, r); ++n) {
+        const int key0 = r * kRows, qt0 = first_tile(key0), nt = (s_q - qt0) / T;
+        if (nt > 0) {
+          x = Tile{n, b, bh, key0, qt0, 0, nt};
+          return true;
+        }
+      }
+      return false;
+    };
+    auto advance = [&](Tile& x) { return ++x.it < x.n_tiles || seek(x.n + 1, x.b + 1, x); };
+    auto step = [&](Tile& x) {  // x to the chain's next tile, kChains on
+      for (int i = 0; i < kChains; ++i)
+        if (!advance(x)) return false;
+      return true;
+    };
+    // the b-th block's K and V into buffer b % kKv, once block b − kKv's consumers have formed theirs
+    auto land_kv = [&](int b, const Tile& x) {
+      if (b >= kKv) bar_wait(&sm.kv_empty[b % kKv], ((b - kKv) / kKv) & 1);
+      if constexpr (Cut == kNoSplit) {
+        bar_arrive(&sm.kv_full[b % kKv]);
+      } else {
+        const size_t row = (size_t)x.bh * s_kv + x.key0;
+        bar_expect(&sm.kv_full[b % kKv], 2 * kRows * D * 4);
+        bulk_copy(sm.kv[b % kKv][0], k + row * D, kRows * D * 4, &sm.kv_full[b % kKv]);
+        bulk_copy(sm.kv[b % kKv][1], v + row * D, kRows * D * 4, &sm.kv_full[b % kKv]);
+      }
+    };
+    // this thread's 16-byte chunks of tile x's Q, dO, lse and delta into raw stage g % kRaw
+    auto land_tile = [&](int g, const Tile& x) {
+      if constexpr (Cut != kNoSplit) {
+        typename S::Raw& raw = sm.raw[g % kRaw];
+        const size_t row = (size_t)x.bh * s_q + x.qt0 + x.it * T;
+#pragma unroll
+        for (int n = 0; n < T * D / 4 / kChain; ++n) {
+          const int i = hp + n * kChain;
+          cp_async16(&raw.q[4 * i], q + row * D + 4 * i);
+          cp_async16(&raw.dout[4 * i], dout + row * D + 4 * i);
+        }
+        if (hp < T / 4)
+          cp_async16(&raw.stats[0][4 * hp], lse + row + 4 * hp);
+        else if (hp < T / 2)
+          cp_async16(&raw.stats[1][4 * (hp - T / 4)], delta + row + 4 * (hp - T / 4));
+      }
+    };
+    // the landed Q and dO of a tile into their operands and transposes, as
+    // flash_bwd_dkv_tc's split_both without the lo, each element rounded
+    // once: a thread's 4 x 4 blocks (queries r0 + 0, 2, 4, 6, columns 4c …
+    // 4c + 3; Q's 2D blocks, then dO's), all loaded first, go to the
+    // operand's rows as they stand and, turned in registers, to the
+    // transpose's positions 4pg … 4pg + 3 of rows 4c + e
+    constexpr int kBlocks = 2 * T * D / 16, kPer = (kBlocks + kChain - 1) / kChain;
+    auto store = [&](const typename S::Raw& raw, typename S::Stage& stage) {
+      float4 y[kPer][4];
+#pragma unroll
+      for (int n = 0; n < kPer; ++n) {
+        const int i = hp + n * kChain, b = i % (kBlocks / 2), c4 = b % (D / 4), pg = b / (D / 4);
+        const int r0 = (pg >> 1) * 8 + (pg & 1);
+        const float* x = i < kBlocks / 2 ? raw.q : raw.dout;
+        if (i < kBlocks)
+#pragma unroll
+          for (int m = 0; m < 4; ++m) y[n][m] = *reinterpret_cast<const float4*>(&x[(r0 + 2 * m) * D + 4 * c4]);
+      }
+#pragma unroll
+      for (int n = 0; n < kPer; ++n) {
+        const int i = hp + n * kChain, b = i % (kBlocks / 2), c4 = b % (D / 4), pg = b / (D / 4);
+        const int r0 = (pg >> 1) * 8 + (pg & 1);
+        float* hi = i < kBlocks / 2 ? stage.q : stage.dout;
+        float* t_hi = i < kBlocks / 2 ? stage.qt : stage.dot;
+        if (i < kBlocks) {
+          float4 x[4];
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            x[m] = tf32_4(y[n][m]);
+            *reinterpret_cast<float4*>(&hi[cidx<T>(r0 + 2 * m, 4 * c4)]) = x[m];
+          }
+          float* tt = &t_hi[cidx<D>(4 * c4, 4 * pg)];  // row 4c4 + e lies 4e floats past it (cidx)
+          *reinterpret_cast<float4*>(tt) = make_float4(x[0].x, x[1].x, x[2].x, x[3].x);
+          *reinterpret_cast<float4*>(tt + 4) = make_float4(x[0].y, x[1].y, x[2].y, x[3].y);
+          *reinterpret_cast<float4*>(tt + 8) = make_float4(x[0].z, x[1].z, x[2].z, x[3].z);
+          *reinterpret_cast<float4*>(tt + 12) = make_float4(x[0].w, x[1].w, x[2].w, x[3].w);
+        }
+      }
+      if (hp < T)
+        stage.lse2[hp] = lse2(raw.stats[0][hp]);
+      else if (hp < 2 * T)
+        stage.delta[hp - T] = raw.stats[1][hp - T];
+    };
+    Tile cur;
+    if (!seek(0, 0, cur)) return;
+    if (p == 0 && kKv > 1) land_kv(0, cur);
+    for (int i = 0; i < h; ++i)  // the chain's first tile: tile h
+      if (!advance(cur)) return;
+    constexpr int kAhead = kRaw / kChains - 1;  // the chain's tiles in flight beyond the one it stores
+    Tile ahead = cur;
+    bool ahead_ok = true;
+    for (int j = 0; j < kAhead; ++j) {  // the chain's first tiles in flight, a commit group each
+      if (ahead_ok) {
+        land_tile(h + j * kChains, ahead);
+        ahead_ok = step(ahead);
+      }
+      cp_async_commit();
+    }
+    for (int g = h;; g += kChains) {
+      // the chain's tile g has landed (every thread's chunks), and every
+      // thread of the chain has read its last tile's raw stage: refill it,
+      // kAhead of the chain's tiles ahead (one stage: land tile g there and
+      // wait for it)
+      if constexpr (kAhead > 0) {
+        cp_async_wait<kAhead - 1>();
+        named_sync(kProducerBar + h, kChain);
+        if (ahead_ok) {
+          land_tile(g + kAhead * kChains, ahead);
+          ahead_ok = step(ahead);
+        }
+        cp_async_commit();
+      } else {
+        named_sync(kProducerBar + h, kChain);
+        land_tile(g, cur);
+        cp_async_commit();
+        cp_async_wait<0>();
+        named_sync(kProducerBar + h, kChain);
+      }
+      if (cur.it == 0 && hp == 0) {  // a block's first tile: the K and V of the block kKv − 1 ahead
+        Tile x = cur;
+        bool ok = true;
+        for (int i = 0; i < kKv - 1 && ok; ++i) ok = seek(x.n + 1, x.b + 1, x);
+        if (ok) land_kv(x.b, x);
+      }
+      const int st = g % kRing;
+      if (g >= kRing) bar_wait(&sm.empty[st], (g / kRing - 1) & 1);
+      if constexpr (Cut != kNoSplit) store(sm.raw[g % kRaw], sm.st[st]);
+      proxy_fence();
+      __syncwarp();
+      if (hp % 32 == 0) bar_arrive(&sm.ready[st]);
+      if (!step(cur)) return;
+    }
+  }
+
+  // The consumer warpgroups: key rows key0 + 64·wg … of each block.
+  regs_inc<P::kConsumerRegs>();
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const float c = scale * kLog2e;  // P = 2^(s·c − lse2)
+  const uint32_t k16 = smem_u32(sm.kv_hi[wg][0]) >> 4, v16 = smem_u32(sm.kv_hi[wg][1]) >> 4;
+  auto release = [&](uint64_t* bar) {
+    if (lane == 0) bar_arrive(bar);
+  };
+  int gt = 0, nb = 0;
+  for (int n = 0, bh, r; walk.next(n, bh, r); ++n) {
+    const int key0 = r * kRows, qt0 = first_tile(key0), n_tiles = (s_q - qt0) / T;
+    const int wkey0 = key0 + 64 * wg;                            // this warpgroup's first key row
+    const int key_a = wkey0 + 16 * warp + g, key_b = key_a + 8;  // the two key rows this thread holds
+
+    float dka[D / 2], dva[D / 2];  // dk / scale and dv
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+    if (n_tiles > 0) {
+      bar_wait(&sm.kv_full[nb % kKv], (nb / kKv) & 1);
+      form_hi<D>(sm.kv[nb % kKv][0] + 64 * wg * D, sm.kv_hi[wg][0], tid);  // its last block's scores are done
+      form_hi<D>(sm.kv[nb % kKv][1] + 64 * wg * D, sm.kv_hi[wg][1], tid);
+      proxy_fence();
+      named_sync(kOwn + wg, 128);
+      release(&sm.kv_empty[nb % kKv]);
+      ++nb;
+      // the tiles this warpgroup computes: causal, from the first whose last
+      // query sees its first key (qt + T − 1 >= wkey0 − shift); it frees the
+      // ones before unread
+      const int skip = wkey0 - shift - T + 1 - qt0, first = Causal && skip > 0 ? min(n_tiles, (skip + T - 1) / T) : 0;
+      auto ready = [&](int it) { bar_wait(&sm.ready[(gt + it) % kRing], ((gt + it) / kRing) & 1); };
+      for (int it = 0; it < (Cut == kLoadsOnly ? n_tiles : first); ++it) {
+        ready(it);
+        release(&sm.empty[(gt + it) % kRing]);
+      }
+      if (Cut != kLoadsOnly) {
+        // a tile at a time, as flash_bwd_dkv_tc; causal, its two products one
+        // after the other into one partial sum (part)
+        for (int it = first; it < n_tiles; ++it) {
+          ready(it);
+          const typename S::Stage& stage = sm.st[(gt + it) % kRing];
+          // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ. s[4j + e] is (key_a, query qt +
+          // 8j + 2t + e), s[4j + 2 + e] the same query on key_b; dp likewise.
+          float s[T / 2], dp[T / 2];
+          if constexpr (Cut == kNoMma) {
+#pragma unroll
+            for (int i = 0; i < T / 2; ++i) {
+              s[i] = 0.125f * (i & 7);
+              dp[i] = 0.0625f * (i & 7);
+            }
+          } else {
+            wg_fence();
+            ss_split<D, T, false>(s, k16, 0, 0, smem_u32(stage.q) >> 4, 0, 0);
+            ss_split<D, T, false>(dp, v16, 0, 0, smem_u32(stage.dout) >> 4, 0, 0);
+            wg_commit();
+            wg_wait();
+            pin(s);
+            pin(dp);
+          }
+          // Pᵀ into s, dSᵀ = Pᵀ ∘ (dPᵀ − delta) into dp
+          const int qt = qt0 + it * T;
+          const bool mask = Causal && wkey0 + 63 > qt + shift;  // the tile crosses the diagonal
+#pragma unroll
+          for (int j = 0; j < T / 8; ++j) {
+            const float2 l2 = *reinterpret_cast<const float2*>(&stage.lse2[8 * j + 2 * t]);
+            const float2 dl = *reinterpret_cast<const float2*>(&stage.delta[8 * j + 2 * t]);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float l = e ? l2.y : l2.x, d = e ? dl.y : dl.x;
+              float pa = fmaf(s[4 * j + e], c, -l), pb = fmaf(s[4 * j + 2 + e], c, -l);
+              if constexpr (Cut != kNoExp) {
+                pa = exp2_ftz(pa);
+                pb = exp2_ftz(pb);
+              }
+              if (mask) {
+                const int query = qt + 8 * j + 2 * t + e;
+                pa = key_a > query + shift ? 0.f : pa;
+                pb = key_b > query + shift ? 0.f : pb;
+              }
+              s[4 * j + e] = pa;
+              s[4 * j + 2 + e] = pb;
+              dp[4 * j + e] = pa * (dp[4 * j + e] - d);
+              dp[4 * j + 2 + e] = pb * (dp[4 * j + 2 + e] - d);
+            }
+          }
+          // dv += Pᵀ·dO against dOᵀ and dk += dSᵀ·Q against Qᵀ, Pᵀ and dSᵀ in registers
+          uint32_t ph[T / 2], dh[T / 2];
+          split_frag<T / 2, false>(s, ph, ph);
+          split_frag<T / 2, false>(dp, dh, dh);
+          const uint32_t qt16 = smem_u32(stage.qt) >> 4, dot16 = smem_u32(stage.dot) >> 4;
+          if constexpr (Cut == kNoMma) {
+#pragma unroll
+            for (int i = 0; i < D / 2; ++i) {
+              dva[i] += __uint_as_float(ph[i % (T / 2)]);
+              dka[i] += __uint_as_float(dh[i % (T / 2)]);
+            }
+          } else if constexpr (Causal) {
+            float part[D / 2];
+            wg_fence();
+            rs_split<D, T, false>(part, ph, ph, dot16, 0, 0, 0);
+            wg_commit();
+            wg_wait();
+            pin(part);
+#pragma unroll
+            for (int i = 0; i < D / 2; ++i) dva[i] += part[i];
+            wg_fence();
+            rs_split<D, T, false>(part, dh, dh, qt16, 0, 0, 0);
+            wg_commit();
+            wg_wait();
+            pin(part);
+#pragma unroll
+            for (int i = 0; i < D / 2; ++i) dka[i] += part[i];
+          } else {
+            wg_fence();
+            rs_split<D, T, false>(dva, ph, ph, dot16, 0, 0);
+            rs_split<D, T, false>(dka, dh, dh, qt16, 0, 0);
+            wg_commit();
+            wg_wait();
+            pin(dva);
+            pin(dka);
+          }
+          release(&sm.empty[(gt + it) % kRing]);
+        }
+      }
+      gt += n_tiles;
+    }
+
+    float* ka = dk + ((size_t)bh * s_kv + key_a) * D + 2 * t;
+    float* kb = dk + ((size_t)bh * s_kv + key_b) * D + 2 * t;
+    float* va = dv + ((size_t)bh * s_kv + key_a) * D + 2 * t;
+    float* vb = dv + ((size_t)bh * s_kv + key_b) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<float2*>(ka + 8 * j) = make_float2(dka[4 * j] * scale, dka[4 * j + 1] * scale);
+      *reinterpret_cast<float2*>(kb + 8 * j) = make_float2(dka[4 * j + 2] * scale, dka[4 * j + 3] * scale);
+      *reinterpret_cast<float2*>(va + 8 * j) = make_float2(dva[4 * j], dva[4 * j + 1]);
+      *reinterpret_cast<float2*>(vb + 8 * j) = make_float2(dva[4 * j + 2], dva[4 * j + 3]);
+    }
+  }
+}
+
+// One launch of the one-pass dk/dv: kCtas CTAs an SM, or one a block if
+// there are fewer. The cudaError_t of the launch.
+template <int D, bool Causal, int Cut = kFull>
+int launch(const float* q, const float* k, const float* v, const float* dout, const float* lse, const float* delta,
+           float* dk, float* dv, int bh, int s_q, int s_kv, int shift, float scale, cudaStream_t st) {
+  constexpr int kCtas = DkvPlan<D>::kCtas;
+  const int blocks = bh * (s_kv / DkvPlan<D>::kRows);
+  int grid = 0;
+  const int e = hopper_tma::persistent_grid((blocks + kCtas - 1) / kCtas, &grid);
+  if (e != 0) return e;
+  grid = grid * kCtas < blocks ? grid * kCtas : blocks;
+  return hopper_tma::launch(flash_bwd_dkv_1p_tc<D, Causal, Cut>, (int)sizeof(DkvSmem<D>) + 1024, dim3(grid),
+                            kThreads, st, q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, shift, scale);
+}
+
+}  // namespace onepass
+
 // One launch of a backward kernel with its dynamic shared memory; the
 // cudaError_t of the launch.
 template <typename Kernel, typename... Args>
@@ -2745,12 +3228,16 @@ int bwd_dq_d(const float* q, const float* k, const float* v, const float* dout, 
                     Plan<D>::kThreads, st, q, k, v, dout, lse, delta, dq, s_q, s_kv, shift, scale);
 }
 
+// dk/dv up to D = 64: split, flash_bwd_dkv_tc; one pass, onepass::flash_bwd_dkv_1p_tc
 template <int D, bool Causal, bool Split>
 int bwd_dkv_d(const float* q, const float* k, const float* v, const float* dout, const float* lse,
               const float* delta, float* dk, float* dv, int bh, int s_q, int s_kv, int shift, float scale,
               cudaStream_t st) {
-  return launch_bwd(flash_bwd_dkv_tc<D, Causal, Split>, (int)sizeof(SmemDkv<D>), dim3(s_kv / Plan<D>::kRows, bh),
-                    Plan<D>::kThreads, st, q, k, v, dout, lse, delta, dk, dv, s_q, s_kv, shift, scale);
+  if constexpr (Split)
+    return launch_bwd(flash_bwd_dkv_tc<D, Causal>, (int)sizeof(SmemDkv<D>), dim3(s_kv / Plan<D>::kRows, bh),
+                      Plan<D>::kThreads, st, q, k, v, dout, lse, delta, dk, dv, s_q, s_kv, shift, scale);
+  else
+    return onepass::launch<D, Causal>(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, shift, scale, st);
 }
 
 int bwd_dq(const float* q, const float* k, const float* v, const float* dout, const float* lse, const float* delta,
@@ -2925,6 +3412,29 @@ int flash_bwd_dq_d128_cut_launch(const float* q, const float* k, const float* v,
   DQ128_CASE(2, tc::dq128::kNoSplit)
   DQ128_CASE(3, tc::dq128::kFull)
 #undef DQ128_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The one-pass dk/dv's attribution cuts at D = 16 (chip_sweep.py
+// flash_1p), as above: `cut` in kFull … kNoSplit.
+int flash_bwd_dkv_1p_cut_launch(const float* q, const float* k, const float* v, const float* dout, const float* lse,
+                                const float* delta, float* dk, float* dv, int bh, int s_q, int s_kv, int d,
+                                int causal, int q_off, int k_off, float scale, int cut, void* stream) {
+  if (!rect_shape_ok(bh, s_q, s_kv) || d != 16) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int shift = q_off - k_off;
+#define DKV1P_CASE(CUT)                                                                                             \
+  if (cut == CUT)                                                                                                   \
+    return causal ? tc::onepass::launch<16, true, CUT>(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, shift,    \
+                                                       scale, st)                                                   \
+                  : tc::onepass::launch<16, false, CUT>(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, shift,   \
+                                                        scale, st);
+  DKV1P_CASE(tc::fwd128::kFull)
+  DKV1P_CASE(tc::fwd128::kNoExp)
+  DKV1P_CASE(tc::fwd128::kNoMma)
+  DKV1P_CASE(tc::fwd128::kLoadsOnly)
+  DKV1P_CASE(tc::fwd128::kNoSplit)
+#undef DKV1P_CASE
   return (int)cudaErrorInvalidValue;
 }
 #endif
