@@ -35,7 +35,8 @@ Phases, each reported on its own lines and followed by its wall (`phase
               registers and spills and the SASS tensor-core instruction
               counts of every tensor-core instance (the flash forward and
               backward, causal and not, split and one-pass, the forward at
-              D 128 its own kernel; the bf16 flash
+              D 128 and the one-pass forward at D 16 and dk/dv up to D 64
+              kernels of their own; the bf16 flash
               trio, its forward and dk/dv at D 128 kernels of their own;
               the grouped GEMM's split-TF32 and bf16 instances), each
               of which must hold HGMMA and spill nothing;
@@ -553,8 +554,8 @@ def report_tensor_core_build(lib, label, tc) -> None:
                 fail(f"{name}: no HGMMA in its SASS")
 
 
-TC_KERNELS = ("flash_fwd_tc", "flash_fwd_d128_tc", "flash_bwd_dq_tc", "flash_bwd_dq_d128_tc",  # the tensor-core flash kernels
-              "flash_bwd_dkv_tc", "flash_bwd_dkv_d128_tc", "flash_bwd_dkv_1p_tc", "flash_fwd_bf16_tc",
+TC_KERNELS = ("flash_fwd_tc", "flash_fwd_d128_tc", "flash_fwd_1p_tc", "flash_bwd_dq_tc",  # the tensor-core flash kernels
+              "flash_bwd_dq_d128_tc", "flash_bwd_dkv_tc", "flash_bwd_dkv_d128_tc", "flash_bwd_dkv_1p_tc", "flash_fwd_bf16_tc",
               "flash_fwd_bf16_d128_tc",
               "flash_bwd_dq_bf16_tc", "flash_bwd_dkv_bf16_tc", "flash_bwd_dkv_bf16_d128_tc")
 

@@ -47,19 +47,26 @@ line per setting with its device ms (calls queued behind a sleep kernel,
    (`chip_smoke.flash_bounds`); a whole kernel's outputs within two bf16
    units of its plain version (the forward's at that tile;
    `chip_smoke.bf16_units`);
-4b. flash_1p — the one-pass f32 dk/dv up to D 64
-   (`onepass::flash_bwd_dkv_1p_tc` in `csrc/flash_attention.cu`) through its
-   entry point at every `ONEPASS_SHAPES` shape (the ViT's and the LM's path
-   shapes at D 16, the same bytes at D 32 and 64) beside the bound; with
-   `--parent DIR`, the one-pass dk/dv of the checkout in DIR, timed first in
-   a process of its own at the same shapes (`parent_device_ms`), and
-   whether its outputs equal these in bits; at D 16, from the library built
-   with `-DFLASH_F32_CUTS` (`flash_bwd_dkv_1p_cut_launch`), the kernel whole
-   and with its attribution cuts (no exps, no products, loads only — the
-   consumers only wait for and free each tile, the producer alone —, no
-   split — nothing landed or formed: the consumers alone), the whole
-   kernel's outputs against the entry point's in bits, and a `binds` line
-   of the loads-only and consumers-alone shares of the whole;
+4b. flash_1p — the one-pass f32 forward (`onepass::flash_fwd_1p_tc` in
+   `csrc/flash_attention.cu` at D 16, `flash_fwd_tc` above) and dk/dv up to
+   D 64 (`onepass::flash_bwd_dkv_1p_tc`) through their entry points at
+   every `ONEPASS_SHAPES` shape (the ViT's and the LM's path shapes at D
+   16, the same bytes at D 32 and 64) beside the bound; with `--parent
+   DIR`, the one-pass forward and dk/dv of the checkout in DIR, timed first
+   in a process of its own at the same shapes (`parent_device_ms`), whether
+   their outputs equal these in bits, and whether the forward's do at every
+   `ONEPASS_CASES` case (chip_smoke.py's `onepass_check` cases); from the
+   library built with `-DFLASH_F32_CUTS` (`flash_bwd_dkv_1p_cut_launch`,
+   `flash_fwd_1p_cut_launch`, `flash_fwd_tc_cut_launch`), at D 16 the
+   dk/dv and the one-pass forward, and at every shape `flash_fwd_tc` at
+   each instance the entry points run (split, rows 4 and 5 at D 16; at D 32
+   and 64 one pass too), whole and with their attribution cuts (no exps; no
+   products, scores that differ by element; loads only — the consumers
+   only wait for and free each tile, the producer alone; for
+   `flash_fwd_tc` K and V landed and split, nothing computed —; no split —
+   nothing landed or formed: the consumers alone), each whole kernel's
+   outputs against the entry point's in bits, and a `binds` line of the
+   loads-only and consumers-alone shares of the whole;
 4c. flash_f32 — the head-dim-128 f32 forward (`fwd128::flash_fwd_d128_tc`
    in `csrc/flash_attention.cu`), dk/dv (`bwd128::flash_bwd_dkv_d128_tc`)
    and dq (`dq128::flash_bwd_dq_d128_tc`) at `chip_smoke.LM128_PATH`
@@ -447,49 +454,74 @@ print("parent " + json.dumps(out))
 """
 
 
-# the one-pass dk/dv of a checkout, timed in its own process from that
-# checkout's root: device ms and the digest of dk and dv at each shape of
-# the JSON list in argv[1] (ONEPASS_SHAPES; the backward from the
-# checkout's one-pass forward), one JSON line
+# the onepass_check cases of chip_smoke.py (phase_flash_default): (BH, Sq,
+# Skv, D, causal, q_off, k_off), the aligned causal one as rectangular
+# offsets 0, 0 at Sq = Skv; the forward's outputs at each are held to the
+# parent checkout's in bits
+ONEPASS_CASES = tuple(c for d in cs.FLASH_DIMS[:3] for c in (
+    (cs.FLASH_SWEEP_BH, 1024, 1024, d, True, 0, 0), (cs.FLASH_SWEEP_BH, 256, 256, d, False, 0, 0),
+    (cs.FLASH_SWEEP_BH, 256, 256, d, True, 0, 64), (cs.FLASH_SWEEP_BH, 128, 384, d, True, 256, 64)))
+
+# the one-pass forward and dk/dv of a checkout, timed in its own process
+# from that checkout's root: device ms and the digests of o and lse, of dk
+# and dv at each shape of the JSON list in argv[1] (ONEPASS_SHAPES; the
+# backward from the checkout's one-pass forward), and the digest of o and
+# lse at each case of the JSON list in argv[2] (ONEPASS_CASES), one JSON line
 ONEPASS_PARENT = """
 import hashlib, json, sys
 sys.path.insert(0, ".")
 import chip_smoke as cs
+import torch
 from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
 from federated_pytorch_test_tpu_torch.utils import configure_precision
 configure_precision()
+def digest(*ts):
+    return hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in ts)).hexdigest()[:16]
 out = {}
 for causal, (bh, s, d) in json.loads(sys.argv[1]):
     q, k, v, do = cs.flash_inputs(bh, s, d, seed=43)
     scale = 1.0 / d ** 0.5
     if causal:
-        o, lse = fc.flash_fwd(q, k, v, scale, "default")
+        fwd = lambda: fc.flash_fwd(q, k, v, scale, "default")
         dkv = lambda: fc.flash_bwd_dkv(q, k, v, do, lse, delta, scale, "default")
     else:
-        o, lse = fc.flash_fwd_rect(q, k, v, scale, precision="default")
+        fwd = lambda: fc.flash_fwd_rect(q, k, v, scale, precision="default")
         dkv = lambda: fc.flash_bwd_dkv_rect(q, k, v, do, lse, delta, scale, precision="default")
+    o, lse = fwd()
     delta = (do * o).sum(-1)
+    out[f"fwd {causal} {bh} {s} {d}"] = [cs.time_ms(fwd, 20)[1], digest(o, lse)]
     dk, dv = dkv()
-    digest = hashlib.sha256(dk.cpu().numpy().tobytes() + dv.cpu().numpy().tobytes()).hexdigest()[:16]
-    out[f"{causal} {bh} {s} {d}"] = [cs.time_ms(dkv, 20)[1], digest]
+    out[f"{causal} {bh} {s} {d}"] = [cs.time_ms(dkv, 20)[1], digest(dk, dv)]
     del q, k, v, do, o, lse, delta, dk, dv
+for bh, s_q, s_kv, d, causal, q_off, k_off in json.loads(sys.argv[2]):
+    q, k, v, _ = cs.rect_inputs(bh, s_q, s_kv, d, seed=47)
+    out[f"case {bh} {s_q} {s_kv} {d} {causal} {q_off} {k_off}"] = digest(
+        *fc.flash_fwd_rect(q, k, v, 1.0 / d ** 0.5, causal, q_off, k_off, precision="default"))
+    del q, k, v
 print("parent " + json.dumps(out))
 """
 
 
-def sweep_flash_1p(parent: str = "") -> None:
-    """The one-pass f32 dk/dv (`onepass::flash_bwd_dkv_1p_tc`) through its
-    entry point at every `ONEPASS_SHAPES` shape, beside the bound
-    (`chip_smoke.flash_bounds`, one TF32 product) and, with `parent` (a
-    checkout's root), that checkout's one-pass dk/dv timed first in a
-    process of its own (`ONEPASS_PARENT`), its outputs against these in
-    bits; at D 16 the kernel whole and with each attribution cut, from the
-    library built with `-DFLASH_F32_CUTS`, the whole kernel's outputs
-    against the entry point's in bits, and a `binds` line: the loads-only
-    cut (the producer's side alone) and the no-split cut (the consumers
-    alone) over the whole."""
-    import ctypes
+def digest(*ts) -> str:
     import hashlib
+
+    return hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in ts)).hexdigest()[:16]
+
+
+def sweep_flash_1p(parent: str = "") -> None:
+    """The one-pass f32 forward (`onepass::flash_fwd_1p_tc` at D 16,
+    `flash_fwd_tc` at D 32 and 64) and dk/dv (`onepass::flash_bwd_dkv_1p_tc`) through their entry
+    points at every `ONEPASS_SHAPES` shape, beside the bound
+    (`chip_smoke.flash_bounds`, one TF32 product) and, with `parent` (a
+    checkout's root), that checkout's one-pass forward and dk/dv timed first
+    in a process of its own (`ONEPASS_PARENT`), the outputs against these in
+    bits, and the forward's at every `ONEPASS_CASES` case; at D 16, from the
+    library built with `-DFLASH_F32_CUTS`, the dk/dv whole and with each
+    attribution cut, the whole kernel's outputs against the entry point's in
+    bits, and a `binds` line: the loads-only cut (the producer's side alone)
+    and the no-split cut (the consumers alone) over the whole; then the
+    forward's cuts (`sweep_fwd_1p_cuts`)."""
+    import ctypes
     import json
     import os
 
@@ -500,7 +532,8 @@ def sweep_flash_1p(parent: str = "") -> None:
 
     parent_ms = {}
     if parent:
-        proc = cs.subprocess.run([sys.executable, "-c", ONEPASS_PARENT, json.dumps(ONEPASS_SHAPES)],
+        proc = cs.subprocess.run([sys.executable, "-c", ONEPASS_PARENT, json.dumps(ONEPASS_SHAPES),
+                                  json.dumps(ONEPASS_CASES)],
                                  cwd=os.path.abspath(parent), capture_output=True, text=True)
         if proc.returncode != 0:
             cs.fail(f"sweep flash_1p: the parent checkout failed:\n{proc.stdout}{proc.stderr}")
@@ -516,22 +549,24 @@ def sweep_flash_1p(parent: str = "") -> None:
         operand, row = bh * s * d * 4, bh * s * 4
         label = f"BH={bh} S={s} D={d} {'causal' if causal else 'non-causal'} default"
         if causal:
-            o, lse = fc.flash_fwd(q, k, v, scale, "default")
+            fwd = lambda: fc.flash_fwd(q, k, v, scale, "default")
             dkv = lambda: fc.flash_bwd_dkv(q, k, v, do, lse, delta, scale, "default")
         else:
-            o, lse = fc.flash_fwd_rect(q, k, v, scale, precision="default")
+            fwd = lambda: fc.flash_fwd_rect(q, k, v, scale, precision="default")
             dkv = lambda: fc.flash_bwd_dkv_rect(q, k, v, do, lse, delta, scale, precision="default")
+        o, lse = fwd()
         delta = (do * o).sum(-1)
         dk_ref, dv_ref = dkv()
-        bound = cs.flash_bounds(6 * operand + 2 * row, 4 * 2 * d * pairs, pairs, "tf32x1")["bound_ms"]
-        shipped_ms = cs.time_ms(dkv, 20)[1]
-        par = parent_ms.get(f"{causal} {bh} {s} {d}")
-        if par:
-            digest = hashlib.sha256(dk_ref.cpu().numpy().tobytes() + dv_ref.cpu().numpy().tobytes()).hexdigest()[:16]
-        print(f"sweep flash_1p dkv {label} shipped device_ms={shipped_ms:.6f} bound_ms={bound:.6f} "
-              f"share_of_bound={bound / shipped_ms:.3f}"
-              + (f" parent_device_ms={par[0]:.6f} parent_over_shipped={par[0] / shipped_ms:.3f} "
-                 f"bitwise_parent={par[1] == digest}" if par else ""), flush=True)
+        bounds = {"fwd": cs.flash_bounds(4 * operand + row, 2 * 2 * d * pairs, pairs, "tf32x1")["bound_ms"],
+                  "dkv": cs.flash_bounds(6 * operand + 2 * row, 4 * 2 * d * pairs, pairs, "tf32x1")["bound_ms"]}
+        for kernel, outs, call in (("fwd", (o, lse), fwd), ("dkv", (dk_ref, dv_ref), dkv)):
+            bound = bounds[kernel]
+            shipped_ms = cs.time_ms(call, 20)[1]
+            par = parent_ms.get(f"{causal} {bh} {s} {d}" if kernel == "dkv" else f"fwd {causal} {bh} {s} {d}")
+            print(f"sweep flash_1p {kernel} {label} shipped device_ms={shipped_ms:.6f} bound_ms={bound:.6f} "
+                  f"share_of_bound={bound / shipped_ms:.3f}"
+                  + (f" parent_device_ms={par[0]:.6f} parent_over_shipped={par[0] / shipped_ms:.3f} "
+                     f"bitwise_parent={par[1] == digest(*outs)}" if par else ""), flush=True)
         if d == 16:
             dk, dv = torch.empty_like(k), torch.empty_like(v)
 
@@ -547,12 +582,80 @@ def sweep_flash_1p(parent: str = "") -> None:
                 torch.cuda.synchronize()
                 check = "" if cut else f" bitwise_shipped={torch.equal(dk, dk_ref) and torch.equal(dv, dv_ref)}"
                 ms[cut_name] = cs.time_ms(lambda: cut_launch(cut), 20)[1]
-                print(f"sweep flash_1p dkv {label} cut={cut_name} device_ms={ms[cut_name]:.6f} bound_ms={bound:.6f} "
-                      f"share_of_bound={bound / ms[cut_name]:.3f}{check}", flush=True)
+                print(f"sweep flash_1p dkv {label} cut={cut_name} device_ms={ms[cut_name]:.6f} "
+                      f"bound_ms={bounds['dkv']:.6f} share_of_bound={bounds['dkv'] / ms[cut_name]:.3f}{check}",
+                      flush=True)
             print(f"sweep flash_1p dkv {label} binds loads_only_share={ms['loads_only'] / ms['full']:.3f} "
                   f"consumers_alone_share={ms['no_split'] / ms['full']:.3f}", flush=True)
             del dk, dv
         del q, k, v, do, o, lse, delta, dk_ref, dv_ref
+    for case in ONEPASS_CASES:
+        bh, s_q, s_kv, d, causal, q_off, k_off = case
+        q, k, v, _ = cs.rect_inputs(bh, s_q, s_kv, d, seed=47)
+        got = digest(*fc.flash_fwd_rect(q, k, v, 1.0 / d ** 0.5, causal, q_off, k_off, precision="default"))
+        par = parent_ms.get(f"case {bh} {s_q} {s_kv} {d} {causal} {q_off} {k_off}")
+        print(f"sweep flash_1p fwd case BH={bh} Sq={s_q} Skv={s_kv} D={d} causal={causal} q_off={q_off} "
+              f"k_off={k_off} digest={got}" + (f" bitwise_parent={par == got}" if par else ""), flush=True)
+        del q, k, v
+    sweep_fwd_1p_cuts(lib)
+
+
+def sweep_fwd_1p_cuts(lib) -> None:
+    """`sweep_flash_1p`'s forward cuts: at the two D-16 path shapes the
+    one-pass forward (`onepass::flash_fwd_1p_tc<16, ·, Cut>`,
+    `flash_fwd_1p_cut_launch`); at every `ONEPASS_SHAPES` shape `flash_fwd_tc`
+    at each instance the entry points run it as (`flash_fwd_tc_cut_launch`:
+    split, rows 4 and 5 at D 16, and at D 32 and 64 one pass too), each
+    whole and with each attribution cut, beside the bound; each whole
+    kernel's o and lse against the entry point's in bits; a `binds` line of
+    the loads-only and no-split shares of the whole."""
+    import ctypes
+
+    import torch
+
+    from federated_pytorch_test_tpu_torch.ops import flash_cuda as fc
+
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.flash_fwd_1p_cut_launch.argtypes = [ptr] * 5 + [i32] * 7 + [ctypes.c_float] + [i32] + [ptr]
+    lib.flash_fwd_tc_cut_launch.argtypes = [ptr] * 5 + [i32] * 7 + [ctypes.c_float] + [i32] * 2 + [ptr]
+    stream = torch.cuda.current_stream().cuda_stream
+    for causal, (bh, s, d) in ONEPASS_SHAPES:
+        q, k, v, _ = cs.flash_inputs(bh, s, d, seed=43)
+        scale = 1.0 / d ** 0.5
+        pairs = bh * s * (s + 1) // 2 if causal else bh * s * s
+        operand, row = bh * s * d * 4, bh * s * 4
+        kernels = [("fwd_tc", "highest")] + ([("fwd_1p", "default")] if d == 16 else [("fwd_tc", "default")])
+        for kernel, precision in kernels:
+            bound = cs.flash_bounds(4 * operand + row, 2 * 2 * d * pairs, pairs,
+                                    "tf32x3" if precision == "highest" else "tf32x1")["bound_ms"]
+            label = f"BH={bh} S={s} D={d} {'causal' if causal else 'non-causal'} {precision}"
+            if causal:
+                o_ref, lse_ref = fc.flash_fwd(q, k, v, scale, precision)
+            else:
+                o_ref, lse_ref = fc.flash_fwd_rect(q, k, v, scale, precision=precision)
+            o, lse = torch.empty_like(q), torch.empty_like(lse_ref)
+
+            def cut_launch(cut):
+                args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, s, s, d,
+                        int(causal), 0, 0, scale)
+                if kernel == "fwd_1p":
+                    return lib.flash_fwd_1p_cut_launch(*args, cut, stream)
+                return lib.flash_fwd_tc_cut_launch(*args, 3 if precision == "highest" else 1, cut, stream)
+
+            ms = {}
+            for cut, cut_name in enumerate(F32_CUTS):
+                if cut_launch(cut) != 0:
+                    cs.fail(f"sweep flash_1p: {kernel} {label} cut {cut_name} did not launch")
+                torch.cuda.synchronize()
+                check = "" if cut else f" bitwise_shipped={torch.equal(o, o_ref) and torch.equal(lse, lse_ref)}"
+                ms[cut_name] = cs.time_ms(lambda: cut_launch(cut), 20)[1]
+                print(f"sweep flash_1p fwd {label} kernel={kernel} cut={cut_name} device_ms={ms[cut_name]:.6f} "
+                      f"bound_ms={bound:.6f} share_of_bound={bound / ms[cut_name]:.3f}{check}", flush=True)
+            print(f"sweep flash_1p fwd {label} kernel={kernel} binds loads_only_share="
+                  f"{ms['loads_only'] / ms['full']:.3f} consumers_alone_share={ms['no_split'] / ms['full']:.3f}",
+                  flush=True)
+            del o, lse, o_ref, lse_ref
+        del q, k, v
 
 
 def sweep_flash_f32(parent: str = "") -> None:

@@ -6,13 +6,13 @@
 //
 //   aligned causal (Sq = Skv, shift 0; the path of
 //   `flash_attention(..., causal=True)`, the LM)
-//     _fwd_tri     :559 (_fwd_kernel_tri :253)      -> flash_fwd_launch      -> flash_fwd_tc<D, true> (D 128: fwd128::flash_fwd_d128_tc)
+//     _fwd_tri     :559 (_fwd_kernel_tri :253)      -> flash_fwd_launch      -> flash_fwd_tc<D, true> (D 128: fwd128::flash_fwd_d128_tc; one pass at D 16: onepass::flash_fwd_1p_tc)
 //     _bwd_tri dq  :655 (_bwd_dq_kernel_tri :341)   -> flash_bwd_dq_launch   -> flash_bwd_dq_tc<D, true> (D 128: dq128::flash_bwd_dq_d128_tc)
 //     _bwd_tri dkv :673 (_bwd_dkv_kernel_tri :365)  -> flash_bwd_dkv_launch  -> flash_bwd_dkv_tc<D, true> (D 128: bwd128::flash_bwd_dkv_d128_tc; one pass: onepass::flash_bwd_dkv_1p_tc)
 //   rectangular, non-causal or causal on global offsets (q_off, k_off)
 //   (the path of `flash_attention(..., causal=False)`, the ViT, and of
 //   `flash_block`)
-//     _fwd         :601 (_fwd_kernel :395)          -> flash_fwd_rect_launch      -> flash_fwd_tc<D, ·> (D 128: the same)
+//     _fwd         :601 (_fwd_kernel :395)          -> flash_fwd_rect_launch      -> flash_fwd_tc<D, ·> (D 128, one pass at D 16: the same)
 //     _flash3_bwd  :721 (_bwd_dq_kernel :436)       -> flash_bwd_dq_rect_launch   -> flash_bwd_dq_tc<D, ·> (D 128: the same)
 //     _flash3_bwd  :744 (_bwd_dkv_kernel :461)      -> flash_bwd_dkv_rect_launch  -> flash_bwd_dkv_tc<D, ·> (D 128, one pass: the same)
 //
@@ -297,13 +297,63 @@
 // operands rounded by `tf32()` — not a block-by-block carry-over of the TPU
 // kernels. TF32 keeps 10 mantissa bits against bf16's 8, inside the JAX
 // package's 'default' contract (2e-2 from f32, tests/test_flash.py). The
-// forward and dq are `flash_fwd_tc` and `flash_bwd_dq_tc` (fwd128, dq128 at
-// D = 128) compiled without the lo operands and the lo·hi, hi·lo products,
-// tiles and shared memory unchanged; dk/dv is bwd128's at D = 128 and up to
-// D = 64 a kernel of its own, `onepass::flash_bwd_dkv_1p_tc`, which sums in
-// the order of the split `flash_bwd_dkv_tc`.
-//   Bound on an H100 SXM: with one TF32 pass the products no longer bind.
-//   At the ViT's shape (BH 6144, S 256, D 16) dk/dv's bytes take 0.184 ms,
+// forward at D = 16 is a kernel of its own, `onepass::flash_fwd_1p_tc`;
+// above it the forward and the dq are `flash_fwd_tc` and `flash_bwd_dq_tc`
+// (fwd128, dq128 at D = 128) compiled without the lo operands and the lo·hi,
+// hi·lo products, tiles and shared memory unchanged; dk/dv is bwd128's at
+// D = 128 and up to D = 64 a kernel of its own,
+// `onepass::flash_bwd_dkv_1p_tc`, which sums in the order of the split
+// `flash_bwd_dkv_tc`.
+//   The forward at D = 16 computes what `flash_fwd_tc<16, ·, false>`
+//   computes, with the same products in the same order (64-key tiles, the
+//   running max, the TF32 rounding of P, a fresh P·[V | 1 | 0] a tile merged
+//   in FFMAs): its outputs are that kernel's bit for bit.
+//   Bound on an H100 SXM: at the ViT's shape (BH 6144, S 256, D 16, 4.0e8
+//   pairs) the bytes (q, k, v, o 100.7 MB each, lse 6.3 MB) take 0.122 ms,
+//   the exps ~0.10 and the one TF32 pass ~0.06; at the LM's causal triangle
+//   (BH 128, S 2048) the exps, 0.069. What held `flash_fwd_tc` back
+//   (`chip_sweep.py flash_1p`'s cuts of it): its products, each waited for
+//   by both warpgroups between block barriers, cost 0.11 of its 0.28 ms at
+//   the ViT's shape, and its data side alone (a synchronous Q prologue,
+//   every thread staging K and V between two block barriers, each head's K
+//   and V landed and rounded twice) 0.60 of the whole. The forward's design:
+//   * Persistent, a CTA an SM, 640 threads: blocks of 256 query rows walked
+//     as `Walk` (a head's blocks side by side; causal, its last rows first;
+//     in a snake). A block is the ViT's whole head, so each K/V tile is
+//     landed and rounded once a head. A head's last block may hold 128 rows;
+//     warpgroups 2 and 3 then only free the stages.
+//   * Four consumer warpgroups of 64 rows meet the producer on mbarriers and
+//     never each other. Each holds its rows' Q hi in registers as the A
+//     operand of the scores (rounded from the landed Q as a block starts, 8
+//     a thread: no synchronous prologue) and runs a tile at a time. Its
+//     index is broadcast from lane 0, so that ptxas keeps the stage addresses
+//     and descriptors in uniform registers (computed per thread, each
+//     descriptor was moved to a uniform register before every HGMMA: 5% of
+//     the kernel's time). A block's first scores are issued before the last
+//     block's o and lse are stored and waited for after; each tile's scores
+//     are an array of their own (one array carried over the loop made ptxas
+//     serialize every wgmma). P's TF32 hi is its bits plus half a unit of
+//     the 13 dropped bits, unmasked: the tensor cores read a TF32 operand
+//     truncated, so the bits are tf32(p)'s and 32 integer operations a tile
+//     go.
+//   * The producer warpgroup is four warps that never wait for each other:
+//     warp w lands keys 16w … 16w + 15 of every K/V tile by bulk copy four
+//     tiles ahead, and a block ahead the Q rows of consumer warpgroup w; it
+//     stores its quarter of each tile's operands (K's hi in operand layout,
+//     Vᵀ's hi with the keys of every 8 permuted 0, 2, 4, 6, 1, 3, 5, 7, the
+//     [1 | 0] rows written once) into a ring of eight stages.
+//   * What binds it is the consumers (the cuts: the producer alone takes
+//     about half the time, the consumers alone nearly all of it). On an SM
+//     the TF32 wgmmas and the ex2s took the sum of their times, not the
+//     larger (a probe, PERF.md). Issuing a tile's scores with the last
+//     tile's P·V (as fwd128 does), taking the exps in turns on named
+//     barriers, deeper rings and fewer proxy fences all measured no faster.
+//   * Causal as `flash_fwd_tc`: a warpgroup computes the tiles up to its
+//     diagonal and masks only those across it; a row that sees no key stores
+//     o = 0 and lse = −1e30; a block no row of which sees a key lands
+//     nothing. No atomics: bitwise repeatable.
+//   The dk/dv, bound on an H100 SXM: with one TF32 pass the products no
+//   longer bind. At the ViT's shape (BH 6144, S 256, D 16) its bytes take 0.184 ms,
 //   its four products ~0.10 and its exps 0.10; at the LM's causal triangle
 //   (BH 128, S 2048) the exps, 0.069 (chip_smoke.py computes each). At S
 //   256 a 128-key block has 8 query tiles: too few to hide a CTA's
@@ -393,6 +443,10 @@ struct Plan {
   static constexpr int kDkvTile = 32;
 };
 constexpr int kStages = 2;  // depth of the streamed tiles' ring
+// attribution cuts (the template argument Cut of the forwards and of the
+// one-pass dk/dv, chip_sweep.py flash_f32 and flash_1p, built with
+// -DFLASH_F32_CUTS; the shipped entry points take kFull)
+constexpr int kFull = 0, kNoExp = 1, kNoMma = 2, kLoadsOnly = 3, kNoSplit = 4;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -497,11 +551,17 @@ __device__ __forceinline__ void split_frag(const float (&x)[N], uint32_t (&hi)[N
 // Forward of q [BH, Sq, D] against k, v [BH, Skv, D] for D up to 64 (D =
 // 128: fwd128::flash_fwd_d128_tc, the same arithmetic); causal keeps the
 // pair (i, j) iff j <= i + shift. Split: three TF32 products a product (f32
-// accuracy, the TPU's 'highest'); else one, hi·hi (the TPU's 'default').
-// Grid (Sq / kRows, BH), kThreads threads (`Plan<D>`), sizeof(Smem<D>)
-// bytes of dynamic shared memory; two blocks an SM up to D = 32 (at most
-// 128 registers a thread).
-template <int D, bool Causal, bool Split>
+// accuracy, the TPU's 'highest'); else one, hi·hi (the TPU's 'default'),
+// at D = 32 and 64 only: the one-pass forward at D = 16 runs
+// onepass::flash_fwd_1p_tc. Grid (Sq / kRows, BH), kThreads threads
+// (`Plan<D>`), sizeof(Smem<D>) bytes of dynamic shared memory; two blocks
+// an SM up to D = 32 (at most 128 registers a thread). Cut: an attribution
+// cut (kFull shipped; the others only in the -DFLASH_F32_CUTS library,
+// `flash_fwd_tc_cut_launch`, chip_sweep.py flash_1p): no exps; no products
+// (scores that differ by element); loads only (K and V landed and split,
+// nothing computed); no split (nothing landed or split: the products and
+// exps alone, the block barriers kept).
+template <int D, bool Causal, bool Split, int Cut = kFull>
 __global__ void __launch_bounds__(Plan<D>::kThreads, D >= 64 ? 1 : 2)
 flash_fwd_tc(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
              float* __restrict__ o, float* __restrict__ lse, int s_q, int s_kv, int shift, float scale) {
@@ -517,7 +577,7 @@ flash_fwd_tc(const float* __restrict__ q, const float* __restrict__ k, const flo
 
 #pragma unroll
   for (int st = 0; st < kStages; ++st) {
-    if (st < n_tiles) load_kv<D>(sm, st, kb, vb, st * kKeys);
+    if (Cut != kNoSplit && st < n_tiles) load_kv<D>(sm, st, kb, vb, st * kKeys);
     cp_async_commit();
   }
   // Q's hi/lo, its sign folded in so that the kernel scales by |scale|
@@ -558,35 +618,40 @@ flash_fwd_tc(const float* __restrict__ q, const float* __restrict__ k, const flo
   for (int it = 0; it < n_tiles; ++it) {
     cp_async_wait<kStages - 1>();  // this thread's copies of tile `it` have landed
     __syncthreads();               // everyone's; and the last tile's wgmmas are done
-    split_kv<D, Split>(sm, it % kStages);
+    if constexpr (Cut != kNoSplit) split_kv<D, Split>(sm, it % kStages);
     proxy_fence();
     __syncthreads();
-    if (it + kStages < n_tiles) load_kv<D>(sm, it % kStages, kb, vb, (it + kStages) * kKeys);
+    if (Cut != kNoSplit && it + kStages < n_tiles) load_kv<D>(sm, it % kStages, kb, vb, (it + kStages) * kKeys);
     cp_async_commit();
 
     const int kt = it * kKeys;
-    if (Causal && kt > wrow0 + 63 + shift) continue;  // wholly in this warpgroup's future
+    if (Cut == kLoadsOnly || (Causal && kt > wrow0 + 63 + shift)) continue;  // wholly in this warpgroup's future
 
     // S = Q·Kᵀ, small products first. s[4j + e] is (row_a, key kt + 8j + 2t + e),
     // s[4j + 2 + e] the same key on row_b.
     float s[kKeys / 2];
-    wg_fence();
-    if constexpr (Split) {
+    if constexpr (Cut == kNoMma) {
 #pragma unroll
-      for (int ks = 0; ks < D / 8; ++ks) {
-        const uint32_t at = 32 * 64 * ks, kat = 32 * kKeys * ks;  // bytes to columns 8ks … 8ks + 7 of Q, K
-        wgmma_ss<kKeys>(s, desc<64>(q16, offsetof(S, q_lo) + at), desc<kKeys>(base16, offsetof(S, k_hi) + kat),
-                        ks > 0);
-        wgmma_ss<kKeys>(s, desc<64>(q16, offsetof(S, q_hi) + at), desc<kKeys>(base16, offsetof(S, k_lo) + kat), 1);
+      for (int i = 0; i < kKeys / 2; ++i) s[i] = 0.03125f * i;
+    } else {
+      wg_fence();
+      if constexpr (Split) {
+#pragma unroll
+        for (int ks = 0; ks < D / 8; ++ks) {
+          const uint32_t at = 32 * 64 * ks, kat = 32 * kKeys * ks;  // bytes to columns 8ks … 8ks + 7 of Q, K
+          wgmma_ss<kKeys>(s, desc<64>(q16, offsetof(S, q_lo) + at), desc<kKeys>(base16, offsetof(S, k_hi) + kat),
+                          ks > 0);
+          wgmma_ss<kKeys>(s, desc<64>(q16, offsetof(S, q_hi) + at), desc<kKeys>(base16, offsetof(S, k_lo) + kat), 1);
+        }
       }
-    }
 #pragma unroll
-    for (int ks = 0; ks < D / 8; ++ks)
-      wgmma_ss<kKeys>(s, desc<64>(q16, offsetof(S, q_hi) + 32 * 64 * ks),
-                      desc<kKeys>(base16, offsetof(S, k_hi) + 32 * kKeys * ks), Split || ks > 0);
-    wg_commit();
-    wg_wait();
-    pin(s);
+      for (int ks = 0; ks < D / 8; ++ks)
+        wgmma_ss<kKeys>(s, desc<64>(q16, offsetof(S, q_hi) + 32 * 64 * ks),
+                        desc<kKeys>(base16, offsetof(S, k_hi) + 32 * kKeys * ks), Split || ks > 0);
+      wg_commit();
+      wg_wait();
+      pin(s);
+    }
 
     const bool mask = Causal && kt + kKeys - 1 > wrow0 + shift;  // the tile crosses the diagonal
     if (mask) {
@@ -611,15 +676,18 @@ flash_fwd_tc(const float* __restrict__ q, const float* __restrict__ k, const flo
       mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
     }
     const float mn_a = fmaxf(m_a, mx_a * c), mn_b = fmaxf(m_b, mx_b * c);  // fmaxf drops a NaN
-    const float corr_a = exp2_ftz(m_a - mn_a), corr_b = exp2_ftz(m_b - mn_b);
+    const float corr_a = Cut == kNoExp ? 1.f : exp2_ftz(m_a - mn_a), corr_b = Cut == kNoExp ? 1.f : exp2_ftz(m_b - mn_b);
     m_a = mn_a;
     m_b = mn_b;
 #pragma unroll
     for (int j = 0; j < kKeys / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        float pa = exp2_ftz(fmaf(s[4 * j + e], c, -mn_a));
-        float pb = exp2_ftz(fmaf(s[4 * j + 2 + e], c, -mn_b));
+        float pa = fmaf(s[4 * j + e], c, -mn_a), pb = fmaf(s[4 * j + 2 + e], c, -mn_b);
+        if constexpr (Cut != kNoExp) {
+          pa = exp2_ftz(pa);
+          pb = exp2_ftz(pb);
+        }
         if (mask) {  // exactly 0, whatever the scale
           pa = s[4 * j + e] == -INFINITY ? 0.f : pa;
           pb = s[4 * j + 2 + e] == -INFINITY ? 0.f : pb;
@@ -637,24 +705,29 @@ flash_fwd_tc(const float* __restrict__ q, const float* __restrict__ k, const flo
     uint32_t ph[kKeys / 2], pl[kKeys / 2];
     split_frag<kKeys / 2, Split>(s, ph, pl);
     float pv[(D + 8) / 2];
-    wg_fence();
-    if constexpr (Split) {
+    if constexpr (Cut == kNoMma) {
+#pragma unroll
+      for (int i = 0; i < (D + 8) / 2; ++i) pv[i] = __uint_as_float(ph[i % (kKeys / 2)]);
+    } else {
+      wg_fence();
+      if constexpr (Split) {
+#pragma unroll
+        for (int j = 0; j < kKeys / 8; ++j) {
+          const uint32_t a_lo[4] = {pl[4 * j], pl[4 * j + 2], pl[4 * j + 1], pl[4 * j + 3]};
+          const uint32_t a_hi[4] = {ph[4 * j], ph[4 * j + 2], ph[4 * j + 1], ph[4 * j + 3]};
+          wgmma_pv<D>(pv, a_lo, desc<D + 8>(base16, offsetof(S, vt_hi) + 32 * (D + 8) * j), j > 0);
+          wgmma_pv<D>(pv, a_hi, desc<D + 8>(base16, offsetof(S, vt_lo) + 32 * (D + 8) * j), 1);
+        }
+      }
 #pragma unroll
       for (int j = 0; j < kKeys / 8; ++j) {
-        const uint32_t a_lo[4] = {pl[4 * j], pl[4 * j + 2], pl[4 * j + 1], pl[4 * j + 3]};
         const uint32_t a_hi[4] = {ph[4 * j], ph[4 * j + 2], ph[4 * j + 1], ph[4 * j + 3]};
-        wgmma_pv<D>(pv, a_lo, desc<D + 8>(base16, offsetof(S, vt_hi) + 32 * (D + 8) * j), j > 0);
-        wgmma_pv<D>(pv, a_hi, desc<D + 8>(base16, offsetof(S, vt_lo) + 32 * (D + 8) * j), 1);
+        wgmma_pv<D>(pv, a_hi, desc<D + 8>(base16, offsetof(S, vt_hi) + 32 * (D + 8) * j), Split || j > 0);
       }
+      wg_commit();
+      wg_wait();
+      pin(pv);
     }
-#pragma unroll
-    for (int j = 0; j < kKeys / 8; ++j) {
-      const uint32_t a_hi[4] = {ph[4 * j], ph[4 * j + 2], ph[4 * j + 1], ph[4 * j + 3]};
-      wgmma_pv<D>(pv, a_hi, desc<D + 8>(base16, offsetof(S, vt_hi) + 32 * (D + 8) * j), Split || j > 0);
-    }
-    wg_commit();
-    wg_wait();
-    pin(pv);
 #pragma unroll
     for (int j = 0; j < (D + 8) / 8; ++j) {
       acc[4 * j] = fmaf(acc[4 * j], corr_a, pv[4 * j]);
@@ -682,6 +755,57 @@ flash_fwd_tc(const float* __restrict__ q, const float* __restrict__ k, const flo
   }
 }
 
+// Online softmax of a tile of Keys keys from key kt, in place, as
+// flash_fwd_tc does it: s[4j + e] is (row_a, key kt + 8j + 2t + e),
+// s[4j + 2 + e] the same key on row_b. Masked: the tile crosses these rows'
+// diagonal (a compile-time branch).
+template <int Keys, bool Masked, int Cut>
+__device__ __forceinline__ void softmax_tile(float (&s)[Keys / 2], int kt, int row_a, int row_b, int shift, int t,
+                                             float c, float& m_a, float& m_b, float& corr_a, float& corr_b) {
+  if constexpr (Masked) {
+#pragma unroll
+    for (int j = 0; j < Keys / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = kt + 8 * j + 2 * t + e;
+        if (key > row_a + shift) s[4 * j + e] = -INFINITY;
+        if (key > row_b + shift) s[4 * j + 2 + e] = -INFINITY;
+      }
+  }
+  float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < Keys / 8; ++j) {
+    mx_a = fmaxf(mx_a, fmaxf(s[4 * j], s[4 * j + 1]));
+    mx_b = fmaxf(mx_b, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off *= 2) {
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+  }
+  const float mn_a = fmaxf(m_a, mx_a * c), mn_b = fmaxf(m_b, mx_b * c);  // fmaxf drops a NaN
+  corr_a = Cut == kNoExp ? 1.f : exp2_ftz(m_a - mn_a);
+  corr_b = Cut == kNoExp ? 1.f : exp2_ftz(m_b - mn_b);
+  m_a = mn_a;
+  m_b = mn_b;
+#pragma unroll
+  for (int j = 0; j < Keys / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float pa = fmaf(s[4 * j + e], c, -mn_a), pb = fmaf(s[4 * j + 2 + e], c, -mn_b);
+      if constexpr (Cut != kNoExp) {
+        pa = exp2_ftz(pa);
+        pb = exp2_ftz(pb);
+      }
+      if constexpr (Masked) {  // exactly 0, whatever the scale
+        pa = s[4 * j + e] == -INFINITY ? 0.f : pa;
+        pb = s[4 * j + 2 + e] == -INFINITY ? 0.f : pb;
+      }
+      s[4 * j + e] = pa;
+      s[4 * j + 2 + e] = pb;
+    }
+}
+
 // ---------------------------------------------------------------------------
 // The forward at head dim 128 (the note at the top: head dim 128)
 // ---------------------------------------------------------------------------
@@ -707,9 +831,6 @@ constexpr int kChunks = kKeys * kD / 4 / 128;  // 16-byte chunks of a K tile a p
 constexpr int kSmemLimit = 232448;  // shared memory a block may have
 constexpr int kRegisters = 65536;   // registers of an SM
 static_assert(kThreads * 255 <= kRegisters, "every thread may hold 255 registers: no setmaxnreg needed");
-
-// attribution cuts (the template argument Cut, chip_sweep.py flash_f32; the shipped entry points take kFull)
-constexpr int kFull = 0, kNoExp = 1, kNoMma = 2, kLoadsOnly = 3, kNoSplit = 4;
 
 // The operands of a tile of 32 keys: K's hi and lo as four slabs of 32
 // keys by 32 floats with the 128-byte swizzle (the layout a TMA box of 32
@@ -755,57 +876,6 @@ struct Walk {
     return true;
   }
 };
-
-// Online softmax of a tile of 32 keys from key kt, in place, as
-// flash_fwd_tc does it: s[4j + e] is (row_a, key kt + 8j + 2t + e),
-// s[4j + 2 + e] the same key on row_b. Masked: the tile crosses these rows'
-// diagonal (a compile-time branch).
-template <bool Masked, int Cut>
-__device__ __forceinline__ void softmax_tile(float (&s)[kKeys / 2], int kt, int row_a, int row_b, int shift, int t,
-                                             float c, float& m_a, float& m_b, float& corr_a, float& corr_b) {
-  if constexpr (Masked) {
-#pragma unroll
-    for (int j = 0; j < kKeys / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = kt + 8 * j + 2 * t + e;
-        if (key > row_a + shift) s[4 * j + e] = -INFINITY;
-        if (key > row_b + shift) s[4 * j + 2 + e] = -INFINITY;
-      }
-  }
-  float mx_a = -INFINITY, mx_b = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < kKeys / 8; ++j) {
-    mx_a = fmaxf(mx_a, fmaxf(s[4 * j], s[4 * j + 1]));
-    mx_b = fmaxf(mx_b, fmaxf(s[4 * j + 2], s[4 * j + 3]));
-  }
-#pragma unroll
-  for (int off = 1; off <= 2; off *= 2) {
-    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
-    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
-  }
-  const float mn_a = fmaxf(m_a, mx_a * c), mn_b = fmaxf(m_b, mx_b * c);  // fmaxf drops a NaN
-  corr_a = Cut == kNoExp ? 1.f : exp2_ftz(m_a - mn_a);
-  corr_b = Cut == kNoExp ? 1.f : exp2_ftz(m_b - mn_b);
-  m_a = mn_a;
-  m_b = mn_b;
-#pragma unroll
-  for (int j = 0; j < kKeys / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float pa = fmaf(s[4 * j + e], c, -mn_a), pb = fmaf(s[4 * j + 2 + e], c, -mn_b);
-      if constexpr (Cut != kNoExp) {
-        pa = exp2_ftz(pa);
-        pb = exp2_ftz(pb);
-      }
-      if constexpr (Masked) {  // exactly 0, whatever the scale
-        pa = s[4 * j + e] == -INFINITY ? 0.f : pa;
-        pb = s[4 * j + 2 + e] == -INFINITY ? 0.f : pb;
-      }
-      s[4 * j + e] = pa;
-      s[4 * j + 2 + e] = pb;
-    }
-}
 
 // S = Q·Kᵀ over D into s, flash_fwd_tc's products in its order (small ones
 // first; one pass: hi·hi): q and k are the descriptors of the Q rows' and
@@ -1050,7 +1120,7 @@ flash_fwd_d128_tc(const __grid_constant__ CUtensorMap map_q, const float* __rest
         auto scores = [&](int it) {  // S of tile `it`, issued into the open wgmma group
           if constexpr (Cut == kNoMma) {
 #pragma unroll
-            for (int i = 0; i < kKeys / 2; ++i) s[i] = 0.125f * (i & 7);
+            for (int i = 0; i < kKeys / 2; ++i) s[i] = 0.03125f * i;
           } else {
             // the Q descriptor re-read a tile, so that the compiler forms its 32
             // step descriptors at the products and does not hold them all in registers
@@ -1069,9 +1139,9 @@ flash_fwd_d128_tc(const __grid_constant__ CUtensorMap map_q, const float* __rest
         };
         auto softmax = [&](int it) {  // only the tiles across the diagonal are masked
           if (Causal && it >= n_open)
-            softmax_tile<true, Cut>(s, it * kKeys, row_a, row_b, shift, t, c, m_a, m_b, cn_a, cn_b);
+            softmax_tile<kKeys, true, Cut>(s, it * kKeys, row_a, row_b, shift, t, c, m_a, m_b, cn_a, cn_b);
           else
-            softmax_tile<false, Cut>(s, it * kKeys, row_a, row_b, shift, t, c, m_a, m_b, cn_a, cn_b);
+            softmax_tile<kKeys, false, Cut>(s, it * kKeys, row_a, row_b, shift, t, c, m_a, m_b, cn_a, cn_b);
         };
         // O = O·corr + P·V (and l = l·corr + Σ P) in FFMAs: the tensor
         // cores' sums span one tile (flash_fwd_tc's order)
@@ -1172,18 +1242,33 @@ int launch(const float* q, const float* k, const float* v, float* o, float* lse,
 
 }  // namespace fwd128
 
-// One launch of the forward; the cudaError_t of the launch.
-template <int D, bool Causal, bool Split>
+// One launch of flash_fwd_tc; the cudaError_t of the launch.
+template <int D, bool Causal, bool Split, int Cut = kFull>
 int launch_fwd(const float* q, const float* k, const float* v, float* o, float* lse, int bh, int s_q, int s_kv,
                int shift, float scale, cudaStream_t st) {
   constexpr int kSmem = sizeof(Smem<D>);
-  const cudaError_t e = cudaFuncSetAttribute(flash_fwd_tc<D, Causal, Split>,
+  const cudaError_t e = cudaFuncSetAttribute(flash_fwd_tc<D, Causal, Split, Cut>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (e != cudaSuccess) return (int)e;
-  flash_fwd_tc<D, Causal, Split><<<dim3(s_q / Plan<D>::kRows, bh), Plan<D>::kThreads, kSmem, st>>>(
+  flash_fwd_tc<D, Causal, Split, Cut><<<dim3(s_q / Plan<D>::kRows, bh), Plan<D>::kThreads, kSmem, st>>>(
       q, k, v, o, lse, s_q, s_kv, shift, scale);
   return (int)cudaGetLastError();
 }
+
+#ifdef FLASH_F32_CUTS
+// A launch of flash_fwd_tc's attribution cut `Cut` at an instance the entry
+// points run: split at D = 16, 32 and 64, one pass at D = 32 and 64 (one
+// pass at D = 16 runs onepass::flash_fwd_1p_tc); else cudaErrorInvalidValue.
+template <int D, bool Causal, int Cut>
+int launch_fwd_cut(bool split, const float* q, const float* k, const float* v, float* o, float* lse, int bh, int s_q,
+                   int s_kv, int shift, float scale, cudaStream_t st) {
+  if (split) return launch_fwd<D, Causal, true, Cut>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);
+  if constexpr (D == 16)
+    return (int)cudaErrorInvalidValue;
+  else
+    return launch_fwd<D, Causal, false, Cut>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);
+}
+#endif
 
 // The instance of a launch template for (d, causal, split): `KERNEL_CASES_64(fn,
 // args)` expands to the switch cases over D in {16, 32, 64}; D = 128 (cases
@@ -1206,20 +1291,6 @@ int launch_fwd(const float* q, const float* k, const float* v, float* o, float* 
 int instance(int d, bool causal, bool split) {
   const int di = d == 16 ? 0 : d == 32 ? 1 : d == 64 ? 2 : d == 128 ? 3 : -1;
   return di < 0 ? -1 : 4 * di + 2 * (causal ? 1 : 0) + (split ? 1 : 0);
-}
-
-int fwd(const float* q, const float* k, const float* v, float* o, float* lse, int bh, int s_q, int s_kv, int d,
-        bool causal, int shift, float scale, bool split, void* stream) {
-  if (!rect_shape_ok(bh, s_q, s_kv)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (instance(d, causal, split)) {
-    KERNEL_CASES_64(launch_fwd, q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st)
-    case 12: return fwd128::launch<false, false>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);
-    case 13: return fwd128::launch<false, true>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);
-    case 14: return fwd128::launch<true, false>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);
-    case 15: return fwd128::launch<true, true>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 
@@ -1663,11 +1734,6 @@ flash_bwd_dkv_tc(const float* __restrict__ q, const float* __restrict__ k, const
 // ---------------------------------------------------------------------------
 namespace bwd128 {
 
-using fwd128::kFull;
-using fwd128::kLoadsOnly;
-using fwd128::kNoExp;
-using fwd128::kNoMma;
-using fwd128::kNoSplit;
 using fwd128::wait_group;
 using fwd128::Walk;
 using hopper_tma::aligned_smem;
@@ -1898,7 +1964,7 @@ __device__ __forceinline__ void consume(Smem<Ring>& sm, const Walk& walk, float*
         auto scores = [&](int it) {  // Sᵀ (dPᵀ) of tile `it`, issued into the open wgmma group
           if constexpr (Cut == kNoMma) {
 #pragma unroll
-            for (int i = 0; i < kTile / 2; ++i) s[i] = (Role == 0 ? 0.125f : 0.0625f) * (i & 7);
+            for (int i = 0; i < kTile / 2; ++i) s[i] = (Role == 0 ? 0.03125f : 0.015625f) * i;
           } else {
             const uint64_t b = desc_sw128(smem_u32(sm.st[(gt + it) % Ring].q)) + (Role == 0 ? 0 : kDo >> 4);
             issue_st<Split>(s, ah, a_lo, b, Role == 0 ? kQLo : kDoLo);
@@ -2240,11 +2306,6 @@ using bwd128::at4;
 using bwd128::issue_st;
 using bwd128::swz;
 using bwd128::take_hi;
-using fwd128::kFull;
-using fwd128::kLoadsOnly;
-using fwd128::kNoExp;
-using fwd128::kNoMma;
-using fwd128::kNoSplit;
 using fwd128::wait_group;
 using fwd128::Walk;
 using hopper_tma::aligned_smem;
@@ -2471,7 +2532,7 @@ __device__ __forceinline__ void consume(Smem<Ring>& sm, const Walk& walk, const 
         auto scores = [&](int it) {  // S (dP) of tile `it`, issued into the open wgmma group
           if constexpr (Cut == kNoMma) {
 #pragma unroll
-            for (int i = 0; i < kTile / 2; ++i) s[i] = (Role == 0 ? 0.125f : 0.0625f) * (i & 7);
+            for (int i = 0; i < kTile / 2; ++i) s[i] = (Role == 0 ? 0.03125f : 0.015625f) * i;
           } else {
             const uint64_t b = desc_sw128(smem_u32(sm.st[(gt + it) % kScoreStages].k)) + (kB >> 4);
             issue_st<Split>(s, ah, a_lo, b, kBLo);
@@ -2764,11 +2825,6 @@ int launch(const float* q, const float* k, const float* v, const float* dout, co
 // ---------------------------------------------------------------------------
 namespace onepass {
 
-using fwd128::kFull;
-using fwd128::kLoadsOnly;
-using fwd128::kNoExp;
-using fwd128::kNoMma;
-using fwd128::kNoSplit;
 using fwd128::Walk;
 using hopper_tma::aligned_smem;
 using hopper_tma::bar_arrive;
@@ -3100,7 +3156,7 @@ flash_bwd_dkv_1p_tc(const float* __restrict__ q, const float* __restrict__ k, co
           if constexpr (Cut == kNoMma) {
 #pragma unroll
             for (int i = 0; i < T / 2; ++i) {
-              s[i] = 0.125f * (i & 7);
+              s[i] = 0.03125f * i;
               dp[i] = 0.0625f * (i & 7);
             }
           } else {
@@ -3209,6 +3265,390 @@ int launch(const float* q, const float* k, const float* v, const float* dout, co
                             kThreads, st, q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, shift, scale);
 }
 
+// ---------------------------------------------------------------------------
+// The one-pass forward at head dim 16 (the note at the top: one pass)
+// ---------------------------------------------------------------------------
+
+// The forward's plan by head dim
+template <int D>
+struct FwdPlan {
+  static_assert(D == 16, "D = 32 and 64 keep flash_fwd_tc, D = 128 runs fwd128");
+  static constexpr int kRows = 256;                // query rows a block: consumer warpgroups 0 … 3, 64 rows each
+  static constexpr int kKeys = Plan<D>::kKeys;     // keys a tile: flash_fwd_tc's (F32_FWD_KEYS in ops/flash_cuda.py)
+  static constexpr int kConsumers = 4;             // consumer warpgroups
+  static constexpr int kThreads = 128 * kConsumers + kProducers;  // then the producer warpgroup
+  static constexpr int kQ = 2;                     // blocks' Q landed: the next block's while this one runs
+  static constexpr int kRaw = 4;                   // K/V tiles landed ahead of the one stored
+  static constexpr int kRing = 8;                  // operand stages
+  static constexpr int kLaunchRegs = kRegisters / kThreads / 8 * 8;  // a thread's registers at launch: 96
+  static constexpr int kProducerRegs = 40, kConsumerRegs = 104;     // setmaxnreg
+  static_assert(kProducers * kProducerRegs + 128 * kConsumers * kConsumerRegs <= kThreads * kLaunchRegs,
+                "setmaxnreg over the CTA's registers");
+};
+
+template <int D>
+struct FwdSmem {
+  using P = FwdPlan<D>;
+  static constexpr int T = P::kKeys;
+  struct Raw {  // a tile's K and V as landed, row-major; producer warp w lands and reads keys 16w … 16w + 15
+    float k[T * D], v[T * D];
+  };
+  struct Stage {  // its operands: K's hi (`cidx<T>`), Vᵀ's hi (`cidx<D + 8>`, keys permuted; rows D … D + 7 [1 | 0])
+    float k[T * D], vt[(D + 8) * T];
+  };
+  alignas(128) float q[P::kQ][P::kRows * D];  // a block's Q as landed, row-major; warpgroup w's rows at 64·w·D
+  alignas(128) Raw raw[P::kRaw];
+  alignas(128) Stage st[P::kRing];
+  uint64_t q_full[P::kConsumers][P::kQ], q_empty[P::kConsumers][P::kQ], raw_full[4][P::kRaw];
+  uint64_t ready[P::kRing], empty[P::kRing];
+};
+static_assert(sizeof(FwdSmem<16>) == 147840 && smem_fits(1, sizeof(FwdSmem<16>)), "over 227 KB");
+
+// The one-pass forward of q [BH, Sq, D] against k, v [BH, Skv, D] at D =
+// 16, as flash_fwd_tc<D, Causal, false> computes it (the note at the top:
+// one pass). Persistent: grid min(blocks, SMs), kThreads threads,
+// sizeof(FwdSmem<D>) + 1024 bytes of dynamic shared memory. Cut: as
+// flash_fwd_tc's (kFull shipped); loads only: the consumers only wait for
+// and free each stage (the producer alone); no split: the producer lands
+// and stores no K or V (the consumers alone).
+template <int D, bool Causal, int Cut>
+__global__ void __launch_bounds__(FwdPlan<D>::kThreads, 1)
+flash_fwd_1p_tc(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                float* __restrict__ o, float* __restrict__ lse, int bh_count, int s_q, int s_kv, int shift,
+                float scale) {
+  using P = FwdPlan<D>;
+  using S = FwdSmem<D>;
+  constexpr int kRows = P::kRows, kKeys = P::kKeys, kQ = P::kQ, kRaw = P::kRaw, kRing = P::kRing;
+  constexpr int kConsumers = P::kConsumers;
+  extern __shared__ unsigned char smem_raw[];
+  S& sm = aligned_smem<S>(smem_raw);
+  const Walk walk{bh_count, (s_q + kRows - 1) / kRows};  // a block: rows row0 … (a head's last may hold 128)
+
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < kConsumers; ++w)
+      for (int i = 0; i < kQ; ++i) {
+        bar_init(&sm.q_full[w][i], 1);   // producer warp w's bar_expect; then the bytes
+        bar_init(&sm.q_empty[w][i], 4);  // a warp of consumer warpgroup w each, once it holds its Q
+      }
+    for (int w = 0; w < 4; ++w)
+      for (int i = 0; i < kRaw; ++i) bar_init(&sm.raw_full[w][i], 1);  // producer warp w's bar_expect
+    for (int i = 0; i < kRing; ++i) {
+      bar_init(&sm.ready[i], 4);                // a producer warp each, after its quarter
+      bar_init(&sm.empty[i], 4 * kConsumers);  // a consumer warp each, after the tile's products
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if constexpr (Cut == kNoSplit) {  // nothing lands: the operands are zeros
+    for (unsigned i = threadIdx.x; i < sizeof(sm.st) / 4; i += P::kThreads) reinterpret_cast<float*>(sm.st)[i] = 0.f;
+    __syncthreads();
+  }
+  for (unsigned i = threadIdx.x; i < kRing * 8 * kKeys; i += P::kThreads) {  // Vᵀ's rows D … D + 7 of every stage
+    const unsigned r = D + i % (8 * kKeys) / kKeys, at = cidx<D + 8>(r, i % kKeys);
+    sm.st[i / (8 * kKeys)].vt[at] = r == D ? 1.f : 0.f;
+  }
+  proxy_fence();
+  __syncthreads();
+
+  // a block's first row, its rows (a head's last block may hold 128) and its K/V tiles (keys [0, kend))
+  auto block_row0 = [&](int r) { return (Causal ? walk.blocks - 1 - r : r) * kRows; };
+  auto tiles_of = [&](int row0) {
+    const int kend = Causal ? min(max(row0 + min(kRows, s_q - row0) + shift, 0), s_kv) : s_kv;
+    return (kend + kKeys - 1) / kKeys;
+  };
+
+  if (threadIdx.x >= 128 * kConsumers) {
+    regs_dec<P::kProducerRegs>();
+    // The producer warpgroup, four warps that never wait for each other:
+    // warp w lands, by bulk copy, keys 16w … 16w + 15 of each K/V tile kRaw
+    // tiles ahead and, a block ahead, the 64 Q rows of consumer warpgroup w;
+    // it stores its quarter of each landed tile's operands into the ring as
+    // the consumers free the stages: K's hi in operand layout, Vᵀ's hi with
+    // the keys of every 8 in the order 0, 2, 4, 6, 1, 3, 5, 7 (positions
+    // 4pg … 4pg + 3 for pg = 4w … 4w + 3).
+    // Blocks without a tile (causal, wholly in the future) are skipped by
+    // both sides.
+    const int pw = (threadIdx.x - 128 * kConsumers) / 32, lane = threadIdx.x % 32;
+    struct Block {
+      int n, bh, row0, n_tiles;  // the n-th block of the walk, its first row and tiles
+    };
+    auto seek = [&](int n, Block& x) {  // the first block from the n-th on that has a tile
+      for (int bh, r; walk.next(n, bh, r); ++n) {
+        const int row0 = block_row0(r), nt = tiles_of(row0);
+        if (nt > 0) {
+          x = Block{n, bh, row0, nt};
+          return true;
+        }
+      }
+      return false;
+    };
+    int nq = 0;  // blocks whose Q this warp landed (lane 0's count)
+    auto land_q = [&](const Block& x) {  // lane 0: consumer warpgroup pw's rows of block x, if it has any
+      if (x.row0 + 64 * pw >= s_q) return;
+      if (nq >= kQ) bar_wait(&sm.q_empty[pw][nq % kQ], ((nq - kQ) / kQ) & 1);
+      bar_expect(&sm.q_full[pw][nq % kQ], 64 * D * 4);
+      bulk_copy(sm.q[nq % kQ] + 64 * pw * D, q + ((size_t)x.bh * s_q + x.row0 + 64 * pw) * D, 64 * D * 4,
+                &sm.q_full[pw][nq % kQ]);
+      ++nq;
+    };
+    Block land;  // lane 0: the next tile to land, `lit` of block `land`
+    int lit = 0;
+    bool land_ok = true;
+    auto land_next = [&](int g) {  // lane 0: that tile's quarter into raw stage g % kRaw; on to the next
+      if (!land_ok) return;
+      uint64_t* bar = &sm.raw_full[pw][g % kRaw];
+      if constexpr (Cut == kNoSplit) {
+        bar_arrive(bar);
+      } else {
+        const size_t row = (size_t)land.bh * s_kv + lit * kKeys + 16 * pw;
+        typename S::Raw& raw = sm.raw[g % kRaw];
+        bar_expect(bar, 2 * 16 * D * 4);
+        bulk_copy(raw.k + 16 * pw * D, k + row * D, 16 * D * 4, bar);
+        bulk_copy(raw.v + 16 * pw * D, v + row * D, 16 * D * 4, bar);
+      }
+      if (++lit == land.n_tiles) {
+        lit = 0;
+        land_ok = seek(land.n + 1, land);
+      }
+    };
+    // warp pw's quarter of a landed tile into its stage, each element rounded once
+    auto store = [&](const typename S::Raw& raw, typename S::Stage& stage) {
+#pragma unroll
+      for (int m = 0; m < D / 8; ++m) {  // K: key 16pw + i / (D/4), columns 4·(i % (D/4)) … + 3
+        const int i = lane + 32 * m, key = 16 * pw + i / (D / 4), c4 = i % (D / 4);
+        *reinterpret_cast<float4*>(&stage.k[cidx<kKeys>(key, 4 * c4)]) =
+            tf32_4(*reinterpret_cast<const float4*>(&raw.k[key * D + 4 * c4]));
+      }
+#pragma unroll
+      for (int m = 0; m < D / 8; ++m) {  // Vᵀ: positions 4pg … 4pg + 3 of row d hold keys key0 + 0, 2, 4, 6
+        const int i = lane + 32 * m, pg = 4 * pw + i / D, d = i % D;
+        const int key0 = (pg >> 1) * 8 + (pg & 1);
+        const float4 x = make_float4(raw.v[key0 * D + d], raw.v[(key0 + 2) * D + d], raw.v[(key0 + 4) * D + d],
+                                     raw.v[(key0 + 6) * D + d]);
+        *reinterpret_cast<float4*>(&stage.vt[cidx<D + 8>(d, 4 * pg)]) = tf32_4(x);
+      }
+    };
+    Block cur;
+    if (!seek(0, cur)) return;
+    if (lane == 0) {
+      land = cur;
+      land_q(cur);
+      for (int j = 0; j < kRaw; ++j) land_next(j);
+    }
+    for (int g = 0;;) {
+      if (lane == 0) {  // a block's first tile: the next block's Q
+        Block nx;
+        if (seek(cur.n + 1, nx)) land_q(nx);
+      }
+      for (int it = 0; it < cur.n_tiles; ++it, ++g) {
+        bar_wait(&sm.raw_full[pw][g % kRaw], (g / kRaw) & 1);
+        if (g >= kRing) bar_wait(&sm.empty[g % kRing], (g / kRing - 1) & 1);
+        if constexpr (Cut != kNoSplit) {
+          store(sm.raw[g % kRaw], sm.st[g % kRing]);
+          proxy_fence();
+        }
+        __syncwarp();
+        if (lane == 0) {
+          bar_arrive(&sm.ready[g % kRing]);
+          land_next(g + kRaw);  // into the raw stage this warp has read
+        }
+      }
+      if (!seek(cur.n + 1, cur)) return;
+    }
+  }
+
+  // The consumer warpgroups: rows row0 + 64·wg … + 63 of each block, a tile
+  // at a time in flash_fwd_tc's order. A block's first scores are issued
+  // before the last block's o and lse are stored, and waited for after.
+  regs_inc<P::kConsumerRegs>();
+  // the warpgroup and warp, broadcast from lane 0 so that the compiler knows
+  // them uniform: the stage addresses and descriptors then stay in uniform
+  // registers
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32 % 4, 0), lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const float c = fabsf(scale) * kLog2e;  // p = 2^(s·c − m): m is in units of log2
+  const float sgn = scale < 0.f ? -1.f : 1.f;  // folded into Q, so that the kernel scales by |scale|
+  constexpr bool kScores = Cut != kLoadsOnly && Cut != kNoMma;  // the scores are products
+  auto release = [&](uint64_t* bar) {
+    if (lane == 0) bar_arrive(bar);
+  };
+  struct Block {
+    int bh, row0, n_tiles;  // its head, first row and tiles
+    int n_vis, n_open;      // the tiles this warpgroup computes (causal: up to its diagonal) and computes unmasked
+    bool rows;              // whether this warpgroup has rows in it (none past Sq)
+  };
+  auto open = [&](int n, Block& x) {  // the walk's n-th block as this warpgroup sees it; false past the last
+    int bh, r;
+    if (!walk.next(n, bh, r)) return false;
+    const int row0 = block_row0(r), n_tiles = tiles_of(row0), wrow0 = row0 + 64 * wg;
+    x.bh = bh;
+    x.row0 = row0;
+    x.n_tiles = n_tiles;
+    x.n_vis = Causal ? min(n_tiles, max(wrow0 + shift + 127, 0) / kKeys) : n_tiles;
+    x.n_open = Causal ? min(n_tiles, max(wrow0 + shift + 1, 0) / kKeys) : n_tiles;
+    x.rows = wrow0 < s_q;
+    return true;
+  };
+  // Q's hi as the A fragments of the scores: k8 step ks holds (row_a, 8ks + t), (row_b, 8ks + t),
+  // (row_a, 8ks + t + 4), (row_b, 8ks + t + 4)
+  uint32_t qa[D / 8][4];
+  // S = Q·Kᵀ of stage st into s, issued and committed, not waited for: s[4j + e] is (row_a, key kt + 8j + 2t +
+  // e), s[4j + 2 + e] the same key on row_b. Each tile's s is an array of its own, so that nothing but the
+  // wgmmas defines it between their issue and the wait (else ptxas serializes them).
+  auto scores = [&](float (&s)[kKeys / 2], int st) {
+    const uint32_t k16 = smem_u32(sm.st[st].k) >> 4;
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks) wgmma_rs_n64(s, qa[ks], desc<kKeys>(k16, 32 * kKeys * ks), ks > 0);
+    wg_commit();
+  };
+  float acc[(D + 8) / 2];  // O and, in column D, the row sum l, of the block whose o and lse are not stored yet
+  float m_a, m_b;          // its running max; finite: m − m_new is never inf − inf
+  Block last{};            // that block
+  bool held = false;       // whether there is one
+  auto store = [&]() {     // its o and lse
+    if (!held || !last.rows) return;
+    const int row_a = last.row0 + 64 * wg + 16 * warp + g, row_b = row_a + 8;
+    // l: column D, held by the quad's thread t = 0
+    const float l_a = __shfl_sync(0xffffffffu, acc[D / 2], lane & ~3);
+    const float l_b = __shfl_sync(0xffffffffu, acc[D / 2 + 2], lane & ~3);
+    // masked-row guard: a row that saw no key has l == 0 and acc == 0
+    const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f, inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
+    float* oa = o + ((size_t)last.bh * s_q + row_a) * D + 2 * t;
+    float* ob = o + ((size_t)last.bh * s_q + row_b) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<float2*>(oa + 8 * j) = make_float2(acc[4 * j] * inv_a, acc[4 * j + 1] * inv_a);
+      *reinterpret_cast<float2*>(ob + 8 * j) = make_float2(acc[4 * j + 2] * inv_b, acc[4 * j + 3] * inv_b);
+    }
+    if (t == 0) {
+      lse[(size_t)last.bh * s_q + row_a] = l_a > 0.f ? fmaf(m_a, kLn2, logf(l_a)) : -1e30f;
+      lse[(size_t)last.bh * s_q + row_b] = l_b > 0.f ? fmaf(m_b, kLn2, logf(l_b)) : -1e30f;
+    }
+  };
+  auto reset = [&]() {
+#pragma unroll
+    for (int i = 0; i < (D + 8) / 2; ++i) acc[i] = 0.f;
+    m_a = m_b = -1e30f;
+  };
+
+  int gt = 0, nq = 0;  // tiles and blocks' Q this warpgroup has passed
+  Block cur;
+  for (int n = 0; open(n, cur); ++n) {
+    if (!cur.rows || cur.n_tiles == 0) {
+      store();
+      reset();
+      if (!cur.rows)
+        for (int it = 0; it < cur.n_tiles; ++it) {  // the stages are freed all the same
+          bar_wait(&sm.ready[(gt + it) % kRing], ((gt + it) / kRing) & 1);
+          release(&sm.empty[(gt + it) % kRing]);
+        }
+    } else {
+      const int row_a = cur.row0 + 64 * wg + 16 * warp + g, row_b = row_a + 8;  // the two rows this thread holds
+      // tile it's softmax (its scores in s) and its P·[V | 1 | 0] into a fresh
+      // accumulator, then O = O·corr + P·V (and l = l·corr + Σ P) in FFMAs, as
+      // flash_fwd_tc
+      auto tile = [&](int it, int st, float (&s)[kKeys / 2]) {
+        if constexpr (Cut == kNoMma) {  // scores that differ by element, so that no two exps are one
+#pragma unroll
+          for (int i = 0; i < kKeys / 2; ++i) s[i] = 0.03125f * i;
+        }
+        float corr_a, corr_b;
+        if (Causal && it >= cur.n_open)  // the tile crosses this warpgroup's diagonal
+          softmax_tile<kKeys, true, Cut>(s, it * kKeys, row_a, row_b, shift, t, c, m_a, m_b, corr_a, corr_b);
+        else
+          softmax_tile<kKeys, false, Cut>(s, it * kKeys, row_a, row_b, shift, t, c, m_a, m_b, corr_a, corr_b);
+        // P's TF32 hi: half a unit of its 13 dropped bits added, the bits left
+        // for the tensor cores to drop (they read a TF32 operand truncated):
+        // tf32(p) without its mask
+        uint32_t ph[kKeys / 2];
+#pragma unroll
+        for (int i = 0; i < kKeys / 2; ++i) ph[i] = __float_as_uint(s[i]) + 0x1000u;
+        pin(ph);
+        float pv[(D + 8) / 2];
+        if constexpr (Cut == kNoMma) {
+#pragma unroll
+          for (int i = 0; i < (D + 8) / 2; ++i) pv[i] = __uint_as_float(ph[i % (kKeys / 2)]);
+        } else {
+          const uint32_t vt16 = smem_u32(sm.st[st].vt) >> 4;
+          wg_fence();
+#pragma unroll
+          for (int j = 0; j < kKeys / 8; ++j) {
+            const uint32_t a_hi[4] = {ph[4 * j], ph[4 * j + 2], ph[4 * j + 1], ph[4 * j + 3]};
+            wgmma_pv<D>(pv, a_hi, desc<D + 8>(vt16, 32 * (D + 8) * j), j > 0);
+          }
+          wg_commit();
+          wg_wait();
+          pin(pv);
+        }
+#pragma unroll
+        for (int j = 0; j < (D + 8) / 8; ++j) {
+          acc[4 * j] = fmaf(acc[4 * j], corr_a, pv[4 * j]);
+          acc[4 * j + 1] = fmaf(acc[4 * j + 1], corr_a, pv[4 * j + 1]);
+          acc[4 * j + 2] = fmaf(acc[4 * j + 2], corr_b, pv[4 * j + 2]);
+          acc[4 * j + 3] = fmaf(acc[4 * j + 3], corr_b, pv[4 * j + 3]);
+        }
+      };
+      bar_wait(&sm.q_full[wg][nq % kQ], (nq / kQ) & 1);
+      const float* qr = sm.q[nq % kQ] + (64 * wg + 16 * warp + g) * D + t;
+#pragma unroll
+      for (int ks = 0; ks < D / 8; ++ks) {
+        qa[ks][0] = tf32(sgn * qr[8 * ks]);
+        qa[ks][1] = tf32(sgn * qr[8 * D + 8 * ks]);
+        qa[ks][2] = tf32(sgn * qr[8 * ks + 4]);
+        qa[ks][3] = tf32(sgn * qr[8 * D + 8 * ks + 4]);
+      }
+      __syncwarp();
+      release(&sm.q_empty[wg][nq % kQ]);
+      ++nq;
+      // tile 0: its scores issued (whether or not this warpgroup computes
+      // the tile), the last block's o and lse stored under them, then waited for
+      const int st0 = gt % kRing;
+      bar_wait(&sm.ready[st0], (gt / kRing) & 1);
+      float s0[kKeys / 2];
+      if constexpr (kScores) scores(s0, st0);
+      store();
+      reset();
+      if constexpr (kScores) {
+        wg_wait();
+        pin(s0);
+      }
+      if (Cut != kLoadsOnly && cur.n_vis > 0) tile(0, st0, s0);
+      release(&sm.empty[st0]);
+      for (int it = 1; it < cur.n_tiles; ++it) {
+        const int st = (gt + it) % kRing;
+        bar_wait(&sm.ready[st], ((gt + it) / kRing) & 1);
+        if (Cut != kLoadsOnly && it < cur.n_vis) {
+          float s[kKeys / 2];
+          if constexpr (kScores) {
+            scores(s, st);
+            wg_wait();
+            pin(s);
+          }
+          tile(it, st, s);
+        }
+        release(&sm.empty[st]);
+      }
+    }
+    gt += cur.n_tiles;
+    last = cur;
+    held = true;
+  }
+  store();
+}
+
+// One launch of the one-pass forward: a CTA an SM, or one a block if
+// there are fewer. The cudaError_t of the launch.
+template <int D, bool Causal, int Cut = kFull>
+int launch_fwd(const float* q, const float* k, const float* v, float* o, float* lse, int bh, int s_q, int s_kv,
+               int shift, float scale, cudaStream_t st) {
+  int grid = 0;
+  const int e = hopper_tma::persistent_grid(bh * ((s_q + FwdPlan<D>::kRows - 1) / FwdPlan<D>::kRows), &grid);
+  if (e != 0) return e;
+  return hopper_tma::launch(flash_fwd_1p_tc<D, Causal, Cut>, (int)sizeof(FwdSmem<D>) + 1024, dim3(grid),
+                            FwdPlan<D>::kThreads, st, q, k, v, o, lse, bh, s_q, s_kv, shift, scale);
+}
+
 }  // namespace onepass
 
 // One launch of a backward kernel with its dynamic shared memory; the
@@ -3238,6 +3678,30 @@ int bwd_dkv_d(const float* q, const float* k, const float* v, const float* dout,
                       Plan<D>::kThreads, st, q, k, v, dout, lse, delta, dk, dv, s_q, s_kv, shift, scale);
   else
     return onepass::launch<D, Causal>(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, shift, scale, st);
+}
+
+// the forward up to D = 64: split, flash_fwd_tc; one pass, onepass::flash_fwd_1p_tc at D = 16
+template <int D, bool Causal, bool Split>
+int fwd_d(const float* q, const float* k, const float* v, float* o, float* lse, int bh, int s_q, int s_kv, int shift,
+          float scale, cudaStream_t st) {
+  if constexpr (!Split && D == 16)
+    return onepass::launch_fwd<D, Causal>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);
+  else
+    return launch_fwd<D, Causal, Split>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);
+}
+
+int fwd(const float* q, const float* k, const float* v, float* o, float* lse, int bh, int s_q, int s_kv, int d,
+        bool causal, int shift, float scale, bool split, void* stream) {
+  if (!rect_shape_ok(bh, s_q, s_kv)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (instance(d, causal, split)) {
+    KERNEL_CASES_64(fwd_d, q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st)
+    case 12: return fwd128::launch<false, false>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);
+    case 13: return fwd128::launch<false, true>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);
+    case 14: return fwd128::launch<true, false>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);
+    case 15: return fwd128::launch<true, true>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 int bwd_dq(const float* q, const float* k, const float* v, const float* dout, const float* lse, const float* delta,
@@ -3343,12 +3807,12 @@ int flash_fwd_d128_cut_launch(const float* q, const float* k, const float* v, fl
     if (sp) return tc::fwd128::launch<false, true, R, CUT>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);       \
     return tc::fwd128::launch<false, false, R, CUT>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);              \
   }
-  FWD128_CASE(2, tc::fwd128::kFull)
-  FWD128_CASE(2, tc::fwd128::kNoExp)
-  FWD128_CASE(2, tc::fwd128::kNoMma)
-  FWD128_CASE(2, tc::fwd128::kLoadsOnly)
-  FWD128_CASE(2, tc::fwd128::kNoSplit)
-  FWD128_CASE(1, tc::fwd128::kFull)
+  FWD128_CASE(2, tc::kFull)
+  FWD128_CASE(2, tc::kNoExp)
+  FWD128_CASE(2, tc::kNoMma)
+  FWD128_CASE(2, tc::kLoadsOnly)
+  FWD128_CASE(2, tc::kNoSplit)
+  FWD128_CASE(1, tc::kFull)
 #undef FWD128_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -3376,12 +3840,12 @@ int flash_bwd_dkv_d128_cut_launch(const float* q, const float* k, const float* v
     return tc::bwd128::launch<false, false, R, CUT>(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, shift,    \
                                                     scale, st);                                                 \
   }
-  DKV128_CASE(2, tc::bwd128::kFull)
-  DKV128_CASE(2, tc::bwd128::kNoExp)
-  DKV128_CASE(2, tc::bwd128::kNoMma)
-  DKV128_CASE(2, tc::bwd128::kLoadsOnly)
-  DKV128_CASE(2, tc::bwd128::kNoSplit)
-  DKV128_CASE(1, tc::bwd128::kFull)
+  DKV128_CASE(2, tc::kFull)
+  DKV128_CASE(2, tc::kNoExp)
+  DKV128_CASE(2, tc::kNoMma)
+  DKV128_CASE(2, tc::kLoadsOnly)
+  DKV128_CASE(2, tc::kNoSplit)
+  DKV128_CASE(1, tc::kFull)
 #undef DKV128_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -3405,13 +3869,58 @@ int flash_bwd_dq_d128_cut_launch(const float* q, const float* k, const float* v,
       return tc::dq128::launch<false, true, R, CUT>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, shift, scale, st); \
     return tc::dq128::launch<false, false, R, CUT>(q, k, v, dout, lse, delta, dq, bh, s_q, s_kv, shift, scale, st);  \
   }
-  DQ128_CASE(2, tc::dq128::kFull)
-  DQ128_CASE(2, tc::dq128::kNoExp)
-  DQ128_CASE(2, tc::dq128::kNoMma)
-  DQ128_CASE(2, tc::dq128::kLoadsOnly)
-  DQ128_CASE(2, tc::dq128::kNoSplit)
-  DQ128_CASE(3, tc::dq128::kFull)
+  DQ128_CASE(2, tc::kFull)
+  DQ128_CASE(2, tc::kNoExp)
+  DQ128_CASE(2, tc::kNoMma)
+  DQ128_CASE(2, tc::kLoadsOnly)
+  DQ128_CASE(2, tc::kNoSplit)
+  DQ128_CASE(3, tc::kFull)
 #undef DQ128_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// flash_fwd_tc's attribution cuts at every instance the entry points run
+// (chip_sweep.py flash_1p; `tc::launch_fwd_cut`), split when `passes` is
+// 3; `cut` in kFull … kNoSplit.
+int flash_fwd_tc_cut_launch(const float* q, const float* k, const float* v, float* o, float* lse, int bh, int s_q,
+                            int s_kv, int d, int causal, int q_off, int k_off, float scale, int passes, int cut,
+                            void* stream) {
+  if (!rect_shape_ok(bh, s_q, s_kv)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int shift = q_off - k_off;
+  const bool c = causal != 0, sp = passes == 3;
+#define FWDTC_CASE(D, CUT)                                                                                    \
+  if (d == D && cut == CUT)                                                                                   \
+    return c ? tc::launch_fwd_cut<D, true, CUT>(sp, q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st)         \
+             : tc::launch_fwd_cut<D, false, CUT>(sp, q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);
+#define FWDTC_CASES(CUT) FWDTC_CASE(16, CUT) FWDTC_CASE(32, CUT) FWDTC_CASE(64, CUT)
+  FWDTC_CASES(tc::kFull)
+  FWDTC_CASES(tc::kNoExp)
+  FWDTC_CASES(tc::kNoMma)
+  FWDTC_CASES(tc::kLoadsOnly)
+  FWDTC_CASES(tc::kNoSplit)
+#undef FWDTC_CASES
+#undef FWDTC_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The one-pass forward's attribution cuts at D = 16 (chip_sweep.py
+// flash_1p), as above: `cut` in kFull … kNoSplit.
+int flash_fwd_1p_cut_launch(const float* q, const float* k, const float* v, float* o, float* lse, int bh, int s_q,
+                            int s_kv, int d, int causal, int q_off, int k_off, float scale, int cut, void* stream) {
+  if (!rect_shape_ok(bh, s_q, s_kv) || d != 16) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int shift = q_off - k_off;
+#define FWD1P_CASE(CUT)                                                                                          \
+  if (cut == CUT)                                                                                                \
+    return causal ? tc::onepass::launch_fwd<16, true, CUT>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st)    \
+                  : tc::onepass::launch_fwd<16, false, CUT>(q, k, v, o, lse, bh, s_q, s_kv, shift, scale, st);
+  FWD1P_CASE(tc::kFull)
+  FWD1P_CASE(tc::kNoExp)
+  FWD1P_CASE(tc::kNoMma)
+  FWD1P_CASE(tc::kLoadsOnly)
+  FWD1P_CASE(tc::kNoSplit)
+#undef FWD1P_CASE
   return (int)cudaErrorInvalidValue;
 }
 
@@ -3429,11 +3938,11 @@ int flash_bwd_dkv_1p_cut_launch(const float* q, const float* k, const float* v, 
                                                        scale, st)                                                   \
                   : tc::onepass::launch<16, false, CUT>(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv, shift,   \
                                                         scale, st);
-  DKV1P_CASE(tc::fwd128::kFull)
-  DKV1P_CASE(tc::fwd128::kNoExp)
-  DKV1P_CASE(tc::fwd128::kNoMma)
-  DKV1P_CASE(tc::fwd128::kLoadsOnly)
-  DKV1P_CASE(tc::fwd128::kNoSplit)
+  DKV1P_CASE(tc::kFull)
+  DKV1P_CASE(tc::kNoExp)
+  DKV1P_CASE(tc::kNoMma)
+  DKV1P_CASE(tc::kLoadsOnly)
+  DKV1P_CASE(tc::kNoSplit)
 #undef DKV1P_CASE
   return (int)cudaErrorInvalidValue;
 }

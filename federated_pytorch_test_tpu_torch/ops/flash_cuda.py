@@ -268,7 +268,8 @@ def flash_bwd_dkv_rect_plain(q3, k3, v3, do, lse, delta, scale: float, causal: b
 # ---------------------------------------------------------------------------
 # One pass ('default'): the plain versions repeat the kernels' arithmetic —
 # every product's operands rounded by `tf32_round`, the forward tile by tile
-# as `flash_fwd_tc` runs it (TILE keys, the running max in units of log2, P
+# as `flash_fwd_tc` runs it (and, at D 16, `onepass::flash_fwd_1p_tc`: the
+# same tiles in the same order; TILE keys, the running max in units of log2, P
 # rounded before P·V and the row sum taken over the rounded P) — for both
 # families: the aligned causal one is causal at offsets 0.
 # ---------------------------------------------------------------------------

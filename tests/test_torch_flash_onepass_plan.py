@@ -88,10 +88,10 @@ def test_the_plans_are_the_sources():
                  "__launch_bounds__(kThreads, DkvPlan<D>::kCtas)"):
         assert line in NS, line
     # the one-pass dk/dv of every head dim up to 64 reaches this kernel; the
-    # one-pass forward stays flash_fwd_tc's instance, the split dk/dv
-    # flash_bwd_dkv_tc
+    # one-pass forward at D 16 runs onepass::flash_fwd_1p_tc (replayed in
+    # test_torch_flash_fwd_onepass_plan.py), the split dk/dv flash_bwd_dkv_tc
     assert "return onepass::launch<D, Causal>(" in SRC
-    assert "KERNEL_CASES_64(launch_fwd," in SRC and "flash_fwd_1p_tc" not in SRC
+    assert "KERNEL_CASES_64(fwd_d," in SRC and "return onepass::launch_fwd<D, Causal>(" in SRC
     assert "flash_bwd_dkv_tc<D, Causal>," in SRC and "template <int D, bool Causal>\n__global__" in SRC
 
 
